@@ -1,0 +1,12 @@
+"""Core BRIDGE library of the port: graphs, attacks, screening, trainer."""
+from repro_torch.core.bridge import BridgeConfig, BridgeState, BridgeTrainer, replicate, stack_flatten
+from repro_torch.core.byzantine import ATTACKS, get_attack, pick_byzantine_mask
+from repro_torch.core.graph import Topology, check_assumption4, complete_graph, erdos_renyi
+from repro_torch.core.screening import RULES, min_neighbors, screen_all
+
+__all__ = [
+    "BridgeConfig", "BridgeState", "BridgeTrainer", "replicate", "stack_flatten",
+    "ATTACKS", "get_attack", "pick_byzantine_mask",
+    "Topology", "check_assumption4", "complete_graph", "erdos_renyi",
+    "RULES", "min_neighbors", "screen_all",
+]

@@ -1,0 +1,162 @@
+"""Communication graphs for decentralized learning — port of
+`repro.core.graph` (``Topology``, ``erdos_renyi``, ``complete_graph``,
+``check_assumption4``).
+
+Pure numpy, as in the reference, and draw-for-draw identical to it: the
+same seed gives the same graph (``tests/test_torch_data_graph.py`` pins this
+with ``np.array_equal``).  The reference condenses strongly connected
+components with networkx; the port uses ``scipy.sparse.csgraph`` instead,
+which gives the same answer and needs no networkx on the card's machine.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Sequence
+
+import numpy as np
+from scipy.sparse import csr_matrix
+from scipy.sparse.csgraph import breadth_first_order, connected_components
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """A static communication graph over ``num_nodes`` nodes.
+
+    ``adjacency[j, i] == True`` iff node ``i`` is an in-neighbor of node ``j``
+    (node j receives messages from node i).  Self-loops are always False —
+    the node's own value is handled separately by the screening rules.
+    """
+
+    adjacency: np.ndarray  # [M, M] bool
+    num_byzantine: int  # the bound b the protocol is configured for
+
+    def __post_init__(self):
+        adj = np.asarray(self.adjacency, dtype=bool)
+        if adj.ndim != 2 or adj.shape[0] != adj.shape[1]:
+            raise ValueError(f"adjacency must be square, got {adj.shape}")
+        if adj.diagonal().any():
+            raise ValueError("adjacency must not contain self-loops")
+        object.__setattr__(self, "adjacency", adj)
+
+    @property
+    def num_nodes(self) -> int:
+        return self.adjacency.shape[0]
+
+    @property
+    def in_degrees(self) -> np.ndarray:
+        return self.adjacency.sum(axis=1)
+
+    @property
+    def min_in_degree(self) -> int:
+        return int(self.in_degrees.min())
+
+    def neighbors(self, j: int) -> np.ndarray:
+        return np.nonzero(self.adjacency[j])[0]
+
+    def validate_for_rule(self, rule: str) -> None:
+        """Check the per-rule minimum neighborhood sizes of Table II."""
+        from repro_torch.core.screening import min_neighbors
+
+        need = min_neighbors(rule, self.num_byzantine)
+        if self.min_in_degree < need:
+            raise ValueError(
+                f"rule {rule!r} with b={self.num_byzantine} needs min in-degree "
+                f">= {need}, graph has {self.min_in_degree}"
+            )
+
+
+# Above this node count `erdos_renyi` defaults to the degree-only recipe
+# (the reference's threshold, kept so both packages certify the same graphs).
+DEGREE_ONLY_NODES = 128
+
+
+def erdos_renyi(
+    num_nodes: int,
+    p: float,
+    num_byzantine: int,
+    *,
+    seed: int = 0,
+    max_tries: int = 200,
+    check_samples: int = 50,
+    assumption4: str = "auto",
+) -> Topology:
+    """An undirected-as-bidirectional ER graph whose minimum degree exceeds
+    2b and which passes the sampled reduced-graph check (Sec. V's recipe).
+    Consumes ``np.random.default_rng(seed)`` in exactly the reference's
+    order, so both packages return the same graph for the same seed."""
+    if assumption4 not in ("auto", "sampled", "degree"):
+        raise ValueError(f"assumption4 must be auto|sampled|degree, got {assumption4!r}")
+    sample = assumption4 == "sampled" or (
+        assumption4 == "auto" and num_nodes <= DEGREE_ONLY_NODES)
+    rng = np.random.default_rng(seed)
+    b = num_byzantine
+    for _ in range(max_tries):
+        upper = rng.random((num_nodes, num_nodes)) < p
+        adj = np.triu(upper, 1)
+        adj = adj | adj.T
+        np.fill_diagonal(adj, False)
+        topo = Topology(adjacency=adj, num_byzantine=b)
+        if topo.min_in_degree <= 2 * b:
+            continue
+        if not sample:
+            return topo
+        if check_assumption4(topo, num_samples=check_samples, seed=int(rng.integers(2**31))):
+            return topo
+    raise RuntimeError(
+        f"could not generate ER({num_nodes}, {p}) graph satisfying Assumption 4 "
+        f"with b={b} in {max_tries} tries"
+    )
+
+
+def complete_graph(num_nodes: int, num_byzantine: int) -> Topology:
+    adj = ~np.eye(num_nodes, dtype=bool)
+    return Topology(adjacency=adj, num_byzantine=num_byzantine)
+
+
+def _has_source_component(adj: np.ndarray, min_size: int) -> bool:
+    """True iff the digraph has an SCC of size >= min_size from which every
+    node is reachable (Definition 2).  ``adj[j, i]`` means i sends to j, so
+    the edge list is ``adj.T``.  Reaching every node from one member of an
+    SCC is the same as its condensation node reaching every other one."""
+    graph = csr_matrix(adj.T.astype(np.int8))
+    n_total = adj.shape[0]
+    n_comp, labels = connected_components(graph, directed=True, connection="strong")
+    sizes = np.bincount(labels, minlength=n_comp)
+    for comp in np.nonzero(sizes >= min_size)[0]:
+        root = int(np.argmax(labels == comp))
+        reached = breadth_first_order(graph, root, directed=True, return_predecessors=False)
+        if len(reached) == n_total:
+            return True
+    return False
+
+
+def check_assumption4(
+    topo: Topology,
+    *,
+    num_samples: int = 50,
+    seed: int = 0,
+    byzantine_sets: Sequence[Sequence[int]] | None = None,
+) -> bool:
+    """Randomized check of Assumption 4: for sampled Byzantine sets of size
+    b, remove b random incoming edges per honest node and require a source
+    component of size b+1 in what remains.  False is definitive for the
+    sampled instance; True means no counterexample was found."""
+    rng = np.random.default_rng(seed)
+    m, b = topo.num_nodes, topo.num_byzantine
+    if b == 0:
+        return _has_source_component(topo.adjacency, 1)
+    sets = byzantine_sets
+    if sets is None:
+        sets = [rng.choice(m, size=b, replace=False) for _ in range(num_samples)]
+    for byz in sets:
+        byz = np.asarray(byz)
+        keep = np.setdiff1d(np.arange(m), byz)
+        red = topo.adjacency[np.ix_(keep, keep)].copy()
+        for row in range(red.shape[0]):
+            ins = np.nonzero(red[row])[0]
+            if len(ins) > 0:
+                drop = rng.choice(ins, size=min(b, len(ins)), replace=False)
+                red[row, drop] = False
+        if not _has_source_component(red, b + 1):
+            return False
+    return True

@@ -1,0 +1,42 @@
+"""BRIDGE-M dense screening — the wrapper of the CUDA kernel
+``screen_median_dense`` (``csrc/screen.cu``), which replaces the TPU kernel
+`repro.kernels.median.median_pallas`.
+
+A CPU tensor goes to the plain version (`ref.median_dense`); a CUDA tensor
+launches the kernel or raises.  ``median_dense.launches`` counts kernel
+launches and nothing else.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+# Rows the kernel sorts per column: the M senders plus the node itself (its
+# largest register network holds 128).
+MAX_ROWS = 128
+
+
+def median_dense(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor) -> torch.Tensor:
+    """Coordinate-wise median screening of the broadcast ``w [M, d]`` at
+    every node over its in-neighbors (``adj [M, M]``) and itself
+    (``self_vals [M, d]``); returns ``[M, d]`` float32."""
+    build.check_screen_args(w, adj, self_vals)
+    if w.device.type == "cpu":
+        return ref.median_dense(w, adj, self_vals)
+    if w.device.type != "cuda":
+        raise ValueError(f"no median kernel for device {w.device}")
+    m, d = w.shape
+    if m + 1 > MAX_ROWS:
+        raise ValueError(f"median kernel sorts at most {MAX_ROWS} rows (M + 1), got M={m}")
+    out = torch.empty_like(w)
+    lib = build.load()
+    stream = torch.cuda.current_stream(w.device).cuda_stream
+    err = lib.screen_median_dense(w.data_ptr(), adj.data_ptr(), self_vals.data_ptr(),
+                                  out.data_ptr(), m, d, stream)
+    build.check_launch(err, "screen_median_dense")
+    median_dense.launches += 1
+    return out
+
+
+median_dense.launches = 0

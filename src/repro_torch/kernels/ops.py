@@ -1,0 +1,27 @@
+"""Public entry points of the screening kernels, named like
+`repro.kernels.ops`.  Each runs under a ``torch.profiler.record_function``
+range (``kernels.<name>``), the counterpart of the reference's
+``jax.named_scope``, so a profiler trace attributes the time to the rule.
+
+Where the reference takes pre-gathered ``[E?, n, d]`` values, these take the
+dense main path's operands: the shared broadcast ``w [M, d]``, the
+``[M, M]`` in-neighbor mask and ``self_vals [M, d]``.  The device of ``w``
+picks the implementation: the CUDA kernel on a card, its plain PyTorch
+version on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.median import median_dense
+from repro_torch.kernels.trimmed_mean import trimmed_mean_dense
+
+
+def trimmed_mean(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor, b: int) -> torch.Tensor:
+    with torch.profiler.record_function("kernels.trimmed_mean"):
+        return trimmed_mean_dense(w, adj, self_vals, b)
+
+
+def median(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor) -> torch.Tensor:
+    with torch.profiler.record_function("kernels.median"):
+        return median_dense(w, adj, self_vals)

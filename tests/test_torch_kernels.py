@@ -1,0 +1,176 @@
+"""The CUDA screening kernels against their plain PyTorch versions, on the
+card: exact (NaN-aware ``==``) up to 64 rows, on edge-case payloads.
+
+This file imports nothing of JAX, so it runs on the card's machine:
+
+    python -m pytest -q -m cuda tests/test_torch_kernels.py
+
+Without a card every test here skips (the kernels have no CPU mode; their
+plain versions are held to the reference in ``test_torch_screening.py``).
+It also holds the edge-case input recipe the CPU parity tests share.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build, median, ref, trimmed_mean
+
+
+def edge_inputs(n: int, d: int, seed: int):
+    """``w [n, d]`` with NaN, +-inf, 1e30, ties and +-0 payloads, and an
+    adjacency whose first rows are starved (0, 1 and 2 in-neighbors, so
+    count < 2b + 1 for b >= 1)."""
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(n, d)).astype(np.float32)
+    w[:, : d // 4] = np.round(w[:, : d // 4])  # ties
+    for frac, val in ((0.05, np.nan), (0.03, np.inf), (0.03, -np.inf), (0.05, 1e30),
+                      (0.03, -1e30), (0.04, -0.0), (0.04, 0.0)):
+        w[rng.random((n, d)) < frac] = val
+    adj = rng.random((n, n)) < 0.5
+    for j, deg in enumerate((0, 1, 2)[: n - 1]):
+        adj[j] = False
+        adj[j, rng.choice([i for i in range(n) if i != j], size=min(deg, n - 1), replace=False)] = True
+    np.fill_diagonal(adj, False)
+    return w, adj
+
+
+def nan_equal(a, b):
+    """Elementwise ``==`` under which NaN equals NaN (and +0 equals -0), for
+    numpy arrays and torch tensors alike."""
+    return (a == b) | ((a != a) & (b != b))
+
+
+def test_cpu_wrappers_run_plain_versions_without_launching():
+    w, adj = edge_inputs(12, 40, seed=5)
+    tw, ta = torch.from_numpy(w), torch.from_numpy(adj)
+    before = (trimmed_mean.trimmed_mean_dense.launches, median.median_dense.launches)
+    out_t = trimmed_mean.trimmed_mean_dense(tw, ta, tw, 2)
+    out_m = median.median_dense(tw, ta.to(torch.uint8), tw)
+    assert nan_equal(out_t.numpy(), ref.trimmed_mean_dense(tw, ta, tw, 2).numpy()).all()
+    assert nan_equal(out_m.numpy(), ref.median_dense(tw, ta, tw).numpy()).all()
+    assert (trimmed_mean.trimmed_mean_dense.launches, median.median_dense.launches) == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "mask_dtype", "mask_shape", "contiguous", "b"])
+def test_wrappers_reject_bad_operands(bad):
+    w = torch.zeros(6, 10)
+    adj = torch.zeros(6, 6, dtype=torch.bool)
+    sv = w
+    b = 1
+    if bad == "dtype":
+        w = w.double()
+    elif bad == "shape":
+        sv = torch.zeros(6, 11)
+    elif bad == "mask_dtype":
+        adj = adj.float()
+    elif bad == "mask_shape":
+        adj = torch.zeros(6, 5, dtype=torch.bool)
+    elif bad == "contiguous":
+        w = torch.zeros(10, 6).t()
+    elif bad == "b":
+        b = -1
+    with pytest.raises((TypeError, ValueError)):
+        trimmed_mean.trimmed_mean_dense(w, adj, sv, b)
+    if bad != "b":
+        with pytest.raises((TypeError, ValueError)):
+            median.median_dense(w, adj, sv)
+
+
+def test_build_is_lazy_and_needs_nvcc(monkeypatch, tmp_path):
+    """Importing the kernels builds nothing; a build without ``nvcc`` raises
+    instead of leaving a half-written library behind."""
+    assert "libscreen" in build.library_path().name
+    assert build.library_path().name.endswith(f"{build.source_hash()}.so")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "b")
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build.os.path, "isfile", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.build()
+    assert not any(tmp_path.rglob("*.so"))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode (their plain versions are "
+                    "held to the reference in test_torch_screening.py)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 12, 20, 50, 64])
+def test_kernels_equal_plain_on_card(cuda_device, n):
+    w, adj = edge_inputs(n, 999, seed=n)
+    tw, ta = torch.from_numpy(w).to(cuda_device), torch.from_numpy(adj).to(cuda_device)
+    for b in (0, 1, 2, 4):
+        got = trimmed_mean.trimmed_mean_dense(tw, ta, tw, b).cpu().numpy()
+        assert nan_equal(got, ref.trimmed_mean_dense(tw, ta, tw, b).cpu().numpy()).all()
+    got = median.median_dense(tw, ta, tw).cpu().numpy()
+    assert nan_equal(got, ref.median_dense(tw, ta, tw).cpu().numpy()).all()
+
+
+@pytest.mark.cuda
+def test_kernels_reject_too_many_rows(cuda_device):
+    w = torch.zeros(129, 8, device=cuda_device)
+    adj = torch.zeros(129, 129, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError):
+        trimmed_mean.trimmed_mean_dense(w, adj, w, 1)
+    with pytest.raises(ValueError):
+        median.median_dense(w[:128].contiguous(), adj[:128, :128].contiguous(), w[:128].contiguous())
+    assert build.ptxas_report()
+
+
+def summation_bound(w, adj, b):
+    """Float32 bound on two summation orders of the kept ranks plus self,
+    after the division (above 64 rows the plain version sums with
+    ``torch.sum``, the kernel left to right)."""
+    count = adj.sum(dim=1).to(torch.float32)
+    b_eff = torch.clamp(torch.clamp(torch.div(count - 1, 2, rounding_mode="floor"), min=0), max=b)
+    den = count - 2 * b_eff + 1
+    colmax = torch.where(torch.isfinite(w), w.abs(), 0.0).max(dim=0).values[None, :]
+    eps = torch.finfo(torch.float32).eps
+    return 2.0 * w.shape[0] * eps * colmax * (count[:, None] + 1.0) / den[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [0, 2, 4])
+def test_trimmed_mean_above_64_rows_on_card(cuda_device, b):
+    w, adj = (torch.from_numpy(x).to(cuda_device) for x in edge_inputs(100, 777, seed=b))
+    got = trimmed_mean.trimmed_mean_dense(w, adj, w, b)
+    want = ref.trimmed_mean_dense(w, adj, w, b)
+    finite = torch.isfinite(got) & torch.isfinite(want)
+    assert bool(nan_equal(got[~finite], want[~finite]).all())
+    assert bool(((got - want).abs()[finite] <= summation_bound(w, adj, b)[finite]).all())
+    got_m = median.median_dense(w, adj, w)
+    assert bool(nan_equal(got_m, ref.median_dense(w, adj, w)).all())
+
+
+@pytest.mark.cuda
+def test_separate_self_vals_on_card(cuda_device):
+    w, adj = (torch.from_numpy(x).to(cuda_device) for x in edge_inputs(40, 513, seed=9))
+    sv = torch.randn(w.shape, generator=torch.Generator(device=cuda_device).manual_seed(0),
+                     device=cuda_device)
+    sv[0, :3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+    assert bool(nan_equal(trimmed_mean.trimmed_mean_dense(w, adj, sv, 3),
+                          ref.trimmed_mean_dense(w, adj, sv, 3)).all())
+    assert bool(nan_equal(median.median_dense(w, adj, sv), ref.median_dense(w, adj, sv)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["trimmed_mean", "median"])
+def test_trainer_step_launches_its_kernel_once(cuda_device, rule):
+    from repro_torch.core.bridge import BridgeConfig, BridgeTrainer
+    from repro_torch.core.graph import erdos_renyi
+    from repro_torch.sim.tasks import linear_task
+
+    task = linear_task(12, partition="iid", num_train=600, num_test=100, device=cuda_device)
+    cfg = BridgeConfig(topology=erdos_renyi(12, 0.6, 2, seed=0), rule=rule, num_byzantine=2,
+                       attack="random", t0=30)
+    trainer = BridgeTrainer(cfg, task.grad_fn, device=cuda_device)
+    state = trainer.init(task.init_fn(0))
+    kernel = {"trimmed_mean": trimmed_mean.trimmed_mean_dense, "median": median.median_dense}[rule]
+    before = kernel.launches
+    for i in range(3):
+        state, metrics = trainer.step(state, task.batch_fn(i))
+    assert kernel.launches - before == 3
+    assert bool(torch.isfinite(metrics["loss"]))
