@@ -6,21 +6,47 @@ Needs one CUDA card, ``nvcc`` and the repository's ``src/`` next to this
 file; exits non-zero (and prints no result line) without them.  Phases, any
 failure of which raises:
 
-1. setup — the card's name and power limit; build the screening kernels
-   from ``src/repro_torch/kernels/csrc`` and show ptxas' register/spill lines;
-2. kernels — each kernel against its plain PyTorch version on the card:
-   exact (NaN-aware ``==``) at the main path's shape (M = 50, d = 7850, the
-   full width of the linear model) and on edge-case payloads (NaN, +-inf,
-   1e30, ties, +-0, starved rows); within the float32 summation bound at
-   M = 100, where the plain version sums with a reduction tree.  Times the
-   kernel, the plain version and, for the median, ``torch.nanquantile``
-   (a yardstick the port never calls) with CUDA events;
-3. trainer — the main path: `BridgeTrainer` on the MNIST-like linear task,
-   M = 50, b = 4, random attack, 200 ticks, for DGD (mean), BRIDGE-T and
-   BRIDGE-M; launch counts are zeroed before and read after, and BRIDGE-T /
-   BRIDGE-M must reach 0.95 honest test accuracy while DGD stays <= 0.5;
-4. parity — 5 sign-flip ticks from one init on the card and on the CPU agree
-   at rtol 1e-4, atol 1e-5.
+1. setup — the card's name and power limit; build the kernels from
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel)
+   and show ptxas' register/spill lines;
+2. dense kernels — the two dense screens against their plain PyTorch
+   versions on the card: exact (NaN-aware ``==``) at the dense path's shape
+   (M = 50, d = 7850, the full width of the linear model) and on edge-case
+   payloads (NaN, +-inf, 1e30, ties, +-0, starved rows); within the float32
+   summation bound at M = 100, where the plain version sums with a
+   reduction tree;
+3. sparse kernels — the two gather screens, exact, at the sparse path's
+   shape (``small_world(512, 6, 2)``, K = 16, d = 7850) and on edge-case
+   payloads at K in {3, 16, 40, 63} with padded slots; the int8 decode in
+   its plain and carry forms, exact at M = 512, d = 7850.  Every kernel is
+   timed beside its plain version and its library yardstick (a call the
+   port never makes) with CUDA events;
+4. dense trainer — `BridgeTrainer` on the MNIST-like linear task, M = 50,
+   b = 4, random attack, 200 ticks, for DGD (mean), BRIDGE-T and BRIDGE-M;
+   BRIDGE-T / BRIDGE-M must reach 0.95 honest test accuracy while DGD stays
+   <= 0.5;
+5. sparse trainer — ``BridgeConfig(sparse=True)`` on
+   ``small_world(512, 6, 2)``, an iid partition of 16384 samples, batch 8,
+   random attack, 200 ticks, for DGD, BRIDGE-T, BRIDGE-M and BRIDGE-T with
+   the int8 codec; BRIDGE-T / BRIDGE-M must reach 0.95, DGD stay <= 0.85;
+6. randomness — ``prng.bits`` and ``uniform`` on the card equal the CPU's
+   at [512, 7850], ``normal`` within its tolerance of the CPU's; the int8
+   encode and carry decode on the card give the CPU's codes, scales,
+   ``x_hat`` and residual exactly;
+7. parity — from one init and one batch stream (M = 50): 5 ticks on the
+   card and on the CPU agree at rtol 1e-4, atol 1e-5 (sign flip dense;
+   random attack dense and sparse, on honest rows); one int8 tick gives the
+   CPU's honest carry exactly; the dense and the sparse trainer give
+   bit-identical parameters on the card.
+
+Each configuration of a trainer phase trains on a task of its own, so all
+see batches 0..199 of one stream.  Before each trainer phase every
+kernel's launch count is set to 0, and read
+after its timed runs: each kernel of the phase must have launched once per
+tick of the runs of its rule (codec), the others not at all.  Then each
+configuration of the phase is profiled for 10 more ticks (`profile_phase`:
+device busy share, kernels per tick, host time per stage), a measurement
+that reports a profiler failure instead of raising.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -40,16 +66,33 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 import torch  # noqa: E402
 
+from repro_torch import prng  # noqa: E402
+from repro_torch.comm import codec as codec_lib  # noqa: E402
+from repro_torch.comm import exchange  # noqa: E402
 from repro_torch.core.bridge import BridgeConfig, BridgeTrainer  # noqa: E402
-from repro_torch.core.graph import erdos_renyi  # noqa: E402
-from repro_torch.kernels import build, median, ref, trimmed_mean  # noqa: E402
+from repro_torch.core.graph import erdos_renyi, small_world  # noqa: E402
+from repro_torch.core.neighbors import NeighborTable  # noqa: E402
+from repro_torch.kernels import build, dequant, gather_screen, median, ref, trimmed_mean  # noqa: E402
 from repro_torch.sim.tasks import linear_task  # noqa: E402
 
 M, B, D = 50, 4, 7850
 TICKS = 200
+# the sparse path: the reference's scale setting (BENCH_scale.json's graph)
+SM, SB, NEAREST = 512, 2, 6
+KERNELS = {  # JSON name -> wrapper (its `launches` counter)
+    "screen_trimmed_mean_dense": trimmed_mean.trimmed_mean_dense,
+    "screen_median_dense": median.median_dense,
+    "gather_screen_trimmed_mean": gather_screen.gather_screen_trimmed_mean,
+    "gather_screen_median": gather_screen.gather_screen_median,
+    "dequant_carry": dequant.dequant_carry,
+}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 EPS32 = float(np.finfo(np.float32).eps)
+# normal's tolerance against jax.random.normal on the CPU (torch.erfinv in
+# place of XLA's polynomial, tests/test_torch_prng.py); the card's draw is
+# held to it against the CPU's
+NORMAL_RTOL = 5.8e-6
 
 
 def batcher_pairs(n: int) -> int:
@@ -175,94 +218,392 @@ def kernel_phase(dev):
         ("screen_median_dense", cases["median"], med_ops, "src/repro/kernels/median.py:87",
          lambda: torch.nanquantile(rows, 0.5, dim=1)),
     ):
-        out_k, out_p = kern(w, adj, w), plain(w, adj, w)
-        max_err = float((out_k - out_p).abs().max())
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-        rec = {
-            "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/screen.cu",
-            "replaces": replaces, "launches": 0, "max_abs_err": max_err,
-            "ms": cuda_ms(lambda k=kern: k(w, adj, w)),
-            "plain_ms": cuda_ms(lambda p=plain: p(w, adj, w), reps=21, inner=2),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None if lib_fn is None else cuda_ms(lib_fn, reps=21, inner=2),
-        }
-        records.append(rec)
-        print(f"kernel {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-              f"library {rec['library_ms']}, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}: "
-              f"{nbytes} bytes, {ops} fp32 ops)")
+        err = float((kern(w, adj, w) - plain(w, adj, w)).abs().max())
+        records.append(record(name, "src/repro_torch/kernels/csrc/screen.cu", replaces,
+                              lambda k=kern: k(w, adj, w), lambda p=plain: p(w, adj, w), lib_fn,
+                              nbytes, ops, err))
     print("library: the trimmed mean has no single PyTorch call; the median's is "
           "torch.nanquantile(q=0.5) over the masked [M, M+1, d] rows (NaN for absent rows)")
     return records
 
 
+def sparse_case_inputs(k: int, d: int, seed: int):
+    """``edge_case_inputs`` payloads over n = k + 8 nodes of in-degree at
+    most k - 2 (every row of a width-k table has padded slots), the first
+    rows starved (0, 1, 2 senders)."""
+    n = k + 8
+    w, _, self_vals = edge_case_inputs(n, d, seed)
+    rng = np.random.default_rng(seed + 1)
+    adj = np.zeros((n, n), bool)
+    for j in range(n):
+        deg = (0, 1, 2)[j] if j < 3 else int(rng.integers(3, max(k - 1, 4)))
+        others = np.array([i for i in range(n) if i != j])
+        adj[j, rng.choice(others, size=min(deg, max(k - 2, 0)), replace=False)] = True
+    return w, adj, self_vals
+
+
+def exact_or_raise(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    torch.cuda.synchronize()
+    same = nan_equal(got, want)
+    if not bool(same.all()):
+        raise AssertionError(f"{name}: kernel != plain on {int((~same).sum())} entries")
+
+
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    finite = torch.isfinite(got) & torch.isfinite(want)
+    return float((got - want).abs()[finite].max()) if bool(finite.any()) else 0.0
+
+
+def record(name, source, replaces, kern, plain, lib_fn, nbytes, ops, err):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    rec = {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": 0,
+        "max_abs_err": err, "ms": cuda_ms(kern),
+        "plain_ms": cuda_ms(plain, reps=21, inner=2),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None if lib_fn is None else cuda_ms(lib_fn, reps=21, inner=2),
+    }
+    print(f"kernel {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+          f"library {rec['library_ms']}, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}: "
+          f"{nbytes} bytes, {ops} fp32 ops)")
+    return rec
+
+
+def gather_kernel_phase(dev):
+    """The gather screens at the sparse path's shape and on edge cases."""
+    topo = small_world(SM, NEAREST, SB, rewire_prob=0.2, seed=0)
+    table = NeighborTable.from_adjacency(topo, device=dev)
+    k = table.k
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    w = torch.randn((SM, D), generator=gen, device=dev)
+    tm_kernel = lambda w_, t_, s_: gather_screen.gather_screen_trimmed_mean(
+        w_, t_.safe_idx, t_.valid_dev, s_, SB)
+    tm_plain = lambda w_, t_, s_: ref.gather_trimmed_mean(w_, t_.safe_idx, t_.valid_dev, s_, SB)
+    md_kernel = lambda w_, t_, s_: gather_screen.gather_screen_median(
+        w_, t_.safe_idx, t_.valid_dev, s_)
+    md_plain = lambda w_, t_, s_: ref.gather_median(w_, t_.safe_idx, t_.valid_dev, s_)
+    cases = {"trimmed_mean": (tm_kernel, tm_plain), "median": (md_kernel, md_plain)}
+    for name, (kern, plain) in cases.items():
+        exact_or_raise(f"gather {name}", kern(w, table, w), plain(w, table, w))
+        for kk in (3, 16, 40, 63):
+            ew, eadj, eself = sparse_case_inputs(kk, 1000, kk)
+            etable = NeighborTable.from_adjacency(eadj, k=kk, device=dev)
+            ew, eself = torch.as_tensor(ew, device=dev), torch.as_tensor(eself, device=dev)
+            for sv in (ew, eself):
+                exact_or_raise(f"gather {name} K={kk}", kern(ew, etable, sv), plain(ew, etable, sv))
+    print(f"gather kernels: equal to their plain versions (exact at M = {SM}, K = {k}, "
+          f"d = {D}, and on edge cases at K in (3, 16, 40, 63))")
+
+    counts = table.valid.sum(axis=1)
+    b_eff = np.minimum(SB, np.maximum((counts - 1) // 2, 0))
+    tm_ops = D * sum(2 * batcher_pairs(int(c)) + int(c) - 2 * int(e) + 2
+                     for c, e in zip(counts, b_eff, strict=True))
+    med_ops = D * sum(2 * batcher_pairs(int(c) + 1) + 2 for c in counts)
+    # bytes: w, self_vals and the output once each, plus the [M, K] table
+    nbytes = 3 * SM * D * 4 + SM * k * 5
+    gathered = torch.where(table.valid_dev[:, :, None], table.gather_rows(w), torch.nan)
+    rows = torch.cat([gathered, w[:, None, :]], dim=1)
+    src = "src/repro_torch/kernels/csrc/gather_screen.cu"
+    records = []
+    for name, key, ops, lib_fn in (
+        ("gather_screen_trimmed_mean", "trimmed_mean", tm_ops, None),
+        ("gather_screen_median", "median", med_ops, lambda: torch.nanquantile(rows, 0.5, dim=1)),
+    ):
+        kern, plain = cases[key]
+        err = max_abs_err(kern(w, table, w), plain(w, table, w))
+        records.append(record(name, src, "src/repro/kernels/gather_screen.py:127",
+                              lambda kern=kern: kern(w, table, w),
+                              lambda plain=plain: plain(w, table, w), lib_fn, nbytes, ops, err))
+    print("library: the gather trimmed mean has no single PyTorch call; the gather median's is "
+          "torch.nanquantile(q=0.5) over the gathered [M, K+1, d] rows (NaN in padded slots)")
+    return records
+
+
+def dequant_kernel_phase(dev):
+    """The int8 decode, plain and carry forms, on the codec's own codewords
+    at the sparse path's shape (zero terms 0) and on edge-case codewords."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    target = torch.randn((SM, D), generator=gen, device=dev) * 1e-2
+    est = torch.randn((SM, D), generator=gen, device=dev)
+    msg = codec_lib.get_codec("int8").encode(np.array([0, 7], np.uint32), target)
+    q, scale = msg.payload, msg.scale
+    rng = np.random.default_rng(3)
+    eq = torch.as_tensor(rng.integers(-127, 128, size=(SM, D)).astype(np.int8), device=dev)
+    nblk = scale.shape[1]
+    escale = torch.as_tensor(np.stack([rng.uniform(1e-4, 10, size=(SM, nblk)),
+                                       rng.normal(size=(SM, nblk))], -1).astype(np.float32),
+                             device=dev)
+    escale[0, 0, 0], escale[1, 0, 0], escale[2, 1, 0] = float("inf"), -float("inf"), 0.0
+    escale[3, :, 1] = 0.0
+    eq[:, :3] = 0
+    for qq, sc in ((q, scale), (eq, escale)):
+        exact_or_raise("dequant", dequant.dequant(qq, sc), ref.dequant(qq, sc))
+        got, want = dequant.dequant_carry(qq, sc, est, target), ref.dequant_carry(qq, sc, est, target)
+        for g, w_ in zip(got, want, strict=True):
+            exact_or_raise("dequant_carry", g, w_)
+    print(f"dequant: plain and carry forms equal to their plain versions (exact at M = {SM}, "
+          f"d = {D}, codec codewords and edge-case scales)")
+
+    x_hat, resid = dequant.dequant_carry(q, scale, est, target)
+    want = ref.dequant_carry(q, scale, est, target)
+    err = max(max_abs_err(x_hat, want[0]), max_abs_err(resid, want[1]))
+    qf = q.float()
+    s_full = ref.expand_scales(scale, D)[0].contiguous()
+    lib_x = torch.addcmul(est, qf, s_full)
+    lib_r = torch.addcmul(target, qf, s_full, value=-1.0)
+    same = bool(nan_equal(lib_x, x_hat).all()) and bool(nan_equal(lib_r, resid).all())
+    print(f"library: two torch.addcmul calls on float codes and pre-expanded scales "
+          f"(x_hat = est + q s, resid = target - q s); same rounding as the kernel: {same}")
+    # bytes: q, est and target in, x_hat and resid out, one (scale, zero) pair per 128
+    nbytes = SM * D * (1 + 4 + 4 + 4 + 4) + SM * nblk * 8
+    ops = 2 * 2 * SM * D  # two fused multiply-adds per coordinate
+    return [record("dequant_carry", "src/repro_torch/kernels/csrc/dequant.cu",
+                   "src/repro/kernels/dequant_screen.py:117",
+                   lambda: dequant.dequant_carry(q, scale, est, target),
+                   lambda: ref.dequant_carry(q, scale, est, target),
+                   lambda: (torch.addcmul(est, qf, s_full),
+                            torch.addcmul(target, qf, s_full, value=-1.0)),
+                   nbytes, ops, err)]
+
+
+def zero_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+    dequant.dequant.launches = 0
+
+
+def run_trainer(tag, make_task, topo, cfg, dev, ticks, want_launches):
+    """``ticks`` ticks of one configuration on a task of its own, so every
+    configuration trains on batches 0..ticks-1 of the same stream; checks
+    that the kernels grew by ``want_launches`` (the others by 0); returns
+    the honest accuracy."""
+    task = make_task()
+    trainer = BridgeTrainer(cfg, task.grad_fn, device=dev)
+    state = trainer.init(task.init_fn(0), seed=1)
+    before = {k: fn.launches for k, fn in KERNELS.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(ticks):
+        state, metrics = trainer.step(state, task.batch_fn(i))
+    torch.cuda.synchronize()
+    ms_tick = (time.perf_counter() - t0) / ticks * 1e3
+    acc = task.eval_accuracy(state.params, trainer.honest_mask)
+    cons = float(metrics["consensus_dist"])
+    # the batch draw and copy alone, on an idle card (inside a tick the copy
+    # also waits for the card to finish the previous tick), from this
+    # configuration's own stream, which no later run reads
+    torch.cuda.synchronize()
+    tb = time.perf_counter()
+    for i in range(20):
+        task.batch_fn(ticks + i)
+    torch.cuda.synchronize()
+    ms_batch = (time.perf_counter() - tb) / 20 * 1e3
+    for k, fn in KERNELS.items():
+        grew = fn.launches - before[k]
+        want = want_launches.get(k, 0)
+        if grew != want:
+            raise AssertionError(f"{tag}: kernel {k} launched {grew} times in {ticks} ticks, "
+                                 f"expected {want}")
+    print(f"trainer {tag}: honest test accuracy {acc:.4f}, consensus {cons:.6g}, "
+          f"{ms_tick:.3f} ms/tick over {ticks} ticks; the host batch draw and copy alone "
+          f"{ms_batch:.3f} ms (M={topo.num_nodes}, b={cfg.num_byzantine}, {cfg.attack} attack, "
+          f"{'sparse' if cfg.sparse else 'dense'}, codec {cfg.codec})")
+    return acc
+
+
+def warm_up(task, cfgs, dev):
+    """First use of each library call, outside the timed runs."""
+    for cfg in cfgs:
+        warm = BridgeTrainer(cfg, task.grad_fn, device=dev)
+        warm.step(warm.init(task.init_fn(0)), task.batch_fn(0))
+
+
 def trainer_phase(dev):
-    """The main path; returns the kernel launches it made per rule."""
-    task = linear_task(M, partition="iid", num_train=6000, num_test=1000, batch=32, device=dev)
+    """The dense path; returns the kernel launches it made."""
+    make_task = lambda: linear_task(M, partition="iid", num_train=6000, num_test=1000, batch=32,
+                                    device=dev)
     topo = erdos_renyi(M, 0.5, B, seed=0)
     rules = ("mean", "trimmed_mean", "median")
     cfgs = {rule: BridgeConfig(topology=topo, rule=rule, num_byzantine=B, attack="random", t0=30)
             for rule in rules}
-    for rule in rules:  # warm-up: first use of each library call, outside the timed run
-        warm = BridgeTrainer(cfgs[rule], task.grad_fn, device=dev)
-        warm.step(warm.init(task.init_fn(0)), task.batch_fn(0))
-    kernels = {"trimmed_mean": trimmed_mean.trimmed_mean_dense, "median": median.median_dense}
-    for fn in kernels.values():
-        fn.launches = 0
-    results = {}
-    for rule in rules:
-        trainer = BridgeTrainer(cfgs[rule], task.grad_fn, device=dev)
-        state = trainer.init(task.init_fn(0), seed=1)
-        before = {k: fn.launches for k, fn in kernels.items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        batch_s = 0.0
-        for i in range(TICKS):
-            tb = time.perf_counter()
-            batch = task.batch_fn(i)
-            batch_s += time.perf_counter() - tb
-            state, metrics = trainer.step(state, batch)
-        torch.cuda.synchronize()
-        ms_tick = (time.perf_counter() - t0) / TICKS * 1e3
-        ms_batch = batch_s / TICKS * 1e3
-        acc = task.eval_accuracy(state.params, trainer.honest_mask)
-        cons = float(metrics["consensus_dist"])
-        grew = {k: fn.launches - before[k] for k, fn in kernels.items()}
-        for k, n in grew.items():
-            want = TICKS if k == rule else 0
-            if n != want:
-                raise AssertionError(f"{rule}: kernel {k} launched {n} times in {TICKS} ticks, "
-                                     f"expected {want}")
-        results[rule] = acc
-        print(f"trainer {rule}: honest test accuracy {acc:.4f}, consensus {cons:.6g}, "
-              f"{ms_tick:.3f} ms/tick over {TICKS} ticks, of which {ms_batch:.3f} ms host batch "
-              f"draw and copy (M={M}, b={B}, random attack)")
-    launches = {k: fn.launches for k, fn in kernels.items()}
+    warm_up(make_task(), cfgs.values(), dev)
+    zero_launches()
+    kernel_of = {"trimmed_mean": "screen_trimmed_mean_dense", "median": "screen_median_dense"}
+    acc = {rule: run_trainer(rule, make_task, topo, cfgs[rule], dev, TICKS,
+                             {kernel_of[rule]: TICKS} if rule in kernel_of else {})
+           for rule in rules}
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    profile_phase(make_task(), cfgs.values(), dev)
     for rule in ("trimmed_mean", "median"):
-        if not results[rule] >= 0.95:
-            raise AssertionError(f"{rule} accuracy {results[rule]} < 0.95")
-    if not results["mean"] <= 0.5:
-        raise AssertionError(f"DGD accuracy {results['mean']} > 0.5: the attack did not bite")
+        if not acc[rule] >= 0.95:
+            raise AssertionError(f"{rule} accuracy {acc[rule]} < 0.95")
+    if not acc["mean"] <= 0.5:
+        raise AssertionError(f"DGD accuracy {acc['mean']} > 0.5: the attack did not bite")
     return launches
 
 
+def profile_phase(task, cfgs, dev, ticks=10):
+    """Device busy share, kernel launches and host time per stage of each
+    configuration over ``ticks`` ticks (after 3 warm ones) under
+    ``torch.profiler``: a measurement, not a check, run after the launch
+    counts were read; a profiler that cannot trace the card is reported."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    for cfg in cfgs:
+        tag = f"{'sparse' if cfg.sparse else 'dense'} {cfg.rule} {cfg.codec}"
+        trainer = BridgeTrainer(cfg, task.grad_fn, device=dev)
+        state = trainer.init(task.init_fn(0), seed=1)
+        for i in range(3):
+            state, _ = trainer.step(state, task.batch_fn(i))
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(ticks):
+                    state, _ = trainer.step(state, task.batch_fn(i))
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            events = prof.events()
+        except RuntimeError as err:
+            print(f"profile {tag}: torch.profiler failed ({err})")
+            continue
+        # work on the card: kernels and copies; the record_function ranges'
+        # mirrors on the card's timeline are not work
+        work = [e for e in events if e.device_type == cuda
+                and not getattr(e, "is_user_annotation", False)
+                and not e.name.startswith(("bridge.", "kernels."))]
+        copies = [e for e in work if "memcpy" in e.name.lower() or "memset" in e.name.lower()]
+        busy_us = sum(e.time_range.elapsed_us() for e in work)
+        copy_us = sum(e.time_range.elapsed_us() for e in copies)
+        stages = {}
+        for e in events:
+            if e.name.startswith("bridge.") and e.device_type == cpu:
+                stages[e.name] = stages.get(e.name, 0.0) + e.time_range.elapsed_us()
+        split = ", ".join(f"{k} {v / ticks / 1e3:.3f}" for k, v in sorted(stages.items()))
+        print(f"profile {tag}: {wall_us / ticks / 1e3:.3f} ms/tick under the profiler, device "
+              f"busy {busy_us / ticks / 1e3:.3f} ms/tick ({100 * busy_us / wall_us:.1f}%; copies "
+              f"{copy_us / ticks / 1e3:.3f}), {(len(work) - len(copies)) / ticks:.1f} kernels "
+              f"and {len(copies) / ticks:.1f} copies/tick; host ms/tick per stage: {split}")
+
+
+def sparse_trainer_phase(dev):
+    """The sparse path at the reference's scale setting; returns the kernel
+    launches it made."""
+    make_task = lambda: linear_task(SM, partition="iid", num_train=16384, num_test=1000, batch=8,
+                                    device=dev)
+    topo = small_world(SM, NEAREST, SB, rewire_prob=0.2, seed=0)
+    runs = (("mean", "identity"), ("trimmed_mean", "identity"), ("median", "identity"),
+            ("trimmed_mean", "int8"))
+    cfgs = {run: BridgeConfig(topology=topo, rule=run[0], num_byzantine=SB, attack="random",
+                              t0=100, sparse=True, codec=run[1]) for run in runs}
+    warm_up(make_task(), cfgs.values(), dev)
+    zero_launches()
+    kernel_of = {"trimmed_mean": "gather_screen_trimmed_mean", "median": "gather_screen_median"}
+    acc = {}
+    for rule, codec in runs:
+        want = {kernel_of[rule]: TICKS} if rule in kernel_of else {}
+        if codec == "int8":
+            want["dequant_carry"] = TICKS
+        acc[rule, codec] = run_trainer(f"sparse {rule} {codec}", make_task, topo,
+                                       cfgs[rule, codec], dev, TICKS, want)
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    profile_phase(make_task(), cfgs.values(), dev)
+    for run in runs[1:]:
+        if not acc[run] >= 0.95:
+            raise AssertionError(f"sparse {run} accuracy {acc[run]} < 0.95")
+    if not acc["mean", "identity"] <= 0.85:
+        raise AssertionError(f"sparse DGD accuracy {acc['mean', 'identity']} > 0.85: "
+                             f"the attack did not bite")
+    return launches
+
+
+def randomness_phase(dev):
+    """The Threefry streams and the int8 codec on the card against the CPU,
+    at the sparse path's shape [512, 7850]."""
+    key = prng.fold_in(prng.PRNGKey(7), 1234)
+    shape = (SM, D)
+    for name, draw in (("bits", prng.bits), ("uniform", prng.uniform)):
+        if not torch.equal(draw(key, shape, dev).cpu(), draw(key, shape, "cpu")):
+            raise AssertionError(f"prng.{name}: the card's draw differs from the CPU's")
+    got, want = prng.normal(key, shape, dev).cpu(), prng.normal(key, shape, "cpu")
+    rel = float(((got - want).abs() / want.abs().clamp_min(EPS32)).max())
+    same = float((got == want).to(torch.float32).mean())
+    if not rel <= NORMAL_RTOL:
+        raise AssertionError(f"prng.normal: card vs CPU relative {rel} > {NORMAL_RTOL}")
+    print(f"randomness: bits and uniform on the card equal the CPU's at {list(shape)}; normal "
+          f"within a relative {rel:.3g} of the CPU's (equal on {100 * same:.1f}%, "
+          f"tolerance {NORMAL_RTOL})")
+    rng = np.random.default_rng(4)
+    x, est, resid = (rng.normal(size=shape).astype(np.float32) * scl for scl in (0.05, 0.05, 1e-3))
+    c = codec_lib.get_codec("int8")
+    outs = []
+    for device in (dev, "cpu"):
+        state = exchange.CommState(*(torch.as_tensor(a, device=device) for a in (est, resid)))
+        msg, target = exchange.encode(c, key, torch.as_tensor(x, device=device), state)
+        x_hat, new = exchange.decode(c, msg, target, state)
+        outs.append([t.cpu() for t in (msg.payload, msg.scale, x_hat, new.resid)])
+    for name, a, b in zip(("codes", "scales", "x_hat", "resid"), *outs, strict=True):
+        if not torch.equal(a, b):
+            raise AssertionError(f"int8 exchange: the card's {name} differ from the CPU's")
+    print(f"randomness: the int8 encode and carry decode on the card equal the CPU's "
+          f"(codes, scales, x_hat, residual) at {list(shape)}")
+
+
 def parity_phase(dev):
-    task_gpu = linear_task(M, partition="iid", num_train=6000, num_test=1000, device=dev)
-    task_cpu = linear_task(M, partition="iid", num_train=6000, num_test=1000, device="cpu")
+    """The trainer on the card against the CPU, and the dense against the
+    sparse trainer on the card, all from one init and one batch stream."""
+    task = linear_task(M, partition="iid", num_train=6000, num_test=1000, device="cpu")
     topo = erdos_renyi(M, 0.5, B, seed=0)
-    init = task_cpu.init_fn(0)
-    for rule in ("trimmed_mean", "median"):
-        cfg = BridgeConfig(topology=topo, rule=rule, num_byzantine=B, attack="sign_flip", t0=30)
-        finals = []
-        for device, task in ((dev, task_gpu), ("cpu", task_cpu)):
-            trainer = BridgeTrainer(cfg, task.grad_fn, device=device)
-            state = trainer.init({k: v.clone() for k, v in init.items()})
-            for i in range(5):
-                state, _ = trainer.step(state, task.batch_fn(i))
-            finals.append({k: v.cpu() for k, v in state.params.items()})
-        for k in finals[0]:
-            torch.testing.assert_close(finals[0][k], finals[1][k], rtol=1e-4, atol=1e-5)
-    print("parity: 5 sign-flip ticks agree on the card and the CPU (rtol 1e-4, atol 1e-5)")
+    init = task.init_fn(0)
+    batches = [task.batch_fn(i) for i in range(5)]
+
+    def run(device, ticks, **kw):
+        cfg = BridgeConfig(topology=topo, num_byzantine=B, t0=30, **kw)
+        trainer = BridgeTrainer(cfg, task.grad_fn, device=device)
+        state = trainer.init({k: v.to(device) for k, v in init.items()}, seed=1)
+        for batch in batches[:ticks]:
+            state, _ = trainer.step(state, tuple(x.to(device) for x in batch))
+        return state, trainer.honest_mask.cpu()
+
+    # 5 ticks, within the gradient's summation order; the random attack's
+    # Byzantine rows carry normal's tolerance, so honest rows are compared
+    cases = [dict(rule=rule, attack="sign_flip") for rule in ("trimmed_mean", "median")]
+    cases += [dict(rule=rule, attack="random", sparse=sparse)
+              for rule in ("trimmed_mean", "median") for sparse in (False, True)]
+    for kw in cases:
+        (gpu, honest), (cpu, _) = run(dev, 5, **kw), run("cpu", 5, **kw)
+        rows = slice(None) if kw["attack"] == "sign_flip" else honest
+        for k in gpu.params:
+            torch.testing.assert_close(gpu.params[k].cpu()[rows], cpu.params[k][rows],
+                                       rtol=1e-4, atol=1e-5, msg=f"card vs CPU {kw} ({k})")
+    print("parity: 5 ticks agree on the card and the CPU on honest rows (rtol 1e-4, atol 1e-5): "
+          "sign flip dense, random dense and sparse, BRIDGE-T and BRIDGE-M")
+    # int8: one tick from one iterate sends the same honest codes, so the
+    # honest carry is exact; later ticks encode iterates that differ in the
+    # last bits, where a stochastic code may round the other way
+    for sparse in (False, True):
+        kw = dict(rule="trimmed_mean", attack="random", sparse=sparse, codec="int8")
+        (gpu, honest), (cpu, _) = run(dev, 1, **kw), run("cpu", 1, **kw)
+        for name, a, b in zip(("est", "resid"), gpu.comm, cpu.comm, strict=True):
+            if not torch.equal(a.cpu()[honest], b[honest]):
+                raise AssertionError(f"int8 carry {name} differs on the card ({kw})")
+        for k in gpu.params:
+            torch.testing.assert_close(gpu.params[k].cpu()[honest], cpu.params[k][honest],
+                                       rtol=1e-4, atol=1e-5, msg=f"card vs CPU {kw} ({k})")
+    print("parity: one int8 tick (random attack, dense and sparse) gives the CPU's carry "
+          "exactly and its parameters within rtol 1e-4, atol 1e-5 on honest rows")
+    for kw in (dict(rule="trimmed_mean", attack="sign_flip"), dict(rule="median", attack="sign_flip"),
+               dict(rule="trimmed_mean", attack="random", codec="int8")):
+        (dense, _), (sparse, _) = run(dev, 5, **kw), run(dev, 5, sparse=True, **kw)
+        for k in dense.params:
+            if not torch.equal(dense.params[k], sparse.params[k]):
+                raise AssertionError(f"{kw}: dense and sparse trainers differ on the card ({k})")
+    print("parity: the dense and the sparse trainer give bit-identical parameters on the card "
+          f"(5 ticks, M = {M}: sign flip BRIDGE-T and BRIDGE-M, random BRIDGE-T int8)")
 
 
 def main() -> int:
@@ -275,19 +616,21 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     secs = build.build()
-    print(f"build: {secs:.2f} s nvcc ({build.library_path().name})")
+    print(f"build: {secs:.2f} s nvcc, {len(build.sources())} sources in parallel "
+          f"({build.library_path().name})")
     for line in build.ptxas_report().splitlines():
-        if "spill" in line or "registers" in line:
+        if "spill" in line or "registers" in line or "Compiling entry" in line:
             print("ptxas:", line.strip())
 
-    records = kernel_phase(dev)
+    records = kernel_phase(dev) + gather_kernel_phase(dev) + dequant_kernel_phase(dev)
     launches = trainer_phase(dev)
-    by_name = {"screen_trimmed_mean_dense": launches["trimmed_mean"],
-               "screen_median_dense": launches["median"]}
+    sparse_launches = sparse_trainer_phase(dev)
     for rec in records:
-        rec["launches"] = by_name[rec["name"]]
+        name = rec["name"]
+        rec["launches"] = launches[name] if name.startswith("screen_") else sparse_launches[name]
         if rec["launches"] == 0:
-            raise AssertionError(f"{rec['name']} never launched on the main path")
+            raise AssertionError(f"{name} never launched on the main path")
+    randomness_phase(dev)
     parity_phase(dev)
 
     print(json.dumps({"kernels": records}))

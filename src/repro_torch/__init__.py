@@ -15,9 +15,11 @@ and ``torch.backends.cudnn.allow_tf32`` are both set to ``False``, so float32
 products on the card keep full float32 precision (the reference runs float32
 on the CPU).
 
-The screening kernels are hand-written CUDA C++ for ``sm_90a``
-(``kernels/csrc/screen.cu``), compiled with ``nvcc`` at first use on the
-card (`repro_torch.kernels.build`); importing the package compiles nothing.
+The kernels are hand-written CUDA C++ for ``sm_90a`` (``kernels/csrc/``:
+the dense and the gather screens and the int8 decode), compiled with
+``nvcc`` at first use on the card (`repro_torch.kernels.build`); importing
+the package compiles nothing.  Random numbers are the reference's Threefry
+streams (`repro_torch.prng`).
 """
 from repro_torch.device import resolve_device, set_numerics
 

@@ -2,8 +2,9 @@
 
 The reference's checkpoint format (`repro.checkpoint.msgpack_ckpt`) needs
 ``msgpack``, which the card's machine lacks; until the port reads it, a
-caller hands over the state as a dict of numpy arrays (``np.asarray`` of
-each leaf of the reference's ``state.params``).
+caller hands over the state as numpy arrays: each leaf of the reference's
+``state.params``, its ``state.key`` and, for a lossy codec, its
+``state.comm`` carry.
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from repro_torch import prng
+from repro_torch.comm.exchange import CommState
 from repro_torch.core.bridge import BridgeState
 from repro_torch.device import resolve_device
 
@@ -24,12 +27,17 @@ def params_from_jax(tree: Mapping[str, np.ndarray], *,
     return {k: torch.as_tensor(np.array(v, copy=True), device=dev) for k, v in tree.items()}
 
 
-def state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, seed: int = 0,
+def state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,
+                   comm: tuple[np.ndarray, np.ndarray] | None = None,
                    device: str | torch.device = "cuda") -> BridgeState:
-    """A `BridgeState` at tick ``t`` holding the reference's parameters, with
-    the attack generator seeded by ``seed`` — resumes a JAX trajectory in
-    the port."""
+    """A `BridgeState` at tick ``t`` holding the reference's parameters and
+    its key (``np.asarray(jax_state.key)``; ``PRNGKey(0)`` when None) —
+    resumes a JAX trajectory in the port.  ``comm`` is the reference's codec
+    carry ``(est, resid)`` as numpy arrays, for a lossy codec."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    return BridgeState(params=params_from_jax(params_np, device=dev), t=int(t), generator=gen)
+    key = prng.PRNGKey(0) if key is None else np.asarray(key, dtype=np.uint32)
+    carry = None
+    if comm is not None:
+        carry = CommState(*(torch.as_tensor(np.array(x, copy=True), device=dev) for x in comm))
+    return BridgeState(params=params_from_jax(params_np, device=dev), t=int(t), key=key,
+                       comm=carry)

@@ -1,12 +1,14 @@
 """Core BRIDGE library of the port: graphs, attacks, screening, trainer."""
 from repro_torch.core.bridge import BridgeConfig, BridgeState, BridgeTrainer, replicate, stack_flatten
 from repro_torch.core.byzantine import ATTACKS, get_attack, pick_byzantine_mask
-from repro_torch.core.graph import Topology, check_assumption4, complete_graph, erdos_renyi
-from repro_torch.core.screening import RULES, min_neighbors, screen_all
+from repro_torch.core.graph import Topology, check_assumption4, complete_graph, erdos_renyi, small_world
+from repro_torch.core.neighbors import NeighborTable
+from repro_torch.core.screening import RULES, min_neighbors, screen_all, screen_gathered
 
 __all__ = [
     "BridgeConfig", "BridgeState", "BridgeTrainer", "replicate", "stack_flatten",
     "ATTACKS", "get_attack", "pick_byzantine_mask",
-    "Topology", "check_assumption4", "complete_graph", "erdos_renyi",
-    "RULES", "min_neighbors", "screen_all",
+    "Topology", "check_assumption4", "complete_graph", "erdos_renyi", "small_world",
+    "NeighborTable",
+    "RULES", "min_neighbors", "screen_all", "screen_gathered",
 ]

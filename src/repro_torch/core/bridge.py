@@ -1,19 +1,27 @@
 """The BRIDGE trainer — Algorithm 1 of the paper; port of the synchronous
-broadcast path of `repro.core.bridge` (``build_cell_step`` with the
-identity codec and no adversary, trace, trust or metrics spec, driven by
-``BridgeTrainer``).
+broadcast path of `repro.core.bridge` (``build_cell_step`` with one codec
+and no adversary, trace, trust or metrics spec, driven by
+``BridgeTrainer``), on the dense or the sparse ``[M, K]`` layout.
 
 All M node replicas live on one device as a stacked ``[M, ...]`` parameter
-dict.  One tick:
+dict.  One tick, after ``key, sub = split(state.key)``:
 
 1. **attack** — Byzantine rows of the broadcast ``w [M, d]`` are substituted
-   (`repro_torch.core.byzantine`);
-2. **screen** — every node screens the broadcast under its in-neighbor row,
-   with its own broadcast value as self (`screening.screen_all`; BRIDGE-T and
-   BRIDGE-M run the CUDA kernels on the card);
-3. **apply** — ``w_j <- y_j - rho(t) * grad f_j(w_j)`` with
+   (`repro_torch.core.byzantine`, keyed by ``sub``);
+2. **codec** — a lossy codec (``int8``) encodes every sender's delta under
+   ``fold_in(sub, COMM_SALT)`` and receivers decode it with the carry
+   (`repro_torch.comm.exchange`); the identity codec skips the stage;
+3. **screen** — every node screens what it received from its in-neighbors,
+   with its own (never encoded) broadcast value as self: `screening.screen_all`
+   under the ``[M, M]`` adjacency, or `screening.screen_gathered` through a
+   `NeighborTable` when ``sparse``; BRIDGE-T and BRIDGE-M run the CUDA
+   kernels on the card;
+4. **apply** — ``w_j <- y_j - rho(t) * grad f_j(w_j)`` with
    ``rho(t) = 1 / (lam (t0 + t))``, ``rho * g`` rounded to float32 before the
    subtract as in the reference.
+
+Every random number comes from the reference's Threefry streams
+(`repro_torch.prng`), so a seeded run follows the seeded reference run.
 
 PyTorch runs eagerly, so the reference's ``jit``/``scan`` machinery has no
 counterpart: `BridgeTrainer.run` is a Python loop over `BridgeTrainer.step`.
@@ -27,17 +35,30 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import prng
+from repro_torch.comm import codec as codec_lib
+from repro_torch.comm import exchange
 from repro_torch.core import byzantine, screening
 from repro_torch.core.graph import Topology
+from repro_torch.core.neighbors import NeighborTable
 from repro_torch.device import resolve_device
 
 Params = dict[str, torch.Tensor]
+
+# Salts decorrelating the streams folded from one tick's subkey (the
+# reference's `repro.core.bridge` constants; the port uses COMM_SALT).
+NET_SALT = 0x6E657430
+COMM_SALT = 0x636D6D30
+WIRE_SALT = 0x77697230
+ADV_SALT = 0x61647630
+TRUST_SALT = 0x74727530
 
 
 class BridgeState(NamedTuple):
     params: Params  # leaves with leading node axis [M, ...]
     t: int  # iteration counter
-    generator: torch.Generator  # the attack's random stream, on the trainer's device
+    key: np.ndarray  # Threefry key, two uint32 words (repro_torch.prng)
+    comm: exchange.CommState | None = None  # per-sender [M, d] codec carry; None for identity
 
 
 def cell_step_size(lam: float, t0: float, lr: float, t: int) -> float:
@@ -57,10 +78,14 @@ class BridgeConfig:
     rule: str = "trimmed_mean"  # trimmed_mean | median | mean
     num_byzantine: int = 0  # the bound b given to the screening rule
     attack: str = "none"
+    codec: str = "identity"  # wire codec: identity | int8 (repro_torch.comm)
     byzantine_seed: int = 0
     lam: float = 1.0
     t0: float = 50.0
     lr: float = 0.0  # if > 0, a constant step size instead
+    # neighbor-indexed [M, K] layout (repro_torch.core.neighbors): screening
+    # reads each node's K table slots instead of masking all M rows
+    sparse: bool = False
 
     def step_size(self, t: int) -> float:
         return cell_step_size(self.lam, self.t0, self.lr, t)
@@ -89,20 +114,20 @@ def stack_flatten(params: Params) -> tuple[torch.Tensor, Callable[[torch.Tensor]
 
 
 def replicate(params: Params, num_nodes: int, *, perturb: float = 0.0,
-              generator: torch.Generator | None = None) -> Params:
+              key: np.ndarray | None = None) -> Params:
     """Stack one model into ``[M, ...]`` node replicas, optionally perturbed
-    by ``perturb * N(0, 1)`` drawn from ``generator`` leaf by leaf in sorted
-    key order (the reference's order; its draws come from ``jax.random``)."""
+    by ``perturb * normal(k_i)``, one key of ``split(key, n_leaves)`` per
+    leaf in sorted key order (the reference's pytree order); ``key``
+    defaults to ``PRNGKey(0)``, as there."""
+    keys = sorted(params)
+    if perturb > 0.0:
+        leaf_keys = prng.split(prng.PRNGKey(0) if key is None else key, len(keys))
     out = {}
-    for k in sorted(params):
+    for i, k in enumerate(keys):
         leaf = params[k]
         stacked = leaf[None].expand((num_nodes, *leaf.shape)).clone()
         if perturb > 0.0:
-            if generator is None:
-                raise ValueError("replicate(perturb > 0) needs a generator")
-            noise = torch.randn(stacked.shape, generator=generator, device=stacked.device,
-                                dtype=stacked.dtype)
-            stacked = stacked + perturb * noise
+            stacked = stacked + perturb * prng.normal(leaf_keys[i], stacked.shape, stacked.device)
         out[k] = stacked
     return out
 
@@ -123,6 +148,9 @@ class BridgeTrainer:
         adj = config.topology.adjacency
         self.adjacency = torch.as_tensor(adj, dtype=torch.bool, device=self.device)
         self.n_edges = float(adj.sum())
+        self.codec = codec_lib.get_codec(config.codec)
+        self.neighbors = (NeighborTable.from_adjacency(adj, device=self.device)
+                          if config.sparse else None)
         m = config.topology.num_nodes
         nbyz = min(config.num_byzantine, m)
         if config.attack == "none" or nbyz == 0:
@@ -136,16 +164,21 @@ class BridgeTrainer:
         return ~self.byz_mask
 
     def init(self, params: Params, seed: int = 0) -> BridgeState:
-        """The state at tick 0 from stacked ``params``; the attack's
-        generator is seeded with ``seed``."""
+        """The state at tick 0 from stacked ``params``, with the key
+        ``PRNGKey(seed)`` and a zero codec carry for a lossy codec."""
         m = self.config.topology.num_nodes
         for k, leaf in params.items():
             if leaf.shape[0] != m:
                 raise ValueError(f"params[{k!r}] leading axis {leaf.shape[0]} != num_nodes {m}")
         params = {k: v.to(self.device) for k, v in params.items()}
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        return BridgeState(params=params, t=0, generator=gen)
+        return BridgeState(params=params, t=0, key=prng.PRNGKey(seed),
+                           comm=self.init_comm(params))
+
+    def init_comm(self, params: Params) -> exchange.CommState | None:
+        """The codec carry at tick 0: zero ``[M, d]`` estimate and residual,
+        or None for a lossless codec."""
+        w, _ = stack_flatten(params)
+        return exchange.init_residual(tuple(w.shape), self.codec, device=self.device)
 
     def step(self, state: BridgeState, batch: Any) -> tuple[BridgeState, dict]:
         """One tick.  The metrics are 0-d tensors on the device (reading one
@@ -153,37 +186,59 @@ class BridgeTrainer:
         cfg = self.config
         w, unflatten = stack_flatten(state.params)
         d = w.shape[1]
+        keys = prng.split(state.key)
+        key, sub = keys[0], keys[1]
         # (Steps 3-4) broadcast with Byzantine substitution
         with torch.profiler.record_function("bridge.attack"):
-            w_bcast = self.attack(w, self.byz_mask, state.generator, state.t)
-        # (Step 5) screening at every node; self is the node's own broadcast
+            w_bcast = self.attack(w, self.byz_mask, sub, state.t)
+        # wire codec: what receivers decode (identity: w_bcast itself)
+        with torch.profiler.record_function("bridge.codec"):
+            w_hat, comm = self._wire_roundtrip(sub, w_bcast, state.comm)
+        # (Step 5) screening at every node; self is the node's own broadcast,
+        # which never travels the wire
         with torch.profiler.record_function("bridge.screen"):
-            y = screening.screen_all(w_bcast, self.adjacency, rule=cfg.rule,
-                                     b=cfg.num_byzantine, self_vals=w_bcast)
+            if self.neighbors is not None:
+                y = screening.screen_gathered(w_hat, self.neighbors, rule=cfg.rule,
+                                              b=cfg.num_byzantine, self_vals=w_bcast)
+            else:
+                y = screening.screen_all(w_hat, self.adjacency, rule=cfg.rule,
+                                         b=cfg.num_byzantine, self_vals=w_bcast)
         # (Step 6) local gradient step at w_j(t)
         with torch.profiler.record_function("bridge.apply"):
             losses, grads = self.grad_fn(state.params, batch)
             g, _ = stack_flatten(grads)
             rho = cfg.step_size(state.t)
             w_new = y - rho * g
-            metrics = self._metrics(w_new, losses, rho, d)
-        return BridgeState(unflatten(w_new), state.t + 1, state.generator), metrics
+            metrics = self._metrics(w_new, losses, rho, d, comm)
+        return BridgeState(unflatten(w_new), state.t + 1, key, comm), metrics
 
-    def _metrics(self, w_new: torch.Tensor, losses: torch.Tensor, rho: float, d: int) -> dict:
-        """The reference's diagnostics over honest nodes, plus the identity
-        codec's wire accounting (32 bits per coordinate, no residual)."""
+    def _wire_roundtrip(self, sub: np.ndarray, x: torch.Tensor, comm):
+        """Encode -> decode with error feedback, per sender.  A lossless
+        codec skips the wire entirely (no ``+ 0.0`` anywhere), so the
+        identity path is exactly the uncompressed trainer."""
+        if self.codec.lossless:
+            return x, comm
+        comm_key = prng.fold_in(sub, COMM_SALT)
+        msg, target = exchange.encode(self.codec, comm_key, x, comm)
+        return exchange.decode(self.codec, msg, target, comm)
+
+    def _metrics(self, w_new: torch.Tensor, losses: torch.Tensor, rho: float, d: int,
+                 comm) -> dict:
+        """The reference's diagnostics over honest nodes, plus the codec's
+        wire accounting over the live edges and its residual norm."""
         hm = self.honest_mask
         cnt = torch.sum(hm).to(torch.float32)
         mu = torch.sum(torch.where(hm[:, None], w_new, 0.0), dim=0) / cnt
         dev = torch.where(hm[:, None], w_new - mu[None, :], 0.0)
-        bits = float(32 * d)
+        bits = float(self.codec.wire_bits(d))
+        resid = 0.0 if comm is None else torch.sqrt(torch.sum(comm.resid * comm.resid))
         return {
             "loss": torch.sum(torch.where(hm, losses, 0.0)) / cnt,
             "consensus_dist": torch.sqrt(torch.max(torch.sum(dev * dev, dim=1))),
             "rho": rho,
             "wire_bits_per_edge": bits,
             "wire_bytes_total": bits / 8.0 * self.n_edges,
-            "ef_residual_norm": 0.0,
+            "ef_residual_norm": resid,
         }
 
     def run(self, state: BridgeState, batch_fn: Callable[[int], Any], num_steps: int,

@@ -4,12 +4,12 @@ of `repro.core.byzantine`: ``none``, ``random``, ``sign_flip``,
 
 An attack substitutes the broadcast rows of ``w [M, d]`` for the nodes in
 ``byz_mask [M]``; the Byzantine node's own state keeps evolving normally.
-Every attack has the signature ``fn(w, byz_mask, generator, t)``.
+Every attack has the signature ``fn(w, byz_mask, key, t)``, ``key`` being
+the tick's subkey (`repro_torch.prng`, two uint32 words).
 
-``random`` draws its noise from a ``torch.Generator`` on ``w``'s device;
-the reference draws ``jax.random.normal(fold_in(key, t))``, whose numbers
-differ.  `random_body` takes the noise tensor itself, so a test can feed it
-the reference's draw and compare exactly.
+``random`` draws ``10 * normal(fold_in(key, t), [M, d])`` on ``w``'s
+device, the reference's draw (`repro_torch.prng.normal`); `random_body`
+takes the noise tensor itself.
 """
 from __future__ import annotations
 
@@ -19,17 +19,19 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
+from repro_torch import prng
+
 
 @dataclasses.dataclass(frozen=True)
 class Attack:
     name: str
-    fn: Callable  # (w [M,d], byz_mask [M], generator, t) -> w_broadcast [M,d]
+    fn: Callable  # (w [M,d], byz_mask [M], key, t) -> w_broadcast [M,d]
 
-    def __call__(self, w, byz_mask, generator, t):
-        return self.fn(w, byz_mask, generator, t)
+    def __call__(self, w, byz_mask, key, t):
+        return self.fn(w, byz_mask, key, t)
 
 
-def _none(w, byz_mask, generator, t):
+def _none(w, byz_mask, key, t):
     return w
 
 
@@ -43,17 +45,16 @@ def random_body(w: torch.Tensor, byz_mask: torch.Tensor, noise: torch.Tensor,
     return torch.where(byz_mask[:, None], scale * noise, w)
 
 
-def _random_gaussian(w, byz_mask, generator, t):
-    noise = torch.randn(w.shape, generator=generator, device=w.device, dtype=w.dtype)
-    return random_body(w, byz_mask, noise)
+def _random_gaussian(w, byz_mask, key, t):
+    return random_body(w, byz_mask, prng.normal(prng.fold_in(key, t), w.shape, w.device))
 
 
-def _sign_flip(w, byz_mask, generator, t, scale: float = 4.0):
+def _sign_flip(w, byz_mask, key, t, scale: float = 4.0):
     """Broadcast the negated (scaled) true iterate."""
     return torch.where(byz_mask[:, None], -scale * w, w)
 
 
-def _same_value(w, byz_mask, generator, t, value: float = 100.0):
+def _same_value(w, byz_mask, key, t, value: float = 100.0):
     """All Byzantine nodes collude on one large constant vector."""
     return torch.where(byz_mask[:, None], torch.full_like(w, value), w)
 
@@ -63,7 +64,7 @@ def _honest_mean(w, honest):
     return torch.sum(torch.where(honest[:, None], w, 0.0), dim=0) / cnt, cnt
 
 
-def _alie(w, byz_mask, generator, t, z: float = 1.5):
+def _alie(w, byz_mask, key, t, z: float = 1.5):
     """'A Little Is Enough': collude on mean + z*std of the honest iterates."""
     honest = ~byz_mask
     mu, cnt = _honest_mean(w, honest)
@@ -72,7 +73,7 @@ def _alie(w, byz_mask, generator, t, z: float = 1.5):
     return torch.where(byz_mask[:, None], crafted[None, :], w)
 
 
-def _shift(w, byz_mask, generator, t, delta: float = 5.0):
+def _shift(w, byz_mask, key, t, delta: float = 5.0):
     """Coordinated constant shift of the honest mean."""
     mu, _ = _honest_mean(w, ~byz_mask)
     return torch.where(byz_mask[:, None], (mu + delta)[None, :], w)

@@ -1,6 +1,6 @@
 """Communication graphs for decentralized learning — port of
 `repro.core.graph` (``Topology``, ``erdos_renyi``, ``complete_graph``,
-``check_assumption4``).
+``small_world``, ``check_assumption4``).
 
 Pure numpy, as in the reference, and draw-for-draw identical to it: the
 same seed gives the same graph (``tests/test_torch_data_graph.py`` pins this
@@ -111,6 +111,58 @@ def erdos_renyi(
 def complete_graph(num_nodes: int, num_byzantine: int) -> Topology:
     adj = ~np.eye(num_nodes, dtype=bool)
     return Topology(adjacency=adj, num_byzantine=num_byzantine)
+
+
+def small_world(
+    num_nodes: int,
+    nearest: int,
+    num_byzantine: int,
+    *,
+    rewire_prob: float = 0.2,
+    seed: int = 0,
+    max_degree: int | None = None,
+) -> Topology:
+    """Watts-Strogatz small world, the graph of the sparse layout's scale
+    runs: a ring lattice where every node links its ``nearest`` neighbors
+    on each side, each edge's far endpoint rewired to a uniform node with
+    probability ``rewire_prob``.  Edges stay bidirectional; a rewire must
+    keep the old endpoint above the Table-II floor ``2b + 1`` and the new
+    one below the degree cap ``max_degree`` (default ``2 * nearest + 4``),
+    so ``K = max in-degree`` is bounded.  Consumes
+    ``np.random.default_rng(seed)`` in the reference's order."""
+    m, k = num_nodes, nearest
+    if not 1 <= k < m // 2:
+        raise ValueError(f"need 1 <= nearest < num_nodes/2, got {k} vs {m}")
+    need = 2 * num_byzantine + 1
+    if 2 * k < need:
+        raise ValueError(
+            f"small_world(nearest={k}) has min degree {2 * k} < 2b+1 = {need}")
+    cap = max_degree if max_degree is not None else 2 * k + 4
+    if cap < 2 * k:
+        raise ValueError(f"max_degree={cap} below the lattice degree {2 * k}")
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((m, m), dtype=bool)
+    for j in range(m):
+        for off in range(1, k + 1):
+            adj[j, (j + off) % m] = True
+    adj = adj | adj.T
+    deg = adj.sum(axis=1)
+    for j in range(m):
+        for off in range(1, k + 1):
+            if rng.random() < rewire_prob:
+                tgt = (j + off) % m
+                cand = int(rng.integers(m))
+                if (cand != j and not adj[j, cand] and adj[j, tgt]
+                        and deg[tgt] > need and deg[cand] < cap and deg[j] <= cap):
+                    adj[j, tgt] = adj[tgt, j] = False
+                    adj[j, cand] = adj[cand, j] = True
+                    deg[tgt] -= 1
+                    deg[cand] += 1
+    np.fill_diagonal(adj, False)
+    topo = Topology(adjacency=adj, num_byzantine=num_byzantine)
+    if topo.min_in_degree < need:
+        raise RuntimeError("small_world: a rewire broke the 2b+1 degree floor")
+    return topo
 
 
 def _has_source_component(adj: np.ndarray, min_size: int) -> bool:

@@ -1,4 +1,5 @@
-"""Hand-written CUDA screening kernels and their plain PyTorch versions.
+"""Hand-written CUDA kernels (screening, int8 decode) and their plain
+PyTorch versions.
 
 Nothing here compiles on import: `build` runs ``nvcc`` at the first launch.
 """

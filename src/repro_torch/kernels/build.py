@@ -1,16 +1,18 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles the sources for ``sm_90a`` into a shared library with a
+``nvcc`` compiles each source for ``sm_90a`` into an object, all sources at
+once in parallel, and links the objects into one shared library with a
 plain C interface, which ``ctypes`` loads; nothing includes PyTorch's
-headers, so a build takes seconds.  The build happens at first use, never on
-import, into ``build/repro_torch/`` at the repository root (listed in
-``.gitignore``), under a file name keyed on a hash of the sources: an edit
-to a source builds a new library, an unchanged tree reuses the last one.
+headers, so a build takes seconds.  The build happens at first use, never
+on import, into ``build/repro_torch/`` at the repository root (listed in
+``.gitignore``), under a file name keyed on a hash of every source and
+header in ``csrc/``: an edit to one builds a new library, an unchanged tree
+reuses the last one.
 
-No ``--use_fast_math``: the kernels rely on IEEE adds, division and
-multiplication to equal their plain PyTorch versions bit for bit.
-``-Xptxas -v`` writes each kernel's registers and spills next to the
-library (`ptxas_report`).
+No ``--use_fast_math``: the kernels rely on IEEE adds, division,
+multiplication and fused multiply-adds to equal their plain PyTorch
+versions bit for bit.  ``-Xptxas -v`` writes each kernel's registers and
+spills next to the library (`ptxas_report`).
 """
 from __future__ import annotations
 
@@ -26,9 +28,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("screen.cu",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
@@ -36,7 +37,16 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "screen_trimmed_mean_dense": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
     "screen_median_dense": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR),
+    "gather_screen_trimmed_mean": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
+    "gather_screen_median": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
+    "dequant": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
+    "dequant_carry": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
 }
+
+
+def sources() -> list[Path]:
+    """The kernel sources, one object each."""
+    return sorted(CSRC.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -52,9 +62,9 @@ def _nvcc() -> str:
 def source_hash() -> str:
     """Hash of the sources and flags, read once per process."""
     h = hashlib.sha256()
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -70,17 +80,37 @@ def build() -> float:
     if lib.exists():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
+    stem = lib.with_suffix(f".{os.getpid()}")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    lib.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
+    jobs = []
+    for src in sources():
+        obj = stem.with_name(f"{stem.name}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((cmd, obj, proc))
+    report, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        report.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    objs = [str(obj) for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = stem.with_name(f"{stem.name}.so.tmp")
+        link = [nvcc, "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(link, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+    finally:
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
+    lib.with_suffix(".ptxas.txt").write_text("".join(report))
     os.replace(tmp, lib)
-    return seconds
+    return time.perf_counter() - t0
 
 
 def ptxas_report() -> str:
@@ -107,20 +137,34 @@ def check_launch(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
 
-def check_screen_args(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor) -> None:
-    """Validate the dense screening operands: float32 contiguous ``w`` and
-    ``self_vals`` of one shape ``[M, d]``, a contiguous bool/uint8 ``[M, M]``
-    mask, all on one device."""
+def check_rows(w: torch.Tensor, self_vals: torch.Tensor) -> None:
+    """Validate the screened values: float32 contiguous ``w`` and
+    ``self_vals`` of one shape ``[M, d]`` on one device."""
     if w.dtype != torch.float32 or self_vals.dtype != torch.float32:
         raise TypeError(f"screening takes float32, got w {w.dtype}, self_vals {self_vals.dtype}")
-    if adj.dtype not in (torch.bool, torch.uint8):
-        raise TypeError(f"adjacency must be bool or uint8, got {adj.dtype}")
     if w.ndim != 2 or self_vals.shape != w.shape:
         raise ValueError(f"w {tuple(w.shape)} and self_vals {tuple(self_vals.shape)} must be one [M, d]")
+    if not (w.is_contiguous() and self_vals.is_contiguous()):
+        raise ValueError("screening operands must be contiguous")
+    if w.device != self_vals.device:
+        raise ValueError(f"operands on different devices: {w.device}, {self_vals.device}")
+
+
+def check_screen_args(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor) -> None:
+    """Validate the dense screening operands: `check_rows`, and a
+    contiguous bool/uint8 ``[M, M]`` mask on the same device."""
+    check_rows(w, self_vals)
+    if adj.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"adjacency must be bool or uint8, got {adj.dtype}")
     m = w.shape[0]
     if adj.shape != (m, m):
         raise ValueError(f"adjacency {tuple(adj.shape)} must be [{m}, {m}]")
-    if not (w.is_contiguous() and adj.is_contiguous() and self_vals.is_contiguous()):
+    if not adj.is_contiguous():
         raise ValueError("screening operands must be contiguous")
-    if not (w.device == adj.device == self_vals.device):
-        raise ValueError(f"operands on different devices: {w.device}, {adj.device}, {self_vals.device}")
+    if adj.device != w.device:
+        raise ValueError(f"operands on different devices: {w.device}, {adj.device}")
+
+
+def stream_of(x: torch.Tensor) -> int:
+    """The current CUDA stream of ``x``'s device, as the C entry points take it."""
+    return torch.cuda.current_stream(x.device).cuda_stream

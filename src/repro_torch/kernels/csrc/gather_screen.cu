@@ -1,0 +1,164 @@
+// Sparse-layout coordinate-wise screening kernels for Hopper (sm_90a).
+//
+// gather_screen_trimmed_mean and gather_screen_median replace the TPU kernel
+//   src/repro/kernels/gather_screen.py::gather_screen_pallas (rule=trimmed_mean|median)
+//
+// What they compute.  Node j's in-neighbors are the slots of row j of a
+// static [M, K] table: safe_idx[j, k] names a row of the broadcast w [M, d]
+// and valid[j, k] marks the slot real (padded slots hold a clamped index and
+// are +inf sentinels).  Every node screens its K gathered rows and writes
+// out[j, :], with the numerics of the rules the reference trainer runs
+// (src/repro/core/screening.py through screen_views_banked), the same as
+// screen.cu: NaN payloads become +inf, each column is sorted ascending, the
+// trimmed mean sums ranks [b_eff, count - b_eff) left to right, adds the
+// node's own value and divides (IEEE); the median joins the node's own
+// (sanitized) value and averages the two middle order statistics.  Up to 64
+// sorted rows (K <= 63, so K + 1 rows for the median) that is the
+// reference's order exactly.
+//
+// Design.  One block per (node j, 128 coordinates), one thread per
+// coordinate.  The block loads row j of safe_idx and valid into shared
+// memory once (one slot per thread) and counts the valid slots at the same
+// barrier; each thread then gathers its K values straight from w (the warp
+// reads 32 neighbouring floats of one row, coalesced), so neither [M, M, d]
+// nor [M, K, d] is formed.  The column sits in a register array of N_PAD in
+// {16, 32, 64} entries and is sorted by the bitonic network of
+// screen_sort.cuh, shared with screen.cu.
+//
+// What bounds it on an H100.  Bytes: the sparse layout's point is that K is
+// small, so the work per byte is low.  At M = 512, K = 16, d = 7850 the
+// function reads w (16.1 MB, which L2 holds, so the K-fold re-reads stay on
+// chip) and self_vals and writes the output: about 48 MB, 0.014 ms at
+// 3.35 TB/s.  Operations: Batcher over 16-17 rows is 63-80 compare-exchanges
+// per column per node, about 0.008 ms at 67 TFLOP/s.  So this kernel is
+// bounded by bytes, unlike the dense ones; the padded network (N_PAD = 16 or
+// 32 here) does more operations than Batcher's, but stays under the bytes.
+
+#include <stdint.h>
+
+#include "screen_sort.cuh"
+
+namespace {
+
+using screen::kThreads;
+constexpr int kMaxSlots = 64;  // largest N_PAD instantiated
+
+// Threads k < K load slot k of node j's table row into shared memory; the
+// barrier returns the number of valid slots to every thread.
+__device__ __forceinline__ int load_slots(const int32_t* __restrict__ idx,
+                                          const uint8_t* __restrict__ valid, int m, int k, int j,
+                                          int* s_idx, uint8_t* s_valid) {
+  const int t = threadIdx.x;
+  bool live = false;
+  if (t < k) {
+    const size_t at = static_cast<size_t>(j) * k + t;
+    s_idx[t] = min(max(idx[at], 0), m - 1);
+    live = valid[at] != 0;
+    s_valid[t] = live;
+  }
+  return __syncthreads_count(live);
+}
+
+// The column of coordinate c over node j's slots, sanitized, +inf where a
+// slot is padded or beyond K.
+template <int N>
+__device__ __forceinline__ void gather_column(float (&v)[N], const float* __restrict__ w,
+                                              const int* s_idx, const uint8_t* s_valid, int k,
+                                              int d, int c) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    v[i] = CUDART_INF_F;
+    if (i < k && s_valid[i]) v[i] = screen::sanitize(w[static_cast<size_t>(s_idx[i]) * d + c]);
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+gather_trimmed_mean_kernel(const float* __restrict__ w, const int32_t* __restrict__ idx,
+                           const uint8_t* __restrict__ valid, const float* __restrict__ self_vals,
+                           float* __restrict__ out, int m, int k, int d, int b) {
+  __shared__ int s_idx[kMaxSlots];
+  __shared__ uint8_t s_valid[kMaxSlots];
+  const int j = blockIdx.y;
+  const int count = load_slots(idx, valid, m, k, j, s_idx, s_valid);
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= d) return;
+  float v[N];
+  gather_column<N>(v, w, s_idx, s_valid, k, d, c);
+  screen::bitonic_sort<N>(v);
+  const size_t at = static_cast<size_t>(j) * d + c;
+  out[at] = screen::trimmed_mean_sorted<N>(v, count, b, self_vals[at]);
+}
+
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+gather_median_kernel(const float* __restrict__ w, const int32_t* __restrict__ idx,
+                     const uint8_t* __restrict__ valid, const float* __restrict__ self_vals,
+                     float* __restrict__ out, int m, int k, int d) {
+  __shared__ int s_idx[kMaxSlots];
+  __shared__ uint8_t s_valid[kMaxSlots];
+  const int j = blockIdx.y;
+  const int count = load_slots(idx, valid, m, k, j, s_idx, s_valid);
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= d) return;
+  float v[N];
+  gather_column<N>(v, w, s_idx, s_valid, k, d, c);
+  const size_t at = static_cast<size_t>(j) * d + c;
+  // the node's own value takes the slot after the K table slots (the sort
+  // makes the position irrelevant)
+  const float own = screen::sanitize(self_vals[at]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (i == k) v[i] = own;
+  }
+  screen::bitonic_sort<N>(v);
+  out[at] = screen::median_sorted<N>(v, count + 1);
+}
+
+template <int N>
+cudaError_t launch_trimmed_mean(const float* w, const int32_t* idx, const uint8_t* valid,
+                                const float* self_vals, float* out, int m, int k, int d, int b,
+                                cudaStream_t stream) {
+  const dim3 grid((d + kThreads - 1) / kThreads, m);
+  gather_trimmed_mean_kernel<N><<<grid, kThreads, 0, stream>>>(w, idx, valid, self_vals, out, m,
+                                                               k, d, b);
+  return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t launch_median(const float* w, const int32_t* idx, const uint8_t* valid,
+                          const float* self_vals, float* out, int m, int k, int d,
+                          cudaStream_t stream) {
+  const dim3 grid((d + kThreads - 1) / kThreads, m);
+  gather_median_kernel<N><<<grid, kThreads, 0, stream>>>(w, idx, valid, self_vals, out, m, k, d);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry points (bound with ctypes).  Each returns cudaGetLastError() after
+// its launch (cudaErrorInvalidValue for a shape it does not take); the
+// caller raises on anything but cudaSuccess.  Rows to sort: K for the
+// trimmed mean, K + 1 for the median; at most kMaxSlots.
+extern "C" int gather_screen_trimmed_mean(const float* w, const int32_t* idx,
+                                          const uint8_t* valid, const float* self_vals,
+                                          float* out, int m, int k, int d, int b, void* stream) {
+  if (m < 1 || d < 1 || k < 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k <= 16) return launch_trimmed_mean<16>(w, idx, valid, self_vals, out, m, k, d, b, s);
+  if (k <= 32) return launch_trimmed_mean<32>(w, idx, valid, self_vals, out, m, k, d, b, s);
+  if (k <= 64) return launch_trimmed_mean<64>(w, idx, valid, self_vals, out, m, k, d, b, s);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int gather_screen_median(const float* w, const int32_t* idx, const uint8_t* valid,
+                                    const float* self_vals, float* out, int m, int k, int d,
+                                    void* stream) {
+  if (m < 1 || d < 1 || k < 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = k + 1;
+  if (rows <= 16) return launch_median<16>(w, idx, valid, self_vals, out, m, k, d, s);
+  if (rows <= 32) return launch_median<32>(w, idx, valid, self_vals, out, m, k, d, s);
+  if (rows <= 64) return launch_median<64>(w, idx, valid, self_vals, out, m, k, d, s);
+  return cudaErrorInvalidValue;
+}

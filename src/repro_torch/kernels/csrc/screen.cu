@@ -20,7 +20,8 @@
 // Up to 64 rows that order is the reference's exactly (its sequential
 // sum_rows), so the output equals it bit for bit up to the sign of a zero.
 // Intrinsics (__fadd_rn, __fdiv_rn, __fmul_rn) keep the compiler from
-// contracting or approximating any step.
+// contracting or approximating any step.  The sort network and the two
+// reductions live in screen_sort.cuh, shared with gather_screen.cu.
 //
 // Design.  The TPU kernel tiled [n, 512] blocks of a pre-gathered
 // [E, n, d] tensor and extracted extremes with masked max/min passes.  Here
@@ -43,44 +44,14 @@
 // (M = 50, d = 7850) the operation bound is the larger; the kernel is
 // simple first and leaves padding-aware networks for later work.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
+
+#include "screen_sort.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // coordinates per block
+using screen::kThreads;
 constexpr int kMaxRows = 128;  // largest N_PAD instantiated
-
-__device__ __forceinline__ float sanitize(float x) {
-  return isnan(x) ? CUDART_INF_F : x;
-}
-
-// Ascending bitonic sort of v[0..N) (N a power of two), fully unrolled.
-template <int N>
-__device__ __forceinline__ void bitonic_sort(float (&v)[N]) {
-#pragma unroll
-  for (int k = 2; k <= N; k <<= 1) {
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1) {
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const int l = i ^ j;
-        if (l > i) {
-          const float lo = fminf(v[i], v[l]);
-          const float hi = fmaxf(v[i], v[l]);
-          if ((i & k) == 0) {
-            v[i] = lo;
-            v[l] = hi;
-          } else {
-            v[i] = hi;
-            v[l] = lo;
-          }
-        }
-      }
-    }
-  }
-}
 
 // Thread 0 compacts node j's in-neighbor row into s_nbr and stores the
 // count; every thread returns after the barrier.
@@ -114,20 +85,11 @@ trimmed_mean_dense_kernel(const float* __restrict__ w, const uint8_t* __restrict
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     v[i] = CUDART_INF_F;
-    if (i < count) v[i] = sanitize(w[static_cast<size_t>(s_nbr[i]) * d + k]);
+    if (i < count) v[i] = screen::sanitize(w[static_cast<size_t>(s_nbr[i]) * d + k]);
   }
-  bitonic_sort<N>(v);
-
-  const int widest = count > 0 ? (count - 1) / 2 : 0;
-  const int b_eff = min(max(b, 0), widest);
-  float total = 0.0f;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    if (i >= b_eff && i < count - b_eff) total = __fadd_rn(total, v[i]);
-  }
+  screen::bitonic_sort<N>(v);
   const size_t at = static_cast<size_t>(j) * d + k;
-  total = __fadd_rn(total, self_vals[at]);
-  out[at] = __fdiv_rn(total, static_cast<float>(count - 2 * b_eff + 1));
+  out[at] = screen::trimmed_mean_sorted<N>(v, count, b, self_vals[at]);
 }
 
 template <int N>
@@ -142,26 +104,16 @@ median_dense_kernel(const float* __restrict__ w, const uint8_t* __restrict__ adj
   if (k >= d) return;
   const int count = s_count;
   const size_t at = static_cast<size_t>(j) * d + k;
-  const float own = sanitize(self_vals[at]);
+  const float own = screen::sanitize(self_vals[at]);
 
   float v[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     v[i] = i == count ? own : CUDART_INF_F;
-    if (i < count) v[i] = sanitize(w[static_cast<size_t>(s_nbr[i]) * d + k]);
+    if (i < count) v[i] = screen::sanitize(w[static_cast<size_t>(s_nbr[i]) * d + k]);
   }
-  bitonic_sort<N>(v);
-
-  const int rows = count + 1;
-  const int lo = (rows - 1) / 2;
-  const int hi = rows / 2;
-  float a = 0.0f, c = 0.0f;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    if (i == lo) a = v[i];
-    if (i == hi) c = v[i];
-  }
-  out[at] = __fmul_rn(0.5f, __fadd_rn(a, c));
+  screen::bitonic_sort<N>(v);
+  out[at] = screen::median_sorted<N>(v, count + 1);
 }
 
 template <int N>

@@ -31,9 +31,8 @@ def median_dense(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor) ->
         raise ValueError(f"median kernel sorts at most {MAX_ROWS} rows (M + 1), got M={m}")
     out = torch.empty_like(w)
     lib = build.load()
-    stream = torch.cuda.current_stream(w.device).cuda_stream
     err = lib.screen_median_dense(w.data_ptr(), adj.data_ptr(), self_vals.data_ptr(),
-                                  out.data_ptr(), m, d, stream)
+                                  out.data_ptr(), m, d, build.stream_of(w))
     build.check_launch(err, "screen_median_dense")
     median_dense.launches += 1
     return out

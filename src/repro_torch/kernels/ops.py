@@ -1,18 +1,20 @@
-"""Public entry points of the screening kernels, named like
-`repro.kernels.ops`.  Each runs under a ``torch.profiler.record_function``
-range (``kernels.<name>``), the counterpart of the reference's
+"""Public entry points of the kernels, named like `repro.kernels.ops`.
+Each runs under a ``torch.profiler.record_function`` range
+(``kernels.<name>``), the counterpart of the reference's
 ``jax.named_scope``, so a profiler trace attributes the time to the rule.
 
 Where the reference takes pre-gathered ``[E?, n, d]`` values, these take the
-dense main path's operands: the shared broadcast ``w [M, d]``, the
-``[M, M]`` in-neighbor mask and ``self_vals [M, d]``.  The device of ``w``
-picks the implementation: the CUDA kernel on a card, its plain PyTorch
-version on the CPU.
+main path's operands: the shared broadcast ``w [M, d]``, the ``[M, M]``
+in-neighbor mask or the ``[M, K]`` neighbor table, and ``self_vals [M, d]``.
+The device of ``w`` picks the implementation: the CUDA kernel on a card,
+its plain PyTorch version on the CPU.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import dequant as _dequant
+from repro_torch.kernels.gather_screen import gather_screen_median, gather_screen_trimmed_mean
 from repro_torch.kernels.median import median_dense
 from repro_torch.kernels.trimmed_mean import trimmed_mean_dense
 
@@ -25,3 +27,26 @@ def trimmed_mean(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor, b:
 def median(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor) -> torch.Tensor:
     with torch.profiler.record_function("kernels.median"):
         return median_dense(w, adj, self_vals)
+
+
+def gather_trimmed_mean(w: torch.Tensor, safe_idx: torch.Tensor, valid: torch.Tensor,
+                        self_vals: torch.Tensor, b: int) -> torch.Tensor:
+    with torch.profiler.record_function("kernels.gather_trimmed_mean"):
+        return gather_screen_trimmed_mean(w, safe_idx, valid, self_vals, b)
+
+
+def gather_median(w: torch.Tensor, safe_idx: torch.Tensor, valid: torch.Tensor,
+                  self_vals: torch.Tensor) -> torch.Tensor:
+    with torch.profiler.record_function("kernels.gather_median"):
+        return gather_screen_median(w, safe_idx, valid, self_vals)
+
+
+def dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    with torch.profiler.record_function("kernels.dequant"):
+        return _dequant.dequant(q, scale)
+
+
+def dequant_carry(q: torch.Tensor, scale: torch.Tensor, est: torch.Tensor,
+                  target: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    with torch.profiler.record_function("kernels.dequant"):
+        return _dequant.dequant_carry(q, scale, est, target)

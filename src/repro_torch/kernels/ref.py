@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the screening kernels.
+"""Plain PyTorch versions of the kernels.
 
-These carry the numerics of the rules the reference trainer runs
-(`repro.core.screening.trimmed_mean` / ``coordinate_median`` reached through
-``screen_all_banked``), operation for operation:
+The screening functions carry the numerics of the rules the reference
+trainer runs (`repro.core.screening.trimmed_mean` / ``coordinate_median``
+reached through ``screen_all_banked`` or ``screen_views_banked``),
+operation for operation:
 
 * NaN payloads become ``+inf`` (``_sanitize``); masked rows are ``+inf``
   sentinels, so they sort past every finite value;
@@ -17,12 +18,18 @@ These carry the numerics of the rules the reference trainer runs
   ``count - 2 b_eff + 1`` — a true division: the reference's program divides
   whenever the divisor is a run-time value, as it is in its trainer.
 
-Unlike the reference, which screens one node's ``[n, d]`` rows at a time,
-every function here takes the shared broadcast ``w [M, d]``, the ``[M, M]``
-in-neighbor mask (``adj[j, i]``: i sends to j) and ``self_vals [M, d]``, and
-returns ``[M, d]``.  They build the ``[M, M, d]`` masked tensor the kernels
-never form; they are the CPU path and the kernels' yardstick for equality,
-not a fast path.
+Each rule is written once over rows ``[M or 1, n, d]`` and an ``[M, n]``
+mask, and reached three ways: the dense layout (the shared broadcast
+``w [M, d]`` and the ``[M, M]`` in-neighbor mask, ``adj[j, i]``: i sends to
+j), pre-gathered views ``[M, K, d]`` with their ``[M, K]`` mask, and the
+sparse layout (``w`` gathered through a ``[M, K]`` index table, padded
+slots masked).  These build the ``[M, n, d]`` tensors the kernels never
+form; they are the CPU path and the kernels' yardstick for equality, not a
+fast path.
+
+The int8 decode (`dequant`, `dequant_carry`) is that of the reference's
+codec (`repro.comm.codec.apply_scales`, `repro.comm.exchange.decode_bank`);
+`fma_f32` gives it the single rounding XLA's fused multiply-add has.
 """
 from __future__ import annotations
 
@@ -32,6 +39,9 @@ import torch
 # (`repro.core.screening.sum_rows`, ``sort_rows``): above it, sums go through
 # a reduction tree whose order nothing else reproduces.
 MAX_EXACT_ROWS = 64
+# Coordinates per (scale, zero) pair of an int8 codeword (the reference's
+# `repro.comm.codec.SCALE_BLOCK`).
+SCALE_BLOCK = 128
 
 
 def sanitize(x: torch.Tensor) -> torch.Tensor:
@@ -57,35 +67,120 @@ def sum_rows(x: torch.Tensor, dim: int) -> torch.Tensor:
     return total
 
 
-def _masked_rows(w: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
-    """``[M(receiver), M(sender), d]``: sanitized rows, +inf where masked."""
-    return torch.where(adj.bool()[:, :, None], sanitize(w)[None], torch.inf)
+def trimmed_mean_views(rows: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
+                       b: int) -> torch.Tensor:
+    """BRIDGE-T (Eqs. 7-10) at every node over its views ``rows [M, n, d]``
+    (or one ``[1, n, d]`` shared by all) under ``mask [M, n]``: drop the
+    ``b_eff`` smallest and largest values per coordinate, add the node's own
+    (unsanitized) value, divide by ``count - 2 b_eff + 1``."""
+    mask = mask.bool()
+    n = mask.shape[1]
+    count = mask.sum(dim=1)
+    b_eff = effective_trim(b, count)
+    order = torch.sort(torch.where(mask[:, :, None], sanitize(rows), torch.inf), dim=1).values
+    idx = torch.arange(n, device=rows.device)[None, :, None]
+    keep = (idx >= b_eff[:, None, None]) & (idx < (count - b_eff)[:, None, None])
+    total = sum_rows(torch.where(keep, order, 0.0), dim=1) + self_vals
+    den = (count - 2 * b_eff + 1).to(rows.dtype)
+    return total / den[:, None]
+
+
+def median_views(rows: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor) -> torch.Tensor:
+    """BRIDGE-M (Eq. 11) at every node: the coordinate-wise median over its
+    masked views (as in `trimmed_mean_views`) and itself (self joins
+    sanitized); an even count averages the two middle order statistics."""
+    mask = mask.bool()
+    masked = torch.where(mask[:, :, None], sanitize(rows), torch.inf)
+    order = torch.sort(torch.cat([masked, sanitize(self_vals)[:, None, :]], dim=1), dim=1).values
+    count = mask.sum(dim=1) + 1
+    d = self_vals.shape[1]
+    lo = torch.div(count - 1, 2, rounding_mode="floor")[:, None, None].expand(-1, 1, d)
+    hi = torch.div(count, 2, rounding_mode="floor")[:, None, None].expand(-1, 1, d)
+    return 0.5 * (order.gather(1, lo)[:, 0] + order.gather(1, hi)[:, 0])
 
 
 def trimmed_mean_dense(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor,
                        b: int) -> torch.Tensor:
-    """BRIDGE-T (Eqs. 7-10) at every node: drop the ``b_eff`` smallest and
-    largest neighbor values per coordinate, add the node's own (unsanitized)
-    value, divide by ``count - 2 b_eff + 1``."""
-    m = w.shape[0]
-    count = adj.bool().sum(dim=1)
-    b_eff = effective_trim(b, count)
-    order = torch.sort(_masked_rows(w, adj), dim=1).values
-    idx = torch.arange(m, device=w.device)[None, :, None]
-    keep = (idx >= b_eff[:, None, None]) & (idx < (count - b_eff)[:, None, None])
-    total = sum_rows(torch.where(keep, order, 0.0), dim=1) + self_vals
-    den = (count - 2 * b_eff + 1).to(w.dtype)
-    return total / den[:, None]
+    """`trimmed_mean_views` at every node over the broadcast ``w [M, d]``
+    under the in-neighbor mask ``adj [M, M]``."""
+    return trimmed_mean_views(w[None], adj, self_vals, b)
 
 
 def median_dense(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor) -> torch.Tensor:
-    """BRIDGE-M (Eq. 11) at every node: the coordinate-wise median over the
-    in-neighbors and the node itself (self joins sanitized); an even count
-    averages the two middle order statistics."""
-    rows = torch.cat([_masked_rows(w, adj), sanitize(self_vals)[:, None, :]], dim=1)
-    order = torch.sort(rows, dim=1).values
-    count = adj.bool().sum(dim=1) + 1
-    d = w.shape[1]
-    lo = torch.div(count - 1, 2, rounding_mode="floor")[:, None, None].expand(-1, 1, d)
-    hi = torch.div(count, 2, rounding_mode="floor")[:, None, None].expand(-1, 1, d)
-    return 0.5 * (order.gather(1, lo)[:, 0] + order.gather(1, hi)[:, 0])
+    """`median_views` at every node over the broadcast ``w [M, d]`` under
+    the in-neighbor mask ``adj [M, M]``."""
+    return median_views(w[None], adj, self_vals)
+
+
+def gather(w: torch.Tensor, safe_idx: torch.Tensor) -> torch.Tensor:
+    """``[M, K, d]``: slot (j, k) holds row ``safe_idx[j, k]`` of ``w``."""
+    m, k = safe_idx.shape
+    return w.index_select(0, safe_idx.reshape(-1).long()).reshape(m, k, w.shape[1])
+
+
+def gather_trimmed_mean(w: torch.Tensor, safe_idx: torch.Tensor, valid: torch.Tensor,
+                        self_vals: torch.Tensor, b: int) -> torch.Tensor:
+    """BRIDGE-T on the sparse layout: node j screens the rows of ``w``
+    named by ``safe_idx[j]`` where ``valid[j]`` (padded slots are +inf
+    sentinels), in slot order."""
+    return trimmed_mean_views(gather(w, safe_idx), valid, self_vals, b)
+
+
+def gather_median(w: torch.Tensor, safe_idx: torch.Tensor, valid: torch.Tensor,
+                  self_vals: torch.Tensor) -> torch.Tensor:
+    """BRIDGE-M on the sparse layout (see `gather_trimmed_mean`)."""
+    return median_views(gather(w, safe_idx), valid, self_vals)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for float32 operands, rounded once to float32, as a
+    fused multiply-add rounds it.  The product is exact in float64; the
+    sum is rounded to float64 *to odd* (a rounded result with an even last
+    bit moves one ulp toward the error that TwoSum recovers), and rounding
+    that to float32 is then correctly rounded, since float64 carries more
+    than float32's 24 + 2 bits."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
+    s = torch.where((err != 0) & even & torch.isfinite(s), torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def expand_scales(scale: torch.Tensor, d: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-coordinate ``(scale, zero)`` ``[n, d]`` from ``[n, S, 2]``."""
+    s = scale[..., 0].repeat_interleave(SCALE_BLOCK, dim=-1)[..., :d]
+    z = scale[..., 1].repeat_interleave(SCALE_BLOCK, dim=-1)[..., :d]
+    return s, z
+
+
+def dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Decode int8 codes ``q [n, d]`` with one ``(scale, zero)`` pair per
+    `SCALE_BLOCK` coordinates (``scale [n, S, 2]``): ``q * scale + zero``,
+    rounded once; NaN (an inf scale times a zero code) becomes +inf."""
+    s, z = expand_scales(scale, q.shape[-1])
+    return sanitize(fma_f32(q.float(), s, z))
+
+
+def dequant_carry(q: torch.Tensor, scale: torch.Tensor, est: torch.Tensor,
+                  target: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The codec's decode with its error-feedback carry: what receivers see
+    ``x_hat = est + decoded`` and the residual ``target - decoded``.
+
+    A zero term of exactly 0 (every codeword the codec writes) gives
+    ``x_hat = fma(q, s, est)`` and ``resid = fma(-q, s, target)``, each
+    rounded once: the reference's program, where XLA folds the constant
+    zero away and contracts the multiply into the add.  Any other zero is
+    decoded first, ``dec = fma(q, s, zero)``, and then added and
+    subtracted, as the reference computes it when the zero is a run-time
+    value.  No NaN guard, as in the reference's decode."""
+    qf = q.float()
+    s, z = expand_scales(scale, q.shape[-1])
+    dec = fma_f32(qf, s, z)
+    zero = z == 0
+    x_hat = torch.where(zero, fma_f32(qf, s, est), est + dec)
+    resid = torch.where(zero, fma_f32(-qf, s, target), target - dec)
+    return x_hat, resid

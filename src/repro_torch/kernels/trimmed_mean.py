@@ -34,9 +34,8 @@ def trimmed_mean_dense(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tens
         raise ValueError(f"trimmed-mean kernel sorts at most {MAX_ROWS} rows, got M={m}")
     out = torch.empty_like(w)
     lib = build.load()
-    stream = torch.cuda.current_stream(w.device).cuda_stream
     err = lib.screen_trimmed_mean_dense(w.data_ptr(), adj.data_ptr(), self_vals.data_ptr(),
-                                        out.data_ptr(), m, d, int(b), stream)
+                                        out.data_ptr(), m, d, int(b), build.stream_of(w))
     build.check_launch(err, "screen_trimmed_mean_dense")
     trimmed_mean_dense.launches += 1
     return out

@@ -10,19 +10,22 @@ them to XLA.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from repro_torch import prng
+from repro_torch.device import resolve_device
 
 L2 = 1e-4  # the reference's default ``l2``
 
 
-def init_linear(generator: torch.Generator, d_in: int = 784,
-                n_classes: int = 10) -> dict[str, torch.Tensor]:
-    """``w ~ 0.01 N(0, 1)``, ``b = 0`` on the generator's device (the
-    reference's init; the draws come from ``generator``, so they differ from
-    ``jax.random``'s)."""
-    dev = generator.device
-    w = torch.randn((d_in, n_classes), generator=generator, device=dev, dtype=torch.float32)
-    return {"w": 0.01 * w, "b": torch.zeros((n_classes,), device=dev)}
+def init_linear(key: np.ndarray, d_in: int = 784, n_classes: int = 10, *,
+                device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+    """``w = 0.01 * normal(key, (d_in, C))``, ``b = 0`` on ``device`` — the
+    reference's init, drawn from its Threefry stream (`repro_torch.prng`)."""
+    dev = resolve_device(device)
+    return {"w": 0.01 * prng.normal(key, (d_in, n_classes), dev),
+            "b": torch.zeros((n_classes,), device=dev)}
 
 
 def _targets(y: torch.Tensor, n_classes: int) -> torch.Tensor:

@@ -1,0 +1,135 @@
+"""Counter-based random numbers equal to ``jax.random``'s — the port's
+counterpart of the calls the reference makes: ``PRNGKey``, ``split``,
+``fold_in``, ``bits``, ``uniform`` and ``normal``.
+
+Both packages draw from the Threefry-2x32 block cipher (20 rounds,
+rotations (13, 15, 26, 6) and (17, 29, 16, 24), a key-schedule injection
+every 4 rounds with ``ks2 = k1 ^ k2 ^ 0x1BD11BDA``).  The layout matched is
+JAX's *partitionable* one (``jax_threefry_partitionable=True``, the default
+since jax 0.5 and what the reference runs): every output element ``i`` of
+a draw of shape ``s`` enciphers its own 64-bit counter ``i`` (row-major
+over ``s``), split into the (hi, lo) words, so an element's bits depend on
+its index only and not on how the array is laid out or sharded.  The older
+layout enciphered one counter run split in two halves; its bits differ.
+
+* A key is a ``np.ndarray`` of two ``uint32``.  Deriving keys (``PRNGKey``,
+  ``split``, ``fold_in``) happens on the host in numpy, so it never waits
+  for the card.
+* ``bits``, ``uniform`` and ``normal`` build their counters on the tensor's
+  device and run the cipher there in int64 tensor ops masked to 32 bits.
+  This is plain PyTorch and no kernel: XLA computes it outside any Pallas
+  kernel as well.
+
+Equality with ``jax.random``: keys, splits, fold-ins, bits and uniforms are
+bit for bit (``tests/test_torch_prng.py``).  ``normal`` is
+``sqrt(2) * erfinv(u)`` over ``u`` uniform in ``(-1, 1)``, as in JAX, with
+``torch.erfinv`` in place of XLA's float32 ``ErfInv`` polynomial: one
+launch, where emulating the polynomial's fused multiply-adds in eager
+PyTorch takes some 180 and still leaves 1% of draws unequal (``log1p``).
+On the CPU it equals ``jax.random.normal`` on 41% of draws and is within
+a relative 5.8e-6 (absolute 2.2e-5) everywhere, measured over 24M draws.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _threefry2x32(k1, k2, x0, x1, *, rotl, mask):
+    """Threefry-2x32 of the counter words ``(x0, x1)`` under key
+    ``(k1, k2)``.  ``rotl`` and ``mask`` adapt it to numpy uint32 arrays
+    (which wrap by themselves) and to int64 tensors (masked to 32 bits)."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x0 = mask(x0 + ks[0])
+    x1 = mask(x1 + ks[1])
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = mask(x0 + x1)
+            x1 = rotl(x1, r) ^ x0
+        x0 = mask(x0 + ks[(i + 1) % 3])
+        x1 = mask(x1 + ks[(i + 2) % 3] + (i + 1))
+    return x0, x1
+
+
+def _np_rotl(v: np.ndarray, r: int) -> np.ndarray:
+    return (v << np.uint32(r)) | (v >> np.uint32(32 - r))
+
+
+def _np_cipher(key: np.ndarray, x0: np.ndarray, x1: np.ndarray) -> np.ndarray:
+    k1, k2 = np.uint32(key[0]), np.uint32(key[1])
+    with np.errstate(over="ignore"):
+        b1, b2 = _threefry2x32(k1, k2, x0.astype(np.uint32), x1.astype(np.uint32),
+                               rotl=_np_rotl, mask=lambda v: v.astype(np.uint32))
+    return np.stack([b1, b2], axis=-1).astype(np.uint32)
+
+
+def PRNGKey(seed: int) -> np.ndarray:  # noqa: N802 (the reference's name)
+    """``jax.random.PRNGKey(seed)`` as JAX computes it without 64-bit
+    types (its default): the seed's low 32 bits, under a zero high word."""
+    return np.array([0, int(seed) & _MASK], dtype=np.uint32)
+
+
+def split(key: np.ndarray, n: int = 2) -> np.ndarray:
+    """``jax.random.split(key, n)``: ``[n, 2]`` keys, the cipher of the
+    counters ``(0, i)``."""
+    i = np.arange(n, dtype=np.uint64)
+    return _np_cipher(np.asarray(key), (i >> np.uint64(32)).astype(np.uint32),
+                      (i & np.uint64(_MASK)).astype(np.uint32))
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)``: the cipher of the counter
+    ``(0, uint32(data))``."""
+    word = np.array([int(data) & _MASK], dtype=np.uint32)
+    return _np_cipher(np.asarray(key), np.zeros(1, np.uint32), word)[0]
+
+
+def _key_words(key) -> tuple[int, int]:
+    k = np.asarray(key, dtype=np.uint32)
+    if k.shape != (2,):
+        raise ValueError(f"a key is two uint32 words, got shape {k.shape}")
+    return int(k[0]), int(k[1])
+
+
+def bits(key: np.ndarray, shape, device: str | torch.device) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (32-bit) on ``device``: an int64
+    tensor holding the uint32 values, ``b1 ^ b2`` of each element's
+    counter."""
+    shape = tuple(int(s) for s in shape)
+    k1, k2 = _key_words(key)
+    n = int(np.prod(shape)) if shape else 1
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    mask = lambda v: v & _MASK
+    rotl = lambda v, r: ((v << r) & _MASK) | (v >> (32 - r))
+    b1, b2 = _threefry2x32(k1, k2, idx >> 32, idx & _MASK, rotl=rotl, mask=mask)
+    return (b1 ^ b2).reshape(shape)
+
+
+def uniform(key: np.ndarray, shape, device: str | torch.device, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
+    23 bits of each draw as a float in ``[1, 2)`` minus 1, scaled to
+    ``[minval, maxval)``."""
+    raw = bits(key, shape, device)
+    one = ((raw >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    # the bounds as float32 values in Python scalars: a device tensor built
+    # from a host scalar would wait for the card on every draw
+    lo = float(np.float32(minval))
+    span = float(np.float32(maxval) - np.float32(minval))
+    return torch.clamp(one * span + lo, min=lo)
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+
+
+def normal(key: np.ndarray, shape, device: str | torch.device) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``:
+    ``sqrt(2) * erfinv(u)`` with ``u`` uniform in ``(-1, 1)`` (see the
+    module docstring for the tolerance)."""
+    u = uniform(key, shape, device, _NORMAL_LO, 1.0)
+    return _SQRT2 * torch.erfinv(u)

@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import prng
 from repro_torch.core.bridge import replicate
 from repro_torch.data.mnist_like import make_mnist_like
 from repro_torch.data.partition import (
@@ -54,9 +55,9 @@ def linear_task(num_nodes: int, *, partition: str = "extreme", batch: int = 32,
         return torch.as_tensor(bx, device=dev), torch.as_tensor(by, device=dev)
 
     def init_fn(seed: int):
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        return replicate(small.init_linear(gen), num_nodes, perturb=0.01, generator=gen)
+        # the reference's init: one key for the model draw and the perturbation
+        key = prng.PRNGKey(seed)
+        return replicate(small.init_linear(key, device=dev), num_nodes, perturb=0.01, key=key)
 
     def eval_accuracy(params, honest_mask) -> float:
         scores = torch.matmul(x_test, params["w"]) + params["b"][:, None, :]  # [M, N, C]

@@ -1,19 +1,21 @@
-"""The CUDA screening kernels against their plain PyTorch versions, on the
-card: exact (NaN-aware ``==``) up to 64 rows, on edge-case payloads.
+"""The CUDA kernels against their plain PyTorch versions, on the card:
+the dense and the gather screens exact (NaN-aware ``==``) up to 64 rows on
+edge-case payloads, the int8 decode exact in both its forms.
 
 This file imports nothing of JAX, so it runs on the card's machine:
 
     python -m pytest -q -m cuda tests/test_torch_kernels.py
 
 Without a card every test here skips (the kernels have no CPU mode; their
-plain versions are held to the reference in ``test_torch_screening.py``).
-It also holds the edge-case input recipe the CPU parity tests share.
+plain versions are held to the reference in ``test_torch_screening.py``,
+``test_torch_sparse.py`` and ``test_torch_comm.py``).  It also holds the
+edge-case input recipes the CPU parity tests share.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import build, median, ref, trimmed_mean
+from repro_torch.kernels import build, dequant, gather_screen, median, ref, trimmed_mean
 
 
 def edge_inputs(n: int, d: int, seed: int):
@@ -32,6 +34,38 @@ def edge_inputs(n: int, d: int, seed: int):
         adj[j, rng.choice([i for i in range(n) if i != j], size=min(deg, n - 1), replace=False)] = True
     np.fill_diagonal(adj, False)
     return w, adj
+
+
+def sparse_inputs(k: int, d: int, seed: int):
+    """``w [n, d]`` with the `edge_inputs` payloads and an adjacency of
+    in-degree at most ``k - 2`` (so a width-``k`` table has padded slots on
+    every row), the first rows starved (0, 1, 2 senders)."""
+    n = max(k + 8, 20)
+    w, _ = edge_inputs(n, d, seed)
+    rng = np.random.default_rng(seed + 1)
+    adj = np.zeros((n, n), bool)
+    for j in range(n):
+        deg = (0, 1, 2)[j] if j < 3 else int(rng.integers(3, max(k - 1, 4)))
+        others = np.array([i for i in range(n) if i != j])
+        adj[j, rng.choice(others, size=min(deg, max(k - 2, 0)), replace=False)] = True
+    return w, adj
+
+
+def codeword(n: int, d: int, seed: int):
+    """int8 codes (the first five of every row zero) and ``[n, S, 2]``
+    scales of several magnitudes, with +-inf and zero scales, nonzero zero
+    terms, and one row whose zero terms are all 0."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-127, 128, size=(n, d)).astype(np.int8)
+    q[:, :5] = 0
+    s = -(-d // 128)
+    scale = np.stack([(rng.uniform(0.001, 0.1, size=(n, s)) * 10.0 ** rng.integers(-3, 3, size=(n, s))),
+                      rng.normal(size=(n, s))], -1).astype(np.float32)
+    scale[0, 0, 0] = np.inf
+    scale[1, 0, 0] = -np.inf
+    scale[2, 0] = 0.0
+    scale[3, :, 1] = 0.0
+    return q, scale
 
 
 def nan_equal(a, b):
@@ -173,4 +207,78 @@ def test_trainer_step_launches_its_kernel_once(cuda_device, rule):
     for i in range(3):
         state, metrics = trainer.step(state, task.batch_fn(i))
     assert kernel.launches - before == 3
+    assert bool(torch.isfinite(metrics["loss"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 16, 40, 63])
+def test_gather_kernels_equal_plain_on_card(cuda_device, k):
+    from repro_torch.core.neighbors import NeighborTable
+
+    w, adj = sparse_inputs(k, 999, seed=k)
+    table = NeighborTable.from_adjacency(adj, k=k, device=cuda_device)
+    tw = torch.from_numpy(w).to(cuda_device)
+    sv = torch.randn(tw.shape, generator=torch.Generator(device=cuda_device).manual_seed(k),
+                     device=cuda_device)
+    sv[0, :3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+    for self_vals in (tw, sv):
+        for b in (0, 1, 2, 4):
+            got = gather_screen.gather_screen_trimmed_mean(tw, table.safe_idx, table.valid_dev,
+                                                           self_vals, b)
+            want = ref.gather_trimmed_mean(tw, table.safe_idx, table.valid_dev, self_vals, b)
+            assert bool(nan_equal(got, want).all())
+        got = gather_screen.gather_screen_median(tw, table.safe_idx, table.valid_dev, self_vals)
+        want = ref.gather_median(tw, table.safe_idx, table.valid_dev, self_vals)
+        assert bool(nan_equal(got, want).all())
+
+
+@pytest.mark.cuda
+def test_gather_kernels_reject_wide_tables(cuda_device):
+    w = torch.zeros(70, 8, device=cuda_device)
+    idx = torch.zeros(70, 64, dtype=torch.int32, device=cuda_device)
+    valid = torch.ones(70, 64, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError):
+        gather_screen.gather_screen_trimmed_mean(w, idx, valid, w, 1)
+    with pytest.raises(ValueError):
+        gather_screen.gather_screen_median(w, idx, valid, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(4, 300), (512, 7850)])
+def test_dequant_kernels_equal_plain_on_card(cuda_device, n, d):
+    q, scale = (torch.from_numpy(x).to(cuda_device) for x in codeword(n, d, seed=d))
+    assert bool(nan_equal(dequant.dequant(q, scale), ref.dequant(q, scale)).all())
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    est = torch.randn((n, d), generator=gen, device=cuda_device)
+    target = torch.randn((n, d), generator=gen, device=cuda_device) * 1e-3
+    for sc in (scale, torch.stack([scale[..., 0], torch.zeros_like(scale[..., 0])], -1)):
+        x_hat, resid = dequant.dequant_carry(q, sc.contiguous(), est, target)
+        want_x, want_r = ref.dequant_carry(q, sc.contiguous(), est, target)
+        assert bool(nan_equal(x_hat, want_x).all()) and bool(nan_equal(resid, want_r).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule,codec", [("trimmed_mean", "identity"), ("median", "identity"),
+                                        ("trimmed_mean", "int8")])
+def test_sparse_trainer_launches_its_kernels(cuda_device, rule, codec):
+    from repro_torch.core.bridge import BridgeConfig, BridgeTrainer
+    from repro_torch.core.graph import small_world
+    from repro_torch.sim.tasks import linear_task
+
+    task = linear_task(40, partition="iid", num_train=800, num_test=100, device=cuda_device)
+    cfg = BridgeConfig(topology=small_world(40, 3, 1, seed=0), rule=rule, num_byzantine=1,
+                       attack="random", t0=30, sparse=True, codec=codec)
+    trainer = BridgeTrainer(cfg, task.grad_fn, device=cuda_device)
+    state = trainer.init(task.init_fn(0))
+    kernel = {"trimmed_mean": gather_screen.gather_screen_trimmed_mean,
+              "median": gather_screen.gather_screen_median}[rule]
+    before = (kernel.launches, dequant.dequant_carry.launches,
+              trimmed_mean.trimmed_mean_dense.launches, median.median_dense.launches)
+    for i in range(3):
+        state, metrics = trainer.step(state, task.batch_fn(i))
+    after = (kernel.launches, dequant.dequant_carry.launches,
+             trimmed_mean.trimmed_mean_dense.launches, median.median_dense.launches)
+    assert after[0] - before[0] == 3
+    assert after[1] - before[1] == (3 if codec == "int8" else 0)
+    assert after[2:] == before[2:]
     assert bool(torch.isfinite(metrics["loss"]))
