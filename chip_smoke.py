@@ -29,21 +29,45 @@ failure of which raises:
    ``small_world(512, 6, 2)``, an iid partition of 16384 samples, batch 8,
    random attack, 200 ticks, for DGD, BRIDGE-T, BRIDGE-M and BRIDGE-T with
    the int8 codec; BRIDGE-T / BRIDGE-M must reach 0.95, DGD stay <= 0.85;
-6. randomness — ``prng.bits`` and ``uniform`` on the card equal the CPU's
+6. pairwise kernel — the distance kernel of BRIDGE-K / BRIDGE-B against its
+   plain version at the main path's shapes ([50, 7850] dense, [100, 7850]
+   the int8 form ``cat([w_hat, self_vals])``, [512, 7850] sparse) and on
+   NaN, +-inf and 1e30 rows: within the float32 dot-product bound, exactly
+   symmetric, an exact zero diagonal, the NaN/inf pattern kept; timed
+   beside the plain version and ``torch.mm`` with the same epilogue;
+7. dense vector rules — BRIDGE-K and BRIDGE-B at M = 50, b = 4, random
+   attack, 200 ticks (the distance kernel once a tick, Bulyan's trimmed
+   mean once a tick), and geomedian, clipped_mean, rep_trimmed_mean and
+   rep_median for 20 ticks each (no kernel);
+8. sparse vector rules — BRIDGE-K and BRIDGE-B on ``small_world(512, 8, 2)``
+   (Bulyan needs in-degree 9 at b = 2), K = 20, 200 ticks (the distance
+   kernel once a tick, Bulyan's gather trimmed mean once a tick);
+9. variants — `repro_torch.sim.variants` at the reference's defaults
+   (M = 20, b = 2, random attack): DGD and BRIDGE-T/M/K/B for 120 steps,
+   ByRDiE for 2 sweeps (the dense trimmed-mean kernel once per block of
+   512, 16 a sweep), BRDSO for 120 steps;
+10. randomness — ``prng.bits`` and ``uniform`` on the card equal the CPU's
    at [512, 7850], ``normal`` within its tolerance of the CPU's; the int8
    encode and carry decode on the card give the CPU's codes, scales,
    ``x_hat`` and residual exactly;
-7. parity — from one init and one batch stream (M = 50): 5 ticks on the
+11. parity — from one init and one batch stream (M = 50): 5 ticks on the
    card and on the CPU agree at rtol 1e-4, atol 1e-5 (sign flip dense;
    random attack dense and sparse, on honest rows); one int8 tick gives the
    CPU's honest carry exactly; the dense and the sparse trainer give
-   bit-identical parameters on the card.
+   bit-identical parameters on the card; BRIDGE-K and BRIDGE-B for 3
+   ticks, one ByRDiE sweep and one BRDSO step agree with the CPU, and
+   dense and sparse K and B are bit-identical on the card.
+
+Every accuracy of phases 7-9 must land within 0.01 of the reference's own
+CPU run at the same settings (``REFERENCE_ACCURACY``, from
+``tools/reference_accuracy.py``).
 
 Each configuration of a trainer phase trains on a task of its own, so all
 see batches 0..199 of one stream.  Before each trainer phase every
 kernel's launch count is set to 0, and read
 after its timed runs: each kernel of the phase must have launched once per
-tick of the runs of its rule (codec), the others not at all.  Then each
+tick of the runs of its rule (codec), the others not at all; a kernel's
+``launches`` in the JSON line is the sum over the phases.  Then each
 configuration of the phase is profiled for 10 more ticks (`profile_phase`:
 device busy share, kernels per tick, host time per stage), a measurement
 that reports a profiler failure instead of raising.
@@ -69,10 +93,14 @@ import torch  # noqa: E402
 from repro_torch import prng  # noqa: E402
 from repro_torch.comm import codec as codec_lib  # noqa: E402
 from repro_torch.comm import exchange  # noqa: E402
+from repro_torch.core.brdso import BrdsoConfig, BrdsoTrainer  # noqa: E402
 from repro_torch.core.bridge import BridgeConfig, BridgeTrainer  # noqa: E402
+from repro_torch.core.byrdie import ByrdieConfig, ByrdieTrainer  # noqa: E402
 from repro_torch.core.graph import erdos_renyi, small_world  # noqa: E402
 from repro_torch.core.neighbors import NeighborTable  # noqa: E402
-from repro_torch.kernels import build, dequant, gather_screen, median, ref, trimmed_mean  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    build, dequant, gather_screen, median, pairwise, ref, trimmed_mean)
+from repro_torch.sim import variants  # noqa: E402
 from repro_torch.sim.tasks import linear_task  # noqa: E402
 
 M, B, D = 50, 4, 7850
@@ -85,7 +113,26 @@ KERNELS = {  # JSON name -> wrapper (its `launches` counter)
     "gather_screen_trimmed_mean": gather_screen.gather_screen_trimmed_mean,
     "gather_screen_median": gather_screen.gather_screen_median,
     "dequant_carry": dequant.dequant_carry,
+    "pairwise_sq_dists": pairwise.pairwise_sq_dists,
 }
+# BRIDGE-K / BRIDGE-B on the sparse layout: small_world(512, 8, 2), whose
+# in-degrees (12-20) meet Bulyan's max(4b, 3b + 2) + 1 = 9 at b = 2
+KB_NEAREST = 8
+PLAIN_TICKS = 20  # geomedian, clipped_mean, rep_trimmed_mean, rep_median
+# The reference's honest test accuracy at each configuration below, on a CPU
+# (tools/reference_accuracy.py: the same settings, seeds and batches); the
+# card must land within ACC_TOL of each.
+REFERENCE_ACCURACY = {
+    "dense krum": 0.9785869989706122, "dense bulyan": 0.9989783323329428,
+    "dense geomedian": 0.9885217871354974, "dense clipped_mean": 0.9879783106886822,
+    "dense rep_trimmed_mean": 0.9881522240846053, "dense rep_median": 0.9865870022255442,
+    "sparse krum": 0.8641510210785212, "sparse bulyan": 0.9918059280105666,
+    "variants DGD": 0.19861110630962583, "variants BRIDGE-T": 0.9924305544959174,
+    "variants BRIDGE-M": 0.9915972087118361, "variants BRIDGE-K": 0.9520833061801063,
+    "variants BRIDGE-B": 0.9922222230169508, "variants ByRDiE": 0.6275694337156084,
+    "variants BRDSO": 0.9916666547457377,
+}
+ACC_TOL = 0.01
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 EPS32 = float(np.finfo(np.float32).eps)
@@ -369,10 +416,98 @@ def dequant_kernel_phase(dev):
                    nbytes, ops, err)]
 
 
+def dist_bound(x: torch.Tensor) -> torch.Tensor:
+    """The float32 dot-product bound ``4 d 2^-24 (sq_i + sq_j)`` on each
+    squared distance of two computations (tests/test_torch_krum.py)."""
+    x64 = torch.where(torch.isfinite(x), x, 0.0).double()
+    sq = torch.sum(x64 * x64, dim=1)
+    return 4.0 * x.shape[1] * 2.0 ** -24 * (sq[:, None] + sq[None, :])
+
+
+def check_dists(tag: str, got: torch.Tensor, want: torch.Tensor, x: torch.Tensor) -> float:
+    """The kernel's ``d2`` against the plain version's: symmetric bit for
+    bit, zero on the diagonal of every finite row, NaN and inf where the
+    plain version has them, finite entries within `dist_bound`; returns the
+    largest finite difference."""
+    torch.cuda.synchronize()
+    if not bool(nan_equal(got, got.T).all()):
+        raise AssertionError(f"pairwise {tag}: d2 is not symmetric bit for bit")
+    finite_rows = torch.isfinite(x).all(dim=1) & (x.abs().amax(dim=1) < 1e18)
+    if not bool((torch.diagonal(got)[finite_rows] == 0).all()):
+        raise AssertionError(f"pairwise {tag}: nonzero diagonal on a finite row")
+    fin = torch.isfinite(got)
+    if not (torch.equal(fin, torch.isfinite(want)) and torch.equal(got.isnan(), want.isnan())
+            and bool(nan_equal(got[~fin], want[~fin]).all())):
+        raise AssertionError(f"pairwise {tag}: NaN/inf pattern differs from the plain version")
+    err = (got.double() - want.double()).abs()
+    if not bool((err[fin] <= dist_bound(x)[fin]).all()):
+        raise AssertionError(f"pairwise {tag}: kernel vs plain beyond the dot-product bound")
+    return float(err[fin].max()) if bool(fin.any()) else 0.0
+
+
+def pairwise_kernel_phase(dev):
+    """The distance kernel against its plain version at the shapes the main
+    path gives it — the dense broadcast [50, 7850], the int8 form
+    cat([w_hat, self_vals]) [100, 7850], the sparse broadcast [512, 7850] —
+    and on NaN, +-inf and 1e30 rows; timed at the sparse shape beside the
+    plain version and torch.mm with the same epilogue (cuBLAS SGEMM, TF32
+    off), a call the port never makes."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    xs = {}
+    for n, scale in ((M, 0.05), (SM, 0.05)):
+        xs[n] = torch.randn((n, D), generator=gen, device=dev) * scale
+    xs[2 * M] = torch.cat([xs[M], xs[M] + 1e-3 * torch.randn((M, D), generator=gen, device=dev)])
+    for n, x in xs.items():
+        err = check_dists(f"[{n}, {D}]", pairwise.pairwise_sq_dists(x), ref.pairwise_sq_dists(x), x)
+        print(f"pairwise [{n}, {D}]: max |kernel - plain| {err:.3g}")
+    for n, d in ((64, 1000), (130, 1000), (SM, 777)):
+        x = torch.randn((n, d), generator=gen, device=dev)
+        x[1] = float("nan")
+        x[2, 3], x[3, 0] = float("inf"), -float("inf")
+        x[4] = 1e30
+        check_dists(f"edge [{n}, {d}]", pairwise.pairwise_sq_dists(x), ref.pairwise_sq_dists(x), x)
+    print("pairwise: kernel equal to its plain version within the float32 dot-product bound, "
+          "symmetric bit for bit, zero diagonal, NaN/inf pattern kept (main shapes and edge rows)")
+
+    def library(x):
+        g = torch.mm(x, x.T)
+        sq = torch.diagonal(g)
+        d2 = sq[:, None] + sq[None, :] - 2.0 * g
+        return torch.where(d2 < 0, 0.0, d2)
+
+    for n in (M, 2 * M):
+        x = xs[n]
+        print(f"pairwise [{n}, {D}] times: kernel {cuda_ms(lambda x=x: pairwise.pairwise_sq_dists(x)):.4f} "
+              f"ms, plain {cuda_ms(lambda x=x: ref.pairwise_sq_dists(x), reps=21, inner=2):.4f} ms, "
+              f"torch.mm {cuda_ms(lambda x=x: library(x), reps=21, inner=2):.4f} ms")
+    x = xs[SM]
+    err = max_abs_err(pairwise.pairwise_sq_dists(x), ref.pairwise_sq_dists(x))
+    # bytes: x read once, d2 written once; operations: the upper triangle's
+    # n (n + 1) / 2 dot products of d multiply-adds (d2 is symmetric)
+    nbytes = SM * D * 4 + SM * SM * 4
+    ops = SM * (SM + 1) * D
+    print("library: torch.mm(x, x.T) with the same epilogue (cuBLAS SGEMM, TF32 off)")
+    return [record("pairwise_sq_dists", "src/repro_torch/kernels/csrc/pairwise.cu",
+                   "src/repro/kernels/krum.py:44", lambda: pairwise.pairwise_sq_dists(x),
+                   lambda: ref.pairwise_sq_dists(x), lambda: library(x), nbytes, ops, err)]
+
+
 def zero_launches() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     dequant.dequant.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: fn.launches for k, fn in KERNELS.items()}
+
+
+def check_accuracy(tag: str, acc: float) -> None:
+    want = REFERENCE_ACCURACY[tag]
+    if not abs(acc - want) <= ACC_TOL:
+        raise AssertionError(f"{tag}: accuracy {acc:.4f} not within {ACC_TOL} of the reference's "
+                             f"{want:.4f}")
 
 
 def run_trainer(tag, make_task, topo, cfg, dev, ticks, want_launches):
@@ -521,6 +656,96 @@ def sparse_trainer_phase(dev):
     return launches
 
 
+def vector_trainer_phase(dev):
+    """The dense path for the vector and plain rules: BRIDGE-K and BRIDGE-B
+    (200 ticks) and the plain rules (20 ticks each), M = 50, b = 4,
+    random attack; returns the kernel launches it made."""
+    make_task = lambda: linear_task(M, partition="iid", num_train=6000, num_test=1000, batch=32,
+                                    device=dev)
+    topo = erdos_renyi(M, 0.5, B, seed=0)
+    runs = (("krum", TICKS), ("bulyan", TICKS), ("geomedian", PLAIN_TICKS),
+            ("clipped_mean", PLAIN_TICKS), ("rep_trimmed_mean", PLAIN_TICKS),
+            ("rep_median", PLAIN_TICKS))
+    cfgs = {rule: BridgeConfig(topology=topo, rule=rule, num_byzantine=B, attack="random", t0=30)
+            for rule, _ in runs}
+    warm_up(make_task(), cfgs.values(), dev)
+    zero_launches()
+    acc = {}
+    for rule, ticks in runs:
+        want = {"pairwise_sq_dists": ticks} if rule in ("krum", "bulyan") else {}
+        if rule == "bulyan":
+            want["screen_trimmed_mean_dense"] = ticks
+        acc[rule] = run_trainer(rule, make_task, topo, cfgs[rule], dev, ticks, want)
+    launches = read_launches()
+    profile_phase(make_task(), (cfgs["krum"], cfgs["bulyan"]), dev)
+    for rule, _ in runs:
+        check_accuracy(f"dense {rule}", acc[rule])
+    return launches
+
+
+def sparse_vector_phase(dev):
+    """BRIDGE-K and BRIDGE-B on the sparse path, small_world(512, 8, 2),
+    200 ticks each; returns the kernel launches it made."""
+    make_task = lambda: linear_task(SM, partition="iid", num_train=16384, num_test=1000, batch=8,
+                                    device=dev)
+    topo = small_world(SM, KB_NEAREST, SB, rewire_prob=0.2, seed=0)
+    cfgs = {rule: BridgeConfig(topology=topo, rule=rule, num_byzantine=SB, attack="random",
+                               t0=100, sparse=True) for rule in ("krum", "bulyan")}
+    warm_up(make_task(), cfgs.values(), dev)
+    zero_launches()
+    acc = {}
+    for rule, cfg in cfgs.items():
+        want = {"pairwise_sq_dists": TICKS}
+        if rule == "bulyan":
+            want["gather_screen_trimmed_mean"] = TICKS
+        acc[rule] = run_trainer(f"sparse {rule}", make_task, topo, cfg, dev, TICKS, want)
+    launches = read_launches()
+    profile_phase(make_task(), cfgs.values(), dev)
+    for rule in cfgs:
+        check_accuracy(f"sparse {rule}", acc[rule])
+    return launches
+
+
+def variants_phase(dev):
+    """The variants comparison (`repro_torch.sim.variants`) at the
+    reference's defaults: DGD and BRIDGE-T/M/K/B for 120 steps, ByRDiE for
+    2 sweeps (the dense trimmed-mean kernel once per block of 512, 16 a
+    sweep), BRDSO for 120 steps; returns the kernel launches it made."""
+    steps, sweeps = 120, 2
+    nblocks = -(-D // 512)
+    kernels_of = {"DGD": {}, "BRIDGE-T": {"screen_trimmed_mean_dense": steps},
+                  "BRIDGE-M": {"screen_median_dense": steps},
+                  "BRIDGE-K": {"pairwise_sq_dists": steps},
+                  "BRIDGE-B": {"pairwise_sq_dists": steps, "screen_trimmed_mean_dense": steps},
+                  "ByRDiE": {"screen_trimmed_mean_dense": sweeps * nblocks}, "BRDSO": {}}
+    runs = [(label, lambda rule=rule: variants.run_decentralized(
+        rule=rule, attack="random", num_nodes=20, num_byzantine=2, steps=steps, device=dev))
+        for rule, label in variants.VARIANTS]
+    runs += [("ByRDiE", lambda: variants.run_byrdie(num_nodes=20, num_byzantine=2, attack="random",
+                                                    sweeps=sweeps, device=dev)),
+             ("BRDSO", lambda: variants.run_brdso(num_nodes=20, num_byzantine=2, attack="random",
+                                                  steps=steps, device=dev))]
+    zero_launches()
+    acc = {}
+    for label, run in runs:
+        before = read_launches()
+        r = run()
+        for k, fn in KERNELS.items():
+            grew, want = fn.launches - before[k], kernels_of[label].get(k, 0)
+            if grew != want:
+                raise AssertionError(f"variants {label}: kernel {k} launched {grew} times, "
+                                     f"expected {want}")
+        acc[label] = r["accuracy"]
+        unit = "sweep" if label == "ByRDiE" else "step"
+        print(f"variants {label}: honest test accuracy {r['accuracy']:.4f} (reference "
+              f"{REFERENCE_ACCURACY[f'variants {label}']:.4f}), {r['us_per_step'] / 1e3:.3f} "
+              f"ms/{unit} (M=20, b=2, random attack)")
+    launches = read_launches()
+    for label, a in acc.items():
+        check_accuracy(f"variants {label}", a)
+    return launches
+
+
 def randomness_phase(dev):
     """The Threefry streams and the int8 codec on the card against the CPU,
     at the sparse path's shape [512, 7850]."""
@@ -604,6 +829,47 @@ def parity_phase(dev):
                 raise AssertionError(f"{kw}: dense and sparse trainers differ on the card ({k})")
     print("parity: the dense and the sparse trainer give bit-identical parameters on the card "
           f"(5 ticks, M = {M}: sign flip BRIDGE-T and BRIDGE-M, random BRIDGE-T int8)")
+    # BRIDGE-K and BRIDGE-B: 3 ticks (their picks among honest nodes turn on
+    # the distances' last bits once the iterates near consensus, so longer
+    # runs are held to the reference by accuracy)
+    for rule in ("krum", "bulyan"):
+        for sparse in (False, True):
+            kw = dict(rule=rule, attack="random", sparse=sparse)
+            (gpu, honest), (cpu, _) = run(dev, 3, **kw), run("cpu", 3, **kw)
+            for k in gpu.params:
+                torch.testing.assert_close(gpu.params[k].cpu()[honest], cpu.params[k][honest],
+                                           rtol=1e-4, atol=1e-5, msg=f"card vs CPU {kw} ({k})")
+        for kw in (dict(rule=rule, attack="random"), dict(rule=rule, attack="random", codec="int8")):
+            (dense, _), (sparse, _) = run(dev, 5, **kw), run(dev, 5, sparse=True, **kw)
+            for k in dense.params:
+                if not torch.equal(dense.params[k], sparse.params[k]):
+                    raise AssertionError(f"{kw}: dense and sparse trainers differ on the card ({k})")
+    print("parity: BRIDGE-K and BRIDGE-B, 3 random-attack ticks on the card and the CPU agree on "
+          "honest rows (rtol 1e-4, atol 1e-5), dense and sparse; dense and sparse bit-identical "
+          "on the card (5 ticks, identity and int8)")
+    # the baselines: one ByRDiE sweep (16 blocks of 512) and one BRDSO step
+    batch = batches[0]
+    for name, make in (
+        ("ByRDiE", lambda d: ByrdieTrainer(ByrdieConfig(topology=topo, num_byzantine=B,
+                                                        attack="random", t0=30, block=512),
+                                           task.grad_fn, device=d)),
+        ("BRDSO", lambda d: BrdsoTrainer(BrdsoConfig(topology=topo, num_byzantine=B,
+                                                     attack="random", t0=30),
+                                         task.grad_fn, device=d)),
+    ):
+        outs = []
+        for device in (dev, "cpu"):
+            tr = make(device)
+            st = tr.init({k: v.to(device) for k, v in init.items()})
+            b = tuple(x.to(device) for x in batch)
+            st, _ = tr.sweep(st, b) if name == "ByRDiE" else tr.step(st, b)
+            outs.append((st, (~tr.byz_mask).cpu()))
+        (gpu, honest), (cpu, _) = outs
+        for k in gpu.params:
+            torch.testing.assert_close(gpu.params[k].cpu()[honest], cpu.params[k][honest],
+                                       rtol=1e-4, atol=1e-5, msg=f"card vs CPU {name} ({k})")
+    print("parity: one ByRDiE sweep and one BRDSO step agree on the card and the CPU on honest "
+          "rows (rtol 1e-4, atol 1e-5)")
 
 
 def main() -> int:
@@ -622,16 +888,28 @@ def main() -> int:
         if "spill" in line or "registers" in line or "Compiling entry" in line:
             print("ptxas:", line.strip())
 
-    records = kernel_phase(dev) + gather_kernel_phase(dev) + dequant_kernel_phase(dev)
-    launches = trainer_phase(dev)
-    sparse_launches = sparse_trainer_phase(dev)
+    t_start = time.perf_counter()
+    records = []
+    for phase in (kernel_phase, gather_kernel_phase, dequant_kernel_phase, pairwise_kernel_phase):
+        records += phase(dev)
+    print(f"(kernel phases: {time.perf_counter() - t_start:.1f} s)")
+    # each main-path phase zeroes the counts before its timed runs and reads
+    # them after; a kernel's launches are the sum over the phases
+    phase_launches = []
+    for phase in (trainer_phase, sparse_trainer_phase, vector_trainer_phase, sparse_vector_phase,
+                  variants_phase):
+        t0 = time.perf_counter()
+        phase_launches.append(phase(dev))
+        print(f"({phase.__name__}: {time.perf_counter() - t0:.1f} s)")
     for rec in records:
-        name = rec["name"]
-        rec["launches"] = launches[name] if name.startswith("screen_") else sparse_launches[name]
+        rec["launches"] = sum(launches[rec["name"]] for launches in phase_launches)
         if rec["launches"] == 0:
-            raise AssertionError(f"{name} never launched on the main path")
+            raise AssertionError(f"{rec['name']} never launched on the main path")
+    t0 = time.perf_counter()
     randomness_phase(dev)
     parity_phase(dev)
+    print(f"(randomness and parity: {time.perf_counter() - t0:.1f} s; whole script after the "
+          f"build {time.perf_counter() - t_start:.1f} s)")
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,7 +16,8 @@ products on the card keep full float32 precision (the reference runs float32
 on the CPU).
 
 The kernels are hand-written CUDA C++ for ``sm_90a`` (``kernels/csrc/``:
-the dense and the gather screens and the int8 decode), compiled with
+the dense and the gather screens, the int8 decode and the pairwise
+distances of BRIDGE-K and BRIDGE-B), compiled with
 ``nvcc`` at first use on the card (`repro_torch.kernels.build`); importing
 the package compiles nothing.  Random numbers are the reference's Threefry
 streams (`repro_torch.prng`).

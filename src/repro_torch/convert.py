@@ -15,7 +15,9 @@ import torch
 
 from repro_torch import prng
 from repro_torch.comm.exchange import CommState
+from repro_torch.core.brdso import BrdsoState
 from repro_torch.core.bridge import BridgeState
+from repro_torch.core.byrdie import ByrdieState
 from repro_torch.device import resolve_device
 
 
@@ -27,6 +29,10 @@ def params_from_jax(tree: Mapping[str, np.ndarray], *,
     return {k: torch.as_tensor(np.array(v, copy=True), device=dev) for k, v in tree.items()}
 
 
+def _key(key) -> np.ndarray:
+    return prng.PRNGKey(0) if key is None else np.asarray(key, dtype=np.uint32)
+
+
 def state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,
                    comm: tuple[np.ndarray, np.ndarray] | None = None,
                    device: str | torch.device = "cuda") -> BridgeState:
@@ -35,9 +41,25 @@ def state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,
     resumes a JAX trajectory in the port.  ``comm`` is the reference's codec
     carry ``(est, resid)`` as numpy arrays, for a lossy codec."""
     dev = resolve_device(device)
-    key = prng.PRNGKey(0) if key is None else np.asarray(key, dtype=np.uint32)
+    key = _key(key)
     carry = None
     if comm is not None:
         carry = CommState(*(torch.as_tensor(np.array(x, copy=True), device=dev) for x in comm))
     return BridgeState(params=params_from_jax(params_np, device=dev), t=int(t), key=key,
                        comm=carry)
+
+
+def byrdie_state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,
+                          scalars_sent: float = 0.0,
+                          device: str | torch.device = "cuda") -> ByrdieState:
+    """A `ByrdieState` at sweep ``t`` holding the reference's parameters, its
+    key (``PRNGKey(0)`` when None) and its scalar count."""
+    return ByrdieState(params_from_jax(params_np, device=device), int(t), _key(key),
+                       float(scalars_sent))
+
+
+def brdso_state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,
+                         device: str | torch.device = "cuda") -> BrdsoState:
+    """A `BrdsoState` at step ``t`` holding the reference's parameters and
+    its key (``PRNGKey(0)`` when None)."""
+    return BrdsoState(params_from_jax(params_np, device=device), int(t), _key(key))

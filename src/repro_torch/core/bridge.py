@@ -14,8 +14,11 @@ dict.  One tick, after ``key, sub = split(state.key)``:
 3. **screen** — every node screens what it received from its in-neighbors,
    with its own (never encoded) broadcast value as self: `screening.screen_all`
    under the ``[M, M]`` adjacency, or `screening.screen_gathered` through a
-   `NeighborTable` when ``sparse``; BRIDGE-T and BRIDGE-M run the CUDA
-   kernels on the card;
+   `NeighborTable` when ``sparse``, by any rule of `screening.RULES`.  On the
+   card BRIDGE-T and BRIDGE-M run the screening kernels, BRIDGE-K and
+   BRIDGE-B the pairwise-distance kernel once a tick (Bulyan then the
+   trimmed-mean kernel over its selection); DGD's ``mean``, ``geomedian``,
+   ``clipped_mean`` and the ``rep_*`` rules are plain PyTorch;
 4. **apply** — ``w_j <- y_j - rho(t) * grad f_j(w_j)`` with
    ``rho(t) = 1 / (lam (t0 + t))``, ``rho * g`` rounded to float32 before the
    subtract as in the reference.
@@ -75,7 +78,7 @@ class BridgeConfig:
     trainer (the reference's fields for the main path)."""
 
     topology: Topology
-    rule: str = "trimmed_mean"  # trimmed_mean | median | mean
+    rule: str = "trimmed_mean"  # any of screening.RULES
     num_byzantine: int = 0  # the bound b given to the screening rule
     attack: str = "none"
     codec: str = "identity"  # wire codec: identity | int8 (repro_torch.comm)
@@ -151,13 +154,8 @@ class BridgeTrainer:
         self.codec = codec_lib.get_codec(config.codec)
         self.neighbors = (NeighborTable.from_adjacency(adj, device=self.device)
                           if config.sparse else None)
-        m = config.topology.num_nodes
-        nbyz = min(config.num_byzantine, m)
-        if config.attack == "none" or nbyz == 0:
-            mask = np.zeros((m,), dtype=bool)
-        else:
-            mask = byzantine.pick_byzantine_mask(m, nbyz, config.byzantine_seed)
-        self.byz_mask = torch.as_tensor(mask, device=self.device)
+        self.byz_mask = byzantine.byzantine_nodes(config.topology.num_nodes, config.num_byzantine,
+                                                  config.attack, config.byzantine_seed, self.device)
 
     @property
     def honest_mask(self) -> torch.Tensor:

@@ -104,3 +104,14 @@ def pick_byzantine_mask(num_nodes: int, num_byzantine: int, seed: int = 0) -> np
     mask = np.zeros((num_nodes,), dtype=bool)
     mask[idx] = True
     return mask
+
+
+def byzantine_nodes(num_nodes: int, num_byzantine: int, attack: str, seed: int,
+                    device: str | torch.device) -> torch.Tensor:
+    """The trainers' ``[M]`` Byzantine mask on ``device``: no node under the
+    ``none`` attack or with ``num_byzantine == 0``, else
+    `pick_byzantine_mask` of ``min(num_byzantine, num_nodes)`` nodes."""
+    nbyz = min(num_byzantine, num_nodes)
+    if attack == "none" or nbyz == 0:
+        return torch.zeros((num_nodes,), dtype=torch.bool, device=device)
+    return torch.as_tensor(pick_byzantine_mask(num_nodes, nbyz, seed), device=device)

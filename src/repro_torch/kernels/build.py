@@ -41,6 +41,7 @@ SIGNATURES = {
     "gather_screen_median": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
     "dequant": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
     "dequant_carry": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
+    "pairwise_sq_dists": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
 }
 
 

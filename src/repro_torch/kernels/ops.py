@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import dequant as _dequant
 from repro_torch.kernels.gather_screen import gather_screen_median, gather_screen_trimmed_mean
 from repro_torch.kernels.median import median_dense
+from repro_torch.kernels.pairwise import pairwise_sq_dists as _pairwise_sq_dists
 from repro_torch.kernels.trimmed_mean import trimmed_mean_dense
 
 
@@ -50,3 +51,8 @@ def dequant_carry(q: torch.Tensor, scale: torch.Tensor, est: torch.Tensor,
                   target: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     with torch.profiler.record_function("kernels.dequant"):
         return _dequant.dequant_carry(q, scale, est, target)
+
+
+def pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:
+    with torch.profiler.record_function("kernels.pairwise_sq_dists"):
+        return _pairwise_sq_dists(x)

@@ -30,6 +30,10 @@ fast path.
 The int8 decode (`dequant`, `dequant_carry`) is that of the reference's
 codec (`repro.comm.codec.apply_scales`, `repro.comm.exchange.decode_bank`);
 `fma_f32` gives it the single rounding XLA's fused multiply-add has.
+
+`pairwise_sq_dists` is the plain version of the Krum distance kernel
+(`repro.kernels.krum.pairwise_sq_dists_pallas`), and `sum_rows_mat` the
+reference's chain for summands that hold a product.
 """
 from __future__ import annotations
 
@@ -65,6 +69,40 @@ def sum_rows(x: torch.Tensor, dim: int) -> torch.Tensor:
     for i in range(1, n):
         total = total + x.select(dim, i)
     return total
+
+
+def sum_rows_mat(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """`sum_rows` for summands that contain a product (the reference's
+    ``sum_rows_mat``: geomedian's weighted rows, clipped mean's scaled
+    deltas, the rep rules' weighted values).  The reference materialises
+    the product behind a ``lax.scan`` so that XLA cannot contract it into
+    the chain's adds; in eager PyTorch the product is its own kernel and
+    already rounded to float32 when it reaches here, so the chain is the
+    same left-to-right sum."""
+    return sum_rows(x, dim)
+
+
+def pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:
+    """``[..., n, n]`` squared distances between the rows of ``x [..., n, d]``
+    (the reference's ``kernels/ref.py::pairwise_sq_dists_ref`` and the Krum
+    kernel `repro.kernels.krum.pairwise_sq_dists_pallas`): the Gram
+    ``g = x x^T`` in float32, its upper triangle mirrored so ``d2`` is
+    symmetric bit for bit, and ``max(g_ii + g_jj - 2 g_ij, 0)`` with the
+    norms taken from the Gram's own diagonal, so ``d2_ii == 0`` exactly for
+    a finite row.  The clamp is ``where(v < 0, 0, v)``, which keeps NaN as
+    ``jnp.maximum`` does (``clamp_min`` would too, but the CUDA kernel's
+    ``v < 0 ? 0 : v`` is the form both share).  The product goes to
+    ``torch.matmul``, as the reference leaves it to XLA's dot; its
+    summation order is the library's, so ``d2`` matches the reference
+    within the float32 dot-product bound, not bit for bit."""
+    x = x.to(torch.float32)
+    g = torch.matmul(x, x.mT)
+    n = g.shape[-1]
+    i = torch.arange(n, device=x.device)
+    g = torch.where(i[:, None] <= i[None, :], g, g.mT)
+    sq = torch.diagonal(g, dim1=-2, dim2=-1)
+    d2 = sq[..., :, None] + sq[..., None, :] - 2.0 * g
+    return torch.where(d2 < 0, 0.0, d2)
 
 
 def trimmed_mean_views(rows: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,

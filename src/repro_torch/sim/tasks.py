@@ -8,6 +8,7 @@ per-tick ``batch_fn`` only.
 """
 from __future__ import annotations
 
+import functools
 from collections.abc import Callable
 from typing import NamedTuple
 
@@ -24,6 +25,14 @@ from repro_torch.data.partition import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.models import small
+
+
+@functools.cache
+def dataset(num_train: int, num_test: int, seed: int):
+    """`make_mnist_like` at these sizes and seed, made once per process: a
+    task's partition, batches and test tensors read its arrays and never
+    write them."""
+    return make_mnist_like(num_train, num_test, seed=seed)
 
 
 class LinearTask(NamedTuple):
@@ -44,7 +53,7 @@ def linear_task(num_nodes: int, *, partition: str = "extreme", batch: int = 32,
     dev = resolve_device(device)
     part = {"iid": partition_iid, "extreme": partition_extreme_noniid,
             "moderate": partition_moderate_noniid}[partition]
-    x, y, xt, yt = make_mnist_like(num_train, num_test, seed=seed)
+    x, y, xt, yt = dataset(num_train, num_test, seed)
     shards = part(x, y, num_nodes, seed=seed)
     host_batches = stack_node_batches(shards, batch, seed=seed)
     x_test = torch.as_tensor(xt, device=dev)
@@ -60,12 +69,18 @@ def linear_task(num_nodes: int, *, partition: str = "extreme", batch: int = 32,
         return replicate(small.init_linear(key, device=dev), num_nodes, perturb=0.01, key=key)
 
     def eval_accuracy(params, honest_mask) -> float:
-        scores = torch.matmul(x_test, params["w"]) + params["b"][:, None, :]  # [M, N, C]
-        acc = (torch.argmax(scores, dim=2) == y_test[None]).to(torch.float32).mean(dim=1)
-        honest = torch.as_tensor(honest_mask, device=dev, dtype=torch.bool)
-        if not bool(honest.any()):
-            return 0.0
-        return float(acc[honest].mean())
+        return honest_accuracy(params, honest_mask, x_test, y_test)
 
     return LinearTask(small.linear_loss_and_grad, init_fn, batch_fn, eval_accuracy,
                       x_test, y_test)
+
+
+def honest_accuracy(params, honest_mask, x_test: torch.Tensor, y_test: torch.Tensor) -> float:
+    """Mean test accuracy of the linear model over the honest nodes (the
+    paper's metric); 0.0 when no node is honest."""
+    scores = torch.matmul(x_test, params["w"]) + params["b"][:, None, :]  # [M, N, C]
+    acc = (torch.argmax(scores, dim=2) == y_test[None]).to(torch.float32).mean(dim=1)
+    honest = torch.as_tensor(honest_mask, device=x_test.device, dtype=torch.bool)
+    if not bool(honest.any()):
+        return 0.0
+    return float(acc[honest].mean())

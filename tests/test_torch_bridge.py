@@ -69,13 +69,27 @@ def ptask():
 _JAX_RUNS: dict = {}
 
 
+def rule_topology(graph_module, rule):
+    """``erdos_renyi(M, p, B)`` at the first ``p`` from 0.6 up whose
+    in-degrees meet ``rule``'s Table II bound (Bulyan's needs p near 1);
+    both packages draw the same graph."""
+    for p in (0.6, 0.7, 0.8, 0.9, 1.0):
+        topo = graph_module.erdos_renyi(M, p, B, seed=0)
+        try:
+            topo.validate_for_rule(rule)
+            return topo
+        except ValueError:
+            continue
+    raise AssertionError(f"no graph for {rule}")
+
+
 def jax_run(jtask, rule, attack, ticks, *, sparse=False, codec="identity"):
     """The reference's trajectory: states (params, key and codec carry as
     numpy) at ticks 0..ticks and the per-tick metrics, memoized per
     configuration."""
     key = (rule, attack, sparse, codec)
     if key not in _JAX_RUNS or len(_JAX_RUNS[key][0]) < ticks + 1:
-        cfg = jbridge.BridgeConfig(topology=jgraph.erdos_renyi(M, 0.6, B, seed=0), rule=rule,
+        cfg = jbridge.BridgeConfig(topology=rule_topology(jgraph, rule), rule=rule,
                                    num_byzantine=B, attack=attack, t0=30, sparse=sparse,
                                    codec=codec)
         trainer = jbridge.BridgeTrainer(cfg, jtask.grad_fn)
@@ -92,7 +106,7 @@ def jax_run(jtask, rule, attack, ticks, *, sparse=False, codec="identity"):
 
 
 def port_trainer(rule, attack, *, sparse=False, codec="identity"):
-    cfg = bridge.BridgeConfig(topology=graph.erdos_renyi(M, 0.6, B, seed=0), rule=rule,
+    cfg = bridge.BridgeConfig(topology=rule_topology(graph, rule), rule=rule,
                               num_byzantine=B, attack=attack, t0=30, sparse=sparse, codec=codec)
     return bridge.BridgeTrainer(cfg, small.linear_loss_and_grad, device="cpu")
 
@@ -147,6 +161,19 @@ def test_one_step_parity_from_carried_state(jtask, rule, attack):
 @pytest.mark.parametrize("rule", ["trimmed_mean", "median", "mean"])
 def test_one_step_parity_sparse(jtask, rule, attack):
     check_one_step(jtask, rule, attack, 3, sparse=True)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("rule", ["krum", "bulyan", "geomedian", "clipped_mean",
+                                  "rep_trimmed_mean", "rep_median"])
+def test_one_step_parity_new_rules(jtask, rule, sparse):
+    """The rules beyond BRIDGE-T, BRIDGE-M and DGD, one step at a time from the reference's
+    carried state (sign flip), at the same tolerances: Krum and Bulyan
+    pick the reference's rows here (picks a rounding can flip are rare at
+    one step from one iterate; over long runs they are not, so longer
+    runs are compared by accuracy), and geomedian's and clipped mean's
+    ulp-level differences (test_torch_rules.py) sit far below them."""
+    check_one_step(jtask, rule, "sign_flip", 2, sparse=sparse)
 
 
 @pytest.mark.parametrize("attack", ["sign_flip", "random"])
@@ -207,7 +234,7 @@ def test_free_run_random_attack_same_seed(jtask_iid, rule, sparse):
 
 
 @pytest.mark.parametrize("codec", ["identity", "int8"])
-@pytest.mark.parametrize("rule", ["trimmed_mean", "median"])
+@pytest.mark.parametrize("rule", ["trimmed_mean", "median", "krum", "bulyan"])
 def test_dense_sparse_trainers_bitwise(rule, codec):
     ptask = tasks.linear_task(M, partition="iid", batch=16, num_train=600, num_test=120,
                               device="cpu")
@@ -372,7 +399,8 @@ def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.sim.tasks, repro_torch.convert, "
             "repro_torch.prng, repro_torch.core.neighbors, repro_torch.comm.codec, "
             "repro_torch.comm.exchange, repro_torch.kernels.gather_screen, "
-            "repro_torch.kernels.dequant, repro_torch.kernels.ops; "
+            "repro_torch.kernels.dequant, repro_torch.kernels.ops, repro_torch.kernels.pairwise, "
+            "repro_torch.core.byrdie, repro_torch.core.brdso, repro_torch.sim.variants; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 the dense and the gather screens exact (NaN-aware ``==``) up to 64 rows on
-edge-case payloads, the int8 decode exact in both its forms.
+edge-case payloads, the int8 decode exact in both its forms, the pairwise
+distances within the float32 dot-product bound (``test_torch_krum.py``)
+with exact symmetry, an exact zero diagonal and the NaN/inf pattern kept.
 
 This file imports nothing of JAX, so it runs on the card's machine:
 
@@ -15,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import build, dequant, gather_screen, median, ref, trimmed_mean
+from repro_torch.kernels import build, dequant, gather_screen, median, pairwise, ref, trimmed_mean
 
 
 def edge_inputs(n: int, d: int, seed: int):
@@ -66,6 +68,42 @@ def codeword(n: int, d: int, seed: int):
     scale[2, 0] = 0.0
     scale[3, :, 1] = 0.0
     return q, scale
+
+
+U32 = 2.0 ** -24
+
+
+def dist_rows(n: int, d: int, seed: int, *, special: bool = True) -> np.ndarray:
+    """Rows for the distance tests: normal rows of scales 0.1-10, and (with
+    ``special``) a NaN row, a +inf and a -inf entry."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32) * rng.uniform(0.1, 10.0, size=(n, 1)).astype(
+        np.float32)
+    if special:
+        x[1] = np.nan
+        x[2, 3] = np.inf
+        x[3, 0] = -np.inf
+    return x
+
+
+def dist_bound(x: np.ndarray) -> np.ndarray:
+    """The float32 dot-product bound ``4 d 2^-24 (sq_i + sq_j)`` per entry."""
+    x64 = np.where(np.isfinite(x), x, 0.0).astype(np.float64)
+    sq = np.sum(x64 * x64, axis=1)
+    return 4.0 * x.shape[1] * U32 * (sq[:, None] + sq[None, :])
+
+
+def check_within_bound(got: np.ndarray, want: np.ndarray, x: np.ndarray) -> float:
+    """Same non-finite pattern, finite entries within `dist_bound`; returns
+    the largest |got - want| over the bound."""
+    fin_g, fin_w = np.isfinite(got), np.isfinite(want)
+    np.testing.assert_array_equal(fin_g, fin_w)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(got[~fin_g], want[~fin_w])
+    bound = dist_bound(x)
+    err = np.abs(got[fin_g].astype(np.float64) - want[fin_w])
+    assert (err <= bound[fin_g]).all(), f"max excess {np.max(err - bound[fin_g])}"
+    return float(np.max(err / np.maximum(bound[fin_g], 1e-300), initial=0.0))
 
 
 def nan_equal(a, b):
@@ -281,4 +319,45 @@ def test_sparse_trainer_launches_its_kernels(cuda_device, rule, codec):
     assert after[0] - before[0] == 3
     assert after[1] - before[1] == (3 if codec == "int8" else 0)
     assert after[2:] == before[2:]
+    assert bool(torch.isfinite(metrics["loss"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(5, 100), (50, 7850), (100, 7850), (130, 1000), (512, 7850)])
+def test_pairwise_kernel_equals_plain_on_card(cuda_device, n, d):
+    x = dist_rows(n, d, seed=n)
+    x[4] = 1e30
+    tx = torch.from_numpy(x).to(cuda_device)
+    before = pairwise.pairwise_sq_dists.launches
+    got = pairwise.pairwise_sq_dists(tx)
+    torch.cuda.synchronize()
+    assert pairwise.pairwise_sq_dists.launches == before + 1
+    got = got.cpu().numpy()
+    want = ref.pairwise_sq_dists(tx).cpu().numpy()
+    np.testing.assert_array_equal(got, got.T)
+    finite_rows = np.isfinite(x).all(axis=1) & (np.abs(x).max(axis=1) < 1e18)
+    assert (np.diagonal(got)[finite_rows] == 0.0).all()
+    check_within_bound(got, want, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("rule", ["krum", "bulyan"])
+def test_vector_rules_launch_the_distance_kernel_once_a_tick(cuda_device, rule, sparse):
+    from repro_torch.core.bridge import BridgeConfig, BridgeTrainer
+    from repro_torch.core.graph import erdos_renyi
+    from repro_torch.sim.tasks import linear_task
+
+    task = linear_task(20, partition="iid", num_train=600, num_test=100, device=cuda_device)
+    cfg = BridgeConfig(topology=erdos_renyi(20, 1.0, 2, seed=0), rule=rule, num_byzantine=2,
+                       attack="random", sparse=sparse)
+    trainer = BridgeTrainer(cfg, task.grad_fn, device=cuda_device)
+    state = trainer.init(task.init_fn(0))
+    tm = gather_screen.gather_screen_trimmed_mean if sparse else trimmed_mean.trimmed_mean_dense
+    before = (pairwise.pairwise_sq_dists.launches, tm.launches)
+    for i in range(3):
+        state, metrics = trainer.step(state, task.batch_fn(i))
+    torch.cuda.synchronize()
+    assert pairwise.pairwise_sq_dists.launches - before[0] == 3
+    assert tm.launches - before[1] == (3 if rule == "bulyan" else 0)
     assert bool(torch.isfinite(metrics["loss"]))

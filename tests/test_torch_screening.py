@@ -3,8 +3,13 @@ versions of the kernels) against the reference on the CPU.
 
 Inputs are made with numpy from a seed and go through both packages.  The
 reference is ``repro.core.screening.screen_all_banked`` under ``jax.jit``
-with the adjacency and ``b`` as operands, the way the reference trainer
-screens (``self_vals`` is the broadcast itself).
+with the adjacency and ``b`` as operands (``self_vals`` is the broadcast
+itself), which for BRIDGE-T and BRIDGE-M is the program the reference
+trainer runs (its ``b`` is an operand).  For ``mean``, whose divisor
+depends on the adjacency alone, the reference trainer closes over the
+adjacency and XLA multiplies by the reciprocal of ``count + 1``; the
+reference here is that closed-over program, as the port's dense ``mean``
+is.
 
 Tolerances, stated per comparison:
 * up to 64 rows, exact (NaN-aware ``==``, under which +0 == -0): the
@@ -50,16 +55,19 @@ def _jax_screen_median(w, adj, b):
     return jscreening.screen_all_banked(w, adj, ("median",), 0, b, chunk=1 << 20, self_vals=w)
 
 
-@jax.jit
 def _jax_screen_mean(w, adj, b):
-    return jscreening.screen_all_banked(w, adj, ("mean",), 0, b, chunk=1 << 20, self_vals=w)
+    """The trainer's form: the adjacency closed over."""
+    fn = jax.jit(lambda w_, b_: jscreening.screen_all_banked(
+        w_, jnp.asarray(adj), ("mean",), 0, b_, chunk=1 << 20, self_vals=w_))
+    return fn(w, b)
 
 
 JAX_SCREEN = {"trimmed_mean": _jax_screen_tm, "median": _jax_screen_median, "mean": _jax_screen_mean}
 
 
 def jax_screen(rule, w, adj, b):
-    return np.asarray(JAX_SCREEN[rule](jnp.asarray(w), jnp.asarray(adj), jnp.asarray(b, jnp.int32)))
+    adj = adj if rule == "mean" else jnp.asarray(adj)
+    return np.asarray(JAX_SCREEN[rule](jnp.asarray(w), adj, jnp.asarray(b, jnp.int32)))
 
 
 def port_screen(rule, w, adj, b, self_vals=None):
@@ -182,10 +190,11 @@ def test_effective_trim_matches_reference():
 
 
 def test_min_neighbors_match_reference():
-    for rule in RULES:
-        for b in range(5):
+    assert set(screening.RULES) == set(jscreening.RULES)
+    for rule in screening.RULES:
+        for b in range(6):
             assert screening.min_neighbors(rule, b) == jscreening.min_neighbors(rule, b)
     with pytest.raises(ValueError):
-        screening.min_neighbors("krum", 1)
+        screening.min_neighbors("nope", 1)
     with pytest.raises(ValueError):
-        screening.screen_all(torch.zeros(3, 4), torch.zeros(3, 3, dtype=torch.bool), rule="krum", b=0)
+        screening.screen_all(torch.zeros(3, 4), torch.zeros(3, 3, dtype=torch.bool), rule="nope", b=0)

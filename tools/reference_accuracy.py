@@ -1,0 +1,97 @@
+"""Honest-node test accuracies of the JAX package (the reference) on the
+CPU, at the settings `chip_smoke.py` trains the PyTorch port at: the
+thresholds the port's card runs are held to (within 0.01 of each).
+
+    JAX_PLATFORMS=cpu PYTHONPATH=src:. python tools/reference_accuracy.py [--only dense,sparse,variants]
+
+Configurations (each as `chip_smoke.py` runs it, same seeds and batches):
+
+* ``dense``: the MNIST-like linear task, iid partition of 6000 samples,
+  batch 32, M = 50 on ``erdos_renyi(50, 0.5, 4)``, b = 4, random attack,
+  t0 = 30, init seed 0, key seed 1: BRIDGE-K and BRIDGE-B for 200 ticks;
+  geomedian, clipped_mean, rep_trimmed_mean and rep_median for 20;
+* ``sparse``: iid partition of 16384 samples, batch 8, M = 512 on
+  ``small_world(512, 8, 2, rewire_prob=0.2)``, the sparse layout, b = 2,
+  t0 = 100: BRIDGE-K and BRIDGE-B for 200 ticks;
+* ``variants``: `examples/bridge_variants.py` at its defaults (M = 20,
+  b = 2, random attack, 120 steps; ByRDiE 2 sweeps, BRDSO 120 steps)
+  through `benchmarks.common`.
+
+Prints one line per configuration and a JSON object of all of them last.
+Takes some minutes (the sparse runs most of it).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import jax
+
+from repro.core import bridge, graph
+from repro.sim import tasks
+
+
+def run_bridge(task, topo, rule, *, b, t0, ticks, sparse=False):
+    cfg = bridge.BridgeConfig(topology=topo, rule=rule, num_byzantine=b, attack="random", t0=t0,
+                              sparse=sparse)
+    trainer = bridge.BridgeTrainer(cfg, task.grad_fn)
+    state = trainer.init(task.init_fn(0), seed=1)
+    for i in range(ticks):  # a fresh task per configuration: batches 0..ticks-1 of one stream
+        state, _ = trainer.step(state, jax.tree_util.tree_map(jax.numpy.asarray, task.batch_fn(i)))
+    return task.eval_accuracy(state.params, trainer.honest_mask)
+
+
+def dense():
+    topo = graph.erdos_renyi(50, 0.5, 4, seed=0)
+    out = {}
+    for rule, ticks in (("krum", 200), ("bulyan", 200), ("geomedian", 20), ("clipped_mean", 20),
+                        ("rep_trimmed_mean", 20), ("rep_median", 20)):
+        task = tasks.linear_task(50, 0, partition="iid", num_train=6000, num_test=1000, batch=32)
+        out[f"dense {rule} {ticks}"] = run_bridge(task, topo, rule, b=4, t0=30, ticks=ticks)
+    return out
+
+
+def sparse():
+    topo = graph.small_world(512, 8, 2, rewire_prob=0.2, seed=0)
+    out = {}
+    for rule in ("krum", "bulyan"):
+        task = tasks.linear_task(512, 0, partition="iid", num_train=16384, num_test=1000, batch=8)
+        out[f"sparse {rule} 200"] = run_bridge(task, topo, rule, b=2, t0=100, ticks=200,
+                                               sparse=True)
+    return out
+
+
+def variants():
+    from benchmarks.common import run_brdso, run_byrdie, run_decentralized
+
+    out = {}
+    for rule in ("mean", "trimmed_mean", "median", "krum", "bulyan"):
+        out[f"variants {rule}"] = run_decentralized(model="linear", rule=rule, attack="random",
+                                                    num_nodes=20, num_byzantine=2,
+                                                    steps=120)["accuracy"]
+    out["variants byrdie"] = run_byrdie(num_nodes=20, num_byzantine=2, attack="random",
+                                        sweeps=2)["accuracy"]
+    out["variants brdso"] = run_brdso(num_nodes=20, num_byzantine=2, attack="random",
+                                      steps=120)["accuracy"]
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default="dense,sparse,variants")
+    args = ap.parse_args()
+    groups = {"dense": dense, "sparse": sparse, "variants": variants}
+    results = {}
+    for name in args.only.split(","):
+        t0 = time.perf_counter()
+        res = groups[name]()
+        for k, v in res.items():
+            print(f"{k}: honest test accuracy {v:.4f}")
+        print(f"({name}: {time.perf_counter() - t0:.0f} s, backend {jax.default_backend()})")
+        results.update(res)
+    print(json.dumps(results))
+
+
+if __name__ == "__main__":
+    main()
