@@ -8,9 +8,11 @@ dict.  One tick, after ``key, sub = split(state.key)``:
 
 1. **attack** — Byzantine rows of the broadcast ``w [M, d]`` are substituted
    (`repro_torch.core.byzantine`, keyed by ``sub``);
-2. **codec** — a lossy codec (``int8``) encodes every sender's delta under
-   ``fold_in(sub, COMM_SALT)`` and receivers decode it with the carry
-   (`repro_torch.comm.exchange`); the identity codec skips the stage;
+2. **codec** — every sender's value (a lossy codec: its delta) is encoded
+   under ``fold_in(sub, COMM_SALT)``, a wire attack corrupts the Byzantine
+   senders' codewords under ``fold_in(sub, WIRE_SALT)``, and receivers
+   decode with the carry (`repro_torch.comm.exchange`); the identity codec
+   with no wire attack skips the stage;
 3. **screen** — every node screens what it received from its in-neighbors,
    with its own (never encoded) broadcast value as self: `screening.screen_all`
    under the ``[M, M]`` adjacency, or `screening.screen_gathered` through a
@@ -49,7 +51,8 @@ from repro_torch.device import resolve_device
 Params = dict[str, torch.Tensor]
 
 # Salts decorrelating the streams folded from one tick's subkey (the
-# reference's `repro.core.bridge` constants; the port uses COMM_SALT).
+# reference's `repro.core.bridge` constants; the port uses COMM_SALT and
+# WIRE_SALT).
 NET_SALT = 0x6E657430
 COMM_SALT = 0x636D6D30
 WIRE_SALT = 0x77697230
@@ -81,7 +84,7 @@ class BridgeConfig:
     rule: str = "trimmed_mean"  # any of screening.RULES
     num_byzantine: int = 0  # the bound b given to the screening rule
     attack: str = "none"
-    codec: str = "identity"  # wire codec: identity | int8 (repro_torch.comm)
+    codec: str = "identity"  # wire codec (repro_torch.comm.codec.get_codec)
     byzantine_seed: int = 0
     lam: float = 1.0
     t0: float = 50.0
@@ -148,6 +151,7 @@ class BridgeTrainer:
         self.config = config
         self.grad_fn = grad_fn
         self.attack = byzantine.get_attack(config.attack)
+        self.wire_attack = byzantine.wire_attack_for(config.attack)
         adj = config.topology.adjacency
         self.adjacency = torch.as_tensor(adj, dtype=torch.bool, device=self.device)
         self.n_edges = float(adj.sum())
@@ -191,7 +195,7 @@ class BridgeTrainer:
             w_bcast = self.attack(w, self.byz_mask, sub, state.t)
         # wire codec: what receivers decode (identity: w_bcast itself)
         with torch.profiler.record_function("bridge.codec"):
-            w_hat, comm = self._wire_roundtrip(sub, w_bcast, state.comm)
+            w_hat, comm = self._wire_roundtrip(sub, w_bcast, state.comm, state.t)
         # (Step 5) screening at every node; self is the node's own broadcast,
         # which never travels the wire
         with torch.profiler.record_function("bridge.screen"):
@@ -210,15 +214,18 @@ class BridgeTrainer:
             metrics = self._metrics(w_new, losses, rho, d, comm)
         return BridgeState(unflatten(w_new), state.t + 1, key, comm), metrics
 
-    def _wire_roundtrip(self, sub: np.ndarray, x: torch.Tensor, comm):
-        """Encode -> decode with error feedback, per sender.  A lossless
-        codec skips the wire entirely (no ``+ 0.0`` anywhere), so the
-        identity path is exactly the uncompressed trainer."""
-        if self.codec.lossless:
+    def _wire_roundtrip(self, sub: np.ndarray, x: torch.Tensor, comm, t: int):
+        """Encode -> codeword attack -> decode with error feedback, per
+        sender.  A lossless codec under no wire attack skips the wire
+        entirely (no ``+ 0.0`` anywhere), so the identity path is exactly
+        the uncompressed trainer."""
+        if self.codec.lossless and self.wire_attack.name == "none":
             return x, comm
         comm_key = prng.fold_in(sub, COMM_SALT)
         msg, target = exchange.encode(self.codec, comm_key, x, comm)
-        return exchange.decode(self.codec, msg, target, comm)
+        msg = self.wire_attack(msg, self.byz_mask, prng.fold_in(sub, WIRE_SALT), t, x.shape[-1])
+        return exchange.decode(self.codec, msg, target, comm, comm_key,
+                               zero_folded=not self.wire_attack.rewrites_scale)
 
     def _metrics(self, w_new: torch.Tensor, losses: torch.Tensor, rho: float, d: int,
                  comm) -> dict:

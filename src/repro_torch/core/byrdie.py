@@ -8,7 +8,10 @@ groups with the gradient recomputed per group (``block=1`` is exact
 ByRDiE); the communication count stays exact (``d`` scalars per node per
 sweep).  Each block is screened through `screening.screen_all` with
 ``rule="trimmed_mean"``, so on the card the trimmed-mean kernel runs once
-per block.
+per block, in its reciprocal form: the reference closes over the
+adjacency and passes ``b`` static, so XLA multiplies by the float32
+reciprocal of ``count - 2 b_eff + 1`` instead of dividing
+(``tools/xla_divisor_forms.py``).
 
 The reference's program is kept where it is odd: the padded iterate is
 cut into blocks of ``block`` coordinates, but the gradient's window is a
@@ -94,7 +97,7 @@ class ByrdieTrainer:
             wk = w[:, start:start + cfg.block]
             wk_b = self.attack(wk.contiguous(), self.byz_mask, prng.fold_in(sub, i), state.t)
             yk = screening.screen_all(wk_b, self.adjacency, rule="trimmed_mean",
-                                      b=cfg.num_byzantine)
+                                      b=cfg.num_byzantine, recip=True)
             gk = g[:, gs:gs + cfg.block]
             w[:, start:start + cfg.block] = ref.fma_f32(torch.full_like(gk, -rho), gk, yk)
         w_new = w[:, :d]

@@ -35,7 +35,9 @@ one rounding).  `screen_all` and `screen_gathered`, the trainer's entries,
 write those forms (``folded=True``); `screen_views`, the reference's
 operand form, divides.  A divisor that depends on the data (the trimmed
 mean's, Bulyan's, geomedian's Weiszfeld weights, the rep rules') is a true
-division everywhere, as there (ROADMAP Queue 3).
+division everywhere, as there (ROADMAP Queue 3) — except where the
+reference also makes ``b`` static: ByRDiE's block screen, which asks
+`screen_all` for the trimmed mean's reciprocal form (``recip=True``).
 
 See `repro_torch.kernels.ref` for the numerics each kernel reproduces.
 """
@@ -326,13 +328,16 @@ def _vector_rule(rule: str, w: torch.Tensor, rows: torch.Tensor, mask: torch.Ten
 
 
 def screen_all(w: torch.Tensor, adjacency: torch.Tensor, *, rule: str, b: int,
-               self_vals: torch.Tensor | None = None) -> torch.Tensor:
+               self_vals: torch.Tensor | None = None, recip: bool = False) -> torch.Tensor:
     """Apply ``rule`` at every node; returns the ``[M, d]`` screened y_j.
-    ``self_vals`` defaults to ``w`` (each node's own broadcast)."""
+    ``self_vals`` defaults to ``w`` (each node's own broadcast).  ``recip``
+    gives the trimmed mean the reciprocal form of its divisor, which XLA
+    writes when the adjacency is closed over and ``b`` is static (ByRDiE);
+    the BRIDGE trainer's ``b`` is traced, and it divides."""
     if self_vals is None:
         self_vals = w
     if rule == "trimmed_mean":
-        return ops.trimmed_mean(w, adjacency, self_vals, b)
+        return ops.trimmed_mean(w, adjacency, self_vals, b, recip)
     if rule == "median":
         return ops.median(w, adjacency, self_vals)
     if rule in ("krum", "bulyan"):

@@ -35,12 +35,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # C signature of each entry point: pointers and the stream as void*, sizes as int
 SIGNATURES = {
-    "screen_trimmed_mean_dense": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
+    "screen_trimmed_mean_dense": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
     "screen_median_dense": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR),
     "gather_screen_trimmed_mean": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
     "gather_screen_median": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
+    "dequant_screen_trimmed_mean_dense": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
+                                          _PTR),
+    "dequant_screen_median_dense": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
+    "gather_dequant_screen_trimmed_mean": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+                                           _INT, _INT, _PTR),
+    "gather_dequant_screen_median": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
+                                     _PTR),
     "dequant": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
-    "dequant_carry": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
+    "dequant_carry": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
     "pairwise_sq_dists": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
 }
 

@@ -18,6 +18,10 @@
 //     added afterwards could not equal it.  Any other zero decodes first,
 //     dec = fma(q, s, zero), then adds and subtracts, as the reference does
 //     when the zero is a run-time value.  No NaN guard, as in decode_bank.
+//     The fused form is taken only where the caller says the zero is the
+//     encoder's constant (zero_folded != 0): a wire attack that rewrites the
+//     scale field (scale_abuse) makes the reference's zero a run-time value
+//     on every row, and then every row decodes first.
 // Intrinsics (__fmaf_rn, __fadd_rn, __fsub_rn) fix every rounding, so
 // nvcc's own contraction cannot change one.
 //
@@ -63,7 +67,8 @@ dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
 __global__ void __launch_bounds__(kBlock)
 dequant_carry_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
                      const float* __restrict__ est, const float* __restrict__ target,
-                     float* __restrict__ x_hat, float* __restrict__ resid, int d, int nblk) {
+                     float* __restrict__ x_hat, float* __restrict__ resid, int d, int nblk,
+                     bool zero_folded) {
   __shared__ float s_pair[2];
   const int row = blockIdx.y;
   load_pair(scale, row, blockIdx.x, nblk, s_pair);
@@ -73,7 +78,7 @@ dequant_carry_kernel(const int8_t* __restrict__ q, const float* __restrict__ sca
   const float qf = static_cast<float>(q[at]);
   const float s = s_pair[0];
   const float z = s_pair[1];
-  if (z == 0.0f) {
+  if (zero_folded && z == 0.0f) {
     x_hat[at] = __fmaf_rn(qf, s, est[at]);
     resid[at] = __fmaf_rn(-qf, s, target[at]);
   } else {
@@ -97,10 +102,10 @@ extern "C" int dequant(const int8_t* q, const float* scale, float* out, int n, i
 
 extern "C" int dequant_carry(const int8_t* q, const float* scale, const float* est,
                              const float* target, float* x_hat, float* resid, int n, int d,
-                             int nblk, void* stream) {
+                             int nblk, int zero_folded, void* stream) {
   if (n < 1 || d < 1 || nblk != (d + kBlock - 1) / kBlock) return cudaErrorInvalidValue;
   const dim3 grid(nblk, n);
   dequant_carry_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      q, scale, est, target, x_hat, resid, d, nblk);
+      q, scale, est, target, x_hat, resid, d, nblk, zero_folded != 0);
   return cudaGetLastError();
 }

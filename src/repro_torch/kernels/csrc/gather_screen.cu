@@ -2,6 +2,9 @@
 //
 // gather_screen_trimmed_mean and gather_screen_median replace the TPU kernel
 //   src/repro/kernels/gather_screen.py::gather_screen_pallas (rule=trimmed_mean|median)
+// gather_dequant_screen_trimmed_mean and gather_dequant_screen_median
+// replace the TPU kernel
+//   src/repro/kernels/gather_screen.py::gather_dequant_screen_pallas (rule=...)
 //
 // What they compute.  Node j's in-neighbors are the slots of row j of a
 // static [M, K] table: safe_idx[j, k] names a row of the broadcast w [M, d]
@@ -15,6 +18,14 @@
 // (sanitized) value and averages the two middle order statistics.  Up to 64
 // sorted rows (K <= 63, so K + 1 rows for the median) that is the
 // reference's order exactly.
+//
+// The codeword forms read int8 codewords instead of w: codes q [M, d] and
+// one (scale, zero) pair per 128 coordinates, scale [M, S, 2]; each value is
+// decoded as dequant.cu does (fma(q, scale, zero) rounded once, NaN -> +inf)
+// and screened against the uncompressed self_vals.  The kernels are one
+// template over the row source (screen_sort.cuh), so a codeword screen
+// equals dequant followed by the float screen bit for bit, and neither the
+// decoded bank nor the gathered [M, K, d] tensor reaches device memory.
 //
 // Design.  One block per (node j, 128 coordinates), one thread per
 // coordinate.  The block loads row j of safe_idx and valid into shared
@@ -33,6 +44,12 @@
 // per column per node, about 0.008 ms at 67 TFLOP/s.  So this kernel is
 // bounded by bytes, unlike the dense ones; the padded network (N_PAD = 16 or
 // 32 here) does more operations than Batcher's, but stays under the bytes.
+// The codeword forms read a quarter of w's bytes: at the same shape about
+// 4.0 MB of codes, 0.25 MB of scales and 16.1 MB of self_vals in and
+// 16.1 MB out, 0.011 ms at 3.35 TB/s, three quarters of the float screen's
+// bound.  After the table row, the block stages the (scale, zero) pairs of
+// its K rows for its 128 coordinates (one scale block) in shared memory;
+// threads then read one int8 code a row.
 
 #include <stdint.h>
 
@@ -61,48 +78,52 @@ __device__ __forceinline__ int load_slots(const int32_t* __restrict__ idx,
 
 // The column of coordinate c over node j's slots, sanitized, +inf where a
 // slot is padded or beyond K.
-template <int N>
-__device__ __forceinline__ void gather_column(float (&v)[N], const float* __restrict__ w,
-                                              const int* s_idx, const uint8_t* s_valid, int k,
-                                              int d, int c) {
+template <int N, class Rows>
+__device__ __forceinline__ void gather_column(float (&v)[N], const Rows& rows,
+                                              const float2* s_pair, const int* s_idx,
+                                              const uint8_t* s_valid, int k, int d, int c) {
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     v[i] = CUDART_INF_F;
-    if (i < k && s_valid[i]) v[i] = screen::sanitize(w[static_cast<size_t>(s_idx[i]) * d + c]);
+    if (i < k && s_valid[i]) v[i] = rows.load(s_pair, s_idx[i], i, d, c);
   }
 }
 
-template <int N>
+template <int N, class Rows>
 __global__ void __launch_bounds__(kThreads)
-gather_trimmed_mean_kernel(const float* __restrict__ w, const int32_t* __restrict__ idx,
+gather_trimmed_mean_kernel(Rows rows, const int32_t* __restrict__ idx,
                            const uint8_t* __restrict__ valid, const float* __restrict__ self_vals,
                            float* __restrict__ out, int m, int k, int d, int b) {
   __shared__ int s_idx[kMaxSlots];
   __shared__ uint8_t s_valid[kMaxSlots];
+  __shared__ float2 s_pair[Rows::kPairs];
   const int j = blockIdx.y;
   const int count = load_slots(idx, valid, m, k, j, s_idx, s_valid);
+  rows.stage(s_idx, k, s_pair);
   const int c = blockIdx.x * kThreads + threadIdx.x;
   if (c >= d) return;
   float v[N];
-  gather_column<N>(v, w, s_idx, s_valid, k, d, c);
+  gather_column<N>(v, rows, s_pair, s_idx, s_valid, k, d, c);
   screen::bitonic_sort<N>(v);
   const size_t at = static_cast<size_t>(j) * d + c;
   out[at] = screen::trimmed_mean_sorted<N>(v, count, b, self_vals[at]);
 }
 
-template <int N>
+template <int N, class Rows>
 __global__ void __launch_bounds__(kThreads)
-gather_median_kernel(const float* __restrict__ w, const int32_t* __restrict__ idx,
+gather_median_kernel(Rows rows, const int32_t* __restrict__ idx,
                      const uint8_t* __restrict__ valid, const float* __restrict__ self_vals,
                      float* __restrict__ out, int m, int k, int d) {
   __shared__ int s_idx[kMaxSlots];
   __shared__ uint8_t s_valid[kMaxSlots];
+  __shared__ float2 s_pair[Rows::kPairs];
   const int j = blockIdx.y;
   const int count = load_slots(idx, valid, m, k, j, s_idx, s_valid);
+  rows.stage(s_idx, k, s_pair);
   const int c = blockIdx.x * kThreads + threadIdx.x;
   if (c >= d) return;
   float v[N];
-  gather_column<N>(v, w, s_idx, s_valid, k, d, c);
+  gather_column<N>(v, rows, s_pair, s_idx, s_valid, k, d, c);
   const size_t at = static_cast<size_t>(j) * d + c;
   // the node's own value takes the slot after the K table slots (the sort
   // makes the position irrelevant)
@@ -115,23 +136,53 @@ gather_median_kernel(const float* __restrict__ w, const int32_t* __restrict__ id
   out[at] = screen::median_sorted<N>(v, count + 1);
 }
 
-template <int N>
-cudaError_t launch_trimmed_mean(const float* w, const int32_t* idx, const uint8_t* valid,
+// Launch over rows to sort: K for the trimmed mean, K + 1 for the median;
+// cudaErrorInvalidValue above kMaxSlots.
+template <class Rows>
+cudaError_t launch_trimmed_mean(const Rows& rows, const int32_t* idx, const uint8_t* valid,
                                 const float* self_vals, float* out, int m, int k, int d, int b,
-                                cudaStream_t stream) {
+                                cudaStream_t s) {
+  if (m < 1 || d < 1 || k < 0) return cudaErrorInvalidValue;
   const dim3 grid((d + kThreads - 1) / kThreads, m);
-  gather_trimmed_mean_kernel<N><<<grid, kThreads, 0, stream>>>(w, idx, valid, self_vals, out, m,
-                                                               k, d, b);
+  if (k <= 16) {
+    gather_trimmed_mean_kernel<16, Rows><<<grid, kThreads, 0, s>>>(rows, idx, valid, self_vals,
+                                                                    out, m, k, d, b);
+  } else if (k <= 32) {
+    gather_trimmed_mean_kernel<32, Rows><<<grid, kThreads, 0, s>>>(rows, idx, valid, self_vals,
+                                                                    out, m, k, d, b);
+  } else if (k <= 64) {
+    gather_trimmed_mean_kernel<64, Rows><<<grid, kThreads, 0, s>>>(rows, idx, valid, self_vals,
+                                                                    out, m, k, d, b);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
-template <int N>
-cudaError_t launch_median(const float* w, const int32_t* idx, const uint8_t* valid,
+template <class Rows>
+cudaError_t launch_median(const Rows& rows, const int32_t* idx, const uint8_t* valid,
                           const float* self_vals, float* out, int m, int k, int d,
-                          cudaStream_t stream) {
+                          cudaStream_t s) {
+  if (m < 1 || d < 1 || k < 0) return cudaErrorInvalidValue;
   const dim3 grid((d + kThreads - 1) / kThreads, m);
-  gather_median_kernel<N><<<grid, kThreads, 0, stream>>>(w, idx, valid, self_vals, out, m, k, d);
+  const int n = k + 1;
+  if (n <= 16) {
+    gather_median_kernel<16, Rows><<<grid, kThreads, 0, s>>>(rows, idx, valid, self_vals, out, m,
+                                                              k, d);
+  } else if (n <= 32) {
+    gather_median_kernel<32, Rows><<<grid, kThreads, 0, s>>>(rows, idx, valid, self_vals, out, m,
+                                                              k, d);
+  } else if (n <= 64) {
+    gather_median_kernel<64, Rows><<<grid, kThreads, 0, s>>>(rows, idx, valid, self_vals, out, m,
+                                                              k, d);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
+}
+
+bool scales_fit(int d, int nblk) {
+  return nblk == (d + screen::kScaleBlock - 1) / screen::kScaleBlock;
 }
 
 }  // namespace
@@ -139,26 +190,36 @@ cudaError_t launch_median(const float* w, const int32_t* idx, const uint8_t* val
 // C entry points (bound with ctypes).  Each returns cudaGetLastError() after
 // its launch (cudaErrorInvalidValue for a shape it does not take); the
 // caller raises on anything but cudaSuccess.  Rows to sort: K for the
-// trimmed mean, K + 1 for the median; at most kMaxSlots.
+// trimmed mean, K + 1 for the median; at most kMaxSlots.  The codeword
+// forms also refuse nblk != ceil(d / 128).
 extern "C" int gather_screen_trimmed_mean(const float* w, const int32_t* idx,
                                           const uint8_t* valid, const float* self_vals,
                                           float* out, int m, int k, int d, int b, void* stream) {
-  if (m < 1 || d < 1 || k < 0) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 16) return launch_trimmed_mean<16>(w, idx, valid, self_vals, out, m, k, d, b, s);
-  if (k <= 32) return launch_trimmed_mean<32>(w, idx, valid, self_vals, out, m, k, d, b, s);
-  if (k <= 64) return launch_trimmed_mean<64>(w, idx, valid, self_vals, out, m, k, d, b, s);
-  return cudaErrorInvalidValue;
+  return launch_trimmed_mean(screen::FloatRows{w}, idx, valid, self_vals, out, m, k, d, b,
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int gather_screen_median(const float* w, const int32_t* idx, const uint8_t* valid,
                                     const float* self_vals, float* out, int m, int k, int d,
                                     void* stream) {
-  if (m < 1 || d < 1 || k < 0) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rows = k + 1;
-  if (rows <= 16) return launch_median<16>(w, idx, valid, self_vals, out, m, k, d, s);
-  if (rows <= 32) return launch_median<32>(w, idx, valid, self_vals, out, m, k, d, s);
-  if (rows <= 64) return launch_median<64>(w, idx, valid, self_vals, out, m, k, d, s);
-  return cudaErrorInvalidValue;
+  return launch_median(screen::FloatRows{w}, idx, valid, self_vals, out, m, k, d,
+                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int gather_dequant_screen_trimmed_mean(const int8_t* q, const float* scale,
+                                                  const int32_t* idx, const uint8_t* valid,
+                                                  const float* self_vals, float* out, int m,
+                                                  int k, int d, int nblk, int b, void* stream) {
+  if (!scales_fit(d, nblk)) return cudaErrorInvalidValue;
+  return launch_trimmed_mean(screen::CodewordRows{q, scale, nblk}, idx, valid, self_vals, out, m,
+                             k, d, b, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int gather_dequant_screen_median(const int8_t* q, const float* scale,
+                                            const int32_t* idx, const uint8_t* valid,
+                                            const float* self_vals, float* out, int m, int k,
+                                            int d, int nblk, void* stream) {
+  if (!scales_fit(d, nblk)) return cudaErrorInvalidValue;
+  return launch_median(screen::CodewordRows{q, scale, nblk}, idx, valid, self_vals, out, m, k, d,
+                       static_cast<cudaStream_t>(stream));
 }

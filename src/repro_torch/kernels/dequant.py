@@ -35,6 +35,17 @@ def check_codeword(q: torch.Tensor, scale: torch.Tensor) -> None:
         raise ValueError(f"operands on different devices: {q.device}, {scale.device}")
 
 
+def check_codeword_rows(q: torch.Tensor, scale: torch.Tensor, self_vals: torch.Tensor) -> None:
+    """Validate a codeword screen's codewords and own values: a codeword
+    (`check_codeword`) and contiguous float32 ``self_vals`` of ``q``'s shape
+    on ``q``'s device."""
+    check_codeword(q, scale)
+    build.check_rows(self_vals, self_vals)
+    if self_vals.shape != q.shape or self_vals.device != q.device:
+        raise ValueError(f"self_vals {tuple(self_vals.shape)} on {self_vals.device} must match "
+                         f"q {tuple(q.shape)} on {q.device}")
+
+
 def dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """``q * scale + zero`` per coordinate, rounded once; NaN -> +inf.
     Returns ``[n, d]`` float32."""
@@ -53,16 +64,17 @@ def dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def dequant_carry(q: torch.Tensor, scale: torch.Tensor, est: torch.Tensor,
-                  target: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                  target: torch.Tensor, zero_folded: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """The trainer's decode of the codeword with its carry: returns
-    ``(x_hat, resid)``, both ``[n, d]`` float32 (`ref.dequant_carry`)."""
+    ``(x_hat, resid)``, both ``[n, d]`` float32 (`ref.dequant_carry`,
+    which says what ``zero_folded`` selects)."""
     check_codeword(q, scale)
     build.check_rows(est, target)
     if est.shape != q.shape or est.device != q.device:
         raise ValueError(f"est/target {tuple(est.shape)} on {est.device} must match "
                          f"q {tuple(q.shape)} on {q.device}")
     if q.device.type == "cpu":
-        return ref.dequant_carry(q, scale, est, target)
+        return ref.dequant_carry(q, scale, est, target, zero_folded)
     if q.device.type != "cuda":
         raise ValueError(f"no dequant kernel for device {q.device}")
     n, d = q.shape
@@ -70,7 +82,7 @@ def dequant_carry(q: torch.Tensor, scale: torch.Tensor, est: torch.Tensor,
     resid = torch.empty_like(est)
     err = build.load().dequant_carry(q.data_ptr(), scale.data_ptr(), est.data_ptr(),
                                      target.data_ptr(), x_hat.data_ptr(), resid.data_ptr(), n, d,
-                                     scale.shape[1], build.stream_of(q))
+                                     scale.shape[1], int(bool(zero_folded)), build.stream_of(q))
     build.check_launch(err, "dequant_carry")
     dequant_carry.launches += 1
     return x_hat, resid

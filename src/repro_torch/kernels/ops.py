@@ -4,25 +4,30 @@ Each runs under a ``torch.profiler.record_function`` range
 ``jax.named_scope``, so a profiler trace attributes the time to the rule.
 
 Where the reference takes pre-gathered ``[E?, n, d]`` values, these take the
-main path's operands: the shared broadcast ``w [M, d]``, the ``[M, M]``
+main path's operands: the shared broadcast ``w [M, d]`` (or, for the
+codeword screens, the broadcast int8 codewords ``q [M, d]`` and
+``scale [M, S, 2]`` of `repro_torch.comm.codec`), the ``[M, M]``
 in-neighbor mask or the ``[M, K]`` neighbor table, and ``self_vals [M, d]``.
-The device of ``w`` picks the implementation: the CUDA kernel on a card,
-its plain PyTorch version on the CPU.
+The device of the operands picks the implementation: the CUDA kernel on a
+card, its plain PyTorch version on the CPU.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import dequant as _dequant
+from repro_torch.kernels import dequant_screen as _dequant_screen
+from repro_torch.kernels import gather_screen as _gather_screen
 from repro_torch.kernels.gather_screen import gather_screen_median, gather_screen_trimmed_mean
 from repro_torch.kernels.median import median_dense
 from repro_torch.kernels.pairwise import pairwise_sq_dists as _pairwise_sq_dists
 from repro_torch.kernels.trimmed_mean import trimmed_mean_dense
 
 
-def trimmed_mean(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor, b: int) -> torch.Tensor:
+def trimmed_mean(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor, b: int,
+                 recip: bool = False) -> torch.Tensor:
     with torch.profiler.record_function("kernels.trimmed_mean"):
-        return trimmed_mean_dense(w, adj, self_vals, b)
+        return trimmed_mean_dense(w, adj, self_vals, b, recip)
 
 
 def median(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor) -> torch.Tensor:
@@ -48,9 +53,42 @@ def dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def dequant_carry(q: torch.Tensor, scale: torch.Tensor, est: torch.Tensor,
-                  target: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                  target: torch.Tensor, zero_folded: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     with torch.profiler.record_function("kernels.dequant"):
-        return _dequant.dequant_carry(q, scale, est, target)
+        return _dequant.dequant_carry(q, scale, est, target, zero_folded)
+
+
+def dequant_trimmed_mean(q: torch.Tensor, scale: torch.Tensor, adj: torch.Tensor,
+                         self_vals: torch.Tensor, b: int) -> torch.Tensor:
+    """Fused decode -> trimmed mean over the int8 codewords of each node's
+    in-neighbors."""
+    with torch.profiler.record_function("kernels.dequant_trimmed_mean"):
+        return _dequant_screen.dequant_screen_trimmed_mean_dense(q, scale, adj, self_vals, b)
+
+
+def dequant_median(q: torch.Tensor, scale: torch.Tensor, adj: torch.Tensor,
+                   self_vals: torch.Tensor) -> torch.Tensor:
+    """Fused decode -> median over the int8 codewords of each node's
+    in-neighbors (the node's own value joins uncompressed)."""
+    with torch.profiler.record_function("kernels.dequant_median"):
+        return _dequant_screen.dequant_screen_median_dense(q, scale, adj, self_vals)
+
+
+def gather_dequant_trimmed_mean(q: torch.Tensor, scale: torch.Tensor, safe_idx: torch.Tensor,
+                                valid: torch.Tensor, self_vals: torch.Tensor,
+                                b: int) -> torch.Tensor:
+    """Fused gather -> decode -> trimmed mean over each node's table slots."""
+    with torch.profiler.record_function("kernels.gather_dequant_trimmed_mean"):
+        return _gather_screen.gather_dequant_screen_trimmed_mean(q, scale, safe_idx, valid,
+                                                                 self_vals, b)
+
+
+def gather_dequant_median(q: torch.Tensor, scale: torch.Tensor, safe_idx: torch.Tensor,
+                          valid: torch.Tensor, self_vals: torch.Tensor) -> torch.Tensor:
+    """Fused gather -> decode -> median over each node's table slots and
+    itself."""
+    with torch.profiler.record_function("kernels.gather_dequant_median"):
+        return _gather_screen.gather_dequant_screen_median(q, scale, safe_idx, valid, self_vals)
 
 
 def pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,9 @@ operation for operation:
   ``jnp.sum``, and so does this file, with ``torch.sum``);
 * the node's own value is added and the total divided by
   ``count - 2 b_eff + 1`` — a true division: the reference's program divides
-  whenever the divisor is a run-time value, as it is in its trainer.
+  whenever the divisor is a run-time value, as it is in its trainer; with
+  ``recip`` the total is multiplied by the divisor's float32 reciprocal,
+  the form XLA folds a constant divisor into (ByRDiE's block screen).
 
 Each rule is written once over rows ``[M or 1, n, d]`` and an ``[M, n]``
 mask, and reached three ways: the dense layout (the shared broadcast
@@ -29,7 +31,11 @@ fast path.
 
 The int8 decode (`dequant`, `dequant_carry`) is that of the reference's
 codec (`repro.comm.codec.apply_scales`, `repro.comm.exchange.decode_bank`);
-`fma_f32` gives it the single rounding XLA's fused multiply-add has.
+`fma_f32` gives it the single rounding XLA's fused multiply-add has.  The
+codeword screens (`dequant_trimmed_mean_dense`, `dequant_median_dense`,
+`gather_dequant_trimmed_mean`, `gather_dequant_median`) are `dequant`
+followed by the float screens: decode-then-screen, which the fused
+kernels equal by construction.
 
 `pairwise_sq_dists` is the plain version of the Krum distance kernel
 (`repro.kernels.krum.pairwise_sq_dists_pallas`), and `sum_rows_mat` the
@@ -106,11 +112,12 @@ def pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:
 
 
 def trimmed_mean_views(rows: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
-                       b: int) -> torch.Tensor:
+                       b: int, recip: bool = False) -> torch.Tensor:
     """BRIDGE-T (Eqs. 7-10) at every node over its views ``rows [M, n, d]``
     (or one ``[1, n, d]`` shared by all) under ``mask [M, n]``: drop the
     ``b_eff`` smallest and largest values per coordinate, add the node's own
-    (unsanitized) value, divide by ``count - 2 b_eff + 1``."""
+    (unsanitized) value, divide by ``count - 2 b_eff + 1`` (``recip``:
+    multiply by its float32 reciprocal)."""
     mask = mask.bool()
     n = mask.shape[1]
     count = mask.sum(dim=1)
@@ -119,8 +126,8 @@ def trimmed_mean_views(rows: torch.Tensor, mask: torch.Tensor, self_vals: torch.
     idx = torch.arange(n, device=rows.device)[None, :, None]
     keep = (idx >= b_eff[:, None, None]) & (idx < (count - b_eff)[:, None, None])
     total = sum_rows(torch.where(keep, order, 0.0), dim=1) + self_vals
-    den = (count - 2 * b_eff + 1).to(rows.dtype)
-    return total / den[:, None]
+    den = (count - 2 * b_eff + 1).to(rows.dtype)[:, None]
+    return total * (1.0 / den) if recip else total / den
 
 
 def median_views(rows: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor) -> torch.Tensor:
@@ -138,10 +145,10 @@ def median_views(rows: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor
 
 
 def trimmed_mean_dense(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor,
-                       b: int) -> torch.Tensor:
+                       b: int, recip: bool = False) -> torch.Tensor:
     """`trimmed_mean_views` at every node over the broadcast ``w [M, d]``
     under the in-neighbor mask ``adj [M, M]``."""
-    return trimmed_mean_views(w[None], adj, self_vals, b)
+    return trimmed_mean_views(w[None], adj, self_vals, b, recip)
 
 
 def median_dense(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor) -> torch.Tensor:
@@ -170,14 +177,15 @@ def gather_median(w: torch.Tensor, safe_idx: torch.Tensor, valid: torch.Tensor,
     return median_views(gather(w, safe_idx), valid, self_vals)
 
 
-def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` for float32 operands, rounded once to float32, as a
-    fused multiply-add rounds it.  The product is exact in float64; the
+def fma_f32(a: torch.Tensor, b: torch.Tensor | float, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for float32 operands (``b`` may be a Python float that
+    is a float32 value), rounded once to float32, as a fused multiply-add
+    rounds it.  The product is exact in float64; the
     sum is rounded to float64 *to odd* (a rounded result with an even last
     bit moves one ulp toward the error that TwoSum recovers), and rounding
     that to float32 is then correctly rounded, since float64 carries more
     than float32's 24 + 2 bits."""
-    p = a.double() * b.double()
+    p = a.double() * (b.double() if isinstance(b, torch.Tensor) else float(b))
     c = c.double()
     s = p + c
     bp = s - p
@@ -203,8 +211,8 @@ def dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return sanitize(fma_f32(q.float(), s, z))
 
 
-def dequant_carry(q: torch.Tensor, scale: torch.Tensor, est: torch.Tensor,
-                  target: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def dequant_carry(q: torch.Tensor, scale: torch.Tensor, est: torch.Tensor, target: torch.Tensor,
+                  zero_folded: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """The codec's decode with its error-feedback carry: what receivers see
     ``x_hat = est + decoded`` and the residual ``target - decoded``.
 
@@ -214,11 +222,45 @@ def dequant_carry(q: torch.Tensor, scale: torch.Tensor, est: torch.Tensor,
     zero away and contracts the multiply into the add.  Any other zero is
     decoded first, ``dec = fma(q, s, zero)``, and then added and
     subtracted, as the reference computes it when the zero is a run-time
-    value.  No NaN guard, as in the reference's decode."""
+    value.  ``zero_folded=False`` decodes first everywhere: the reference's
+    program when a wire attack rewrote the scale field (``scale_abuse``),
+    whose zero is then a run-time value on every row
+    (``tests/test_torch_wire.py``).  No NaN guard, as in the reference's
+    decode."""
     qf = q.float()
     s, z = expand_scales(scale, q.shape[-1])
     dec = fma_f32(qf, s, z)
-    zero = z == 0
+    zero = (z == 0) & zero_folded
     x_hat = torch.where(zero, fma_f32(qf, s, est), est + dec)
     resid = torch.where(zero, fma_f32(-qf, s, target), target - dec)
     return x_hat, resid
+
+
+def dequant_trimmed_mean_dense(q: torch.Tensor, scale: torch.Tensor, adj: torch.Tensor,
+                               self_vals: torch.Tensor, b: int) -> torch.Tensor:
+    """BRIDGE-T over int8 codewords (``q [M, d]``, ``scale [M, S, 2]``) at
+    every node under ``adj [M, M]``, against its uncompressed
+    ``self_vals``: `dequant`, then `trimmed_mean_dense`."""
+    return trimmed_mean_dense(dequant(q, scale), adj, self_vals, b)
+
+
+def dequant_median_dense(q: torch.Tensor, scale: torch.Tensor, adj: torch.Tensor,
+                         self_vals: torch.Tensor) -> torch.Tensor:
+    """BRIDGE-M over int8 codewords: `dequant`, then `median_dense` (the
+    node's own uncompressed value joins the decoded rows)."""
+    return median_dense(dequant(q, scale), adj, self_vals)
+
+
+def gather_dequant_trimmed_mean(q: torch.Tensor, scale: torch.Tensor, safe_idx: torch.Tensor,
+                                valid: torch.Tensor, self_vals: torch.Tensor,
+                                b: int) -> torch.Tensor:
+    """BRIDGE-T over int8 codewords on the sparse layout: `dequant`, then
+    `gather_trimmed_mean`."""
+    return gather_trimmed_mean(dequant(q, scale), safe_idx, valid, self_vals, b)
+
+
+def gather_dequant_median(q: torch.Tensor, scale: torch.Tensor, safe_idx: torch.Tensor,
+                          valid: torch.Tensor, self_vals: torch.Tensor) -> torch.Tensor:
+    """BRIDGE-M over int8 codewords on the sparse layout: `dequant`, then
+    `gather_median`."""
+    return gather_median(dequant(q, scale), safe_idx, valid, self_vals)

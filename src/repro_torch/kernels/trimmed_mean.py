@@ -18,15 +18,17 @@ MAX_ROWS = 128
 
 
 def trimmed_mean_dense(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor,
-                       b: int) -> torch.Tensor:
+                       b: int, recip: bool = False) -> torch.Tensor:
     """Trimmed-mean screening of the broadcast ``w [M, d]`` at every node
     under the in-neighbor mask ``adj [M, M]`` with own values
-    ``self_vals [M, d]``; returns ``[M, d]`` float32."""
+    ``self_vals [M, d]``; returns ``[M, d]`` float32.  ``recip`` multiplies
+    the kept total by the float32 reciprocal of its divisor instead of
+    dividing (`ref.trimmed_mean_views`)."""
     build.check_screen_args(w, adj, self_vals)
     if b < 0:
         raise ValueError(f"b must be >= 0, got {b}")
     if w.device.type == "cpu":
-        return ref.trimmed_mean_dense(w, adj, self_vals, b)
+        return ref.trimmed_mean_dense(w, adj, self_vals, b, recip)
     if w.device.type != "cuda":
         raise ValueError(f"no trimmed-mean kernel for device {w.device}")
     m, d = w.shape
@@ -35,7 +37,8 @@ def trimmed_mean_dense(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tens
     out = torch.empty_like(w)
     lib = build.load()
     err = lib.screen_trimmed_mean_dense(w.data_ptr(), adj.data_ptr(), self_vals.data_ptr(),
-                                        out.data_ptr(), m, d, int(b), build.stream_of(w))
+                                        out.data_ptr(), m, d, int(b), int(bool(recip)),
+                                        build.stream_of(w))
     build.check_launch(err, "screen_trimmed_mean_dense")
     trimmed_mean_dense.launches += 1
     return out

@@ -1,6 +1,6 @@
 """Counter-based random numbers equal to ``jax.random``'s — the port's
 counterpart of the calls the reference makes: ``PRNGKey``, ``split``,
-``fold_in``, ``bits``, ``uniform`` and ``normal``.
+``fold_in``, ``bits``, ``uniform``, ``normal`` and ``randint``.
 
 Both packages draw from the Threefry-2x32 block cipher (20 rounds,
 rotations (13, 15, 26, 6) and (17, 29, 16, 24), a key-schedule injection
@@ -20,8 +20,8 @@ layout enciphered one counter run split in two halves; its bits differ.
   This is plain PyTorch and no kernel: XLA computes it outside any Pallas
   kernel as well.
 
-Equality with ``jax.random``: keys, splits, fold-ins, bits and uniforms are
-bit for bit (``tests/test_torch_prng.py``).  ``normal`` is
+Equality with ``jax.random``: keys, splits, fold-ins, bits, uniforms and
+32-bit randints are bit for bit (``tests/test_torch_prng.py``).  ``normal`` is
 ``sqrt(2) * erfinv(u)`` over ``u`` uniform in ``(-1, 1)``, as in JAX, with
 ``torch.erfinv`` in place of XLA's float32 ``ErfInv`` polynomial: one
 launch, where emulating the polynomial's fused multiply-adds in eager
@@ -121,6 +121,40 @@ def uniform(key: np.ndarray, shape, device: str | torch.device, minval: float = 
     lo = float(np.float32(minval))
     span = float(np.float32(maxval) - np.float32(minval))
     return torch.clamp(one * span + lo, min=lo)
+
+
+def _mulmod32(a: torch.Tensor, m: int) -> torch.Tensor:
+    """``(a * m) mod 2**32`` for ``a`` and ``m`` below ``2**32``, in int64
+    without overflow: ``a`` split into 16-bit halves."""
+    hi = ((a >> 16) * m) & 0xFFFF
+    return ((hi << 16) + (a & 0xFFFF) * m) & _MASK
+
+
+def randint(key: np.ndarray, shape, minval: int, maxval: int, dtype: torch.dtype,
+            device: str | torch.device) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, int32)``: two 32-bit
+    draws under ``split(key)``, ``hi`` and ``lo``, folded into
+    ``[minval, maxval)`` in uint32 arithmetic as JAX does
+    (``(hi % span) * multiplier + lo % span``, each step wrapping at
+    ``2**32``, then ``% span``, with ``multiplier = (2**16 % span)**2 % span``,
+    the square wrapping too);
+    the wrap is emulated in int64.  Only 32-bit draws (``dtype`` int32):
+    JAX draws as many bits as the dtype has, and the reference asks for
+    int32."""
+    if dtype != torch.int32:
+        raise TypeError(f"randint draws 32-bit integers (torch.int32), got {dtype}")
+    minval, maxval = int(minval), int(maxval)
+    if not -(2 ** 31) <= min(minval, maxval) <= max(minval, maxval) < 2 ** 31:
+        raise ValueError(f"randint bounds must be int32 values, got [{minval}, {maxval})")
+    span = (maxval - minval) & _MASK if maxval > minval else 1
+    k1, k2 = split(key)
+    hi, lo = bits(k1, shape, device), bits(k2, shape, device)
+    mult = 2 ** 16 % span
+    mult = ((mult * mult) & _MASK) % span
+    offset = ((_mulmod32(hi % span, mult) + lo % span) & _MASK) % span
+    # minval + offset in int32 arithmetic (wrapping, as the reference's add)
+    val = (offset + minval) & _MASK
+    return torch.where(val >= 2 ** 31, val - 2 ** 32, val).to(torch.int32)
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))

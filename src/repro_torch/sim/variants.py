@@ -15,10 +15,13 @@ until the rule's Table II bound holds; the baselines run on the linear task
 at 4000 / 800 samples over ``erdos_renyi(M, 0.5, b)``, ByRDiE with
 ``block=512`` for 2 sweeps, BRDSO with ``lam0=0.05``.
 
-Not ported yet (they raise `NotImplementedError`): ``--adversary`` (ROADMAP
-Queue 1 item 10), the wire attacks (item 6) and the codecs other than
-``identity`` and ``int8`` (item 6).  ``--sparse`` runs the variants on the
-neighbor-table layout; ``--device`` defaults to ``cuda``.
+``--codec`` takes every codec of `repro_torch.comm.codec` and ``--attack``
+the wire attacks too (``garbage_codeword``, ``scale_abuse``,
+``index_lie``); the baselines take the broadcast attack, ``random`` in
+place of a wire attack, as the reference's example does.  Not ported yet
+(it raises `NotImplementedError`): ``--adversary`` (ROADMAP Queue 1 item
+10).  ``--sparse`` runs the variants on the neighbor-table layout;
+``--device`` defaults to ``cuda``.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 from repro_torch import prng
 from repro_torch.core.brdso import BrdsoConfig, BrdsoTrainer
 from repro_torch.core.bridge import BridgeConfig, BridgeTrainer, replicate
+from repro_torch.core import byzantine
 from repro_torch.core.byrdie import ByrdieConfig, ByrdieTrainer
 from repro_torch.core.graph import erdos_renyi
 from repro_torch.data.partition import (
@@ -45,9 +49,8 @@ from repro_torch.sim.tasks import dataset, honest_accuracy, linear_task
 
 VARIANTS = (("mean", "DGD"), ("trimmed_mean", "BRIDGE-T"), ("median", "BRIDGE-M"),
             ("krum", "BRIDGE-K"), ("bulyan", "BRIDGE-B"))
-ATTACK_CHOICES = ("random", "sign_flip", "same_value", "alie", "shift",
-                  "garbage_codeword", "scale_abuse", "index_lie")
-WIRE_ATTACKS = ("garbage_codeword", "scale_abuse", "index_lie")
+WIRE_ATTACKS = tuple(name for name in byzantine.WIRE_ATTACKS if name != "none")
+ATTACK_CHOICES = ("random", "sign_flip", "same_value", "alie", "shift", *WIRE_ATTACKS)
 PARTITIONS = {"iid": partition_iid, "extreme": partition_extreme_noniid,
               "moderate": partition_moderate_noniid}
 
@@ -82,9 +85,6 @@ def run_decentralized(*, rule: str = "trimmed_mean", attack: str = "none",
     if adversary != "none":
         raise NotImplementedError(f"adversary {adversary!r}: repro.adversary is not ported "
                                   f"yet (ROADMAP Queue 1 item 10)")
-    if attack in WIRE_ATTACKS:
-        raise NotImplementedError(f"attack {attack!r}: the wire attacks are not ported yet "
-                                  f"(ROADMAP Queue 1 item 6)")
     dev = resolve_device(device)
     x, y, xt, yt = dataset(4000, 800, 0)  # the reference's benchmark data, at seed 0
     shards = PARTITIONS[partition](x, y, num_nodes, seed=seed)
@@ -119,6 +119,13 @@ def run_decentralized(*, rule: str = "trimmed_mean", attack: str = "none",
         "trainer": trainer,
         "state": state,
     }
+
+
+def baseline_attack(attack: str) -> str:
+    """The broadcast attack the baselines take: ``attack``, or ``random`` in
+    place of a wire attack (neither protocol sends codewords), as in the
+    reference's example."""
+    return "random" if attack in WIRE_ATTACKS else attack
 
 
 def baseline_setup(num_nodes: int, num_byzantine: int, partition: str, seed: int,
@@ -177,8 +184,9 @@ def main(argv: Sequence[str] | None = None) -> list[dict]:
     ap.add_argument("--adversary", default="none",
                     help="adaptive adversary; not ported yet (raises unless 'none')")
     ap.add_argument("--codec", default=None,
-                    help="wire codec (identity, int8); when set, each variant runs uncompressed "
-                         "AND compressed")
+                    help="wire codec (identity, int8, int4, topk<P>[_int8|_int4], "
+                         "randk<P>[_int8|_int4]); when set, each variant runs uncompressed AND "
+                         "compressed")
     ap.add_argument("--nodes", type=int, default=20)
     ap.add_argument("--steps", type=int, default=120)
     ap.add_argument("--no-baselines", action="store_true",
@@ -204,8 +212,7 @@ def main(argv: Sequence[str] | None = None) -> list[dict]:
                   f"{r['wire_bits_per_edge'] / 8:12.0f} {r['us_per_step'] / 1000:8.1f}")
             rows.append({"variant": label, "codec": codec, **r})
     if not args.no_baselines:
-        # the baselines take the static broadcast attack, as in the reference
-        base_attack = args.attack if args.attack not in WIRE_ATTACKS else "random"
+        base_attack = baseline_attack(args.attack)
         r = run_byrdie(num_nodes=args.nodes, num_byzantine=args.byzantine, attack=base_attack,
                        sweeps=2, device=args.device)
         print(f"{'ByRDiE':12s} {'scalar':12s} {r['accuracy']:9.4f} {'-':>10s} "

@@ -13,11 +13,11 @@ Tolerances, stated per comparison:
   (`ref.fma_f32`), and what differs is the gradient's matrix products;
 * ByRDiE, one sweep (16 blocks of 512): rtol 1e-5, atol 1e-6 on honest
   rows: the gradient is recomputed at the current iterate before each
-  block, so the products' rounding carries from block to block, and the
-  reference's block screen multiplies by the reciprocal of its divisor
-  (its ``b`` is static and the adjacency closed over, so the divisor
-  folds) where the port's trimmed-mean kernel divides: one ulp on some
-  coordinates (ROADMAP Queue 3);
+  block, so the products' rounding carries from block to block;
+* ByRDiE's block screen alone: exact.  The reference's ``b`` is static and
+  its adjacency closed over, so XLA multiplies the kept total by the
+  reciprocal of its divisor; the port asks the trimmed-mean kernel for
+  that form (``recip=True``);
 * the key, the counters and ``scalars_sent``: exact; the loss: rtol 1e-5.
 """
 import jax
@@ -29,9 +29,10 @@ import torch
 from repro.core import brdso as jbrdso
 from repro.core import byrdie as jbyrdie
 from repro.core import graph as jgraph
+from repro.core import screening as jscreening
 from repro.sim import tasks as jtasks
 from repro_torch import convert
-from repro_torch.core import brdso, byrdie, graph
+from repro_torch.core import brdso, byrdie, graph, screening
 from repro_torch.models import small
 from repro_torch.sim import variants
 
@@ -127,9 +128,51 @@ def test_variants_entry_prints_all_rows(capsys):
     assert rows[0]["wire_bits_per_edge"] == 32 * 7850
 
 
+@pytest.mark.parametrize("m,b,seed", [(20, 2, 2), (10, 1, 0), (30, 3, 1)])
+def test_byrdie_block_screen_bit_exact(m, b, seed):
+    """The reference's block screen, jitted with the adjacency closed over
+    and ``b`` static, as `repro.core.byrdie` runs it, against the port's
+    reciprocal form; the division (the BRIDGE trainer's form) is not it."""
+    topo = jgraph.erdos_renyi(m, 0.5, b, seed=seed)
+    w = np.random.default_rng(seed).normal(size=(m, 512)).astype(np.float32)
+    adj = jnp.asarray(topo.adjacency)
+    want = np.asarray(jax.jit(lambda w_: jscreening.screen_all(w_, adj, rule="trimmed_mean",
+                                                               b=b))(jnp.asarray(w)))
+    tw, ta = torch.from_numpy(w), torch.from_numpy(topo.adjacency)
+    got = screening.screen_all(tw, ta, rule="trimmed_mean", b=b, recip=True).numpy()
+    np.testing.assert_array_equal(got, want)
+    divided = screening.screen_all(tw, ta, rule="trimmed_mean", b=b).numpy()
+    assert (divided != want).any()
+
+
 @pytest.mark.parametrize("argv", [["--adversary", "ipm"], ["--codec", "int4"],
                                   ["--attack", "garbage_codeword"]])
-def test_variants_unported_options_raise(argv):
-    with pytest.raises(NotImplementedError):
-        variants.main([*argv, "--nodes", "8", "--byzantine", "1", "--steps", "1", "--device", "cpu",
-                       "--no-baselines"])
+def test_variants_unported_options_raise(argv, capsys):
+    """Only the adaptive adversary is still to be ported and raises; the
+    codecs and the wire attacks run, the baselines under the reference's
+    ``random`` in place of a wire attack."""
+    run = lambda: variants.main([*argv, "--nodes", "8", "--byzantine", "1", "--steps", "1",
+                                 "--device", "cpu", "--no-baselines"])
+    if argv[0] == "--adversary":
+        with pytest.raises(NotImplementedError):
+            run()
+        return
+    rows = run()
+    codecs = ["identity", "int4"] if argv[0] == "--codec" else ["identity"]
+    assert [r["codec"] for r in rows] == codecs * 5
+    assert f"attack={argv[1] if argv[0] == '--attack' else 'random'}" in capsys.readouterr().out
+    if argv[0] == "--codec":
+        assert rows[1]["wire_bits_per_edge"] == 4 * 7850 + 32 * 62
+
+
+def test_variants_int4_under_scale_abuse_with_baselines(capsys):
+    """The row set `chip_smoke.py` adds: ``--codec int4 --attack
+    scale_abuse``, every variant uncompressed and compressed, then the
+    baselines under ``random``."""
+    rows = variants.main(["--codec", "int4", "--attack", "scale_abuse", "--nodes", "8",
+                          "--byzantine", "1", "--steps", "1", "--device", "cpu"])
+    assert [r["variant"] for r in rows] == [v for _, v in variants.VARIANTS for _ in (0, 1)] + [
+        "ByRDiE", "BRDSO"]
+    assert all(0.0 <= r["accuracy"] <= 1.0 for r in rows)
+    assert variants.baseline_attack("scale_abuse") == "random"
+    assert variants.baseline_attack("alie") == "alie"

@@ -1,6 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 the dense and the gather screens exact (NaN-aware ``==``) up to 64 rows on
-edge-case payloads, the int8 decode exact in both its forms, the pairwise
+edge-case payloads (the trimmed mean in both its divisor forms), the
+int8-codeword screens exact against their plain versions and against
+their staged twins (the ``dequant`` kernel, then the float screen), the
+int8 decode exact in both its forms, the pairwise
 distances within the float32 dot-product bound (``test_torch_krum.py``)
 with exact symmetry, an exact zero diagonal and the NaN/inf pattern kept.
 
@@ -17,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import build, dequant, gather_screen, median, pairwise, ref, trimmed_mean
+from repro_torch.kernels import (
+    build, dequant, dequant_screen, gather_screen, median, pairwise, ref, trimmed_mean)
 
 
 def edge_inputs(n: int, d: int, seed: int):
@@ -290,9 +294,10 @@ def test_dequant_kernels_equal_plain_on_card(cuda_device, n, d):
     est = torch.randn((n, d), generator=gen, device=cuda_device)
     target = torch.randn((n, d), generator=gen, device=cuda_device) * 1e-3
     for sc in (scale, torch.stack([scale[..., 0], torch.zeros_like(scale[..., 0])], -1)):
-        x_hat, resid = dequant.dequant_carry(q, sc.contiguous(), est, target)
-        want_x, want_r = ref.dequant_carry(q, sc.contiguous(), est, target)
-        assert bool(nan_equal(x_hat, want_x).all()) and bool(nan_equal(resid, want_r).all())
+        for folded in (True, False):
+            x_hat, resid = dequant.dequant_carry(q, sc.contiguous(), est, target, folded)
+            want_x, want_r = ref.dequant_carry(q, sc.contiguous(), est, target, folded)
+            assert bool(nan_equal(x_hat, want_x).all()) and bool(nan_equal(resid, want_r).all())
 
 
 @pytest.mark.cuda
@@ -361,3 +366,92 @@ def test_vector_rules_launch_the_distance_kernel_once_a_tick(cuda_device, rule, 
     assert pairwise.pairwise_sq_dists.launches - before[0] == 3
     assert tm.launches - before[1] == (3 if rule == "bulyan" else 0)
     assert bool(torch.isfinite(metrics["loss"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 20, 50, 64])
+def test_trimmed_mean_reciprocal_form_on_card(cuda_device, n):
+    w, adj = edge_inputs(n, 999, seed=n + 3)
+    tw, ta = torch.from_numpy(w).to(cuda_device), torch.from_numpy(adj).to(cuda_device)
+    for b in (0, 2):
+        got = trimmed_mean.trimmed_mean_dense(tw, ta, tw, b, recip=True)
+        assert bool(nan_equal(got, ref.trimmed_mean_dense(tw, ta, tw, b, recip=True)).all())
+
+
+def card_codewords(n: int, d: int, seed: int, device):
+    """Random codewords (inf and zero scales, nonzero zero terms, codes of
+    -128) and the int8 codec's own codewords of a seeded bank, with self
+    values carrying NaN and +-inf."""
+    from repro_torch.comm import codec
+
+    q, scale = codeword(n, d, seed)
+    q[4 % n, :7] = -128
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(n, d)) * 0.05).astype(np.float32)
+    msg = codec.get_codec("int8").encode(np.array([0, seed], np.uint32),
+                                         torch.from_numpy(x).to(device))
+    sv = rng.normal(size=(n, d)).astype(np.float32)
+    sv[0, :3] = [np.nan, np.inf, -np.inf]
+    sv = torch.from_numpy(sv).to(device)
+    return [(torch.from_numpy(q).to(device), torch.from_numpy(scale).to(device), sv),
+            (msg.payload, msg.scale, sv)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(5, 130), (20, 1000), (50, 7850), (64, 999), (100, 777)])
+def test_dense_codeword_screens_on_card(cuda_device, n, d):
+    _, adj = edge_inputs(n, 4, seed=n)
+    ta = torch.from_numpy(adj).to(cuda_device)
+    for q, scale, sv in card_codewords(n, d, n + d, cuda_device):
+        before = (dequant_screen.dequant_screen_trimmed_mean_dense.launches,
+                  dequant_screen.dequant_screen_median_dense.launches)
+        tm = dequant_screen.dequant_screen_trimmed_mean_dense(q, scale, ta, sv, 2)
+        md = dequant_screen.dequant_screen_median_dense(q, scale, ta, sv)
+        torch.cuda.synchronize()
+        assert (dequant_screen.dequant_screen_trimmed_mean_dense.launches,
+                dequant_screen.dequant_screen_median_dense.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+        staged = dequant.dequant(q, scale)
+        assert bool(nan_equal(md, median.median_dense(staged, ta, sv)).all())
+        assert bool(nan_equal(md, ref.dequant_median_dense(q, scale, ta, sv)).all())
+        if n <= 64:  # above, the plain trimmed mean sums with torch.sum
+            assert bool(nan_equal(tm, ref.dequant_trimmed_mean_dense(q, scale, ta, sv, 2)).all())
+        assert bool(nan_equal(tm, trimmed_mean.trimmed_mean_dense(staged, ta, sv, 2)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 16, 40, 63])
+def test_gather_codeword_screens_on_card(cuda_device, k):
+    from repro_torch.core.neighbors import NeighborTable
+
+    _, adj = sparse_inputs(k, 4, seed=k)
+    n = adj.shape[0]
+    table = NeighborTable.from_adjacency(adj, k=k, device=cuda_device)
+    for q, scale, sv in card_codewords(n, 1000, k, cuda_device):
+        args = (q, scale, table.safe_idx, table.valid_dev, sv)
+        tm = gather_screen.gather_dequant_screen_trimmed_mean(*args, 2)
+        md = gather_screen.gather_dequant_screen_median(*args)
+        staged = dequant.dequant(q, scale)
+        assert bool(nan_equal(tm, ref.gather_dequant_trimmed_mean(*args, 2)).all())
+        assert bool(nan_equal(md, ref.gather_dequant_median(*args)).all())
+        assert bool(nan_equal(tm, gather_screen.gather_screen_trimmed_mean(
+            staged, table.safe_idx, table.valid_dev, sv, 2)).all())
+        assert bool(nan_equal(md, gather_screen.gather_screen_median(
+            staged, table.safe_idx, table.valid_dev, sv)).all())
+
+
+@pytest.mark.cuda
+def test_codeword_screens_reject_what_they_do_not_take(cuda_device):
+    q = torch.zeros(129, 256, dtype=torch.int8, device=cuda_device)
+    scale = torch.ones(129, 2, 2, device=cuda_device)
+    sv = torch.zeros(129, 256, device=cuda_device)
+    adj = torch.zeros(129, 129, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError):
+        dequant_screen.dequant_screen_median_dense(q, scale, adj, sv)
+    idx = torch.zeros(129, 64, dtype=torch.int32, device=cuda_device)
+    valid = torch.ones(129, 64, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError):
+        gather_screen.gather_dequant_screen_trimmed_mean(q, scale, idx, valid, sv, 1)
+    with pytest.raises(ValueError):  # operands on two devices
+        dequant_screen.dequant_screen_trimmed_mean_dense(q[:5, :].contiguous(), scale[:5].cpu(),
+                                                         adj[:5, :5].contiguous(), sv[:5], 1)

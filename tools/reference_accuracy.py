@@ -2,7 +2,8 @@
 CPU, at the settings `chip_smoke.py` trains the PyTorch port at: the
 thresholds the port's card runs are held to (within 0.01 of each).
 
-    JAX_PLATFORMS=cpu PYTHONPATH=src:. python tools/reference_accuracy.py [--only dense,sparse,variants]
+    JAX_PLATFORMS=cpu PYTHONPATH=src:. python tools/reference_accuracy.py \
+        [--only dense,sparse,variants,wire,wire_sparse,variants_wire]
 
 Configurations (each as `chip_smoke.py` runs it, same seeds and batches):
 
@@ -15,7 +16,16 @@ Configurations (each as `chip_smoke.py` runs it, same seeds and batches):
   t0 = 100: BRIDGE-K and BRIDGE-B for 200 ticks;
 * ``variants``: `examples/bridge_variants.py` at its defaults (M = 20,
   b = 2, random attack, 120 steps; ByRDiE 2 sweeps, BRDSO 120 steps)
-  through `benchmarks.common`.
+  through `benchmarks.common`;
+* ``wire``: BRIDGE-T at the ``dense`` settings for 200 ticks with a codec
+  and a wire attack: int8 under ``scale_abuse`` and ``garbage_codeword``,
+  the identity codec under ``garbage_codeword``, int4 and ``topk50_int8``
+  under ``random``;
+* ``wire_sparse``: BRIDGE-T at the ``sparse`` settings on
+  ``small_world(512, 6, 2, rewire_prob=0.2)``, int8 under ``scale_abuse``;
+* ``variants_wire``: the variants at their defaults under
+  ``--codec int4 --attack scale_abuse`` (each rule uncompressed and int4;
+  the baselines' row is ``variants``' own, under ``random``).
 
 Prints one line per configuration and a JSON object of all of them last.
 Takes some minutes (the sparse runs most of it).
@@ -32,9 +42,10 @@ from repro.core import bridge, graph
 from repro.sim import tasks
 
 
-def run_bridge(task, topo, rule, *, b, t0, ticks, sparse=False):
-    cfg = bridge.BridgeConfig(topology=topo, rule=rule, num_byzantine=b, attack="random", t0=t0,
-                              sparse=sparse)
+def run_bridge(task, topo, rule, *, b, t0, ticks, sparse=False, attack="random",
+               codec="identity"):
+    cfg = bridge.BridgeConfig(topology=topo, rule=rule, num_byzantine=b, attack=attack, t0=t0,
+                              sparse=sparse, codec=codec)
     trainer = bridge.BridgeTrainer(cfg, task.grad_fn)
     state = trainer.init(task.init_fn(0), seed=1)
     for i in range(ticks):  # a fresh task per configuration: batches 0..ticks-1 of one stream
@@ -77,11 +88,46 @@ def variants():
     return out
 
 
+WIRE_RUNS = (("int8", "scale_abuse"), ("int8", "garbage_codeword"),
+             ("identity", "garbage_codeword"), ("int4", "random"), ("topk50_int8", "random"))
+
+
+def wire():
+    topo = graph.erdos_renyi(50, 0.5, 4, seed=0)
+    out = {}
+    for codec, attack in WIRE_RUNS:
+        task = tasks.linear_task(50, 0, partition="iid", num_train=6000, num_test=1000, batch=32)
+        out[f"wire {codec} {attack}"] = run_bridge(task, topo, "trimmed_mean", b=4, t0=30,
+                                                   ticks=200, attack=attack, codec=codec)
+    return out
+
+
+def wire_sparse():
+    topo = graph.small_world(512, 6, 2, rewire_prob=0.2, seed=0)
+    task = tasks.linear_task(512, 0, partition="iid", num_train=16384, num_test=1000, batch=8)
+    return {"wire sparse int8 scale_abuse": run_bridge(task, topo, "trimmed_mean", b=2, t0=100,
+                                                       ticks=200, sparse=True,
+                                                       attack="scale_abuse", codec="int8")}
+
+
+def variants_wire():
+    from benchmarks.common import run_decentralized
+
+    out = {}
+    for rule in ("mean", "trimmed_mean", "median", "krum", "bulyan"):
+        for codec in ("identity", "int4"):
+            out[f"variants {rule} {codec} scale_abuse"] = run_decentralized(
+                model="linear", rule=rule, attack="scale_abuse", codec=codec, num_nodes=20,
+                num_byzantine=2, steps=120)["accuracy"]
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="dense,sparse,variants")
     args = ap.parse_args()
-    groups = {"dense": dense, "sparse": sparse, "variants": variants}
+    groups = {"dense": dense, "sparse": sparse, "variants": variants, "wire": wire,
+              "wire_sparse": wire_sparse, "variants_wire": variants_wire}
     results = {}
     for name in args.only.split(","):
         t0 = time.perf_counter()
