@@ -15,7 +15,9 @@ failure of which raises:
    (M = 50, d = 7850, the full width of the linear model) and on edge-case
    payloads (NaN, +-inf, 1e30, ties, +-0, starved rows); within the float32
    summation bound at M = 100, where the plain version sums with a
-   reduction tree;
+   reduction tree; then all four dense screens (float and codeword rows)
+   exact on nodes whose row counts sit at every boundary of the sorting
+   networks' buckets (b - 1, b, b + 1 rows for each bucket b up to 128);
 3. sparse kernels — the two gather screens, exact, at the sparse path's
    shape (``small_world(512, 6, 2)``, K = 16, d = 7850) and on edge-case
    payloads at K in {3, 16, 40, 63} with padded slots; the int8 decode in
@@ -26,8 +28,9 @@ failure of which raises:
    plain version at the main path's shapes ([50, 7850] dense, [100, 7850]
    the int8 form ``cat([w_hat, self_vals])``, [512, 7850] sparse) and on
    NaN, +-inf and 1e30 rows: within the float32 dot-product bound, exactly
-   symmetric, an exact zero diagonal, the NaN/inf pattern kept; timed
-   beside the plain version and ``torch.mm`` with the same epilogue;
+   symmetric, an exact zero diagonal, the NaN/inf pattern kept; timed at
+   the three shapes beside the plain version, ``torch.mm`` with the same
+   epilogue and the bound;
 5. codeword screens — this slice's path: the int8 codec's codewords of a
    seeded bank (d = 7850), the Byzantine senders' replaced by
    ``scale_abuse`` and by ``garbage_codeword``, screened through the
@@ -116,7 +119,8 @@ from repro_torch.core.byrdie import ByrdieConfig, ByrdieTrainer  # noqa: E402
 from repro_torch.core.graph import erdos_renyi, small_world  # noqa: E402
 from repro_torch.core.neighbors import NeighborTable  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    build, dequant, dequant_screen, gather_screen, median, ops, pairwise, ref, trimmed_mean)
+    build, dequant, dequant_screen, gather_screen, median, networks, ops, pairwise, ref,
+    trimmed_mean)
 from repro_torch.sim import variants  # noqa: E402
 from repro_torch.sim.tasks import linear_task  # noqa: E402
 
@@ -135,10 +139,9 @@ KERNELS = {  # JSON name -> wrapper (its `launches` counter)
     "dequant_screen_median_dense": dequant_screen.dequant_screen_median_dense,
     "gather_dequant_screen_trimmed_mean": gather_screen.gather_dequant_screen_trimmed_mean,
     "gather_dequant_screen_median": gather_screen.gather_dequant_screen_median,
+    "dequant": dequant.dequant,
 }
-# every counted wrapper: the JSON line's kernels and the plain int8 decode,
-# which the sparse codecs' decode launches (row 5's other entry point)
-COUNTED = {**KERNELS, "dequant": dequant.dequant}
+COUNTED = KERNELS  # every counted wrapper is in the JSON line
 # bits on the wire per message at d = 7850: the reference codec's
 # wire_bits (repro.comm.codec; tests/test_torch_comm.py holds the port's
 # equal to it for every codec)
@@ -334,6 +337,78 @@ def kernel_phase(dev):
     return records
 
 
+def boundary_adjacency(rows, median_rows: bool, seed: int) -> np.ndarray:
+    """An ``[m, m]`` mask whose node j has ``rows[j % len(rows)]`` rows to
+    sort (one sender fewer for the median, whose own value is a row),
+    senders drawn with self-loops allowed so a count can reach m; m as
+    large as the kernels take, at most 8 above the largest count."""
+    counts = [r - 1 if median_rows else r for r in rows]
+    m = min(networks.MAX_ROWS - (1 if median_rows else 0), max(counts) + 8)
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((m, m), bool)
+    for j in range(m):
+        adj[j, rng.choice(m, size=counts[j % len(counts)], replace=False)] = True
+    return adj
+
+
+def left_to_right_trimmed_mean(w, adj, self_vals, b):
+    """`ref.trimmed_mean_dense` with the kept ranks summed left to right at
+    any M (the plain version sums with ``torch.sum`` above 64 rows, as the
+    reference does): the kernel's order, for exact checks above 64 rows."""
+    mask = adj.bool()
+    count = mask.sum(dim=1)
+    b_eff = ref.effective_trim(b, count)
+    order = torch.sort(torch.where(mask[:, :, None], ref.sanitize(w)[None], torch.inf), dim=1).values
+    total = torch.zeros_like(self_vals)
+    for i in range(mask.shape[1]):
+        keep = (i >= b_eff) & (i < count - b_eff)
+        total = total + torch.where(keep[:, None], order[:, i], 0.0)
+    return (total + self_vals) / (count - 2 * b_eff + 1).to(torch.float32)[:, None]
+
+
+def bucket_boundary_phase(dev):
+    """The four dense screens on nodes whose row counts sit at every
+    boundary of the sorting networks' buckets (b - 1, b and b + 1 for each
+    bucket b up to 128 rows), exact: float rows with the edge payloads and
+    int8 codewords with inf and zero scales, against their plain versions
+    (the trimmed means above 64 rows against the plain arithmetic summed
+    left to right) and the codeword screens also against their staged
+    twins."""
+    groups = [tuple(r for r in (b - 1, b, b + 1) if r <= networks.MAX_ROWS)
+              for b in networks.BUCKETS]
+    d = 1000
+    for gi, rows in enumerate(groups):
+        for median_rows in (False, True):
+            adj_np = boundary_adjacency(rows, median_rows, seed=100 + gi)
+            m = adj_np.shape[0]
+            w, _, sv = edge_case_inputs(m, d, seed=200 + gi)
+            q, sc, _, csv = codeword_edge_inputs(m, d, seed=300 + gi)
+            w, sv, q, sc, csv, adj = (torch.as_tensor(a, device=dev)
+                                      for a in (w, sv, q, sc, csv, adj_np))
+            tag = f"rows {rows}, M={m}"
+            if median_rows:
+                exact_or_raise(f"median {tag}", median.median_dense(w, adj, sv),
+                               ref.median_dense(w, adj, sv))
+                got = dequant_screen.dequant_screen_median_dense(q, sc, adj, csv)
+                exact_or_raise(f"codeword median {tag}", got,
+                               ref.dequant_median_dense(q, sc, adj, csv))
+                exact_or_raise(f"codeword median {tag} staged", got,
+                               median.median_dense(dequant.dequant(q, sc), adj, csv))
+                continue
+            got = trimmed_mean.trimmed_mean_dense(w, adj, sv, B)
+            exact_or_raise(f"trimmed mean {tag}", got, left_to_right_trimmed_mean(w, adj, sv, B))
+            if m <= ref.MAX_EXACT_ROWS:
+                exact_or_raise(f"trimmed mean {tag}", got, ref.trimmed_mean_dense(w, adj, sv, B))
+            got = dequant_screen.dequant_screen_trimmed_mean_dense(q, sc, adj, csv, B)
+            exact_or_raise(f"codeword trimmed mean {tag}", got,
+                           left_to_right_trimmed_mean(ref.dequant(q, sc), adj, csv, B))
+            exact_or_raise(f"codeword trimmed mean {tag} staged", got,
+                           trimmed_mean.trimmed_mean_dense(dequant.dequant(q, sc), adj, csv, B))
+    print(f"bucket boundaries: the four dense screens exact on nodes with {[g for g in groups]} "
+          f"rows to sort (float and codeword rows, d = {d})")
+    return []
+
+
 def sparse_case_inputs(k: int, d: int, seed: int):
     """``edge_case_inputs`` payloads over n = k + 8 nodes of in-degree at
     most k - 2 (every row of a width-k table has padded slots), the first
@@ -467,13 +542,25 @@ def dequant_kernel_phase(dev):
     # bytes: q, est and target in, x_hat and resid out, one (scale, zero) pair per 128
     nbytes = SM * D * (1 + 4 + 4 + 4 + 4) + SM * nblk * 8
     ops = 2 * 2 * SM * D  # two fused multiply-adds per coordinate
-    return [record("dequant_carry", "src/repro_torch/kernels/csrc/dequant.cu",
-                   "src/repro/kernels/dequant_screen.py:117",
-                   lambda: dequant.dequant_carry(q, scale, est, target),
-                   lambda: ref.dequant_carry(q, scale, est, target),
-                   lambda: (torch.addcmul(est, qf, s_full),
-                            torch.addcmul(target, qf, s_full, value=-1.0)),
-                   nbytes, ops, err)]
+    records = [record("dequant_carry", "src/repro_torch/kernels/csrc/dequant.cu",
+                      "src/repro/kernels/dequant_screen.py:117",
+                      lambda: dequant.dequant_carry(q, scale, est, target),
+                      lambda: ref.dequant_carry(q, scale, est, target),
+                      lambda: (torch.addcmul(est, qf, s_full),
+                               torch.addcmul(target, qf, s_full, value=-1.0)),
+                      nbytes, ops, err)]
+    # the plain form (the sparse codecs' kept values): q and the pairs in,
+    # the decoded values out; one FMA per coordinate
+    z_full = ref.expand_scales(scale, D)[1].contiguous()
+    err = max_abs_err(dequant.dequant(q, scale), ref.dequant(q, scale))
+    print("library: torch.addcmul(zero, q, scale) on float codes and pre-expanded pairs (the "
+          "plain decode's yardstick; no NaN guard)")
+    records.append(record("dequant", "src/repro_torch/kernels/csrc/dequant.cu",
+                          "src/repro/kernels/dequant_screen.py:117",
+                          lambda: dequant.dequant(q, scale), lambda: ref.dequant(q, scale),
+                          lambda: torch.addcmul(z_full, qf, s_full),
+                          SM * D * (1 + 4) + SM * nblk * 8, 2 * SM * D, err))
+    return records
 
 
 def dist_bound(x: torch.Tensor) -> torch.Tensor:
@@ -536,21 +623,24 @@ def pairwise_kernel_phase(dev):
         d2 = sq[:, None] + sq[None, :] - 2.0 * g
         return torch.where(d2 < 0, 0.0, d2)
 
-    for n in (M, 2 * M):
-        x = xs[n]
-        print(f"pairwise [{n}, {D}] times: kernel {cuda_ms(lambda x=x: pairwise.pairwise_sq_dists(x)):.4f} "
-              f"ms, plain {cuda_ms(lambda x=x: ref.pairwise_sq_dists(x), reps=21, inner=2):.4f} ms, "
-              f"torch.mm {cuda_ms(lambda x=x: library(x), reps=21, inner=2):.4f} ms")
-    x = xs[SM]
-    err = max_abs_err(pairwise.pairwise_sq_dists(x), ref.pairwise_sq_dists(x))
     # bytes: x read once, d2 written once; operations: the upper triangle's
     # n (n + 1) / 2 dot products of d multiply-adds (d2 is symmetric)
-    nbytes = SM * D * 4 + SM * SM * 4
-    ops = SM * (SM + 1) * D
-    print("library: torch.mm(x, x.T) with the same epilogue (cuBLAS SGEMM, TF32 off)")
+    nbytes = {n: n * D * 4 + n * n * 4 for n in xs}
+    ops = {n: n * (n + 1) * D for n in xs}
+    for n in (M, 2 * M):
+        x = xs[n]
+        bound = max(nbytes[n] / HBM_BYTES_PER_S, ops[n] / FP32_OPS_PER_S) * 1e3
+        print(f"pairwise [{n}, {D}] times: kernel {cuda_ms(lambda x=x: pairwise.pairwise_sq_dists(x)):.4f} "
+              f"ms, plain {cuda_ms(lambda x=x: ref.pairwise_sq_dists(x), reps=21, inner=2):.4f} ms, "
+              f"torch.mm {cuda_ms(lambda x=x: library(x), reps=21, inner=2):.4f} ms, bound "
+              f"{bound:.5f} ms; plan {pairwise.split_plan(n, D)}")
+    x = xs[SM]
+    err = max_abs_err(pairwise.pairwise_sq_dists(x), ref.pairwise_sq_dists(x))
+    print(f"library: torch.mm(x, x.T) with the same epilogue (cuBLAS SGEMM, TF32 off); plan at "
+          f"[{SM}, {D}] {pairwise.split_plan(SM, D)}")
     return [record("pairwise_sq_dists", "src/repro_torch/kernels/csrc/pairwise.cu",
                    "src/repro/kernels/krum.py:44", lambda: pairwise.pairwise_sq_dists(x),
-                   lambda: ref.pairwise_sq_dists(x), lambda: library(x), nbytes, ops, err)]
+                   lambda: ref.pairwise_sq_dists(x), lambda: library(x), nbytes[SM], ops[SM], err)]
 
 
 def zero_launches() -> None:
@@ -1219,23 +1309,26 @@ def main() -> int:
 
     t_start = time.perf_counter()
     records = []
-    for phase in (kernel_phase, gather_kernel_phase, dequant_kernel_phase, pairwise_kernel_phase):
+    for phase in (kernel_phase, bucket_boundary_phase, gather_kernel_phase, dequant_kernel_phase,
+                  pairwise_kernel_phase):
         records += phase(dev)
     # each main-path phase zeroes the counts before its runs and reads them
     # after; a kernel's launches are the sum over the phases
     t0 = time.perf_counter()
     codeword_records, codeword_launches = codeword_kernel_phase(dev)
     records += codeword_records
-    phase_launches = [codeword_launches]
+    phase_launches = {"codeword_kernel_phase": codeword_launches}
     print(f"(codeword_kernel_phase: {time.perf_counter() - t0:.1f} s; kernel phases: "
           f"{time.perf_counter() - t_start:.1f} s)")
     for phase in (trainer_phase, sparse_trainer_phase, vector_trainer_phase, sparse_vector_phase,
                   wire_trainer_phase, variants_phase):
         t0 = time.perf_counter()
-        phase_launches.append(phase(dev))
+        phase_launches[phase.__name__] = phase(dev)
         print(f"({phase.__name__}: {time.perf_counter() - t0:.1f} s)")
+    for name, launches in phase_launches.items():
+        print(f"launches in {name}: {({k: v for k, v in launches.items() if v})}")
     for rec in records:
-        rec["launches"] = sum(launches[rec["name"]] for launches in phase_launches)
+        rec["launches"] = sum(launches[rec["name"]] for launches in phase_launches.values())
         if rec["launches"] == 0:
             raise AssertionError(f"{rec['name']} never launched on the main path")
     t0 = time.perf_counter()

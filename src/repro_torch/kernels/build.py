@@ -6,8 +6,9 @@ plain C interface, which ``ctypes`` loads; nothing includes PyTorch's
 headers, so a build takes seconds.  The build happens at first use, never
 on import, into ``build/repro_torch/`` at the repository root (listed in
 ``.gitignore``), under a file name keyed on a hash of every source and
-header in ``csrc/``: an edit to one builds a new library, an unchanged tree
-reuses the last one.
+header in ``csrc/`` and of the sorting networks (`networks.header`, written
+into ``build/repro_torch/include/`` before the compile): an edit to one
+builds a new library, an unchanged tree reuses the last one.
 
 No ``--use_fast_math``: the kernels rely on IEEE adds, division,
 multiplication and fused multiply-adds to equal their plain PyTorch
@@ -26,6 +27,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from repro_torch.kernels import networks
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -48,7 +51,7 @@ SIGNATURES = {
                                      _PTR),
     "dequant": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
     "dequant_carry": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
-    "pairwise_sq_dists": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
+    "pairwise_sq_dists": (_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR),
 }
 
 
@@ -73,6 +76,7 @@ def source_hash() -> str:
     for path in sorted(CSRC.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
+    h.update(networks.header().encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -87,14 +91,18 @@ def build() -> float:
     lib = library_path()
     if lib.exists():
         return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    include = BUILD_DIR / "include"
+    include.mkdir(parents=True, exist_ok=True)
     stem = lib.with_suffix(f".{os.getpid()}")
+    gen = include / f"{networks.HEADER}.{os.getpid()}"
+    gen.write_text(networks.header())
+    os.replace(gen, include / networks.HEADER)
     t0 = time.perf_counter()
     jobs = []
     for src in sources():
         obj = stem.with_name(f"{stem.name}.{src.stem}.o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(include), "-c", "-o", str(obj), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((cmd, obj, proc))
     report, failed = [], []

@@ -24,10 +24,11 @@
 //
 // Design.  One block per (node j, 128 coordinates): since a block is one
 // codec scale block, every listed row has one (scale, zero) pair in it, at
-// index blockIdx.x.  After thread 0 compacts the neighbor list, the block's
+// index blockIdx.x.  After the block compacts the neighbor list, its
 // threads copy the listed rows' pairs into shared memory (one a thread);
 // each thread then reads one int8 code per row of its column, decodes it
-// with the staged pair and sorts the column in registers.  The simple
+// with the staged pair and sorts the column in registers with the Batcher
+// network of its row-count bucket (screen_dense.cuh).  The simple
 // first version reads one byte a thread (a warp reads 32 consecutive
 // bytes of a row); wider loads are later work.
 //

@@ -32,9 +32,11 @@
 // memory once (one slot per thread) and counts the valid slots at the same
 // barrier; each thread then gathers its K values straight from w (the warp
 // reads 32 neighbouring floats of one row, coalesced), so neither [M, M, d]
-// nor [M, K, d] is formed.  The column sits in a register array of N_PAD in
-// {16, 32, 64} entries and is sorted by the bitonic network of
-// screen_sort.cuh, shared with screen.cu.
+// nor [M, K, d] is formed.  The column sits in a register array of the
+// smallest network bucket that holds K (K + 1 for the median), padded and
+// invalid slots +inf, and is sorted by that bucket's Batcher network
+// (screen_sort.cuh, shared with screen.cu); NMAX in {16, 32, 64}, the
+// largest bucket a kernel compiles, comes from K on the host.
 //
 // What bounds it on an H100.  Bytes: the sparse layout's point is that K is
 // small, so the work per byte is low.  At M = 512, K = 16, d = 7850 the
@@ -42,8 +44,9 @@
 // chip) and self_vals and writes the output: about 48 MB, 0.014 ms at
 // 3.35 TB/s.  Operations: Batcher over 16-17 rows is 63-80 compare-exchanges
 // per column per node, about 0.008 ms at 67 TFLOP/s.  So this kernel is
-// bounded by bytes, unlike the dense ones; the padded network (N_PAD = 16 or
-// 32 here) does more operations than Batcher's, but stays under the bytes.
+// bounded by bytes, unlike the dense ones; the network sorts the bucket of
+// K (16 rows for the trimmed mean, 24 for the median at K = 16), a few
+// comparators more than the valid slots need, and stays under the bytes.
 // The codeword forms read a quarter of w's bytes: at the same shape about
 // 4.0 MB of codes, 0.25 MB of scales and 16.1 MB of self_vals in and
 // 16.1 MB out, 0.011 ms at 3.35 TB/s, three quarters of the float screen's
@@ -58,7 +61,7 @@
 namespace {
 
 using screen::kThreads;
-constexpr int kMaxSlots = 64;  // largest N_PAD instantiated
+constexpr int kMaxSlots = 64;  // largest NMAX instantiated
 
 // Threads k < K load slot k of node j's table row into shared memory; the
 // barrier returns the number of valid slots to every thread.
@@ -89,7 +92,7 @@ __device__ __forceinline__ void gather_column(float (&v)[N], const Rows& rows,
   }
 }
 
-template <int N, class Rows>
+template <int NMAX, class Rows>
 __global__ void __launch_bounds__(kThreads)
 gather_trimmed_mean_kernel(Rows rows, const int32_t* __restrict__ idx,
                            const uint8_t* __restrict__ valid, const float* __restrict__ self_vals,
@@ -102,14 +105,17 @@ gather_trimmed_mean_kernel(Rows rows, const int32_t* __restrict__ idx,
   rows.stage(s_idx, k, s_pair);
   const int c = blockIdx.x * kThreads + threadIdx.x;
   if (c >= d) return;
-  float v[N];
-  gather_column<N>(v, rows, s_pair, s_idx, s_valid, k, d, c);
-  screen::bitonic_sort<N>(v);
   const size_t at = static_cast<size_t>(j) * d + c;
-  out[at] = screen::trimmed_mean_sorted<N>(v, count, b, self_vals[at]);
+  screen::for_bucket<NMAX>(k, [&](auto bucket) {
+    constexpr int N = decltype(bucket)::value;
+    float v[N];
+    gather_column<N>(v, rows, s_pair, s_idx, s_valid, k, d, c);
+    screen::batcher_sort<N>(v);
+    out[at] = screen::trimmed_mean_sorted<N>(v, count, b, self_vals[at]);
+  });
 }
 
-template <int N, class Rows>
+template <int NMAX, class Rows>
 __global__ void __launch_bounds__(kThreads)
 gather_median_kernel(Rows rows, const int32_t* __restrict__ idx,
                      const uint8_t* __restrict__ valid, const float* __restrict__ self_vals,
@@ -122,18 +128,21 @@ gather_median_kernel(Rows rows, const int32_t* __restrict__ idx,
   rows.stage(s_idx, k, s_pair);
   const int c = blockIdx.x * kThreads + threadIdx.x;
   if (c >= d) return;
-  float v[N];
-  gather_column<N>(v, rows, s_pair, s_idx, s_valid, k, d, c);
   const size_t at = static_cast<size_t>(j) * d + c;
   // the node's own value takes the slot after the K table slots (the sort
   // makes the position irrelevant)
   const float own = screen::sanitize(self_vals[at]);
+  screen::for_bucket<NMAX>(k + 1, [&](auto bucket) {
+    constexpr int N = decltype(bucket)::value;
+    float v[N];
+    gather_column<N>(v, rows, s_pair, s_idx, s_valid, k, d, c);
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    if (i == k) v[i] = own;
-  }
-  screen::bitonic_sort<N>(v);
-  out[at] = screen::median_sorted<N>(v, count + 1);
+    for (int i = 0; i < N; ++i) {
+      if (i == k) v[i] = own;
+    }
+    screen::batcher_sort<N>(v);
+    out[at] = screen::median_sorted<N>(v, count + 1);
+  });
 }
 
 // Launch over rows to sort: K for the trimmed mean, K + 1 for the median;

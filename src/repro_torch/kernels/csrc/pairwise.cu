@@ -8,67 +8,214 @@
 // g = x x^T accumulated in float32 with fused multiply-adds, then
 // d2[i, j] = max(g_ii + g_jj - 2 g_ij, 0) with NaN kept.  The TPU kernel
 // accumulates the Gram over 512-wide coordinate blocks on the MXU and takes
-// the norms from jnp.diagonal(gram); so does this one, from its own Gram.
+// the norms from jnp.diagonal(gram); this one takes them from the same FMA
+// chain as its own Gram's diagonal.
 //
-// Contracts.  (1) d2[i, i] == 0 exactly for a finite row: the norms g_ii
-// are the Gram's own diagonal (the same FMA chain, read back, not a
-// separate reduction), and (g + g) - 2g is exact.  (2) d2 is symmetric bit
-// for bit: a lower-triangle entry is read from its mirror in the upper
-// triangle, and on a diagonal tile g_ij and g_ji are the same chain of
-// __fmaf_rn(x_ik, x_jk, acc) with its operands swapped, which rounds the
-// same.  (3) NaN propagates: the clamp is v < 0 ? 0 : v (fmaxf would give 0
-// for a NaN, where jnp.maximum keeps it).  No tensor cores and no TF32:
-// the H100 has no full-fp32 mma, and the reference's dot is float32.
+// Contracts.  (1) d2[i, i] == 0 exactly for a finite row: the norm g_ii is
+// the chain __fmaf_rn(x_ik, x_ik, acc) over the same coordinates in the same
+// order, from the same +0, summed over the same splits in the same order as
+// the Gram's diagonal entry, so the two are equal bit for bit, and
+// (g + g) - 2g is exact.  (2) d2 is symmetric bit for bit: an entry below
+// the diagonal tiles is written from its mirror's value, and inside a
+// diagonal tile g_ij and g_ji are the same chain with the FMA's operands
+// swapped, which rounds the same.  (3) NaN propagates: the clamp is
+// v < 0 ? 0 : v (fmaxf would give 0 for a NaN, where jnp.maximum keeps it).
+// (4) The summation order is a function of [n, d] alone: the split plan
+// (kernels/pairwise.py, split_plan) is.  No tensor cores and no TF32: the
+// H100 has no full-fp32 mma, and the reference's dot is float32.
 //
-// Design: two launches.
-//   gram_partial: one block per (upper-triangle 64x64 output tile, split of
-//     the coordinates).  256 threads, 4x4 outputs each (rows ty*4 + a,
-//     columns tx*4 + b), 32-coordinate chunks staged through shared memory
-//     coordinate-major with an XOR swizzle (see swizzle()): per coordinate
-//     a thread reads its 4 rows and its 4 columns as two float4 loads (3
-//     shared-memory wavefronts a warp for 16 FMAs a thread), and the
-//     transposed stores are free of bank conflicts.  Each split
-//     accumulates its coordinates in ascending order from +0 and writes its
-//     partial Gram to the workspace [splits, n, n].
-//   sq_dists_epilogue: one thread per (i, j) sums the splits in ascending
-//     order (IEEE adds), reads g_ii and g_jj the same way, and writes d2.
-//   The split count comes from the shapes alone (the Python wrapper's
-//   plan), so the summation order is fixed for a given [n, d].
+// Design: one launch, no workspace.
+//   A *unit* of 64 threads (an 8 x 8 grid) computes one T x T output tile,
+//   T = 8R (R = 4, 6 or 8), over one split of the coordinates: R x R
+//   outputs a thread, rows ty + 8a and columns tx + 8b.  A block holds four
+//   units (four splits of one tile, 8 warps) and asks for more than half an
+//   SM's shared memory, so every block has an SM of its own; a
+//   thread-block cluster of C <= 8 blocks along gridDim.y holds the tile's
+//   4C splits, and gridDim.x walks the upper-triangle tile pairs.  Each unit
+//   streams its split through a 3-stage ring of 32-coordinate chunks in
+//   shared memory, filled with cp.async (16-, 8- or 4-byte copies, the
+//   widest that the row stride and x's address allow: at d = 7850 the
+//   stride, 31,400 bytes, is 8-byte aligned only, so no pad and no copy of
+//   x), so two chunks' loads are in flight while one chunk's FMAs run.
+//   Rows are staged row-major with a 36-float pitch: per 4 coordinates a
+//   thread reads its R rows and R columns as float4s (conflict-free), then
+//   runs the R x R FMAs one coordinate at a time, R^2 independent FMAs
+//   between two of one chain.  Along the way each unit takes the norms of
+//   its tile's 2T rows from the staged chunks, the same chain as the Gram's
+//   diagonal, so no tile waits on another.  At the end each unit parks its
+//   partial tile and norms in its shared memory, the cluster synchronises,
+//   and every block reduces a stripe of the tile's rows over the 4C
+//   partials in ascending split order (IEEE adds, the first split's value
+//   first), all of an element's loads through distributed shared memory
+//   (mapa / ld.shared::cluster) in flight at once, then writes d2 and, for
+//   an off-diagonal tile, its mirror.  The plan (R, C and the split length,
+//   a multiple of 32) comes from the shape alone: kernels/pairwise.py
+//   split_plan, which models the waves of clusters the card's GPCs hold and
+//   the measured time of a chunk for each R.
 //
 // What bounds it on an H100.  The function reads x once (n d 4 bytes) and
 // writes n^2 floats; it does 2 n^2 d operations (half of them for the upper
-// triangle).  At the dense path's [50, 7850] the bytes (1.6 MB, ~0.5 us)
-// and the operations (~0.6 us at 67 TFLOP/s) are both far below the two
-// launches' cost; at the sparse path's [512, 7850] the operations bound it
-// (4.1 GFLOP, ~61 us; ~31 us for the upper triangle this kernel computes).
-// The inner loop issues 2 float4 shared-memory loads for 16 FMAs a thread,
-// so the FMA units, not the shared-memory pipe, should be its limit; the
-// chunk's loads are not overlapped with its FMAs (no double buffering), and
-// larger register tiles or wgmma-era designs are left for later work.
+// triangle this kernel computes).  At the dense path's [50, 7850] and
+// [100, 7850] the bytes (1.6 / 3.2 MB, ~0.5 / 1 us) and the operations are
+// both far below a launch's latency: the kernel is latency-bound there, so
+// its plan cuts d into the most splits (32, over 8 SMs a tile) and the
+// time is the chunks' and the cluster reduction's latency.  At the sparse
+// path's [512, 7850] the operations bound it (2.06 GFLOP for the upper
+// triangle, ~31 us at 67 TFLOP/s): the plan takes 48 x 48 tiles, whose 66
+// pairs in clusters of 2 fill the 132 SMs in one wave; its FMAs then run at
+// about a third of the SMs' fp32 peak, the shared-memory loads (2R float4s
+// per 4R^2 FMAs) and their latency taking the rest (PERF.md).
 
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <cuda_runtime.h>
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kTile = 64;      // output tile edge
-constexpr int kChunk = 32;     // coordinates per shared-memory stage
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kSub = 16;       // thread grid edge
+constexpr int kUnit = 64;           // threads of a unit: an 8 x 8 grid
+constexpr int kUnits = 4;           // units (splits of one tile) a block: 8 warps
+constexpr int kChunk = 32;          // coordinates per ring stage
+constexpr int kPitch = kChunk + 4;  // floats per staged row: float4 reads conflict-free
+constexpr int kStages = 3;          // ring depth
+constexpr int kMaxCluster = 8;      // blocks of a cluster (portable size)
+constexpr int kMaxRows = 32 * 1024;
+// Dynamic shared memory a block asks for at least: more than half an SM's
+// 228 KB, so no SM holds two blocks and every block has an SM of its own.
+constexpr int kMinSmemBytes = 120 * 1024;
 
-// Shared-memory layout of a staged chunk: coordinate-major, [kChunk][kTile],
-// each coordinate's 64 rows as 16 float4 slots, slot r/4 stored at
-// (r/4) ^ (k % 16).  A thread's four rows (or columns) are then one aligned
-// float4, and the transposed stores below hit 32 distinct banks.
-__device__ __forceinline__ int swizzle(int r, int k) {
-  return (((r >> 2) ^ (k & 15)) << 2) | (r & 3);
+// Shared-memory layout of one unit: the ring (kStages x [A rows | B rows]),
+// which the partial tile [T][T + 1] reuses after the loop, then the norms of
+// the tile's A rows and B rows [2T].
+template <int R>
+struct Geometry {
+  static constexpr int kTile = 8 * R;
+  static constexpr int kStageFloats = 2 * kTile * kPitch;
+  static constexpr int kRingFloats = kStages * kStageFloats;
+  static constexpr int kPartPitch = kTile + 1;
+  static constexpr int kPartFloats = kTile * kPartPitch;
+  static constexpr int kNormOffset = kRingFloats > kPartFloats ? kRingFloats : kPartFloats;
+  static constexpr int kUnitFloats = kNormOffset + 2 * kTile;
+};
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
-gram_partial_kernel(const float* __restrict__ x, float* __restrict__ part, int n, int d,
-                    int tiles, int split_len) {
-  // upper-triangle tile pair (bi <= bj) of this block
+// One cp.async of BYTES (4, 8 or 16) bytes; zero-fills the destination when
+// !ok (src-size 0: nothing is read from src).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src), "n"(BYTES),
+               "r"(ok ? BYTES : 0)
+               : "memory");
+}
+
+// Barrier over one unit's 64 threads (named barrier 1 + g).
+__device__ __forceinline__ void unit_sync(int g) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + g), "n"(kUnit) : "memory");
+}
+
+// The shared::cluster address of `p` (this block's shared memory) in the
+// block of cluster rank `rank`, and a 4-byte load from such an address.
+__device__ __forceinline__ uint32_t cluster_address(const float* p, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float load_cluster(uint32_t at) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(at) : "memory");
+  return v;
+}
+
+constexpr int kBatch = 2;  // elements a thread reduces at once
+
+// out[q] = the float at offset at[q] of every split's unit, summed over the
+// splits in ascending order (IEEE adds, the first split's value first);
+// at[q] < 0 is skipped.  Every load is issued before the first add, so the
+// splits cost one round trip, not one each.
+template <int S>
+__device__ __forceinline__ void split_sums(const uint32_t (&unit_at)[S], int splits,
+                                           const int (&at)[kBatch], float (&out)[kBatch]) {
+  float v[kBatch][S];
+#pragma unroll
+  for (int q = 0; q < kBatch; ++q) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (s < splits && at[q] >= 0) v[q][s] = load_cluster(unit_at[s] + 4u * at[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kBatch; ++q) {
+    out[q] = v[q][0];
+#pragma unroll
+    for (int s = 1; s < S; ++s) {
+      if (s < splits) out[q] = __fadd_rn(out[q], v[q][s]);
+    }
+  }
+}
+
+// Stage rows [row0, row0 + T) x coordinates [kc, kc + kChunk) of x into
+// dst[r * kPitch + c], V floats a copy.  Coordinates >= k1 (the split's or
+// the row's end) are zeros, and fma(0, 0, acc) == acc for every accumulator
+// these chains hold; rows >= n repeat row n - 1, so every address is valid
+// without a predicate a copy: their outputs and norms are never written.
+template <int T, int V>
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ x, int row0, int n,
+                                           int d, int kc, int k1, int t) {
+  constexpr int kPerRow = kChunk / V;        // copies a row
+  constexpr int kRowStep = kUnit / kPerRow;  // rows between a thread's copies
+  static_assert(kUnit % kPerRow == 0 && T % kRowStep == 0, "every thread issues the same copies");
+  const int r0 = t / kPerRow, c = (t % kPerRow) * V;
+  const bool in_split = kc + c < k1;
+  const float* src = x + kc + c;
+  float* at = dst + r0 * kPitch + c;
+#pragma unroll
+  for (int i = 0; i < T / kRowStep; ++i) {
+    const int row = min(row0 + r0 + i * kRowStep, n - 1);
+    cp_async<4 * V>(at + i * kRowStep * kPitch, in_split ? src + static_cast<size_t>(row) * d : x,
+                    in_split);
+  }
+}
+
+template <int T>
+__device__ __forceinline__ void stage_chunk(float* stage, bool diag, const float* __restrict__ x,
+                                            int row0, int col0, int n, int d, int kc, int k1,
+                                            int vec, int t) {
+  float* sb = stage + T * kPitch;
+  if (vec == 4) {
+    stage_rows<T, 4>(stage, x, row0, n, d, kc, k1, t);
+    if (!diag) stage_rows<T, 4>(sb, x, col0, n, d, kc, k1, t);
+  } else if (vec == 2) {
+    stage_rows<T, 2>(stage, x, row0, n, d, kc, k1, t);
+    if (!diag) stage_rows<T, 2>(sb, x, col0, n, d, kc, k1, t);
+  } else {
+    stage_rows<T, 1>(stage, x, row0, n, d, kc, k1, t);
+    if (!diag) stage_rows<T, 1>(sb, x, col0, n, d, kc, k1, t);
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(kUnit * kUnits)
+pairwise_kernel(const float* __restrict__ x, float* __restrict__ out, int n, int d, int tiles,
+                int split_len, int vec) {
+  using Geo = Geometry<R>;
+  constexpr int T = Geo::kTile;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+
+  // upper-triangle tile pair (bi <= bj) of this cluster
   int p = blockIdx.x, bi = 0, row_len = tiles;
   while (p >= row_len) {
     p -= row_len;
@@ -76,101 +223,228 @@ gram_partial_kernel(const float* __restrict__ x, float* __restrict__ part, int n
     --row_len;
   }
   const int bj = bi + p;
-  const int row0 = bi * kTile, col0 = bj * kTile;
-  const int k0 = blockIdx.y * split_len;
-  const int k1 = min(d, k0 + split_len);
+  const bool diag = bi == bj;
+  const int row0 = bi * T, col0 = bj * T;
 
-  __shared__ __align__(16) float sa[kChunk][kTile];
-  __shared__ __align__(16) float sb[kChunk][kTile];
-  const int tx = threadIdx.x % kSub, ty = threadIdx.x / kSub;
-  float acc[4][4];
+  const int g = threadIdx.x / kUnit, t = threadIdx.x % kUnit;
+  const int ty = t / 8, tx = t % 8;
+  const int split = rank * kUnits + g;
+  const int k0 = min(d, split * split_len), k1 = min(d, k0 + split_len);
+  const int chunks = (k1 - k0 + kChunk - 1) / kChunk;
+  float* unit = smem + g * Geo::kUnitFloats;
+
+  float acc[R][R];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < R; ++a) {
 #pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+    for (int b = 0; b < R; ++b) acc[a][b] = 0.f;
   }
+  // norms of the rows t + 64 q of [A rows | B rows] (kNorms a thread)
+  constexpr int kNorms = (2 * T + kUnit - 1) / kUnit;
+  float nrm[kNorms];
+#pragma unroll
+  for (int q = 0; q < kNorms; ++q) nrm[q] = 0.f;
 
-  for (int kc = k0; kc < k1; kc += kChunk) {
-    // 64 rows x 32 coordinates per tile; a warp loads 8 consecutive
-    // coordinates of 4 rows (32-byte runs) and stores them transposed,
-    // conflict-free through the swizzle.  Out-of-range entries are 0, and
-    // fma(0, 0, acc) == acc for every accumulator this chain can hold.
-    for (int u = threadIdx.x; u < kTile * kChunk; u += kThreads) {
-      const int r = (u >> 7) * 4 + ((u >> 3) & 3), c = ((u >> 5) & 3) * 8 + (u & 7);
-      const int k = kc + c, ra = row0 + r, rb = col0 + r, at = swizzle(r, c);
-      sa[c][at] = (ra < n && k < k1) ? x[static_cast<size_t>(ra) * d + k] : 0.f;
-      sb[c][at] = (rb < n && k < k1) ? x[static_cast<size_t>(rb) * d + k] : 0.f;
-    }
-    __syncthreads();
 #pragma unroll
-    for (int c = 0; c < kChunk; ++c) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&sa[c][swizzle(ty * 4, c)]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&sb[c][swizzle(tx * 4, c)]);
-      const float va[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float vb[4] = {b4.x, b4.y, b4.z, b4.w};
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < chunks)
+      stage_chunk<T>(unit + s * Geo::kStageFloats, diag, x, row0, col0, n, d, k0 + s * kChunk, k1,
+                     vec, t);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < chunks; ++ch) {
+    cp_async_wait<kStages - 2>();
+    unit_sync(g);
+    // refill the slot chunk ch - 1 used, which every thread of the unit has
+    // finished with (the barrier above)
+    const int next = ch + kStages - 1;
+    if (next < chunks)
+      stage_chunk<T>(unit + (next % kStages) * Geo::kStageFloats, diag, x, row0, col0, n, d,
+                     k0 + next * kChunk, k1, vec, t);
+    cp_async_commit();
+
+    const float* sa = unit + (ch % kStages) * Geo::kStageFloats;
+    const float* sb = diag ? sa : sa + T * kPitch;
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
+    for (int c = 0; c < kChunk; c += 4) {
+      // this thread's R rows and R columns at coordinates c..c+3, then one
+      // coordinate at a time over all R x R accumulators (R^2 independent
+      // FMAs between two of one chain)
+      float4 av[R], bv[R];
 #pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = __fmaf_rn(va[a], vb[b], acc[a][b]);
+      for (int a = 0; a < R; ++a)
+        av[a] = *reinterpret_cast<const float4*>(sa + (ty + 8 * a) * kPitch + c);
+#pragma unroll
+      for (int b = 0; b < R; ++b)
+        bv[b] = *reinterpret_cast<const float4*>(sb + (tx + 8 * b) * kPitch + c);
+#pragma unroll
+      for (int a = 0; a < R; ++a) {
+#pragma unroll
+        for (int b = 0; b < R; ++b) acc[a][b] = __fmaf_rn(av[a].x, bv[b].x, acc[a][b]);
+      }
+#pragma unroll
+      for (int a = 0; a < R; ++a) {
+#pragma unroll
+        for (int b = 0; b < R; ++b) acc[a][b] = __fmaf_rn(av[a].y, bv[b].y, acc[a][b]);
+      }
+#pragma unroll
+      for (int a = 0; a < R; ++a) {
+#pragma unroll
+        for (int b = 0; b < R; ++b) acc[a][b] = __fmaf_rn(av[a].z, bv[b].z, acc[a][b]);
+      }
+#pragma unroll
+      for (int a = 0; a < R; ++a) {
+#pragma unroll
+        for (int b = 0; b < R; ++b) acc[a][b] = __fmaf_rn(av[a].w, bv[b].w, acc[a][b]);
       }
     }
-    __syncthreads();
-  }
-
-  float* out = part + static_cast<size_t>(blockIdx.y) * n * n;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = row0 + ty * 4 + a;
+    for (int q = 0; q < kNorms; ++q) {
+      const int r = t + kUnit * q;
+      if (2 * T % kUnit == 0 || r < 2 * T) {
+        const float* row = r < T ? sa + r * kPitch : sb + (r - T) * kPitch;
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int c = col0 + tx * 4 + b;
-      if (r < n && c < n) out[static_cast<size_t>(r) * n + c] = acc[a][b];
+        for (int c = 0; c < kChunk; c += 4) {
+          const float4 f = *reinterpret_cast<const float4*>(row + c);
+          nrm[q] = __fmaf_rn(f.x, f.x, nrm[q]);
+          nrm[q] = __fmaf_rn(f.y, f.y, nrm[q]);
+          nrm[q] = __fmaf_rn(f.z, f.z, nrm[q]);
+          nrm[q] = __fmaf_rn(f.w, f.w, nrm[q]);
+        }
+      }
     }
   }
+  cp_async_wait<0>();
+  unit_sync(g);
+
+  // park the partial tile and the norms for the cluster's reduction
+#pragma unroll
+  for (int a = 0; a < R; ++a) {
+#pragma unroll
+    for (int b = 0; b < R; ++b) unit[(ty + 8 * a) * Geo::kPartPitch + tx + 8 * b] = acc[a][b];
+  }
+#pragma unroll
+  for (int q = 0; q < kNorms; ++q) {
+    if (2 * T % kUnit == 0 || t + kUnit * q < 2 * T) unit[Geo::kNormOffset + t + kUnit * q] = nrm[q];
+  }
+  cluster.sync();
+
+  // this block's stripe of tile rows [r0, r1), reduced over the splits in
+  // ascending order: split s lives in unit s % 4 of cluster rank s / 4
+  constexpr int kMaxSplits = kMaxCluster * kUnits;
+  const int splits = csize * kUnits;
+  uint32_t unit_at[kMaxSplits];  // each split's unit, as a shared::cluster address
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s)
+    unit_at[s] =
+        s < splits ? cluster_address(smem + (s % kUnits) * Geo::kUnitFloats, s / kUnits) : 0u;
+  const int stripe = (T + csize - 1) / csize;
+  const int r0 = min(T, rank * stripe), r1 = min(T, r0 + stripe), rows = r1 - r0;
+  float* vals = smem + kUnits * Geo::kUnitFloats;  // [stripe][T] the stripe's d2
+  float* norm = vals + stripe * T;            // [rows + T] g_ii of the stripe, then g_jj
+  for (int e0 = threadIdx.x; e0 < rows + T; e0 += kBatch * blockDim.x) {
+    int at[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int e = e0 + q * blockDim.x;
+      at[q] = e < rows + T ? Geo::kNormOffset + (e < rows ? r0 + e : T + e - rows) : -1;
+    }
+    float sum[kBatch];
+    split_sums(unit_at, splits, at, sum);
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      if (at[q] >= 0) norm[e0 + q * blockDim.x] = sum[q];
+    }
+  }
+  __syncthreads();
+  const int cells = rows * T;
+  for (int e0 = threadIdx.x; e0 < cells; e0 += kBatch * blockDim.x) {
+    int at[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int e = e0 + q * blockDim.x;
+      at[q] = e < cells ? (r0 + e / T) * Geo::kPartPitch + e % T : -1;
+    }
+    float gram[kBatch];
+    split_sums(unit_at, splits, at, gram);
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int e = e0 + q * blockDim.x;
+      if (e < cells) {
+        const int i = e / T, j = e % T;
+        const float v = __fsub_rn(__fadd_rn(norm[i], norm[rows + j]), __fmul_rn(2.f, gram[q]));
+        const float d2 = v < 0.f ? 0.f : v;
+        vals[i * T + j] = d2;
+        const int r = row0 + r0 + i, c = col0 + j;
+        if (r < n && c < n) out[static_cast<size_t>(r) * n + c] = d2;
+      }
+    }
+  }
+  if (!diag) {
+    // the mirror tile below the diagonal: consecutive threads on a row of it
+    __syncthreads();
+    for (int e = threadIdx.x; e < cells; e += blockDim.x) {
+      const int j = e / rows, i = e % rows;
+      const int r = col0 + j, c = row0 + r0 + i;
+      if (r < n && c < n) out[static_cast<size_t>(r) * n + c] = vals[i * T + j];
+    }
+  }
+  // no block leaves while another may still read its shared memory
+  cluster.sync();
 }
 
-// The Gram entry (a, b), tile(a) <= tile(b), summed over the splits in order.
-__device__ __forceinline__ float gram_at(const float* __restrict__ part, int n, int splits, int a,
-                                         int b) {
-  const size_t at = static_cast<size_t>(a) * n + b, stride = static_cast<size_t>(n) * n;
-  float g = part[at];
-  for (int s = 1; s < splits; ++s) g = __fadd_rn(g, part[s * stride + at]);
-  return g;
-}
-
-__global__ void sq_dists_epilogue(const float* __restrict__ part, float* __restrict__ out, int n,
-                                  int splits) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n * n) return;
-  const int i = idx / n, j = idx % n;
-  const bool lower = i / kTile > j / kTile;  // only upper-triangle tiles were computed
-  const float g = gram_at(part, n, splits, lower ? j : i, lower ? i : j);
-  const float gi = gram_at(part, n, splits, i, i);
-  const float gj = gram_at(part, n, splits, j, j);
-  const float v = __fsub_rn(__fadd_rn(gi, gj), __fmul_rn(2.f, g));
-  out[idx] = v < 0.f ? 0.f : v;
+template <int R>
+cudaError_t launch(const float* x, float* out, int n, int d, int cluster, int split_len, int vec,
+                   cudaStream_t s) {
+  using Geo = Geometry<R>;
+  constexpr int T = Geo::kTile;
+  const int tiles = (n + T - 1) / T;
+  const int stripe = (T + cluster - 1) / cluster;
+  const size_t need =
+      sizeof(float) * (static_cast<size_t>(kUnits) * Geo::kUnitFloats + stripe * T + stripe + T);
+  const size_t bytes = need > kMinSmemBytes ? need : kMinSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(pairwise_kernel<R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles) * (tiles + 1) / 2, cluster, 1);
+  cfg.blockDim = dim3(kUnit * kUnits, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, pairwise_kernel<R>, x, out, n, d, tiles, split_len, vec);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point (bound with ctypes): x [n, d] float32 contiguous, part a
-// workspace of splits * n * n floats, out [n, n].  split_len * splits must
-// cover d.  Returns cudaGetLastError() after the two launches
-// (cudaErrorInvalidValue for a shape it does not take).
-extern "C" int pairwise_sq_dists(const float* x, float* part, float* out, int n, int d,
-                                 int split_len, int splits, void* stream) {
-  if (n < 1 || d < 1 || split_len < 1 || splits < 1 ||
-      static_cast<long long>(split_len) * splits < d || n > 32 * 1024)
+// C entry point (bound with ctypes): x [n, d] float32 contiguous, out [n, n].
+// The plan (kernels/pairwise.py, split_plan): R rows and columns a thread
+// (4, 6 or 8), a cluster of C <= 8 blocks, and 4 C splits of split_len
+// coordinates (a multiple of 32) that cover d (trailing splits may be
+// empty: they add +0).  Returns the launch's cudaError_t
+// (cudaErrorInvalidValue for a shape or plan it does not take).
+extern "C" int pairwise_sq_dists(const float* x, float* out, int n, int d, int rows_per_thread,
+                                 int cluster, int split_len, void* stream) {
+  const long long splits = static_cast<long long>(kUnits) * cluster;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
+  if (n < 1 || n > kMaxRows || d < 1 || cluster < 1 || cluster > kMaxCluster || split_len < 1 ||
+      split_len % kChunk != 0 || splits * split_len < d || addr % 4 != 0)
     return cudaErrorInvalidValue;
+  const int vec = (d % 4 == 0 && addr % 16 == 0) ? 4 : (d % 2 == 0 && addr % 8 == 0) ? 2 : 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = (n + kTile - 1) / kTile;
-  const dim3 grid(tiles * (tiles + 1) / 2, splits);
-  gram_partial_kernel<<<grid, kThreads, 0, s>>>(x, part, n, d, tiles, split_len);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int threads = 256;
-  const long long total = static_cast<long long>(n) * n;
-  sq_dists_epilogue<<<static_cast<unsigned>((total + threads - 1) / threads), threads, 0, s>>>(
-      part, out, n, splits);
-  return cudaGetLastError();
+  switch (rows_per_thread) {
+    case 4: return launch<4>(x, out, n, d, cluster, split_len, vec, s);
+    case 6: return launch<6>(x, out, n, d, cluster, split_len, vec, s);
+    case 8: return launch<8>(x, out, n, d, cluster, split_len, vec, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

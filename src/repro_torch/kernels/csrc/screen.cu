@@ -10,7 +10,7 @@
 // writes out[j, :].  The arithmetic is that of the rules the reference
 // trainer runs (src/repro/core/screening.py), not of the Pallas kernels:
 //   * NaN payloads become +inf; absent rows are +inf sentinels;
-//   * each column is sorted ascending (bitonic network in registers);
+//   * each column is sorted ascending (Batcher network in registers);
 //   * trimmed mean: b_eff = min(b, (count-1)/2); ranks [b_eff, count-b_eff)
 //     are summed left to right with IEEE adds, the node's own value
 //     (unsanitized) is added, and the total is divided, IEEE-rounded, by
@@ -32,23 +32,28 @@
 // Design.  The TPU kernel tiled [n, 512] blocks of a pre-gathered
 // [E, n, d] tensor and extracted extremes with masked max/min passes.  Here
 // the grid is (coordinate block, node): one block per (j, 128 coordinates),
-// one thread per coordinate.  The block reads adj[j, :] once, compacts it
-// into a neighbor list in shared memory and derives count and b_eff there;
-// each thread gathers its column straight from w (coalesced across the
-// warp), so the [M, M, d] tensor is never formed.  The column lives in a
-// register array of N_PAD in {16, 32, 64, 128} entries (a template
-// parameter, the next power of two above the row count); indices are
-// compile-time constants after unrolling, so nothing goes to local memory
-// up to N_PAD = 64 (check the ptxas report the build writes).
+// one thread per coordinate.  The block compacts adj[j, :] into a neighbor
+// list in shared memory in parallel (a ballot per warp, popc prefix counts)
+// and derives count and b_eff there; each thread gathers its column
+// straight from w (coalesced across the warp), so the [M, M, d] tensor is
+// never formed.  The column lives in a register array sized to the block's
+// own row count, rounded up to a bucket (8, 16, ..., 64, 80, ..., 128):
+// count is uniform over the block, so one branch picks the bucket without
+// divergence, and the column is sorted by Batcher's odd-even merge network
+// for exactly that bucket (the reference's schedule, generated by
+// kernels/networks.py), every index a compile-time constant: at M = 50
+// the in-degrees (17-31 on erdos_renyi(50, 0.5)) fall in the 24- and
+// 32-row buckets, 132 and 191 compare-exchanges, where a bitonic network
+// padded to the next power of two above M would run 672.
 //
 // What bounds it on an H100.  Bytes: w is read M times through L2 (each
 // node reads its neighbors' rows); device memory sees M*d*4 bytes of w and
-// of self_vals in and M*d*4 out.  Operations: the bitonic network does
-// N_PAD/4 * log2(N_PAD) * (log2(N_PAD) + 1) compare-exchanges (two fp32
-// min/max each) per column per node, a few times the ~n/2 log^2 n that a
-// Batcher network over the true count needs.  At the main path's shapes
-// (M = 50, d = 7850) the operation bound is the larger; the kernel is
-// simple first and leaves padding-aware networks for later work.
+// of self_vals in and M*d*4 out.  Operations: Batcher's network over the
+// bucket, about n/4 log^2 n compare-exchanges (two fp32 min/max each) per
+// column per node, plus the kept ranks' adds.  At the main path's shapes
+// (M = 50, d = 7850) the operations over the true in-degrees are the larger
+// bound (the bucket adds at most 7 +inf rows); the gathers' L2 latency and
+// the network's instruction count are what the kernel spends its time on.
 
 #include <stdint.h>
 

@@ -3,11 +3,17 @@
 // dequant_screen.cu over int8 codeword rows.
 //
 // Grid (coordinate block, node): one block per (node j, 128 coordinates),
-// one thread per coordinate.  Thread 0 compacts adj[j, :] into a neighbor
-// list in shared memory; the row source stages what it needs of the listed
-// rows (a codeword's scale pairs); each thread then gathers its column
-// through the row source into a register array of N entries (the next power
-// of two above the rows to sort), sorts it and reduces it.
+// one thread per coordinate.  The block compacts adj[j, :] into a neighbor
+// list in shared memory in parallel (one adjacency entry a thread, a
+// __ballot_sync per warp and __popc prefix counts, so the list keeps
+// ascending sender order); the row source stages what it needs of the
+// listed rows (a codeword's scale pairs).  The row count to sort (count for
+// the trimmed mean, count + 1 for the median) is then known to the whole
+// block, which picks the smallest network bucket that holds it
+// (for_bucket, a block-uniform branch: no divergence); each thread gathers
+// its column into a register array of that bucket's size, sorts it with
+// Batcher's network for the bucket (screen_networks.cuh) and reduces it.
+// NMAX, the largest bucket a kernel compiles, comes from M on the host.
 #pragma once
 
 #include <stdint.h>
@@ -16,78 +22,97 @@
 
 namespace screen {
 
-constexpr int kMaxRows = 128;  // largest N instantiated
+constexpr int kMaxRows = kMaxNetworkRows;  // rows a dense screen sorts, at most
+constexpr int kWarps = kThreads / 32;
+static_assert(kMaxRows <= kThreads, "one adjacency entry a thread");
 
-// Thread 0 compacts node j's in-neighbor row into s_nbr and stores the
-// count; every thread returns after the barrier.
-__device__ __forceinline__ void load_neighbors(const uint8_t* __restrict__ adj, int m, int j,
-                                               int* s_nbr, int* s_count) {
-  if (threadIdx.x == 0) {
-    int c = 0;
-    const uint8_t* row = adj + static_cast<size_t>(j) * m;
-    for (int i = 0; i < m; ++i) {
-      if (row[i]) s_nbr[c++] = i;
-    }
-    *s_count = c;
-  }
+// Compacts node j's in-neighbor row into s_nbr (ascending sender order) and
+// returns the count to every thread of the block.
+__device__ __forceinline__ int load_neighbors(const uint8_t* __restrict__ adj, int m, int j,
+                                              int* s_nbr, int* s_warp) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const bool on = t < m && adj[static_cast<size_t>(j) * m + t] != 0;
+  const unsigned votes = __ballot_sync(0xffffffffu, on);
+  if (lane == 0) s_warp[warp] = __popc(votes);
   __syncthreads();
+  int before = 0, count = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = s_warp[w];
+    before += w < warp ? c : 0;
+    count += c;
+  }
+  if (on) s_nbr[before + __popc(votes & ((1u << lane) - 1u))] = t;
+  __syncthreads();
+  return count;
 }
 
+// v[i] = the listed row i's value at coordinate k for i < count, +inf after.
 template <int N, class Rows>
-__global__ void __launch_bounds__(kThreads)
-trimmed_mean_dense_kernel(Rows rows, const uint8_t* __restrict__ adj,
-                          const float* __restrict__ self_vals, float* __restrict__ out, int m,
-                          int d, int b, bool recip) {
-  __shared__ int s_nbr[kMaxRows];
-  __shared__ int s_count;
-  __shared__ float2 s_pair[Rows::kPairs];
-  const int j = blockIdx.y;
-  load_neighbors(adj, m, j, s_nbr, &s_count);
-  const int count = s_count;
-  rows.stage(s_nbr, count, s_pair);
-  const int k = blockIdx.x * kThreads + threadIdx.x;
-  if (k >= d) return;
-
-  float v[N];
+__device__ __forceinline__ void load_column(float (&v)[N], const Rows& rows, const float2* s_pair,
+                                            const int* s_nbr, int count, int d, int k) {
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     v[i] = CUDART_INF_F;
     if (i < count) v[i] = rows.load(s_pair, s_nbr[i], i, d, k);
   }
-  bitonic_sort<N>(v);
-  const size_t at = static_cast<size_t>(j) * d + k;
-  out[at] = trimmed_mean_sorted<N>(v, count, b, self_vals[at], recip);
 }
 
-template <int N, class Rows>
+template <int NMAX, class Rows>
+__global__ void __launch_bounds__(kThreads)
+trimmed_mean_dense_kernel(Rows rows, const uint8_t* __restrict__ adj,
+                          const float* __restrict__ self_vals, float* __restrict__ out, int m,
+                          int d, int b, bool recip) {
+  __shared__ int s_nbr[kMaxRows];
+  __shared__ int s_warp[kWarps];
+  __shared__ float2 s_pair[Rows::kPairs];
+  const int j = blockIdx.y;
+  const int count = load_neighbors(adj, m, j, s_nbr, s_warp);
+  rows.stage(s_nbr, count, s_pair);
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= d) return;
+  const size_t at = static_cast<size_t>(j) * d + k;
+  for_bucket<NMAX>(count, [&](auto bucket) {
+    constexpr int N = decltype(bucket)::value;
+    float v[N];
+    load_column<N>(v, rows, s_pair, s_nbr, count, d, k);
+    batcher_sort<N>(v);
+    out[at] = trimmed_mean_sorted<N>(v, count, b, self_vals[at], recip);
+  });
+}
+
+template <int NMAX, class Rows>
 __global__ void __launch_bounds__(kThreads)
 median_dense_kernel(Rows rows, const uint8_t* __restrict__ adj,
                     const float* __restrict__ self_vals, float* __restrict__ out, int m, int d) {
   __shared__ int s_nbr[kMaxRows];
-  __shared__ int s_count;
+  __shared__ int s_warp[kWarps];
   __shared__ float2 s_pair[Rows::kPairs];
   const int j = blockIdx.y;
-  load_neighbors(adj, m, j, s_nbr, &s_count);
-  const int count = s_count;
+  const int count = load_neighbors(adj, m, j, s_nbr, s_warp);
   rows.stage(s_nbr, count, s_pair);
   const int k = blockIdx.x * kThreads + threadIdx.x;
   if (k >= d) return;
   const size_t at = static_cast<size_t>(j) * d + k;
   // the node's own (uncompressed) value joins as one more row
   const float own = sanitize(self_vals[at]);
-
-  float v[N];
+  for_bucket<NMAX>(count + 1, [&](auto bucket) {
+    constexpr int N = decltype(bucket)::value;
+    float v[N];
+    load_column<N>(v, rows, s_pair, s_nbr, count, d, k);
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    v[i] = i == count ? own : CUDART_INF_F;
-    if (i < count) v[i] = rows.load(s_pair, s_nbr[i], i, d, k);
-  }
-  bitonic_sort<N>(v);
-  out[at] = median_sorted<N>(v, count + 1);
+    for (int i = 0; i < N; ++i) {
+      if (i == count) v[i] = own;
+    }
+    batcher_sort<N>(v);
+    out[at] = median_sorted<N>(v, count + 1);
+  });
 }
 
-// Launch over rows to sort: m for the trimmed mean, m + 1 for the median;
-// cudaErrorInvalidValue above kMaxRows.
+// Launch over rows to sort: m for the trimmed mean, m + 1 for the median,
+// with the kernel compiled for the next power of two (NMAX), which holds
+// every bucket a block of this launch can pick; cudaErrorInvalidValue above
+// kMaxRows.
 template <class Rows>
 cudaError_t launch_trimmed_mean_dense(const Rows& rows, const uint8_t* adj,
                                       const float* self_vals, float* out, int m, int d, int b,
@@ -102,7 +127,7 @@ cudaError_t launch_trimmed_mean_dense(const Rows& rows, const uint8_t* adj,
   } else if (m <= 64) {
     trimmed_mean_dense_kernel<64, Rows><<<grid, kThreads, 0, s>>>(rows, adj, self_vals, out, m,
                                                                    d, b, recip);
-  } else if (m <= 128) {
+  } else if (m <= kMaxRows) {
     trimmed_mean_dense_kernel<128, Rows><<<grid, kThreads, 0, s>>>(rows, adj, self_vals, out, m,
                                                                     d, b, recip);
   } else {
@@ -122,7 +147,7 @@ cudaError_t launch_median_dense(const Rows& rows, const uint8_t* adj, const floa
     median_dense_kernel<32, Rows><<<grid, kThreads, 0, s>>>(rows, adj, self_vals, out, m, d);
   } else if (n <= 64) {
     median_dense_kernel<64, Rows><<<grid, kThreads, 0, s>>>(rows, adj, self_vals, out, m, d);
-  } else if (n <= 128) {
+  } else if (n <= kMaxRows) {
     median_dense_kernel<128, Rows><<<grid, kThreads, 0, s>>>(rows, adj, self_vals, out, m, d);
   } else {
     return cudaErrorInvalidValue;

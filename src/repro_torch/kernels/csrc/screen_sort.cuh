@@ -1,12 +1,21 @@
 // Shared pieces of the coordinate-wise screening kernels (screen.cu,
 // dequant_screen.cu, gather_screen.cu): the NaN guard, the row sources a
-// thread reads its column from, the register sorting network and the two
+// thread reads its column from, the register sorting networks and the two
 // reductions over a sorted column.
+//
+// The networks are Batcher's odd-even merge sort over each bucket of row
+// counts (8, 16, ..., 64, 80, ..., 128), generated by
+// src/repro_torch/kernels/networks.py into screen_networks.cuh, which the
+// build writes into its include directory: batcher_sort<N>(v) sorts
+// v[0..N) ascending in registers, and for_bucket<NMAX>(rows, body) runs
+// body(Bucket<N>{}) for the smallest bucket N that holds `rows`.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "screen_networks.cuh"
 
 namespace screen {
 
@@ -62,33 +71,6 @@ struct CodewordRows {
     return sanitize(__fmaf_rn(qf, sz.x, sz.y));
   }
 };
-
-// Ascending bitonic sort of v[0..N) (N a power of two), fully unrolled, so
-// every index is a compile-time constant and v stays in registers.
-template <int N>
-__device__ __forceinline__ void bitonic_sort(float (&v)[N]) {
-#pragma unroll
-  for (int k = 2; k <= N; k <<= 1) {
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1) {
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const int l = i ^ j;
-        if (l > i) {
-          const float lo = fminf(v[i], v[l]);
-          const float hi = fmaxf(v[i], v[l]);
-          if ((i & k) == 0) {
-            v[i] = lo;
-            v[l] = hi;
-          } else {
-            v[i] = hi;
-            v[l] = lo;
-          }
-        }
-      }
-    }
-  }
-}
 
 // Trimmed mean of a sorted column: ranks [b_eff, count - b_eff) summed left
 // to right, the node's own value added, and the total divided (IEEE) by

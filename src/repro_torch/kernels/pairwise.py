@@ -5,41 +5,136 @@ BRIDGE-K (Krum) and BRIDGE-B (Bulyan).
 
 A CPU tensor goes to the plain version (`ref.pairwise_sq_dists`); a CUDA
 tensor launches the kernel or raises.  ``pairwise_sq_dists.launches``
-counts calls that launched the kernel (its two launches, the split Gram
-and the epilogue, count once) and nothing else.
+counts calls that launched the kernel and nothing else.
+
+The kernel cuts the output into upper-triangle tiles of ``8 R`` rows and
+the coordinates into ``4 C`` splits: each split of a tile is a unit of 64
+threads, four units share a block (one block an SM) and ``C`` blocks form
+a thread-block cluster, which adds the splits' partial Grams in ascending
+order through distributed shared memory.  `split_plan` picks ``R`` and
+``C`` from the shape alone, so the summation order of a given ``[n, d]``
+is fixed.
 """
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import build, ref
 
-# Split plan of the coordinate axis: at most TARGET_BLOCKS (tile, split)
-# blocks, two per SM of an H100, so no SM holds more than two equal
-# blocks, but no split shorter than MIN_SPLIT coordinates.  A function of
-# the shape alone, so the summation order of a given [n, d] is fixed.
-TARGET_BLOCKS = 264
-MIN_SPLIT = 256
-CHUNK = 32  # coordinates per shared-memory stage (csrc/pairwise.cu kChunk)
-TILE = 64  # output tile edge (csrc/pairwise.cu kTile)
+CHUNK = 32  # coordinates per ring stage (csrc/pairwise.cu kChunk); a split is a multiple
+STAGES = 3  # ring depth (kStages)
+PITCH = CHUNK + 4  # floats per staged row (kPitch)
+UNITS = 4  # units of 64 threads (splits of one tile) a block (kUnits)
+ROWS_PER_THREAD = (4, 6, 8)  # R: a unit's tile is 8R x 8R
+MAX_CLUSTER = 8  # C: blocks of a cluster, the portable limit
 MAX_ROWS = 32 * 1024
+MAX_COORDS = 2**31 - 2**16  # the kernel's coordinate offsets are 32-bit
+SMEM_PER_BLOCK = 227 * 1024  # a block's shared-memory limit on an H100
+MIN_SMEM = 120 * 1024  # what a block asks for at least: one block an SM (kMinSmemBytes)
+
+# The plan's model of an H100 SXM: its 132 SMs in GPCs (a cluster's blocks
+# share a GPC, one block an SM), and the device time of one 32-coordinate
+# chunk of the main loop with four units on an SM, by R (microseconds:
+# `kernel_times.py --sweep`, NVIDIA H100 80GB HBM3, 700 W), which grows
+# less than R^2: larger tiles issue fewer loads per FMA.
+GPC_SMS = (18, 18, 16, 16, 16, 16, 16, 16)
+CHUNK_US = {4: 1.28, 6: 2.57, 8: 3.99}
 
 
-def split_plan(n: int, d: int) -> tuple[int, int]:
-    """``(split_len, splits)``: the coordinate axis cut into ``splits``
-    runs of ``split_len`` (a multiple of the 32-coordinate stage), the last
-    one short."""
-    tiles = -(-n // TILE)
-    pairs = tiles * (tiles + 1) // 2
-    want = max(1, min(TARGET_BLOCKS // pairs, -(-d // MIN_SPLIT)))
-    split_len = -(-(-(-d // want)) // CHUNK) * CHUNK
-    return split_len, -(-d // split_len)
+@dataclass(frozen=True)
+class Plan:
+    """How the kernel cuts an ``[n, d]`` problem."""
+
+    rows_per_thread: int  # R
+    cluster: int  # C
+    split_len: int  # coordinates a split (a multiple of CHUNK)
+
+    @property
+    def tile(self) -> int:
+        return 8 * self.rows_per_thread
+
+    @property
+    def splits(self) -> int:
+        return UNITS * self.cluster
 
 
-def pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:
+def _check_shape(n: int, d: int) -> None:
+    if not (1 <= n <= MAX_ROWS and 1 <= d <= MAX_COORDS):
+        raise ValueError(f"pairwise_sq_dists kernel takes 1 <= n <= {MAX_ROWS} rows and "
+                         f"1 <= d <= {MAX_COORDS} coordinates, got [{n}, {d}]")
+
+
+def canonical_split_len(d: int, splits: int) -> int:
+    """The split length of ``splits`` splits over d: ceil(d / splits)
+    rounded up to a whole stage (trailing splits may then be empty, and add
+    +0 to the Gram)."""
+    return -(-(-(-d // splits)) // CHUNK) * CHUNK
+
+
+def smem_bytes(plan: Plan) -> int:
+    """Dynamic shared memory of a block (csrc/pairwise.cu ``launch``)."""
+    t = plan.tile
+    unit = max(STAGES * 2 * t * PITCH, t * (t + 1)) + 2 * t
+    stripe = -(-t // plan.cluster)
+    return max(MIN_SMEM, 4 * (UNITS * unit + stripe * t + stripe + t))
+
+
+def check_plan(plan: Plan, n: int, d: int) -> None:
+    """Raise unless ``plan`` is one the kernel takes for ``[n, d]``: R and C
+    within their limits, the canonical split length, and a block within
+    the card's shared memory."""
+    _check_shape(n, d)
+    if plan.rows_per_thread not in ROWS_PER_THREAD or not 1 <= plan.cluster <= MAX_CLUSTER:
+        raise ValueError(f"pairwise plan outside the kernel's limits: {plan}")
+    if plan.split_len != canonical_split_len(d, plan.splits):
+        raise ValueError(f"pairwise plan {plan}: split length for d = {d} over {plan.splits} "
+                         f"splits must be {canonical_split_len(d, plan.splits)}")
+    if smem_bytes(plan) > SMEM_PER_BLOCK:
+        raise ValueError(f"pairwise plan {plan} needs {smem_bytes(plan)} bytes of shared memory")
+
+
+def candidates(n: int, d: int) -> list[Plan]:
+    """Every plan the kernel takes for ``[n, d]``, in a fixed order."""
+    _check_shape(n, d)
+    out = []
+    for r in ROWS_PER_THREAD:
+        for c in range(1, MAX_CLUSTER + 1):
+            plan = Plan(r, c, canonical_split_len(d, UNITS * c))
+            if smem_bytes(plan) <= SMEM_PER_BLOCK:
+                out.append(plan)
+    return out
+
+
+def waves(plan: Plan, n: int) -> int:
+    """Rounds of clusters the card runs the plan's tiles in: a GPC holds
+    ``floor(SMs / C)`` clusters at once."""
+    tiles = -(-n // plan.tile)
+    at_once = sum(sms // plan.cluster for sms in GPC_SMS)
+    return -(-(tiles * (tiles + 1) // 2) // at_once)
+
+
+def cost(plan: Plan, n: int) -> float:
+    """The model's device time of the main loop (microseconds): waves of
+    clusters, each as long as one unit's chunks."""
+    return waves(plan, n) * -(-plan.split_len // CHUNK) * CHUNK_US[plan.rows_per_thread]
+
+
+@functools.cache
+def split_plan(n: int, d: int) -> Plan:
+    """The plan for ``[n, d]``: the cheapest of `candidates` by `cost`
+    (ties to the first: the smaller tile, then the smaller cluster), a
+    function of the shape alone."""
+    return min(candidates(n, d), key=lambda p: cost(p, n))
+
+
+def pairwise_sq_dists(x: torch.Tensor, plan: Plan | None = None) -> torch.Tensor:
     """``[n, n]`` float32 squared distances between the rows of the float32
     contiguous ``x [n, d]``: symmetric bit for bit, an exact zero diagonal
-    for finite rows, NaN kept."""
+    for finite rows, NaN kept.  ``plan`` overrides `split_plan` (a kernel
+    sweep's knob; the summation order then follows it)."""
     if x.dtype != torch.float32:
         raise TypeError(f"pairwise_sq_dists takes float32, got {x.dtype}")
     if x.ndim != 2 or x.shape[0] < 1 or x.shape[1] < 1:
@@ -51,13 +146,13 @@ def pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"no pairwise_sq_dists kernel for device {x.device}")
     n, d = x.shape
-    if n > MAX_ROWS:
-        raise ValueError(f"pairwise_sq_dists kernel takes at most {MAX_ROWS} rows, got {n}")
-    split_len, splits = split_plan(n, d)
-    part = torch.empty((splits, n, n), dtype=torch.float32, device=x.device)
+    if plan is None:
+        plan = split_plan(n, d)
+    else:
+        check_plan(plan, n, d)
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
-    err = build.load().pairwise_sq_dists(x.data_ptr(), part.data_ptr(), out.data_ptr(), n, d,
-                                         split_len, splits, build.stream_of(x))
+    err = build.load().pairwise_sq_dists(x.data_ptr(), out.data_ptr(), n, d, plan.rows_per_thread,
+                                         plan.cluster, plan.split_len, build.stream_of(x))
     build.check_launch(err, "pairwise_sq_dists")
     pairwise_sq_dists.launches += 1
     return out

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import (
-    build, dequant, dequant_screen, gather_screen, median, pairwise, ref, trimmed_mean)
+    build, dequant, dequant_screen, gather_screen, median, networks, pairwise, ref, trimmed_mean)
 
 
 def edge_inputs(n: int, d: int, seed: int):
@@ -455,3 +455,71 @@ def test_codeword_screens_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):  # operands on two devices
         dequant_screen.dequant_screen_trimmed_mean_dense(q[:5, :].contiguous(), scale[:5].cpu(),
                                                          adj[:5, :5].contiguous(), sv[:5], 1)
+
+
+# Row counts at every boundary of the sorting networks' buckets (b - 1, b,
+# b + 1), grouped by bucket: the trimmed mean sorts `count` rows, the
+# median `count + 1`.
+BOUNDARY_ROWS = [tuple(r for r in (b - 1, b, b + 1) if r <= networks.MAX_ROWS)
+                 for b in networks.BUCKETS]
+
+
+def boundary_adjacency(rows, median_rows: bool, seed: int):
+    """An ``[m, m]`` mask whose node j has ``rows[j % len(rows)]`` rows to
+    sort (one fewer senders for the median, whose own value is a row),
+    senders drawn with self-loops allowed so a count can reach m; m as
+    large as the kernels take, at most 8 above the largest count."""
+    counts = [r - 1 if median_rows else r for r in rows]
+    limit = networks.MAX_ROWS - 1 if median_rows else networks.MAX_ROWS
+    m = min(limit, max(counts) + 8)
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((m, m), bool)
+    for j in range(m):
+        adj[j, rng.choice(m, size=counts[j % len(counts)], replace=False)] = True
+    return adj
+
+
+def left_to_right_trimmed_mean(w, adj, self_vals, b):
+    """`ref.trimmed_mean_dense` with the kept ranks summed left to right for
+    any M (the plain version sums with ``torch.sum`` above 64 rows, as the
+    reference does): the kernel's order, for exact checks above 64 rows."""
+    mask = adj.bool()
+    count = mask.sum(dim=1)
+    b_eff = ref.effective_trim(b, count)
+    order = torch.sort(torch.where(mask[:, :, None], ref.sanitize(w)[None], torch.inf), dim=1).values
+    total = torch.zeros_like(self_vals)
+    for i in range(mask.shape[1]):
+        keep = (i >= b_eff) & (i < count - b_eff)
+        total = total + torch.where(keep[:, None], order[:, i], 0.0)
+    return (total + self_vals) / (count - 2 * b_eff + 1).to(torch.float32)[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", BOUNDARY_ROWS, ids=lambda r: f"rows{r[0]}-{r[-1]}")
+def test_dense_screens_at_bucket_boundaries_on_card(cuda_device, rows):
+    """The four dense entries, exact, on nodes whose row counts sit at a
+    network bucket's boundary: float rows with NaN, +-inf, ties and +-0,
+    and codewords with inf and zero scales."""
+    for median_rows in (False, True):
+        adj = boundary_adjacency(rows, median_rows, seed=rows[0])
+        m = adj.shape[0]
+        w, _ = edge_inputs(m, 300, seed=rows[0] + 1)
+        sv = np.random.default_rng(rows[0]).normal(size=(m, 300)).astype(np.float32)
+        sv[0, :3] = [np.nan, np.inf, -np.inf]
+        tw, ta, tsv = (torch.from_numpy(x).to(cuda_device) for x in (w, adj, sv))
+        cw = [tuple(torch.from_numpy(x).to(cuda_device) for x in codeword(m, 300, seed=rows[0]))]
+        if median_rows:
+            assert bool(nan_equal(median.median_dense(tw, ta, tsv), ref.median_dense(tw, ta, tsv)).all())
+            for q, scale in cw:
+                got = dequant_screen.dequant_screen_median_dense(q, scale, ta, tsv)
+                assert bool(nan_equal(got, ref.dequant_median_dense(q, scale, ta, tsv)).all())
+            continue
+        for b in (0, 3):
+            got = trimmed_mean.trimmed_mean_dense(tw, ta, tsv, b)
+            assert bool(nan_equal(got, left_to_right_trimmed_mean(tw, ta, tsv, b)).all())
+            if m <= ref.MAX_EXACT_ROWS:
+                assert bool(nan_equal(got, ref.trimmed_mean_dense(tw, ta, tsv, b)).all())
+            for q, scale in cw:
+                got = dequant_screen.dequant_screen_trimmed_mean_dense(q, scale, ta, tsv, b)
+                want = left_to_right_trimmed_mean(ref.dequant(q, scale), ta, tsv, b)
+                assert bool(nan_equal(got, want).all())

@@ -88,11 +88,47 @@ def test_batched_plain_equals_per_node():
 
 @pytest.mark.parametrize("n,d", [(50, 7850), (100, 7850), (512, 7850), (5, 100), (3, 33)])
 def test_split_plan_covers_the_coordinates(n, d):
-    split_len, splits = pairwise.split_plan(n, d)
-    assert split_len % pairwise.CHUNK == 0 and splits >= 1
-    assert (splits - 1) * split_len < d <= splits * split_len
-    tiles = -(-n // pairwise.TILE)
-    assert tiles * (tiles + 1) // 2 * splits <= max(pairwise.TARGET_BLOCKS, tiles * (tiles + 1) // 2)
+    plan = pairwise.split_plan(n, d)
+    assert plan.split_len % pairwise.CHUNK == 0
+    # the least whole-stage split length whose splits together cover d
+    assert d <= plan.splits * plan.split_len
+    assert plan.split_len - pairwise.CHUNK < -(-d // plan.splits)
+    assert plan.rows_per_thread in pairwise.ROWS_PER_THREAD
+    assert 1 <= plan.cluster <= pairwise.MAX_CLUSTER and plan.splits == pairwise.UNITS * plan.cluster
+    assert pairwise.smem_bytes(plan) <= 227 * 1024  # a block's shared-memory limit
+    pairwise.check_plan(plan, n, d)
+
+
+@pytest.mark.parametrize("n,d", [(1, 1), (20, 7850), (50, 7850), (100, 7850), (512, 7850),
+                                 (64, 999), (130, 1000), (512, 777), (4096, 300), (32768, 16)])
+def test_split_plan_is_a_function_of_the_shape(n, d):
+    """The plan (and so the summation order) depends on [n, d] alone: the
+    same from a fresh computation, and every candidate within the limits."""
+    plan = pairwise.split_plan(n, d)
+    fresh = min(pairwise.candidates(n, d), key=lambda p: pairwise.cost(p, n))
+    assert plan == fresh
+    for cand in pairwise.candidates(n, d):
+        pairwise.check_plan(cand, n, d)
+        assert pairwise.smem_bytes(cand) <= 227 * 1024
+
+
+@pytest.mark.parametrize("n,d", [(0, 10), (pairwise.MAX_ROWS + 1, 10), (5, 0),
+                                 (5, pairwise.MAX_COORDS + 1)])
+def test_split_plan_raises_outside_its_limits(n, d):
+    with pytest.raises(ValueError):
+        pairwise.split_plan(n, d)
+
+
+@pytest.mark.parametrize("bad", [dict(rows_per_thread=5), dict(rows_per_thread=16), dict(cluster=0),
+                                 dict(cluster=pairwise.MAX_CLUSTER + 1), dict(split_len=24),
+                                 dict(split_len=16), dict(split_len=16000)])
+def test_check_plan_refuses_plans_the_kernel_does_not_take(bad):
+    """R, G and C outside their limits, a split that is not the least
+    multiple of the 16-coordinate stage that covers d over the splits."""
+    base = pairwise.split_plan(512, 7850)
+    plan = pairwise.Plan(**{**base.__dict__, **bad})
+    with pytest.raises(ValueError):
+        pairwise.check_plan(plan, 512, 7850)
 
 
 def test_cpu_wrapper_runs_plain_version_without_launching():

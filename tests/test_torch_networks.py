@@ -1,0 +1,98 @@
+"""The sorting networks the screening kernels compile (`repro_torch.kernels.networks`),
+held to the reference's schedule and checked to sort, on the CPU.
+
+The kernels include the header `networks.header` writes at build time, so
+the list a test reads back from that text is the list the card runs.
+"""
+import itertools
+
+import numpy as np
+import pytest
+
+from repro.core.screening import _batcher_pairs
+from repro_torch.kernels import networks
+
+
+def compiled_pairs(text: str) -> dict[int, tuple[tuple[int, int], ...]]:
+    """The compare-exchanges of each bucket as the header text spells them."""
+    nets, current = {}, None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("__device__ __forceinline__ void batcher_sort<"):
+            current = int(line.split("<", 1)[1].split(">", 1)[0])
+            nets[current] = []
+        elif line == "}":
+            current = None
+        elif current is not None and line.startswith("SCREEN_CX("):
+            for item in line.split("SCREEN_CX(")[1:]:
+                a, b = item.split(")")[0].split(",")
+                nets[current].append((int(a), int(b)))
+    return {n: tuple(p) for n, p in nets.items()}
+
+
+def apply_network(pairs, x: np.ndarray) -> np.ndarray:
+    """The compare-exchanges ``pairs`` applied along the last axis of ``x``
+    with min/max, as the kernels apply them."""
+    x = x.copy()
+    for a, b in pairs:
+        lo = np.minimum(x[..., a], x[..., b])
+        hi = np.maximum(x[..., a], x[..., b])
+        x[..., a], x[..., b] = lo, hi
+    return x
+
+
+@pytest.mark.parametrize("n", range(networks.MAX_ROWS + 1))
+def test_schedule_equals_reference(n):
+    assert networks.batcher_pairs(n) == _batcher_pairs(n)
+
+
+def test_compiled_networks_are_the_reference_schedule():
+    compiled = compiled_pairs(networks.header())
+    assert sorted(compiled) == list(networks.BUCKETS)
+    for n, pairs in compiled.items():
+        assert pairs == _batcher_pairs(n), n
+        assert all(0 <= a < b < n for a, b in pairs)
+
+
+@pytest.mark.parametrize("n", range(1, 17))
+def test_network_sorts_every_01_input(n):
+    """The 0-1 principle: a comparator network that sorts every 0-1 input
+    sorts every input."""
+    bits = np.array(list(itertools.product((0.0, 1.0), repeat=n)), np.float32)
+    out = apply_network(networks.batcher_pairs(n), bits)
+    np.testing.assert_array_equal(out, np.sort(bits, axis=-1))
+
+
+@pytest.mark.parametrize("n", networks.BUCKETS)
+def test_bucket_network_sorts_padded_columns(n):
+    """Each bucket's network on columns of every row count the bucket takes:
+    random values with +-inf, repeated values and +-0, +inf padding."""
+    rng = np.random.default_rng(n)
+    pairs = compiled_pairs(networks.header())[n]
+    lower = max(b for b in (0, *networks.BUCKETS) if b < n)
+    for count in range(lower + 1, n + 1):
+        x = rng.normal(size=(64, n)).astype(np.float32)
+        x[:, : n // 3] = np.round(x[:, : n // 3])  # repeats
+        x[rng.random(x.shape) < 0.05] = np.inf
+        x[rng.random(x.shape) < 0.05] = -np.inf
+        x[rng.random(x.shape) < 0.05] = -0.0
+        x[:, count:] = np.inf  # the padded slots
+        out = apply_network(pairs, x)
+        np.testing.assert_array_equal(out, np.sort(x, axis=-1))
+
+
+def test_bucket_covers_every_count():
+    for rows in range(networks.MAX_ROWS + 1):
+        b = networks.bucket(rows)
+        assert b in networks.BUCKETS and rows <= b
+        assert all(c < rows for c in networks.BUCKETS if c < b)
+    for rows in (-1, networks.MAX_ROWS + 1):
+        with pytest.raises(ValueError):
+            networks.bucket(rows)
+
+
+def test_header_dispatches_every_bucket_in_order():
+    text = networks.header()
+    at = [text.index(f"if (rows <= {b})") for b in networks.BUCKETS]
+    assert at == sorted(at)
+    assert all(text.count(f"body(Bucket<{b}>{{}});") == 1 for b in networks.BUCKETS)
