@@ -19,11 +19,19 @@ failure of which raises:
    exact on nodes whose row counts sit at every boundary of the sorting
    networks' buckets (b - 1, b, b + 1 rows for each bucket b up to 128);
 3. sparse kernels — the two gather screens, exact, at the sparse path's
-   shape (``small_world(512, 6, 2)``, K = 16, d = 7850) and on edge-case
-   payloads at K in {3, 16, 40, 63} with padded slots; the int8 decode in
-   its plain and carry forms, exact at M = 512, d = 7850.  Every kernel is
-   timed beside its plain version and its library yardstick (a call the
-   port never makes) with CUDA events;
+   shape (``small_world(512, 6, 2)``, K = 16, d = 7850), at sparse
+   BRIDGE-K / B's (``small_world(512, 8, 2)``, K = 20) and on a table whose
+   nodes share few rows, each under the tile kernel's plan and its other
+   candidate plans, and on edge-case payloads at K in {3, 16, 40, 63} with
+   padded
+   slots; the wide path (above the register networks' rows): the dense
+   screens at M in {129, 513} and the gather screens at K in {64, 200},
+   float and codeword rows, the medians exact, the trimmed means exact
+   against the plain arithmetic summed left to right and within the
+   summation bound of the plain version; the int8 decode in its plain and
+   carry forms, exact at M = 512, d = 7850.  Every kernel is timed beside
+   its plain version and its library yardstick (a call the port never
+   makes) with CUDA events;
 4. pairwise kernel — the distance kernel of BRIDGE-K / BRIDGE-B against its
    plain version at the main path's shapes ([50, 7850] dense, [100, 7850]
    the int8 form ``cat([w_hat, self_vals])``, [512, 7850] sparse) and on
@@ -64,11 +72,15 @@ failure of which raises:
    ByRDiE for 2 sweeps (the dense trimmed-mean kernel, in its reciprocal
    form, once per block of 512, 16 a sweep), BRDSO for 120 steps; then the
    table's entry point under ``--codec int4 --attack scale_abuse``;
-12. randomness — ``prng.bits`` and ``uniform`` on the card equal the CPU's
+12. wide trainers — BRIDGE-T and BRIDGE-M for 3 ticks, dense M = 129
+   (``erdos_renyi(129, 0.5, 4)``) and sparse K = 64
+   (``small_world(128, 30, 2, max_degree=64)``): the wide path once a tick,
+   and card-vs-CPU parity on honest rows at rtol 1e-5, atol 1e-6;
+13. randomness — ``prng.bits`` and ``uniform`` on the card equal the CPU's
    at [512, 7850], ``normal`` within its tolerance of the CPU's; the int8
    encode and carry decode on the card give the CPU's codes, scales,
    ``x_hat`` and residual exactly;
-13. parity — from one init and one batch stream (M = 50): 5 ticks on the
+14. parity — from one init and one batch stream (M = 50): 5 ticks on the
    card and on the CPU agree at rtol 1e-4, atol 1e-5 (sign flip dense;
    random attack dense and sparse, on honest rows); one int8 tick gives the
    CPU's honest carry exactly; the dense and the sparse trainer give
@@ -82,12 +94,12 @@ own CPU run at the same settings (``REFERENCE_ACCURACY``, from
 Krum's picks (``PICK_BOUND``), which is held to card-vs-CPU parity.
 
 Each configuration of a trainer phase trains on a task of its own, so all
-see batches 0..199 of one stream.  Before each main-path phase (5-11)
+see batches 0..199 of one stream.  Before each main-path phase (5-12)
 every kernel's launch count is set to 0, and read
 after its runs: each kernel of the phase must have launched once per
 tick of the runs of its rule (codec), the others not at all; a kernel's
 ``launches`` in the JSON line is the sum over the phases.  Then each
-configuration of the phase is profiled for 10 more ticks (`profile_phase`:
+configuration of phases 6-10 is profiled for 10 more ticks (`profile_phase`:
 device busy share, kernels per tick, host time per stage), a measurement
 that reports a profiler failure instead of raising.
 
@@ -96,6 +108,7 @@ The line before the last is the ``{"kernels": [...]}`` record; the last is
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -120,7 +133,7 @@ from repro_torch.core.graph import erdos_renyi, small_world  # noqa: E402
 from repro_torch.core.neighbors import NeighborTable  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     build, dequant, dequant_screen, gather_screen, median, networks, ops, pairwise, ref,
-    trimmed_mean)
+    screen_wide, trimmed_mean)
 from repro_torch.sim import variants  # noqa: E402
 from repro_torch.sim.tasks import linear_task  # noqa: E402
 
@@ -140,6 +153,7 @@ KERNELS = {  # JSON name -> wrapper (its `launches` counter)
     "gather_dequant_screen_trimmed_mean": gather_screen.gather_dequant_screen_trimmed_mean,
     "gather_dequant_screen_median": gather_screen.gather_dequant_screen_median,
     "dequant": dequant.dequant,
+    "screen_wide": screen_wide.launch,
 }
 COUNTED = KERNELS  # every counted wrapper is in the JSON line
 # bits on the wire per message at d = 7850: the reference codec's
@@ -149,6 +163,8 @@ REFERENCE_WIRE_BITS = {"identity": 251200, "int8": 64784, "int4": 33384, "topk50
 # BRIDGE-K / BRIDGE-B on the sparse layout: small_world(512, 8, 2), whose
 # in-degrees (12-20) meet Bulyan's max(4b, 3b + 2) + 1 = 9 at b = 2
 KB_NEAREST = 8
+# the wide path's dense trainer: more senders than the register networks sort
+WIDE_M = 129
 PLAIN_TICKS = 20  # geomedian, clipped_mean, rep_trimmed_mean, rep_median
 # The reference's honest test accuracy at each configuration below, on a CPU
 # (tools/reference_accuracy.py: the same settings, seeds and batches); the
@@ -475,8 +491,31 @@ def gather_kernel_phase(dev):
             ew, eself = torch.as_tensor(ew, device=dev), torch.as_tensor(eself, device=dev)
             for sv in (ew, eself):
                 exact_or_raise(f"gather {name} K={kk}", kern(ew, etable, sv), plain(ew, etable, sv))
+    # sparse BRIDGE-K / B's table (K = 20) and one whose consecutive nodes
+    # share few rows, through the wrapper (tile_plan's plan) and under the
+    # tile kernel's other candidate plans
+    tables = {"K=20": NeighborTable.from_adjacency(
+        small_world(SM, KB_NEAREST, SB, rewire_prob=0.2, seed=0), device=dev),
+        "random K=16": NeighborTable.from_adjacency(random_table(SM, 8, 16, seed=4), k=16,
+                                                    device=dev)}
+    for tag, tab in tables.items():
+        for median, kern, plain in ((False, gather_screen.gather_screen_trimmed_mean, tm_plain),
+                                    (True, gather_screen.gather_screen_median, md_plain)):
+            plan = gather_screen.tile_plan(SM, tab.k, D, 4, median)
+            b = () if median else (SB,)
+            args = (w, tab.safe_idx, tab.valid_dev, w, *b)
+            want = plain(w, tab, w)
+            exact_or_raise(f"gather {kern.__name__} {tag}", kern(*args), want)
+            for p in gather_screen.candidates(SM, tab.k, D, 4, median):
+                got = gather_screen.launch_tile(kern.__name__, p, (w,), tab.safe_idx,
+                                                tab.valid_dev, w, *b)
+                exact_or_raise(f"gather {kern.__name__} {tag} {p}", got, want)
+            print(f"gather kernels {tag}: {kern.__name__} "
+                  f"{cuda_ms(lambda a=args, f=kern: f(*a)):.4f} ms (plan {plan})")
     print(f"gather kernels: equal to their plain versions (exact at M = {SM}, K = {k}, "
-          f"d = {D}, and on edge cases at K in (3, 16, 40, 63))")
+          f"d = {D}, at K = 20 and on a table that shares few rows under every candidate plan, "
+          f"and on edge cases at K in (3, 16, 40, 63)); plans at K = {k}: "
+          f"{gather_screen.tile_plan(SM, k, D, 4)}, median {gather_screen.tile_plan(SM, k, D, 4, True)}")
 
     counts = table.valid.sum(axis=1)
     b_eff = np.minimum(SB, np.maximum((counts - 1) // 2, 0))
@@ -501,6 +540,157 @@ def gather_kernel_phase(dev):
     print("library: the gather trimmed mean has no single PyTorch call; the gather median's is "
           "torch.nanquantile(q=0.5) over the gathered [M, K+1, d] rows (NaN in padded slots)")
     return records
+
+
+def random_table(m: int, lo: int, hi: int, seed: int) -> np.ndarray:
+    """An ``[m, m]`` in-neighbor mask with ``lo`` to ``hi`` senders a node,
+    drawn at random: consecutive nodes share few rows."""
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((m, m), bool)
+    for j in range(m):
+        others = np.array([i for i in range(m) if i != j])
+        adj[j, rng.choice(others, size=int(rng.integers(lo, hi + 1)), replace=False)] = True
+    return adj
+
+
+def summation_or_raise(name, got, want, rows, count, self_vals):
+    """``got`` within the float32 summation bound of ``want`` where both
+    are finite (two orders of the kept ranks of ``rows.shape[1]`` rows,
+    plus self), equal elsewhere."""
+    torch.cuda.synchronize()
+    fin = lambda x: torch.where(torch.isfinite(x), x.abs(), 0.0)
+    colmax = torch.maximum(fin(rows).amax(dim=(0, 1))[None, :], fin(self_vals))
+    tol = 2.0 * rows.shape[1] * EPS32 * colmax * (count.to(torch.float32)[:, None] + 1.0)
+    both = torch.isfinite(got) & torch.isfinite(want)
+    ok = torch.where(both, (got - want).abs() <= tol, nan_equal(got, want))
+    if not bool(ok.all()):
+        raise AssertionError(f"{name}: beyond the summation bound on {int((~ok).sum())} entries")
+
+
+def wide_kernel_phase(dev):
+    """The wide path (above the register networks' rows): the dense screens
+    at M = 129 and 513 and the gather screens at K = 64 and 200, float and
+    codeword rows, with the edge payloads; the medians exact, the trimmed
+    means exact against the plain arithmetic summed left to right and
+    within the summation bound of the plain version; timed at the dense
+    M = 129 trimmed mean, d = 7850, the shape of `wide_trainer_phase`, and
+    held to both checks there too."""
+    d = 1000
+    for m in (129, 513):
+        w, adj_np, sv = edge_case_inputs(m, d, seed=m)
+        q, sc, _, csv = codeword_edge_inputs(m, d, seed=m + 1)
+        w, adj, sv, q, sc, csv = (torch.as_tensor(a, device=dev) for a in (w, adj_np, sv, q, sc, csv))
+        count = adj.sum(dim=1)
+        for tag, rows, tm, md, own in (
+            ("float", w, lambda: trimmed_mean.trimmed_mean_dense(w, adj, sv, B),
+             lambda: median.median_dense(w, adj, sv), sv),
+            ("codeword", ref.dequant(q, sc),
+             lambda: dequant_screen.dequant_screen_trimmed_mean_dense(q, sc, adj, csv, B),
+             lambda: dequant_screen.dequant_screen_median_dense(q, sc, adj, csv), csv),
+        ):
+            got = tm()
+            exact_or_raise(f"wide {tag} trimmed mean M={m}", got,
+                           left_to_right_trimmed_mean(rows, adj, own, B))
+            summation_or_raise(f"wide {tag} trimmed mean M={m}", got,
+                               ref.trimmed_mean_dense(rows, adj, own, B), rows[None], count, own)
+            exact_or_raise(f"wide {tag} median M={m}", md(), ref.median_dense(rows, adj, own))
+    for k in (64, 200):
+        w, adj_np, sv = sparse_case_inputs(k, d, seed=k)
+        n = adj_np.shape[0]
+        q, sc, _, csv = codeword_edge_inputs(n, d, seed=k + 1)
+        table = NeighborTable.from_adjacency(adj_np, k=k, device=dev)
+        w, adj, sv, q, sc, csv = (torch.as_tensor(a, device=dev) for a in (w, adj_np, sv, q, sc, csv))
+        idx, valid = table.safe_idx, table.valid_dev
+        for tag, rows, tm, md, own in (
+            ("float", w, lambda: gather_screen.gather_screen_trimmed_mean(w, idx, valid, sv, SB),
+             lambda: gather_screen.gather_screen_median(w, idx, valid, sv), sv),
+            ("codeword", ref.dequant(q, sc),
+             lambda: gather_screen.gather_dequant_screen_trimmed_mean(q, sc, idx, valid, csv, SB),
+             lambda: gather_screen.gather_dequant_screen_median(q, sc, idx, valid, csv), csv),
+        ):
+            got = tm()
+            exact_or_raise(f"wide gather {tag} trimmed mean K={k}", got,
+                           left_to_right_trimmed_mean(rows, adj, own, SB))
+            summation_or_raise(f"wide gather {tag} trimmed mean K={k}", got,
+                               ref.gather_trimmed_mean(rows, idx, valid, own, SB),
+                               table.gather_rows(rows), valid.sum(dim=1), own)
+            exact_or_raise(f"wide gather {tag} median K={k}", md(),
+                           ref.gather_median(rows, idx, valid, own))
+    print(f"wide path: the dense screens at M in (129, 513) and the gather screens at K in "
+          f"(64, 200), float and codeword rows, d = {d}: medians exact, trimmed means exact "
+          f"against the left-to-right sum and within the summation bound of the plain version")
+
+    m = WIDE_M
+    topo = erdos_renyi(m, 0.5, B, seed=0)
+    adj = torch.as_tensor(topo.adjacency, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    w = torch.randn((m, D), generator=gen, device=dev)
+    counts = topo.adjacency.sum(axis=1)
+    b_eff = np.minimum(B, np.maximum((counts - 1) // 2, 0))
+    ops = D * sum(2 * batcher_pairs(int(c)) + int(c) - 2 * int(e) + 2
+                  for c, e in zip(counts, b_eff, strict=True))
+    got = trimmed_mean.trimmed_mean_dense(w, adj, w, B)
+    want = ref.trimmed_mean_dense(w, adj, w, B)
+    exact_or_raise(f"wide float trimmed mean M={m}, d={D}", got,
+                   left_to_right_trimmed_mean(w, adj, w, B))
+    summation_or_raise(f"wide float trimmed mean M={m}, d={D}", got, want, w[None],
+                       adj.sum(dim=1), w)
+    err = max_abs_err(got, want)
+    rec = record("screen_wide", "src/repro_torch/kernels/csrc/screen_wide.cuh",
+                 "src/repro/kernels/trimmed_mean.py:109",
+                 lambda: trimmed_mean.trimmed_mean_dense(w, adj, w, B),
+                 lambda: ref.trimmed_mean_dense(w, adj, w, B), None, 2 * m * D * 4 + m * m, ops,
+                 err)
+    print(f"library: the wide path's trimmed mean has no single PyTorch call (timed at dense "
+          f"M = {m}, d = {D}; it also runs rows 2-3 and 6-8 above their register networks)")
+    return [rec]
+
+
+def wide_trainer_phase(dev):
+    """The wide path on the main path: BRIDGE-T and BRIDGE-M, 3 ticks, dense
+    M = 129 on erdos_renyi(129, 0.5, 4) (129 and 130 rows to sort) and
+    sparse on small_world(128, 30, 2, max_degree=64) (a 64-slot table),
+    random attack, from one init and one batch stream: the card launches
+    the wide path once a tick and nothing else, and its parameters agree
+    with the CPU run's (the plain versions) on honest rows at the trainer
+    tolerance, rtol 1e-5, atol 1e-6; returns the kernel launches it made."""
+    configs = {
+        "dense M=129": BridgeConfig(topology=erdos_renyi(WIDE_M, 0.5, B, seed=0), num_byzantine=B,
+                                    attack="random", t0=30),
+        "sparse K=64": BridgeConfig(topology=small_world(128, 30, SB, seed=0, max_degree=64),
+                                    num_byzantine=SB, attack="random", t0=30, sparse=True),
+    }
+    ticks = 3
+    zero_launches()
+    for tag, base in configs.items():
+        m = base.topology.num_nodes
+        task = linear_task(m, partition="iid", num_train=20 * m, num_test=100, device="cpu")
+        init = task.init_fn(0)
+        batches = [task.batch_fn(i) for i in range(ticks)]
+        for rule in ("trimmed_mean", "median"):
+            cfg = dataclasses.replace(base, rule=rule)
+            states = []
+            for device in (dev, "cpu"):
+                trainer = BridgeTrainer(cfg, task.grad_fn, device=device)
+                if tag == "sparse K=64" and trainer.neighbors.k != 64:
+                    raise AssertionError(f"{tag}: the table is {trainer.neighbors.k} slots wide")
+                state = trainer.init({k: v.to(device) for k, v in init.items()}, seed=1)
+                before = read_launches()
+                for batch in batches:
+                    state, _ = trainer.step(state, tuple(x.to(device) for x in batch))
+                want = {"screen_wide": ticks} if device == dev else {}
+                check_grew(f"{tag} {rule} on {device}", before, want)
+                states.append((state, trainer.honest_mask.cpu()))
+            (gpu, honest), (cpu, _) = states
+            for k in gpu.params:
+                torch.testing.assert_close(gpu.params[k].cpu()[honest], cpu.params[k][honest],
+                                           rtol=1e-5, atol=1e-6,
+                                           msg=f"card vs CPU {tag} {rule} ({k})")
+    print(f"wide trainers: dense M = {WIDE_M} and sparse K = 64, BRIDGE-T and BRIDGE-M, {ticks} "
+          f"ticks on the card (the wide path once a tick) agree with the CPU on honest rows "
+          f"(rtol 1e-5, atol 1e-6)")
+    return read_launches()
 
 
 def dequant_kernel_phase(dev):
@@ -1309,8 +1499,8 @@ def main() -> int:
 
     t_start = time.perf_counter()
     records = []
-    for phase in (kernel_phase, bucket_boundary_phase, gather_kernel_phase, dequant_kernel_phase,
-                  pairwise_kernel_phase):
+    for phase in (kernel_phase, bucket_boundary_phase, gather_kernel_phase, wide_kernel_phase,
+                  dequant_kernel_phase, pairwise_kernel_phase):
         records += phase(dev)
     # each main-path phase zeroes the counts before its runs and reads them
     # after; a kernel's launches are the sum over the phases
@@ -1321,7 +1511,7 @@ def main() -> int:
     print(f"(codeword_kernel_phase: {time.perf_counter() - t0:.1f} s; kernel phases: "
           f"{time.perf_counter() - t_start:.1f} s)")
     for phase in (trainer_phase, sparse_trainer_phase, vector_trainer_phase, sparse_vector_phase,
-                  wire_trainer_phase, variants_phase):
+                  wire_trainer_phase, variants_phase, wide_trainer_phase):
         t0 = time.perf_counter()
         phase_launches[phase.__name__] = phase(dev)
         print(f"({phase.__name__}: {time.perf_counter() - t0:.1f} s)")

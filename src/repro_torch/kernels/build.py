@@ -40,18 +40,31 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "screen_trimmed_mean_dense": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
     "screen_median_dense": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR),
-    "gather_screen_trimmed_mean": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
-    "gather_screen_median": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
+    # the gather tile kernels: the operands, then the plan's tile, chunk,
+    # segments and columns a lane (gather_screen.tile_plan)
+    "gather_screen_trimmed_mean": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
+                                   _INT, _INT, _INT, _INT, _PTR),
+    "gather_screen_median": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+                             _INT, _INT, _INT, _INT, _PTR),
     "dequant_screen_trimmed_mean_dense": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                                           _PTR),
     "dequant_screen_median_dense": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
     "gather_dequant_screen_trimmed_mean": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
-                                           _INT, _INT, _PTR),
+                                           _INT, _INT, _INT, _INT, _INT, _INT, _PTR),
     "gather_dequant_screen_median": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
-                                     _PTR),
+                                     _INT, _INT, _INT, _INT, _PTR),
     "dequant": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
     "dequant_carry": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
     "pairwise_sq_dists": (_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR),
+    # the wide path (screen_wide.cuh): the register entries' operands
+    "screen_wide_trimmed_mean_dense": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
+    "screen_wide_median_dense": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR),
+    "dequant_screen_wide_trimmed_mean_dense": (_PTR,) * 5 + (_INT,) * 4 + (_PTR,),
+    "dequant_screen_wide_median_dense": (_PTR,) * 5 + (_INT,) * 3 + (_PTR,),
+    "gather_screen_wide_trimmed_mean": (_PTR,) * 5 + (_INT,) * 4 + (_PTR,),
+    "gather_screen_wide_median": (_PTR,) * 5 + (_INT,) * 3 + (_PTR,),
+    "gather_dequant_screen_wide_trimmed_mean": (_PTR,) * 6 + (_INT,) * 5 + (_PTR,),
+    "gather_dequant_screen_wide_median": (_PTR,) * 6 + (_INT,) * 4 + (_PTR,),
 }
 
 

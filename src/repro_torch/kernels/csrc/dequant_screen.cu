@@ -37,10 +37,16 @@
 // over each node's true in-degree, plus one FMA per gathered value); the
 // bytes are a quarter of the float screen's codes, M*d int8, plus
 // M*d*4 of self_vals in and M*d*4 out.
+//
+// Above 128 rows to sort the wrappers launch the wide path
+// (screen_wide.cuh) over the same codeword source, whose scale pairs it
+// stages for every listed row of a block: dequant_screen_wide_trimmed_mean_dense
+// and dequant_screen_wide_median_dense.
 
 #include <stdint.h>
 
 #include "screen_dense.cuh"
+#include "screen_wide.cuh"
 
 namespace {
 
@@ -68,4 +74,25 @@ extern "C" int dequant_screen_median_dense(const int8_t* q, const float* scale,
   if (m < 1 || d < 1 || !scales_fit(d, nblk)) return cudaErrorInvalidValue;
   return screen::launch_median_dense(screen::CodewordRows{q, scale, nblk}, adj, self_vals, out,
                                      m, d, static_cast<cudaStream_t>(stream));
+}
+
+// The wide path over the same operands (screen_wide.cuh), for any M up to
+// screen::kWideMaxRows rows to sort.
+extern "C" int dequant_screen_wide_trimmed_mean_dense(const int8_t* q, const float* scale,
+                                                      const uint8_t* adj, const float* self_vals,
+                                                      float* out, int m, int d, int nblk, int b,
+                                                      void* stream) {
+  if (!scales_fit(d, nblk)) return cudaErrorInvalidValue;
+  return screen::launch_wide<false>(screen::CodewordRows{q, scale, nblk},
+                                    screen::DenseList{adj, m}, self_vals, out, m, d, m, b, false,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int dequant_screen_wide_median_dense(const int8_t* q, const float* scale,
+                                                const uint8_t* adj, const float* self_vals,
+                                                float* out, int m, int d, int nblk, void* stream) {
+  if (!scales_fit(d, nblk)) return cudaErrorInvalidValue;
+  return screen::launch_wide<true>(screen::CodewordRows{q, scale, nblk},
+                                   screen::DenseList{adj, m}, self_vals, out, m, d, m, 0, false,
+                                   static_cast<cudaStream_t>(stream));
 }

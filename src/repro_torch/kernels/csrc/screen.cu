@@ -54,10 +54,15 @@
 // (M = 50, d = 7850) the operations over the true in-degrees are the larger
 // bound (the bucket adds at most 7 +inf rows); the gathers' L2 latency and
 // the network's instruction count are what the kernel spends its time on.
+//
+// Above 128 rows to sort the wrappers launch the wide path instead
+// (screen_wide.cuh: the same arithmetic, columns sorted in shared memory),
+// through screen_wide_trimmed_mean_dense and screen_wide_median_dense.
 
 #include <stdint.h>
 
 #include "screen_dense.cuh"
+#include "screen_wide.cuh"
 
 // C entry points (bound with ctypes).  Each returns cudaGetLastError() after
 // its launch (cudaErrorInvalidValue for a shape it does not take); the
@@ -77,4 +82,21 @@ extern "C" int screen_median_dense(const float* w, const uint8_t* adj, const flo
   if (m < 1 || d < 1) return cudaErrorInvalidValue;
   return screen::launch_median_dense(screen::FloatRows{w}, adj, self_vals, out, m, d,
                                      static_cast<cudaStream_t>(stream));
+}
+
+// The wide path over the same operands (screen_wide.cuh), for any M up to
+// screen::kWideMaxRows rows to sort (M for the trimmed mean, M + 1 for the
+// median).
+extern "C" int screen_wide_trimmed_mean_dense(const float* w, const uint8_t* adj,
+                                              const float* self_vals, float* out, int m, int d,
+                                              int b, int recip, void* stream) {
+  return screen::launch_wide<false>(screen::FloatRows{w}, screen::DenseList{adj, m}, self_vals,
+                                    out, m, d, m, b, recip != 0,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int screen_wide_median_dense(const float* w, const uint8_t* adj, const float* self_vals,
+                                        float* out, int m, int d, void* stream) {
+  return screen::launch_wide<true>(screen::FloatRows{w}, screen::DenseList{adj, m}, self_vals,
+                                   out, m, d, m, 0, false, static_cast<cudaStream_t>(stream));
 }

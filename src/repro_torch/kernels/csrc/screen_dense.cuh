@@ -68,7 +68,7 @@ trimmed_mean_dense_kernel(Rows rows, const uint8_t* __restrict__ adj,
   __shared__ float2 s_pair[Rows::kPairs];
   const int j = blockIdx.y;
   const int count = load_neighbors(adj, m, j, s_nbr, s_warp);
-  rows.stage(s_nbr, count, s_pair);
+  rows.stage(s_nbr, count, s_pair, blockIdx.x);
   const int k = blockIdx.x * kThreads + threadIdx.x;
   if (k >= d) return;
   const size_t at = static_cast<size_t>(j) * d + k;
@@ -90,7 +90,7 @@ median_dense_kernel(Rows rows, const uint8_t* __restrict__ adj,
   __shared__ float2 s_pair[Rows::kPairs];
   const int j = blockIdx.y;
   const int count = load_neighbors(adj, m, j, s_nbr, s_warp);
-  rows.stage(s_nbr, count, s_pair);
+  rows.stage(s_nbr, count, s_pair, blockIdx.x);
   const int k = blockIdx.x * kThreads + threadIdx.x;
   if (k >= d) return;
   const size_t at = static_cast<size_t>(j) * d + k;

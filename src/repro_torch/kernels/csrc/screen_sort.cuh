@@ -1,7 +1,7 @@
 // Shared pieces of the coordinate-wise screening kernels (screen.cu,
-// dequant_screen.cu, gather_screen.cu): the NaN guard, the row sources a
-// thread reads its column from, the register sorting networks and the two
-// reductions over a sorted column.
+// dequant_screen.cu, gather_screen.cu, and the wide path of screen_wide.cuh):
+// the NaN guard, the row sources a thread reads its column from, the
+// register sorting networks and the two reductions over a sorted column.
 //
 // The networks are Batcher's odd-even merge sort over each bucket of row
 // counts (8, 16, ..., 64, 80, ..., 128), generated by
@@ -21,28 +21,32 @@ namespace screen {
 
 constexpr int kThreads = 128;     // coordinates per block
 constexpr int kScaleBlock = 128;  // coordinates per (scale, zero) pair of an int8 codeword
-// A block of the codeword screens covers exactly one scale block, so every
-// row has one pair per block, at index blockIdx.x.  The wrappers pass
+// A block of the dense register screens covers exactly one scale block, so
+// every row has one pair per block, at index blockIdx.x.  The wrappers pass
 // nblk = ceil(d / SCALE_BLOCK) from the Python side, and the entry points
 // refuse any other, so a change to either constant fails loudly.
 static_assert(kThreads == kScaleBlock, "a screening block must be one codeword scale block");
-constexpr int kMaxStaged = 128;   // rows whose pairs a block stages (M <= 128, K <= 63)
+constexpr int kMaxStaged = 128;   // rows whose pairs a register block stages (M <= 128)
 
-__device__ __forceinline__ float sanitize(float x) {
-  return isnan(x) ? CUDART_INF_F : x;
-}
+// NaN -> +inf, every other value unchanged: fminf returns its non-NaN
+// operand, and min(x, +inf) == x for any other x (one instruction, where
+// isnan(x) ? inf : x takes two).
+__device__ __forceinline__ float sanitize(float x) { return fminf(x, CUDART_INF_F); }
 
 // Row sources: how a thread fetches the value of row `row` (the `slot`-th
 // row of its node's list) at coordinate c.  The kernels are templates on
 // them, so the float and the codeword screens share one sort and one
 // reduction, and a codeword screen equals decode-then-screen by
-// construction.
+// construction.  `stage` copies what a block needs of its n listed rows
+// for the codec scale block `blk` into shared memory (kStaged: whether
+// there is anything to copy) and ends in a barrier.
 //
 // Float rows: w[row * d + c], NaN -> +inf.
 struct FloatRows {
   const float* w;
+  static constexpr bool kStaged = false;
   static constexpr int kPairs = 1;  // nothing staged
-  __device__ __forceinline__ void stage(const int*, int, float2*) const {}
+  __device__ __forceinline__ void stage(const int*, int, float2*, int) const {}
   __device__ __forceinline__ float load(const float2*, int row, int, int d, int c) const {
     return sanitize(w[static_cast<size_t>(row) * d + c]);
   }
@@ -50,16 +54,19 @@ struct FloatRows {
 
 // int8 codeword rows: q[row * d + c] decoded as fma(q, scale, zero), one
 // rounding as in dequant.cu, then NaN -> +inf.  `stage` copies the
-// (scale, zero) pair of each listed row for this block's 128 coordinates
-// into shared memory once; threads then read codes only.
+// (scale, zero) pair of each listed row for the block's scale block into
+// shared memory once (kPairs of them in the register kernels' static array,
+// as many as the list holds in the wide path's dynamic one); threads then
+// read codes only.
 struct CodewordRows {
   const int8_t* q;
   const float* scale;  // [rows, nblk, 2]
   int nblk;
+  static constexpr bool kStaged = true;
   static constexpr int kPairs = kMaxStaged;
-  __device__ __forceinline__ void stage(const int* rows, int n, float2* s_pair) const {
+  __device__ __forceinline__ void stage(const int* rows, int n, float2* s_pair, int blk) const {
     for (int t = threadIdx.x; t < n; t += blockDim.x) {
-      const float* p = scale + (static_cast<size_t>(rows[t]) * nblk + blockIdx.x) * 2;
+      const float* p = scale + (static_cast<size_t>(rows[t]) * nblk + blk) * 2;
       s_pair[t] = make_float2(p[0], p[1]);
     }
     __syncthreads();
@@ -77,19 +84,43 @@ struct CodewordRows {
 // c = count - 2 b_eff + 1, with b_eff = min(b, (count - 1) / 2) — or, with
 // `recip`, multiplied by the correctly rounded reciprocal of c, the form
 // XLA folds a constant divisor into (ByRDiE's block screen).
+__device__ __forceinline__ int trim_width(int count, int b) {
+  const int widest = count > 0 ? (count - 1) / 2 : 0;
+  return min(max(b, 0), widest);
+}
+
+// (kept total + own) / (count - 2 b_eff + 1), IEEE, or times its reciprocal.
+__device__ __forceinline__ float trimmed_mean_finish(float total, float own, int count, int b_eff,
+                                                     bool recip) {
+  total = __fadd_rn(total, own);
+  const float den = static_cast<float>(count - 2 * b_eff + 1);
+  return recip ? __fmul_rn(total, __frcp_rn(den)) : __fdiv_rn(total, den);
+}
+
 template <int N>
 __device__ __forceinline__ float trimmed_mean_sorted(const float (&v)[N], int count, int b,
                                                      float own, bool recip = false) {
-  const int widest = count > 0 ? (count - 1) / 2 : 0;
-  const int b_eff = min(max(b, 0), widest);
+  const int b_eff = trim_width(count, b);
   float total = 0.0f;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     if (i >= b_eff && i < count - b_eff) total = __fadd_rn(total, v[i]);
   }
-  total = __fadd_rn(total, own);
-  const float den = static_cast<float>(count - 2 * b_eff + 1);
-  return recip ? __fmul_rn(total, __frcp_rn(den)) : __fdiv_rn(total, den);
+  return trimmed_mean_finish(total, own, count, b_eff, recip);
+}
+
+// trimmed_mean_sorted over exactly N rows: rank i is kept when b_eff <=
+// min(i, N - 1 - i), one compare a rank.
+template <int N>
+__device__ __forceinline__ float trimmed_mean_exact(const float (&v)[N], int b, float own,
+                                                    bool recip = false) {
+  const int b_eff = trim_width(N, b);
+  float total = 0.0f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (b_eff <= (i < N - 1 - i ? i : N - 1 - i)) total = __fadd_rn(total, v[i]);
+  }
+  return trimmed_mean_finish(total, own, N, b_eff, recip);
 }
 
 // Median of a sorted column of `rows` values: 0.5 * (o[(rows-1)/2] + o[rows/2]).

@@ -12,14 +12,16 @@ reference's per-node kernel over E = M views of one broadcast.  The result
 is `ref.dequant` followed by the float screen (`ref.dequant_trimmed_mean_dense`,
 `ref.dequant_median_dense`), without the decoded bank in device memory.
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
-or raises.  Each wrapper's ``launches`` counts kernel launches and nothing
-else.
+or raises: the register kernel up to `MAX_ROWS` rows to sort, the wide path
+(`screen_wide`) above.  Each wrapper's ``launches`` counts its register
+kernel's launches and nothing else; ``screen_wide.launch.launches`` the
+wide path's.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, screen_wide
 from repro_torch.kernels.dequant import check_codeword_rows
 from repro_torch.kernels.median import MAX_ROWS
 
@@ -32,11 +34,14 @@ def check_codeword_screen(q: torch.Tensor, scale: torch.Tensor, adj: torch.Tenso
     build.check_screen_args(self_vals, adj, self_vals)
 
 
-def _launch_target(q: torch.Tensor, rows: int, name: str) -> None:
-    if q.device.type != "cuda":
-        raise ValueError(f"no {name} kernel for device {q.device}")
+def _launch(name: str, rows: int, *args) -> bool:
+    """Launch ``name``'s register kernel, or its wide twin above `MAX_ROWS`
+    rows to sort; returns whether the register kernel ran."""
     if rows > MAX_ROWS:
-        raise ValueError(f"{name} kernel sorts at most {MAX_ROWS} rows, got {rows}")
+        screen_wide.launch(name.replace("dequant_screen_", "dequant_screen_wide_"), rows, *args)
+        return False
+    build.check_launch(getattr(build.load(), name)(*args), name)
+    return True
 
 
 def dequant_screen_trimmed_mean_dense(q: torch.Tensor, scale: torch.Tensor, adj: torch.Tensor,
@@ -48,14 +53,14 @@ def dequant_screen_trimmed_mean_dense(q: torch.Tensor, scale: torch.Tensor, adj:
         raise ValueError(f"b must be >= 0, got {b}")
     if q.device.type == "cpu":
         return ref.dequant_trimmed_mean_dense(q, scale, adj, self_vals, b)
+    if q.device.type != "cuda":
+        raise ValueError(f"no codeword trimmed-mean kernel for device {q.device}")
     m, d = q.shape
-    _launch_target(q, m, "dequant_screen_trimmed_mean_dense")
     out = torch.empty_like(self_vals)
-    err = build.load().dequant_screen_trimmed_mean_dense(
-        q.data_ptr(), scale.data_ptr(), adj.data_ptr(), self_vals.data_ptr(), out.data_ptr(),
-        m, d, scale.shape[1], int(b), build.stream_of(q))
-    build.check_launch(err, "dequant_screen_trimmed_mean_dense")
-    dequant_screen_trimmed_mean_dense.launches += 1
+    if _launch("dequant_screen_trimmed_mean_dense", m, q.data_ptr(), scale.data_ptr(),
+               adj.data_ptr(), self_vals.data_ptr(), out.data_ptr(), m, d, scale.shape[1], int(b),
+               build.stream_of(q)):
+        dequant_screen_trimmed_mean_dense.launches += 1
     return out
 
 
@@ -66,14 +71,14 @@ def dequant_screen_median_dense(q: torch.Tensor, scale: torch.Tensor, adj: torch
     check_codeword_screen(q, scale, adj, self_vals)
     if q.device.type == "cpu":
         return ref.dequant_median_dense(q, scale, adj, self_vals)
+    if q.device.type != "cuda":
+        raise ValueError(f"no codeword median kernel for device {q.device}")
     m, d = q.shape
-    _launch_target(q, m + 1, "dequant_screen_median_dense")
     out = torch.empty_like(self_vals)
-    err = build.load().dequant_screen_median_dense(
-        q.data_ptr(), scale.data_ptr(), adj.data_ptr(), self_vals.data_ptr(), out.data_ptr(),
-        m, d, scale.shape[1], build.stream_of(q))
-    build.check_launch(err, "dequant_screen_median_dense")
-    dequant_screen_median_dense.launches += 1
+    if _launch("dequant_screen_median_dense", m + 1, q.data_ptr(), scale.data_ptr(),
+               adj.data_ptr(), self_vals.data_ptr(), out.data_ptr(), m, d, scale.shape[1],
+               build.stream_of(q)):
+        dequant_screen_median_dense.launches += 1
     return out
 
 

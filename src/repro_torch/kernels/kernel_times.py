@@ -5,6 +5,7 @@ path's shapes, on one CUDA card; a script, not part of the package's API.
     python src/repro_torch/kernels/kernel_times.py --src OTHER/src     # another checkout's kernels
     python src/repro_torch/kernels/kernel_times.py --compare OTHER/src # OTHER, this, this, OTHER
     python src/repro_torch/kernels/kernel_times.py --sweep             # every pairwise plan
+    python src/repro_torch/kernels/kernel_times.py --sweep-gather [--parent OTHER/src]
 
 Each time is the median over 25 repetitions of the mean device time of 10
 calls (CUDA events, the stream parked first so the events time the device),
@@ -13,20 +14,34 @@ checkouts time the same data: the dense screens at M = 50, d = 7850 on
 ``erdos_renyi(50, 0.5, 4)`` (float rows and the int8 codec's codewords),
 on two single-bucket graphs of the same M (every in-degree 24, every
 in-degree 31) and on all 49 senders; the gather screens and the decodes at
-M = 512, d = 7850 on ``small_world(512, 6, 2)``; the distances at
-``[50, 7850]``, ``[100, 7850]`` and ``[512, 7850]``.  ``--compare`` runs
+M = 512, d = 7850 on ``small_world(512, 6, 2)`` (K = 16), the gather
+screens also on ``small_world(512, 8, 2)`` (K = 20) and on a table of 8-16
+random senders a node (K = 16, few rows shared); the distances at
+``[50, 7850]``, ``[100, 7850]`` and ``[512, 7850]``; and, where the
+checkout has the wide screening path, the dense screens at M = 129 and 513
+and the gather screens at K = 64 and 200 (random tables, M = 512).  ``--compare`` runs
 each checkout in a process of its own, in the order other, this, this,
 other, so a drift of the card over the run shows as a difference between
 a checkout's two runs.  ``--sweep`` times every plan the distance kernel
 takes (`pairwise.candidates`) at those shapes and at ``[20, 7850]`` and
 ``[40, 7850]`` (the variants table's M = 20, uncompressed and with a lossy
 codec), each checked against the plain version first, and marks
-`pairwise.split_plan`'s choice.  Output: one JSON line per run, and a
-table.
+`pairwise.split_plan`'s choice.  ``--sweep-gather`` times the gather
+tile kernel (rows 3 and 8) under several plans (tiles, chunks, columns a
+lane), on the three gather tables, each checked equal to the plain
+version first; beside each it gives the launch's traffic between L2 and
+the SMs (every node's valid rows and its own row read, the table, the
+output written) and that traffic's time at the card's L2-resident read
+rate, measured first by summing the rows of a 16 MB buffer that L2 holds,
+8 times in one launch (a copy of it, which also writes 16 MB, is timed
+beside).  ``--parent``
+adds the parent checkout's gather times, timed in a process of its own.
+Output: one JSON line per run, and a table.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import statistics
@@ -68,11 +83,35 @@ def regular_adjacency(m: int, degree: int, seed: int) -> np.ndarray:
     return adj
 
 
+def random_adjacency(m: int, lo: int, hi: int, seed: int) -> np.ndarray:
+    """Every node with ``lo`` to ``hi`` in-neighbors drawn at random: a
+    table whose consecutive nodes share few rows."""
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((m, m), bool)
+    for j in range(m):
+        others = np.array([i for i in range(m) if i != j])
+        adj[j, rng.choice(others, size=int(rng.integers(lo, hi + 1)), replace=False)] = True
+    return adj
+
+
+def gather_tables(dev) -> dict:
+    """The gather screens' tables at M = 512: the sparse path's (K = 16),
+    sparse BRIDGE-K / B's (K = 20) and one that shares few rows (K = 16)."""
+    from repro_torch.core.graph import small_world
+    from repro_torch.core.neighbors import NeighborTable
+
+    return {"K=16": NeighborTable.from_adjacency(small_world(512, 6, 2, rewire_prob=0.2, seed=0),
+                                                 device=dev),
+            "K=20": NeighborTable.from_adjacency(small_world(512, 8, 2, rewire_prob=0.2, seed=0),
+                                                 device=dev),
+            "random K=16": NeighborTable.from_adjacency(random_adjacency(512, 8, 16, 4), k=16,
+                                                        device=dev)}
+
+
 def kernel_times() -> dict:
     """Times of every kernel entry of the checkout on ``sys.path``."""
     from repro_torch.comm import codec as codec_lib
-    from repro_torch.core.graph import erdos_renyi, small_world
-    from repro_torch.core.neighbors import NeighborTable
+    from repro_torch.core.graph import erdos_renyi
     from repro_torch.kernels import dequant, dequant_screen, gather_screen, median, pairwise
     from repro_torch.kernels import trimmed_mean
 
@@ -98,18 +137,23 @@ def kernel_times() -> dict:
                 lambda a=adj: dequant_screen.dequant_screen_median_dense(q, scale, a, w))
 
     sm = 512
-    table = NeighborTable.from_adjacency(small_world(sm, 6, 2, rewire_prob=0.2, seed=0), device=dev)
     ws = torch.from_numpy(rng.normal(size=(sm, D)).astype(np.float32)).to(dev)
     smsg = codec_lib.get_codec("int8").encode(np.array([0, 8], np.uint32), ws * 0.05)
     sq, ss = smsg.payload, smsg.scale
-    idx, valid = table.safe_idx, table.valid_dev
-    times["gather_screen_trimmed_mean"] = cuda_ms(
-        lambda: gather_screen.gather_screen_trimmed_mean(ws, idx, valid, ws, 2))
-    times["gather_screen_median"] = cuda_ms(lambda: gather_screen.gather_screen_median(ws, idx, valid, ws))
-    times["gather_dequant_screen_trimmed_mean"] = cuda_ms(
-        lambda: gather_screen.gather_dequant_screen_trimmed_mean(sq, ss, idx, valid, ws, 2))
-    times["gather_dequant_screen_median"] = cuda_ms(
-        lambda: gather_screen.gather_dequant_screen_median(sq, ss, idx, valid, ws))
+    for tag, table in gather_tables(dev).items():
+        idx, valid = table.safe_idx, table.valid_dev
+        sfx = "" if tag == "K=16" else f" {tag}"
+        times["gather_screen_trimmed_mean" + sfx] = cuda_ms(
+            lambda i=idx, v=valid: gather_screen.gather_screen_trimmed_mean(ws, i, v, ws, 2))
+        times["gather_screen_median" + sfx] = cuda_ms(
+            lambda i=idx, v=valid: gather_screen.gather_screen_median(ws, i, v, ws))
+        times["gather_dequant_screen_trimmed_mean" + sfx] = cuda_ms(
+            lambda i=idx, v=valid: gather_screen.gather_dequant_screen_trimmed_mean(sq, ss, i, v,
+                                                                                  ws, 2))
+        times["gather_dequant_screen_median" + sfx] = cuda_ms(
+            lambda i=idx, v=valid: gather_screen.gather_dequant_screen_median(sq, ss, i, v, ws))
+    if importlib.util.find_spec("repro_torch.kernels.screen_wide") is not None:
+        times.update(wide_times(dev, rng))
     times["dequant"] = cuda_ms(lambda: dequant.dequant(sq, ss))
     times["dequant_carry"] = cuda_ms(lambda: dequant.dequant_carry(sq, ss, ws, ws))
 
@@ -117,6 +161,120 @@ def kernel_times() -> dict:
         x = torch.from_numpy(rng.normal(size=(n, D)).astype(np.float32) * 0.05).to(dev)
         times[f"pairwise_sq_dists [{n}, {D}]"] = cuda_ms(lambda x=x: pairwise.pairwise_sq_dists(x))
     return times
+
+
+def wide_times(dev, rng) -> dict:
+    """The wide path: the dense screens at M = 129 (float and codeword rows)
+    and 513 on ``erdos_renyi(M, 0.5, 4)``, the gather screens at K = 64 and
+    200 on random tables (M = 512, 32-64 and 100-200 senders a node)."""
+    from repro_torch.comm import codec as codec_lib
+    from repro_torch.core.graph import erdos_renyi
+    from repro_torch.core.neighbors import NeighborTable
+    from repro_torch.kernels import dequant_screen, gather_screen, median, trimmed_mean
+
+    times = {}
+    for m in (129, 513):
+        w = torch.from_numpy(rng.normal(size=(m, D)).astype(np.float32) * 0.05).to(dev)
+        adj = torch.from_numpy(erdos_renyi(m, 0.5, 4, seed=0).adjacency).to(dev)
+        times[f"screen_wide trimmed_mean dense M={m}"] = cuda_ms(
+            lambda w=w, a=adj: trimmed_mean.trimmed_mean_dense(w, a, w, 4), reps=11)
+        times[f"screen_wide median dense M={m}"] = cuda_ms(
+            lambda w=w, a=adj: median.median_dense(w, a, w), reps=11)
+        if m == 129:
+            msg = codec_lib.get_codec("int8").encode(np.array([0, 9], np.uint32), w)
+            q, sc = msg.payload, msg.scale
+            times[f"screen_wide codeword trimmed_mean dense M={m}"] = cuda_ms(
+                lambda a=adj: dequant_screen.dequant_screen_trimmed_mean_dense(q, sc, a, w, 4),
+                reps=11)
+    ws = torch.from_numpy(rng.normal(size=(512, D)).astype(np.float32)).to(dev)
+    for k in (64, 200):
+        table = NeighborTable.from_adjacency(random_adjacency(512, k // 2, k, k), k=k, device=dev)
+        idx, valid = table.safe_idx, table.valid_dev
+        times[f"screen_wide gather trimmed_mean K={k}"] = cuda_ms(
+            lambda i=idx, v=valid: gather_screen.gather_screen_trimmed_mean(ws, i, v, ws, 2), reps=11)
+        times[f"screen_wide gather median K={k}"] = cuda_ms(
+            lambda i=idx, v=valid: gather_screen.gather_screen_median(ws, i, v, ws), reps=11)
+    return times
+
+
+def l2_rate() -> dict:
+    """The card's L2-resident rates over a 16 MB buffer, which the 50 MB L2
+    holds across the repetitions: reading it (one launch sums each of its
+    1024 rows of 16 KB 8 times, so that the gaps between launches weigh
+    little; the gather kernels too read far more than they write) and
+    copying it into another (16 MB read and 16 MB written)."""
+    src = torch.randn(4 * 2**20, device="cuda")
+    dst = torch.empty_like(src)
+    reads = 8
+    rows = src.view(1, 1024, -1).expand(reads, -1, -1)
+    sums = torch.empty(reads, 1024, device="cuda")
+    nbytes = src.numel() * 4
+    read_ms = cuda_ms(lambda: torch.sum(rows, dim=2, out=sums), reps=51)
+    copy_ms = cuda_ms(lambda: dst.copy_(src), reps=51)
+    return {"read_ms": read_ms, "read_tb_per_s": reads * nbytes / read_ms / 1e9,
+            "copy_ms": copy_ms, "copy_moved_tb_per_s": 2 * nbytes / copy_ms / 1e9}
+
+
+def l2_traffic(table, d: int, row_bytes: int) -> int:
+    """Bytes one launch moves between L2 and the SMs: every node reads its
+    valid slots' rows (a codeword row also its scale pairs) and its own
+    row, the table once, and writes its output row."""
+    valid = table.valid
+    m = valid.shape[0]
+    code_extra = (-(-d // 128)) * 8 if row_bytes == 1 else 0  # scale pairs a row
+    return int(valid.sum()) * (d * row_bytes + code_extra) + 2 * m * d * 4 + valid.size * 5
+
+
+def sweep_gather(parent: str | None) -> dict:
+    """The tile kernel under several plans on the three gather tables, rows
+    3 (float) and 8 (codewords), each checked equal to the plain version
+    and timed; the L2 yardstick first."""
+    from repro_torch.comm import codec as codec_lib
+    from repro_torch.kernels import gather_screen as gs
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    rate = l2_rate()
+    rng = np.random.default_rng(5)
+    ws = torch.from_numpy(rng.normal(size=(512, D)).astype(np.float32)).to(dev)
+    msg = codec_lib.get_codec("int8").encode(np.array([0, 10], np.uint32), ws * 0.05)
+    q, sc = msg.payload, msg.scale
+    shapes = ((4, 128, 1), (4, 128, 2), (4, 64, 1), (8, 128, 1), (8, 64, 1), (8, 64, 2),
+              (16, 128, 1), (16, 64, 1), (16, 32, 1))  # (tile, chunk, columns a lane)
+    rows = []
+    for tag, table in gather_tables(dev).items():
+        idx, valid = table.safe_idx, table.valid_dev
+        k = table.k
+        for rule in ("trimmed_mean", "median"):
+            median = rule == "median"
+            b = () if median else (2,)
+            for row_bytes in (4, 1):
+                src = (ws,) if row_bytes == 4 else (q, sc)
+                name = ("gather_screen_" if row_bytes == 4 else "gather_dequant_screen_") + rule
+                want = getattr(ref, ("gather_" if row_bytes == 4 else "gather_dequant_") + rule)(
+                    *src, idx, valid, ws, *b)
+                chosen = gs.tile_plan(512, k, D, row_bytes, median)
+                traffic = l2_traffic(table, D, row_bytes)
+                for t, c, cols in shapes:
+                    plan = gs.plan_for(t, c, 512, k, D, row_bytes, median, cols)
+                    if plan is None:
+                        continue
+                    run = lambda p=plan: gs.launch_tile(name, p, src, idx, valid, ws, *b)
+                    got = run()
+                    torch.cuda.synchronize()
+                    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+                    if not bool(same.all()):
+                        raise AssertionError(f"gather {rule} {tag} plan {plan}: wrong result")
+                    rows.append({"table": tag, "rule": rule,
+                                 "rows": "float" if row_bytes == 4 else "code", **plan.__dict__,
+                                 "ms": cuda_ms(run, reps=11), "l2_bytes": traffic,
+                                 "l2_read_ms": traffic / rate["read_tb_per_s"] / 1e9,
+                                 "chosen": plan == chosen})
+    out = {"l2": rate, "sweep": rows}
+    if parent:
+        out["parent"] = {key: ms for key, ms in run_other(parent)["times"].items()
+                         if key.startswith("gather")}
+    return out
 
 
 def sweep() -> list[dict]:
@@ -161,6 +319,9 @@ def main(argv=None) -> int:
     parser.add_argument("--src", default=SRC, help="the src/ directory whose repro_torch to time")
     parser.add_argument("--compare", metavar="SRC", help="time SRC, this, this, SRC")
     parser.add_argument("--sweep", action="store_true", help="time every pairwise plan")
+    parser.add_argument("--sweep-gather", action="store_true",
+                        help="time the gather tile kernel's plans beside their L2 traffic")
+    parser.add_argument("--parent", metavar="SRC", help="with --sweep-gather: SRC's gather times")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: torch.cuda.is_available() is False", file=sys.stderr)
@@ -187,6 +348,22 @@ def main(argv=None) -> int:
                   f"L={r['split_len']}: {r['ms']:.4f} ms (model {r['model_us']:.1f} us)"
                   f"{'  <- split_plan' if r['chosen'] else ''}")
         print(json.dumps({"card": card, "sweep": rows}))
+        return 0
+    if args.sweep_gather:
+        res = sweep_gather(args.parent)
+        l2 = res["l2"]
+        print(f"card: {card}; L2-resident 16 MB: read 8 times (row sums) {l2['read_ms']:.4f} ms, "
+              f"{l2['read_tb_per_s']:.2f} TB/s; copy {l2['copy_ms']:.4f} ms, "
+              f"{l2['copy_moved_tb_per_s']:.2f} TB/s moved")
+        for r in res["sweep"]:
+            print(f"{r['table']:12s} {r['rule']:12s} {r['rows']:5s} T={r['tile']:2d} "
+                  f"C={r['chunk']:3d} seg={r['segments']:3d} cols={r['cols']}: "
+                  f"{r['ms']:.4f} ms, L2 {r['l2_bytes'] / 1e6:.1f} MB, "
+                  f"{r['l2_read_ms']:.4f} ms at the read rate"
+                  f"{'  <- tile_plan' if r['chosen'] else ''}")
+        for key, ms in res.get("parent", {}).items():
+            print(f"parent {key}: {ms:.4f} ms")
+        print(json.dumps({"card": card, **res}))
         return 0
     print(json.dumps({"card": card, "src": args.src, "times": kernel_times()}))
     return 0

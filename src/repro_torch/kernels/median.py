@@ -3,18 +3,20 @@
 `repro.kernels.median.median_pallas`.
 
 A CPU tensor goes to the plain version (`ref.median_dense`); a CUDA tensor
-launches the kernel or raises.  ``median_dense.launches`` counts kernel
-launches and nothing else.
+launches the kernel or raises: the register kernel up to `MAX_ROWS` rows
+(M + 1), the wide path (`screen_wide`, ``screen_wide_median_dense``)
+above.  ``median_dense.launches`` counts the register kernel's launches
+and nothing else; ``screen_wide.launch.launches`` the wide path's.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, networks, ref, screen_wide
 
-# Rows the kernel sorts per column: the M senders plus the node itself (its
-# largest register network holds 128).
-MAX_ROWS = 128
+# Rows the register kernel sorts per column: the M senders plus the node
+# itself (its largest network holds 128).
+MAX_ROWS = networks.MAX_ROWS
 
 
 def median_dense(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor) -> torch.Tensor:
@@ -27,12 +29,13 @@ def median_dense(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor) ->
     if w.device.type != "cuda":
         raise ValueError(f"no median kernel for device {w.device}")
     m, d = w.shape
-    if m + 1 > MAX_ROWS:
-        raise ValueError(f"median kernel sorts at most {MAX_ROWS} rows (M + 1), got M={m}")
     out = torch.empty_like(w)
-    lib = build.load()
-    err = lib.screen_median_dense(w.data_ptr(), adj.data_ptr(), self_vals.data_ptr(),
-                                  out.data_ptr(), m, d, build.stream_of(w))
+    args = (w.data_ptr(), adj.data_ptr(), self_vals.data_ptr(), out.data_ptr(), m, d,
+            build.stream_of(w))
+    if m + 1 > MAX_ROWS:
+        screen_wide.launch("screen_wide_median_dense", m + 1, *args)
+        return out
+    err = build.load().screen_median_dense(*args)
     build.check_launch(err, "screen_median_dense")
     median_dense.launches += 1
     return out

@@ -1,0 +1,33 @@
+"""The wide screening path (``csrc/screen_wide.cuh``): the trimmed mean and
+the median over more rows than the register kernels sort — above 128 rows
+for the dense screens (`trimmed_mean`, `median`, `dequant_screen`), above
+`gather_screen.MAX_SLOTS` table slots for the gather screens — up to
+`MAX_ROWS`.  It computes the register kernels' arithmetic (the columns
+sorted in shared memory, the kept ranks summed left to right), so it stands
+in for rows 1-3 and 6-8 of the kernel table at those sizes.
+
+The screens' wrappers decide the route and call `launch`, which counts the
+launches of every wide entry point in one ``launch.launches``.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import build
+
+# Rows a wide block sorts, at most (csrc/screen_wide.cuh kWideMaxRows): 16
+# coordinates of 2048 padded rows are 128 KB of shared memory.
+MAX_ROWS = 2048
+
+
+def launch(entry: str, rows: int, *args) -> None:
+    """Launch the wide entry point ``entry`` of the kernels' library with
+    ``args``, for up to ``rows`` rows to sort a node; raises above
+    `MAX_ROWS` or on a failed launch."""
+    if rows > MAX_ROWS:
+        raise ValueError(f"{entry}: the wide screening kernel sorts at most {MAX_ROWS} rows, "
+                         f"got {rows}")
+    err = getattr(build.load(), entry)(*args)
+    build.check_launch(err, entry)
+    launch.launches += 1
+
+
+launch.launches = 0

@@ -3,18 +3,20 @@
 kernel `repro.kernels.trimmed_mean.trimmed_mean_pallas`.
 
 A CPU tensor goes to the plain version (`ref.trimmed_mean_dense`); a CUDA
-tensor launches the kernel or raises.  ``trimmed_mean_dense.launches``
-counts kernel launches and nothing else.
+tensor launches the kernel or raises: the register kernel up to `MAX_ROWS`
+senders, the wide path (`screen_wide`, ``screen_wide_trimmed_mean_dense``)
+above.  ``trimmed_mean_dense.launches`` counts the register kernel's
+launches and nothing else; ``screen_wide.launch.launches`` the wide path's.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, networks, ref, screen_wide
 
-# Rows the kernel sorts per column: the M senders (its largest register
+# Rows the register kernel sorts per column: the M senders (its largest
 # network holds 128).
-MAX_ROWS = 128
+MAX_ROWS = networks.MAX_ROWS
 
 
 def trimmed_mean_dense(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor,
@@ -32,13 +34,13 @@ def trimmed_mean_dense(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tens
     if w.device.type != "cuda":
         raise ValueError(f"no trimmed-mean kernel for device {w.device}")
     m, d = w.shape
-    if m > MAX_ROWS:
-        raise ValueError(f"trimmed-mean kernel sorts at most {MAX_ROWS} rows, got M={m}")
     out = torch.empty_like(w)
-    lib = build.load()
-    err = lib.screen_trimmed_mean_dense(w.data_ptr(), adj.data_ptr(), self_vals.data_ptr(),
-                                        out.data_ptr(), m, d, int(b), int(bool(recip)),
-                                        build.stream_of(w))
+    args = (w.data_ptr(), adj.data_ptr(), self_vals.data_ptr(), out.data_ptr(), m, d, int(b),
+            int(bool(recip)), build.stream_of(w))
+    if m > MAX_ROWS:
+        screen_wide.launch("screen_wide_trimmed_mean_dense", m, *args)
+        return out
+    err = build.load().screen_trimmed_mean_dense(*args)
     build.check_launch(err, "screen_trimmed_mean_dense")
     trimmed_mean_dense.launches += 1
     return out

@@ -1,6 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 the dense and the gather screens exact (NaN-aware ``==``) up to 64 rows on
-edge-case payloads (the trimmed mean in both its divisor forms), the
+edge-case payloads (the trimmed mean in both its divisor forms); above,
+the wide path (up to its 2048 rows) and the register kernels exact against
+the plain arithmetic summed left to right, the median exact, the trimmed
+mean within the float32 summation bound of the plain version; the gather
+screens under every plan on small-world and Erdos-Renyi tables; the
 int8-codeword screens exact against their plain versions and against
 their staged twins (the ``dequant`` kernel, then the float screen), the
 int8 decode exact in both its forms, the pairwise
@@ -21,7 +25,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import (
-    build, dequant, dequant_screen, gather_screen, median, networks, pairwise, ref, trimmed_mean)
+    build, dequant, dequant_screen, gather_screen, median, networks, pairwise, ref, screen_wide,
+    trimmed_mean)
 
 
 def edge_inputs(n: int, d: int, seed: int):
@@ -187,12 +192,16 @@ def test_kernels_equal_plain_on_card(cuda_device, n):
 
 @pytest.mark.cuda
 def test_kernels_reject_too_many_rows(cuda_device):
-    w = torch.zeros(129, 8, device=cuda_device)
-    adj = torch.zeros(129, 129, dtype=torch.bool, device=cuda_device)
+    """One row above the wide path's limit: M + 1 senders for the trimmed
+    mean, M for the median (whose own value is a row)."""
+    build.load()  # the report below is the build's, whichever test runs first
+    m = screen_wide.MAX_ROWS + 1
+    w = torch.zeros(m, 8, device=cuda_device)
+    adj = torch.zeros(m, m, dtype=torch.bool, device=cuda_device)
     with pytest.raises(ValueError):
         trimmed_mean.trimmed_mean_dense(w, adj, w, 1)
     with pytest.raises(ValueError):
-        median.median_dense(w[:128].contiguous(), adj[:128, :128].contiguous(), w[:128].contiguous())
+        median.median_dense(w[:-1].contiguous(), adj[:-1, :-1].contiguous(), w[:-1].contiguous())
     assert build.ptxas_report()
 
 
@@ -276,13 +285,15 @@ def test_gather_kernels_equal_plain_on_card(cuda_device, k):
 
 @pytest.mark.cuda
 def test_gather_kernels_reject_wide_tables(cuda_device):
+    """One slot above the wide path's limit (K + 1 rows for the median)."""
+    k = screen_wide.MAX_ROWS + 1
     w = torch.zeros(70, 8, device=cuda_device)
-    idx = torch.zeros(70, 64, dtype=torch.int32, device=cuda_device)
-    valid = torch.ones(70, 64, dtype=torch.bool, device=cuda_device)
+    idx = torch.zeros(70, k, dtype=torch.int32, device=cuda_device)
+    valid = torch.ones(70, k, dtype=torch.bool, device=cuda_device)
     with pytest.raises(ValueError):
         gather_screen.gather_screen_trimmed_mean(w, idx, valid, w, 1)
     with pytest.raises(ValueError):
-        gather_screen.gather_screen_median(w, idx, valid, w)
+        gather_screen.gather_screen_median(w, idx[:, :-1].contiguous(), valid[:, :-1].contiguous(), w)
 
 
 @pytest.mark.cuda
@@ -442,14 +453,15 @@ def test_gather_codeword_screens_on_card(cuda_device, k):
 
 @pytest.mark.cuda
 def test_codeword_screens_reject_what_they_do_not_take(cuda_device):
-    q = torch.zeros(129, 256, dtype=torch.int8, device=cuda_device)
-    scale = torch.ones(129, 2, 2, device=cuda_device)
-    sv = torch.zeros(129, 256, device=cuda_device)
-    adj = torch.zeros(129, 129, dtype=torch.bool, device=cuda_device)
+    m = screen_wide.MAX_ROWS  # M + 1 rows to sort for the median: one above the limit
+    q = torch.zeros(m, 256, dtype=torch.int8, device=cuda_device)
+    scale = torch.ones(m, 2, 2, device=cuda_device)
+    sv = torch.zeros(m, 256, device=cuda_device)
+    adj = torch.zeros(m, m, dtype=torch.bool, device=cuda_device)
     with pytest.raises(ValueError):
         dequant_screen.dequant_screen_median_dense(q, scale, adj, sv)
-    idx = torch.zeros(129, 64, dtype=torch.int32, device=cuda_device)
-    valid = torch.ones(129, 64, dtype=torch.bool, device=cuda_device)
+    idx = torch.zeros(m, m + 1, dtype=torch.int32, device=cuda_device)
+    valid = torch.ones(m, m + 1, dtype=torch.bool, device=cuda_device)
     with pytest.raises(ValueError):
         gather_screen.gather_dequant_screen_trimmed_mean(q, scale, idx, valid, sv, 1)
     with pytest.raises(ValueError):  # operands on two devices
@@ -479,7 +491,7 @@ def boundary_adjacency(rows, median_rows: bool, seed: int):
     return adj
 
 
-def left_to_right_trimmed_mean(w, adj, self_vals, b):
+def left_to_right_trimmed_mean(w, adj, self_vals, b, recip=False):
     """`ref.trimmed_mean_dense` with the kept ranks summed left to right for
     any M (the plain version sums with ``torch.sum`` above 64 rows, as the
     reference does): the kernel's order, for exact checks above 64 rows."""
@@ -491,7 +503,8 @@ def left_to_right_trimmed_mean(w, adj, self_vals, b):
     for i in range(mask.shape[1]):
         keep = (i >= b_eff) & (i < count - b_eff)
         total = total + torch.where(keep[:, None], order[:, i], 0.0)
-    return (total + self_vals) / (count - 2 * b_eff + 1).to(torch.float32)[:, None]
+    den = (count - 2 * b_eff + 1).to(torch.float32)[:, None]
+    return (total + self_vals) * (1.0 / den) if recip else (total + self_vals) / den
 
 
 @pytest.mark.cuda
@@ -523,3 +536,213 @@ def test_dense_screens_at_bucket_boundaries_on_card(cuda_device, rows):
                 got = dequant_screen.dequant_screen_trimmed_mean_dense(q, scale, ta, tsv, b)
                 want = left_to_right_trimmed_mean(ref.dequant(q, scale), ta, tsv, b)
                 assert bool(nan_equal(got, want).all())
+
+
+def table_graph(kind: str, m: int, k: int, seed: int) -> np.ndarray:
+    """An ``[m, m]`` in-neighbor mask of in-degree at most ``k`` (one node
+    starved): ``small_world``, a ring lattice of the nearest ``k // 2``
+    senders with 20% of the edges rewired at random, so consecutive nodes
+    share most rows; ``erdos_renyi``, each node's ``k // 2`` to ``k``
+    senders drawn at random, so they share few."""
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((m, m), bool)
+    for j in range(1, m):
+        if kind == "small_world":
+            near = [(j + o) % m for o in range(-(k // 2), k - k // 2 + 1) if o != 0][:k]
+            senders = [i if rng.random() >= 0.2 else int(rng.integers(m)) for i in near]
+        else:
+            senders = rng.choice(m, size=int(rng.integers(k // 2, k + 1)), replace=False)
+        adj[j, senders] = True
+        adj[j, j] = False
+    return adj
+
+
+def gather_plans(m: int, k: int, d: int, row_bytes: int, median: bool):
+    """`tile_plan`'s choice (None: through the wrapper), every candidate,
+    and a plan of the other column count a lane where the kernel takes
+    one."""
+    plan = gather_screen.tile_plan(m, k, d, row_bytes, median)
+    other = gather_screen.plan_for(4, 64, m, k, d, row_bytes, median, cols=3 - plan.cols)
+    return [None, *gather_screen.candidates(m, k, d, row_bytes, median),
+            *([other] if other else [])]
+
+
+def gather_under(plan, wrapper, rows, idx, valid, sv, *b):
+    """The wrapper's result (plan None) or its tile kernel's under ``plan``."""
+    if plan is None:
+        return wrapper(*rows, idx, valid, sv, *b)
+    return gather_screen.launch_tile(wrapper.__name__, plan, rows, idx, valid, sv, *b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["small_world", "erdos_renyi"])
+@pytest.mark.parametrize("k", [3, 16, 20, 40, 63])
+def test_gather_tile_kernels_on_graph_tables(cuda_device, kind, k):
+    """The four gather entries, exact against their plain versions (and the
+    codeword forms against dequant-then-screen) under every plan, on
+    tables that share rows and tables that do not, with separate
+    self_vals, at a node count that leaves a ragged tile and an odd d."""
+    from repro_torch.core.neighbors import NeighborTable
+
+    m = 300
+    table = NeighborTable.from_adjacency(table_graph(kind, m, k, seed=k), k=k, device=cuda_device)
+    idx, valid = table.safe_idx, table.valid_dev
+    for d in (999, 1000):
+        w, _ = edge_inputs(m, d, seed=k + d)
+        tw = torch.from_numpy(w).to(cuda_device)
+        sv = torch.randn(tw.shape, generator=torch.Generator(device=cuda_device).manual_seed(k),
+                         device=cuda_device)
+        sv[0, :3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+        want_tm = ref.gather_trimmed_mean(tw, idx, valid, sv, 2)
+        want_md = ref.gather_median(tw, idx, valid, sv)
+        for plan in gather_plans(m, k, d, 4, False):
+            got = gather_under(plan, gather_screen.gather_screen_trimmed_mean, (tw,), idx, valid,
+                               sv, 2)
+            assert bool(nan_equal(got, want_tm).all()), plan
+        for plan in gather_plans(m, k, d, 4, True):
+            got = gather_under(plan, gather_screen.gather_screen_median, (tw,), idx, valid, sv)
+            assert bool(nan_equal(got, want_md).all()), plan
+        for q, scale, csv in card_codewords(m, d, k, cuda_device):
+            staged = dequant.dequant(q, scale)
+            want_tm = ref.gather_trimmed_mean(staged, idx, valid, csv, 2)
+            want_md = ref.gather_median(staged, idx, valid, csv)
+            for plan in gather_plans(m, k, d, 1, False):
+                got = gather_under(plan, gather_screen.gather_dequant_screen_trimmed_mean,
+                                   (q, scale), idx, valid, csv, 2)
+                assert bool(nan_equal(got, want_tm).all()), plan
+            for plan in gather_plans(m, k, d, 1, True):
+                got = gather_under(plan, gather_screen.gather_dequant_screen_median, (q, scale),
+                                   idx, valid, csv)
+                assert bool(nan_equal(got, want_md).all()), plan
+
+
+def wide_bound(rows: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor, b: int):
+    """The float32 summation bound between two orders of the kept ranks of
+    ``n`` rows plus self, after the division (the wide path sums left to
+    right, the plain version above 64 rows with ``torch.sum``)."""
+    count = mask.sum(dim=1).to(torch.float32)
+    b_eff = ref.effective_trim(b, mask.sum(dim=1)).to(torch.float32)
+    fin = lambda x: torch.where(torch.isfinite(x), x.abs(), 0.0)
+    colmax = torch.maximum(fin(rows).amax(dim=(0, 1))[None, :], fin(self_vals))
+    eps = torch.finfo(torch.float32).eps
+    return 2.0 * mask.shape[1] * eps * colmax * (count[:, None] + 1.0) / (count - 2 * b_eff + 1)[:, None]
+
+
+def check_wide_trimmed_mean(got, want_ltr, want_plain, bound):
+    """Exact against the plain arithmetic summed left to right; within the
+    bound of the plain version where both are finite, equal elsewhere."""
+    assert bool(nan_equal(got, want_ltr).all())
+    fin = torch.isfinite(got) & torch.isfinite(want_plain)
+    assert bool(nan_equal(got[~fin], want_plain[~fin]).all())
+    assert bool(((got - want_plain).abs()[fin] <= bound[fin]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [129, 200, 513, 1024])
+def test_wide_dense_screens_on_card(cuda_device, m):
+    """The dense screens above 128 rows go through the wide path, float and
+    codeword rows: the median exact, the trimmed mean exact against the
+    left-to-right sum and within the summation bound of the plain version."""
+    w, adj = edge_inputs(m, 300, seed=m)
+    tw, ta = torch.from_numpy(w).to(cuda_device), torch.from_numpy(adj).to(cuda_device)
+    sv = torch.randn(tw.shape, generator=torch.Generator(device=cuda_device).manual_seed(m),
+                     device=cuda_device)
+    before = (screen_wide.launch.launches, trimmed_mean.trimmed_mean_dense.launches,
+              median.median_dense.launches)
+    for b in (0, 3):
+        got = trimmed_mean.trimmed_mean_dense(tw, ta, sv, b)
+        check_wide_trimmed_mean(got, left_to_right_trimmed_mean(tw, ta, sv, b),
+                                ref.trimmed_mean_dense(tw, ta, sv, b), wide_bound(tw[None], ta, sv, b))
+    got = trimmed_mean.trimmed_mean_dense(tw, ta, tw, 2, recip=True)
+    assert bool(nan_equal(got, left_to_right_trimmed_mean(tw, ta, tw, 2, recip=True)).all())
+    assert bool(nan_equal(median.median_dense(tw, ta, sv), ref.median_dense(tw, ta, sv)).all())
+    for q, scale, csv in card_codewords(m, 300, m, cuda_device):
+        staged = dequant.dequant(q, scale)
+        got = dequant_screen.dequant_screen_trimmed_mean_dense(q, scale, ta, csv, 3)
+        check_wide_trimmed_mean(got, left_to_right_trimmed_mean(staged, ta, csv, 3),
+                                ref.dequant_trimmed_mean_dense(q, scale, ta, csv, 3),
+                                wide_bound(staged[None], ta, csv, 3))
+        got = dequant_screen.dequant_screen_median_dense(q, scale, ta, csv)
+        assert bool(nan_equal(got, ref.dequant_median_dense(q, scale, ta, csv)).all())
+    torch.cuda.synchronize()
+    assert screen_wide.launch.launches - before[0] == 8
+    assert (trimmed_mean.trimmed_mean_dense.launches, median.median_dense.launches) == before[1:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 100, 200, 1023])
+def test_wide_gather_screens_on_card(cuda_device, k):
+    """The gather screens above 63 slots go through the wide path, float and
+    codeword rows, with the tolerances of `test_wide_dense_screens_on_card`."""
+    from repro_torch.core.neighbors import NeighborTable
+
+    w, adj = sparse_inputs(k, 300, seed=k)
+    table = NeighborTable.from_adjacency(adj, k=k, device=cuda_device)
+    idx, valid = table.safe_idx, table.valid_dev
+    tw = torch.from_numpy(w).to(cuda_device)
+    ta = torch.from_numpy(adj).to(cuda_device)
+    before = (screen_wide.launch.launches, gather_screen.gather_screen_trimmed_mean.launches)
+    for rows in (tw, None):
+        for q, scale, sv in ([(None, None, tw)] if rows is not None
+                             else card_codewords(tw.shape[0], 300, k, cuda_device)):
+            x = tw if rows is not None else dequant.dequant(q, scale)
+            gathered = table.gather_rows(x)
+            for b in (0, 3):
+                got = (gather_screen.gather_screen_trimmed_mean(tw, idx, valid, sv, b) if q is None
+                       else gather_screen.gather_dequant_screen_trimmed_mean(q, scale, idx, valid,
+                                                                             sv, b))
+                check_wide_trimmed_mean(got, left_to_right_trimmed_mean(x, ta, sv, b),
+                                        ref.gather_trimmed_mean(x, idx, valid, sv, b),
+                                        wide_bound(gathered, valid, sv, b))
+            got = (gather_screen.gather_screen_median(tw, idx, valid, sv) if q is None
+                   else gather_screen.gather_dequant_screen_median(q, scale, idx, valid, sv))
+            assert bool(nan_equal(got, ref.gather_median(x, idx, valid, sv)).all())
+    torch.cuda.synchronize()
+    assert screen_wide.launch.launches - before[0] == 3 * 3
+    assert gather_screen.gather_screen_trimmed_mean.launches == before[1]
+
+
+def wide_trainer_config(layout: str, rule: str):
+    """The trainer settings of the wide path's parity: dense M = 129 on
+    ``erdos_renyi(129, 0.5, 4)`` (129 rows for the trimmed mean, 130 for the
+    median) and sparse K = 64 on ``small_world(128, 30, 2, max_degree=64)``
+    (a 64-slot table: above the tile kernel's 63)."""
+    from repro_torch.core.bridge import BridgeConfig
+    from repro_torch.core.graph import erdos_renyi, small_world
+
+    if layout == "dense":
+        return BridgeConfig(topology=erdos_renyi(129, 0.5, 4, seed=0), rule=rule, num_byzantine=4,
+                            attack="random", t0=30)
+    return BridgeConfig(topology=small_world(128, 30, 2, seed=0, max_degree=64), rule=rule,
+                        num_byzantine=2, attack="random", t0=30, sparse=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+@pytest.mark.parametrize("rule", ["trimmed_mean", "median"])
+def test_wide_trainers_match_the_cpu(cuda_device, rule, layout):
+    """3 ticks from one state on the card (the wide path, once a tick) and
+    on the CPU (the plain versions) agree on honest rows at the trainer
+    tolerance, rtol 1e-5, atol 1e-6."""
+    from repro_torch.core.bridge import BridgeTrainer
+    from repro_torch.sim.tasks import linear_task
+
+    cfg = wide_trainer_config(layout, rule)
+    m = cfg.topology.num_nodes
+    task = linear_task(m, partition="iid", num_train=20 * m, num_test=100, device="cpu")
+    init = task.init_fn(0)
+    batches = [task.batch_fn(i) for i in range(3)]
+    states = {}
+    for device in (cuda_device, "cpu"):
+        trainer = BridgeTrainer(cfg, task.grad_fn, device=device)
+        state = trainer.init({k: v.to(device) for k, v in init.items()}, seed=1)
+        before = screen_wide.launch.launches
+        for batch in batches:
+            state, _ = trainer.step(state, tuple(x.to(device) for x in batch))
+        grew = screen_wide.launch.launches - before
+        assert grew == (3 if device == cuda_device else 0)
+        states[str(device)] = (state, trainer.honest_mask.cpu())
+    (gpu, honest), (cpu, _) = states[str(cuda_device)], states["cpu"]
+    for k in gpu.params:
+        torch.testing.assert_close(gpu.params[k].cpu()[honest], cpu.params[k][honest],
+                                   rtol=1e-5, atol=1e-6)

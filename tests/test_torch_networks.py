@@ -13,12 +13,13 @@ from repro.core.screening import _batcher_pairs
 from repro_torch.kernels import networks
 
 
-def compiled_pairs(text: str) -> dict[int, tuple[tuple[int, int], ...]]:
-    """The compare-exchanges of each bucket as the header text spells them."""
+def compiled_pairs(text: str, name: str = "batcher_sort") -> dict[int, tuple[tuple[int, int], ...]]:
+    """The compare-exchanges of each network ``name`` as the header text
+    spells them."""
     nets, current = {}, None
     for line in text.splitlines():
         line = line.strip()
-        if line.startswith("__device__ __forceinline__ void batcher_sort<"):
+        if line.startswith(f"__device__ __forceinline__ void {name}<"):
             current = int(line.split("<", 1)[1].split(">", 1)[0])
             nets[current] = []
         elif line == "}":
@@ -47,8 +48,12 @@ def test_schedule_equals_reference(n):
 
 
 def test_compiled_networks_are_the_reference_schedule():
+    """Every size the kernels sort (the buckets, and each size up to
+    EXACT_ROWS for the gather tile kernel) is the reference's schedule."""
     compiled = compiled_pairs(networks.header())
-    assert sorted(compiled) == list(networks.BUCKETS)
+    assert sorted(compiled) == list(networks.SIZES)
+    assert set(networks.BUCKETS) <= set(networks.SIZES)
+    assert set(range(1, networks.EXACT_ROWS + 1)) <= set(networks.SIZES)
     for n, pairs in compiled.items():
         assert pairs == _batcher_pairs(n), n
         assert all(0 <= a < b < n for a, b in pairs)
@@ -92,7 +97,41 @@ def test_bucket_covers_every_count():
 
 
 def test_header_dispatches_every_bucket_in_order():
+    """for_bucket takes the buckets, for_rows every size up to EXACT_ROWS
+    and the buckets above, each once, in ascending order, with the least row
+    count each takes."""
     text = networks.header()
-    at = [text.index(f"if (rows <= {b})") for b in networks.BUCKETS]
-    assert at == sorted(at)
-    assert all(text.count(f"body(Bucket<{b}>{{}});") == 1 for b in networks.BUCKETS)
+    dense = text[text.index("void for_bucket("):text.index("void for_rows(")]
+    exact = text[text.index("void for_rows("):]
+    for body, sizes in ((dense, networks.BUCKETS), (exact, networks.SIZES)):
+        at = [body.index(f"if (rows <= {b})") for b in sizes]
+        assert at == sorted(at)
+        lows = (0, *(a + 1 for a in sizes[:-1]))
+        assert all(body.count(f"body(Bucket<{b}, {lo}>{{}});") == 1
+                   for b, lo in zip(sizes, lows, strict=True))
+
+
+@pytest.mark.parametrize("n", range(1, networks.EXACT_ROWS + 1))
+def test_median_selection_networks(n):
+    """The median's selection network is the compiled one, a subset of the
+    full schedule in its order, and leaves the two middle positions what a
+    sort leaves there: on every 0-1 input up to 16 rows (the 0-1 principle
+    holds for selection networks) and on random columns with repeats,
+    +-inf and +-0."""
+    pairs = networks.median_pairs(n)
+    assert compiled_pairs(networks.header(), "median_select")[n] == pairs
+    full = networks.batcher_pairs(n)
+    it = iter(full)
+    assert all(p in it for p in pairs)  # a subsequence of the full schedule
+    mid = sorted({(n - 1) // 2, n // 2})
+    if n <= 16:
+        x = np.array(list(itertools.product((0.0, 1.0), repeat=n)), np.float32)
+    else:
+        rng = np.random.default_rng(n)
+        x = rng.normal(size=(4096, n)).astype(np.float32)
+        x[:, : n // 3] = np.round(x[:, : n // 3])
+        x[rng.random(x.shape) < 0.05] = np.inf
+        x[rng.random(x.shape) < 0.05] = -np.inf
+        x[rng.random(x.shape) < 0.05] = -0.0
+    out = apply_network(pairs, x)
+    np.testing.assert_array_equal(out[:, mid], np.sort(x, axis=-1)[:, mid])

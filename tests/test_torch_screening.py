@@ -99,10 +99,12 @@ def summation_bound(w, adj, b):
 
 
 @pytest.mark.parametrize("b", [0, 1, 2, 4])
+@pytest.mark.parametrize("n", [100, 129, 200])
 @pytest.mark.parametrize("rule", RULES)
-def test_screen_all_above_64_rows(rule, b):
-    n = 100
-    w, adj = edge_inputs(n, D, seed=7 + b)
+def test_screen_all_above_64_rows(rule, n, b):
+    """Above 64 rows, and above the card's register networks (128 rows),
+    where the card screens through its wide path."""
+    w, adj = edge_inputs(n, D, seed=7 + b if n == 100 else n + b)
     got = port_screen(rule, w, adj, b)
     want = jax_screen(rule, w, adj, b)
     if rule == "median":
