@@ -26,10 +26,14 @@ failure of which raises:
    padded
    slots; the wide path (above the register networks' rows): the dense
    screens at M in {129, 513} and the gather screens at K in {64, 200},
-   float and codeword rows, the medians exact, the trimmed means exact
-   against the plain arithmetic summed left to right and within the
-   summation bound of the plain version; the int8 decode in its plain and
-   carry forms, exact at M = 512, d = 7850.  Every kernel is timed beside
+   float and codeword rows, and the dense screens on nodes one row below,
+   at and above each warp sort's 32 R rows (R = 1, 2, ..., 64, up to 2048
+   rows to sort), the medians exact, the trimmed means exact against the
+   plain arithmetic summed left to right and within the summation bound of
+   the plain version; the int8 decode in its plain and carry forms, exact
+   at M = 512, d = 7850, the plain form also at n in {1, 3, 50, 512} x d in
+   {1, 127, 128, 129, 3925, 7850} and on codes one byte past a 16-byte
+   boundary.  Every kernel is timed beside
    its plain version and its library yardstick (a call the port never
    makes) with CUDA events;
 4. pairwise kernel — the distance kernel of BRIDGE-K / BRIDGE-B against its
@@ -75,7 +79,8 @@ failure of which raises:
 12. wide trainers — BRIDGE-T and BRIDGE-M for 3 ticks, dense M = 129
    (``erdos_renyi(129, 0.5, 4)``) and sparse K = 64
    (``small_world(128, 30, 2, max_degree=64)``): the wide path once a tick,
-   and card-vs-CPU parity on honest rows at rtol 1e-5, atol 1e-6;
+   and card-vs-CPU parity on honest rows at rtol 1e-5, atol 1e-6; then each
+   of the four timed over 20 ticks on the card (ms/tick);
 13. randomness — ``prng.bits`` and ``uniform`` on the card equal the CPU's
    at [512, 7850], ``normal`` within its tolerance of the CPU's; the int8
    encode and carry decode on the card give the CPU's codes, scales,
@@ -165,6 +170,7 @@ REFERENCE_WIRE_BITS = {"identity": 251200, "int8": 64784, "int4": 33384, "topk50
 KB_NEAREST = 8
 # the wide path's dense trainer: more senders than the register networks sort
 WIDE_M = 129
+WIDE_TIMED_TICKS = 20  # the wide trainers' timed run on the card
 PLAIN_TICKS = 20  # geomedian, clipped_mean, rep_trimmed_mean, rep_median
 # The reference's honest test accuracy at each configuration below, on a CPU
 # (tools/reference_accuracy.py: the same settings, seeds and batches); the
@@ -567,14 +573,50 @@ def summation_or_raise(name, got, want, rows, count, self_vals):
         raise AssertionError(f"{name}: beyond the summation bound on {int((~ok).sum())} entries")
 
 
+def wide_boundary_check(dev, regs: int, d: int) -> None:
+    """The dense wide screens, float and codeword rows, on nodes whose row
+    counts sit one below, at and one above the 32 R rows of the warp sort
+    with ``regs`` registers a lane (one sender fewer for the median, whose
+    own value is a row), M at least 129 so the wide path runs."""
+    rows = [r for r in (32 * regs - 1, 32 * regs, 32 * regs + 1) if r <= screen_wide.MAX_ROWS]
+    for median_rows in (False, True):
+        counts = [r - 1 if median_rows else r for r in rows]
+        m = min(screen_wide.MAX_ROWS - int(median_rows), max(WIDE_M, max(counts) + 8))
+        rng = np.random.default_rng(regs)
+        adj_np = np.zeros((m, m), bool)
+        for j in range(m):
+            adj_np[j, rng.choice(m, size=counts[j % len(counts)], replace=False)] = True
+        w, _, sv = edge_case_inputs(m, d, seed=regs)
+        q, sc, _, csv = codeword_edge_inputs(m, d, seed=regs + 1)
+        w, adj, sv, q, sc, csv = (torch.as_tensor(a, device=dev) for a in (w, adj_np, sv, q, sc, csv))
+        count = adj.sum(dim=1)
+        tag = f"R={regs}, rows {rows}, M={m}"
+        for form, x, own, tm, md in (
+            ("float", w, sv, lambda: trimmed_mean.trimmed_mean_dense(w, adj, sv, B),
+             lambda: median.median_dense(w, adj, sv)),
+            ("codeword", ref.dequant(q, sc), csv,
+             lambda: dequant_screen.dequant_screen_trimmed_mean_dense(q, sc, adj, csv, B),
+             lambda: dequant_screen.dequant_screen_median_dense(q, sc, adj, csv)),
+        ):
+            if median_rows:
+                exact_or_raise(f"wide {form} median {tag}", md(), ref.median_dense(x, adj, own))
+                continue
+            got = tm()
+            exact_or_raise(f"wide {form} trimmed mean {tag}", got,
+                           left_to_right_trimmed_mean(x, adj, own, B))
+            summation_or_raise(f"wide {form} trimmed mean {tag}", got,
+                               ref.trimmed_mean_dense(x, adj, own, B), x[None], count, own)
+
+
 def wide_kernel_phase(dev):
     """The wide path (above the register networks' rows): the dense screens
     at M = 129 and 513 and the gather screens at K = 64 and 200, float and
-    codeword rows, with the edge payloads; the medians exact, the trimmed
-    means exact against the plain arithmetic summed left to right and
-    within the summation bound of the plain version; timed at the dense
-    M = 129 trimmed mean, d = 7850, the shape of `wide_trainer_phase`, and
-    held to both checks there too."""
+    codeword rows, with the edge payloads, and the dense screens at every
+    warp sort's boundary row counts (`wide_boundary_check`); the medians
+    exact, the trimmed means exact against the plain arithmetic summed left
+    to right and within the summation bound of the plain version; timed at
+    the dense M = 129 trimmed mean, d = 7850, the shape of
+    `wide_trainer_phase`, and held to both checks there too."""
     d = 1000
     for m in (129, 513):
         w, adj_np, sv = edge_case_inputs(m, d, seed=m)
@@ -619,6 +661,12 @@ def wide_kernel_phase(dev):
     print(f"wide path: the dense screens at M in (129, 513) and the gather screens at K in "
           f"(64, 200), float and codeword rows, d = {d}: medians exact, trimmed means exact "
           f"against the left-to-right sum and within the summation bound of the plain version")
+    for regs in networks.WARP_REGS:
+        wide_boundary_check(dev, regs, d=200)
+    print(f"wide path: every warp sort ({networks.WARP_REGS} registers a lane) on nodes with one "
+          f"row below, at and above its 32 R rows to sort, up to {screen_wide.MAX_ROWS}: the "
+          f"dense screens (M >= 129), float and codeword rows, d = 200, medians exact, trimmed "
+          f"means exact against the left-to-right sum and within the summation bound")
 
     m = WIDE_M
     topo = erdos_renyi(m, 0.5, B, seed=0)
@@ -654,7 +702,10 @@ def wide_trainer_phase(dev):
     random attack, from one init and one batch stream: the card launches
     the wide path once a tick and nothing else, and its parameters agree
     with the CPU run's (the plain versions) on honest rows at the trainer
-    tolerance, rtol 1e-5, atol 1e-6; returns the kernel launches it made."""
+    tolerance, rtol 1e-5, atol 1e-6; returns the kernel launches those runs
+    made.  Then each of the four trains WIDE_TIMED_TICKS ticks on the card
+    alone, timed (ms/tick), as a user who scales past the register networks
+    runs it."""
     configs = {
         "dense M=129": BridgeConfig(topology=erdos_renyi(WIDE_M, 0.5, B, seed=0), num_byzantine=B,
                                     attack="random", t0=30),
@@ -690,7 +741,27 @@ def wide_trainer_phase(dev):
     print(f"wide trainers: dense M = {WIDE_M} and sparse K = 64, BRIDGE-T and BRIDGE-M, {ticks} "
           f"ticks on the card (the wide path once a tick) agree with the CPU on honest rows "
           f"(rtol 1e-5, atol 1e-6)")
-    return read_launches()
+    launches = read_launches()
+    for tag, base in configs.items():
+        m = base.topology.num_nodes
+        task = linear_task(m, partition="iid", num_train=20 * m, num_test=100, device=dev)
+        for rule in ("trimmed_mean", "median"):
+            trainer = BridgeTrainer(dataclasses.replace(base, rule=rule), task.grad_fn, device=dev)
+            state = trainer.init(task.init_fn(0), seed=1)
+            state, _ = trainer.step(state, task.batch_fn(0))  # first use, untimed
+            before = screen_wide.launch.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(WIDE_TIMED_TICKS):
+                state, _ = trainer.step(state, task.batch_fn(1 + i))
+            torch.cuda.synchronize()
+            ms_tick = (time.perf_counter() - t0) / WIDE_TIMED_TICKS * 1e3
+            if screen_wide.launch.launches - before != WIDE_TIMED_TICKS:
+                raise AssertionError(f"wide trainer {tag} {rule}: the wide path did not run once "
+                                     f"a tick")
+            print(f"wide trainer {tag} {rule}: {ms_tick:.3f} ms/tick over {WIDE_TIMED_TICKS} ticks "
+                  f"on the card (host clock, ending in a synchronize)")
+    return launches
 
 
 def dequant_kernel_phase(dev):
@@ -716,8 +787,20 @@ def dequant_kernel_phase(dev):
         got, want = dequant.dequant_carry(qq, sc, est, target), ref.dequant_carry(qq, sc, est, target)
         for g, w_ in zip(got, want, strict=True):
             exact_or_raise("dequant_carry", g, w_)
+    for n in (1, 3, 50, 512):
+        for d in (1, 127, 128, 129, 3925, 7850):
+            oq, osc, _, _ = codeword_edge_inputs(max(n, 4), d, seed=n + d)
+            oq = torch.as_tensor(oq[:n], device=dev)
+            osc = torch.as_tensor(osc[:n], device=dev)
+            exact_or_raise(f"dequant [{n}, {d}]", dequant.dequant(oq, osc), ref.dequant(oq, osc))
+    base = torch.empty(SM * D + 1, dtype=torch.int8, device=dev)
+    moved = base[1:].view(SM, D)  # a contiguous view one byte past a 16-byte boundary
+    moved.copy_(eq)
+    exact_or_raise("dequant, misaligned codes", dequant.dequant(moved, escale), ref.dequant(eq, escale))
     print(f"dequant: plain and carry forms equal to their plain versions (exact at M = {SM}, "
-          f"d = {D}, codec codewords and edge-case scales)")
+          f"d = {D}, codec codewords and edge-case scales); the plain form also exact at n in "
+          f"(1, 3, 50, 512) x d in (1, 127, 128, 129, 3925, 7850) and on codes one byte past a "
+          f"16-byte boundary")
 
     x_hat, resid = dequant.dequant_carry(q, scale, est, target)
     want = ref.dequant_carry(q, scale, est, target)

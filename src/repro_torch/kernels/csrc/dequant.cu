@@ -25,15 +25,40 @@
 // Intrinsics (__fmaf_rn, __fadd_rn, __fsub_rn) fix every rounding, so
 // nvcc's own contraction cannot change one.
 //
-// Design.  One block per (row, 128 coordinates): the block is exactly one
+// What bounds them on an H100: bytes.  dequant reads 1 byte and writes 4 a
+// coordinate (plus 8 bytes per 128 for the pair): at n = 512, d = 7850
+// about 20 MB, 0.0061 ms at 3.35 TB/s, and one FMA a coordinate, far
+// under the float32 rate.  The carry form reads 1 + 4 + 4 bytes and writes
+// 8 a coordinate, about 68 MB, 0.020 ms.
+//
+// Design of dequant.  It walks the flat [n * d] index in groups of 4 codes:
+// each a 4-byte load of q and a 16-byte store of out, consecutive threads
+// on consecutive groups, so every load and store instruction of a warp
+// covers 128 and 512 contiguous bytes.  The grid fills the card and no
+// more (at most 8 blocks of 256 threads an SM, one group a thread a pass,
+// a grid-stride loop over the rest): about 4 groups a thread at
+// [512, 7850], where a block per row and 128 coordinates made 31,744
+// blocks of one byte and one float a thread; at the main path's [50, 3925]
+// one group a thread over 192 blocks.  Rows of 7850 codes are not 16-byte
+// aligned, so the groups cannot follow rows: a thread divides a group's
+// first flat index by d (32-bit when n * d fits), then steps its row and
+// coordinate across the group (over a row boundary, several for d < 4),
+// reading the (scale, zero) pair through the read-only cache whenever the
+// coordinate enters another scale block; no shared memory and no barrier.
+// The groups start at q's first 4-byte boundary; the codes before it (a
+// view at a storage offset) and the last (n * d - head) % 4 after the
+// groups are the same kernel's scalar head and tail, which block 0
+// decodes.  Where out is not 16-byte aligned at a group's start (q
+// misaligned by other than a multiple of 4 bytes), the stores are scalar.
+// A first version with one 16-byte load of q and four 16-byte stores a
+// thread left each store instruction of a warp 64-byte strided and ran
+// slower than the kernel it replaced.
+//
+// Design of dequant_carry: one block per (row, 128 coordinates), exactly one
 // scale block, so it reads its single (scale, zero) pair once, through
 // shared memory; one thread per coordinate, neighbouring threads on
-// neighbouring bytes and floats.
-//
-// What bounds it on an H100: bytes.  The carry form reads 1 + 4 + 4 bytes
-// and writes 8 per coordinate (plus 8 bytes per 128 for the pair): at
-// n = 512, d = 7850 about 68 MB, 0.02 ms at 3.35 TB/s; it does two FMAs per
-// coordinate, 8M operations, far under the float32 rate.
+// neighbouring bytes and floats.  On an H100 it runs at about 58% of its
+// bytes bound, so it keeps this design.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -51,17 +76,97 @@ __device__ __forceinline__ void load_pair(const float* __restrict__ scale, int r
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kBlock)
+static_assert(kBlock == 128, "c >> 7 is a coordinate's scale block");
+constexpr int kGroup = 4;         // codes a dequant group: one 4-byte load, one 16-byte store
+constexpr int kVecThreads = 256;  // threads a dequant block
+constexpr int kBlocksPerSm = 8;   // dequant blocks an SM holds (2048 threads)
+
+__device__ __forceinline__ float2 pair_at(const float* __restrict__ scale, size_t row, int blk,
+                                          int nblk) {
+  const float* p = scale + (row * nblk + blk) * 2;
+  return make_float2(__ldg(p), __ldg(p + 1));
+}
+
+__device__ __forceinline__ float decode(int code, float2 sz) {
+  const float v = __fmaf_rn(static_cast<float>(code), sz.x, sz.y);
+  return isnan(v) ? CUDART_INF_F : v;
+}
+
+// Element e of the flat [n * d] codeword, alone.
+__device__ __forceinline__ void dequant_one(const int8_t* __restrict__ q,
+                                            const float* __restrict__ scale,
+                                            float* __restrict__ out, size_t e, int d, int nblk) {
+  const size_t row = e / d;
+  const int c = static_cast<int>(e - row * d);
+  out[e] = decode(q[e], pair_at(scale, row, c >> 7, nblk));
+}
+
+// Group g decodes codes head + 4 g .. head + 4 g + 3, thread t of the grid
+// groups t, t + threads, ...; block 0 also decodes the `head` codes before
+// the groups and the ones after the last.  Index: the flat index's type,
+// 32-bit when n * d fits.
+template <class Index>
+__global__ void __launch_bounds__(kVecThreads)
 dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
-               float* __restrict__ out, int d, int nblk) {
-  __shared__ float s_pair[2];
-  const int row = blockIdx.y;
-  load_pair(scale, row, blockIdx.x, nblk, s_pair);
-  const int c = blockIdx.x * kBlock + threadIdx.x;
-  if (c >= d) return;
-  const size_t at = static_cast<size_t>(row) * d + c;
-  const float v = __fmaf_rn(static_cast<float>(q[at]), s_pair[0], s_pair[1]);
-  out[at] = isnan(v) ? CUDART_INF_F : v;
+               float* __restrict__ out, int d, int nblk, Index total, int head, Index groups,
+               bool vec_store) {
+  const Index threads = static_cast<Index>(gridDim.x) * kVecThreads;
+  for (Index g = static_cast<Index>(blockIdx.x) * kVecThreads + threadIdx.x; g < groups;
+       g += threads) {
+    const Index e0 = head + g * kGroup;
+    const unsigned word = __ldg(reinterpret_cast<const unsigned*>(q + e0));
+    Index row = e0 / static_cast<Index>(d);
+    int c = static_cast<int>(e0 - row * static_cast<Index>(d));
+    float2 sz = pair_at(scale, row, c >> 7, nblk);
+    float f[kGroup];
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+      f[k] = decode(static_cast<int>(word << (24 - 8 * k)) >> 24, sz);  // byte k, signed
+      if (k + 1 < kGroup) {
+        if (++c == d) {
+          c = 0;
+          ++row;
+          sz = pair_at(scale, row, 0, nblk);
+        } else if ((c & (kBlock - 1)) == 0) {
+          sz = pair_at(scale, row, c >> 7, nblk);
+        }
+      }
+    }
+    if (vec_store) {
+      *reinterpret_cast<float4*>(out + e0) = make_float4(f[0], f[1], f[2], f[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) out[e0 + k] = f[k];
+    }
+  }
+  if (blockIdx.x == 0) {
+    const Index after = head + groups * kGroup;
+    if (threadIdx.x < head) dequant_one(q, scale, out, threadIdx.x, d, nblk);
+    if (threadIdx.x < total - after) dequant_one(q, scale, out, after + threadIdx.x, d, nblk);
+  }
+}
+
+template <class Index>
+int launch_dequant(const int8_t* q, const float* scale, float* out, int d, int nblk,
+                   long long total, cudaStream_t s) {
+  // the codes before q's first 4-byte boundary
+  const long long to4 = (4 - reinterpret_cast<uintptr_t>(q) % 4) % 4;
+  const int head = static_cast<int>(to4 < total ? to4 : total);
+  const long long groups = (total - head) / kGroup;
+  const bool vec_store = (reinterpret_cast<uintptr_t>(out) + 4ull * head) % 16 == 0;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return err;
+  const long long most = static_cast<long long>(sms) * kBlocksPerSm;
+  const long long needed = (groups + kVecThreads - 1) / kVecThreads;
+  const long long blocks = needed < 1 ? 1 : needed < most ? needed : most;
+  dequant_kernel<Index><<<static_cast<unsigned>(blocks), kVecThreads, 0, s>>>(
+      q, scale, out, d, nblk, static_cast<Index>(total), head, static_cast<Index>(groups),
+      vec_store);
+  return cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -95,9 +200,10 @@ dequant_carry_kernel(const int8_t* __restrict__ q, const float* __restrict__ sca
 extern "C" int dequant(const int8_t* q, const float* scale, float* out, int n, int d, int nblk,
                        void* stream) {
   if (n < 1 || d < 1 || nblk != (d + kBlock - 1) / kBlock) return cudaErrorInvalidValue;
-  const dim3 grid(nblk, n);
-  dequant_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(q, scale, out, d, nblk);
-  return cudaGetLastError();
+  const long long total = static_cast<long long>(n) * d;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return total < (1ll << 32) ? launch_dequant<unsigned>(q, scale, out, d, nblk, total, s)
+                             : launch_dequant<size_t>(q, scale, out, d, nblk, total, s);
 }
 
 extern "C" int dequant_carry(const int8_t* q, const float* scale, const float* est,

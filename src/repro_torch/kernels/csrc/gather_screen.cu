@@ -52,7 +52,7 @@
 //     reads.
 // Above 63 slots the wrappers launch the wide path instead
 // (screen_wide.cuh, the gather_*_wide entries below): the same arithmetic,
-// with the columns sorted in shared memory.
+// each column sorted by a warp in registers.
 //
 // What bounds it on an H100.  Device memory: w (16.1 MB at M = 512,
 // d = 7850), self_vals and the output once, about 48 MB, 0.014 ms at

@@ -56,7 +56,8 @@
 // the network's instruction count are what the kernel spends its time on.
 //
 // Above 128 rows to sort the wrappers launch the wide path instead
-// (screen_wide.cuh: the same arithmetic, columns sorted in shared memory),
+// (screen_wide.cuh: the same arithmetic, each column sorted by a warp in
+// registers),
 // through screen_wide_trimmed_mean_dense and screen_wide_median_dense.
 
 #include <stdint.h>

@@ -4,7 +4,11 @@
 // screen.cu, dequant_screen.cu and gather_screen.cu instantiate it over
 // their row sources (screen_sort.cuh) and row lists (below), so every
 // screen of rows 1-3 and 6-8 of the kernel table takes any row count the
-// reference takes, up to this path's limit.
+// reference takes, up to this path's limit.  It replaces, at those sizes,
+// the TPU kernels src/repro/kernels/trimmed_mean.py::trimmed_mean_pallas,
+// median.py::median_pallas, gather_screen.py::gather_screen_pallas and
+// gather_dequant_screen_pallas, and dequant_screen.py::
+// dequant_trimmed_mean_pallas and dequant_median_pallas.
 //
 // What it computes is the register screens' arithmetic exactly: NaN -> +inf,
 // the listed rows in list order padded with +inf, each column sorted
@@ -19,7 +23,8 @@
 // kernels at any count they also take, and the plain versions wherever
 // those sum left to right (at most ref.MAX_EXACT_ROWS = 64 rows); above, the
 // plain versions sum with torch.sum, and the two agree within the float32
-// summation bound.
+// summation bound.  NaN becomes +inf as a value is staged, before any
+// fminf/fmaxf (which would drop a NaN).
 //
 // Design.  One block of 256 threads per (node, tile of `coords`
 // coordinates), node-fastest over a 1-D grid, so the blocks in flight share
@@ -28,24 +33,47 @@
 // 256 at a time, in list order), stages what the row source needs of them
 // (a codeword's scale pairs, one per listed row), then copies the column of
 // each of its coordinates into shared memory (a row's coordinates are
-// adjacent across the threads, so the loads coalesce), pads it with +inf to
-// the next power of two P of the block's own row count and sorts every
-// column with a bitonic network that all threads share (P/2 compare-
-// exchanges a column a step, log2(P) (log2(P) + 1) / 2 steps, a barrier
-// each).  One warp then reduces the columns, a thread a column.  Columns
-// are stored with a pitch of P + 1 floats, so neither the staging stores
-// nor the reduction's reads conflict on a bank.
+// adjacent across the threads, so the loads coalesce; kStageBatch loads in
+// flight a thread), padded with +inf to P rows: the next power of two of
+// the block's own row count, at least 32.  After one barrier each warp
+// sorts whole columns, one at a time, in registers: P = 32 R rows, R values
+// a lane (R = 1, 2, ..., 64), sorted by the bitonic network
+// warp_sort<R> that kernels/networks.py generates as straight-line code
+// (screen_networks.cuh).  Its compare-exchanges all ascend (each merge
+// first compares the two halves of a block mirrored), so no lane selects
+// on a direction bit: an in-register compare-exchange is two FMNMX, where a
+// lane-dependent direction adds two FSEL.  The layout is blocked (row
+// i = lane R + r in register r): the network's frequent small strides, all
+// but the 15 steps whose stride is R or more, pair registers of one lane,
+// and only those 15 shuffle (__shfl_xor_sync, then the lower lane keeps
+// the min); an interleaved layout (i = r 32 + lane) would shuffle on every
+// stride below 32.  Only the warp takes part in a sort: no block barrier
+// after the staging one.  A column stores row i at i + i / R (R > 1), so
+// the 32 lanes' reads and writes of their R rows hit 32 banks (lane stride
+// R + 1, odd), and with a column pitch of P + 33 floats (odd) the staging
+// stores, one row across the coordinates, do too.  Each warp then reduces
+// its own columns, lane l the l-th, after a __syncwarp: the sums run on all
+// eight warps, each as soon as its own sorts are done.
 //
-// Shared memory: coords (P + 1) floats of columns, plus the list (4 bytes
-// a row) and the codeword source's pairs (8 bytes a row).  `coords` is 32
-// up to 1024 padded rows and 16 up to 2048, 131 KB of columns at most, so
-// at least 1024 rows fit in the 227 KB a block may use.
+// A kernel is compiled for the widest column its launch can reach (kRmax =
+// 8, 16, 32 or 64 registers a lane, from the list's cap), with every sort
+// up to that width inlined and a register budget to match (64 a thread up
+// to 8 registers a lane: four blocks an SM; one block at 64).  A block
+// covers as many coordinates as shared memory holds at that occupancy
+// (wide_coords: 128 up to 64 rows, then 64, 32, 32, 16, 16).
 //
-// What bounds it on an H100.  The sort: a bitonic network does about
-// P/4 log2(P)^2 compare-exchanges a column, a barrier a step; and the
-// reduction's left-to-right sum, one dependent add a kept rank, which only
-// one warp of the block runs.  Device memory sees each input once per
-// coordinate tile of each node (L2 holds the rows the nodes share).
+// Shared memory: coords (P + 33) floats of columns (37-133 KB at the
+// launch's largest P), plus the list (4 bytes a row) and the codeword
+// source's pairs (8 bytes a row).
+//
+// What bounds it on an H100.  Instructions: a bitonic sort of P rows is
+// log2(P) (log2(P) + 1) / 2 steps over all P values, each in-register step
+// one FMNMX a value, each of the 15 shuffle steps a SHFL and two predicated
+// FMNMX a value (both issue; cuobjdump shows no fused form).  The bound
+// counted in the kernel table is the fp32 operations of Batcher's network
+// over each node's true row count, which the bitonic sorter over the padded
+// P exceeds.  Device memory sees each input once per coordinate tile of
+// each node (L2 holds the rows the nodes share).
 
 #pragma once
 
@@ -59,17 +87,30 @@ constexpr int kWideThreads = 256;
 constexpr int kWideWarps = kWideThreads / 32;
 constexpr int kWideMaxRows = 2048;  // rows (padded to a power of two) a block sorts
 constexpr int kStageBatch = 8;      // column entries a thread loads before it stores them
+static_assert(kWideMaxRows == 32 * kWarpRegsMax, "a warp sorts the widest column");
 
-__host__ __device__ __forceinline__ int next_pow2(int n) {
-  int p = 1;
+// Rows a column of n rows pads to: the next power of two, at least a warp.
+__host__ __device__ __forceinline__ int wide_padded(int n) {
+  int p = 32;
   while (p < n) p <<= 1;
   return p;
 }
 
-// Coordinates a block covers at `padded` rows; a divisor of kScaleBlock, so
-// a tile lies in one codec scale block.
-__host__ __device__ __forceinline__ int wide_coords(int padded) { return padded <= 1024 ? 32 : 16; }
-static_assert(kScaleBlock % 32 == 0, "a wide tile must lie in one scale block");
+// Coordinates a block covers when its launch pads to at most `padded`
+// rows: as many as the blocks an SM holds at that width leave shared
+// memory for (wide_min_blocks: 37-50 KB of columns up to 256 rows, 64-70
+// KB up to 1024, 133 KB at 2048), at most 128; a power of two that divides
+// kScaleBlock, so a tile lies in one scale block.
+__host__ __device__ __forceinline__ int wide_coords(int padded) {
+  return padded <= 64 ? 128 : padded <= 256 ? 8192 / padded : padded <= 1024 ? 16384 / padded : 16;
+}
+static_assert(kScaleBlock % 128 == 0, "a wide tile must lie in one scale block");
+
+// Floats a column of `padded` rows takes: one pad float every R rows
+// (R > 1), and one more so that the pitch is odd.
+__host__ __device__ __forceinline__ int wide_pitch(int padded) {
+  return padded + (padded > 32 ? 32 : 0) + 1;
+}
 
 // Compacts the candidates i < n for which take(i) holds into s_list (in
 // ascending i, the value row(i) each) and returns their count to every
@@ -126,15 +167,53 @@ struct SlotList {
 __host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
 // Dynamic shared memory of a wide block whose list holds up to `cap` rows
-// and whose columns pad to `padded` rows.
+// and whose columns pad to at most `padded` rows.
 __host__ __device__ __forceinline__ size_t wide_smem_bytes(int cap, int padded, bool pairs) {
   return align16(sizeof(int) * (static_cast<size_t>(cap) + kWideWarps)) +
          (pairs ? align16(sizeof(float2) * static_cast<size_t>(cap)) : 0) +
-         sizeof(float) * static_cast<size_t>(wide_coords(padded)) * (padded + 1);
+         sizeof(float) * static_cast<size_t>(wide_coords(padded)) * wide_pitch(padded);
 }
 
-template <bool kMedian, class Rows, class List>
-__global__ void __launch_bounds__(kWideThreads)
+// Sorts the column at `col` (32 R rows, row i at i + i / R for R > 1) with
+// the calling warp: lane `lane` loads rows lane R .. lane R + R - 1 into
+// registers, the warp runs warp_sort<R>, and the lane stores them back.
+template <int R>
+__device__ __forceinline__ void sort_column(float* col, int lane) {
+  float v[R];
+  float* mine = col + lane * (R > 1 ? R + 1 : 1);
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] = mine[r];
+  warp_sort<R>(v, lane);
+#pragma unroll
+  for (int r = 0; r < R; ++r) mine[r] = v[r];
+}
+
+// sort_column<regs> for the block-uniform `regs` (a power of two, R <= regs
+// <= kRmax): a kernel compiles the sorts its launch can reach, no more.
+template <int R, int kRmax>
+__device__ __forceinline__ void sort_wide_column(float* col, int regs, int lane) {
+  if constexpr (R < kRmax) {
+    if (regs > R) {
+      sort_wide_column<2 * R, kRmax>(col, regs, lane);
+      return;
+    }
+  }
+  sort_column<R>(col, lane);
+}
+
+// Registers a lane the widest column of a launch takes, at least 8 (one
+// kernel for every launch up to 256 rows to sort); and the blocks an SM
+// should hold at that width, which sets the register budget (64 a thread
+// up to 8 registers a lane, 85 at 16, 128 at 32, 255 at 64).
+__host__ __device__ constexpr int wide_regs(int padded) {
+  return padded / 32 > 8 ? padded / 32 : 8;
+}
+__host__ __device__ constexpr int wide_min_blocks(int regs) {
+  return regs <= 8 ? 4 : regs <= 16 ? 3 : regs <= 32 ? 2 : 1;
+}
+
+template <bool kMedian, int kRmax, class Rows, class List>
+__global__ void __launch_bounds__(kWideThreads, wide_min_blocks(kRmax))
 wide_screen_kernel(Rows rows, List list, const float* __restrict__ self_vals,
                    float* __restrict__ out, int nodes, int d, int cap, int coords, int b,
                    bool recip) {
@@ -151,12 +230,13 @@ wide_screen_kernel(Rows rows, List list, const float* __restrict__ self_vals,
   const int count = list.build(j, s_list, s_warp);
   rows.stage(s_list, count, s_pair, c0 / kScaleBlock);
   const int n = kMedian ? count + 1 : count;
-  const int padded = next_pow2(n);
-  const int pitch = padded + 1;
+  const int padded = wide_padded(n);
+  const int pitch = wide_pitch(padded);
   const int live = min(coords, d - c0);
   const size_t at0 = static_cast<size_t>(j) * d + c0;
   // every extent below is a power of two: shifts and masks, no division
   const int log_coords = __ffs(coords) - 1, log_padded = __ffs(padded) - 1;
+  const int shift = log_padded > 5 ? log_padded - 5 : 31;  // row i sits at i + (i >> shift)
 
   // the columns, row-major across the threads (a row's coordinates
   // adjacent); kStageBatch loads in flight a thread before their stores
@@ -179,43 +259,47 @@ wide_screen_kernel(Rows rows, List list, const float* __restrict__ self_vals,
 #pragma unroll
     for (int u = 0; u < kStageBatch; ++u) {
       const int e = base + u * kWideThreads;
-      if (e < entries) s_col[(e & (coords - 1)) * pitch + (e >> log_coords)] = v[u];
+      const int i = e >> log_coords;
+      if (e < entries) s_col[(e & (coords - 1)) * pitch + i + (i >> shift)] = v[u];
     }
   }
   __syncthreads();
 
-  // bitonic sort of every column, ascending (the last merge runs up
-  // everywhere); (lo, lo + stride) with lo's `stride` bit clear
-  const int log_half = log_padded - 1;
-  for (int size = 2; size <= padded; size <<= 1) {
-    for (int log_stride = __ffs(size) - 2; log_stride >= 0; --log_stride) {
-      const int stride = 1 << log_stride;
-#pragma unroll 4
-      for (int e = threadIdx.x; e < coords << log_half; e += kWideThreads) {
-        const int c = e >> log_half, q = e & ((1 << log_half) - 1);
-        const int lo = ((q >> log_stride) << (log_stride + 1)) | (q & (stride - 1));
-        float* col = s_col + c * pitch;
-        const float a = col[lo], z = col[lo + stride];
-        const float mn = fminf(a, z), mx = fmaxf(a, z);
-        const bool up = (lo & size) == 0;
-        col[lo] = up ? mn : mx;
-        col[lo + stride] = up ? mx : mn;
-      }
-      __syncthreads();
-    }
+  // a warp a column, padded / 32 values a lane (uniform over the block);
+  // then lane l of the warp reduces the warp's l-th column (coords <= 128:
+  // at most 16 a warp), after only the warp's own barrier
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int c = warp; c < live; c += kWideWarps) {
+    sort_wide_column<1, kRmax>(s_col + c * pitch, padded >> 5, lane);
   }
-
-  for (int c = threadIdx.x; c < live; c += kWideThreads) {
+  __syncwarp();
+  const int c = warp + lane * kWideWarps;
+  if (c < live) {
     const float* col = s_col + c * pitch;
     if (kMedian) {
-      out[at0 + c] = __fmul_rn(0.5f, __fadd_rn(col[(n - 1) / 2], col[n / 2]));
+      const int lo = (n - 1) / 2, hi = n / 2;
+      out[at0 + c] =
+          __fmul_rn(0.5f, __fadd_rn(col[lo + (lo >> shift)], col[hi + (hi >> shift)]));
     } else {
       const int b_eff = trim_width(count, b);
       float total = 0.0f;
-      for (int i = b_eff; i < count - b_eff; ++i) total = __fadd_rn(total, col[i]);
+      for (int i = b_eff; i < count - b_eff; ++i) total = __fadd_rn(total, col[i + (i >> shift)]);
       out[at0 + c] = trimmed_mean_finish(total, self_vals[at0 + c], count, b_eff, recip);
     }
   }
+}
+
+template <bool kMedian, int kRmax, class Rows, class List>
+cudaError_t launch_wide_kernel(const Rows& rows, const List& list, const float* self_vals,
+                               float* out, int nodes, int d, int cap, int coords, int b,
+                               bool recip, size_t bytes, unsigned blocks, cudaStream_t s) {
+  auto kernel = wide_screen_kernel<kMedian, kRmax, Rows, List>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kWideThreads, bytes, s>>>(rows, list, self_vals, out, nodes, d, cap, coords, b,
+                                             recip);
+  return cudaGetLastError();
 }
 
 // Launch over `nodes` nodes whose lists hold at most `cap` rows (the rows to
@@ -226,18 +310,26 @@ cudaError_t launch_wide(const Rows& rows, const List& list, const float* self_va
                         int nodes, int d, int cap, int b, bool recip, cudaStream_t s) {
   const int most = cap + (kMedian ? 1 : 0);
   if (nodes < 1 || d < 1 || cap < 0 || most > kWideMaxRows) return cudaErrorInvalidValue;
-  const int padded = next_pow2(most);
+  const int padded = wide_padded(most);
   const int coords = wide_coords(padded);
   const long long tiles = (d + coords - 1) / coords;
   if (tiles * nodes > 0x7fffffffLL) return cudaErrorInvalidValue;
   const size_t bytes = wide_smem_bytes(cap, padded, Rows::kStaged);
-  auto kernel = wide_screen_kernel<kMedian, Rows, List>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(tiles * nodes), kWideThreads, bytes, s>>>(
-      rows, list, self_vals, out, nodes, d, cap, coords, b, recip);
-  return cudaGetLastError();
+  const unsigned blocks = static_cast<unsigned>(tiles * nodes);
+  switch (wide_regs(padded)) {
+    case 8:
+      return launch_wide_kernel<kMedian, 8>(rows, list, self_vals, out, nodes, d, cap, coords, b,
+                                            recip, bytes, blocks, s);
+    case 16:
+      return launch_wide_kernel<kMedian, 16>(rows, list, self_vals, out, nodes, d, cap, coords, b,
+                                             recip, bytes, blocks, s);
+    case 32:
+      return launch_wide_kernel<kMedian, 32>(rows, list, self_vals, out, nodes, d, cap, coords, b,
+                                             recip, bytes, blocks, s);
+    default:
+      return launch_wide_kernel<kMedian, 64>(rows, list, self_vals, out, nodes, d, cap, coords, b,
+                                             recip, bytes, blocks, s);
+  }
 }
 
 }  // namespace screen

@@ -9,33 +9,36 @@ path's shapes, on one CUDA card; a script, not part of the package's API.
 
 Each time is the median over 25 repetitions of the mean device time of 10
 calls (CUDA events, the stream parked first so the events time the device),
-as `chip_smoke.py` times. The inputs are seeded with numpy, so two
+as `chip_smoke.py` times.  The inputs are seeded with numpy, so two
 checkouts time the same data: the dense screens at M = 50, d = 7850 on
-``erdos_renyi(50, 0.5, 4)`` (float rows and the int8 codec's codewords),
-on two single-bucket graphs of the same M (every in-degree 24, every
-in-degree 31) and on all 49 senders; the gather screens and the decodes at
-M = 512, d = 7850 on ``small_world(512, 6, 2)`` (K = 16), the gather
-screens also on ``small_world(512, 8, 2)`` (K = 20) and on a table of 8-16
-random senders a node (K = 16, few rows shared); the distances at
-``[50, 7850]``, ``[100, 7850]`` and ``[512, 7850]``; and, where the
-checkout has the wide screening path, the dense screens at M = 129 and 513
-and the gather screens at K = 64 and 200 (random tables, M = 512).  ``--compare`` runs
-each checkout in a process of its own, in the order other, this, this,
-other, so a drift of the card over the run shows as a difference between
-a checkout's two runs.  ``--sweep`` times every plan the distance kernel
-takes (`pairwise.candidates`) at those shapes and at ``[20, 7850]`` and
-``[40, 7850]`` (the variants table's M = 20, uncompressed and with a lossy
-codec), each checked against the plain version first, and marks
-`pairwise.split_plan`'s choice.  ``--sweep-gather`` times the gather
-tile kernel (rows 3 and 8) under several plans (tiles, chunks, columns a
-lane), on the three gather tables, each checked equal to the plain
-version first; beside each it gives the launch's traffic between L2 and
-the SMs (every node's valid rows and its own row read, the table, the
-output written) and that traffic's time at the card's L2-resident read
-rate, measured first by summing the rows of a 16 MB buffer that L2 holds,
-8 times in one launch (a copy of it, which also writes 16 MB, is timed
-beside).  ``--parent``
-adds the parent checkout's gather times, timed in a process of its own.
+``erdos_renyi(50, 0.5, 4)`` (float rows and the int8 codec's codewords), on
+two single-bucket graphs of the same M (every in-degree 24, every in-degree
+31) and on all 49 senders; the gather screens and the decodes at M = 512,
+d = 7850 on ``small_world(512, 6, 2)`` (K = 16), the gather screens also on
+``small_world(512, 8, 2)`` (K = 20) and on a table of 8-16 random senders a
+node (K = 16, few rows shared); the distances at ``[50, 7850]``,
+``[100, 7850]`` and ``[512, 7850]``; and, where the checkout has the wide screening
+path, the register screens at M = 128 and the wide path's four screens
+(float and codeword rows, trimmed mean and median) at dense M = 129 and 513
+and gather K = 64 and 200 (random tables, M = 512), with the medians'
+library call beside them; the decode also at the main path's ``[50, 3925]``
+(topk50_int8's kept values).  ``--compare`` runs each checkout in a process
+of its own, in the order other, this, this, other, so a drift of the card
+over the run shows as a difference between a checkout's two runs, and
+prints each wide time's bound (`wide_bounds`).  ``--sweep`` times every
+plan the distance kernel takes (`pairwise.candidates`) at those shapes and
+at ``[20, 7850]`` and ``[40, 7850]`` (the variants table's M = 20,
+uncompressed and with a lossy codec), each checked against the plain
+version first, and marks `pairwise.split_plan`'s choice.
+``--sweep-gather`` times the gather tile kernel (rows 3 and 8) under
+several plans (tiles, chunks, columns a lane), on the three gather tables,
+each checked equal to the plain version first; beside each it gives the
+launch's traffic between L2 and the SMs (every node's valid rows and its
+own row read, the table, the output written) and that traffic's time at the
+card's L2-resident read rate, measured first by summing the rows of a 16 MB
+buffer that L2 holds, 8 times in one launch (a copy of it, which also
+writes 16 MB, is timed beside).  ``--parent`` adds the parent checkout's
+gather times, timed in a process of its own.
 Output: one JSON line per run, and a table.
 """
 from __future__ import annotations
@@ -155,6 +158,10 @@ def kernel_times() -> dict:
     if importlib.util.find_spec("repro_torch.kernels.screen_wide") is not None:
         times.update(wide_times(dev, rng))
     times["dequant"] = cuda_ms(lambda: dequant.dequant(sq, ss))
+    # the main path's decode: topk50_int8's kept values at dense M = 50
+    kept = codec_lib.get_codec("int8").encode(np.array([0, 11], np.uint32),
+                                                ws[:50, : D // 2].contiguous() * 0.05)
+    times["dequant [50, 3925]"] = cuda_ms(lambda: dequant.dequant(kept.payload, kept.scale))
     times["dequant_carry"] = cuda_ms(lambda: dequant.dequant_carry(sq, ss, ws, ws))
 
     for n in (50, 100, 512):
@@ -163,38 +170,101 @@ def kernel_times() -> dict:
     return times
 
 
+def wide_shapes() -> dict:
+    """The wide path's shapes, by the key prefix of their times: the dense
+    screens at M = 129 and 513 on ``erdos_renyi(M, 0.5, 4)`` and the gather
+    screens at K = 64 and 200 on tables of K/2 to K random senders a node
+    (M = 512): ``(adjacency, K or None)``."""
+    from repro_torch.core.graph import erdos_renyi
+
+    shapes = {f"dense M={m}": (erdos_renyi(m, 0.5, 4, seed=0).adjacency, None) for m in (129, 513)}
+    shapes.update({f"gather K={k}": (random_adjacency(512, k // 2, k, k), k) for k in (64, 200)})
+    return shapes
+
+
 def wide_times(dev, rng) -> dict:
-    """The wide path: the dense screens at M = 129 (float and codeword rows)
-    and 513 on ``erdos_renyi(M, 0.5, 4)``, the gather screens at K = 64 and
-    200 on random tables (M = 512, 32-64 and 100-200 senders a node)."""
+    """The wide path at `wide_shapes`, float and codeword rows, trimmed mean
+    (b = 4 dense, 2 gather) and median; the register kernels at dense
+    M = 128 on ``erdos_renyi(128, 0.5, 4)``, the largest M they take (the
+    median there sorts M + 1 = 129 rows, so it runs the wide path); and
+    the medians' library call, ``torch.nanquantile(q=0.5)`` over the masked
+    ``[M, M+1, d]`` rows at M = 129 and the gathered ``[M, K+1, d]`` rows at
+    K = 64 (NaN for absent rows)."""
     from repro_torch.comm import codec as codec_lib
     from repro_torch.core.graph import erdos_renyi
     from repro_torch.core.neighbors import NeighborTable
     from repro_torch.kernels import dequant_screen, gather_screen, median, trimmed_mean
 
     times = {}
-    for m in (129, 513):
+    w = torch.from_numpy(rng.normal(size=(128, D)).astype(np.float32) * 0.05).to(dev)
+    adj = torch.from_numpy(erdos_renyi(128, 0.5, 4, seed=0).adjacency).to(dev)
+    times["screen_trimmed_mean_dense M=128"] = cuda_ms(
+        lambda: trimmed_mean.trimmed_mean_dense(w, adj, w, 4), reps=11)
+    times["screen_median_dense M=128"] = cuda_ms(lambda: median.median_dense(w, adj, w), reps=11)
+    for tag, (adj_np, k) in wide_shapes().items():
+        m = adj_np.shape[0]
         w = torch.from_numpy(rng.normal(size=(m, D)).astype(np.float32) * 0.05).to(dev)
-        adj = torch.from_numpy(erdos_renyi(m, 0.5, 4, seed=0).adjacency).to(dev)
-        times[f"screen_wide trimmed_mean dense M={m}"] = cuda_ms(
-            lambda w=w, a=adj: trimmed_mean.trimmed_mean_dense(w, a, w, 4), reps=11)
-        times[f"screen_wide median dense M={m}"] = cuda_ms(
-            lambda w=w, a=adj: median.median_dense(w, a, w), reps=11)
-        if m == 129:
-            msg = codec_lib.get_codec("int8").encode(np.array([0, 9], np.uint32), w)
-            q, sc = msg.payload, msg.scale
-            times[f"screen_wide codeword trimmed_mean dense M={m}"] = cuda_ms(
-                lambda a=adj: dequant_screen.dequant_screen_trimmed_mean_dense(q, sc, a, w, 4),
-                reps=11)
-    ws = torch.from_numpy(rng.normal(size=(512, D)).astype(np.float32)).to(dev)
-    for k in (64, 200):
-        table = NeighborTable.from_adjacency(random_adjacency(512, k // 2, k, k), k=k, device=dev)
-        idx, valid = table.safe_idx, table.valid_dev
-        times[f"screen_wide gather trimmed_mean K={k}"] = cuda_ms(
-            lambda i=idx, v=valid: gather_screen.gather_screen_trimmed_mean(ws, i, v, ws, 2), reps=11)
-        times[f"screen_wide gather median K={k}"] = cuda_ms(
-            lambda i=idx, v=valid: gather_screen.gather_screen_median(ws, i, v, ws), reps=11)
+        msg = codec_lib.get_codec("int8").encode(np.array([0, 9], np.uint32), w)
+        q, sc = msg.payload, msg.scale
+        if k is None:
+            adj = torch.from_numpy(adj_np).to(dev)
+            runs = {"trimmed_mean": lambda: trimmed_mean.trimmed_mean_dense(w, adj, w, 4),
+                    "median": lambda: median.median_dense(w, adj, w),
+                    "codeword trimmed_mean":
+                        lambda: dequant_screen.dequant_screen_trimmed_mean_dense(q, sc, adj, w, 4),
+                    "codeword median": lambda: dequant_screen.dequant_screen_median_dense(q, sc, adj, w)}
+            rows = torch.where(adj[:, :, None], w[None], torch.nan)
+        else:
+            table = NeighborTable.from_adjacency(adj_np, k=k, device=dev)
+            idx, valid = table.safe_idx, table.valid_dev
+            runs = {"trimmed_mean": lambda: gather_screen.gather_screen_trimmed_mean(w, idx, valid, w, 2),
+                    "median": lambda: gather_screen.gather_screen_median(w, idx, valid, w),
+                    "codeword trimmed_mean": lambda: gather_screen.gather_dequant_screen_trimmed_mean(
+                        q, sc, idx, valid, w, 2),
+                    "codeword median": lambda: gather_screen.gather_dequant_screen_median(
+                        q, sc, idx, valid, w)}
+            rows = torch.where(valid[:, :, None], table.gather_rows(w), torch.nan)
+        for rule, run in runs.items():
+            times[f"screen_wide {tag} {rule}"] = cuda_ms(run, reps=11)
+        if tag in ("dense M=129", "gather K=64"):
+            rows = torch.cat([rows, w[:, None, :]], dim=1)
+            times[f"library nanquantile {tag}"] = cuda_ms(
+                lambda r=rows: torch.nanquantile(r, 0.5, dim=1), reps=11, inner=2)
+        del rows
     return times
+
+
+def wide_bounds() -> dict:
+    """The least time the card could take for each wide time of
+    `wide_times`, as `chip_smoke.py` counts it: the larger of the bytes
+    (each input once, the output once) at 3.35 TB/s and the fp32
+    operations at 67 TFLOP/s — Batcher's network over each node's true row
+    count (two a compare-exchange), the kept ranks' adds and the finish,
+    and for codeword rows one FMA (two operations) a decoded value.
+    Returns ``{key: (ms, "bytes" | "operations")}``."""
+    from repro_torch.kernels import networks
+
+    out = {}
+    pairs = lambda n: len(networks.batcher_pairs(n))  # noqa: E731
+    for tag, (adj_np, k) in wide_shapes().items():
+        m = adj_np.shape[0]
+        counts = adj_np.sum(axis=1)
+        b = 4 if k is None else 2
+        b_eff = np.minimum(b, np.maximum((counts - 1) // 2, 0))
+        tm_ops = D * sum(2 * pairs(int(c)) + int(c) - 2 * int(e) + 2
+                         for c, e in zip(counts, b_eff, strict=True))
+        md_ops = D * sum(2 * pairs(int(c) + 1) + 2 for c in counts)
+        decode_ops = 2 * D * int(counts.sum())
+        listing = m * m if k is None else m * k * 5  # the mask, or the table
+        float_bytes = 2 * m * D * 4 + listing  # w (also self) in, out
+        code_bytes = m * D * (1 + 4 + 4) + m * (-(-D // 128)) * 8 + listing
+        for rule, nbytes, ops in (("trimmed_mean", float_bytes, tm_ops), ("median", float_bytes, md_ops),
+                                  ("codeword trimmed_mean", code_bytes, tm_ops + decode_ops),
+                                  ("codeword median", code_bytes, md_ops + decode_ops)):
+            t_bytes, t_ops = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
+            out[f"screen_wide {tag} {rule}"] = (max(t_bytes, t_ops),
+                                                "bytes" if t_bytes >= t_ops else "operations")
+    return out
 
 
 def l2_rate() -> dict:
@@ -333,11 +403,16 @@ def main(argv=None) -> int:
         runs = [("other", args.compare), ("this", SRC), ("this", SRC), ("other", args.compare)]
         results = [run_other(src) for _, src in runs]
         print(f"card: {card}; columns: other, this, this, other (ms)")
+        sys.path.insert(0, SRC)
+        bounds = wide_bounds()
         for key in results[1]["times"]:
             cells = [r["times"].get(key) for r in results]
-            print(f"{key:48s} " + " ".join("       -" if c is None else f"{c:8.4f}" for c in cells))
-        print(json.dumps({"card": card, "runs": [dict(tag=t, src=s, times=r["times"])
-                                                  for (t, s), r in zip(runs, results)]}))
+            bound = f"  bound {bounds[key][0]:.5f} ({bounds[key][1]})" if key in bounds else ""
+            print(f"{key:48s} " + " ".join("       -" if c is None else f"{c:8.4f}" for c in cells)
+                  + bound)
+        print(json.dumps({"card": card, "bounds": bounds,
+                          "runs": [dict(tag=t, src=s, times=r["times"])
+                                   for (t, s), r in zip(runs, results)]}))
         return 0
     sys.path.insert(0, args.src)
     if args.sweep:

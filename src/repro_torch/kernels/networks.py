@@ -17,6 +17,14 @@ above), and its median keeps of each exact network only the
 compare-exchanges that feed the two middle positions (`median_pairs`, a
 selection network).
 
+The wide path (``csrc/screen_wide.cuh``) sorts a column of P = 32 R rows
+(R = 1, 2, ..., 64, `WARP_REGS`) across the 32 lanes of a warp, R values a
+lane, with a bitonic sorter (`warp_schedule`): every compare-exchange
+ascends, since each merge's first step compares the two halves of a block
+mirrored (i with i ^ (k - 1)) instead of sorting one half descending, so
+no lane needs a direction bit.  Strides below R pair registers of one
+lane; strides of R and above pair lanes through a shuffle.
+
 `header` writes the networks as straight-line C++ (every index a
 constant, so a column stays in registers); `build` writes it next to the
 library and compiles the kernels against it, so the list a CPU test reads
@@ -35,6 +43,9 @@ MAX_ROWS = BUCKETS[-1]
 EXACT_ROWS = 24
 SIZES = tuple(sorted(set(range(1, EXACT_ROWS + 1)) | set(BUCKETS)))
 HEADER = "screen_networks.cuh"
+# The wide path's warp sorts: R registers a lane, P = WARP * R rows.
+WARP = 32
+WARP_REGS = (1, 2, 4, 8, 16, 32, 64)
 
 
 @functools.cache
@@ -77,6 +88,66 @@ def bucket(rows: int) -> int:
     return next(b for b in BUCKETS if rows <= b)
 
 
+@functools.cache
+def warp_steps(regs: int) -> tuple[tuple[int, int], ...]:
+    """The bitonic sorter's steps over P = 32 ``regs`` rows: ``(k, j)``,
+    merge size k = 2, 4, ..., P, then stride j = k/2, ..., 1 in each."""
+    p = WARP * regs
+    return tuple((k, j) for k in (2 ** e for e in range(1, p.bit_length()))
+                 for j in (k >> e for e in range(1, k.bit_length())))
+
+
+@functools.cache
+def warp_schedule(regs: int) -> tuple[tuple[tuple, ...], ...]:
+    """The warp sort of 32 ``regs`` rows in the blocked layout (row
+    i = lane * regs + r in register r of lane ``lane``), one tuple of ops a
+    step of `warp_steps`.  Step (k, j) pairs row i with i ^ (k - 1) when
+    j = k / 2 (the mirrored halves of each block of k) and with i ^ j
+    after, the min going to the lower row.  Ops, as the header spells them:
+
+    * ``("cx", a, b)``: registers a < b of every lane (j < regs);
+    * ``("sh", r, m, bit)``: register r against the same register of lane
+      ``lane ^ m`` (j >= regs), the min kept where lane bit ``bit`` is clear;
+    * ``("shm", r, s, m, bit)``: registers r and s = regs - 1 - r against
+      registers s and r of lane ``lane ^ m`` (a mirror step, k > regs > 1),
+      the min kept where lane bit ``bit`` is clear."""
+    if regs not in WARP_REGS:
+        raise ValueError(f"the warp sorts hold {WARP_REGS} registers a lane, got {regs}")
+    steps = []
+    for k, j in warp_steps(regs):
+        mirror = j == k // 2
+        if j < regs:  # inside a lane: blocks of k <= regs, or a half-cleaner
+            ops = []
+            for r in range(regs):
+                s = r ^ (k - 1) if mirror else r ^ j
+                if r < s:
+                    ops.append(("cx", r, s))
+        else:  # across lanes: the lane part of i ^ (k - 1) or i ^ j
+            bit = (j // regs).bit_length() - 1  # lane bit of the stride
+            if mirror and regs > 1:
+                ops = [("shm", r, regs - 1 - r, k // regs - 1, bit) for r in range(regs // 2)]
+            elif mirror:  # one register a lane: its mirror is itself
+                ops = [("sh", 0, k - 1, bit)]
+            else:
+                ops = [("sh", r, j // regs, bit) for r in range(regs)]
+        steps.append(tuple(ops))
+    return tuple(steps)
+
+
+def _warp_network(out: list, regs: int) -> None:
+    steps = warp_schedule(regs)
+    lane_steps = sum(1 for k, j in warp_steps(regs) if j >= regs)
+    out.append(f"// {regs} register{'s' if regs > 1 else ''} a lane, {WARP * regs} rows: "
+               f"{len(steps)} steps, {len(steps) - lane_steps} in registers, {lane_steps} across lanes")
+    out.append("template <>")
+    out.append(f"__device__ __forceinline__ void warp_sort<{regs}>(float (&v)[{regs}], int lane) {{")
+    spell = {"cx": "WCX", "sh": "WSH", "shm": "WSHM"}
+    for ops in steps:
+        out.append("  " + " ".join(f"{spell[op[0]]}({', '.join(map(str, op[1:]))})" for op in ops))
+    out.append("}")
+    out.append("")
+
+
 def _network(out: list, name: str, n: int, pairs) -> None:
     out.append(f"// {n} rows: {len(pairs)} compare-exchanges")
     out.append("template <>")
@@ -106,9 +177,10 @@ def _dispatch(out: list, name: str, sizes) -> None:
 def header() -> str:
     """The C++ header the screening kernels include: one ``batcher_sort``
     specialization per size (`SIZES`), one ``median_select`` per exact size,
-    ``for_bucket``, the block-uniform dispatch of a row count to its bucket,
-    and ``for_rows``, the gather kernel's dispatch to its exact size (up to
-    `EXACT_ROWS`) or bucket."""
+    one ``warp_sort`` per register count (`WARP_REGS`), ``for_bucket``, the
+    block-uniform dispatch of a row count to its bucket, and ``for_rows``,
+    the gather kernel's dispatch to its exact size (up to `EXACT_ROWS`) or
+    bucket."""
     out = [
         "// Generated by src/repro_torch/kernels/networks.py at build time; do not edit.",
         "// Batcher's odd-even merge networks over each row count the kernels sort,",
@@ -145,6 +217,48 @@ def header() -> str:
         _network(out, "median_select", n, median_pairs(n))
     out += [
         "#undef SCREEN_CX",
+        "",
+        "// The wide path's warp sorts (screen_wide.cuh): row i of a column of",
+        "// 32 R rows is v[i % R] of lane i / R; warp_sort<R> leaves the column",
+        "// ascending.  WCX: registers a < b of this lane.  WSH: register r",
+        "// against register r of lane ^ m.  WSHM: registers r and s against",
+        "// registers s and r of lane ^ m.  Across lanes the lane whose bit",
+        "// `bit` is clear keeps the min, its partner the max.  Every lane of",
+        "// the warp runs every step (the shuffles name all 32).",
+        "#define WCX(a, b)                         \\",
+        "  {                                       \\",
+        "    const float lo_ = fminf(v[a], v[b]);  \\",
+        "    const float hi_ = fmaxf(v[a], v[b]);  \\",
+        "    v[a] = lo_;                           \\",
+        "    v[b] = hi_;                           \\",
+        "  }",
+        "#define WKEEP(x, o, bit) ((lane >> (bit)) & 1 ? fmaxf(x, o) : fminf(x, o))",
+        "#define WSH(r, m, bit)                                       \\",
+        "  {                                                          \\",
+        "    const float o_ = __shfl_xor_sync(0xffffffffu, v[r], m);  \\",
+        "    v[r] = WKEEP(v[r], o_, bit);                             \\",
+        "  }",
+        "#define WSHM(r, s, m, bit)                                   \\",
+        "  {                                                          \\",
+        "    const float or_ = __shfl_xor_sync(0xffffffffu, v[s], m); \\",
+        "    const float os_ = __shfl_xor_sync(0xffffffffu, v[r], m); \\",
+        "    v[r] = WKEEP(v[r], or_, bit);                            \\",
+        "    v[s] = WKEEP(v[s], os_, bit);                            \\",
+        "  }",
+        "",
+        "template <int R>",
+        "__device__ __forceinline__ void warp_sort(float (&v)[R], int lane);",
+        "",
+    ]
+    for regs in WARP_REGS:
+        _warp_network(out, regs)
+    out += [
+        "#undef WCX",
+        "#undef WKEEP",
+        "#undef WSH",
+        "#undef WSHM",
+        "",
+        f"constexpr int kWarpRegsMax = {WARP_REGS[-1]};",
         "",
         "// A network size N for row counts in [LO, N]; N == LO: exactly N rows.",
         "template <int N, int LO>",

@@ -2,20 +2,20 @@
 the median over more rows than the register kernels sort — above 128 rows
 for the dense screens (`trimmed_mean`, `median`, `dequant_screen`), above
 `gather_screen.MAX_SLOTS` table slots for the gather screens — up to
-`MAX_ROWS`.  It computes the register kernels' arithmetic (the columns
-sorted in shared memory, the kept ranks summed left to right), so it stands
-in for rows 1-3 and 6-8 of the kernel table at those sizes.
+`MAX_ROWS`.  It computes the register kernels' arithmetic (each column
+sorted by a warp in registers, the kept ranks summed left to right), so it
+stands in for rows 1-3 and 6-8 of the kernel table at those sizes.
 
 The screens' wrappers decide the route and call `launch`, which counts the
 launches of every wide entry point in one ``launch.launches``.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, networks
 
-# Rows a wide block sorts, at most (csrc/screen_wide.cuh kWideMaxRows): 16
-# coordinates of 2048 padded rows are 128 KB of shared memory.
-MAX_ROWS = 2048
+# Rows a wide block sorts, at most (csrc/screen_wide.cuh kWideMaxRows): a
+# warp's 32 lanes of 64 registers.
+MAX_ROWS = networks.WARP * networks.WARP_REGS[-1]
 
 
 def launch(entry: str, rows: int, *args) -> None:

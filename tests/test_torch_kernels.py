@@ -1,15 +1,17 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 the dense and the gather screens exact (NaN-aware ``==``) up to 64 rows on
 edge-case payloads (the trimmed mean in both its divisor forms); above,
-the wide path (up to its 2048 rows) and the register kernels exact against
-the plain arithmetic summed left to right, the median exact, the trimmed
-mean within the float32 summation bound of the plain version; the gather
-screens under every plan on small-world and Erdos-Renyi tables; the
-int8-codeword screens exact against their plain versions and against
-their staged twins (the ``dequant`` kernel, then the float screen), the
-int8 decode exact in both its forms, the pairwise
-distances within the float32 dot-product bound (``test_torch_krum.py``)
-with exact symmetry, an exact zero diagonal and the NaN/inf pattern kept.
+the wide path (up to its 2048 rows, at every warp sort it compiles) and
+the register kernels exact against the plain arithmetic summed left to
+right, the median exact, the trimmed mean within the float32 summation
+bound of the plain version; the gather screens under every plan on
+small-world and Erdos-Renyi tables; the int8-codeword screens exact
+against their plain versions and against their staged twins (the
+``dequant`` kernel, then the float screen), the int8 decode exact in both
+its forms (the plain one also at odd widths and on a misaligned base), the
+pairwise distances within the float32 dot-product bound
+(``test_torch_krum.py``) with exact symmetry, an exact zero diagonal and
+the NaN/inf pattern kept.
 
 This file imports nothing of JAX, so it runs on the card's machine:
 
@@ -309,6 +311,27 @@ def test_dequant_kernels_equal_plain_on_card(cuda_device, n, d):
             x_hat, resid = dequant.dequant_carry(q, sc.contiguous(), est, target, folded)
             want_x, want_r = ref.dequant_carry(q, sc.contiguous(), est, target, folded)
             assert bool(nan_equal(x_hat, want_x).all()) and bool(nan_equal(resid, want_r).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 127, 128, 129, 3925, 7850])
+def test_dequant_odd_shapes_on_card(cuda_device, d):
+    """The decode walks the flat [n * d] codes in groups of 4: exact at row
+    widths that split a group across rows (d < 4), across scale blocks and
+    at no 16-byte alignment of a row, and on codes whose base sits 1, 4 or
+    8 bytes past a 16-byte boundary (a contiguous view at a storage offset:
+    the kernel's scalar head, then groups, with scalar stores where out is
+    not 16-byte aligned at a group)."""
+    for n in (1, 3, 50, 512):
+        q, scale = (torch.from_numpy(x[:n]).to(cuda_device) for x in codeword(max(n, 4), d, n + d))
+        assert bool(nan_equal(dequant.dequant(q, scale), ref.dequant(q, scale)).all()), n
+        for offset in (1, 4, 8):
+            base = torch.empty(n * d + offset, dtype=torch.int8, device=cuda_device)
+            moved = base[offset:].view(n, d)
+            moved.copy_(q)
+            assert moved.data_ptr() % 16 == offset
+            got = dequant.dequant(moved, scale)
+            assert bool(nan_equal(got, ref.dequant(q, scale)).all()), (n, offset)
 
 
 @pytest.mark.cuda
@@ -700,6 +723,79 @@ def test_wide_gather_screens_on_card(cuda_device, k):
     torch.cuda.synchronize()
     assert screen_wide.launch.launches - before[0] == 3 * 3
     assert gather_screen.gather_screen_trimmed_mean.launches == before[1]
+
+
+def wide_boundary_rows(regs: int) -> tuple[int, ...]:
+    """Rows to sort around the warp sort of ``regs`` registers a lane: one
+    below, at and above 32 regs, within the wide path's limit."""
+    return tuple(r for r in (32 * regs - 1, 32 * regs, 32 * regs + 1) if r <= screen_wide.MAX_ROWS)
+
+
+def wide_counts_adjacency(counts, m: int, seed: int) -> np.ndarray:
+    """An ``[m, m]`` mask whose node j has ``counts[j % len(counts)]``
+    senders (self-loops allowed, so a count can reach m)."""
+    rng = np.random.default_rng(seed)
+    adj = np.zeros((m, m), bool)
+    for j in range(m):
+        adj[j, rng.choice(m, size=counts[j % len(counts)], replace=False)] = True
+    return adj
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regs", networks.WARP_REGS)
+def test_wide_screens_at_every_warp_width_on_card(cuda_device, regs):
+    """Each warp sort the wide path compiles, on nodes whose row counts sit
+    one below, at and one above its 32 R rows: the dense screens (M at
+    least 129, so the wide path runs) and the gather screens (K at least
+    64), float rows with NaN, +-inf, ties and +-0 and codewords with inf
+    and zero scales; medians exact, trimmed means exact against the
+    left-to-right sum and within the summation bound of the plain
+    version."""
+    from repro_torch.core.neighbors import NeighborTable
+
+    d = 200
+    rows = wide_boundary_rows(regs)
+    before = screen_wide.launch.launches
+    launched = 0
+    for median_rows in (False, True):
+        counts = [r - 1 if median_rows else r for r in rows]
+        limit = screen_wide.MAX_ROWS - (1 if median_rows else 0)
+        m = min(limit, max(129, max(counts) + 8))
+        adj = wide_counts_adjacency(counts, m, seed=regs)
+        w, _ = edge_inputs(m, d, seed=regs + 1)
+        sv = np.random.default_rng(regs).normal(size=(m, d)).astype(np.float32)
+        sv[0, :3] = [np.nan, np.inf, -np.inf]
+        tw, ta, tsv = (torch.from_numpy(x).to(cuda_device) for x in (w, adj, sv))
+        k = min(limit, max(64, max(counts)))
+        table = NeighborTable.from_adjacency(adj, k=k, device=cuda_device)
+        idx, valid = table.safe_idx, table.valid_dev
+        q, scale = (torch.from_numpy(x).to(cuda_device) for x in codeword(m, d, seed=regs))
+        staged = dequant.dequant(q, scale)
+        for x, dense, gather in (
+            (tw, (trimmed_mean.trimmed_mean_dense, median.median_dense),
+             (gather_screen.gather_screen_trimmed_mean, gather_screen.gather_screen_median)),
+            (staged, (lambda _, a, s_, *b: dequant_screen.dequant_screen_trimmed_mean_dense(
+                          q, scale, a, s_, *b),
+                      lambda _, a, s_: dequant_screen.dequant_screen_median_dense(q, scale, a, s_)),
+             (lambda _, i, v, s_, *b: gather_screen.gather_dequant_screen_trimmed_mean(
+                 q, scale, i, v, s_, *b),
+              lambda _, i, v, s_: gather_screen.gather_dequant_screen_median(q, scale, i, v, s_))),
+        ):
+            if median_rows:
+                assert bool(nan_equal(dense[1](tw, ta, tsv), ref.median_dense(x, ta, tsv)).all())
+                assert bool(nan_equal(gather[1](tw, idx, valid, tsv),
+                                      ref.gather_median(x, idx, valid, tsv)).all())
+                launched += 2
+                continue
+            want_ltr = left_to_right_trimmed_mean(x, ta, tsv, 3)
+            check_wide_trimmed_mean(dense[0](tw, ta, tsv, 3), want_ltr,
+                                    ref.trimmed_mean_dense(x, ta, tsv, 3), wide_bound(x[None], ta, tsv, 3))
+            check_wide_trimmed_mean(gather[0](tw, idx, valid, tsv, 3), want_ltr,
+                                    ref.gather_trimmed_mean(x, idx, valid, tsv, 3),
+                                    wide_bound(table.gather_rows(x), valid, tsv, 3))
+            launched += 2
+    torch.cuda.synchronize()
+    assert screen_wide.launch.launches - before == launched == 8
 
 
 def wide_trainer_config(layout: str, rule: str):

@@ -135,3 +135,104 @@ def test_median_selection_networks(n):
         x[rng.random(x.shape) < 0.05] = -0.0
     out = apply_network(pairs, x)
     np.testing.assert_array_equal(out[:, mid], np.sort(x, axis=-1)[:, mid])
+
+
+def compiled_warp_steps(text: str, regs: int) -> list[tuple[tuple, ...]]:
+    """The steps of ``warp_sort<regs>`` as the header text spells them: one
+    line a step, each op as `networks.warp_schedule` writes it."""
+    start = text.index(f"__device__ __forceinline__ void warp_sort<{regs}>(")
+    body = text[text.index("\n", start) + 1:text.index("\n}", start)]
+    names = {"WCX": "cx", "WSH": "sh", "WSHM": "shm"}
+    steps = []
+    for line in body.splitlines():
+        ops = []
+        for call in line.split(")")[:-1]:
+            name, args = call.strip().split("(")
+            ops.append((names[name], *(int(a) for a in args.split(","))))
+        steps.append(tuple(ops))
+    return steps
+
+
+def warp_exchanges(step, regs: int) -> dict[int, tuple[str, int]]:
+    """What each row of the column takes in one step: ``("min" | "max",
+    partner row)``, row i being register i % regs of lane i // regs."""
+    got = {}
+    for op in step:
+        for lane in range(networks.WARP):
+            keep = "max" if op[0] != "cx" and (lane >> op[-1]) & 1 else "min"
+            if op[0] == "cx":
+                a, b = lane * regs + op[1], lane * regs + op[2]
+                got[a], got[b] = ("min", b), ("max", a)
+            elif op[0] == "sh":
+                got[lane * regs + op[1]] = (keep, (lane ^ op[2]) * regs + op[1])
+            else:
+                r, s, m = op[1:4]
+                got[lane * regs + r] = (keep, (lane ^ m) * regs + s)
+                got[lane * regs + s] = (keep, (lane ^ m) * regs + r)
+    return got
+
+
+def run_exchanges(exchanges, x: np.ndarray) -> np.ndarray:
+    """The steps ``exchanges`` (`warp_exchanges` of each) applied along the
+    last axis of ``x``: each row takes the min or the max of its value and
+    its partner's, all rows of a step from the values the step started
+    from, as the lanes' registers and shuffles do."""
+    for ex in exchanges:
+        keep, partner = zip(*(ex[i] for i in range(len(ex))), strict=True)
+        other = x[..., list(partner)]
+        x = np.where(np.array(keep) == "min", np.minimum(x, other), np.maximum(x, other))
+    return x
+
+
+def merge_inputs(k: int, p: int, rng, most: int = 1 << 18) -> np.ndarray:
+    """0-1 columns of ``p`` rows whose half blocks (``k / 2`` rows) are each
+    ascending: z1 zeros then ones in the first half of a block of k, z2 in
+    the second, one (z1, z2) a block.  Every pair (z1, z2) where they fit in
+    ``most`` values; else as many, drawn at random."""
+    h = k // 2
+    pairs = [(z1, z2) for z1 in range(h + 1) for z2 in range(h + 1)]
+    if len(pairs) * k > most:
+        pairs = [pairs[i] for i in rng.choice(len(pairs), size=most // k, replace=False)]
+    pairs += [pairs[i % len(pairs)] for i in range(-len(pairs) % (p // k))]  # whole columns
+    blocks = np.ones((len(pairs), k), np.float32)
+    for row, (z1, z2) in enumerate(pairs):
+        blocks[row, :z1] = 0.0
+        blocks[row, h:h + z2] = 0.0
+    return blocks.reshape(-1, p)
+
+
+@pytest.mark.parametrize("regs", networks.WARP_REGS)
+def test_warp_networks(regs):
+    """The wide path's warp sort of 32 R rows: the header's text is the
+    generator's schedule; every step pairs rows as the bitonic sorter does
+    (merge k, stride j: row i with i ^ (k - 1) at j = k / 2, with i ^ j
+    after, the min to the lower row); a numpy model of the lanes and
+    registers running that text sorts random columns with ties, +-inf and
+    +-0 as np.sort does; and it sorts every 0-1 input up to 64 rows (so,
+    by the 0-1 principle, every input): each merge takes every 0-1 column
+    whose half blocks are ascending to ascending blocks (the merges of 128
+    rows and more, a sample of 2^18 values of such columns)."""
+    p = networks.WARP * regs
+    steps = compiled_warp_steps(networks.header(), regs)
+    assert tuple(steps) == networks.warp_schedule(regs)
+    exchanges = [warp_exchanges(step, regs) for step in steps]
+    for ex, (k, j) in zip(exchanges, networks.warp_steps(regs), strict=True):
+        partner = [i ^ (k - 1) if j == k // 2 else i ^ j for i in range(p)]
+        assert ex == {i: ("min" if i < q else "max", q) for i, q in enumerate(partner)}, (k, j)
+
+    rng = np.random.default_rng(regs)
+    x = rng.normal(size=(64, p)).astype(np.float32)
+    x[:, : p // 3] = np.round(x[:, : p // 3])  # ties
+    x[rng.random(x.shape) < 0.05] = np.inf
+    x[rng.random(x.shape) < 0.05] = -np.inf
+    x[rng.random(x.shape) < 0.05] = -0.0
+    x[rng.random(x.shape) < 0.05] = 0.0
+    np.testing.assert_array_equal(run_exchanges(exchanges, x), np.sort(x, axis=-1))
+
+    by_merge = {}
+    for ex, (k, _) in zip(exchanges, networks.warp_steps(regs), strict=True):
+        by_merge.setdefault(k, []).append(ex)
+    for k, merge in by_merge.items():
+        bits = merge_inputs(k, p, rng)
+        np.testing.assert_array_equal(run_exchanges(merge, bits),
+                                      np.sort(bits.reshape(len(bits), -1, k), axis=-1).reshape(bits.shape))
