@@ -93,14 +93,41 @@ failure of which raises:
    ticks, one ByRDiE sweep and one BRDSO step agree with the CPU, and
    dense and sparse K and B are bit-identical on the card.
 
+15. views kernels — the network runtime's screens over each node's own
+   mailbox views ``[M, W, d]`` under its usable mask (``views_screen.cu``,
+   the TPU kernels' own form) against their plain versions on edge-case
+   views: dense W = 50, materialized and with a receiver stride of 0 (a
+   broadcast expanded, read in place), sparse K = 16, the wide path at
+   W = 129 (stride 0 too) and K = 64, starved nodes included; timed at the
+   dense runtime's shape (M = 50, ``erdos_renyi(50, 0.5, 4)``, d = 7850)
+   and at the sparse one's (M = 512, K = 16);
+16. net trainer — the network runtime (`repro_torch.net`), d = 7850, each
+   run's ``run_scan`` over batches stacked on the card (ms/tick and the
+   mailbox state's bytes printed): (a) the ideal channel against the
+   synchronous trainer, bit for bit after 200 ticks, dense M = 50, b = 4,
+   random attack, BRIDGE-T and BRIDGE-M; (b) the net benchmark's settings
+   (M = 20, ``erdos_renyi(20, 0.5, 2)``, b = 2, BRIDGE-T, ``alie``, t0 = 30,
+   batch 32, 120 ticks) under every ``NET_SCENARIOS`` entry and
+   ``selective_victim`` under ``lossy``; (c) dense M = 50 BRIDGE-T under
+   ``lossy_laggy`` and ``narrowband64k`` with the identity and the per-link
+   int8 codec (100 ticks); (d) the sparse runtime at the scale benchmark's
+   settings (``small_world(512, 6, 1)``, b = 1, ``alie``, drop 0.05,
+   staleness 2, t0 = 100, batch 8, 200 ticks), and dense against sparse
+   bit for bit at M = 48 over 20 ticks; (e) BRIDGE-K and BRIDGE-B refused
+   on the card before any launch.  Each accuracy within 0.01 of the
+   reference's, and the means of ``delivered_frac`` and ``mean_staleness``
+   equal to the reference's (``REFERENCE_NET``); the views kernels launched
+   once a tick, ``dequant_carry`` once a tick under int8.  Then the dense
+   ``lossy_laggy`` runs and the sparse run are profiled.
+
 Every accuracy of phases 8-11 must land within 0.01 of the reference's
 own CPU run at the same settings (``REFERENCE_ACCURACY``, from
 ``tools/reference_accuracy.py``), except where a run's accuracy turns on
 Krum's picks (``PICK_BOUND``), which is held to card-vs-CPU parity.
 
 Each configuration of a trainer phase trains on a task of its own, so all
-see batches 0..199 of one stream.  Before each main-path phase (5-12)
-every kernel's launch count is set to 0, and read
+see batches 0..199 of one stream.  Before each main-path phase (5-12,
+16) every kernel's launch count is set to 0, and read
 after its runs: each kernel of the phase must have launched once per
 tick of the runs of its rule (codec), the others not at all; a kernel's
 ``launches`` in the JSON line is the sum over the phases.  Then each
@@ -123,24 +150,31 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, os.path.join(ROOT, "tests"))  # the kernel tests' edge-case recipes (no JAX)
 
 import torch  # noqa: E402
 
 from repro_torch import prng  # noqa: E402
 from repro_torch.comm import codec as codec_lib  # noqa: E402
 from repro_torch.comm import exchange  # noqa: E402
-from repro_torch.core import byzantine  # noqa: E402
+from repro_torch.core import byzantine, screening  # noqa: E402
 from repro_torch.core.brdso import BrdsoConfig, BrdsoTrainer  # noqa: E402
-from repro_torch.core.bridge import WIRE_SALT, BridgeConfig, BridgeTrainer  # noqa: E402
+from repro_torch.core.bridge import (  # noqa: E402
+    WIRE_SALT, BridgeConfig, BridgeTrainer, stack_batches)
 from repro_torch.core.byrdie import ByrdieConfig, ByrdieTrainer  # noqa: E402
 from repro_torch.core.graph import erdos_renyi, small_world  # noqa: E402
 from repro_torch.core.neighbors import NeighborTable  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     build, dequant, dequant_screen, gather_screen, median, networks, ops, pairwise, ref,
-    screen_wide, trimmed_mean)
+    screen_wide, trimmed_mean, views_screen)
+from repro_torch.net import AsyncBridgeConfig, AsyncBridgeTrainer, ChannelConfig  # noqa: E402
+from repro_torch.net.dynamic import scenario_schedule  # noqa: E402
+from repro_torch.net.scenarios import NET_SCENARIOS, get_scenario  # noqa: E402
 from repro_torch.sim import variants  # noqa: E402
 from repro_torch.sim.tasks import linear_task  # noqa: E402
+from test_torch_kernels import views_inputs  # noqa: E402
 
 M, B, D = 50, 4, 7850
 TICKS = 200
@@ -159,6 +193,8 @@ KERNELS = {  # JSON name -> wrapper (its `launches` counter)
     "gather_dequant_screen_median": gather_screen.gather_dequant_screen_median,
     "dequant": dequant.dequant,
     "screen_wide": screen_wide.launch,
+    "views_screen_trimmed_mean": views_screen.views_screen_trimmed_mean,
+    "views_screen_median": views_screen.views_screen_median,
 }
 COUNTED = KERNELS  # every counted wrapper is in the JSON line
 # bits on the wire per message at d = 7850: the reference codec's
@@ -201,6 +237,33 @@ REFERENCE_ACCURACY = {
     "variants BRIDGE-B int4 scale_abuse": 0.9790971974531809,
 }
 ACC_TOL = 0.01
+# The reference's asynchronous runs (tools/reference_accuracy.py, group net):
+# honest test accuracy (also in REFERENCE_ACCURACY) and the per-tick means
+# of delivered_frac and mean_staleness, which depend on the channel draws
+# alone and must be equal.
+REFERENCE_NET = {
+    "net ideal": (0.9922916690508524, 1.0, 0.0),
+    "net lossy": (0.9915972054004669, 0.799583375453949, 0.24948915839195251),
+    "net laggy": (0.9884721802340614, 0.6760938167572021, 1.1965116262435913),
+    "net lossy_laggy": (0.9884027474456363, 0.5818229913711548, 1.4862993955612183),
+    "net bandwidth64": (0.9300694266955057, 1.0, 0.0),
+    "net narrowband64k": (0.984166638718711, 0.9750000238418579, 2.924999952316284),
+    "net churn": (0.9914583199554019, 1.0, 0.41351696848869324),
+    "net partition": (0.9916666514343686, 1.0, 0.06562499701976776),
+    "net smallworld_lossy": (0.9923611084620158, 0.9018229246139526, 0.1087181493639946),
+    "net geometric_churn": (0.9918055401908027, 1.0, 0.2438795119524002),
+    "net torus_laggy": (0.9886805216471354, 0.6978124976158142, 0.8787201046943665),
+    "net lossy selective_victim": (0.9914583166440328, 0.799583375453949, 0.24948915839195251),
+    "net dense lossy_laggy identity": (0.9940217759298242, 0.582976758480072, 1.4799712896347046),
+    "net dense lossy_laggy int8": (0.9940000383750253, 0.582976758480072, 1.4799712896347046),
+    "net dense narrowband64k identity": (0.41358697608761164, 0.9700000286102295,
+                                         2.9100000858306885),
+    "net dense narrowband64k int8": (0.9968261265236399, 1.0, 0.0),
+    "net sparse lossy": (0.9936497454074031, 0.9500236511230469, 0.051934413611888885),
+}
+REFERENCE_ACCURACY.update({tag: acc for tag, (acc, _, _) in REFERENCE_NET.items()})
+NET_TICKS = 120  # the net benchmark's run (benchmarks/net_bench.py)
+NET_DENSE_TICKS = 100  # dense M = 50 under lossy_laggy / narrowband64k
 # Configurations whose run's accuracy is no measure of agreement: Krum's
 # pick under the int4 codec turns on the distances' last bits from the
 # first ticks, so runs that agree step for step (tests/test_torch_wire.py:
@@ -793,12 +856,23 @@ def dequant_kernel_phase(dev):
             oq = torch.as_tensor(oq[:n], device=dev)
             osc = torch.as_tensor(osc[:n], device=dev)
             exact_or_raise(f"dequant [{n}, {d}]", dequant.dequant(oq, osc), ref.dequant(oq, osc))
+    # the dense runtime's per-link rows (M W = 2500 at M = 50) and rows
+    # above gridDim.y's 65535, where a carry block takes more than one row
+    for n, d in ((M * M, D), (70000, 130)):
+        lt = torch.randn((n, d), generator=gen, device=dev) * 1e-2
+        le = torch.randn((n, d), generator=gen, device=dev)
+        lmsg = codec_lib.get_codec("int8").encode(np.array([0, n], np.uint32), lt)
+        got = dequant.dequant_carry(lmsg.payload, lmsg.scale, le, lt)
+        want = ref.dequant_carry(lmsg.payload, lmsg.scale, le, lt)
+        for g, w_ in zip(got, want, strict=True):
+            exact_or_raise(f"dequant_carry [{n}, {d}]", g, w_)
     base = torch.empty(SM * D + 1, dtype=torch.int8, device=dev)
     moved = base[1:].view(SM, D)  # a contiguous view one byte past a 16-byte boundary
     moved.copy_(eq)
     exact_or_raise("dequant, misaligned codes", dequant.dequant(moved, escale), ref.dequant(eq, escale))
     print(f"dequant: plain and carry forms equal to their plain versions (exact at M = {SM}, "
-          f"d = {D}, codec codewords and edge-case scales); the plain form also exact at n in "
+          f"d = {D}, codec codewords and edge-case scales); the carry form also exact on codec "
+          f"codewords at [{M * M}, {D}] and [70000, 130]; the plain form also exact at n in "
           f"(1, 3, 50, 512) x d in (1, 127, 128, 129, 3925, 7850) and on codes one byte past a "
           f"16-byte boundary")
 
@@ -1016,44 +1090,48 @@ def profile_phase(task, cfgs, dev, ticks=10):
     configuration over ``ticks`` ticks (after 3 warm ones) under
     ``torch.profiler``: a measurement, not a check, run after the launch
     counts were read; a profiler that cannot trace the card is reported."""
-    from torch.profiler import ProfilerActivity, profile
-
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     for cfg in cfgs:
         tag = f"{'sparse' if cfg.sparse else 'dense'} {cfg.rule} {cfg.codec} {cfg.attack}"
         trainer = BridgeTrainer(cfg, task.grad_fn, device=dev)
-        state = trainer.init(task.init_fn(0), seed=1)
-        for i in range(3):
-            state, _ = trainer.step(state, task.batch_fn(i))
-        try:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for i in range(ticks):
-                    state, _ = trainer.step(state, task.batch_fn(i))
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            events = prof.events()
-        except RuntimeError as err:
-            print(f"profile {tag}: torch.profiler failed ({err})")
-            continue
-        # work on the card: kernels and copies; the record_function ranges'
-        # mirrors on the card's timeline are not work
-        work = [e for e in events if e.device_type == cuda
-                and not getattr(e, "is_user_annotation", False)
-                and not e.name.startswith(("bridge.", "kernels."))]
-        copies = [e for e in work if "memcpy" in e.name.lower() or "memset" in e.name.lower()]
-        busy_us = sum(e.time_range.elapsed_us() for e in work)
-        copy_us = sum(e.time_range.elapsed_us() for e in copies)
-        stages = {}
-        for e in events:
-            if e.name.startswith("bridge.") and e.device_type == cpu:
-                stages[e.name] = stages.get(e.name, 0.0) + e.time_range.elapsed_us()
-        split = ", ".join(f"{k} {v / ticks / 1e3:.3f}" for k, v in sorted(stages.items()))
-        print(f"profile {tag}: {wall_us / ticks / 1e3:.3f} ms/tick under the profiler, device "
-              f"busy {busy_us / ticks / 1e3:.3f} ms/tick ({100 * busy_us / wall_us:.1f}%; copies "
-              f"{copy_us / ticks / 1e3:.3f}), {(len(work) - len(copies)) / ticks:.1f} kernels "
-              f"and {len(copies) / ticks:.1f} copies/tick; host ms/tick per stage: {split}")
+        profile_trainer(tag, trainer, trainer.init(task.init_fn(0), seed=1), task.batch_fn, ticks)
+
+
+def profile_trainer(tag, trainer, state, batch_fn, ticks=10):
+    """`profile_phase`'s measurement of one trainer from ``state``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    for i in range(3):
+        state, _ = trainer.step(state, batch_fn(i))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(ticks):
+                state, _ = trainer.step(state, batch_fn(i))
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.events()
+    except RuntimeError as err:
+        print(f"profile {tag}: torch.profiler failed ({err})")
+        return
+    # work on the card: kernels and copies; the record_function ranges'
+    # mirrors on the card's timeline are not work
+    work = [e for e in events if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith(("bridge.", "kernels."))]
+    copies = [e for e in work if "memcpy" in e.name.lower() or "memset" in e.name.lower()]
+    busy_us = sum(e.time_range.elapsed_us() for e in work)
+    copy_us = sum(e.time_range.elapsed_us() for e in copies)
+    stages = {}
+    for e in events:
+        if e.name.startswith("bridge.") and e.device_type == cpu:
+            stages[e.name] = stages.get(e.name, 0.0) + e.time_range.elapsed_us()
+    split = ", ".join(f"{k} {v / ticks / 1e3:.3f}" for k, v in sorted(stages.items()))
+    print(f"profile {tag}: {wall_us / ticks / 1e3:.3f} ms/tick under the profiler, device "
+          f"busy {busy_us / ticks / 1e3:.3f} ms/tick ({100 * busy_us / wall_us:.1f}%; copies "
+          f"{copy_us / ticks / 1e3:.3f}), {(len(work) - len(copies)) / ticks:.1f} kernels "
+          f"and {len(copies) / ticks:.1f} copies/tick; host ms/tick per stage: {split}")
 
 
 def sparse_trainer_phase(dev):
@@ -1564,6 +1642,365 @@ def parity_phase(dev):
           "rows (rtol 1e-4, atol 1e-5)")
 
 
+def left_to_right_views_trimmed_mean(views, mask, self_vals, b):
+    """`ref.trimmed_mean_views` with the kept ranks summed left to right at
+    any W: the kernel's order, for exact checks above 64 slots."""
+    mask = mask.bool()
+    count = mask.sum(dim=1)
+    b_eff = ref.effective_trim(b, count)
+    order = torch.sort(torch.where(mask[:, :, None], ref.sanitize(views), torch.inf), dim=1).values
+    total = torch.zeros_like(self_vals)
+    for i in range(mask.shape[1]):
+        keep = (i >= b_eff) & (i < count - b_eff)
+        total = total + torch.where(keep[:, None], order[:, i], 0.0)
+    return (total + self_vals) / (count - 2 * b_eff + 1).to(torch.float32)[:, None]
+
+
+def views_bound(counts: np.ndarray, d: int, b: int) -> tuple[int, int, int]:
+    """Bytes (the usable views, self_vals and the output once) and the fp32
+    operations of Batcher's networks over each node's
+    usable count, for the trimmed mean and for the median."""
+    m = counts.shape[0]
+    b_eff = np.minimum(b, np.maximum((counts - 1) // 2, 0))
+    tm_ops = d * sum(2 * batcher_pairs(int(c)) + int(c) - 2 * int(e) + 2
+                     for c, e in zip(counts, b_eff, strict=True))
+    med_ops = d * sum(2 * batcher_pairs(int(c) + 1) + 2 for c in counts)
+    return int(counts.sum()) * d * 4 + 2 * m * d * 4, tm_ops, med_ops
+
+
+def views_kernel_phase(dev):
+    """The views screens (the network runtime's: each node's mailbox views
+    ``[M, W, d]`` under its usable mask) against their plain versions on
+    edge-case views: dense W = 50 (materialized and stride-0 over the
+    receivers), sparse K = 16, and the wide path at W = 129 (stride 0 too)
+    and K = 64, starved nodes included; exact up to 63 slots, above it the
+    medians exact and the trimmed means exact against the left-to-right
+    sum and within the summation bound of the plain version.  Timed at the
+    dense runtime's shape (M = 50 on erdos_renyi(50, 0.5, 4), d = 7850,
+    views in device memory, one distinct set a node) and printed at the
+    sparse runtime's (M = 512, K = 16 on small_world(512, 6, 1))."""
+    tm = lambda v, mk, sv, b: views_screen.views_screen_trimmed_mean(v, mk, sv, b)
+    md = views_screen.views_screen_median
+    cases = [(50, 50, 1000, False), (50, 50, 1000, True), (512, 16, 500, False),
+             (129, 129, 300, False), (129, 129, 300, True), (72, 64, 300, False)]
+    for m, w, d, stride0 in cases:
+        views, mask, sv = (x.to(dev) for x in views_inputs(m, w, d, m + w, stride0))
+        tag = f"views M={m} W={w} d={d}{' stride 0' if stride0 else ''}"
+        for b in (0, 1, B):
+            got = tm(views, mask, sv, b)
+            if w <= gather_screen.MAX_SLOTS:
+                exact_or_raise(f"{tag} trimmed mean b={b}", got,
+                               ref.trimmed_mean_views(views, mask, sv, b))
+            else:
+                exact_or_raise(f"{tag} trimmed mean b={b}", got,
+                               left_to_right_views_trimmed_mean(views, mask, sv, b))
+                summation_or_raise(f"{tag} trimmed mean b={b}", got,
+                                   ref.trimmed_mean_views(views, mask, sv, b), views,
+                                   mask.sum(dim=1), sv)
+            if not bool(torch.isfinite(got[0]).eq(torch.isfinite(sv[0])).all()):
+                raise AssertionError(f"{tag}: a starved node's trimmed mean is not its own value")
+        exact_or_raise(f"{tag} median", md(views, mask, sv), ref.median_views(views, mask, sv))
+    print(f"views kernels: equal to their plain versions on edge-case views "
+          f"({', '.join(f'M={m} W={w}' + (' stride 0' if s0 else '') for m, w, _, s0 in cases)}; "
+          f"starved nodes finite where self is; above 63 slots the trimmed mean against the "
+          f"left-to-right sum and within the summation bound)")
+
+    records = []
+    src = "src/repro_torch/kernels/csrc/views_screen.cu"
+    for tag, topo, b in (("dense", erdos_renyi(M, 0.5, B, seed=0), B),
+                         ("sparse", small_world(SM, NEAREST, 1, rewire_prob=0.2, seed=0), 1)):
+        if tag == "dense":
+            mask_np = topo.adjacency
+        else:
+            mask_np = NeighborTable.from_adjacency(topo, device="cpu").valid
+        m, w = mask_np.shape
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        views = torch.randn((m, w, D), generator=gen, device=dev)
+        sv = torch.randn((m, D), generator=gen, device=dev)
+        mask = torch.as_tensor(mask_np, device=dev)
+        exact_or_raise(f"views {tag} trimmed mean", tm(views, mask, sv, b),
+                       ref.trimmed_mean_views(views, mask, sv, b))
+        exact_or_raise(f"views {tag} median", md(views, mask, sv),
+                       ref.median_views(views, mask, sv))
+        nbytes, tm_ops, med_ops = views_bound(mask_np.sum(axis=1), D, b)
+        nbytes += m * w
+        full = torch.cat([torch.where(mask[:, :, None], views, torch.nan), sv[:, None]], dim=1)
+        for name, kern, plain, lib, ops in (
+            ("views_screen_trimmed_mean", lambda: tm(views, mask, sv, b),
+             lambda: ref.trimmed_mean_views(views, mask, sv, b), None, tm_ops),
+            ("views_screen_median", lambda: md(views, mask, sv),
+             lambda: ref.median_views(views, mask, sv),
+             lambda: torch.nanquantile(full, 0.5, dim=1), med_ops),
+        ):
+            err = max_abs_err(kern(), plain())
+            rec = record(name, src, ("src/repro/kernels/trimmed_mean.py:109"
+                                     if "trimmed" in name else "src/repro/kernels/median.py:87"),
+                         kern, plain, lib, nbytes, ops, err)
+            print(f"views kernel {name} {tag} (M={m}, W={w}, d={D}, "
+                  f"{mask_np.sum() / m:.2f} usable views a node): {rec['ms']:.4f} ms")
+            if tag == "dense":
+                records.append(rec)
+    print("library: the views trimmed mean has no single PyTorch call; the views median's is "
+          "torch.nanquantile(q=0.5) over the masked [M, W+1, d] views and self (NaN in masked "
+          "slots); the records are the dense shape's")
+    return records
+
+
+class HeldCalls:
+    """The operands and outputs of chosen calls of the `ops` entries the
+    runtime's tick launches (the views screens, the per-link carry
+    decode), kept by reference while a run is timed and held against the
+    plain versions after it: the kernels checked on the main path's own
+    shapes, usable masks and per-link codewords.  No tick writes into a
+    tensor it has handed on, so the references stay valid."""
+
+    PLAIN = {"views_trimmed_mean": ref.trimmed_mean_views, "views_median": ref.median_views,
+             "dequant_carry": ref.dequant_carry}
+
+    def __init__(self):
+        self.orig = {name: getattr(ops, name) for name in self.PLAIN}
+        self.start(set())
+
+    def start(self, keep: set) -> None:
+        """Keep each entry's calls whose index (from 0, one a tick) is in ``keep``."""
+        self.keep, self.calls, self.count = keep, [], dict.fromkeys(self.PLAIN, 0)
+
+    def __enter__(self):
+        for name, fn in self.orig.items():
+            setattr(ops, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(ops, name, fn)
+
+    def _wrap(self, name, fn):
+        def held(*args):
+            out = fn(*args)
+            if self.count[name] in self.keep:
+                self.calls.append((name, self.count[name], args, out))
+            self.count[name] += 1
+            return out
+        return held
+
+    def check(self, tag: str, want: set) -> str:
+        """Raise unless every entry of ``want`` had calls held and each held
+        call equals its plain version exactly (a views trimmed mean above
+        63 slots: the left-to-right sum, the kernel's order)."""
+        if missing := want - {name for name, *_ in self.calls}:
+            raise AssertionError(f"{tag}: no call of {sorted(missing)} held")
+        for name, i, args, out in self.calls:
+            if name == "views_trimmed_mean" and args[0].shape[1] > gather_screen.MAX_SLOTS:
+                plain = left_to_right_views_trimmed_mean(*args)
+            else:
+                plain = self.PLAIN[name](*args)
+            pairs = zip(out, plain, strict=True) if name == "dequant_carry" else ((out, plain),)
+            for got, ref_out in pairs:
+                exact_or_raise(f"{tag}: {name} at call {i} on {tuple(args[0].shape)}", got,
+                               ref_out)
+        return "; ".join(
+            f"{name} {tuple(args[0].shape)} at call {i}"
+            + (f" ({float(args[1].sum()) / args[1].shape[0]:.2f} usable views a node)"
+               if name != "dequant_carry" else "")
+            for name, i, args, _ in self.calls)
+
+
+def net_task(m: int, dev, *, num_train: int, num_test: int, batch: int):
+    return linear_task(m, partition="iid", num_train=num_train, num_test=num_test, batch=batch,
+                       device=dev)
+
+
+HELD_ENTRIES = {"views_screen_trimmed_mean": "views_trimmed_mean",
+                "views_screen_median": "views_median", "dequant_carry": "dequant_carry"}
+
+
+def net_run(tag, trainer, state, batches, want_launches, ticks, held):
+    """``run_scan`` of ``trainer`` over the device-resident ``batches``:
+    checks that the counted kernels grew by ``want_launches`` (others by 0),
+    holds the runtime's kernels at ticks ticks // 2 and ticks - 1 against
+    their plain versions (`HeldCalls`, after the timing) and returns the
+    final state, the stacked metrics and ms/tick."""
+    held.start({ticks // 2, ticks - 1})
+    before = {k: fn.launches for k, fn in COUNTED.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if hasattr(trainer, "run_scan"):
+        state, mets = trainer.run_scan(state, batches)
+    else:
+        for i in range(ticks):
+            state, mets = trainer.step(state, tuple(x[i] for x in batches))
+    torch.cuda.synchronize()
+    ms_tick = (time.perf_counter() - t0) / ticks * 1e3
+    for k, fn in COUNTED.items():
+        grew, want = fn.launches - before[k], want_launches.get(k, 0)
+        if grew != want:
+            raise AssertionError(f"{tag}: kernel {k} launched {grew} times in {ticks} ticks, "
+                                 f"expected {want}")
+    summary = held.check(tag, {HELD_ENTRIES[k] for k in want_launches if k in HELD_ENTRIES})
+    if summary:
+        print(f"{tag}: held exactly against the plain versions on the path's operands: {summary}")
+    return state, mets, ms_tick
+
+
+def net_check(tag, task, trainer, state, mets, ms_tick) -> float:
+    """Accuracy within ACC_TOL of the reference's; the means of
+    delivered_frac and mean_staleness equal to the reference's."""
+    acc = task.eval_accuracy(state.params, trainer.honest_mask)
+    delivered = float(np.mean(mets["delivered_frac"].cpu().numpy()))
+    stale = float(np.mean(mets["mean_staleness"].cpu().numpy()))
+    ring = 0 if state.net is None else state.net.nbytes()
+    print(f"{tag}: honest test accuracy {acc:.4f} (reference {REFERENCE_ACCURACY[tag]:.4f}), "
+          f"delivered_frac {delivered!r}, mean_staleness {stale!r}, {ms_tick:.3f} ms/tick of "
+          f"run_scan over device-resident batches, mailbox state {ring} bytes")
+    check_accuracy(tag, acc)
+    _, want_delivered, want_stale = REFERENCE_NET[tag]
+    if (delivered, stale) != (want_delivered, want_stale):
+        raise AssertionError(f"{tag}: delivered_frac {delivered!r} / mean_staleness {stale!r} != "
+                             f"the reference's {want_delivered!r} / {want_stale!r}")
+    return acc
+
+
+def net_trainer_phase(dev):
+    """The network runtime on the card, d = 7850 (the module docstring's
+    phase 16); returns the kernel launches it made."""
+    with HeldCalls() as held:
+        return net_trainer_runs(dev, held)
+
+
+def net_trainer_runs(dev, held):
+    zero_launches()
+    profiles = []  # measured after the launch counts are read
+    views_of = {"trimmed_mean": "views_screen_trimmed_mean", "median": "views_screen_median"}
+    dense_of = {"trimmed_mean": "screen_trimmed_mean_dense", "median": "screen_median_dense"}
+
+    # (a) the ideal channel against the synchronous trainer, bit for bit
+    task = net_task(M, dev, num_train=6000, num_test=1000, batch=32)
+    batches = stack_batches(task.batch_fn, TICKS, device=dev)
+    topo = erdos_renyi(M, 0.5, B, seed=0)
+    for rule in ("trimmed_mean", "median"):
+        cfg = BridgeConfig(topology=topo, rule=rule, num_byzantine=B, attack="random", t0=30)
+        sync = BridgeTrainer(cfg, task.grad_fn, device=dev)
+        ideal = AsyncBridgeTrainer(AsyncBridgeConfig(**cfg.__dict__, channel=ChannelConfig.ideal(),
+                                                     staleness_bound=0), task.grad_fn, device=dev)
+        s0 = sync.init(task.init_fn(0), seed=1)
+        s_sync, _, ms_sync = net_run(f"sync {rule}", sync, s0, batches, {dense_of[rule]: TICKS},
+                                     TICKS, held)
+        s_ideal, mets, ms_ideal = net_run(f"ideal {rule}", ideal, ideal.init(s0.params, seed=1),
+                                          batches, {views_of[rule]: TICKS}, TICKS, held)
+        for k in s_sync.params:
+            if not torch.equal(s_sync.params[k], s_ideal.params[k]):
+                raise AssertionError(f"ideal channel {rule}: parameters differ from the "
+                                     f"synchronous trainer's after {TICKS} ticks")
+        acc = task.eval_accuracy(s_ideal.params, ideal.honest_mask)
+        print(f"net ideal vs synchronous {rule} (M={M}, b={B}, random, {TICKS} ticks): bit for "
+              f"bit equal, honest test accuracy {acc:.4f}; ms/tick synchronous {ms_sync:.3f}, "
+              f"ideal runtime {ms_ideal:.3f}; mailbox state {s_ideal.net.nbytes()} bytes")
+    del batches
+
+    # (b) the net benchmark's settings, every scenario, and selective_victim
+    task = net_task(20, dev, num_train=4000, num_test=800, batch=32)
+    batches = stack_batches(task.batch_fn, NET_TICKS, device=dev)
+    topo = erdos_renyi(20, 0.5, 2, seed=0)
+    runs = [(name, "alie") for name in NET_SCENARIOS] + [("lossy", "selective_victim")]
+    for name, attack in runs:
+        spec = get_scenario(name)
+        cfg = AsyncBridgeConfig(
+            topology=topo, rule="trimmed_mean", num_byzantine=2, attack=attack, lam=1.0, t0=30,
+            channel=spec.channel, staleness_bound=spec.staleness_bound,
+            schedule=scenario_schedule(spec.schedule_kind, topo, NET_TICKS, seed=0,
+                                       churn_prob=spec.churn_prob))
+        trainer = AsyncBridgeTrainer(cfg, task.grad_fn, device=dev)
+        state, mets, ms_tick = net_run(name, trainer, trainer.init(task.init_fn(0), seed=0),
+                                       batches, {"views_screen_trimmed_mean": NET_TICKS},
+                                       NET_TICKS, held)
+        tag = f"net {name}" + ("" if attack == "alie" else f" {attack}")
+        net_check(tag, task, trainer, state, mets, ms_tick)
+    del batches
+
+    # (c) dense M = 50 with the identity and the int8 per-link codec
+    task = net_task(M, dev, num_train=6000, num_test=1000, batch=32)
+    batches = stack_batches(task.batch_fn, NET_DENSE_TICKS, device=dev)
+    topo = erdos_renyi(M, 0.5, B, seed=0)
+    for name in ("lossy_laggy", "narrowband64k"):
+        for codec in ("identity", "int8"):
+            spec = get_scenario(name)
+            cfg = AsyncBridgeConfig(topology=topo, rule="trimmed_mean", num_byzantine=B,
+                                    attack="random", t0=30, codec=codec, channel=spec.channel,
+                                    staleness_bound=spec.staleness_bound)
+            trainer = AsyncBridgeTrainer(cfg, task.grad_fn, device=dev)
+            want = {"views_screen_trimmed_mean": NET_DENSE_TICKS}
+            if codec == "int8":
+                want["dequant_carry"] = NET_DENSE_TICKS
+            state, mets, ms_tick = net_run(f"dense {name} {codec}", trainer,
+                                           trainer.init(task.init_fn(0), seed=1), batches, want,
+                                           NET_DENSE_TICKS, held)
+            net_check(f"net dense {name} {codec}", task, trainer, state, mets, ms_tick)
+            if name == "lossy_laggy":
+                profiles.append((f"net dense {name} {codec}", trainer, task, 1))
+    del batches
+
+    # (d) the sparse runtime at the scale benchmark's settings
+    task = net_task(SM, dev, num_train=16384, num_test=1000, batch=8)
+    batches = stack_batches(task.batch_fn, TICKS, device=dev)
+    topo = small_world(SM, NEAREST, 1, rewire_prob=0.2, seed=0)
+    cfg = AsyncBridgeConfig(topology=topo, rule="trimmed_mean", num_byzantine=1, attack="alie",
+                            channel=ChannelConfig(drop_prob=0.05), staleness_bound=2, lam=1.0,
+                            t0=100, sparse=True)
+    trainer = AsyncBridgeTrainer(cfg, task.grad_fn, device=dev)
+    state, mets, ms_tick = net_run("sparse lossy", trainer, trainer.init(task.init_fn(0), seed=0),
+                                   batches, {"views_screen_trimmed_mean": TICKS}, TICKS, held)
+    net_check("net sparse lossy", task, trainer, state, mets, ms_tick)
+    profiles.append(("net sparse lossy", trainer, task, 0))
+    del batches
+    # dense against sparse at M = 48, 20 ticks, bit for bit
+    task = net_task(48, dev, num_train=2000, num_test=200, batch=8)
+    batches = stack_batches(task.batch_fn, 20, device=dev)
+    topo = small_world(48, NEAREST, 1, rewire_prob=0.2, seed=0)
+    states = {}
+    for sparse in (False, True):
+        cfg = AsyncBridgeConfig(topology=topo, rule="trimmed_mean", num_byzantine=1,
+                                attack="alie", channel=ChannelConfig(drop_prob=0.05),
+                                staleness_bound=2, lam=1.0, t0=100, sparse=sparse)
+        tr = AsyncBridgeTrainer(cfg, task.grad_fn, device=dev)
+        states[sparse], _, ms_tick = net_run(f"M=48 sparse={sparse}", tr,
+                                             tr.init(task.init_fn(0), seed=0), batches,
+                                             {"views_screen_trimmed_mean": 20}, 20, held)
+        print(f"net M=48 {'sparse' if sparse else 'dense'}: {ms_tick:.3f} ms/tick, mailbox "
+              f"state {states[sparse].net.nbytes()} bytes")
+    for k in states[False].params:
+        if not torch.equal(states[False].params[k], states[True].params[k]):
+            raise AssertionError("net M=48: the dense and the sparse runtime differ")
+    print("net M=48: the dense and the sparse runtime bit for bit equal over 20 ticks")
+
+    # (e) BRIDGE-K and BRIDGE-B over views: refused on the card before any launch
+    before = {k: fn.launches for k, fn in COUNTED.items()}
+    topo = erdos_renyi(20, 0.9, 1, seed=0)
+    for rule in screening.VIEWS_DISTANCE_RULES:
+        cfg = AsyncBridgeConfig(topology=topo, rule=rule, num_byzantine=1, attack="alie")
+        try:
+            AsyncBridgeTrainer(cfg, task.grad_fn, device=dev)
+        except NotImplementedError as err:
+            print(f"net {rule}: refused on the card as expected ({str(err)[:60]}...)")
+        else:
+            raise AssertionError(f"net {rule}: the runtime trainer did not refuse it on the card")
+        views = torch.zeros((4, 4, 8), device=dev)
+        try:
+            screening.screen_views(views, torch.ones((4, 4), dtype=torch.bool, device=dev),
+                                   views[:, 0], rule=rule, b=1)
+        except NotImplementedError:
+            pass
+        else:
+            raise AssertionError(f"screen_views {rule}: not refused on the card")
+    if {k: fn.launches for k, fn in COUNTED.items()} != before:
+        raise AssertionError("a refused rule launched a kernel")
+
+    launches = read_launches()
+    for tag, trainer, task, seed in profiles:
+        profile_trainer(tag, trainer, trainer.init(task.init_fn(0), seed=seed), task.batch_fn)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1583,7 +2020,7 @@ def main() -> int:
     t_start = time.perf_counter()
     records = []
     for phase in (kernel_phase, bucket_boundary_phase, gather_kernel_phase, wide_kernel_phase,
-                  dequant_kernel_phase, pairwise_kernel_phase):
+                  dequant_kernel_phase, pairwise_kernel_phase, views_kernel_phase):
         records += phase(dev)
     # each main-path phase zeroes the counts before its runs and reads them
     # after; a kernel's launches are the sum over the phases
@@ -1594,7 +2031,7 @@ def main() -> int:
     print(f"(codeword_kernel_phase: {time.perf_counter() - t0:.1f} s; kernel phases: "
           f"{time.perf_counter() - t_start:.1f} s)")
     for phase in (trainer_phase, sparse_trainer_phase, vector_trainer_phase, sparse_vector_phase,
-                  wire_trainer_phase, variants_phase, wide_trainer_phase):
+                  wire_trainer_phase, variants_phase, wide_trainer_phase, net_trainer_phase):
         t0 = time.perf_counter()
         phase_launches[phase.__name__] = phase(dev)
         print(f"({phase.__name__}: {time.perf_counter() - t0:.1f} s)")

@@ -25,7 +25,10 @@ back; ``wire_bits(d)`` is the exact bits on the wire per message.
   re-derives it (`Codec.randk_indices`) and never trusts ``msg.idx``.
 
 Codes, scales, indices and decodes equal the reference's bit for bit under
-the same key.  Both selections are a stable descending sort sliced to
+the same key.  A key may also be ``[E, 2]`` row keys over an ``[E, d]``
+message tensor (`repro_torch.prng`): each row is then encoded under its
+own key, the reference's ``vmap`` over the links of the network runtime.
+Both selections are a stable descending sort sliced to
 ``k``: ``lax.top_k`` returns values in descending order with ties broken
 by the lower index, which ``torch.topk`` does not promise on a card, and
 the kept values' order fixes which uniform each one's rounding draws.
@@ -202,14 +205,14 @@ class Codec:
         ``lead + (d,)`` under the first half of ``split(key)``."""
         if self.mode != "randk":
             raise ValueError(f"codec {self.name!r} has no shared-randomness indices")
-        k_sel = prng.split(key)[0]
+        k_sel = prng.split(key)[..., 0, :]
         return top_indices(prng.uniform(k_sel, (*lead, d), device), self.kept(d))
 
     def encode(self, key: np.ndarray, x: torch.Tensor) -> WireMsg:
         """``x [..., d]`` float32 -> `WireMsg`."""
         d = x.shape[-1]
         lead = tuple(x.shape[:-1])
-        k_q = prng.split(key)[1]
+        k_q = prng.split(key)[..., 1, :]
         if self.mode == "dense":
             idx = torch.zeros((*lead, 0), dtype=torch.int32, device=x.device)
             vals = x

@@ -17,6 +17,7 @@ from repro_torch import prng
 from repro_torch.comm.exchange import CommState
 from repro_torch.core.brdso import BrdsoState
 from repro_torch.core.bridge import BridgeState
+from repro_torch.net.mailbox import MailboxState
 from repro_torch.core.byrdie import ByrdieState
 from repro_torch.device import resolve_device
 
@@ -35,18 +36,21 @@ def _key(key) -> np.ndarray:
 
 def state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,
                    comm: tuple[np.ndarray, np.ndarray] | None = None,
+                   net: tuple[np.ndarray, ...] | None = None,
                    device: str | torch.device = "cuda") -> BridgeState:
     """A `BridgeState` at tick ``t`` holding the reference's parameters and
     its key (``np.asarray(jax_state.key)``; ``PRNGKey(0)`` when None) —
     resumes a JAX trajectory in the port.  ``comm`` is the reference's codec
-    carry ``(est, resid)`` as numpy arrays, for a lossy codec."""
+    carry ``(est, resid)`` as numpy arrays, for a lossy codec; ``net`` its
+    runtime's mailbox state (the five arrays of ``MailboxState``, in order),
+    for the network runtime."""
     dev = resolve_device(device)
     key = _key(key)
-    carry = None
-    if comm is not None:
-        carry = CommState(*(torch.as_tensor(np.array(x, copy=True), device=dev) for x in comm))
+    tensors = lambda arrays: (torch.as_tensor(np.array(x, copy=True), device=dev) for x in arrays)
+    carry = None if comm is None else CommState(*tensors(comm))
+    mailbox = None if net is None else MailboxState(*tensors(net))
     return BridgeState(params=params_from_jax(params_np, device=dev), t=int(t), key=key,
-                       comm=carry)
+                       comm=carry, net=mailbox)
 
 
 def byrdie_state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,

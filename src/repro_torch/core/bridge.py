@@ -28,6 +28,15 @@ dict.  One tick, after ``key, sub = split(state.key)``:
 Every random number comes from the reference's Threefry streams
 (`repro_torch.prng`), so a seeded run follows the seeded reference run.
 
+With ``runtime=`` (`repro_torch.net`) the tick is the reference's
+network-runtime iteration (``build_cell_runtime_step``): the attack crafts
+per-link messages (`byzantine.MessageAttack`), a lossy codec encodes each
+link under its own keys ``fold_in(key, edge_id)`` with an ``[M, W, d]``
+carry that advances on the tick's live edges only, the runtime moves the
+messages (``exchange``), every node screens its mailbox views with
+`screening.screen_views` (the views kernels on the card), and a node with
+fewer usable views than its rule's Table-II minimum keeps its own value.
+
 PyTorch runs eagerly, so the reference's ``jit``/``scan`` machinery has no
 counterpart: `BridgeTrainer.run` is a Python loop over `BridgeTrainer.step`.
 """
@@ -45,7 +54,7 @@ from repro_torch.comm import codec as codec_lib
 from repro_torch.comm import exchange
 from repro_torch.core import byzantine, screening
 from repro_torch.core.graph import Topology
-from repro_torch.core.neighbors import NeighborTable
+from repro_torch.core.neighbors import NeighborTable, edge_id_grid
 from repro_torch.device import resolve_device
 
 Params = dict[str, torch.Tensor]
@@ -64,7 +73,10 @@ class BridgeState(NamedTuple):
     params: Params  # leaves with leading node axis [M, ...]
     t: int  # iteration counter
     key: np.ndarray  # Threefry key, two uint32 words (repro_torch.prng)
-    comm: exchange.CommState | None = None  # per-sender [M, d] codec carry; None for identity
+    # codec carry: [M, d] per sender on the broadcast path, [M, W, d] per
+    # link on the runtime path; None for a lossless codec
+    comm: exchange.CommState | None = None
+    net: Any = None  # the runtime's state (mailboxes); None when synchronous
 
 
 def cell_step_size(lam: float, t0: float, lr: float, t: int) -> float:
@@ -95,6 +107,20 @@ class BridgeConfig:
 
     def step_size(self, t: int) -> float:
         return cell_step_size(self.lam, self.t0, self.lr, t)
+
+
+def stack_batches(batch_fn: Callable[[int], Any], num_ticks: int, *,
+                  device: str | torch.device = "cuda") -> Any:
+    """``num_ticks`` batches stacked on a new leading axis, on ``device``:
+    the reference's ``stack_batches``, the input of
+    `repro_torch.net.AsyncBridgeTrainer.run_scan`.  A batch is a tensor or
+    a tuple of them."""
+    dev = resolve_device(device)
+    batches = [batch_fn(i) for i in range(num_ticks)]
+    if isinstance(batches[0], (tuple, list)):
+        return tuple(torch.stack([torch.as_tensor(b[k]).to(dev) for b in batches])
+                     for k in range(len(batches[0])))
+    return torch.stack([torch.as_tensor(b).to(dev) for b in batches])
 
 
 def stack_flatten(params: Params) -> tuple[torch.Tensor, Callable[[torch.Tensor], Params]]:
@@ -142,24 +168,56 @@ class BridgeTrainer:
     """Drives Algorithm 1.  ``grad_fn(params, batch) -> (losses [M], grads)``
     computes every node's local loss and gradient over the stacked
     ``[M, ...]`` parameters (e.g. `repro_torch.models.small.linear_loss_and_grad`).
+
+    ``runtime`` plugs in a message-exchange model (`repro_torch.net.runtime`,
+    on the trainer's device): None is the synchronous broadcast; a runtime
+    gives asynchronous BRIDGE over its network (see the module docstring).
+    With an ideal channel and a static schedule the runtime path equals the
+    synchronous one bit for bit.
     """
 
-    def __init__(self, config: BridgeConfig, grad_fn: Callable, *,
+    def __init__(self, config: BridgeConfig, grad_fn: Callable, *, runtime=None,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         config.topology.validate_for_rule(config.rule)
         self.config = config
         self.grad_fn = grad_fn
-        self.attack = byzantine.get_attack(config.attack)
+        self.runtime = runtime
         self.wire_attack = byzantine.wire_attack_for(config.attack)
         adj = config.topology.adjacency
         self.adjacency = torch.as_tensor(adj, dtype=torch.bool, device=self.device)
         self.n_edges = float(adj.sum())
         self.codec = codec_lib.get_codec(config.codec)
-        self.neighbors = (NeighborTable.from_adjacency(adj, device=self.device)
-                          if config.sparse else None)
+        self.neighbors = None
+        if runtime is None:
+            self.attack = byzantine.get_attack(config.attack)
+            if config.sparse:
+                self.neighbors = NeighborTable.from_adjacency(adj, device=self.device)
+        else:
+            self._check_runtime(runtime)
+            self.message_attack = byzantine.get_message_attack(config.attack)
+            nbr = getattr(runtime, "neighbors", None)
+            m = config.topology.num_nodes
+            self._edge_ids = (nbr.edge_ids if nbr is not None else torch.as_tensor(
+                edge_id_grid(m), device=self.device))
         self.byz_mask = byzantine.byzantine_nodes(config.topology.num_nodes, config.num_byzantine,
                                                   config.attack, config.byzantine_seed, self.device)
+
+    def _check_runtime(self, runtime) -> None:
+        """The reference's refusals, and the port's: a runtime on another
+        device, and BRIDGE-K / BRIDGE-B on the card, whose screens over
+        mailbox views need per-node distances no kernel takes yet."""
+        cfg = self.config
+        if cfg.sparse and getattr(runtime, "neighbors", None) is None:
+            raise ValueError(
+                "BridgeConfig(sparse=True) with an explicit dense runtime: pass a "
+                "neighbor-indexed runtime (SparseUnreliableRuntime) or drop the flag "
+                "— a dense runtime would silently keep the O(M^2) state layout")
+        rt_dev = getattr(runtime, "device", self.device)
+        if torch.device(rt_dev) != self.device:
+            raise ValueError(f"runtime on {rt_dev}, trainer on {self.device}")
+        if self.device.type == "cuda" and cfg.rule in screening.VIEWS_DISTANCE_RULES:
+            raise NotImplementedError(screening.views_distance_refusal(cfg.rule))
 
     @property
     def honest_mask(self) -> torch.Tensor:
@@ -173,18 +231,31 @@ class BridgeTrainer:
             if leaf.shape[0] != m:
                 raise ValueError(f"params[{k!r}] leading axis {leaf.shape[0]} != num_nodes {m}")
         params = {k: v.to(self.device) for k, v in params.items()}
+        net = None
+        if self.runtime is not None:
+            dim = stack_flatten(params)[0].shape[1]
+            net = self.runtime.init(m, dim, max_wire_bits=self.codec.wire_bits(dim))
         return BridgeState(params=params, t=0, key=prng.PRNGKey(seed),
-                           comm=self.init_comm(params))
+                           comm=self.init_comm(params), net=net)
 
     def init_comm(self, params: Params) -> exchange.CommState | None:
-        """The codec carry at tick 0: zero ``[M, d]`` estimate and residual,
-        or None for a lossless codec."""
+        """The codec carry at tick 0: zero estimate and residual, ``[M, d]``
+        per sender or, on the runtime path, ``[M, W, d]`` per link (``W`` is
+        ``M`` dense, the runtime's table width sparse); None for a lossless
+        codec."""
         w, _ = stack_flatten(params)
-        return exchange.init_residual(tuple(w.shape), self.codec, device=self.device)
+        m, dim = w.shape
+        if self.runtime is None:
+            return exchange.init_residual((m, dim), self.codec, device=self.device)
+        nbr = getattr(self.runtime, "neighbors", None)
+        link = m if nbr is None else nbr.k
+        return exchange.init_residual((m, link, dim), self.codec, device=self.device)
 
     def step(self, state: BridgeState, batch: Any) -> tuple[BridgeState, dict]:
         """One tick.  The metrics are 0-d tensors on the device (reading one
         waits for the tick) and Python floats for the static quantities."""
+        if self.runtime is not None:
+            return self._runtime_step(state, batch)
         cfg = self.config
         w, unflatten = stack_flatten(state.params)
         d = w.shape[1]
@@ -207,12 +278,84 @@ class BridgeTrainer:
                                          b=cfg.num_byzantine, self_vals=w_bcast)
         # (Step 6) local gradient step at w_j(t)
         with torch.profiler.record_function("bridge.apply"):
-            losses, grads = self.grad_fn(state.params, batch)
-            g, _ = stack_flatten(grads)
-            rho = cfg.step_size(state.t)
-            w_new = y - rho * g
-            metrics = self._metrics(w_new, losses, rho, d, comm)
+            w_new, metrics = self._apply(state, batch, y, d, comm, self.n_edges)
         return BridgeState(unflatten(w_new), state.t + 1, key, comm), metrics
+
+    def _apply(self, state: BridgeState, batch, y: torch.Tensor, d: int, comm,
+               live_edges) -> tuple[torch.Tensor, dict]:
+        """(Step 6) the local gradient step at w_j(t) from the screened
+        ``y``, and the tick's metrics."""
+        losses, grads = self.grad_fn(state.params, batch)
+        g, _ = stack_flatten(grads)
+        rho = self.config.step_size(state.t)
+        w_new = y - rho * g
+        return w_new, self._metrics(w_new, losses, rho, d, comm, live_edges)
+
+    def _runtime_step(self, state: BridgeState, batch: Any) -> tuple[BridgeState, dict]:
+        """One tick through the runtime (the reference's
+        ``build_cell_runtime_step`` without adversary, trust, trace or
+        metric ring)."""
+        cfg, rt = self.config, self.runtime
+        w, unflatten = stack_flatten(state.params)
+        m, d = w.shape
+        keys = prng.split(state.key)
+        key, sub = keys[0], keys[1]
+        adj_t = rt.adjacency_at(state.t)  # [M, M] dense, the [M, K] live slots sparse
+        nbr = getattr(rt, "neighbors", None)
+        # (Steps 3-4) per-link messages with Byzantine substitution; nodes
+        # screen with the value they broadcast (a message-only attack: the
+        # true iterate)
+        with torch.profiler.record_function("bridge.attack"):
+            msgs, w_self = byzantine.messages_and_self(self.message_attack, w, self.byz_mask,
+                                                        adj_t, sub, state.t, nbr)
+        # the codec per link; a link's carry advances only for messages put
+        # on the wire this tick (live edges; channel drops are downstream)
+        with torch.profiler.record_function("bridge.codec"):
+            if nbr is not None:
+                byz_link = nbr.gather_senders(self.byz_mask, fill=False)
+            else:
+                byz_link = self.byz_mask[None, :].expand(m, m)
+            msgs_hat, comm = self._link_roundtrip(sub, msgs, state.comm, byz_link, state.t)
+            if state.comm is not None and comm is not state.comm:
+                comm = exchange.CommState(*(torch.where(adj_t[:, :, None], new, old)
+                                            for new, old in zip(comm, state.comm, strict=True)))
+        with torch.profiler.record_function("bridge.exchange"):
+            net, views, mask, net_stats = rt.exchange(
+                state.net, msgs_hat, w_self, adj_t, prng.fold_in(sub, NET_SALT), state.t,
+                wire_bits=self.codec.wire_bits(d))
+        # (Step 5) screening over the usable views; a node short of its
+        # rule's Table-II minimum keeps its own value this tick
+        with torch.profiler.record_function("bridge.screen"):
+            y_rule = screening.screen_views(views, mask, w_self, rule=cfg.rule,
+                                            b=cfg.num_byzantine)
+            enough = mask.sum(dim=1) >= screening.min_neighbors(cfg.rule, cfg.num_byzantine)
+            y = torch.where(enough[:, None], y_rule, w_self)
+        with torch.profiler.record_function("bridge.apply"):
+            w_new, metrics = self._apply(state, batch, y, d, comm,
+                                         torch.sum(adj_t).to(torch.float32))
+        metrics.update(net_stats)
+        metrics["screened_frac"] = torch.mean(enough.to(torch.float32))
+        return BridgeState(unflatten(w_new), state.t + 1, key, comm, net), metrics
+
+    def _link_roundtrip(self, sub: np.ndarray, x: torch.Tensor, comm, byz_link: torch.Tensor,
+                        t: int):
+        """`_wire_roundtrip` per link: the ``[M, W, d]`` messages flattened
+        to ``[M W, d]`` rows, each encoded, attacked and decoded under its
+        edge's keys ``fold_in(comm_key, edge_id)`` and
+        ``fold_in(wire_key, edge_id)`` (the reference's ``vmap`` over the
+        edges), so the dense and the sparse layouts draw the same codewords
+        on matching edges."""
+        if self.codec.lossless and self.wire_attack.name == "none":
+            return x, comm
+        lead, d = x.shape[:-1], x.shape[-1]
+        ids = self._edge_ids.reshape(-1)
+        keys = [prng.fold_in(prng.fold_in(sub, salt), ids) for salt in (COMM_SALT, WIRE_SALT)]
+        carry = None if comm is None else exchange.CommState(*(a.reshape(-1, d) for a in comm))
+        x_hat, carry = self._codeword_roundtrip(*keys, x.reshape(-1, d), carry,
+                                                byz_link.reshape(-1), t)
+        unrows = lambda a: a.reshape(*lead, d)
+        return unrows(x_hat), (None if carry is None
+                               else exchange.CommState(*(unrows(a) for a in carry)))
 
     def _wire_roundtrip(self, sub: np.ndarray, x: torch.Tensor, comm, t: int):
         """Encode -> codeword attack -> decode with error feedback, per
@@ -221,14 +364,21 @@ class BridgeTrainer:
         the uncompressed trainer."""
         if self.codec.lossless and self.wire_attack.name == "none":
             return x, comm
-        comm_key = prng.fold_in(sub, COMM_SALT)
+        return self._codeword_roundtrip(prng.fold_in(sub, COMM_SALT), prng.fold_in(sub, WIRE_SALT),
+                                        x, comm, self.byz_mask, t)
+
+    def _codeword_roundtrip(self, comm_key, wire_key, x: torch.Tensor, comm, byz: torch.Tensor,
+                            t: int):
+        """Encode ``x [n, d]`` under ``comm_key``, corrupt the Byzantine
+        rows' codewords under ``wire_key``, decode with the carry; the keys
+        are host keys or ``[n, 2]`` row keys (`repro_torch.prng`)."""
         msg, target = exchange.encode(self.codec, comm_key, x, comm)
-        msg = self.wire_attack(msg, self.byz_mask, prng.fold_in(sub, WIRE_SALT), t, x.shape[-1])
+        msg = self.wire_attack(msg, byz, wire_key, t, x.shape[-1])
         return exchange.decode(self.codec, msg, target, comm, comm_key,
                                zero_folded=not self.wire_attack.rewrites_scale)
 
     def _metrics(self, w_new: torch.Tensor, losses: torch.Tensor, rho: float, d: int,
-                 comm) -> dict:
+                 comm, live_edges) -> dict:
         """The reference's diagnostics over honest nodes, plus the codec's
         wire accounting over the live edges and its residual norm."""
         hm = self.honest_mask
@@ -242,7 +392,7 @@ class BridgeTrainer:
             "consensus_dist": torch.sqrt(torch.max(torch.sum(dev * dev, dim=1))),
             "rho": rho,
             "wire_bits_per_edge": bits,
-            "wire_bytes_total": bits / 8.0 * self.n_edges,
+            "wire_bytes_total": bits / 8.0 * live_edges,
             "ef_residual_norm": resid,
         }
 

@@ -1,7 +1,9 @@
-"""Byzantine attacks (Definition 1) — port of the broadcast and the wire
-tiers of `repro.core.byzantine`: ``none``, ``random``, ``sign_flip``,
-``same_value``, ``alie``, ``shift``; ``garbage_codeword``, ``scale_abuse``,
-``index_lie``; and ``pick_byzantine_mask``.
+"""Byzantine attacks (Definition 1) — port of the broadcast, the message
+and the wire tiers of `repro.core.byzantine`: ``none``, ``random``,
+``sign_flip``, ``same_value``, ``alie``, ``shift``; the per-link
+``MessageAttack`` lift of each and ``selective_victim``;
+``garbage_codeword``, ``scale_abuse``, ``index_lie``; and
+``pick_byzantine_mask``.
 
 An attack substitutes the broadcast rows of ``w [M, d]`` for the nodes in
 ``byz_mask [M]``; the Byzantine node's own state keeps evolving normally.
@@ -11,6 +13,12 @@ the tick's subkey (`repro_torch.prng`, two uint32 words).
 ``random`` draws ``10 * normal(fold_in(key, t), [M, d])`` on ``w``'s
 device, the reference's draw (`repro_torch.prng.normal`); `random_body`
 takes the noise tensor itself.
+
+A message attack (`MessageAttack`, the network runtime's tier) crafts the
+per-link tensor ``msgs[receiver, sender]``, ``[M, M, d]`` on the dense
+layout or ``[M, K, d]`` through a `NeighborTable`, the latter the exact
+gather of the former.  A lifted broadcast attack sends every receiver its
+broadcast row; ``selective_victim`` lies only to low in-degree receivers.
 
 A wire attack (`WireAttack`) corrupts the encoded codeword instead
 (`repro_torch.comm.codec.WireMsg`), after honest encoding and before
@@ -100,6 +108,120 @@ ATTACKS: dict[str, Attack] = {
 
 
 @dataclasses.dataclass(frozen=True)
+class MessageAttack:
+    """An attack on the per-link message tensor.
+
+    ``fn(w, byz_mask, adjacency [M, M], key, t) -> msgs [M, M, d]``,
+    ``msgs[j, i]`` what node i sends node j this tick; ``sparse_fn(w,
+    byz_mask, nbr, live [M, K], key, t) -> [M, K, d]``, slot (j, k) what
+    sender ``nbr.idx[j, k]`` tells j, bit for bit the dense tensor's entry.
+    ``broadcast`` is the lifted broadcast attack, if any: Byzantine nodes
+    then screen with their attacked broadcast value."""
+
+    name: str
+    fn: Callable
+    broadcast: Attack | None = None
+    sparse_fn: Callable | None = None
+
+    def __call__(self, w, byz_mask, adjacency, key, t):
+        return self.fn(w, byz_mask, adjacency, key, t)
+
+
+def lift_broadcast_attack(attack: Attack) -> MessageAttack:
+    """Every receiver gets the sender's (possibly corrupted) broadcast row:
+    the broadcast expanded over the receivers (stride 0, nothing copied),
+    or gathered through the table."""
+
+    def fn(w, byz_mask, adjacency, key, t):
+        w_bcast = attack(w, byz_mask, key, t)
+        return w_bcast[None].expand(w.shape[0], *w.shape)
+
+    def sparse_fn(w, byz_mask, nbr, live, key, t):
+        return nbr.gather_rows(attack(w, byz_mask, key, t))
+
+    return MessageAttack(attack.name, fn, broadcast=attack, sparse_fn=sparse_fn)
+
+
+def _median_of_counts(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.median`` of an integer vector: the mean of the two middle
+    values for an even count (``torch.median`` would return the lower)."""
+    s = torch.sort(x.to(torch.float32)).values
+    n = s.shape[0]
+    return 0.5 * (s[(n - 1) // 2] + s[n // 2])
+
+
+def _selective_victim(z: float = 1.5):
+    """Byzantine nodes send their true iterate to receivers whose in-degree
+    is above the network median, and an ALIE-style crafted value (honest
+    mean + z * per-coordinate std) to the others; the victims follow the
+    tick's adjacency."""
+
+    def crafted_and_victims(w, byz_mask, in_deg):
+        honest = ~byz_mask
+        mu, cnt = _honest_mean(w, honest)
+        var = torch.sum(torch.where(honest[:, None], (w - mu) ** 2, 0.0), dim=0) / cnt
+        return mu + z * torch.sqrt(var + 1e-12), in_deg <= _median_of_counts(in_deg)
+
+    def fn(w, byz_mask, adjacency, key, t):
+        crafted, victim = crafted_and_victims(w, byz_mask, adjacency.sum(dim=1))
+        lie_edge = victim[:, None] & byz_mask[None, :]  # [receiver, sender]
+        return torch.where(lie_edge[:, :, None], crafted, w[None])
+
+    def sparse_fn(w, byz_mask, nbr, live, key, t):
+        # in-degrees from the live slots are the dense row sums exactly
+        crafted, victim = crafted_and_victims(w, byz_mask, live.sum(dim=1))
+        lie_edge = victim[:, None] & nbr.gather_senders(byz_mask, fill=False)
+        return torch.where(lie_edge[:, :, None], crafted, nbr.gather_rows(w))
+
+    return fn, sparse_fn
+
+
+MESSAGE_ATTACKS: dict[str, MessageAttack] = {
+    name: lift_broadcast_attack(a) for name, a in ATTACKS.items()
+}
+_sv_fn, _sv_sparse = _selective_victim()
+MESSAGE_ATTACKS["selective_victim"] = MessageAttack("selective_victim", _sv_fn,
+                                                    sparse_fn=_sv_sparse)
+
+
+def apply_message_attack(attack: MessageAttack, w, byz_mask, adjacency, key, t):
+    """The dense per-link messages (the reference's single-entry
+    ``apply_message_attack_bank``)."""
+    return attack(w, byz_mask, adjacency, key, t)
+
+
+def apply_sparse_message_attack(attack: MessageAttack, w, byz_mask, nbr, live, key, t):
+    """The ``[M, K, d]`` messages through the table (the single-entry
+    ``apply_sparse_message_attack_bank``)."""
+    if attack.sparse_fn is None:
+        raise ValueError(f"message attack {attack.name!r} has no sparse_fn: required on the "
+                         f"neighbor-indexed runtime path")
+    return attack.sparse_fn(w, byz_mask, nbr, live, key, t)
+
+
+def apply_self_view(attack: MessageAttack, w, byz_mask, key, t):
+    """The value each node screens with (the single-entry
+    ``apply_self_view_bank``): the lifted broadcast, else the iterate."""
+    if attack.broadcast is not None:
+        return attack.broadcast(w, byz_mask, key, t)
+    return w
+
+
+def messages_and_self(attack: MessageAttack, w, byz_mask, adj_t, key, t, nbr=None):
+    """``(msgs, w_self)`` of the tick: `apply_message_attack` (or its
+    sparse form, with ``nbr``) and `apply_self_view`.  A lifted attack's
+    broadcast is drawn once, as the self-view, and its messages are the
+    lifted ``none`` of those rows (the reference draws it twice from one
+    key, which gives the same values)."""
+    w_self = apply_self_view(attack, w, byz_mask, key, t)
+    if attack.broadcast is not None:
+        attack, w = MESSAGE_ATTACKS["none"], w_self
+    if nbr is not None:
+        return apply_sparse_message_attack(attack, w, byz_mask, nbr, adj_t, key, t), w_self
+    return apply_message_attack(attack, w, byz_mask, adj_t, key, t), w_self
+
+
+@dataclasses.dataclass(frozen=True)
 class WireAttack:
     """An attack on the codeword: ``fn(msg, byz, key, t, d) -> WireMsg``,
     ``byz`` the ``[M]`` Byzantine mask, ``key`` the tick's wire key and
@@ -130,7 +252,8 @@ def _sub(field: torch.Tensor, byz: torch.Tensor, crafted: torch.Tensor) -> torch
 def _garbage_codeword(msg, byz, key, t, d):
     """Uniform random payload bytes and sparse indices: the decoder sees
     byte soup (under the identity codec, arbitrary float32 patterns)."""
-    kp, ki = prng.split(prng.fold_in(key, t))
+    keys = prng.split(prng.fold_in(key, t))  # host key or [E, 2] row keys (one a link)
+    kp, ki = keys[..., 0, :], keys[..., 1, :]
     dev = msg.payload.device
     payload = prng.randint(kp, msg.payload.shape, -128, 128, torch.int32, dev).to(torch.int8)
     idx = prng.randint(ki, msg.idx.shape, 0, max(d, 1), torch.int32, dev)
@@ -168,6 +291,10 @@ def wire_attack_for(name: str) -> WireAttack:
     return WIRE_ATTACKS.get(name, WIRE_ATTACKS["none"])
 
 
+def attack_names() -> list[str]:
+    return sorted(set(ATTACKS) | set(MESSAGE_ATTACKS) | set(WIRE_ATTACKS))
+
+
 def get_attack(name: str) -> Attack:
     """The broadcast component of attack ``name``; a wire attack's is
     ``none`` (the trainer applies it to the codeword)."""
@@ -176,8 +303,22 @@ def get_attack(name: str) -> Attack:
     try:
         return ATTACKS[name]
     except KeyError:
-        names = sorted(set(ATTACKS) | set(WIRE_ATTACKS))
-        raise ValueError(f"unknown attack {name!r}; options: {names}") from None
+        if name in MESSAGE_ATTACKS:
+            raise ValueError(f"attack {name!r} crafts per-link messages and needs the network "
+                             f"runtime (repro_torch.net, BridgeTrainer(runtime=...)); "
+                             f"broadcast-path options: {sorted(ATTACKS)}") from None
+        raise ValueError(f"unknown attack {name!r}; options: {attack_names()}") from None
+
+
+def get_message_attack(name: str) -> MessageAttack:
+    """The message component of attack ``name``; a wire attack's is the
+    lifted ``none``."""
+    if name in WIRE_ATTACKS:
+        return MESSAGE_ATTACKS["none"]
+    try:
+        return MESSAGE_ATTACKS[name]
+    except KeyError:
+        raise ValueError(f"unknown attack {name!r}; options: {attack_names()}") from None
 
 
 def pick_byzantine_mask(num_nodes: int, num_byzantine: int, seed: int = 0) -> np.ndarray:

@@ -1,6 +1,8 @@
 """Communication graphs for decentralized learning — port of
-`repro.core.graph` (``Topology``, ``erdos_renyi``, ``complete_graph``,
-``small_world``, ``check_assumption4``).
+`repro.core.graph` (``Topology``, ``erdos_renyi``, ``ring_of_cliques``,
+``complete_graph``, ``small_world``, ``random_geometric``,
+``toroidal_grid``, the ``TOPOLOGIES`` registry with ``make_topology``, and
+``check_assumption4``).
 
 Pure numpy, as in the reference, and draw-for-draw identical to it: the
 same seed gives the same graph (``tests/test_torch_data_graph.py`` pins this
@@ -108,6 +110,20 @@ def erdos_renyi(
     )
 
 
+def ring_of_cliques(num_cliques: int, clique_size: int, num_byzantine: int) -> Topology:
+    """Cliques joined in a ring (the first node of each clique to the next
+    clique's first): a stress case for consensus, which generally fails
+    Assumption 4 for b > 0."""
+    m = num_cliques * clique_size
+    adj = np.zeros((m, m), dtype=bool)
+    for c in range(num_cliques):
+        lo = c * clique_size
+        adj[lo:lo + clique_size, lo:lo + clique_size] = ~np.eye(clique_size, dtype=bool)
+        nxt = ((c + 1) % num_cliques) * clique_size
+        adj[lo, nxt] = adj[nxt, lo] = True
+    return Topology(adjacency=adj, num_byzantine=num_byzantine)
+
+
 def complete_graph(num_nodes: int, num_byzantine: int) -> Topology:
     adj = ~np.eye(num_nodes, dtype=bool)
     return Topology(adjacency=adj, num_byzantine=num_byzantine)
@@ -163,6 +179,82 @@ def small_world(
     if topo.min_in_degree < need:
         raise RuntimeError("small_world: a rewire broke the 2b+1 degree floor")
     return topo
+
+
+def random_geometric(num_nodes: int, num_byzantine: int, *, radius: float | None = None,
+                     seed: int = 0, max_tries: int = 50) -> Topology:
+    """Random geometric graph: nodes uniform in the unit square, edges within
+    ``radius``.  ``radius=None`` starts at the connectivity threshold
+    ``sqrt(2 log M / M)`` and grows it by 1.15 until every node clears the
+    Table-II minimum degree ``2b + 1``."""
+    m, b = num_nodes, num_byzantine
+    rng = np.random.default_rng(seed)
+    pts = rng.random((m, 2))
+    d2 = ((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
+    r = radius if radius is not None else float(np.sqrt(2.0 * np.log(max(m, 2)) / m))
+    need = 2 * b + 1
+    for _ in range(max_tries):
+        adj = d2 <= r * r
+        np.fill_diagonal(adj, False)
+        topo = Topology(adjacency=adj, num_byzantine=b)
+        if topo.min_in_degree >= need:
+            return topo
+        if radius is not None:
+            break
+        r *= 1.15
+    raise RuntimeError(f"random_geometric({m}, r={r:.3f}) min degree {int(adj.sum(1).min())} "
+                       f"< {need} for b={b}")
+
+
+def toroidal_grid(rows: int, cols: int, num_byzantine: int, *,
+                  diagonal: bool = False) -> Topology:
+    """``rows x cols`` torus: every node links its 4 lattice neighbors (8
+    with ``diagonal=True``) with wraparound."""
+    m = rows * cols
+    if rows < 3 or cols < 3:
+        raise ValueError(f"torus needs rows, cols >= 3, got {rows}x{cols}")
+    need = 2 * num_byzantine + 1
+    if (8 if diagonal else 4) < need:
+        raise ValueError(f"toroidal grid degree {8 if diagonal else 4} < 2b+1 = {need}")
+    offs = [(-1, 0), (1, 0), (0, -1), (0, 1)]
+    if diagonal:
+        offs += [(-1, -1), (-1, 1), (1, -1), (1, 1)]
+    adj = np.zeros((m, m), dtype=bool)
+    r, c = np.divmod(np.arange(m), cols)
+    for dr, dc in offs:
+        adj[np.arange(m), ((r + dr) % rows) * cols + (c + dc) % cols] = True
+    np.fill_diagonal(adj, False)
+    return Topology(adjacency=adj, num_byzantine=num_byzantine)
+
+
+def _torus_of(m: int, b: int, arg) -> Topology:
+    rows = int(arg) if arg is not None else int(np.sqrt(m))
+    if rows < 1 or m % rows:
+        raise ValueError(f"torus of {m} nodes needs a row count dividing it, got {rows}")
+    return toroidal_grid(rows, m // rows, b)
+
+
+# Named topology builders: ``spec`` strings like ``"small_world:8"``
+# (`make_topology`), the registry the network scenarios name.
+TOPOLOGIES = {
+    "erdos_renyi": lambda m, b, seed, arg: erdos_renyi(
+        m, arg if arg is not None else 0.5, b, seed=seed),
+    "small_world": lambda m, b, seed, arg: small_world(
+        m, int(arg) if arg is not None else max(2 * b + 1, 4), b, seed=seed),
+    "geometric": lambda m, b, seed, arg: random_geometric(m, b, radius=arg, seed=seed),
+    "torus": lambda m, b, seed, arg: _torus_of(m, b, arg),
+    "complete": lambda m, b, seed, arg: complete_graph(m, b),
+}
+
+
+def make_topology(spec: str, num_nodes: int, num_byzantine: int, *, seed: int = 0) -> Topology:
+    """Build a named topology: ``spec`` is ``name`` or ``name:<arg>``, the
+    argument family-specific (ER edge probability, small-world ``nearest``,
+    geometric radius, torus row count)."""
+    name, _, arg = spec.partition(":")
+    if name not in TOPOLOGIES:
+        raise ValueError(f"unknown topology {name!r}; options: {sorted(TOPOLOGIES)}")
+    return TOPOLOGIES[name](num_nodes, num_byzantine, seed, float(arg) if arg else None)
 
 
 def _has_source_component(adj: np.ndarray, min_size: int) -> bool:

@@ -1,7 +1,6 @@
 """Static padded neighbor-index tables — the sparse ``[M, K]`` layout; port
-of `repro.core.neighbors` (``edge_id_grid`` and `NeighborTable` built from
-a static adjacency; tables of a ``[T, M, M]`` schedule wait for the network
-runtime).
+of `repro.core.neighbors` (``edge_id_grid`` and `NeighborTable`, built
+from a static adjacency or from the union of a ``[T, M, M]`` schedule).
 
 On the sparse graphs BRIDGE certifies (``K = max in-degree << M``), node j
 only ever hears from its K in-neighbors.  ``idx[j, k]`` is the node id of
@@ -80,6 +79,31 @@ class NeighborTable:
             valid[j, : len(ns)] = True
         return cls(idx, valid, m, device=device)
 
+    @classmethod
+    def from_schedule(cls, schedule, k: int | None = None, *,
+                      device: str | torch.device = "cuda") -> NeighborTable:
+        """Table of the union graph of a ``[T, M, M]`` schedule: an edge
+        live at any tick owns a slot for the whole run (the per-tick live
+        mask, `live_schedule`, gates the sends)."""
+        sched = np.asarray(schedule, bool)
+        if sched.ndim != 3 or sched.shape[1] != sched.shape[2]:
+            raise ValueError(f"schedule must be [T, M, M], got {sched.shape}")
+        return cls.from_adjacency(sched.any(axis=0), k=k, device=device)
+
+    def live_schedule(self, schedule) -> np.ndarray:
+        """A ``[T, M, M]`` schedule gathered to the ``[T, M, K]`` per-slot
+        live mask, on the host (padded slots never live)."""
+        sched = np.asarray(schedule, bool)
+        safe = np.minimum(self.idx, self.num_nodes - 1)
+        live = np.take_along_axis(sched, safe[None].repeat(sched.shape[0], 0), axis=2)
+        return live & self.valid[None]
+
+    def gather_edges(self, mat: torch.Tensor, fill=None) -> torch.Tensor:
+        """``mat [M, M] -> [M, K]``: slot (j, k) holds ``mat[j, idx[j, k]]``;
+        ``fill`` replaces padded slots (None leaves the gathered value)."""
+        out = torch.gather(mat, 1, self.safe_idx.long())
+        return out if fill is None else torch.where(self.valid_dev, out, fill)
+
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """``x [M, ...] -> [M, K, ...]``: slot (j, k) holds the row of j's
         k-th in-neighbor (padded slots hold a real-but-masked row)."""
@@ -90,7 +114,4 @@ class NeighborTable:
         """``vec [M] -> [M, K]``: per-slot sender attribute (e.g. the
         Byzantine mask); ``fill`` replaces padded slots."""
         out = vec[self.safe_idx.long()]
-        if fill is None:
-            return out
-        return torch.where(self.valid_dev, out, torch.as_tensor(fill, dtype=out.dtype,
-                                                                 device=out.device))
+        return out if fill is None else torch.where(self.valid_dev, out, fill)

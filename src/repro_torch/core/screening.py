@@ -9,19 +9,27 @@ the sparse ``[M, K]`` layout.
 * `screen_gathered` (sparse, the trainer's entry): node j screens the rows
   its `NeighborTable` slots name, as the reference's trainer does with
   ``screen_views_banked(neighbors.gather_rows(w), neighbors.valid_dev, ...)``.
-* `screen_views`: the plain rules over pre-gathered ``[M, K, d]`` views.
+* `screen_views` (the network runtime's entry): node j screens its own
+  views ``[M, W, d]`` under the usable mask ``[M, W]``, the reference's
+  ``screen_views_banked`` with the mask as an operand.
 
 The rules, by what runs them on the card:
 
 * ``trimmed_mean`` (BRIDGE-T) and ``median`` (BRIDGE-M) go through the
   screening kernels of `repro_torch.kernels.ops` and never form
   ``[M, M, d]`` or ``[M, K, d]`` on the card;
+  On the views, BRIDGE-T and BRIDGE-M run the views kernels
+  (``ops.views_trimmed_mean``, ``ops.views_median``);
 * ``krum`` (BRIDGE-K, Eq. 12) and ``bulyan`` (BRIDGE-B) take their
   distances from the pairwise-distance kernel, computed once per tick
   over the broadcast (and the nodes' own values where a lossy codec makes
   them differ) and gathered per node; Krum's scores and Bulyan's
   recursive selection are plain PyTorch batched over the nodes, and
-  Bulyan's last stage is the trimmed-mean kernel over the selected set;
+  Bulyan's last stage is the trimmed-mean kernel over the selected set.
+  On the views each node needs distances among its own ``W + 1`` views, a
+  distance kernel with a node axis, which the port does not have yet: on
+  the card `screen_views` refuses them (`VIEWS_DISTANCE_RULES`), on the CPU
+  they run the plain version;
 * ``mean`` (DGD), ``geomedian``, ``clipped_mean``, ``rep_trimmed_mean`` and
   ``rep_median`` have no TPU kernel in the reference and are plain
   PyTorch here.
@@ -67,6 +75,18 @@ MIN_NEIGHBORS: dict[str, Callable[[int], int]] = {
     "rep_trimmed_mean": lambda b: b + 1,
     "rep_median": lambda b: 1,
 }
+
+
+# Rules whose screen over mailbox views needs per-node distances among
+# W + 1 views: the card has no kernel for them yet.
+VIEWS_DISTANCE_RULES = ("krum", "bulyan")
+
+
+def views_distance_refusal(rule: str) -> str:
+    return (f"{rule} over mailbox views needs per-node distances among W + 1 views (the "
+            f"distance kernel with a node axis, ROADMAP Queue 2 E), which the card has no "
+            f"kernel for yet; run it with device='cpu' (the plain version), or use the "
+            f"synchronous trainer (runtime=None), whose {rule} runs on the distance kernel")
 
 
 def min_neighbors(rule: str, b: int) -> int:
@@ -353,17 +373,21 @@ def screen_all(w: torch.Tensor, adjacency: torch.Tensor, *, rule: str, b: int,
 
 def screen_views(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor, *,
                  rule: str, b: int) -> torch.Tensor:
-    """Apply ``rule`` at every node over its own views ``[M, K, d]`` under
-    ``mask [M, K]`` — the plain rules, the reference's
-    ``screen_views_banked`` with the mask as an operand, so every divisor
-    is a true division.  Krum and Bulyan take each node's distances among
-    its own views and itself (`ref.pairwise_sq_dists` batched over the
-    nodes), as the reference does."""
+    """Apply ``rule`` at every node over its own views ``[M, W, d]`` under
+    ``mask [M, W]`` — the reference's ``screen_views_banked`` with the mask
+    as an operand, so every divisor is a true division.  The trimmed mean
+    and the median run the views kernels (on the CPU their plain
+    versions), reading the views at their strides.  Krum and Bulyan take
+    each node's distances among its own views and itself
+    (`ref.pairwise_sq_dists` batched over the nodes), as the reference
+    does, on the CPU only: on the card they raise `NotImplementedError`."""
     if rule == "trimmed_mean":
-        return ref.trimmed_mean_views(views, mask, self_vals, b)
+        return ops.views_trimmed_mean(views, mask, self_vals, b)
     if rule == "median":
-        return ref.median_views(views, mask, self_vals)
-    if rule in ("krum", "bulyan"):
+        return ops.views_median(views, mask, self_vals)
+    if rule in VIEWS_DISTANCE_RULES:
+        if views.device.type != "cpu":
+            raise NotImplementedError(views_distance_refusal(rule))
         stacked, full = _stack_self(views, mask, self_vals)
         d2 = masked_dists(ref.pairwise_sq_dists(stacked), full)
         if rule == "krum":

@@ -35,7 +35,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of each entry point: pointers and the stream as void*, sizes as int
 SIGNATURES = {
     "screen_trimmed_mean_dense": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
@@ -65,6 +65,12 @@ SIGNATURES = {
     "gather_screen_wide_median": (_PTR,) * 5 + (_INT,) * 3 + (_PTR,),
     "gather_dequant_screen_wide_trimmed_mean": (_PTR,) * 6 + (_INT,) * 5 + (_PTR,),
     "gather_dequant_screen_wide_median": (_PTR,) * 6 + (_INT,) * 4 + (_PTR,),
+    # the views screens (views_screen.cu): views, its node and slot strides,
+    # mask, self_vals, out, M, W, d (b), then the tile entries' plan
+    "views_screen_trimmed_mean": (_PTR, _I64, _I64) + (_PTR,) * 3 + (_INT,) * 8 + (_PTR,),
+    "views_screen_median": (_PTR, _I64, _I64) + (_PTR,) * 3 + (_INT,) * 7 + (_PTR,),
+    "views_screen_wide_trimmed_mean": (_PTR, _I64, _I64) + (_PTR,) * 3 + (_INT,) * 4 + (_PTR,),
+    "views_screen_wide_median": (_PTR, _I64, _I64) + (_PTR,) * 3 + (_INT,) * 3 + (_PTR,),
 }
 
 

@@ -58,7 +58,10 @@
 // scale block, so it reads its single (scale, zero) pair once, through
 // shared memory; one thread per coordinate, neighbouring threads on
 // neighbouring bytes and floats.  On an H100 it runs at about 58% of its
-// bytes bound, so it keeps this design.
+// bytes bound, so it keeps this design.  The rows ride on gridDim.y, which
+// CUDA caps at 65535; above that (the network runtime's per-link decode of
+// [M W, d] rows, M W = 65536 at a dense M = 256) a block takes every
+// 65535th row, so any n runs.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -67,14 +70,6 @@
 namespace {
 
 constexpr int kBlock = 128;  // SCALE_BLOCK: coordinates per (scale, zero) pair
-
-__device__ __forceinline__ void load_pair(const float* __restrict__ scale, int row, int blk,
-                                          int nblk, float* s_pair) {
-  if (threadIdx.x < 2) {
-    s_pair[threadIdx.x] = scale[(static_cast<size_t>(row) * nblk + blk) * 2 + threadIdx.x];
-  }
-  __syncthreads();
-}
 
 static_assert(kBlock == 128, "c >> 7 is a coordinate's scale block");
 constexpr int kGroup = 4;         // codes a dequant group: one 4-byte load, one 16-byte store
@@ -169,27 +164,36 @@ int launch_dequant(const int8_t* q, const float* scale, float* out, int d, int n
   return cudaGetLastError();
 }
 
+// gridDim.y's limit: a block takes rows blockIdx.y, blockIdx.y + gridDim.y, ...
+constexpr int kMaxGridY = 65535;
+
 __global__ void __launch_bounds__(kBlock)
 dequant_carry_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
                      const float* __restrict__ est, const float* __restrict__ target,
-                     float* __restrict__ x_hat, float* __restrict__ resid, int d, int nblk,
-                     bool zero_folded) {
+                     float* __restrict__ x_hat, float* __restrict__ resid, int n, int d,
+                     int nblk, bool zero_folded) {
   __shared__ float s_pair[2];
-  const int row = blockIdx.y;
-  load_pair(scale, row, blockIdx.x, nblk, s_pair);
   const int c = blockIdx.x * kBlock + threadIdx.x;
-  if (c >= d) return;
-  const size_t at = static_cast<size_t>(row) * d + c;
-  const float qf = static_cast<float>(q[at]);
-  const float s = s_pair[0];
-  const float z = s_pair[1];
-  if (zero_folded && z == 0.0f) {
-    x_hat[at] = __fmaf_rn(qf, s, est[at]);
-    resid[at] = __fmaf_rn(-qf, s, target[at]);
-  } else {
-    const float dec = __fmaf_rn(qf, s, z);
-    x_hat[at] = __fadd_rn(est[at], dec);
-    resid[at] = __fsub_rn(target[at], dec);
+  for (int row = blockIdx.y; row < n; row += gridDim.y) {
+    if (threadIdx.x < 2) {
+      s_pair[threadIdx.x] = scale[(static_cast<size_t>(row) * nblk + blockIdx.x) * 2 + threadIdx.x];
+    }
+    __syncthreads();
+    if (c < d) {
+      const size_t at = static_cast<size_t>(row) * d + c;
+      const float qf = static_cast<float>(q[at]);
+      const float s = s_pair[0];
+      const float z = s_pair[1];
+      if (zero_folded && z == 0.0f) {
+        x_hat[at] = __fmaf_rn(qf, s, est[at]);
+        resid[at] = __fmaf_rn(-qf, s, target[at]);
+      } else {
+        const float dec = __fmaf_rn(qf, s, z);
+        x_hat[at] = __fadd_rn(est[at], dec);
+        resid[at] = __fsub_rn(target[at], dec);
+      }
+    }
+    __syncthreads();  // the pair is rewritten for the block's next row
   }
 }
 
@@ -210,8 +214,8 @@ extern "C" int dequant_carry(const int8_t* q, const float* scale, const float* e
                              const float* target, float* x_hat, float* resid, int n, int d,
                              int nblk, int zero_folded, void* stream) {
   if (n < 1 || d < 1 || nblk != (d + kBlock - 1) / kBlock) return cudaErrorInvalidValue;
-  const dim3 grid(nblk, n);
+  const dim3 grid(nblk, n < kMaxGridY ? n : kMaxGridY);
   dequant_carry_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      q, scale, est, target, x_hat, resid, d, nblk, zero_folded != 0);
+      q, scale, est, target, x_hat, resid, n, d, nblk, zero_folded != 0);
   return cudaGetLastError();
 }

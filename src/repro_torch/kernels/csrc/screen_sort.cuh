@@ -41,11 +41,15 @@ __device__ __forceinline__ float sanitize(float x) { return fminf(x, CUDART_INF_
 // for the codec scale block `blk` into shared memory (kStaged: whether
 // there is anything to copy) and ends in a barrier.
 //
+// `at(j)` binds a source to node j: the views' base for mailbox views,
+// the source itself for rows every node shares.
+//
 // Float rows: w[row * d + c], NaN -> +inf.
 struct FloatRows {
   const float* w;
   static constexpr bool kStaged = false;
   static constexpr int kPairs = 1;  // nothing staged
+  __device__ __forceinline__ FloatRows at(int) const { return *this; }
   __device__ __forceinline__ void stage(const int*, int, float2*, int) const {}
   __device__ __forceinline__ float load(const float2*, int row, int, int d, int c) const {
     return sanitize(w[static_cast<size_t>(row) * d + c]);
@@ -64,6 +68,7 @@ struct CodewordRows {
   int nblk;
   static constexpr bool kStaged = true;
   static constexpr int kPairs = kMaxStaged;
+  __device__ __forceinline__ CodewordRows at(int) const { return *this; }
   __device__ __forceinline__ void stage(const int* rows, int n, float2* s_pair, int blk) const {
     for (int t = threadIdx.x; t < n; t += blockDim.x) {
       const float* p = scale + (static_cast<size_t>(rows[t]) * nblk + blk) * 2;
@@ -77,6 +82,33 @@ struct CodewordRows {
     const float qf = static_cast<float>(q[static_cast<size_t>(row) * d + c]);
     return sanitize(__fmaf_rn(qf, sz.x, sz.y));
   }
+};
+
+// Mailbox views [M, W, d] of the network runtime: node j's slot k at
+// coordinate c is v[j s_recv + k s_slot + c], strides in elements, computed
+// with no index loaded.  s_recv may be 0 (a broadcast expanded over the
+// receivers), every node then reading the same views in place.  ViewRows is
+// the source a kernel takes, NodeViews one node's, which the row of a list
+// (the slot) indexes.
+struct NodeViews {
+  const float* v;  // the node's views
+  long long s_slot;
+  static constexpr bool kStaged = false;
+  __device__ __forceinline__ void stage(const int*, int, float2*, int) const {}
+  __device__ __forceinline__ float load(const float2*, int row, int, int, int c) const {
+    return sanitize(v[row * s_slot + c]);
+  }
+};
+
+struct ViewRows {
+  const float* v;
+  long long s_recv, s_slot;
+  static constexpr bool kStaged = false;
+  static constexpr int kPairs = 1;  // nothing staged
+  __device__ __forceinline__ NodeViews at(int j) const {
+    return NodeViews{v + j * s_recv, s_slot};
+  }
+  __device__ __forceinline__ void stage(const int*, int, float2*, int) const {}
 };
 
 // Trimmed mean of a sorted column: ranks [b_eff, count - b_eff) summed left

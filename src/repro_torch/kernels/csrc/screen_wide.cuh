@@ -1,8 +1,9 @@
 // The wide screening path: the trimmed mean and the median over more rows
 // than the register networks hold (kMaxNetworkRows = 128 for the dense
 // screens, 63 table slots for the gather screens), up to kWideMaxRows.
-// screen.cu, dequant_screen.cu and gather_screen.cu instantiate it over
-// their row sources (screen_sort.cuh) and row lists (below), so every
+// screen.cu, dequant_screen.cu, gather_screen.cu and views_screen.cu
+// instantiate it over their row sources (screen_sort.cuh) and row lists
+// (below), so every
 // screen of rows 1-3 and 6-8 of the kernel table takes any row count the
 // reference takes, up to this path's limit.  It replaces, at those sizes,
 // the TPU kernels src/repro/kernels/trimmed_mean.py::trimmed_mean_pallas,
@@ -140,7 +141,8 @@ __device__ __forceinline__ int compact_list(int n, Take take, Row row, int* s_li
 }
 
 // Row lists: which rows node j screens.  Dense: the senders of adj[j, :],
-// ascending.  Slots: the valid slots of row j of the [M, K] table, in slot
+// ascending (over mailbox views [M, W, d], the usable slots of mask[j, :]:
+// DenseList{mask, W}).  Slots: the valid slots of row j of the [M, K] table, in slot
 // order (padded slots are left out: they would sort last as +inf).
 struct DenseList {
   const uint8_t* adj;
@@ -228,7 +230,8 @@ wide_screen_kernel(Rows rows, List list, const float* __restrict__ self_vals,
   const int j = blockIdx.x % nodes;
   const int c0 = (blockIdx.x / nodes) * coords;
   const int count = list.build(j, s_list, s_warp);
-  rows.stage(s_list, count, s_pair, c0 / kScaleBlock);
+  const auto src = rows.at(j);
+  src.stage(s_list, count, s_pair, c0 / kScaleBlock);
   const int n = kMedian ? count + 1 : count;
   const int padded = wide_padded(n);
   const int pitch = wide_pitch(padded);
@@ -250,7 +253,7 @@ wide_screen_kernel(Rows rows, List list, const float* __restrict__ self_vals,
       v[u] = CUDART_INF_F;
       if (e < entries && c < live) {
         if (i < count) {
-          v[u] = rows.load(s_pair, s_list[i], i, d, c0 + c);
+          v[u] = src.load(s_pair, s_list[i], i, d, c0 + c);
         } else if (kMedian && i == count) {
           v[u] = sanitize(self_vals[at0 + c]);
         }

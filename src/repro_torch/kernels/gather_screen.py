@@ -169,6 +169,12 @@ def _head(rows: tuple, safe_idx: torch.Tensor, valid: torch.Tensor, self_vals: t
     return (*(t.data_ptr() for t in (*rows, safe_idx, valid, self_vals, out)), *sizes)
 
 
+def _launch_plan(name: str, plan: TilePlan, head: tuple, stream: int) -> None:
+    err = getattr(build.load(), name)(*head, plan.tile, plan.chunk, plan.segments, plan.cols,
+                                      stream)
+    build.check_launch(err, name)
+
+
 def launch_tile(name: str, plan: TilePlan, rows: tuple, safe_idx: torch.Tensor,
                 valid: torch.Tensor, self_vals: torch.Tensor, b: int | None = None
                 ) -> torch.Tensor:
@@ -178,30 +184,36 @@ def launch_tile(name: str, plan: TilePlan, rows: tuple, safe_idx: torch.Tensor,
     their launches under `tile_plan`'s plan, and the card tests and
     `kernel_times.py --sweep-gather` hold other plans with it."""
     out = torch.empty_like(self_vals)
-    err = getattr(build.load(), name)(*_head(rows, safe_idx, valid, self_vals, out, b),
-                                      plan.tile, plan.chunk, plan.segments, plan.cols,
-                                      build.stream_of(self_vals))
-    build.check_launch(err, name)
+    _launch_plan(name, plan, _head(rows, safe_idx, valid, self_vals, out, b),
+                 build.stream_of(self_vals))
     return out
+
+
+def dispatch(name: str, head: tuple, m: int, k: int, d: int, row_bytes: int, median: bool,
+             stream: int) -> bool:
+    """Launch ``name``'s tile kernel under `tile_plan`'s plan, or its wide
+    twin above `MAX_SLOTS` slots, on ``head`` (the entry point's operands
+    ahead of the plan: pointers, then sizes); returns whether the tile
+    kernel ran.  The gather and the views screens share it."""
+    if k > MAX_SLOTS:
+        screen_wide.launch(name.replace("screen_", "screen_wide_", 1), k + int(median), *head,
+                           stream)
+        return False
+    _launch_plan(name, tile_plan(m, k, d, row_bytes, median), head, stream)
+    return True
 
 
 def _screen(name: str, rows: tuple, safe_idx: torch.Tensor, valid: torch.Tensor,
             self_vals: torch.Tensor, b: int | None) -> tuple[torch.Tensor, bool]:
-    """``name``'s tile kernel under `tile_plan`'s plan, or its wide twin
-    above `MAX_SLOTS` slots (``b`` None: the median); returns the output
-    and whether the tile kernel ran."""
+    """``name``'s kernel through `dispatch` (``b`` None: the median);
+    returns the output and whether the tile kernel ran."""
     if self_vals.device.type != "cuda":
         raise ValueError(f"no {name} kernel for device {self_vals.device}")
-    median = b is None
     (m, d), k = self_vals.shape, safe_idx.shape[1]
-    if k > MAX_SLOTS:
-        out = torch.empty_like(self_vals)
-        screen_wide.launch(name.replace("screen_", "screen_wide_", 1), k + int(median),
-                           *_head(rows, safe_idx, valid, self_vals, out, b),
-                           build.stream_of(self_vals))
-        return out, False
-    plan = tile_plan(m, k, d, 4 if len(rows) == 1 else 1, median)
-    return launch_tile(name, plan, rows, safe_idx, valid, self_vals, b), True
+    out = torch.empty_like(self_vals)
+    tiled = dispatch(name, _head(rows, safe_idx, valid, self_vals, out, b), m, k, d,
+                     4 if len(rows) == 1 else 1, b is None, build.stream_of(self_vals))
+    return out, tiled
 
 
 def gather_screen_trimmed_mean(w: torch.Tensor, safe_idx: torch.Tensor, valid: torch.Tensor,

@@ -10,6 +10,10 @@ codeword screens, the broadcast int8 codewords ``q [M, d]`` and
 in-neighbor mask or the ``[M, K]`` neighbor table, and ``self_vals [M, d]``.
 The device of the operands picks the implementation: the CUDA kernel on a
 card, its plain PyTorch version on the CPU.
+
+The views screens (`views_trimmed_mean`, `views_median`) take the
+reference kernels' own form: each node's views ``[M, W, d]`` (the network
+runtime's mailboxes) under ``mask [M, W]``.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from repro_torch.kernels.gather_screen import gather_screen_median, gather_scree
 from repro_torch.kernels.median import median_dense
 from repro_torch.kernels.pairwise import pairwise_sq_dists as _pairwise_sq_dists
 from repro_torch.kernels.trimmed_mean import trimmed_mean_dense
+from repro_torch.kernels.views_screen import views_screen_median, views_screen_trimmed_mean
 
 
 def trimmed_mean(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor, b: int,
@@ -45,6 +50,17 @@ def gather_median(w: torch.Tensor, safe_idx: torch.Tensor, valid: torch.Tensor,
                   self_vals: torch.Tensor) -> torch.Tensor:
     with torch.profiler.record_function("kernels.gather_median"):
         return gather_screen_median(w, safe_idx, valid, self_vals)
+
+
+def views_trimmed_mean(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
+                       b: int) -> torch.Tensor:
+    with torch.profiler.record_function("kernels.views_trimmed_mean"):
+        return views_screen_trimmed_mean(views, mask, self_vals, b)
+
+
+def views_median(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor) -> torch.Tensor:
+    with torch.profiler.record_function("kernels.views_median"):
+        return views_screen_median(views, mask, self_vals)
 
 
 def dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

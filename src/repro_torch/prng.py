@@ -19,6 +19,19 @@ layout enciphered one counter run split in two halves; its bits differ.
   device and run the cipher there in int64 tensor ops masked to 32 bits.
   This is plain PyTorch and no kernel: XLA computes it outside any Pallas
   kernel as well.
+* Row keys: the per-link paths draw under one key per edge, the reference's
+  ``vmap`` of ``fold_in`` / ``split`` / ``uniform`` over the edges.  Here a
+  batch of keys is an int64 tensor ``[E, 2]`` on the device (the words
+  held as uint32 values): ``fold_in(key, ids)`` with a host key and an
+  ``[E]`` tensor of data makes one, ``fold_in(keys, data)`` and
+  ``split(keys, n)`` (``[E, n, 2]``) derive from one, and ``bits``,
+  ``uniform``, ``randint`` and ``normal`` under it draw a ``shape`` whose
+  leading axis is the key axis (``E``): row e is the draw of ``shape[1:]``
+  under key e.  Under ``vmap`` JAX enciphers each row's counters exactly
+  as it does one key's, so row e is bit for bit the unbatched draw, and a
+  function written for one key and an ``[E, ...]`` operand draws per row
+  unchanged.  ``split(key)[..., i, :]`` picks the i-th subkey of either
+  form.
 
 Equality with ``jax.random``: keys, splits, fold-ins, bits, uniforms and
 32-bit randints are bit for bit (``tests/test_torch_prng.py``).  ``normal`` is
@@ -73,17 +86,60 @@ def PRNGKey(seed: int) -> np.ndarray:  # noqa: N802 (the reference's name)
     return np.array([0, int(seed) & _MASK], dtype=np.uint32)
 
 
-def split(key: np.ndarray, n: int = 2) -> np.ndarray:
+def _t_mask(v):
+    return v & _MASK
+
+
+def _t_rotl(v, r: int):
+    return ((v << r) & _MASK) | (v >> (32 - r))
+
+
+def _t_cipher(k1, k2, x0, x1):
+    """Threefry-2x32 in int64 tensor ops; keys and counters broadcast."""
+    return _threefry2x32(k1, k2, x0, x1, rotl=_t_rotl, mask=_t_mask)
+
+
+def is_rows(key) -> bool:
+    """Whether ``key`` is a batch of row keys (an ``[E, 2]`` tensor)."""
+    return isinstance(key, torch.Tensor)
+
+
+def _row_words(keys: torch.Tensor):
+    if keys.ndim != 2 or keys.shape[1] != 2 or keys.dtype != torch.int64:
+        raise ValueError(f"row keys are an int64 [E, 2] tensor, got {keys.dtype} "
+                         f"{tuple(keys.shape)}")
+    return keys[:, 0:1], keys[:, 1:2]
+
+
+def split(key, n: int = 2):
     """``jax.random.split(key, n)``: ``[n, 2]`` keys, the cipher of the
-    counters ``(0, i)``."""
+    counters ``(0, i)``; under row keys ``[E, n, 2]``."""
+    if is_rows(key):
+        k1, k2 = _row_words(key)
+        i = torch.arange(n, dtype=torch.int64, device=key.device)[None, :]
+        b1, b2 = _t_cipher(k1, k2, i >> 32, i & _MASK)
+        return torch.stack([b1, b2], dim=-1)
     i = np.arange(n, dtype=np.uint64)
     return _np_cipher(np.asarray(key), (i >> np.uint64(32)).astype(np.uint32),
                       (i & np.uint64(_MASK)).astype(np.uint32))
 
 
-def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+def fold_in(key, data):
     """``jax.random.fold_in(key, data)``: the cipher of the counter
-    ``(0, uint32(data))``."""
+    ``(0, uint32(data))``.  A host key with an integer tensor ``data [E]``
+    gives ``[E, 2]`` row keys (``vmap`` of ``fold_in`` over the data, on
+    its device), and row keys fold ``data`` into each row."""
+    if is_rows(key):
+        k1, k2 = _row_words(key)
+        word = int(data) & _MASK
+        b1, b2 = _t_cipher(k1[:, 0], k2[:, 0], torch.zeros_like(k1[:, 0]),
+                           torch.full_like(k1[:, 0], word))
+        return torch.stack([b1, b2], dim=-1)
+    if isinstance(data, torch.Tensor):
+        k1, k2 = _key_words(key)
+        word = data.reshape(-1).to(torch.int64) & _MASK
+        b1, b2 = _t_cipher(k1, k2, torch.zeros_like(word), word)
+        return torch.stack([b1, b2], dim=-1)
     word = np.array([int(data) & _MASK], dtype=np.uint32)
     return _np_cipher(np.asarray(key), np.zeros(1, np.uint32), word)[0]
 
@@ -95,21 +151,29 @@ def _key_words(key) -> tuple[int, int]:
     return int(k[0]), int(k[1])
 
 
-def bits(key: np.ndarray, shape, device: str | torch.device) -> torch.Tensor:
+def bits(key, shape, device: str | torch.device) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (32-bit) on ``device``: an int64
     tensor holding the uint32 values, ``b1 ^ b2`` of each element's
-    counter."""
+    counter.  Under ``[E, 2]`` row keys ``shape[0]`` must be ``E``: row e
+    is ``bits(key_e, shape[1:])``, on the keys' device."""
     shape = tuple(int(s) for s in shape)
-    k1, k2 = _key_words(key)
+    if is_rows(key):
+        k1, k2 = _row_words(key)
+        if not shape or shape[0] != key.shape[0]:
+            raise ValueError(f"a draw under {key.shape[0]} row keys needs a leading axis of "
+                             f"{key.shape[0]}, got shape {shape}")
+        n = int(np.prod(shape[1:]))
+        idx = torch.arange(n, dtype=torch.int64, device=key.device)[None, :]
+        b1, b2 = _t_cipher(k1, k2, idx >> 32, idx & _MASK)
+        return (b1 ^ b2).reshape(shape)
     n = int(np.prod(shape)) if shape else 1
+    k1, k2 = _key_words(key)
     idx = torch.arange(n, dtype=torch.int64, device=device)
-    mask = lambda v: v & _MASK
-    rotl = lambda v, r: ((v << r) & _MASK) | (v >> (32 - r))
-    b1, b2 = _threefry2x32(k1, k2, idx >> 32, idx & _MASK, rotl=rotl, mask=mask)
+    b1, b2 = _t_cipher(k1, k2, idx >> 32, idx & _MASK)
     return (b1 ^ b2).reshape(shape)
 
 
-def uniform(key: np.ndarray, shape, device: str | torch.device, minval: float = 0.0,
+def uniform(key, shape, device: str | torch.device, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
     23 bits of each draw as a float in ``[1, 2)`` minus 1, scaled to
@@ -130,7 +194,7 @@ def _mulmod32(a: torch.Tensor, m: int) -> torch.Tensor:
     return ((hi << 16) + (a & 0xFFFF) * m) & _MASK
 
 
-def randint(key: np.ndarray, shape, minval: int, maxval: int, dtype: torch.dtype,
+def randint(key, shape, minval: int, maxval: int, dtype: torch.dtype,
             device: str | torch.device) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval, int32)``: two 32-bit
     draws under ``split(key)``, ``hi`` and ``lo``, folded into
@@ -147,8 +211,8 @@ def randint(key: np.ndarray, shape, minval: int, maxval: int, dtype: torch.dtype
     if not -(2 ** 31) <= min(minval, maxval) <= max(minval, maxval) < 2 ** 31:
         raise ValueError(f"randint bounds must be int32 values, got [{minval}, {maxval})")
     span = (maxval - minval) & _MASK if maxval > minval else 1
-    k1, k2 = split(key)
-    hi, lo = bits(k1, shape, device), bits(k2, shape, device)
+    keys = split(key)
+    hi, lo = bits(keys[..., 0, :], shape, device), bits(keys[..., 1, :], shape, device)
     mult = 2 ** 16 % span
     mult = ((mult * mult) & _MASK) % span
     offset = ((_mulmod32(hi % span, mult) + lo % span) & _MASK) % span
@@ -161,7 +225,7 @@ _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = float(np.float32(np.sqrt(2.0)))
 
 
-def normal(key: np.ndarray, shape, device: str | torch.device) -> torch.Tensor:
+def normal(key, shape, device: str | torch.device) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``:
     ``sqrt(2) * erfinv(u)`` with ``u`` uniform in ``(-1, 1)`` (see the
     module docstring for the tolerance)."""

@@ -400,7 +400,10 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.prng, repro_torch.core.neighbors, repro_torch.comm.codec, "
             "repro_torch.comm.exchange, repro_torch.kernels.gather_screen, "
             "repro_torch.kernels.dequant, repro_torch.kernels.ops, repro_torch.kernels.pairwise, "
-            "repro_torch.core.byrdie, repro_torch.core.brdso, repro_torch.sim.variants; "
+            "repro_torch.core.byrdie, repro_torch.core.brdso, repro_torch.sim.variants, "
+            "repro_torch.net, repro_torch.net.channel, repro_torch.net.dynamic, "
+            "repro_torch.net.mailbox, repro_torch.net.runtime, repro_torch.net.scenarios, "
+            "repro_torch.net.async_bridge, repro_torch.kernels.views_screen; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))

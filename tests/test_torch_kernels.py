@@ -11,7 +11,9 @@ against their plain versions and against their staged twins (the
 its forms (the plain one also at odd widths and on a misaligned base), the
 pairwise distances within the float32 dot-product bound
 (``test_torch_krum.py``) with exact symmetry, an exact zero diagonal and
-the NaN/inf pattern kept.
+the NaN/inf pattern kept; the views screens (the network runtime's, over
+each node's own mailbox views) exact up to 63 slots, a receiver stride of
+0 and starved nodes included, and above on the wide path.
 
 This file imports nothing of JAX, so it runs on the card's machine:
 
@@ -28,7 +30,7 @@ import torch
 
 from repro_torch.kernels import (
     build, dequant, dequant_screen, gather_screen, median, networks, pairwise, ref, screen_wide,
-    trimmed_mean)
+    trimmed_mean, views_screen)
 
 
 def edge_inputs(n: int, d: int, seed: int):
@@ -299,8 +301,10 @@ def test_gather_kernels_reject_wide_tables(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d", [(4, 300), (512, 7850)])
+@pytest.mark.parametrize("n,d", [(4, 300), (512, 7850), (2500, 7850), (70000, 130)])
 def test_dequant_kernels_equal_plain_on_card(cuda_device, n, d):
+    """Also at the dense runtime's per-link rows (M W = 2500) and above
+    gridDim.y's 65535, where a carry block takes more than one row."""
     q, scale = (torch.from_numpy(x).to(cuda_device) for x in codeword(n, d, seed=d))
     assert bool(nan_equal(dequant.dequant(q, scale), ref.dequant(q, scale)).all())
     gen = torch.Generator(device=cuda_device).manual_seed(1)
@@ -842,3 +846,59 @@ def test_wide_trainers_match_the_cpu(cuda_device, rule, layout):
     for k in gpu.params:
         torch.testing.assert_close(gpu.params[k].cpu()[honest], cpu.params[k][honest],
                                    rtol=1e-5, atol=1e-6)
+
+
+def views_inputs(m, w, d, seed, stride0=False):
+    """Mailbox views ``[m, w, d]`` with NaN, +-inf, 1e30, ties and +-0
+    payloads (or one broadcast expanded over the receivers, stride 0), a
+    usable mask whose first nodes are starved (0 and 1 usable slots), and
+    self values with NaN.  ``chip_smoke.py`` screens the same recipe."""
+    rng = np.random.default_rng(seed)
+    if stride0:
+        views = torch.as_tensor(rng.normal(size=(1, w, d)).astype(np.float32)).expand(m, w, d)
+    else:
+        v = rng.normal(size=(m, w, d)).astype(np.float32)
+        v[:, :, : d // 4] = np.round(v[:, :, : d // 4])
+        for frac, val in ((0.05, np.nan), (0.03, np.inf), (0.03, -np.inf), (0.05, 1e30),
+                          (0.04, -0.0), (0.04, 0.0)):
+            v[rng.random(v.shape) < frac] = val
+        views = torch.as_tensor(v)
+    mask = rng.random((m, w)) < 0.6
+    mask[0] = False
+    mask[1] = False
+    mask[1, 0] = True
+    self_vals = rng.normal(size=(m, d)).astype(np.float32)
+    self_vals[rng.random((m, d)) < 0.05] = np.nan
+    return views, torch.as_tensor(mask), torch.as_tensor(self_vals)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,w,d,stride0", [(50, 50, 7850, False), (50, 50, 999, True),
+                                           (12, 16, 333, False), (20, 63, 1000, False),
+                                           (512, 16, 500, False), (7, 1, 50, False)])
+def test_views_kernels_equal_plain_on_card(cuda_device, m, w, d, stride0):
+    views, mask, self_vals = (x.to(cuda_device) for x in views_inputs(m, w, d, m, stride0))
+    for b in (0, 1, 4):
+        got = views_screen.views_screen_trimmed_mean(views, mask, self_vals, b)
+        assert bool(nan_equal(got, ref.trimmed_mean_views(views, mask, self_vals, b)).all())
+        # a starved node keeps its own value: finite where self is
+        assert bool((torch.isfinite(got[0]) == torch.isfinite(self_vals[0])).all())
+    got = views_screen.views_screen_median(views, mask, self_vals)
+    assert bool(nan_equal(got, ref.median_views(views, mask, self_vals)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,w,stride0", [(129, 129, True), (30, 129, False), (10, 64, False)])
+def test_views_wide_path_on_card(cuda_device, m, w, stride0):
+    """Above 63 slots: the median exact, the trimmed mean within the float32
+    summation bound of the plain version (which sums with ``torch.sum``)."""
+    views, mask, self_vals = (x.to(cuda_device) for x in views_inputs(m, w, 300, m, stride0))
+    got = views_screen.views_screen_median(views, mask, self_vals)
+    assert bool(nan_equal(got, ref.median_views(views, mask, self_vals)).all())
+    got = views_screen.views_screen_trimmed_mean(views, mask, self_vals, 2)
+    want = ref.trimmed_mean_views(views, mask, self_vals, 2)
+    fin = torch.isfinite(want)
+    scale = torch.where(torch.isfinite(views), views.abs(), 0.0).amax(dim=1) + self_vals.abs()
+    tol = 2.0 * w * float(np.finfo(np.float32).eps) * scale
+    assert bool(((got - want).abs() <= tol)[fin].all())
+    assert bool((torch.isfinite(got) == fin).all())

@@ -3,7 +3,7 @@ CPU, at the settings `chip_smoke.py` trains the PyTorch port at: the
 thresholds the port's card runs are held to (within 0.01 of each).
 
     JAX_PLATFORMS=cpu PYTHONPATH=src:. python tools/reference_accuracy.py \
-        [--only dense,sparse,variants,wire,wire_sparse,variants_wire]
+        [--only dense,sparse,variants,wire,wire_sparse,variants_wire,net]
 
 Configurations (each as `chip_smoke.py` runs it, same seeds and batches):
 
@@ -25,7 +25,23 @@ Configurations (each as `chip_smoke.py` runs it, same seeds and batches):
   ``small_world(512, 6, 2, rewire_prob=0.2)``, int8 under ``scale_abuse``;
 * ``variants_wire``: the variants at their defaults under
   ``--codec int4 --attack scale_abuse`` (each rule uncompressed and int4;
-  the baselines' row is ``variants``' own, under ``random``).
+  the baselines' row is ``variants``' own, under ``random``);
+* ``net``: asynchronous BRIDGE-T through `repro.net.AsyncBridgeTrainer`'s
+  ``run_scan`` over stacked batches, with the mean ``delivered_frac`` and
+  ``mean_staleness`` of each run beside its accuracy:
+  - the net benchmark's settings (``benchmarks/net_bench.py``): M = 20 on
+    ``erdos_renyi(20, 0.5, 2)``, b = 2, ``alie``, t0 = 30, iid partition
+    of 4000 samples, batch 32, init seed 0, key seed 0, 120 ticks, under
+    every ``NET_SCENARIOS`` entry (its channel, staleness bound and
+    schedule kind on this graph), and ``selective_victim`` under ``lossy``;
+  - the ``dense`` settings (random attack, b = 4) for 100 ticks under
+    ``lossy_laggy`` and ``narrowband64k``, each with the identity and the
+    per-link int8 codec;
+  - the scale benchmark's sparse settings (``benchmarks/scale_bench.py``):
+    ``small_world(512, 6, 1, rewire_prob=0.2)``, b = 1, ``alie``, drop
+    0.05, staleness bound 2, t0 = 100, iid partition of 16384 samples,
+    batch 8, init and key seed 0, 200 ticks, the sparse layout.
+  It took 5 minutes on an 8-core CPU.
 
 Prints one line per configuration and a JSON object of all of them last.
 Takes some minutes (the sparse runs most of it).
@@ -37,6 +53,7 @@ import json
 import time
 
 import jax
+import numpy as np
 
 from repro.core import bridge, graph
 from repro.sim import tasks
@@ -122,18 +139,67 @@ def variants_wire():
     return out
 
 
+def run_async(task, topo, *, b, t0, ticks, attack, seed=0, init_seed=0, codec="identity",
+              sparse=False, scenario="ideal", channel=None, staleness=None):
+    from repro.net import AsyncBridgeConfig, AsyncBridgeTrainer
+    from repro.net.dynamic import scenario_schedule
+    from repro.net.scenarios import get_scenario
+
+    spec = get_scenario(scenario)
+    cfg = AsyncBridgeConfig(
+        topology=topo, rule="trimmed_mean", num_byzantine=b, attack=attack, lam=1.0, t0=t0,
+        codec=codec, sparse=sparse, channel=spec.channel if channel is None else channel,
+        staleness_bound=spec.staleness_bound if staleness is None else staleness,
+        schedule=scenario_schedule(spec.schedule_kind, topo, ticks, seed=0,
+                                   churn_prob=spec.churn_prob))
+    trainer = AsyncBridgeTrainer(cfg, task.grad_fn)
+    state = trainer.init(task.init_fn(init_seed), seed=seed)
+    state, ms = trainer.run_scan(state, bridge.stack_batches(task.batch_fn, ticks))
+    return {"accuracy": task.eval_accuracy(state.params, trainer.honest_mask),
+            "delivered_frac": float(np.mean(np.asarray(ms["delivered_frac"]))),
+            "mean_staleness": float(np.mean(np.asarray(ms["mean_staleness"])))}
+
+
+def net():
+    from repro.net.channel import ChannelConfig
+    from repro.net.scenarios import NET_SCENARIOS
+
+    out = {}
+    topo = graph.erdos_renyi(20, 0.5, 2, seed=0)
+    runs = [(name, "alie") for name in NET_SCENARIOS] + [("lossy", "selective_victim")]
+    for name, attack in runs:
+        task = tasks.linear_task(20, 0, partition="iid", num_train=4000, num_test=800, batch=32)
+        tag = f"net {name}" + ("" if attack == "alie" else f" {attack}")
+        out[tag] = run_async(task, topo, b=2, t0=30, ticks=120, attack=attack, scenario=name)
+    topo = graph.erdos_renyi(50, 0.5, 4, seed=0)
+    for name in ("lossy_laggy", "narrowband64k"):
+        for codec in ("identity", "int8"):
+            task = tasks.linear_task(50, 0, partition="iid", num_train=6000, num_test=1000,
+                                     batch=32)
+            out[f"net dense {name} {codec}"] = run_async(
+                task, topo, b=4, t0=30, ticks=100, attack="random", seed=1, codec=codec,
+                scenario=name)
+    topo = graph.small_world(512, 6, 1, rewire_prob=0.2, seed=0)
+    task = tasks.linear_task(512, 0, partition="iid", num_train=16384, num_test=1000, batch=8)
+    out["net sparse lossy"] = run_async(task, topo, b=1, t0=100, ticks=200, attack="alie",
+                                        sparse=True, channel=ChannelConfig(drop_prob=0.05),
+                                        staleness=2)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="dense,sparse,variants")
     args = ap.parse_args()
     groups = {"dense": dense, "sparse": sparse, "variants": variants, "wire": wire,
-              "wire_sparse": wire_sparse, "variants_wire": variants_wire}
+              "wire_sparse": wire_sparse, "variants_wire": variants_wire, "net": net}
     results = {}
     for name in args.only.split(","):
         t0 = time.perf_counter()
         res = groups[name]()
         for k, v in res.items():
-            print(f"{k}: honest test accuracy {v:.4f}")
+            acc = v["accuracy"] if isinstance(v, dict) else v
+            print(f"{k}: honest test accuracy {acc:.4f}")
         print(f"({name}: {time.perf_counter() - t0:.0f} s, backend {jax.default_backend()})")
         results.update(res)
     print(json.dumps(results))
