@@ -113,12 +113,41 @@ failure of which raises:
    int8 codec (100 ticks); (d) the sparse runtime at the scale benchmark's
    settings (``small_world(512, 6, 1)``, b = 1, ``alie``, drop 0.05,
    staleness 2, t0 = 100, batch 8, 200 ticks), and dense against sparse
-   bit for bit at M = 48 over 20 ticks; (e) BRIDGE-K and BRIDGE-B refused
-   on the card before any launch.  Each accuracy within 0.01 of the
+   bit for bit at M = 48 over 20 ticks.  Each accuracy within 0.01 of the
    reference's, and the means of ``delivered_frac`` and ``mean_staleness``
    equal to the reference's (``REFERENCE_NET``); the views kernels launched
    once a tick, ``dequant_carry`` once a tick under int8.  Then the dense
-   ``lossy_laggy`` runs and the sparse run are profiled.
+   ``lossy_laggy`` runs and the sparse run are profiled;
+17. views BRIDGE-K / BRIDGE-B — the batched distance kernel (batch = node,
+   each node's mailbox views and its own value) against its plain version,
+   node by node within the float32 dot-product bound, symmetric, with a
+   zero diagonal, each node equal to the unbatched kernel of its rows:
+   dense M = W = 50, materialized and with a receiver stride of 0, sparse
+   M = 512, K = 16, K = 64, and NaN / +-inf / 1e30 rows; timed beside the
+   plain version and ``torch.bmm`` with the same epilogue.  Then
+   `AsyncBridgeTrainer` BRIDGE-K and BRIDGE-B at the net benchmark's
+   settings on ``erdos_renyi(20, 0.9, 1)`` (b = 1, ``alie``, t0 = 30, batch
+   32, 120 ticks) under ``ideal`` and ``lossy``: the distance kernel once a
+   tick (Bulyan's views trimmed mean too, held exactly against its plain
+   version at two ticks), accuracy within 0.01 of the reference's and the
+   channel means equal to its (``REFERENCE_NET``), and 3 ticks of
+   card-vs-CPU parity on honest rows;
+18. grids — the experiment-axis forms of the screens (the dense register
+   kernels at E = 8, M = 12; the gather kernels at E = 4, M = 512, K = 16
+   with per-experiment b; the wide path at E = 2, M = 129) equal their
+   unbatched kernels experiment by experiment and their plain versions,
+   timed; then `repro_torch.sim.GridEngine` at d = 7850: the reference's
+   ``grid_bench`` grid (T / M x random, alie, sign_flip x 8 seeds, M = 12,
+   b = 2, batch 32, 30 ticks), BRIDGE-K / BRIDGE-B at M = 50 (b = 4, random
+   and alie, 2 seeds, 30 ticks), a sparse grid on ``small_world(512, 6, 2)``
+   (T / M, random, 4 seeds, b = 2, t0 = 100, batch 8, 50 ticks) and a wide
+   dense grid at M = 129 (T / M, 2 seeds, 3 ticks): every screening kernel
+   launched once a tick per group, every cell equal to its own
+   `BridgeTrainer` run on the card (parameters and key bit for bit), the
+   T / M cells of the 30- and 50-tick grids at 0.95 honest accuracy or
+   more, and cells/s and ms/tick of the engine against the cells run one by
+   one; last, ``python -m repro_torch.launch.sweep --mode grid`` into a
+   temporary store, whose second run finds every cell cached.
 
 Every accuracy of phases 8-11 must land within 0.01 of the reference's
 own CPU run at the same settings (``REFERENCE_ACCURACY``, from
@@ -127,7 +156,7 @@ Krum's picks (``PICK_BOUND``), which is held to card-vs-CPU parity.
 
 Each configuration of a trainer phase trains on a task of its own, so all
 see batches 0..199 of one stream.  Before each main-path phase (5-12,
-16) every kernel's launch count is set to 0, and read
+16-18) every kernel's launch count is set to 0, and read
 after its runs: each kernel of the phase must have launched once per
 tick of the runs of its rule (codec), the others not at all; a kernel's
 ``launches`` in the JSON line is the sum over the phases.  Then each
@@ -146,6 +175,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -172,7 +202,8 @@ from repro_torch.kernels import (  # noqa: E402
 from repro_torch.net import AsyncBridgeConfig, AsyncBridgeTrainer, ChannelConfig  # noqa: E402
 from repro_torch.net.dynamic import scenario_schedule  # noqa: E402
 from repro_torch.net.scenarios import NET_SCENARIOS, get_scenario  # noqa: E402
-from repro_torch.sim import variants  # noqa: E402
+from repro_torch.launch import sweep  # noqa: E402
+from repro_torch.sim import ExperimentGrid, GridEngine, default_topology, variants  # noqa: E402
 from repro_torch.sim.tasks import linear_task  # noqa: E402
 from test_torch_kernels import views_inputs  # noqa: E402
 
@@ -195,6 +226,7 @@ KERNELS = {  # JSON name -> wrapper (its `launches` counter)
     "screen_wide": screen_wide.launch,
     "views_screen_trimmed_mean": views_screen.views_screen_trimmed_mean,
     "views_screen_median": views_screen.views_screen_median,
+    "pairwise_sq_dists_batched": pairwise.pairwise_sq_dists_batched,
 }
 COUNTED = KERNELS  # every counted wrapper is in the JSON line
 # bits on the wire per message at d = 7850: the reference codec's
@@ -260,6 +292,11 @@ REFERENCE_NET = {
                                          2.9100000858306885),
     "net dense narrowband64k int8": (0.9968261265236399, 1.0, 0.0),
     "net sparse lossy": (0.9936497454074031, 0.9500236511230469, 0.051934413611888885),
+    # BRIDGE-K / BRIDGE-B over views (tools/reference_accuracy.py, group net_kb)
+    "net krum ideal": (0.9623026189051176, 0.9999999403953552, 0.0),
+    "net krum lossy": (0.9612499851929514, 0.7994758486747742, 0.24931100010871887),
+    "net bulyan ideal": (0.9911841875628421, 0.9999999403953552, 0.0),
+    "net bulyan lossy": (0.9908552326654133, 0.7994758486747742, 0.24931100010871887),
 }
 REFERENCE_ACCURACY.update({tag: acc for tag, (acc, _, _) in REFERENCE_NET.items()})
 NET_TICKS = 120  # the net benchmark's run (benchmarks/net_bench.py)
@@ -1973,32 +2010,417 @@ def net_trainer_runs(dev, held):
             raise AssertionError("net M=48: the dense and the sparse runtime differ")
     print("net M=48: the dense and the sparse runtime bit for bit equal over 20 ticks")
 
-    # (e) BRIDGE-K and BRIDGE-B over views: refused on the card before any launch
-    before = {k: fn.launches for k, fn in COUNTED.items()}
-    topo = erdos_renyi(20, 0.9, 1, seed=0)
-    for rule in screening.VIEWS_DISTANCE_RULES:
-        cfg = AsyncBridgeConfig(topology=topo, rule=rule, num_byzantine=1, attack="alie")
-        try:
-            AsyncBridgeTrainer(cfg, task.grad_fn, device=dev)
-        except NotImplementedError as err:
-            print(f"net {rule}: refused on the card as expected ({str(err)[:60]}...)")
-        else:
-            raise AssertionError(f"net {rule}: the runtime trainer did not refuse it on the card")
-        views = torch.zeros((4, 4, 8), device=dev)
-        try:
-            screening.screen_views(views, torch.ones((4, 4), dtype=torch.bool, device=dev),
-                                   views[:, 0], rule=rule, b=1)
-        except NotImplementedError:
-            pass
-        else:
-            raise AssertionError(f"screen_views {rule}: not refused on the card")
-    if {k: fn.launches for k, fn in COUNTED.items()} != before:
-        raise AssertionError("a refused rule launched a kernel")
-
     launches = read_launches()
     for tag, trainer, task, seed in profiles:
         profile_trainer(tag, trainer, trainer.init(task.init_fn(0), seed=seed), task.batch_fn)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 17. BRIDGE-K / BRIDGE-B over mailbox views on the card
+# ---------------------------------------------------------------------------
+
+
+def views_dist_check(tag: str, views: torch.Tensor, self_vals: torch.Tensor) -> float:
+    """The batched distance kernel on mailbox views against its plain
+    version, node by node (`check_dists`: the dot-product bound, symmetry,
+    zero diagonal, the NaN/inf pattern), and equal bit for bit to the
+    unbatched kernel of a few nodes' stacked rows; returns the largest
+    finite difference."""
+    got = pairwise.pairwise_sq_dists_batched(views, self_vals)
+    want = ref.pairwise_sq_dists_batched(views, self_vals)
+    x = torch.cat([views, self_vals[:, None]], dim=1)
+    err = max(check_dists(f"{tag} node {j}", got[j], want[j], x[j]) for j in range(x.shape[0]))
+    for j in sorted({0, x.shape[0] // 2, x.shape[0] - 1}):
+        if not bool(nan_equal(got[j], pairwise.pairwise_sq_dists(x[j].contiguous())).all()):
+            raise AssertionError(f"{tag}: node {j} differs from the unbatched kernel of its rows")
+    print(f"pairwise batched {tag} {tuple(views.shape)} (node stride {views.stride(0)}): max "
+          f"|kernel - plain| {err:.3g}, each node equal to the unbatched kernel; plan "
+          f"{pairwise.split_plan(x.shape[1], x.shape[2])}")
+    return err
+
+
+def views_edge_inputs(m: int, w: int, d: int, seed: int, dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    views = torch.randn((m, w, d), generator=gen, device=dev)
+    views[1, 1] = float("nan")
+    views[2, 0, 3], views[3, 2, 0] = float("inf"), -float("inf")
+    views[4, 3] = 1e30
+    self_vals = torch.randn((m, d), generator=gen, device=dev)
+    self_vals[5, 7] = float("nan")
+    return views, self_vals
+
+
+def net_parity(tag: str, cfg, task, dev, ticks: int = 3) -> None:
+    """``ticks`` ticks of the runtime trainer on the card and on the CPU from
+    one init and one batch stream: honest rows within rtol 1e-4, atol 1e-5."""
+    init, batches = task.init_fn(0), [task.batch_fn(i) for i in range(ticks)]
+    out = []
+    for device in (dev, "cpu"):
+        tr = AsyncBridgeTrainer(cfg, task.grad_fn, device=device)
+        st = tr.init({k: v.to(device) for k, v in init.items()}, seed=0)
+        for batch in batches:
+            st, _ = tr.step(st, tuple(x.to(device) for x in batch))
+        out.append((st, tr.honest_mask.cpu()))
+    (gpu, honest), (cpu, _) = out
+    for k in gpu.params:
+        torch.testing.assert_close(gpu.params[k].cpu()[honest], cpu.params[k][honest],
+                                   rtol=1e-4, atol=1e-5, msg=f"card vs CPU {tag} ({k})")
+
+
+def views_kb_phase(dev):
+    """Phase 17: the batched distance kernel on mailbox views, then
+    asynchronous BRIDGE-K and BRIDGE-B on the card; returns its record and
+    the launches of the runs."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    mk = lambda *shape: torch.randn(shape, generator=gen, device=dev) * 0.05
+    cases = {
+        "dense W=50": (mk(M, M, D), mk(M, D)),
+        "dense W=50 stride 0": (mk(1, M, D).expand(M, M, D), mk(M, D)),
+        f"sparse M={SM} K=16": (mk(SM, 16, D), mk(SM, D)),
+        "K=64": (mk(64, 64, D), mk(64, D)),
+        "edge rows": views_edge_inputs(8, 6, 777, seed=18, dev=dev),
+    }
+    errs = {tag: views_dist_check(tag, *args) for tag, args in cases.items()}
+
+    def library(x):
+        g = torch.bmm(x, x.mT)
+        sq = torch.diagonal(g, dim1=1, dim2=2)
+        d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * g
+        return torch.where(d2 < 0, 0.0, d2)
+
+    def cost(views, self_vals):
+        """Bytes (the views' distinct rows once, self, the output) and the
+        operations (each node's n (n + 1) / 2 dot products of d FMAs)."""
+        m, w, d = views.shape
+        n = w + 1
+        rows = w * d if views.stride(0) == 0 else m * w * d
+        return (rows + m * d + m * n * n) * 4, m * n * (n + 1) * d
+
+    for tag in ("dense W=50", "dense W=50 stride 0"):
+        v, s = cases[tag]
+        stacked = torch.cat([v, s[:, None]], dim=1)
+        nbytes, ops = cost(v, s)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+        print(f"pairwise batched {tag} times: kernel "
+              f"{cuda_ms(lambda: pairwise.pairwise_sq_dists_batched(v, s)):.4f} ms, plain "
+              f"{cuda_ms(lambda: ref.pairwise_sq_dists_batched(v, s), reps=11, inner=2):.4f} ms, "
+              f"torch.bmm {cuda_ms(lambda: library(stacked), reps=11, inner=2):.4f} ms, bound "
+              f"{bound:.5f} ms")
+    v, s = cases[f"sparse M={SM} K=16"]
+    stacked = torch.cat([v, s[:, None]], dim=1)
+    nbytes, ops = cost(v, s)
+    rec = record("pairwise_sq_dists_batched", "src/repro_torch/kernels/csrc/pairwise.cu",
+                 "src/repro/kernels/krum.py:44",
+                 lambda: pairwise.pairwise_sq_dists_batched(v, s),
+                 lambda: ref.pairwise_sq_dists_batched(v, s), lambda: library(stacked), nbytes,
+                 ops, errs[f"sparse M={SM} K=16"])
+    print(f"library: torch.bmm(x, x.mT) over the stacked [M, K + 1, d] views with the same "
+          f"epilogue (TF32 off), a call the port never makes; timed at sparse M = {SM}, K = 16")
+    del cases, v, s, stacked
+
+    # the runtime trainers, BRIDGE-K and BRIDGE-B, each tick through the kernel
+    task = net_task(20, dev, num_train=4000, num_test=800, batch=32)
+    batches = stack_batches(task.batch_fn, NET_TICKS, device=dev)
+    topo = erdos_renyi(20, 0.9, 1, seed=0)
+    cpu_task = net_task(20, "cpu", num_train=4000, num_test=800, batch=32)
+    zero_launches()
+    with HeldCalls() as held:
+        for rule in ("krum", "bulyan"):
+            for name in ("ideal", "lossy"):
+                spec = get_scenario(name)
+                cfg = AsyncBridgeConfig(
+                    topology=topo, rule=rule, num_byzantine=1, attack="alie", lam=1.0, t0=30,
+                    channel=spec.channel, staleness_bound=spec.staleness_bound,
+                    schedule=scenario_schedule(spec.schedule_kind, topo, NET_TICKS, seed=0,
+                                               churn_prob=spec.churn_prob))
+                trainer = AsyncBridgeTrainer(cfg, task.grad_fn, device=dev)
+                want = {"pairwise_sq_dists_batched": NET_TICKS}
+                if rule == "bulyan":
+                    want["views_screen_trimmed_mean"] = NET_TICKS
+                tag = f"net {rule} {name}"
+                state, mets, ms_tick = net_run(tag, trainer, trainer.init(task.init_fn(0), seed=0),
+                                               batches, want, NET_TICKS, held)
+                net_check(tag, task, trainer, state, mets, ms_tick)
+    launches = read_launches()
+    for rule in ("krum", "bulyan"):
+        for name in ("ideal", "lossy"):
+            spec = get_scenario(name)
+            cfg = AsyncBridgeConfig(
+                topology=topo, rule=rule, num_byzantine=1, attack="alie", lam=1.0, t0=30,
+                channel=spec.channel, staleness_bound=spec.staleness_bound,
+                schedule=scenario_schedule(spec.schedule_kind, topo, NET_TICKS, seed=0,
+                                           churn_prob=spec.churn_prob))
+            net_parity(f"net {rule} {name}", cfg, cpu_task, dev)
+    print(f"net BRIDGE-K / BRIDGE-B (M = 20, erdos_renyi(20, 0.9, 1), b = 1, alie, "
+          f"{NET_TICKS} ticks, ideal and lossy): the batched distance kernel once a tick, "
+          f"Bulyan's views trimmed mean once a tick; 3 ticks on the card and the CPU agree on "
+          f"honest rows (rtol 1e-4, atol 1e-5)")
+    return [rec], launches
+
+
+# ---------------------------------------------------------------------------
+# 18. The batched experiment grids
+# ---------------------------------------------------------------------------
+
+# rule -> the kernels a group of its cells launches once a tick (on a dense
+# grid; the sparse grids' screens are the gather forms)
+GRID_KERNELS = {"trimmed_mean": ("screen_trimmed_mean_dense",),
+                "median": ("screen_median_dense",),
+                "krum": ("pairwise_sq_dists_batched",),
+                "bulyan": ("pairwise_sq_dists_batched", "screen_trimmed_mean_dense")}
+
+
+def grid_want(engine, ticks: int) -> dict:
+    """Each screening kernel once a tick for each group of the grid: on a
+    sparse grid the gather forms, above the register networks' rows the
+    wide path."""
+    want: dict[str, int] = {}
+    if engine.sparse:
+        wide = engine.neighbors.k + 1 > gather_screen.MAX_SLOTS + 1
+    else:
+        wide = engine.grid.topology.num_nodes + 1 > trimmed_mean.MAX_ROWS
+    for rules, _ in engine._banks:
+        for rule in rules:
+            for k in GRID_KERNELS[rule]:
+                if k.startswith("screen_"):
+                    if wide:
+                        k = "screen_wide"
+                    elif engine.sparse:
+                        k = "gather_screen_" + k[len("screen_"):-len("_dense")]
+                want[k] = want.get(k, 0) + ticks
+    return want
+
+
+def _grid_run(tag, grid, task, dev, ticks, *, sparse=False, acc_rules=("trimmed_mean", "median")):
+    """One grid on the card: the engine's run, timed (each screening kernel
+    launched once a tick per group, counted), then every cell's own
+    `BridgeTrainer` run over the same batches, timed; each cell's
+    parameters and key equal bit for bit, its loss stream too (else within
+    rtol 1e-6, with the cause printed); the honest accuracy of every
+    ``acc_rules`` cell at least 0.95.  Returns the launches of the engine's
+    run."""
+    batches = stack_batches(task.batch_fn, ticks, device=dev)
+    engine = GridEngine(grid, task.grad_fn, sparse=sparse, device=dev)
+    state0 = engine.init(task.init_fn)
+    before = read_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, metrics = engine.run(state0, batches)
+    torch.cuda.synchronize()
+    wall_grid = time.perf_counter() - t0
+    check_grew(f"grid {tag}", before, grid_want(engine, ticks))
+    grew = {k: n - before[k] for k, n in read_launches().items() if n != before[k]}
+    e = engine.num_cells
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = []
+    for cell in engine.cells:
+        cfg = BridgeConfig(topology=grid.topology, rule=cell.rule, num_byzantine=cell.b,
+                           attack=cell.attack, lam=grid.lam, t0=grid.t0, lr=grid.lr,
+                           byzantine_seed=cell.mask_seed, sparse=sparse)
+        tr = BridgeTrainer(cfg, task.grad_fn, device=dev)
+        st = tr.init(task.init_fn(cell.seed), seed=cell.seed)
+        losses = []
+        for i in range(ticks):
+            st, m = tr.step(st, tuple(x[i] for x in batches))
+            losses.append(m["loss"])
+        seq.append((st, torch.stack(losses), tr.honest_mask))
+    torch.cuda.synchronize()
+    wall_seq = time.perf_counter() - t0
+    loss_note = "bit for bit"
+    accs = []
+    for i, (cell, (st, losses, honest)) in enumerate(zip(engine.cells, seq, strict=True)):
+        for k in st.params:
+            if not torch.equal(final.params[k][i], st.params[k]):
+                diff = float((final.params[k][i] - st.params[k]).abs().max())
+                raise AssertionError(f"grid {tag}: cell {cell.tag} ({k}) differs from its "
+                                     f"BridgeTrainer run by up to {diff:.3g}")
+        if not np.array_equal(final.key[i], st.key):
+            raise AssertionError(f"grid {tag}: cell {cell.tag}'s key differs")
+        if not torch.equal(metrics["loss"][i], losses):
+            torch.testing.assert_close(metrics["loss"][i], losses, rtol=1e-6, atol=0,
+                                       msg=f"grid {tag}: cell {cell.tag}'s loss stream")
+            loss_note = ("within rtol 1e-6 (the loss sums over the nodes' [N, C] margins and "
+                         "parameters round per batched reduction shape on the card)")
+        if cell.rule in acc_rules:
+            acc = task.eval_accuracy({k: v[i] for k, v in final.params.items()}, honest)
+            accs.append(acc)
+            if acc < 0.95:
+                raise AssertionError(f"grid {tag}: cell {cell.tag} honest accuracy {acc:.4f} "
+                                     f"< 0.95")
+    acc_note = (f"; honest accuracy of the {'/'.join(acc_rules)} cells {min(accs):.4f}-"
+                f"{max(accs):.4f}" if accs else "")
+    print(f"grid {tag}: {e} cells x {ticks} ticks, {engine.num_steps_built} groups: every cell "
+          f"equal to its own BridgeTrainer run on the card (parameters and key bit for bit, "
+          f"loss stream {loss_note}){acc_note}")
+    print(f"grid {tag} throughput: engine {wall_grid:.3f} s ({e / wall_grid:.2f} cells/s, "
+          f"{wall_grid / ticks * 1e3:.3f} ms/tick for all {e} cells); one by one through "
+          f"BridgeTrainer {wall_seq:.3f} s ({e / wall_seq:.2f} cells/s, "
+          f"{wall_seq / ticks / e * 1e3:.3f} ms/tick a cell); speedup "
+          f"{wall_seq / wall_grid:.2f}x")
+    return grew
+
+
+def experiment_records(dev) -> list:
+    """The experiment-axis forms of the screens at the grids' group shapes,
+    each equal to its unbatched kernel per experiment and to its plain
+    version, timed (records named ``<kernel>[E]``; their launches are the
+    grid engine's, `grid_phase` sets them)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    records = []
+
+    def dense_ops(counts, bs, median_rule):
+        if median_rule:
+            return D * sum(2 * batcher_pairs(int(c) + 1) + 2 for c in counts) * len(bs)
+        return D * sum(2 * batcher_pairs(int(c)) + int(c) - 2 * min(b, max((int(c) - 1) // 2, 0))
+                       + 2 for b in bs for c in counts)
+
+    def add(name, counter, source, replaces, kern, plain, lib_fn, nbytes, ops, per_exp, e):
+        got, want = kern(), plain()
+        exact_or_raise(f"{name} vs plain", got, want)
+        for i in range(e):
+            exact_or_raise(f"{name} experiment {i} vs the unbatched kernel", got[i], per_exp(i))
+        rec = record(name, source, replaces, kern, plain, lib_fn, nbytes, ops,
+                     max_abs_err(got, want))
+        rec["_counter"] = counter
+        records.append(rec)
+
+    # dense register screens: a grid_bench group, E = 8 cells of M = 12, b = 2
+    topo = default_topology(12, ("trimmed_mean", "median"), (2,), seed=0)
+    adj = torch.as_tensor(topo.adjacency, device=dev)
+    e, m = 8, 12
+    w = torch.randn((e, m, D), generator=gen, device=dev)
+    b_t = torch.full((e,), 2, dtype=torch.int32, device=dev)
+    counts = topo.adjacency.sum(axis=1)
+    rows = torch.cat([torch.where(adj[None, :, :, None], w[:, None], torch.nan), w[:, :, None]],
+                     dim=2)
+    nbytes = 2 * e * m * D * 4 + m * m + 4 * e
+    add("screen_trimmed_mean_dense[E]", "screen_trimmed_mean_dense",
+        "src/repro_torch/kernels/csrc/screen.cu", "src/repro/kernels/trimmed_mean.py:109",
+        lambda: trimmed_mean.trimmed_mean_dense(w, adj, w, b_t),
+        lambda: ref.trimmed_mean_dense(w, adj, w, b_t), None, nbytes,
+        dense_ops(counts, [2] * e, False),
+        lambda i: trimmed_mean.trimmed_mean_dense(w[i], adj, w[i], 2), e)
+    add("screen_median_dense[E]", "screen_median_dense", "src/repro_torch/kernels/csrc/screen.cu",
+        "src/repro/kernels/median.py:87", lambda: median.median_dense(w, adj, w),
+        lambda: ref.median_dense(w, adj, w), lambda: torch.nanquantile(rows, 0.5, dim=2),
+        2 * e * m * D * 4 + m * m, dense_ops(counts, [0] * e, True),
+        lambda i: median.median_dense(w[i], adj, w[i]), e)
+    # gather tile screens: a sparse-grid group, E = 4 cells of M = 512, K = 16
+    topo = small_world(SM, NEAREST, SB, rewire_prob=0.2, seed=0)
+    tab = NeighborTable.from_adjacency(topo, device=dev)
+    e = 4
+    w = torch.randn((e, SM, D), generator=gen, device=dev)
+    b_t = torch.tensor([SB, SB, 1, 0], dtype=torch.int32, device=dev)
+    counts = tab.valid.sum(axis=1)
+    gathered = torch.where(tab.valid_dev[None, :, :, None], ref.gather(w, tab.safe_idx), torch.nan)
+    grows = torch.cat([gathered, w[:, :, None]], dim=2)
+    src = "src/repro_torch/kernels/csrc/gather_screen.cu"
+    nbytes = 3 * e * SM * D * 4 + SM * tab.k * 5 + 4 * e
+    add("gather_screen_trimmed_mean[E]", "gather_screen_trimmed_mean", src,
+        "src/repro/kernels/gather_screen.py:127",
+        lambda: gather_screen.gather_screen_trimmed_mean(w, tab.safe_idx, tab.valid_dev, w, b_t),
+        lambda: ref.gather_trimmed_mean(w, tab.safe_idx, tab.valid_dev, w, b_t), None, nbytes,
+        dense_ops(counts, b_t.tolist(), False),
+        lambda i: gather_screen.gather_screen_trimmed_mean(w[i], tab.safe_idx, tab.valid_dev,
+                                                           w[i], int(b_t[i])), e)
+    add("gather_screen_median[E]", "gather_screen_median", src,
+        "src/repro/kernels/gather_screen.py:127",
+        lambda: gather_screen.gather_screen_median(w, tab.safe_idx, tab.valid_dev, w),
+        lambda: ref.gather_median(w, tab.safe_idx, tab.valid_dev, w),
+        lambda: torch.nanquantile(grows, 0.5, dim=2), 3 * e * SM * D * 4 + SM * tab.k * 5,
+        dense_ops(counts, [0] * e, True),
+        lambda i: gather_screen.gather_screen_median(w[i], tab.safe_idx, tab.valid_dev, w[i]), e)
+    del w, gathered, grows
+    # the wide path: a wide-grid group, E = 2 cells of M = 129, b = 4
+    topo = erdos_renyi(WIDE_M, 0.5, B, seed=0)
+    adj = torch.as_tensor(topo.adjacency, device=dev)
+    e, m = 2, WIDE_M
+    w = torch.randn((e, m, D), generator=gen, device=dev)
+    b_t = torch.full((e,), B, dtype=torch.int32, device=dev)
+    counts = topo.adjacency.sum(axis=1)
+    kern = lambda: trimmed_mean.trimmed_mean_dense(w, adj, w, b_t)
+    got = kern()
+    for i in range(e):
+        exact_or_raise(f"screen_wide[E] experiment {i} vs left-to-right", got[i],
+                       left_to_right_trimmed_mean(w[i], adj, w[i], B))
+        exact_or_raise(f"screen_wide[E] experiment {i} vs the unbatched kernel", got[i],
+                       trimmed_mean.trimmed_mean_dense(w[i], adj, w[i], B))
+    want = ref.trimmed_mean_dense(w, adj, w, b_t)
+    for i in range(e):
+        summation_or_raise(f"screen_wide[E] experiment {i}", got[i], want[i], w[i][None],
+                           adj.sum(dim=1), w[i])
+    rec = record("screen_wide[E]", "src/repro_torch/kernels/csrc/screen_wide.cuh",
+                 "src/repro/kernels/trimmed_mean.py:109", kern,
+                 lambda: ref.trimmed_mean_dense(w, adj, w, b_t), None,
+                 2 * e * m * D * 4 + m * m + 4 * e, dense_ops(counts, [B] * e, False),
+                 max_abs_err(got, want))
+    rec["_counter"] = "screen_wide"
+    records.append(rec)
+    print("experiment axis: the dense register screens (E = 8, M = 12), the gather screens "
+          f"(E = 4, M = {SM}, K = {tab.k}, per-experiment b) and the wide path (E = 2, "
+          f"M = {WIDE_M}) equal their unbatched kernels experiment by experiment and their plain "
+          "versions (the wide trimmed mean: exact against the left-to-right sum, within the "
+          "summation bound of the plain version); library: torch.nanquantile for the medians, "
+          "none for the trimmed means")
+    return records
+
+
+def grid_phase(dev):
+    """Phase 18: the batched grids on the card (the module docstring's
+    list), then the sweep's grid mode into a temporary store, twice;
+    returns the experiment-axis records and the launches of the runs."""
+    records = experiment_records(dev)
+    zero_launches()
+    engine_launches: dict[str, int] = {}  # the engines' runs alone: the [E] forms
+
+    def grid_run(*args, **kw):
+        for k, n in _grid_run(*args, **kw).items():
+            engine_launches[k] = engine_launches.get(k, 0) + n
+
+    rules = ("trimmed_mean", "median")
+    # the reference's grid_bench grid
+    task = linear_task(12, partition="iid", num_train=4000, num_test=800, batch=32, device=dev)
+    grid = ExperimentGrid(default_topology(12, rules, (2,), seed=0), rules,
+                          ("random", "alie", "sign_flip"), (2,), tuple(range(8)), lam=1.0,
+                          t0=30.0)
+    grid_run("grid_bench (M=12)", grid, task, dev, 30)
+    # BRIDGE-K / BRIDGE-B at M = 50
+    task = linear_task(M, partition="iid", num_train=6000, num_test=1000, batch=32, device=dev)
+    grid = ExperimentGrid(erdos_renyi(M, 0.5, B, seed=0), ("krum", "bulyan"), ("random", "alie"),
+                          (B,), (0, 1), lam=1.0, t0=30.0)
+    grid_run(f"K/B (M={M})", grid, task, dev, 30, acc_rules=())
+    # the sparse grid at the scale setting
+    task = linear_task(SM, partition="iid", num_train=16384, num_test=1000, batch=8, device=dev)
+    grid = ExperimentGrid(small_world(SM, NEAREST, SB, rewire_prob=0.2, seed=0), rules,
+                          ("random",), (SB,), (0, 1, 2, 3), lam=1.0, t0=100.0)
+    grid_run(f"sparse (M={SM}, K=16)", grid, task, dev, 50, sparse=True)
+    # the wide dense grid above the register networks
+    task = linear_task(WIDE_M, partition="iid", num_train=8000, num_test=1000, batch=32,
+                       device=dev)
+    grid = ExperimentGrid(erdos_renyi(WIDE_M, 0.5, B, seed=0), rules, ("random",), (B,), (0, 1),
+                          lam=1.0, t0=30.0)
+    grid_run(f"wide (M={WIDE_M})", grid, task, dev, 3, acc_rules=())
+    # the sweep's entry point, into a temporary store, twice
+    with tempfile.TemporaryDirectory() as store:
+        before = read_launches()
+        res = sweep.main(["--mode", "grid", "--out", store])
+        if res is None or len(res.cells) != 4:
+            raise AssertionError("sweep --mode grid: expected 4 cells computed")
+        if sweep.main(["--mode", "grid", "--out", store]) is not None:
+            raise AssertionError("sweep --mode grid: the second run recomputed cells")
+        grew = {k: v - before[k] for k, v in read_launches().items() if v != before[k]}
+        accs = ", ".join(f"{r['accuracy']:.4f}" for r in res.cells)
+        print(f"sweep --mode grid on the card: 4 cells (accuracy {accs}), the second run found "
+              f"every cell cached; kernels {grew}")
+    for rec in records:
+        rec["launches"] = engine_launches.get(rec.pop("_counter"), 0)
+    print(f"launches of the grid engines' runs (the [E] forms): {engine_launches}")
+    return records, read_launches()
 
 
 def main() -> int:
@@ -2035,10 +2457,19 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_launches[phase.__name__] = phase(dev)
         print(f"({phase.__name__}: {time.perf_counter() - t0:.1f} s)")
+    # this slice's paths: each phase's kernel records, then its runs
+    for phase in (views_kb_phase, grid_phase):
+        t0 = time.perf_counter()
+        phase_records, phase_launches[phase.__name__] = phase(dev)
+        records += phase_records
+        print(f"({phase.__name__}: {time.perf_counter() - t0:.1f} s)")
     for name, launches in phase_launches.items():
         print(f"launches in {name}: {({k: v for k, v in launches.items() if v})}")
     for rec in records:
-        rec["launches"] = sum(launches[rec["name"]] for launches in phase_launches.values())
+        # a kernel's launches: its wrapper's count over the phases (an
+        # experiment-axis form's were set by the grid phase: its engines')
+        if not rec["name"].endswith("[E]"):
+            rec["launches"] = sum(launches[rec["name"]] for launches in phase_launches.values())
         if rec["launches"] == 0:
             raise AssertionError(f"{rec['name']} never launched on the main path")
     t0 = time.perf_counter()

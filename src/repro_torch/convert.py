@@ -4,7 +4,8 @@ The reference's checkpoint format (`repro.checkpoint.msgpack_ckpt`) needs
 ``msgpack``, which the card's machine lacks; until the port reads it, a
 caller hands over the state as numpy arrays: each leaf of the reference's
 ``state.params``, its ``state.key`` and, for a lossy codec, its
-``state.comm`` carry.
+``state.comm`` carry; for the batched grids the stacked state of the
+reference's ``GridEngine`` (`grid_state_from_jax`).
 """
 from __future__ import annotations
 
@@ -51,6 +52,22 @@ def state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,
     mailbox = None if net is None else MailboxState(*tensors(net))
     return BridgeState(params=params_from_jax(params_np, device=dev), t=int(t), key=key,
                        comm=carry, net=mailbox)
+
+
+def grid_state_from_jax(params_np: Mapping[str, np.ndarray], t, keys, *,
+                        device: str | torch.device = "cuda") -> BridgeState:
+    """A `repro_torch.sim.GridEngine` state from the reference's
+    ``GridEngine`` state: its stacked ``[E, M, ...]`` parameters, its tick
+    (``[E]``, one value every cell shares, or an int) and its ``[E, 2]``
+    keys (``np.asarray(jax_state.key)``), in the engine's cell order."""
+    ticks = np.unique(np.asarray(t))
+    if ticks.size != 1:
+        raise ValueError(f"the port's grid cells share one tick, got {ticks.tolist()}")
+    keys = np.asarray(keys, dtype=np.uint32)
+    if keys.ndim != 2 or keys.shape[1] != 2:
+        raise ValueError(f"grid keys are [E, 2] uint32, got {keys.shape}")
+    return BridgeState(params=params_from_jax(params_np, device=device), t=int(ticks[0]),
+                       key=keys.copy())
 
 
 def byrdie_state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,

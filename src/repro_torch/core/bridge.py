@@ -37,6 +37,14 @@ messages (``exchange``), every node screens its mailbox views with
 `screening.screen_views` (the views kernels on the card), and a node with
 fewer usable views than its rule's Table-II minimum keeps its own value.
 
+The synchronous tick is `build_cell_step`'s step, as in the reference: it
+takes stacked cells (`CellParams`: rule and attack chosen from static
+banks, ``b``, the Byzantine masks and the step-size schedule per cell) and
+state ``[E, M, ...]``, and `BridgeTrainer.step` is its E = 1 call with the
+trainer's one constant cell.  The batched grids
+(`repro_torch.sim.engine`) run the same step over many cells: every
+screening kernel then launches once a tick for all of them.
+
 PyTorch runs eagerly, so the reference's ``jit``/``scan`` machinery has no
 counterpart: `BridgeTrainer.run` is a Python loop over `BridgeTrainer.step`.
 """
@@ -79,12 +87,44 @@ class BridgeState(NamedTuple):
     net: Any = None  # the runtime's state (mailboxes); None when synchronous
 
 
-def cell_step_size(lam: float, t0: float, lr: float, t: int) -> float:
-    """rho(t) = lr if lr > 0 else 1 / (lam * (t0 + t)), in float32 (Sec. IV)."""
-    if lr > 0:
-        return float(np.float32(lr))
+def cell_step_size(lam, t0, lr, t: int):
+    """rho(t) = lr if lr > 0 else 1 / (lam * (t0 + t)), in float32 (Sec. IV):
+    a float for scalar settings, a float32 ``[E]`` array for the cells'
+    ``[E]`` settings (each entry the scalar form's value)."""
     f32 = np.float32
-    return float(f32(1.0) / (f32(lam) * (f32(t0) + f32(t))))
+    lam, t0, lr = (np.asarray(v, f32) for v in (lam, t0, lr))
+    with np.errstate(divide="ignore", over="ignore"):
+        rho = np.where(lr > 0, lr, f32(1.0) / (lam * (t0 + f32(t)))).astype(f32)
+    return float(rho) if rho.ndim == 0 else rho
+
+
+class CellParams(NamedTuple):
+    """The switchable parameters of E stacked cells (the reference's
+    ``CellParams`` rows): the rule and the attack as indices into the step's
+    static banks, the Byzantine bound and step-size schedule per cell, and
+    the ``[E, M]`` Byzantine masks on the device.  Indices, bounds and
+    schedules stay on the host, where they pick the banks' branches and the
+    step size without reading the card."""
+
+    rule_idx: tuple[int, ...]
+    attack_idx: tuple[int, ...]
+    b: tuple[int, ...]
+    byz_mask: torch.Tensor  # [E, M] bool
+    lam: tuple[float, ...]
+    t0: tuple[float, ...]
+    lr: tuple[float, ...]
+
+    @property
+    def num_cells(self) -> int:
+        return len(self.b)
+
+    def select(self, cells) -> CellParams:
+        """The rows ``cells`` (host indices) of every field."""
+        cells = [int(i) for i in cells]
+        pick = lambda xs: tuple(xs[i] for i in cells)
+        mask = self.byz_mask.index_select(0, torch.as_tensor(cells, device=self.byz_mask.device))
+        return CellParams(pick(self.rule_idx), pick(self.attack_idx), pick(self.b), mask,
+                          pick(self.lam), pick(self.t0), pick(self.lr))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,22 +163,24 @@ def stack_batches(batch_fn: Callable[[int], Any], num_ticks: int, *,
     return torch.stack([torch.as_tensor(b).to(dev) for b in batches])
 
 
-def stack_flatten(params: Params) -> tuple[torch.Tensor, Callable[[torch.Tensor], Params]]:
-    """``[M, ...]`` parameter dict -> (``[M, D]`` float32 matrix, unflatten).
+def stack_flatten(params: Params, lead: int = 1
+                  ) -> tuple[torch.Tensor, Callable[[torch.Tensor], Params]]:
+    """``[M, ...]`` parameter dict -> (``[M, D]`` float32 matrix, unflatten);
+    with ``lead=2``, ``[E, M, ...]`` -> ``[E, M, D]`` (the grids' cells).
 
     Leaves are concatenated in sorted-key order, the reference's pytree leaf
     order (``b`` before ``w``); ``unflatten`` restores shapes and dtypes."""
     keys = sorted(params)
-    m = params[keys[0]].shape[0]
-    shapes = [params[k].shape[1:] for k in keys]
+    head = tuple(params[keys[0]].shape[:lead])
+    shapes = [params[k].shape[lead:] for k in keys]
     dtypes = [params[k].dtype for k in keys]
     sizes = [int(np.prod(s)) if len(s) else 1 for s in shapes]
-    flat = torch.cat([params[k].reshape(m, -1).to(torch.float32) for k in keys], dim=1)
+    flat = torch.cat([params[k].reshape(*head, -1).to(torch.float32) for k in keys], dim=-1)
 
     def unflatten(w: torch.Tensor) -> Params:
         out, off = {}, 0
         for k, shape, size, dtype in zip(keys, shapes, sizes, dtypes, strict=True):
-            out[k] = w[:, off:off + size].reshape((m, *shape)).to(dtype)
+            out[k] = w[..., off:off + size].reshape((*head, *shape)).to(dtype)
             off += size
         return out
 
@@ -164,6 +206,161 @@ def replicate(params: Params, num_nodes: int, *, perturb: float = 0.0,
     return out
 
 
+def cell_metrics(w_new: torch.Tensor, losses: torch.Tensor, honest: torch.Tensor, rho,
+                 bits: float, live_edges, comm) -> dict:
+    """The reference's diagnostics over the honest nodes of ``w_new``
+    (``[M, d]``, or ``[E, M, d]`` with ``honest [E, M]``: one value a cell),
+    with the codec's wire accounting over the live edges and the carry's
+    residual norm."""
+    cnt = torch.sum(honest, dim=-1).to(torch.float32)
+    mu = torch.sum(torch.where(honest[..., None], w_new, 0.0), dim=-2) / cnt[..., None]
+    dev = torch.where(honest[..., None], w_new - mu[..., None, :], 0.0)
+    resid = 0.0 if comm is None else torch.sqrt(torch.sum(comm.resid * comm.resid))
+    return {
+        "loss": torch.sum(torch.where(honest, losses, 0.0), dim=-1) / cnt,
+        "consensus_dist": torch.sqrt(torch.amax(torch.sum(dev * dev, dim=-1), dim=-1)),
+        "rho": rho,
+        "wire_bits_per_edge": bits,
+        "wire_bytes_total": bits / 8.0 * live_edges,
+        "ef_residual_norm": resid,
+    }
+
+
+def apply_attack_bank(attacks, attack_idx, w: torch.Tensor, byz_mask: torch.Tensor, keys,
+                      t: int) -> torch.Tensor:
+    """The broadcast attack of each cell of ``w [E, M, d]``: ``attacks``
+    a static bank, ``attack_idx [E]`` each cell's entry, ``byz_mask [E, M]``
+    and ``keys`` the cells' host row keys ``[E, 2]``.  Each attack runs
+    once, over the cells that chose it, and the rows are scattered back."""
+    idx = np.asarray(attack_idx, np.int64)
+    used = sorted(set(idx.tolist()))
+    if len(used) == 1:
+        return attacks[used[0]](w, byz_mask, draw_key(keys), t)
+    out = torch.empty_like(w)
+    for a in used:
+        cells = np.nonzero(idx == a)[0]
+        sel = torch.as_tensor(cells, device=w.device)
+        out.index_copy_(0, sel, attacks[a](w.index_select(0, sel), byz_mask.index_select(0, sel),
+                                           draw_key(keys[cells]), t))
+    return out
+
+
+def draw_key(keys: np.ndarray):
+    """The key a draw over E cells takes: one cell's host key (``[2]``, the
+    trainer's draw, with no copy to the card) or the cells' host row keys
+    ``[E, 2]`` (row e drawn under key e, bit for bit the one-cell draw)."""
+    return keys[0] if keys.shape[0] == 1 else keys
+
+
+def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str, ...],
+                    attacks, *, neighbors: NeighborTable | None = None, codec=None,
+                    wire_attack=None):
+    """The synchronous-broadcast iteration over stacked cells:
+    ``step(cell, state, batch) -> (state, metrics)``, the reference's
+    ``build_cell_step`` with a rule bank ``rules``, an attack bank
+    ``attacks`` (`byzantine.Attack`s) and ``cell`` a `CellParams` of E cells.
+
+    ``state`` holds ``params`` ``[E, M, ...]``, the tick ``t`` all cells
+    share and ``key`` the cells' host row keys ``[E, 2]``; ``grad_fn``
+    takes the ``[E, M, ...]`` parameters and the tick's one batch and
+    returns ``(losses [E, M], grads)``.  Screening is
+    `screening.screen_all_banked` under the ``[M, M]`` ``adjacency`` or,
+    with ``neighbors``, `screening.screen_gathered_banked`: each kernel
+    launches once for the cells that chose its rule.  The metrics are
+    ``[E]`` tensors (``rho`` a float32 ``[E]`` array).
+
+    ``codec`` and ``wire_attack`` (the trainer's one cell) run the wire
+    stage of `BridgeTrainer` for E = 1; a lossy codec or a wire attack over
+    more cells raises (ROADMAP Queue 1 item 11, codecs on the grid).
+    """
+    codec = codec_lib.get_codec("identity") if codec is None else codec
+    wire_attack = byzantine.WIRE_ATTACKS["none"] if wire_attack is None else wire_attack
+    wired = not (codec.lossless and wire_attack.name == "none")
+    n_edges = float(torch.sum(adjacency.to(torch.float32)))
+
+    def screen(w_hat, w_bcast, cell):
+        if neighbors is not None:
+            return screening.screen_gathered_banked(w_hat, neighbors, rules, cell.rule_idx,
+                                                    cell.b, self_vals=w_bcast)
+        return screening.screen_all_banked(w_hat, adjacency, rules, cell.rule_idx, cell.b,
+                                           self_vals=w_bcast)
+
+    def step(cell: CellParams, state: BridgeState, batch) -> tuple[BridgeState, dict]:
+        w, unflatten = stack_flatten(state.params, lead=2)
+        e, _, d = w.shape
+        keys = prng.split(state.key)  # [E, 2, 2] on the host
+        key, sub = keys[:, 0], keys[:, 1]
+        # (Steps 3-4) broadcast with Byzantine substitution
+        with torch.profiler.record_function("bridge.attack"):
+            w_bcast = apply_attack_bank(attacks, cell.attack_idx, w, cell.byz_mask, sub, state.t)
+        # wire codec: what receivers decode (identity: w_bcast itself)
+        comm = state.comm
+        w_hat = w_bcast
+        if wired:
+            if e != 1:
+                raise NotImplementedError(
+                    "a lossy codec or a wire attack over more than one cell: codecs and wire "
+                    "attacks on the grid are ROADMAP Queue 1 item 11's next step")
+            with torch.profiler.record_function("bridge.codec"):
+                x_hat, comm = wire_roundtrip(codec, wire_attack, sub[0], w_bcast[0], state.comm,
+                                             cell.byz_mask[0], state.t)
+                w_hat = x_hat[None]
+        # (Step 5) screening at every node; self is the node's own broadcast,
+        # which never travels the wire
+        with torch.profiler.record_function("bridge.screen"):
+            y = screen(w_hat, w_bcast, cell)
+        # (Step 6) local gradient step at w_j(t)
+        with torch.profiler.record_function("bridge.apply"):
+            losses, grads = grad_fn(state.params, batch)
+            g, _ = stack_flatten(grads, lead=2)
+            rho = cell_step_size(cell.lam, cell.t0, cell.lr, state.t)
+            w_new = y - _per_cell(rho, w.device) * g
+            metrics = cell_metrics(w_new, losses, ~cell.byz_mask, rho,
+                                   float(codec.wire_bits(d)), n_edges, comm)
+        return BridgeState(unflatten(w_new), state.t + 1, key, comm), metrics
+
+    return step
+
+
+def _per_cell(rho: np.ndarray, device) -> float | torch.Tensor:
+    """The step sizes as the update takes them: a float when every cell
+    shares it (a grid's cells share t and, as in the reference's grids, the
+    schedule), else ``[E, 1, 1]`` float32 on ``device``."""
+    if np.all(rho == rho[0]):
+        return float(rho[0])
+    return torch.as_tensor(rho, device=device)[:, None, None]
+
+
+def wire_roundtrip(codec, wire_attack, sub: np.ndarray, x: torch.Tensor, comm, byz: torch.Tensor,
+                   t: int):
+    """Encode -> codeword attack -> decode with error feedback, per sender,
+    under ``fold_in(sub, COMM_SALT)`` and ``fold_in(sub, WIRE_SALT)``."""
+    return codeword_roundtrip(codec, wire_attack, prng.fold_in(sub, COMM_SALT),
+                              prng.fold_in(sub, WIRE_SALT), x, comm, byz, t)
+
+
+def codeword_roundtrip(codec, wire_attack, comm_key, wire_key, x: torch.Tensor, comm,
+                       byz: torch.Tensor, t: int):
+    """Encode ``x [n, d]`` under ``comm_key``, corrupt the Byzantine rows'
+    codewords under ``wire_key``, decode with the carry; the keys are host
+    keys or ``[n, 2]`` row keys (`repro_torch.prng`)."""
+    msg, target = exchange.encode(codec, comm_key, x, comm)
+    msg = wire_attack(msg, byz, wire_key, t, x.shape[-1])
+    return exchange.decode(codec, msg, target, comm, comm_key,
+                           zero_folded=not wire_attack.rewrites_scale)
+
+
+def _one_cell(grad_fn: Callable) -> Callable:
+    """A trainer's ``grad_fn`` (over ``[M, ...]``) as the cell step calls it,
+    over one cell's ``[1, M, ...]``."""
+
+    def fn(params: Params, batch):
+        losses, grads = grad_fn({k: v[0] for k, v in params.items()}, batch)
+        return losses[None], {k: v[None] for k, v in grads.items()}
+
+    return fn
+
+
 class BridgeTrainer:
     """Drives Algorithm 1.  ``grad_fn(params, batch) -> (losses [M], grads)``
     computes every node's local loss and gradient over the stacked
@@ -186,13 +383,15 @@ class BridgeTrainer:
         self.wire_attack = byzantine.wire_attack_for(config.attack)
         adj = config.topology.adjacency
         self.adjacency = torch.as_tensor(adj, dtype=torch.bool, device=self.device)
-        self.n_edges = float(adj.sum())
         self.codec = codec_lib.get_codec(config.codec)
         self.neighbors = None
         if runtime is None:
             self.attack = byzantine.get_attack(config.attack)
             if config.sparse:
                 self.neighbors = NeighborTable.from_adjacency(adj, device=self.device)
+            self._cell_step = build_cell_step(
+                _one_cell(grad_fn), self.adjacency, (config.rule,), (self.attack,),
+                neighbors=self.neighbors, codec=self.codec, wire_attack=self.wire_attack)
         else:
             self._check_runtime(runtime)
             self.message_attack = byzantine.get_message_attack(config.attack)
@@ -202,11 +401,12 @@ class BridgeTrainer:
                 edge_id_grid(m), device=self.device))
         self.byz_mask = byzantine.byzantine_nodes(config.topology.num_nodes, config.num_byzantine,
                                                   config.attack, config.byzantine_seed, self.device)
+        self.cell = CellParams((0,), (0,), (config.num_byzantine,), self.byz_mask[None],
+                               (config.lam,), (config.t0,), (config.lr,))
 
     def _check_runtime(self, runtime) -> None:
         """The reference's refusals, and the port's: a runtime on another
-        device, and BRIDGE-K / BRIDGE-B on the card, whose screens over
-        mailbox views need per-node distances no kernel takes yet."""
+        device."""
         cfg = self.config
         if cfg.sparse and getattr(runtime, "neighbors", None) is None:
             raise ValueError(
@@ -216,8 +416,6 @@ class BridgeTrainer:
         rt_dev = getattr(runtime, "device", self.device)
         if torch.device(rt_dev) != self.device:
             raise ValueError(f"runtime on {rt_dev}, trainer on {self.device}")
-        if self.device.type == "cuda" and cfg.rule in screening.VIEWS_DISTANCE_RULES:
-            raise NotImplementedError(screening.views_distance_refusal(cfg.rule))
 
     @property
     def honest_mask(self) -> torch.Tensor:
@@ -252,34 +450,20 @@ class BridgeTrainer:
         return exchange.init_residual((m, link, dim), self.codec, device=self.device)
 
     def step(self, state: BridgeState, batch: Any) -> tuple[BridgeState, dict]:
-        """One tick.  The metrics are 0-d tensors on the device (reading one
-        waits for the tick) and Python floats for the static quantities."""
+        """One tick: on the synchronous path `build_cell_step`'s step over
+        the trainer's one cell (E = 1).  The metrics are 0-d tensors on the
+        device (reading one waits for the tick) and Python floats for the
+        static quantities."""
         if self.runtime is not None:
             return self._runtime_step(state, batch)
-        cfg = self.config
-        w, unflatten = stack_flatten(state.params)
-        d = w.shape[1]
-        keys = prng.split(state.key)
-        key, sub = keys[0], keys[1]
-        # (Steps 3-4) broadcast with Byzantine substitution
-        with torch.profiler.record_function("bridge.attack"):
-            w_bcast = self.attack(w, self.byz_mask, sub, state.t)
-        # wire codec: what receivers decode (identity: w_bcast itself)
-        with torch.profiler.record_function("bridge.codec"):
-            w_hat, comm = self._wire_roundtrip(sub, w_bcast, state.comm, state.t)
-        # (Step 5) screening at every node; self is the node's own broadcast,
-        # which never travels the wire
-        with torch.profiler.record_function("bridge.screen"):
-            if self.neighbors is not None:
-                y = screening.screen_gathered(w_hat, self.neighbors, rule=cfg.rule,
-                                              b=cfg.num_byzantine, self_vals=w_bcast)
-            else:
-                y = screening.screen_all(w_hat, self.adjacency, rule=cfg.rule,
-                                         b=cfg.num_byzantine, self_vals=w_bcast)
-        # (Step 6) local gradient step at w_j(t)
-        with torch.profiler.record_function("bridge.apply"):
-            w_new, metrics = self._apply(state, batch, y, d, comm, self.n_edges)
-        return BridgeState(unflatten(w_new), state.t + 1, key, comm), metrics
+        one = BridgeState({k: v[None] for k, v in state.params.items()}, state.t,
+                          np.asarray(state.key, np.uint32)[None], state.comm)
+        new, metrics = self._cell_step(self.cell, one, batch)
+        metrics = {k: (v[0] if isinstance(v, torch.Tensor) and v.ndim else
+                       float(v[0]) if isinstance(v, np.ndarray) else v)
+                   for k, v in metrics.items()}
+        return BridgeState({k: v[0] for k, v in new.params.items()}, new.t, new.key[0],
+                           new.comm), metrics
 
     def _apply(self, state: BridgeState, batch, y: torch.Tensor, d: int, comm,
                live_edges) -> tuple[torch.Tensor, dict]:
@@ -339,7 +523,7 @@ class BridgeTrainer:
 
     def _link_roundtrip(self, sub: np.ndarray, x: torch.Tensor, comm, byz_link: torch.Tensor,
                         t: int):
-        """`_wire_roundtrip` per link: the ``[M, W, d]`` messages flattened
+        """`wire_roundtrip` per link: the ``[M, W, d]`` messages flattened
         to ``[M W, d]`` rows, each encoded, attacked and decoded under its
         edge's keys ``fold_in(comm_key, edge_id)`` and
         ``fold_in(wire_key, edge_id)`` (the reference's ``vmap`` over the
@@ -351,50 +535,27 @@ class BridgeTrainer:
         ids = self._edge_ids.reshape(-1)
         keys = [prng.fold_in(prng.fold_in(sub, salt), ids) for salt in (COMM_SALT, WIRE_SALT)]
         carry = None if comm is None else exchange.CommState(*(a.reshape(-1, d) for a in comm))
-        x_hat, carry = self._codeword_roundtrip(*keys, x.reshape(-1, d), carry,
-                                                byz_link.reshape(-1), t)
+        x_hat, carry = codeword_roundtrip(self.codec, self.wire_attack, *keys, x.reshape(-1, d),
+                                          carry, byz_link.reshape(-1), t)
         unrows = lambda a: a.reshape(*lead, d)
         return unrows(x_hat), (None if carry is None
                                else exchange.CommState(*(unrows(a) for a in carry)))
 
     def _wire_roundtrip(self, sub: np.ndarray, x: torch.Tensor, comm, t: int):
-        """Encode -> codeword attack -> decode with error feedback, per
-        sender.  A lossless codec under no wire attack skips the wire
-        entirely (no ``+ 0.0`` anywhere), so the identity path is exactly
-        the uncompressed trainer."""
+        """The synchronous tick's wire stage (`wire_roundtrip`) over the
+        trainer's Byzantine senders.  A lossless codec under no wire attack
+        skips the wire entirely (no ``+ 0.0`` anywhere), so the identity
+        path is exactly the uncompressed trainer."""
         if self.codec.lossless and self.wire_attack.name == "none":
             return x, comm
-        return self._codeword_roundtrip(prng.fold_in(sub, COMM_SALT), prng.fold_in(sub, WIRE_SALT),
-                                        x, comm, self.byz_mask, t)
-
-    def _codeword_roundtrip(self, comm_key, wire_key, x: torch.Tensor, comm, byz: torch.Tensor,
-                            t: int):
-        """Encode ``x [n, d]`` under ``comm_key``, corrupt the Byzantine
-        rows' codewords under ``wire_key``, decode with the carry; the keys
-        are host keys or ``[n, 2]`` row keys (`repro_torch.prng`)."""
-        msg, target = exchange.encode(self.codec, comm_key, x, comm)
-        msg = self.wire_attack(msg, byz, wire_key, t, x.shape[-1])
-        return exchange.decode(self.codec, msg, target, comm, comm_key,
-                               zero_folded=not self.wire_attack.rewrites_scale)
+        return wire_roundtrip(self.codec, self.wire_attack, sub, x, comm, self.byz_mask, t)
 
     def _metrics(self, w_new: torch.Tensor, losses: torch.Tensor, rho: float, d: int,
                  comm, live_edges) -> dict:
         """The reference's diagnostics over honest nodes, plus the codec's
         wire accounting over the live edges and its residual norm."""
-        hm = self.honest_mask
-        cnt = torch.sum(hm).to(torch.float32)
-        mu = torch.sum(torch.where(hm[:, None], w_new, 0.0), dim=0) / cnt
-        dev = torch.where(hm[:, None], w_new - mu[None, :], 0.0)
-        bits = float(self.codec.wire_bits(d))
-        resid = 0.0 if comm is None else torch.sqrt(torch.sum(comm.resid * comm.resid))
-        return {
-            "loss": torch.sum(torch.where(hm, losses, 0.0)) / cnt,
-            "consensus_dist": torch.sqrt(torch.max(torch.sum(dev * dev, dim=1))),
-            "rho": rho,
-            "wire_bits_per_edge": bits,
-            "wire_bytes_total": bits / 8.0 * live_edges,
-            "ef_residual_norm": resid,
-        }
+        return cell_metrics(w_new, losses, self.honest_mask, rho, float(self.codec.wire_bits(d)),
+                            live_edges, comm)
 
     def run(self, state: BridgeState, batch_fn: Callable[[int], Any], num_steps: int,
             eval_fn: Callable | None = None, eval_every: int = 0) -> tuple[BridgeState, list[dict]]:

@@ -14,6 +14,12 @@ the tick's subkey (`repro_torch.prng`, two uint32 words).
 device, the reference's draw (`repro_torch.prng.normal`); `random_body`
 takes the noise tensor itself.
 
+The broadcast attacks also take the grids' experiment axis: ``w
+[E, M, d]``, per-cell masks ``byz_mask [E, M]`` and per-cell keys (``[E,
+2]`` row keys, host or device, `repro_torch.prng`), each cell as its own
+call computes it: ``random`` draws row e under key e, and ``alie`` and
+``shift`` take their honest statistics per cell.
+
 A message attack (`MessageAttack`, the network runtime's tier) crafts the
 per-link tensor ``msgs[receiver, sender]``, ``[M, M, d]`` on the dense
 layout or ``[M, K, d]`` through a `NeighborTable`, the latter the exact
@@ -60,7 +66,7 @@ def random_body(w: torch.Tensor, byz_mask: torch.Tensor, noise: torch.Tensor,
                 scale: float = RANDOM_SCALE) -> torch.Tensor:
     """The paper's attack given its standard-normal ``noise [M, d]``:
     Byzantine rows broadcast ``scale * noise``."""
-    return torch.where(byz_mask[:, None], scale * noise, w)
+    return torch.where(byz_mask[..., None], scale * noise, w)
 
 
 def _random_gaussian(w, byz_mask, key, t):
@@ -69,32 +75,34 @@ def _random_gaussian(w, byz_mask, key, t):
 
 def _sign_flip(w, byz_mask, key, t, scale: float = 4.0):
     """Broadcast the negated (scaled) true iterate."""
-    return torch.where(byz_mask[:, None], -scale * w, w)
+    return torch.where(byz_mask[..., None], -scale * w, w)
 
 
 def _same_value(w, byz_mask, key, t, value: float = 100.0):
     """All Byzantine nodes collude on one large constant vector."""
-    return torch.where(byz_mask[:, None], torch.full_like(w, value), w)
+    return torch.where(byz_mask[..., None], torch.full_like(w, value), w)
 
 
 def _honest_mean(w, honest):
-    cnt = torch.sum(honest).to(w.dtype)
-    return torch.sum(torch.where(honest[:, None], w, 0.0), dim=0) / cnt, cnt
+    """The honest rows' mean ``[.., d]`` of ``w [.., M, d]`` and their count
+    ``[.., 1]``, per cell."""
+    cnt = torch.sum(honest, dim=-1, keepdim=True).to(w.dtype)
+    return torch.sum(torch.where(honest[..., None], w, 0.0), dim=-2) / cnt, cnt
 
 
 def _alie(w, byz_mask, key, t, z: float = 1.5):
     """'A Little Is Enough': collude on mean + z*std of the honest iterates."""
     honest = ~byz_mask
     mu, cnt = _honest_mean(w, honest)
-    var = torch.sum(torch.where(honest[:, None], (w - mu) ** 2, 0.0), dim=0) / cnt
+    var = torch.sum(torch.where(honest[..., None], (w - mu[..., None, :]) ** 2, 0.0), dim=-2) / cnt
     crafted = mu + z * torch.sqrt(var + 1e-12)
-    return torch.where(byz_mask[:, None], crafted[None, :], w)
+    return torch.where(byz_mask[..., None], crafted[..., None, :], w)
 
 
 def _shift(w, byz_mask, key, t, delta: float = 5.0):
     """Coordinated constant shift of the honest mean."""
     mu, _ = _honest_mean(w, ~byz_mask)
-    return torch.where(byz_mask[:, None], (mu + delta)[None, :], w)
+    return torch.where(byz_mask[..., None], (mu + delta)[..., None, :], w)
 
 
 ATTACKS: dict[str, Attack] = {

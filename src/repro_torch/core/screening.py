@@ -13,6 +13,17 @@ the sparse ``[M, K]`` layout.
   views ``[M, W, d]`` under the usable mask ``[M, W]``, the reference's
   ``screen_views_banked`` with the mask as an operand.
 
+The experiment axis (the batched grids, `repro_torch.sim.engine`):
+`screen_all` and `screen_gathered` also take ``w`` and ``self_vals``
+``[E, M, d]`` over one shared adjacency or table, with ``b`` an int or a
+tuple of E per-experiment bounds (the reference's ``CellParams.b``), and
+screen every experiment in one launch of each kernel the rule runs; each
+experiment's output equals its own ``[M, d]`` call bit for bit.
+`screen_all_banked`, `screen_gathered_banked` and `screen_views_banked`
+choose the rule per experiment from a static bank: each rule runs once,
+over the experiments that chose it, and the outputs are scattered back in
+order.
+
 The rules, by what runs them on the card:
 
 * ``trimmed_mean`` (BRIDGE-T) and ``median`` (BRIDGE-M) go through the
@@ -23,13 +34,15 @@ The rules, by what runs them on the card:
 * ``krum`` (BRIDGE-K, Eq. 12) and ``bulyan`` (BRIDGE-B) take their
   distances from the pairwise-distance kernel, computed once per tick
   over the broadcast (and the nodes' own values where a lossy codec makes
-  them differ) and gathered per node; Krum's scores and Bulyan's
-  recursive selection are plain PyTorch batched over the nodes, and
-  Bulyan's last stage is the trimmed-mean kernel over the selected set.
-  On the views each node needs distances among its own ``W + 1`` views, a
-  distance kernel with a node axis, which the port does not have yet: on
-  the card `screen_views` refuses them (`VIEWS_DISTANCE_RULES`), on the CPU
-  they run the plain version;
+  them differ; over the experiment axis its batched form, one launch for
+  every experiment) and gathered per node; Krum's scores and Bulyan's
+  recursive selection are plain PyTorch batched over the nodes (and the
+  experiments), and Bulyan's last stage is the trimmed-mean kernel over the
+  selected set.  On the views each node takes its distances among its own
+  ``W + 1`` views and itself from the batched distance kernel, the batch
+  axis the node (``[M, W, d]`` read at its strides, the node's own value
+  appended as the last row), and Bulyan's last stage is the views
+  trimmed-mean kernel over its selection;
 * ``mean`` (DGD), ``geomedian``, ``clipped_mean``, ``rep_trimmed_mean`` and
   ``rep_median`` have no TPU kernel in the reference and are plain
   PyTorch here.
@@ -51,8 +64,10 @@ See `repro_torch.kernels.ref` for the numerics each kernel reproduces.
 """
 from __future__ import annotations
 
+import functools
 from collections.abc import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core.neighbors import NeighborTable
@@ -77,18 +92,6 @@ MIN_NEIGHBORS: dict[str, Callable[[int], int]] = {
 }
 
 
-# Rules whose screen over mailbox views needs per-node distances among
-# W + 1 views: the card has no kernel for them yet.
-VIEWS_DISTANCE_RULES = ("krum", "bulyan")
-
-
-def views_distance_refusal(rule: str) -> str:
-    return (f"{rule} over mailbox views needs per-node distances among W + 1 views (the "
-            f"distance kernel with a node axis, ROADMAP Queue 2 E), which the card has no "
-            f"kernel for yet; run it with device='cpu' (the plain version), or use the "
-            f"synchronous trainer (runtime=None), whose {rule} runs on the distance kernel")
-
-
 def min_neighbors(rule: str, b: int) -> int:
     try:
         return MIN_NEIGHBORS[rule](b)
@@ -97,30 +100,87 @@ def min_neighbors(rule: str, b: int) -> int:
             f"unknown screening rule {rule!r}; options: {sorted(MIN_NEIGHBORS)}") from None
 
 
+def min_neighbors_banked(rules, rule_idx, b) -> np.ndarray:
+    """Table-II minimum of each experiment's rule, chosen by ``rule_idx``
+    (``[E]`` indices into the static bank ``rules``) at its bound ``b``
+    (an int or ``[E]``): the reference's ``min_neighbors_banked`` over the
+    experiment axis, on the host."""
+    idx = np.asarray(rule_idx, np.int64).reshape(-1)
+    bs = np.broadcast_to(np.asarray(b, np.int64), idx.shape)
+    return np.asarray([min_neighbors(rules[i], int(bb)) for i, bb in zip(idx, bs, strict=True)],
+                      np.int64)
+
+
+# ---------------------------------------------------------------------------
+# Per-experiment Byzantine bounds
+# ---------------------------------------------------------------------------
+
+
+def bound_min(b) -> int:
+    """The smallest bound of ``b`` (an int, or a tuple of E)."""
+    return int(b) if isinstance(b, (int, np.integer)) else min(int(x) for x in b)
+
+
+@functools.lru_cache(maxsize=256)
+def _bound_tensor(b: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(b, dtype=torch.int32, device=device)
+
+
+def bound_arg(b, device: torch.device):
+    """``b`` as the kernels take it: an int when every experiment shares it,
+    else the int32 ``[E]`` tensor on ``device`` (made once per distinct
+    tuple and device)."""
+    if isinstance(b, (int, np.integer)):
+        return int(b)
+    b = tuple(int(x) for x in b)
+    if len(set(b)) == 1:
+        return b[0]
+    return _bound_tensor(b, torch.device(device))
+
+
+def _select(b, cells):
+    """The bounds of the experiments ``cells`` (host indices)."""
+    return b if isinstance(b, (int, np.integer)) else tuple(b[int(i)] for i in cells)
+
+
 def _unknown(rule: str) -> ValueError:
     return ValueError(f"unknown screening rule {rule!r}; options: {list(RULES)}")
 
 
 def _divide(total: torch.Tensor, count: torch.Tensor, folded: bool) -> torch.Tensor:
-    """``total [M, d] / count [M]``: a true division, or (``folded``) a
-    multiply by the float32 reciprocal, which XLA writes when the divisor
-    folds to a constant."""
-    den = count.to(total.dtype)[:, None]
+    """``total [..., M, d] / count [..., M]``: a true division, or
+    (``folded``) a multiply by the float32 reciprocal, which XLA writes when
+    the divisor folds to a constant."""
+    den = count.to(total.dtype)[..., None]
     return total * (1.0 / den) if folded else total / den
 
 
+def _bcol(b, device) -> torch.Tensor | int:
+    """``b`` against per-node counts ``[M]`` or ``[E, M]``: an int, or the
+    per-experiment bounds as an ``[E, 1]`` tensor."""
+    arg = bound_arg(b, device)
+    return arg if isinstance(arg, int) else arg.to(torch.int64)[:, None]
+
+
 # ---------------------------------------------------------------------------
-# Coordinate-wise and averaging rules over views [M or 1, n, d]
+# Coordinate-wise and averaging rules over views [(E,) M or 1, n, d]
 # ---------------------------------------------------------------------------
+#
+# Every step is elementwise, per column or a left-to-right chain over the
+# view axis (-2), so a leading experiment axis (views ``[E, M or 1, n, d]``,
+# ``self_vals [E, M, d]``, a mask ``[M, n]`` shared by all) computes each
+# experiment as its own call does.
 
 
 def _stack_self(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor):
     """The reference's ``stacked = [values; self]`` per node
-    (``[M, n + 1, d]``) and ``full_mask = [mask; True]`` (``[M, n + 1]``)."""
-    m, n = mask.shape
-    stacked = torch.cat([views.expand(m, n, views.shape[-1]), self_vals[:, None]], dim=1)
-    full = torch.cat([mask.bool(), torch.ones((m, 1), dtype=torch.bool, device=mask.device)], dim=1)
-    return stacked, full
+    (``[.., M, n + 1, d]``) and ``full_mask = [mask; True]``
+    (``[M, n + 1]``)."""
+    n = mask.shape[-1]
+    stacked = torch.cat([views.expand(*self_vals.shape[:-1], n, views.shape[-1]),
+                         self_vals[..., None, :]], dim=-2)
+    ones = torch.ones((*mask.shape[:-1], 1), dtype=torch.bool, device=mask.device)
+    return stacked, torch.cat([mask.bool(), ones], dim=-1)
 
 
 def mean_views(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor, *,
@@ -129,8 +189,8 @@ def mean_views(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
     order, plus self, over ``count + 1`` (no NaN guard, as in the
     reference)."""
     mask = mask.bool()
-    total = ref.sum_rows(torch.where(mask[:, :, None], views, 0.0), dim=1) + self_vals
-    return _divide(total, mask.sum(dim=1) + 1, folded)
+    total = ref.sum_rows(torch.where(mask[..., None], views, 0.0), dim=-2) + self_vals
+    return _divide(total, mask.sum(dim=-1) + 1, folded)
 
 
 def geometric_median(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor, *,
@@ -144,12 +204,12 @@ def geometric_median(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.T
     division, within a few ulps of the reference."""
     stacked, full = _stack_self(views, mask, self_vals)
     fm = full.to(views.dtype)
-    y = _divide(ref.sum_rows_mat(stacked * fm[:, :, None], dim=1), full.sum(dim=1), folded)
+    y = _divide(ref.sum_rows_mat(stacked * fm[..., None], dim=-2), full.sum(dim=-1), folded)
     for _ in range(iters):
-        diff = stacked - y[:, None, :]
-        dist = torch.sqrt(torch.sum(diff * diff, dim=2) + eps)
+        diff = stacked - y[..., None, :]
+        dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + eps)
         wts = fm / dist
-        y = ref.sum_rows_mat(stacked * wts[:, :, None], dim=1) / ref.sum_rows(wts, dim=1)[:, None]
+        y = ref.sum_rows_mat(stacked * wts[..., None], dim=-2) / ref.sum_rows(wts, dim=-1)[..., None]
     return y
 
 
@@ -162,11 +222,11 @@ def clipped_mean(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tenso
     `ref.fma_f32`).  XLA computes ``tau / sqrt`` as ``tau * rsqrt``, an
     approximation the port replaces with the IEEE division."""
     mask = mask.bool()
-    delta = views - self_vals[:, None, :]
-    nrm = torch.sqrt(torch.sum(delta * delta, dim=2, keepdim=True) + 1e-12)
+    delta = views - self_vals[..., None, :]
+    nrm = torch.sqrt(torch.sum(delta * delta, dim=-1, keepdim=True) + 1e-12)
     clipped = delta * torch.clamp(tau / nrm, max=1.0)
-    total = ref.sum_rows_mat(torch.where(mask[:, :, None], clipped, 0.0), dim=1)
-    count = torch.clamp(mask.sum(dim=1), min=1).to(views.dtype)[:, None]
+    total = ref.sum_rows_mat(torch.where(mask[..., None], clipped, 0.0), dim=-2)
+    count = torch.clamp(mask.sum(dim=-1), min=1).to(views.dtype)[..., None]
     if not folded:
         return self_vals + total / count
     return ref.fma_f32(total, (1.0 / count).expand_as(total).contiguous(), self_vals)
@@ -177,7 +237,7 @@ def _weights(mask: torch.Tensor, weights: torch.Tensor | None, dtype: torch.dtyp
         else weights.to(dtype)
 
 
-def rep_trimmed_mean(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor, b: int, *,
+def rep_trimmed_mean(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor, b, *,
                      weights: torch.Tensor | None = None) -> torch.Tensor:
     """Reputation-weighted BRIDGE-T (the reference's ``rep_trimmed_mean``):
     per coordinate, keep the values between the ``b_eff``-th smallest and
@@ -187,17 +247,19 @@ def rep_trimmed_mean(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.T
     an XLA scheduling device that never fires, since the sorted values are
     NaN-free; it is left out."""
     mask = mask.bool()
-    count = mask.sum(dim=1)
-    b_eff = ref.effective_trim(b, count)
-    masked = torch.where(mask[:, :, None], ref.sanitize(views), torch.inf)
-    order = torch.sort(masked, dim=1).values
-    d = self_vals.shape[1]
-    lo = order.gather(1, b_eff[:, None, None].expand(-1, 1, d))
-    hi = order.gather(1, torch.maximum(count - b_eff - 1, b_eff)[:, None, None].expand(-1, 1, d))
-    kept = mask[:, :, None] & (masked >= lo) & (masked <= hi)
-    wk = torch.where(kept, _weights(mask, weights, views.dtype)[:, :, None], 0.0)
-    total = ref.sum_rows_mat(wk * torch.where(kept, masked, 0.0), dim=1) + self_vals
-    return total / (ref.sum_rows_mat(wk, dim=1) + 1.0)
+    count = mask.sum(dim=-1)
+    b_eff = ref.effective_trim(bound_arg(b, views.device), count)
+    masked = torch.where(mask[..., None], ref.sanitize(views), torch.inf)
+    order = torch.sort(masked, dim=-2).values
+    d = self_vals.shape[-1]
+    lead = self_vals.shape[:-1]
+    at = lambda r: r.expand(lead)[..., None, None].expand(*lead, 1, d)
+    lo = order.gather(-2, at(b_eff))
+    hi = order.gather(-2, at(torch.maximum(count - b_eff - 1, b_eff)))
+    kept = mask[..., None] & (masked >= lo) & (masked <= hi)
+    wk = torch.where(kept, _weights(mask, weights, views.dtype)[..., None], 0.0)
+    total = ref.sum_rows_mat(wk * torch.where(kept, masked, 0.0), dim=-2) + self_vals
+    return total / (ref.sum_rows_mat(wk, dim=-2) + 1.0)
 
 
 def rep_median(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor, *,
@@ -208,17 +270,17 @@ def rep_median(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
     keep row order (``argsort(stable=True)``, as ``jnp.argsort``)."""
     stacked, full = _stack_self(views, mask, self_vals)
     w = torch.where(mask.bool(), _weights(mask, weights, views.dtype), 0.0)
-    wfull = torch.cat([w, torch.ones_like(w[:, :1])], dim=1)
-    sv = torch.where(full[:, :, None], ref.sanitize(stacked), torch.inf)
-    order_idx = torch.argsort(sv, dim=1, stable=True)
-    sorted_vals = sv.gather(1, order_idx)
-    cum = torch.cumsum(wfull[:, :, None].expand_as(sv).gather(1, order_idx), dim=1)
-    first = torch.argmax((cum >= 0.5 * cum[:, -1:]).to(torch.uint8), dim=1)
-    return sorted_vals.gather(1, first[:, None, :])[:, 0]
+    wfull = torch.cat([w, torch.ones_like(w[..., :1])], dim=-1)
+    sv = torch.where(full[..., None], ref.sanitize(stacked), torch.inf)
+    order_idx = torch.argsort(sv, dim=-2, stable=True)
+    sorted_vals = sv.gather(-2, order_idx)
+    cum = torch.cumsum(wfull[..., None].expand_as(sv).gather(-2, order_idx), dim=-2)
+    first = torch.argmax((cum >= 0.5 * cum[..., -1:, :]).to(torch.uint8), dim=-2)
+    return sorted_vals.gather(-2, first[..., None, :])[..., 0, :]
 
 
 def _plain_rule(rule: str, views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
-                b: int, *, folded: bool = True) -> torch.Tensor | None:
+                b, *, folded: bool = True) -> torch.Tensor | None:
     """The rules that are plain PyTorch on every layout, over views; None
     for the others."""
     if rule == "mean":
@@ -242,130 +304,171 @@ def _plain_rule(rule: str, views: torch.Tensor, mask: torch.Tensor, self_vals: t
 def masked_dists(d2: torch.Tensor, full: torch.Tensor) -> torch.Tensor:
     """``+inf`` off the valid pairs of each node's ``[n+1, n+1]`` matrix
     (the reference's ``pairwise_sq_dists`` masking)."""
-    return torch.where(full[:, :, None] & full[:, None, :], d2, torch.inf)
+    return torch.where(full[..., :, None] & full[..., None, :], d2, torch.inf)
 
 
 def node_dists(d2_global: torch.Tensor, rows: torch.Tensor, self_rows: torch.Tensor,
                mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Node j's ``[n+1, n+1]`` distance matrix among its candidate rows
     ``rows[j]`` (``[M, n]`` indices into the global matrix) and itself
-    (``self_rows[j]``, last), gathered from the one ``d2_global`` of the
-    tick and masked; returns it with the full mask ``[mask; True]``."""
+    (``self_rows[j]``, last), gathered from the tick's ``d2_global``
+    (``[E, N, N]``, one an experiment) and masked; returns it
+    (``[E, M, n+1, n+1]``) with the full mask ``[mask; True]``."""
     idx = torch.cat([rows, self_rows[:, None]], dim=1).long()
-    d2 = d2_global[idx[:, :, None], idx[:, None, :]]
-    full = torch.cat([mask.bool(), torch.ones_like(mask[:, :1], dtype=torch.bool)], dim=1)
+    d2 = d2_global[:, idx[:, :, None], idx[:, None, :]]
+    full = torch.cat([mask.bool(), torch.ones_like(mask[..., :1], dtype=torch.bool)], dim=-1)
     return masked_dists(d2, full), full
 
 
-def krum_scores(d2: torch.Tensor, full: torch.Tensor, count: torch.Tensor, b: int,
+def krum_scores(d2: torch.Tensor, full: torch.Tensor, count: torch.Tensor, b,
                 ranks: int) -> torch.Tensor:
     """Krum score of every candidate row of every node's masked ``d2``
-    (``[M, n1, n1]``): the sum of its ``max(count - b - 2, 1)`` smallest
+    (``[.., M, n1, n1]``): the sum of its ``max(count - b - 2, 1)`` smallest
     distances to the others, in rank order (`ref.sum_rows`); ``+inf`` for
-    invalid rows (the reference's ``_krum_scores``).  The chain stops after
-    ``ranks`` ranks, a bound on every node's taken count known to the
-    caller without reading the card: the ranks past it add ``+0.0``, which
-    leaves a sum of distances (never ``-0``) unchanged."""
+    invalid rows (the reference's ``_krum_scores``).  ``b`` is an int or the
+    experiments' ``[E, 1]`` bounds.  The chain stops after ``ranks`` ranks,
+    a bound on every node's taken count known to the caller without reading
+    the card: the ranks past it add ``+0.0``, which leaves a sum of
+    distances (never ``-0``) unchanged."""
     n1 = d2.shape[-1]
     eye = torch.eye(n1, dtype=torch.bool, device=d2.device)
-    order = torch.sort(torch.where(eye, torch.inf, d2), dim=2).values
+    order = torch.sort(torch.where(eye, torch.inf, d2), dim=-1).values
     take = torch.clamp(count - b - 2, min=1)
-    kept = torch.where(torch.arange(n1, device=d2.device) < take[:, None, None], order, 0.0)
+    kept = torch.where(torch.arange(n1, device=d2.device) < take[..., None, None], order, 0.0)
     if n1 <= ref.MAX_EXACT_ROWS:
-        kept = kept[:, :, :ranks]
-    return torch.where(full, ref.sum_rows(kept, dim=2), torch.inf)
+        kept = kept[..., :ranks]
+    return torch.where(full, ref.sum_rows(kept, dim=-1), torch.inf)
 
 
 def _widest(mask: torch.Tensor) -> int:
-    """The largest in-degree of ``mask [M, n]`` (one read from the card)."""
-    return int(mask.sum(dim=1).max()) if mask.numel() else 0
+    """The largest in-degree of ``mask [.., M, n]`` (one read from the card)."""
+    return int(mask.sum(dim=-1).max()) if mask.numel() else 0
 
 
-def krum_pick(d2: torch.Tensor, full: torch.Tensor, mask: torch.Tensor, b: int) -> torch.Tensor:
-    """The candidate index (``[M]``, into the n rows) minimizing the Krum
-    score; candidates are the neighbors only, self is not one (Eq. 12)."""
+def krum_pick(d2: torch.Tensor, full: torch.Tensor, mask: torch.Tensor, b) -> torch.Tensor:
+    """The candidate index (``[.., M]``, into the n rows) minimizing the
+    Krum score; candidates are the neighbors only, self is not one
+    (Eq. 12).  ``b`` an int or a tuple of per-experiment bounds."""
     mask = mask.bool()
-    ranks = max(_widest(mask) - b - 2, 1)
-    scores = krum_scores(d2, full, mask.sum(dim=1), b, ranks)
-    return torch.argmin(torch.where(mask, scores[:, :-1], torch.inf), dim=1)
+    ranks = max(_widest(mask) - bound_min(b) - 2, 1)
+    scores = krum_scores(d2, full, mask.sum(dim=-1), _bcol(b, d2.device), ranks)
+    return torch.argmin(torch.where(mask, scores[..., :-1], torch.inf), dim=-1)
 
 
-def bulyan_select(d2: torch.Tensor, mask: torch.Tensor, b: int) -> torch.Tensor:
+def bulyan_select(d2: torch.Tensor, mask: torch.Tensor, b) -> torch.Tensor:
     """Bulyan's recursive-Krum selection (the reference's
-    ``_bulyan_select``): from each node's masked ``[n+1, n+1]`` ``d2``, pick
-    ``count - 2b`` neighbors one at a time, each the Krum winner among the
-    candidates left; returns the ``[M, n]`` selection mask.  The
-    reference's ``fori_loop`` runs n steps of which only the first
-    ``count - 2b`` pick; this loop stops after the widest node's last
-    pick, and reads the card once, before it."""
+    ``_bulyan_select``): from each node's masked ``[n+1, n+1]`` ``d2``
+    (``[.., M, n+1, n+1]``), pick ``count - 2b`` neighbors one at a time,
+    each the Krum winner among the candidates left; returns the
+    ``[.., M, n]`` selection mask.  The reference's ``fori_loop`` runs n
+    steps of which only the first ``count - 2b`` pick; this loop stops
+    after the widest node's last pick under the smallest bound, and reads
+    the card once, before it."""
     mask = mask.bool()
-    m, n = mask.shape
+    n = mask.shape[-1]
+    lead = d2.shape[:-2]
     widest = _widest(mask)
-    n_select = mask.sum(dim=1) - 2 * b
-    ranks = max(widest - b - 2, 1)
-    cand = mask.clone()
-    selected = torch.zeros_like(mask)
-    one = torch.ones((m, 1), dtype=torch.bool, device=mask.device)
+    bcol = _bcol(b, d2.device)
+    n_select = mask.sum(dim=-1) - 2 * bcol
+    ranks = max(widest - bound_min(b) - 2, 1)
+    cand = mask.expand(*lead, n).clone()
+    selected = torch.zeros_like(cand)
+    one = torch.ones((*lead, 1), dtype=torch.bool, device=mask.device)
     slots = torch.arange(n, device=mask.device)
-    for step in range(max(widest - 2 * b, 0)):
-        fm = torch.cat([cand, one], dim=1)
-        scores = krum_scores(masked_dists(d2, fm), fm, cand.sum(dim=1), b, ranks)
-        i_star = torch.argmin(torch.where(cand, scores[:, :-1], torch.inf), dim=1)
-        pick = (slots[None, :] == i_star[:, None]) & (step < n_select)[:, None]
+    for step in range(max(widest - 2 * bound_min(b), 0)):
+        fm = torch.cat([cand, one], dim=-1)
+        scores = krum_scores(masked_dists(d2, fm), fm, cand.sum(dim=-1), bcol, ranks)
+        i_star = torch.argmin(torch.where(cand, scores[..., :-1], torch.inf), dim=-1)
+        pick = (slots == i_star[..., None]) & (step < n_select)[..., None]
         cand = cand & ~pick
         selected = selected | pick
     return selected
 
 
+def _dists(x: torch.Tensor) -> torch.Tensor:
+    """The distance kernel over ``x [E, N, d]``: its unbatched entry for one
+    experiment (the trainer's), the batched one, one launch, for E."""
+    if x.shape[0] == 1:
+        return ops.pairwise_sq_dists(x[0].contiguous())[None]
+    return ops.pairwise_sq_dists_batched(x)
+
+
 def _dists_of_broadcast(w: torch.Tensor, self_vals: torch.Tensor):
-    """One distance matrix per tick over what every node screens: ``w``
-    itself when each node's own value is its broadcast row (the identity
-    codec), else ``cat([w, self_vals])``; returns it with each node's self
-    row index."""
-    m = w.shape[0]
+    """One distance matrix per tick and experiment over what every node
+    screens: ``w [E, M, d]`` itself when each node's own value is its
+    broadcast row (the identity codec), else ``cat([w, self_vals])``;
+    returns it with each node's self row index."""
+    m = w.shape[-2]
     ids = torch.arange(m, device=w.device)
     if self_vals is w:
-        return ops.pairwise_sq_dists(w), ids
-    return ops.pairwise_sq_dists(torch.cat([w, self_vals], dim=0)), ids + m
+        return _dists(w), ids
+    return _dists(torch.cat([w, self_vals], dim=-2)), ids + m
+
+
+def _pick_rows(w: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Row ``ids[e, j]`` of experiment e's ``w [E, M, d]`` for every node."""
+    e, m, d = w.shape
+    flat = ids + (torch.arange(e, device=w.device) * m)[:, None]
+    return w.reshape(e * m, d).index_select(0, flat.reshape(-1)).reshape(e, m, d)
 
 
 def _vector_rule(rule: str, w: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor,
-                 self_vals: torch.Tensor, b: int, trimmed_mean: Callable) -> torch.Tensor:
-    """BRIDGE-K or BRIDGE-B at every node over the candidate rows ``rows``
-    (``[M, n]`` indices into ``w``) under ``mask``; ``trimmed_mean(sel)``
-    is Bulyan's last stage over the ``[M, n]`` selection."""
+                 self_vals: torch.Tensor, b, trimmed_mean: Callable) -> torch.Tensor:
+    """BRIDGE-K or BRIDGE-B at every node of every experiment (``w``
+    ``[E, M, d]``) over the candidate rows ``rows`` (``[M, n]`` indices into
+    ``w``) under ``mask``; ``trimmed_mean(sel)`` is Bulyan's last stage over
+    the ``[E, M, n]`` selection."""
     d2_global, self_rows = _dists_of_broadcast(w, self_vals)
     d2, full = node_dists(d2_global, rows, self_rows, mask)
     if rule == "krum":
         i_star = krum_pick(d2, full, mask, b)
-        return w.index_select(0, rows.gather(1, i_star[:, None])[:, 0].long())
+        ids = rows.long()[None].expand(*i_star.shape, rows.shape[1]).gather(-1, i_star[..., None])
+        return _pick_rows(w, ids[..., 0])
     return trimmed_mean(bulyan_select(d2, mask, b))
 
 
 # ---------------------------------------------------------------------------
-# The three entries
+# The entries
 # ---------------------------------------------------------------------------
 
 
-def screen_all(w: torch.Tensor, adjacency: torch.Tensor, *, rule: str, b: int,
+def _batched(w: torch.Tensor, self_vals: torch.Tensor | None):
+    """``(w, self_vals)`` with the experiment axis (``[M, d]`` -> ``[1, M, d]``)
+    and whether it was added."""
+    if self_vals is None:
+        self_vals = w
+    if w.ndim == 3:
+        return w, self_vals, False
+    same = self_vals is w
+    w = w[None]
+    return w, (w if same else self_vals[None]), True
+
+
+def screen_all(w: torch.Tensor, adjacency: torch.Tensor, *, rule: str, b,
                self_vals: torch.Tensor | None = None, recip: bool = False) -> torch.Tensor:
-    """Apply ``rule`` at every node; returns the ``[M, d]`` screened y_j.
+    """Apply ``rule`` at every node; returns the ``[M, d]`` screened y_j
+    (``[E, M, d]`` for ``w [E, M, d]``, ``b`` then an int or E bounds).
     ``self_vals`` defaults to ``w`` (each node's own broadcast).  ``recip``
     gives the trimmed mean the reciprocal form of its divisor, which XLA
     writes when the adjacency is closed over and ``b`` is static (ByRDiE);
     the BRIDGE trainer's ``b`` is traced, and it divides."""
-    if self_vals is None:
-        self_vals = w
+    w, self_vals, added = _batched(w, self_vals)
+    y = _screen_all(w, adjacency, rule, b, self_vals, recip)
+    return y[0] if added else y
+
+
+def _screen_all(w, adjacency, rule, b, self_vals, recip=False):
+    bk = bound_arg(b, w.device)
     if rule == "trimmed_mean":
-        return ops.trimmed_mean(w, adjacency, self_vals, b, recip)
+        return ops.trimmed_mean(w, adjacency, self_vals, bk, recip)
     if rule == "median":
         return ops.median(w, adjacency, self_vals)
     if rule in ("krum", "bulyan"):
-        m = w.shape[0]
+        m = w.shape[-2]
         rows = torch.arange(m, device=w.device).expand(m, m)
         return _vector_rule(rule, w, rows, adjacency, self_vals, b,
-                            lambda sel: ops.trimmed_mean(w, sel, self_vals, b))
-    out = _plain_rule(rule, w[None], adjacency, self_vals, b)
+                            lambda sel: ops.trimmed_mean(w, sel, self_vals, bk))
+    out = _plain_rule(rule, w.unsqueeze(-3), adjacency, self_vals, b)
     if out is None:
         raise _unknown(rule)
     return out
@@ -378,45 +481,122 @@ def screen_views(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tenso
     as an operand, so every divisor is a true division.  The trimmed mean
     and the median run the views kernels (on the CPU their plain
     versions), reading the views at their strides.  Krum and Bulyan take
-    each node's distances among its own views and itself
-    (`ref.pairwise_sq_dists` batched over the nodes), as the reference
-    does, on the CPU only: on the card they raise `NotImplementedError`."""
+    each node's distances among its own views and itself from the batched
+    distance kernel (batch = node, the views read in place), and Bulyan
+    ends in the views trimmed-mean kernel over its selection."""
     if rule == "trimmed_mean":
         return ops.views_trimmed_mean(views, mask, self_vals, b)
     if rule == "median":
         return ops.views_median(views, mask, self_vals)
-    if rule in VIEWS_DISTANCE_RULES:
-        if views.device.type != "cpu":
-            raise NotImplementedError(views_distance_refusal(rule))
-        stacked, full = _stack_self(views, mask, self_vals)
-        d2 = masked_dists(ref.pairwise_sq_dists(stacked), full)
+    if rule in ("krum", "bulyan"):
+        full = torch.cat([mask.bool(), torch.ones_like(mask[:, :1], dtype=torch.bool)], dim=1)
+        d2 = masked_dists(ops.pairwise_sq_dists_batched(views, self_vals), full)
         if rule == "krum":
             i_star = krum_pick(d2, full, mask, b)
             return views.gather(1, i_star[:, None, None].expand(-1, 1, views.shape[2]))[:, 0]
-        return ref.trimmed_mean_views(views, bulyan_select(d2, mask, b), self_vals, b)
+        return ops.views_trimmed_mean(views, bulyan_select(d2, mask, b), self_vals, b)
     out = _plain_rule(rule, views, mask, self_vals, b, folded=False)
     if out is None:
         raise _unknown(rule)
     return out
 
 
-def screen_gathered(w: torch.Tensor, table: NeighborTable, *, rule: str, b: int,
+def screen_gathered(w: torch.Tensor, table: NeighborTable, *, rule: str, b,
                     self_vals: torch.Tensor | None = None) -> torch.Tensor:
     """Apply ``rule`` at every node over the broadcast rows its table slots
-    name; returns the ``[M, d]`` screened y_j.  ``self_vals`` defaults to
-    ``w``.  Slots hold ascending node ids, so Krum's and Bulyan's picks,
-    taken from the same distance matrix as on the dense layout, are the
-    dense layout's bit for bit; the plain rules read the gathered
-    ``[M, K, d]`` views (padded slots hold a real row, masked)."""
-    if self_vals is None:
-        self_vals = w
+    name; returns the ``[M, d]`` screened y_j (``[E, M, d]`` over the
+    experiment axis).  ``self_vals`` defaults to ``w``.  Slots hold
+    ascending node ids, so Krum's and Bulyan's picks, taken from the same
+    distance matrix as on the dense layout, are the dense layout's bit for
+    bit; the plain rules read the gathered ``[M, K, d]`` views (padded
+    slots hold a real row, masked)."""
+    w, self_vals, added = _batched(w, self_vals)
+    y = _screen_gathered(w, table, rule, b, self_vals)
+    return y[0] if added else y
+
+
+def _screen_gathered(w, table, rule, b, self_vals):
+    bk = bound_arg(b, w.device)
     if rule == "trimmed_mean":
-        return ops.gather_trimmed_mean(w, table.safe_idx, table.valid_dev, self_vals, b)
+        return ops.gather_trimmed_mean(w, table.safe_idx, table.valid_dev, self_vals, bk)
     if rule == "median":
         return ops.gather_median(w, table.safe_idx, table.valid_dev, self_vals)
     if rule in ("krum", "bulyan"):
         return _vector_rule(rule, w, table.safe_idx, table.valid_dev, self_vals, b,
-                            lambda sel: ops.gather_trimmed_mean(w, table.safe_idx, sel, self_vals, b))
+                            lambda sel: ops.gather_trimmed_mean(w, table.safe_idx, sel, self_vals,
+                                                                bk))
     if rule not in RULES:
         raise _unknown(rule)
-    return _plain_rule(rule, table.gather_rows(w), table.valid_dev, self_vals, b)
+    return _plain_rule(rule, ref.gather(w, table.safe_idx), table.valid_dev, self_vals, b)
+
+
+# ---------------------------------------------------------------------------
+# Banked dispatch: a rule per experiment from a static bank
+# ---------------------------------------------------------------------------
+
+
+def _banked(screen: Callable, w: torch.Tensor, self_vals: torch.Tensor, rules, rule_idx,
+            b) -> torch.Tensor:
+    """``screen(rule, w_r, b_r, self_r)`` once per rule of the bank over the
+    experiments that chose it (``rule_idx [E]``, host indices), scattered
+    back in order; one rule for all is a single call."""
+    idx = np.asarray(rule_idx, np.int64).reshape(-1)
+    if idx.shape[0] != w.shape[0]:
+        raise ValueError(f"rule_idx has {idx.shape[0]} entries for {w.shape[0]} experiments")
+    used = sorted(set(idx.tolist()))
+    if len(used) == 1:
+        return screen(rules[used[0]], w, b, self_vals)
+    out = torch.empty_like(self_vals)
+    same = self_vals is w
+    for r in used:
+        cells = np.nonzero(idx == r)[0]
+        sel = torch.as_tensor(cells, device=w.device)
+        w_r = w.index_select(0, sel)
+        s_r = w_r if same else self_vals.index_select(0, sel)
+        out.index_copy_(0, sel, screen(rules[r], w_r, _select(b, cells), s_r))
+    return out
+
+
+def screen_all_banked(w: torch.Tensor, adjacency: torch.Tensor, rules, rule_idx, b, *,
+                      self_vals: torch.Tensor | None = None) -> torch.Tensor:
+    """`screen_all` over ``w [E, M, d]`` with experiment e screening by
+    ``rules[rule_idx[e]]`` at bound ``b[e]`` (the reference's
+    ``screen_all_banked`` under its grid's ``vmap``)."""
+    if self_vals is None:
+        self_vals = w
+    return _banked(lambda rule, w_r, b_r, s_r: _screen_all(w_r, adjacency, rule, b_r, s_r),
+                   w, self_vals, rules, rule_idx, b)
+
+
+def screen_gathered_banked(w: torch.Tensor, table: NeighborTable, rules, rule_idx, b, *,
+                           self_vals: torch.Tensor | None = None) -> torch.Tensor:
+    """`screen_gathered` over ``w [E, M, d]`` with a rule an experiment from
+    the bank (the reference's sparse trainer path, ``screen_views_banked``
+    over the table's gathered rows, without forming them)."""
+    if self_vals is None:
+        self_vals = w
+    return _banked(lambda rule, w_r, b_r, s_r: _screen_gathered(w_r, table, rule, b_r, s_r),
+                   w, self_vals, rules, rule_idx, b)
+
+
+def screen_views_banked(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
+                        rules, rule_idx, b) -> torch.Tensor:
+    """`screen_views` over views ``[E, M, W, d]`` (a mask ``[M, W]`` every
+    experiment shares, or ``[E, M, W]``) with a rule an experiment from the
+    bank: the experiments that chose a rule and share a bound are one call,
+    their nodes stacked (``[E_r M, W, d]``, read in place where the views'
+    strides allow)."""
+    e, m, w_, d = views.shape
+    idx = np.asarray(rule_idx, np.int64).reshape(-1)
+    bs = np.broadcast_to(np.asarray(b, np.int64), idx.shape)
+    out = torch.empty_like(self_vals)
+    for key in sorted(set(zip(idx.tolist(), bs.tolist()))):
+        cells = np.nonzero((idx == key[0]) & (bs == key[1]))[0]
+        sel = torch.as_tensor(cells, device=views.device)
+        v_r = views.index_select(0, sel) if len(cells) < e else views
+        mk = mask.expand(e, m, w_) if mask.ndim == 2 else mask
+        mk = (mk.index_select(0, sel) if len(cells) < e else mk).reshape(-1, w_).contiguous()
+        y = screen_views(v_r.reshape(-1, w_, d), mk, self_vals.index_select(0, sel).reshape(-1, d),
+                         rule=rules[key[0]], b=int(key[1]))
+        out.index_copy_(0, sel, y.reshape(len(cells), m, d))
+    return out

@@ -38,13 +38,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of each entry point: pointers and the stream as void*, sizes as int
 SIGNATURES = {
-    "screen_trimmed_mean_dense": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
-    "screen_median_dense": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR),
+    # the float screens take the experiment axis: after b (and recip) the
+    # experiments E, the mask's experiment stride and, for the trimmed
+    # mean, the [E] int32 b (or null)
+    "screen_trimmed_mean_dense": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _I64,
+                                  _PTR, _PTR),
+    "screen_median_dense": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _I64, _PTR),
     # the gather tile kernels: the operands, then the plan's tile, chunk,
     # segments and columns a lane (gather_screen.tile_plan)
     "gather_screen_trimmed_mean": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
-                                   _INT, _INT, _INT, _INT, _PTR),
-    "gather_screen_median": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
+                                   _INT, _I64, _PTR, _INT, _INT, _INT, _INT, _PTR),
+    "gather_screen_median": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _I64,
                              _INT, _INT, _INT, _INT, _PTR),
     "dequant_screen_trimmed_mean_dense": (_PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                                           _PTR),
@@ -56,13 +60,17 @@ SIGNATURES = {
     "dequant": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
     "dequant_carry": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
     "pairwise_sq_dists": (_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR),
+    # x, its batch and row strides, self_vals (or null) and its stride, out,
+    # B, n, d, then the plan
+    "pairwise_sq_dists_batched": (_PTR, _I64, _I64, _PTR, _I64, _PTR) + (_INT,) * 6 + (_PTR,),
     # the wide path (screen_wide.cuh): the register entries' operands
-    "screen_wide_trimmed_mean_dense": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
-    "screen_wide_median_dense": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR),
+    "screen_wide_trimmed_mean_dense": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
+                                       _I64, _PTR, _PTR),
+    "screen_wide_median_dense": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _I64, _PTR),
     "dequant_screen_wide_trimmed_mean_dense": (_PTR,) * 5 + (_INT,) * 4 + (_PTR,),
     "dequant_screen_wide_median_dense": (_PTR,) * 5 + (_INT,) * 3 + (_PTR,),
-    "gather_screen_wide_trimmed_mean": (_PTR,) * 5 + (_INT,) * 4 + (_PTR,),
-    "gather_screen_wide_median": (_PTR,) * 5 + (_INT,) * 3 + (_PTR,),
+    "gather_screen_wide_trimmed_mean": (_PTR,) * 5 + (_INT,) * 5 + (_I64, _PTR, _PTR),
+    "gather_screen_wide_median": (_PTR,) * 5 + (_INT,) * 4 + (_I64, _PTR),
     "gather_dequant_screen_wide_trimmed_mean": (_PTR,) * 6 + (_INT,) * 5 + (_PTR,),
     "gather_dequant_screen_wide_median": (_PTR,) * 6 + (_INT,) * 4 + (_PTR,),
     # the views screens (views_screen.cu): views, its node and slot strides,
@@ -174,30 +182,78 @@ def check_launch(err: int, name: str) -> None:
 
 def check_rows(w: torch.Tensor, self_vals: torch.Tensor) -> None:
     """Validate the screened values: float32 contiguous ``w`` and
-    ``self_vals`` of one shape ``[M, d]`` on one device."""
+    ``self_vals`` of one shape ``[M, d]``, or ``[E, M, d]`` over the
+    experiment axis, on one device."""
     if w.dtype != torch.float32 or self_vals.dtype != torch.float32:
         raise TypeError(f"screening takes float32, got w {w.dtype}, self_vals {self_vals.dtype}")
-    if w.ndim != 2 or self_vals.shape != w.shape:
-        raise ValueError(f"w {tuple(w.shape)} and self_vals {tuple(self_vals.shape)} must be one [M, d]")
+    if w.ndim not in (2, 3) or self_vals.shape != w.shape:
+        raise ValueError(f"w {tuple(w.shape)} and self_vals {tuple(self_vals.shape)} must be one "
+                         f"[M, d] or [E, M, d]")
     if not (w.is_contiguous() and self_vals.is_contiguous()):
         raise ValueError("screening operands must be contiguous")
     if w.device != self_vals.device:
         raise ValueError(f"operands on different devices: {w.device}, {self_vals.device}")
 
 
+MAX_EXPERIMENTS = 65535  # a grid dimension (csrc/screen_sort.cuh kMaxExperiments)
+
+
+def check_b(b, w: torch.Tensor) -> None:
+    """Validate a screen's Byzantine bound: an int >= 0, or, over the
+    experiment axis (``w [E, M, d]``), an int32 tensor ``[E]`` on ``w``'s
+    device (its values are the caller's to keep >= 0: the kernels and the
+    plain versions trim nothing for a negative one)."""
+    if isinstance(b, torch.Tensor):
+        if w.ndim != 3 or b.dtype != torch.int32 or b.shape != w.shape[:1] or b.device != w.device:
+            raise ValueError(f"a per-experiment b is an int32 [E] tensor on the operands' device "
+                             f"beside [E, M, d] rows, got {b.dtype} {tuple(b.shape)} on "
+                             f"{b.device} for rows {tuple(w.shape)}")
+        if not b.is_contiguous():
+            raise ValueError("b must be contiguous")
+    elif int(b) < 0:
+        raise ValueError(f"b must be >= 0, got {b}")
+
+
+def experiments(w: torch.Tensor, mask: torch.Tensor, b=None) -> tuple:
+    """The experiment operands of a float screen's entry point: the count E
+    (1 for ``[M, d]`` rows), the mask's experiment stride (0 for one mask
+    every experiment shares, else a mask ``[E, ...]`` of its own each) and,
+    with ``b`` (the trimmed mean), the scalar b ahead of them and the
+    per-experiment ``[E]`` bounds' pointer after (None: every experiment
+    takes the scalar)."""
+    e = 1 if w.ndim == 2 else w.shape[0]
+    if not 1 <= e <= MAX_EXPERIMENTS:
+        raise ValueError(f"a screen takes 1 to {MAX_EXPERIMENTS} experiments, got {e}")
+    s_mask = mask.stride(0) if mask.ndim == 3 else 0
+    if b is None:
+        return e, s_mask
+    if isinstance(b, torch.Tensor):
+        return 0, e, s_mask, b.data_ptr()
+    return int(b), e, s_mask, None
+
+
+def check_mask(mask: torch.Tensor, w: torch.Tensor, shape: tuple, what: str) -> None:
+    """Validate a screen's mask: contiguous bool/uint8 of ``shape`` (one
+    every experiment shares) or, over the experiment axis (``w [E, M, d]``),
+    ``[E, *shape]``, on ``w``'s device."""
+    if mask.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"{what} must be bool or uint8, got {mask.dtype}")
+    if tuple(mask.shape) != shape and not (w.ndim == 3 and tuple(mask.shape) == (w.shape[0], *shape)):
+        raise ValueError(f"{what} {tuple(mask.shape)} must be {list(shape)}"
+                         f"{' or [E, ...]' if w.ndim == 3 else ''}")
+    if not mask.is_contiguous():
+        raise ValueError("screening operands must be contiguous")
+    if mask.device != w.device:
+        raise ValueError(f"operands on different devices: {w.device}, {mask.device}")
+
+
 def check_screen_args(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor) -> None:
     """Validate the dense screening operands: `check_rows`, and a
-    contiguous bool/uint8 ``[M, M]`` mask on the same device."""
+    contiguous bool/uint8 ``[M, M]`` mask (or ``[E, M, M]``, one an
+    experiment) on the same device."""
     check_rows(w, self_vals)
-    if adj.dtype not in (torch.bool, torch.uint8):
-        raise TypeError(f"adjacency must be bool or uint8, got {adj.dtype}")
-    m = w.shape[0]
-    if adj.shape != (m, m):
-        raise ValueError(f"adjacency {tuple(adj.shape)} must be [{m}, {m}]")
-    if not adj.is_contiguous():
-        raise ValueError("screening operands must be contiguous")
-    if adj.device != w.device:
-        raise ValueError(f"operands on different devices: {w.device}, {adj.device}")
+    m = w.shape[-2]
+    check_mask(adj, w, (m, m), "adjacency")
 
 
 def stream_of(x: torch.Tensor) -> int:

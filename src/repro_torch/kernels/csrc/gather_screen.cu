@@ -63,19 +63,35 @@ using screen::scales_fit;
 // 128), the chunk ranges a tile is cut into, and the columns a lane sorts
 // (1, or 2 for the float median of at most 32 rows).  The codeword forms
 // also refuse nblk != ceil(d / 128).
+//
+// The float forms take the experiment axis: w, self_vals and out [E, M, d]
+// contiguous (E = experiments, 1 for the unbatched form), the indices
+// shared and experiment e's valid mask e s_mask bytes in (0: shared); it
+// trims b_e[e] (int32 [E] on the card) or, with a null b_e, b.
+namespace {
+screen::FloatRows float_rows(const float* w, int m, int d) {
+  return screen::FloatRows{w, static_cast<long long>(m) * d};
+}
+}  // namespace
+
 extern "C" int gather_screen_trimmed_mean(const float* w, const int32_t* idx,
                                           const uint8_t* valid, const float* self_vals,
-                                          float* out, int m, int k, int d, int b, int tile,
-                                          int chunk, int segments, int cols, void* stream) {
-  return launch_tile<false>(screen::FloatRows{w}, idx, valid, self_vals, out, m, k, d, b, tile,
-                            chunk, segments, cols, static_cast<cudaStream_t>(stream));
+                                          float* out, int m, int k, int d, int b,
+                                          int experiments, long long s_mask, const int* b_e,
+                                          int tile, int chunk, int segments, int cols,
+                                          void* stream) {
+  return launch_tile<false>(float_rows(w, m, d), idx, valid, self_vals, out, m, k, d, b, tile,
+                            chunk, segments, cols, static_cast<cudaStream_t>(stream),
+                            screen::Experiments{experiments, s_mask, b_e});
 }
 
 extern "C" int gather_screen_median(const float* w, const int32_t* idx, const uint8_t* valid,
                                     const float* self_vals, float* out, int m, int k, int d,
-                                    int tile, int chunk, int segments, int cols, void* stream) {
-  return launch_tile<true>(screen::FloatRows{w}, idx, valid, self_vals, out, m, k, d, 0, tile,
-                           chunk, segments, cols, static_cast<cudaStream_t>(stream));
+                                    int experiments, long long s_mask, int tile, int chunk,
+                                    int segments, int cols, void* stream) {
+  return launch_tile<true>(float_rows(w, m, d), idx, valid, self_vals, out, m, k, d, 0, tile,
+                           chunk, segments, cols, static_cast<cudaStream_t>(stream),
+                           screen::Experiments{experiments, s_mask, nullptr});
 }
 
 extern "C" int gather_dequant_screen_trimmed_mean(const int8_t* q, const float* scale,
@@ -105,18 +121,22 @@ extern "C" int gather_dequant_screen_median(const int8_t* q, const float* scale,
 extern "C" int gather_screen_wide_trimmed_mean(const float* w, const int32_t* idx,
                                                const uint8_t* valid, const float* self_vals,
                                                float* out, int m, int k, int d, int b,
-                                               void* stream) {
-  return screen::launch_wide<false>(screen::FloatRows{w}, screen::SlotList{idx, valid, m, k},
+                                               int experiments, long long s_mask,
+                                               const int* b_e, void* stream) {
+  return screen::launch_wide<false>(float_rows(w, m, d), screen::SlotList{idx, valid, m, k},
                                     self_vals, out, m, d, k, b, false,
-                                    static_cast<cudaStream_t>(stream));
+                                    static_cast<cudaStream_t>(stream),
+                                    screen::Experiments{experiments, s_mask, b_e});
 }
 
 extern "C" int gather_screen_wide_median(const float* w, const int32_t* idx, const uint8_t* valid,
                                          const float* self_vals, float* out, int m, int k, int d,
+                                         int experiments, long long s_mask,
                                          void* stream) {
-  return screen::launch_wide<true>(screen::FloatRows{w}, screen::SlotList{idx, valid, m, k},
+  return screen::launch_wide<true>(float_rows(w, m, d), screen::SlotList{idx, valid, m, k},
                                    self_vals, out, m, d, k, 0, false,
-                                   static_cast<cudaStream_t>(stream));
+                                   static_cast<cudaStream_t>(stream),
+                                   screen::Experiments{experiments, s_mask, nullptr});
 }
 
 extern "C" int gather_dequant_screen_wide_trimmed_mean(const int8_t* q, const float* scale,

@@ -3,6 +3,11 @@
 //
 // pairwise_sq_dists replaces the TPU kernel
 //   src/repro/kernels/krum.py::pairwise_sq_dists_pallas
+// and pairwise_sq_dists_batched is the same kernel with a leading batch
+// axis: [B, n, d] -> [B, n, n], the per-node distances of Krum and Bulyan
+// over the network runtime's mailbox views (batch = node, each node's W
+// views and its own value, n = W + 1) and the grids' per-cell distances
+// (batch = experiment).
 //
 // What it computes.  For the rows of x [n, d] (float32): the Gram
 // g = x x^T accumulated in float32 with fused multiply-adds, then
@@ -21,8 +26,19 @@
 // swapped, which rounds the same.  (3) NaN propagates: the clamp is
 // v < 0 ? 0 : v (fmaxf would give 0 for a NaN, where jnp.maximum keeps it).
 // (4) The summation order is a function of [n, d] alone: the split plan
-// (kernels/pairwise.py, split_plan) is.  No tensor cores and no TF32: the
+// (kernels/pairwise.py, split_plan) is; a batch element runs under the plan
+// of its own [n, d], so it equals the unbatched kernel of its rows bit for
+// bit, whatever B.  No tensor cores and no TF32: the
 // H100 has no full-fp32 mma, and the reference's dot is float32.
+//
+// Batch axis.  Element e's rows are read at strides (s_batch, s_row) in
+// elements, its row n - 1 optionally from self + e s_self (the node's own
+// value appended without forming the [B, n, d] stack, 273 MB at M = 512,
+// K = 16); s_batch may be 0 (a broadcast expanded over the receivers, read
+// in place).  Elements go on gridDim.z, a cluster's blocks all on one
+// element, with a loop past 65535; each element's tiles are the unbatched
+// kernel's.  The copies are as wide as every row start allows (the row and
+// batch strides, self's stride and the base addresses).
 //
 // Design: one launch, no workspace.
 //   A *unit* of 64 threads (an 8 x 8 grid) computes one T x T output tile,
@@ -164,57 +180,67 @@ __device__ __forceinline__ void split_sums(const uint32_t (&unit_at)[S], int spl
   }
 }
 
-// Stage rows [row0, row0 + T) x coordinates [kc, kc + kChunk) of x into
-// dst[r * kPitch + c], V floats a copy.  Coordinates >= k1 (the split's or
-// the row's end) are zeros, and fma(0, 0, acc) == acc for every accumulator
-// these chains hold; rows >= n repeat row n - 1, so every address is valid
-// without a predicate a copy: their outputs and norms are never written.
-template <int T, int V>
-__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ x, int row0, int n,
-                                           int d, int kc, int k1, int t) {
+// One batch element's rows: row i at base + i s_row (elements), and, with
+// kSelf, the element's own value as its last row (i == last).
+template <bool kSelf>
+struct ElementRows {
+  const float* base;
+  long long s_row;
+  const float* self;
+  int last;
+  __device__ __forceinline__ const float* row(int i) const {
+    if (kSelf && i == last) return self;
+    return base + i * s_row;
+  }
+};
+
+// Stage rows [row0, row0 + T) x coordinates [kc, kc + kChunk) of the
+// element's rows into dst[r * kPitch + c], V floats a copy.  Coordinates
+// >= k1 (the split's or the row's end) are zeros, and fma(0, 0, acc) == acc
+// for every accumulator these chains hold; rows >= n repeat row n - 1, so
+// every address is valid without a predicate a copy: their outputs and
+// norms are never written.
+template <int T, int V, class Rows>
+__device__ __forceinline__ void stage_rows(float* dst, const Rows& rows, int row0, int n, int kc,
+                                           int k1, int t) {
   constexpr int kPerRow = kChunk / V;        // copies a row
   constexpr int kRowStep = kUnit / kPerRow;  // rows between a thread's copies
   static_assert(kUnit % kPerRow == 0 && T % kRowStep == 0, "every thread issues the same copies");
   const int r0 = t / kPerRow, c = (t % kPerRow) * V;
   const bool in_split = kc + c < k1;
-  const float* src = x + kc + c;
   float* at = dst + r0 * kPitch + c;
 #pragma unroll
   for (int i = 0; i < T / kRowStep; ++i) {
     const int row = min(row0 + r0 + i * kRowStep, n - 1);
-    cp_async<4 * V>(at + i * kRowStep * kPitch, in_split ? src + static_cast<size_t>(row) * d : x,
+    cp_async<4 * V>(at + i * kRowStep * kPitch, in_split ? rows.row(row) + kc + c : rows.base,
                     in_split);
   }
 }
 
-template <int T>
-__device__ __forceinline__ void stage_chunk(float* stage, bool diag, const float* __restrict__ x,
-                                            int row0, int col0, int n, int d, int kc, int k1,
-                                            int vec, int t) {
+template <int T, class Rows>
+__device__ __forceinline__ void stage_chunk(float* stage, bool diag, const Rows& rows, int row0,
+                                            int col0, int n, int kc, int k1, int vec, int t) {
   float* sb = stage + T * kPitch;
   if (vec == 4) {
-    stage_rows<T, 4>(stage, x, row0, n, d, kc, k1, t);
-    if (!diag) stage_rows<T, 4>(sb, x, col0, n, d, kc, k1, t);
+    stage_rows<T, 4>(stage, rows, row0, n, kc, k1, t);
+    if (!diag) stage_rows<T, 4>(sb, rows, col0, n, kc, k1, t);
   } else if (vec == 2) {
-    stage_rows<T, 2>(stage, x, row0, n, d, kc, k1, t);
-    if (!diag) stage_rows<T, 2>(sb, x, col0, n, d, kc, k1, t);
+    stage_rows<T, 2>(stage, rows, row0, n, kc, k1, t);
+    if (!diag) stage_rows<T, 2>(sb, rows, col0, n, kc, k1, t);
   } else {
-    stage_rows<T, 1>(stage, x, row0, n, d, kc, k1, t);
-    if (!diag) stage_rows<T, 1>(sb, x, col0, n, d, kc, k1, t);
+    stage_rows<T, 1>(stage, rows, row0, n, kc, k1, t);
+    if (!diag) stage_rows<T, 1>(sb, rows, col0, n, kc, k1, t);
   }
 }
 
-template <int R>
-__global__ void __launch_bounds__(kUnit * kUnits)
-pairwise_kernel(const float* __restrict__ x, float* __restrict__ out, int n, int d, int tiles,
-                int split_len, int vec) {
+// One batch element: the d2 tile pair of this cluster over its rows.
+template <int R, class Rows>
+__device__ __forceinline__ void pairwise_tile(const Rows& src, float* __restrict__ out, int n,
+                                              int d, int tiles, int split_len, int vec,
+                                              float* smem, cg::cluster_group& cluster, int csize,
+                                              int rank) {
   using Geo = Geometry<R>;
   constexpr int T = Geo::kTile;
-  extern __shared__ __align__(16) float smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int csize = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-
   // upper-triangle tile pair (bi <= bj) of this cluster
   int p = blockIdx.x, bi = 0, row_len = tiles;
   while (p >= row_len) {
@@ -248,7 +274,7 @@ pairwise_kernel(const float* __restrict__ x, float* __restrict__ out, int n, int
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < chunks)
-      stage_chunk<T>(unit + s * Geo::kStageFloats, diag, x, row0, col0, n, d, k0 + s * kChunk, k1,
+      stage_chunk<T>(unit + s * Geo::kStageFloats, diag, src, row0, col0, n, k0 + s * kChunk, k1,
                      vec, t);
     cp_async_commit();
   }
@@ -259,7 +285,7 @@ pairwise_kernel(const float* __restrict__ x, float* __restrict__ out, int n, int
     // finished with (the barrier above)
     const int next = ch + kStages - 1;
     if (next < chunks)
-      stage_chunk<T>(unit + (next % kStages) * Geo::kStageFloats, diag, x, row0, col0, n, d,
+      stage_chunk<T>(unit + (next % kStages) * Geo::kStageFloats, diag, src, row0, col0, n,
                      k0 + next * kChunk, k1, vec, t);
     cp_async_commit();
 
@@ -393,9 +419,41 @@ pairwise_kernel(const float* __restrict__ x, float* __restrict__ out, int n, int
   cluster.sync();
 }
 
-template <int R>
-cudaError_t launch(const float* x, float* out, int n, int d, int cluster, int split_len, int vec,
-                   cudaStream_t s) {
+// Where the batch elements' rows are (elements): element e's row i < n - 1
+// at x + e s_batch + i s_row, and its row n - 1 there too or, with kSelf,
+// at self + e s_self.  s_batch may be 0 (a broadcast over the batch).
+struct Batch {
+  const float* x;
+  long long s_batch, s_row;
+  const float* self;
+  long long s_self;
+  int count;  // B
+};
+
+template <int R, bool kSelf>
+__global__ void __launch_bounds__(kUnit * kUnits)
+pairwise_kernel(Batch batch, float* __restrict__ out, int n, int d, int tiles, int split_len,
+                int vec) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  // batch elements along gridDim.z, a cluster's blocks all on the same
+  // ones: the loop past 65535 elements runs as often in each, and the
+  // cluster barrier that ends an element guards its shared memory
+  for (int e = blockIdx.z; e < batch.count; e += gridDim.z) {
+    const ElementRows<kSelf> rows{batch.x + e * batch.s_batch, batch.s_row,
+                                  batch.self + (kSelf ? e * batch.s_self : 0), n - 1};
+    pairwise_tile<R>(rows, out + static_cast<size_t>(e) * n * n, n, d, tiles, split_len, vec,
+                     smem, cluster, csize, rank);
+  }
+}
+
+constexpr int kMaxGridZ = 65535;  // batch elements a launch spreads over gridDim.z
+
+template <int R, bool kSelf>
+cudaError_t launch(const Batch& batch, float* out, int n, int d, int cluster, int split_len,
+                   int vec, cudaStream_t s) {
   using Geo = Geometry<R>;
   constexpr int T = Geo::kTile;
   const int tiles = (n + T - 1) / T;
@@ -403,12 +461,13 @@ cudaError_t launch(const float* x, float* out, int n, int d, int cluster, int sp
   const size_t need =
       sizeof(float) * (static_cast<size_t>(kUnits) * Geo::kUnitFloats + stripe * T + stripe + T);
   const size_t bytes = need > kMinSmemBytes ? need : kMinSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(pairwise_kernel<R>,
+  cudaError_t err = cudaFuncSetAttribute(pairwise_kernel<R, kSelf>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(tiles) * (tiles + 1) / 2, cluster, 1);
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles) * (tiles + 1) / 2, cluster,
+                     batch.count < kMaxGridZ ? batch.count : kMaxGridZ);
   cfg.blockDim = dim3(kUnit * kUnits, 1, 1);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = s;
@@ -419,32 +478,69 @@ cudaError_t launch(const float* x, float* out, int n, int d, int cluster, int sp
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, pairwise_kernel<R>, x, out, n, d, tiles, split_len, vec);
+  err = cudaLaunchKernelEx(&cfg, pairwise_kernel<R, kSelf>, batch, out, n, d, tiles, split_len,
+                           vec);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-}  // namespace
+// The widest copy (4, 2 or 1 floats) every row start allows: each row
+// start's address a multiple of 4 V bytes and d of V.
+bool aligned(const Batch& b, int d, int v) {
+  const uintptr_t x = reinterpret_cast<uintptr_t>(b.x);
+  const uintptr_t self = reinterpret_cast<uintptr_t>(b.self);
+  return d % v == 0 && x % (4 * v) == 0 && b.s_row % v == 0 && b.s_batch % v == 0 &&
+         (b.self == nullptr || (self % (4 * v) == 0 && b.s_self % v == 0));
+}
 
-// C entry point (bound with ctypes): x [n, d] float32 contiguous, out [n, n].
-// The plan (kernels/pairwise.py, split_plan): R rows and columns a thread
-// (4, 6 or 8), a cluster of C <= 8 blocks, and 4 C splits of split_len
-// coordinates (a multiple of 32) that cover d (trailing splits may be
-// empty: they add +0).  Returns the launch's cudaError_t
-// (cudaErrorInvalidValue for a shape or plan it does not take).
-extern "C" int pairwise_sq_dists(const float* x, float* out, int n, int d, int rows_per_thread,
-                                 int cluster, int split_len, void* stream) {
+int run(const Batch& batch, float* out, int n, int d, int rows_per_thread, int cluster,
+        int split_len, void* stream) {
   const long long splits = static_cast<long long>(kUnits) * cluster;
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
-  if (n < 1 || n > kMaxRows || d < 1 || cluster < 1 || cluster > kMaxCluster || split_len < 1 ||
-      split_len % kChunk != 0 || splits * split_len < d || addr % 4 != 0)
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(batch.x);
+  if (n < 1 || n > kMaxRows || d < 1 || batch.count < 1 || cluster < 1 ||
+      cluster > kMaxCluster || split_len < 1 || split_len % kChunk != 0 ||
+      splits * split_len < d || addr % 4 != 0 || batch.s_row < 0 || batch.s_batch < 0 ||
+      (batch.self != nullptr && (reinterpret_cast<uintptr_t>(batch.self) % 4 != 0 || n < 2)))
     return cudaErrorInvalidValue;
-  const int vec = (d % 4 == 0 && addr % 16 == 0) ? 4 : (d % 2 == 0 && addr % 8 == 0) ? 2 : 1;
+  const int vec = aligned(batch, d, 4) ? 4 : aligned(batch, d, 2) ? 2 : 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool self = batch.self != nullptr;
   switch (rows_per_thread) {
-    case 4: return launch<4>(x, out, n, d, cluster, split_len, vec, s);
-    case 6: return launch<6>(x, out, n, d, cluster, split_len, vec, s);
-    case 8: return launch<8>(x, out, n, d, cluster, split_len, vec, s);
+    case 4: return self ? launch<4, true>(batch, out, n, d, cluster, split_len, vec, s)
+                        : launch<4, false>(batch, out, n, d, cluster, split_len, vec, s);
+    case 6: return self ? launch<6, true>(batch, out, n, d, cluster, split_len, vec, s)
+                        : launch<6, false>(batch, out, n, d, cluster, split_len, vec, s);
+    case 8: return self ? launch<8, true>(batch, out, n, d, cluster, split_len, vec, s)
+                        : launch<8, false>(batch, out, n, d, cluster, split_len, vec, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// C entry points (bound with ctypes).  The plan (kernels/pairwise.py,
+// split_plan): R rows and columns a thread (4, 6 or 8), a cluster of C <= 8
+// blocks, and 4 C splits of split_len coordinates (a multiple of 32) that
+// cover d (trailing splits may be empty: they add +0).  Each returns the
+// launch's cudaError_t (cudaErrorInvalidValue for a shape or plan it does
+// not take).
+//
+// x [n, d] float32 contiguous, out [n, n].
+extern "C" int pairwise_sq_dists(const float* x, float* out, int n, int d, int rows_per_thread,
+                                 int cluster, int split_len, void* stream) {
+  const Batch one{x, 0, d, nullptr, 0, 1};
+  return run(one, out, n, d, rows_per_thread, cluster, split_len, stream);
+}
+
+// The batched form: out [B, n, n] contiguous, element e's d2 among its rows
+// (the Batch layout above: strides in elements, the coordinate stride 1;
+// self_vals null, or each element's own value as row n - 1), each element
+// under the plan of [n, d], so it equals pairwise_sq_dists of its rows
+// bit for bit.
+extern "C" int pairwise_sq_dists_batched(const float* x, long long s_batch, long long s_row,
+                                         const float* self_vals, long long s_self, float* out,
+                                         int batch, int n, int d, int rows_per_thread,
+                                         int cluster, int split_len, void* stream) {
+  const Batch b{x, s_batch, s_row, self_vals, s_self, batch};
+  return run(b, out, n, d, rows_per_thread, cluster, split_len, stream);
 }

@@ -70,19 +70,35 @@
 // caller raises on anything but cudaSuccess.  Rows to sort: m for the
 // trimmed mean, m + 1 for the median; at most screen::kMaxRows.  A nonzero
 // `recip` selects the trimmed mean's reciprocal form.
+//
+// The experiment axis: w, self_vals and out are [E, M, d] contiguous
+// (E = experiments, 1 for the unbatched form); experiment e's adjacency
+// starts e s_mask bytes into adj (s_mask 0: one [M, M] every experiment
+// shares), and it trims b_e[e] (b_e: int32 [E] on the card) or, with a
+// null b_e, b.
+namespace {
+screen::FloatRows float_rows(const float* w, int m, int d) {
+  return screen::FloatRows{w, static_cast<long long>(m) * d};
+}
+}  // namespace
+
 extern "C" int screen_trimmed_mean_dense(const float* w, const uint8_t* adj,
                                          const float* self_vals, float* out, int m, int d, int b,
-                                         int recip, void* stream) {
+                                         int recip, int experiments, long long s_mask,
+                                         const int* b_e, void* stream) {
   if (m < 1 || d < 1) return cudaErrorInvalidValue;
-  return screen::launch_trimmed_mean_dense(screen::FloatRows{w}, adj, self_vals, out, m, d, b,
-                                           recip != 0, static_cast<cudaStream_t>(stream));
+  return screen::launch_trimmed_mean_dense(float_rows(w, m, d), adj, self_vals, out, m, d, b,
+                                           recip != 0, static_cast<cudaStream_t>(stream),
+                                           screen::Experiments{experiments, s_mask, b_e});
 }
 
 extern "C" int screen_median_dense(const float* w, const uint8_t* adj, const float* self_vals,
-                                   float* out, int m, int d, void* stream) {
+                                   float* out, int m, int d, int experiments, long long s_mask,
+                                   void* stream) {
   if (m < 1 || d < 1) return cudaErrorInvalidValue;
-  return screen::launch_median_dense(screen::FloatRows{w}, adj, self_vals, out, m, d,
-                                     static_cast<cudaStream_t>(stream));
+  return screen::launch_median_dense(float_rows(w, m, d), adj, self_vals, out, m, d,
+                                     static_cast<cudaStream_t>(stream),
+                                     screen::Experiments{experiments, s_mask, nullptr});
 }
 
 // The wide path over the same operands (screen_wide.cuh), for any M up to
@@ -90,14 +106,18 @@ extern "C" int screen_median_dense(const float* w, const uint8_t* adj, const flo
 // median).
 extern "C" int screen_wide_trimmed_mean_dense(const float* w, const uint8_t* adj,
                                               const float* self_vals, float* out, int m, int d,
-                                              int b, int recip, void* stream) {
-  return screen::launch_wide<false>(screen::FloatRows{w}, screen::DenseList{adj, m}, self_vals,
+                                              int b, int recip, int experiments,
+                                              long long s_mask, const int* b_e, void* stream) {
+  return screen::launch_wide<false>(float_rows(w, m, d), screen::DenseList{adj, m}, self_vals,
                                     out, m, d, m, b, recip != 0,
-                                    static_cast<cudaStream_t>(stream));
+                                    static_cast<cudaStream_t>(stream),
+                                    screen::Experiments{experiments, s_mask, b_e});
 }
 
 extern "C" int screen_wide_median_dense(const float* w, const uint8_t* adj, const float* self_vals,
-                                        float* out, int m, int d, void* stream) {
-  return screen::launch_wide<true>(screen::FloatRows{w}, screen::DenseList{adj, m}, self_vals,
-                                   out, m, d, m, 0, false, static_cast<cudaStream_t>(stream));
+                                        float* out, int m, int d, int experiments, long long s_mask,
+                                   void* stream) {
+  return screen::launch_wide<true>(float_rows(w, m, d), screen::DenseList{adj, m}, self_vals,
+                                   out, m, d, m, 0, false, static_cast<cudaStream_t>(stream),
+                                   screen::Experiments{experiments, s_mask, nullptr});
 }

@@ -58,48 +58,54 @@ __device__ __forceinline__ void load_column(float (&v)[N], const Rows& rows, con
   }
 }
 
+// Experiment blockIdx.z of the launch (screen_sort.cuh, Experiments):
+// its rows, self values, outputs, b and adjacency.
 template <int NMAX, class Rows>
 __global__ void __launch_bounds__(kThreads)
 trimmed_mean_dense_kernel(Rows rows, const uint8_t* __restrict__ adj,
                           const float* __restrict__ self_vals, float* __restrict__ out, int m,
-                          int d, int b, bool recip) {
+                          int d, int b, bool recip, Experiments ex) {
   __shared__ int s_nbr[kMaxRows];
   __shared__ int s_warp[kWarps];
   __shared__ float2 s_pair[Rows::kPairs];
-  const int j = blockIdx.y;
-  const int count = load_neighbors(adj, m, j, s_nbr, s_warp);
-  rows.stage(s_nbr, count, s_pair, blockIdx.x);
+  const int j = blockIdx.y, e = blockIdx.z;
+  const Rows src = rows.experiment(e);
+  const int count = load_neighbors(adj + e * ex.s_mask, m, j, s_nbr, s_warp);
+  src.stage(s_nbr, count, s_pair, blockIdx.x);
   const int k = blockIdx.x * kThreads + threadIdx.x;
   if (k >= d) return;
-  const size_t at = static_cast<size_t>(j) * d + k;
+  const size_t at = (static_cast<size_t>(e) * m + j) * d + k;
+  const int be = ex.b_of(e, b);
   for_bucket<NMAX>(count, [&](auto bucket) {
     constexpr int N = decltype(bucket)::value;
     float v[N];
-    load_column<N>(v, rows, s_pair, s_nbr, count, d, k);
+    load_column<N>(v, src, s_pair, s_nbr, count, d, k);
     batcher_sort<N>(v);
-    out[at] = trimmed_mean_sorted<N>(v, count, b, self_vals[at], recip);
+    out[at] = trimmed_mean_sorted<N>(v, count, be, self_vals[at], recip);
   });
 }
 
 template <int NMAX, class Rows>
 __global__ void __launch_bounds__(kThreads)
 median_dense_kernel(Rows rows, const uint8_t* __restrict__ adj,
-                    const float* __restrict__ self_vals, float* __restrict__ out, int m, int d) {
+                    const float* __restrict__ self_vals, float* __restrict__ out, int m, int d,
+                    Experiments ex) {
   __shared__ int s_nbr[kMaxRows];
   __shared__ int s_warp[kWarps];
   __shared__ float2 s_pair[Rows::kPairs];
-  const int j = blockIdx.y;
-  const int count = load_neighbors(adj, m, j, s_nbr, s_warp);
-  rows.stage(s_nbr, count, s_pair, blockIdx.x);
+  const int j = blockIdx.y, e = blockIdx.z;
+  const Rows src = rows.experiment(e);
+  const int count = load_neighbors(adj + e * ex.s_mask, m, j, s_nbr, s_warp);
+  src.stage(s_nbr, count, s_pair, blockIdx.x);
   const int k = blockIdx.x * kThreads + threadIdx.x;
   if (k >= d) return;
-  const size_t at = static_cast<size_t>(j) * d + k;
+  const size_t at = (static_cast<size_t>(e) * m + j) * d + k;
   // the node's own (uncompressed) value joins as one more row
   const float own = sanitize(self_vals[at]);
   for_bucket<NMAX>(count + 1, [&](auto bucket) {
     constexpr int N = decltype(bucket)::value;
     float v[N];
-    load_column<N>(v, rows, s_pair, s_nbr, count, d, k);
+    load_column<N>(v, src, s_pair, s_nbr, count, d, k);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       if (i == count) v[i] = own;
@@ -111,25 +117,28 @@ median_dense_kernel(Rows rows, const uint8_t* __restrict__ adj,
 
 // Launch over rows to sort: m for the trimmed mean, m + 1 for the median,
 // with the kernel compiled for the next power of two (NMAX), which holds
-// every bucket a block of this launch can pick; cudaErrorInvalidValue above
-// kMaxRows.
+// every bucket a block of this launch can pick, and ex.count experiments
+// along gridDim.z; cudaErrorInvalidValue above kMaxRows or
+// kMaxExperiments.
 template <class Rows>
 cudaError_t launch_trimmed_mean_dense(const Rows& rows, const uint8_t* adj,
                                       const float* self_vals, float* out, int m, int d, int b,
-                                      bool recip, cudaStream_t s) {
-  const dim3 grid((d + kThreads - 1) / kThreads, m);
+                                      bool recip, cudaStream_t s,
+                                      const Experiments& ex = Experiments{}) {
+  if (ex.count < 1 || ex.count > kMaxExperiments) return cudaErrorInvalidValue;
+  const dim3 grid((d + kThreads - 1) / kThreads, m, ex.count);
   if (m <= 16) {
     trimmed_mean_dense_kernel<16, Rows><<<grid, kThreads, 0, s>>>(rows, adj, self_vals, out, m,
-                                                                   d, b, recip);
+                                                                   d, b, recip, ex);
   } else if (m <= 32) {
     trimmed_mean_dense_kernel<32, Rows><<<grid, kThreads, 0, s>>>(rows, adj, self_vals, out, m,
-                                                                   d, b, recip);
+                                                                   d, b, recip, ex);
   } else if (m <= 64) {
     trimmed_mean_dense_kernel<64, Rows><<<grid, kThreads, 0, s>>>(rows, adj, self_vals, out, m,
-                                                                   d, b, recip);
+                                                                   d, b, recip, ex);
   } else if (m <= kMaxRows) {
     trimmed_mean_dense_kernel<128, Rows><<<grid, kThreads, 0, s>>>(rows, adj, self_vals, out, m,
-                                                                    d, b, recip);
+                                                                    d, b, recip, ex);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -138,17 +147,19 @@ cudaError_t launch_trimmed_mean_dense(const Rows& rows, const uint8_t* adj,
 
 template <class Rows>
 cudaError_t launch_median_dense(const Rows& rows, const uint8_t* adj, const float* self_vals,
-                                float* out, int m, int d, cudaStream_t s) {
-  const dim3 grid((d + kThreads - 1) / kThreads, m);
+                                float* out, int m, int d, cudaStream_t s,
+                                const Experiments& ex = Experiments{}) {
+  if (ex.count < 1 || ex.count > kMaxExperiments) return cudaErrorInvalidValue;
+  const dim3 grid((d + kThreads - 1) / kThreads, m, ex.count);
   const int n = m + 1;
   if (n <= 16) {
-    median_dense_kernel<16, Rows><<<grid, kThreads, 0, s>>>(rows, adj, self_vals, out, m, d);
+    median_dense_kernel<16, Rows><<<grid, kThreads, 0, s>>>(rows, adj, self_vals, out, m, d, ex);
   } else if (n <= 32) {
-    median_dense_kernel<32, Rows><<<grid, kThreads, 0, s>>>(rows, adj, self_vals, out, m, d);
+    median_dense_kernel<32, Rows><<<grid, kThreads, 0, s>>>(rows, adj, self_vals, out, m, d, ex);
   } else if (n <= 64) {
-    median_dense_kernel<64, Rows><<<grid, kThreads, 0, s>>>(rows, adj, self_vals, out, m, d);
+    median_dense_kernel<64, Rows><<<grid, kThreads, 0, s>>>(rows, adj, self_vals, out, m, d, ex);
   } else if (n <= kMaxRows) {
-    median_dense_kernel<128, Rows><<<grid, kThreads, 0, s>>>(rows, adj, self_vals, out, m, d);
+    median_dense_kernel<128, Rows><<<grid, kThreads, 0, s>>>(rows, adj, self_vals, out, m, d, ex);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -42,14 +42,21 @@ __device__ __forceinline__ float sanitize(float x) { return fminf(x, CUDART_INF_
 // there is anything to copy) and ends in a barrier.
 //
 // `at(j)` binds a source to node j: the views' base for mailbox views,
-// the source itself for rows every node shares.
+// the source itself for rows every node shares.  `experiment(e)` binds it
+// to experiment e of a launch over an experiment axis: its rows start s_exp
+// elements (s_exp_pairs floats of scale pairs) after the previous
+// experiment's; 0, the default, for a launch over one experiment.
 //
 // Float rows: w[row * d + c], NaN -> +inf.
 struct FloatRows {
   const float* w;
+  long long s_exp = 0;
   static constexpr bool kStaged = false;
   static constexpr int kPairs = 1;  // nothing staged
   __device__ __forceinline__ FloatRows at(int) const { return *this; }
+  __device__ __forceinline__ FloatRows experiment(int e) const {
+    return FloatRows{w + e * s_exp, s_exp};
+  }
   __device__ __forceinline__ void stage(const int*, int, float2*, int) const {}
   __device__ __forceinline__ float load(const float2*, int row, int, int d, int c) const {
     return sanitize(w[static_cast<size_t>(row) * d + c]);
@@ -66,9 +73,13 @@ struct CodewordRows {
   const int8_t* q;
   const float* scale;  // [rows, nblk, 2]
   int nblk;
+  long long s_exp = 0, s_exp_pairs = 0;
   static constexpr bool kStaged = true;
   static constexpr int kPairs = kMaxStaged;
   __device__ __forceinline__ CodewordRows at(int) const { return *this; }
+  __device__ __forceinline__ CodewordRows experiment(int e) const {
+    return CodewordRows{q + e * s_exp, scale + e * s_exp_pairs, nblk, s_exp, s_exp_pairs};
+  }
   __device__ __forceinline__ void stage(const int* rows, int n, float2* s_pair, int blk) const {
     for (int t = threadIdx.x; t < n; t += blockDim.x) {
       const float* p = scale + (static_cast<size_t>(rows[t]) * nblk + blk) * 2;
@@ -103,13 +114,33 @@ struct NodeViews {
 struct ViewRows {
   const float* v;
   long long s_recv, s_slot;
+  long long s_exp = 0;
   static constexpr bool kStaged = false;
   static constexpr int kPairs = 1;  // nothing staged
   __device__ __forceinline__ NodeViews at(int j) const {
     return NodeViews{v + j * s_recv, s_slot};
   }
+  __device__ __forceinline__ ViewRows experiment(int e) const {
+    return ViewRows{v + e * s_exp, s_recv, s_slot, s_exp};
+  }
   __device__ __forceinline__ void stage(const int*, int, float2*, int) const {}
 };
+
+// The experiment axis of a launch: `count` experiments, experiment e on its
+// own rows (the row source's experiment(e)), its own self values and
+// outputs ([E, M, d] contiguous: e M d elements in), its own Byzantine
+// bound b[e] (a null b gives every experiment the launch's scalar b) and
+// its own adjacency or table mask, s_mask bytes after the previous one's
+// (0: one mask every experiment shares, as a grid shares its topology;
+// [E, M, M] or [E, M, K] for Bulyan's per-experiment selections).  The
+// default is one experiment, the screens' unbatched form.
+struct Experiments {
+  int count = 1;
+  long long s_mask = 0;
+  const int* b = nullptr;
+  __device__ __forceinline__ int b_of(int e, int b0) const { return b != nullptr ? b[e] : b0; }
+};
+constexpr int kMaxExperiments = 65535;  // a grid dimension
 
 // Trimmed mean of a sorted column: ranks [b_eff, count - b_eff) summed left
 // to right, the node's own value added, and the total divided (IEEE) by

@@ -91,7 +91,7 @@ template <int NMAX, bool kMedian, int COLS, class Rows>
 __global__ void __launch_bounds__(kTileThreads, (tile_min_blocks<NMAX, Rows>()))
 gather_tile_kernel(Rows rows, const int32_t* __restrict__ idx, const uint8_t* __restrict__ valid,
                    const float* __restrict__ self_vals, float* __restrict__ out, int m, int k,
-                   int d, int b, int tile, int chunk, int segments) {
+                   int d, int b, int tile, int chunk, int segments, Experiments ex) {
   constexpr bool kCodes = Rows::kStaged;
   __shared__ int s_slot[kMaxTileSlots];  // slot -> row, -1 when padded
   __shared__ int s_node[kMaxListed];     // node t's valid slots' rows, at t * NMAX
@@ -105,6 +105,13 @@ gather_tile_kernel(Rows rows, const int32_t* __restrict__ idx, const uint8_t* __
   const int ch_begin = static_cast<int>(static_cast<long long>(seg) * chunks / segments);
   const int ch_end = static_cast<int>(static_cast<long long>(seg + 1) * chunks / segments);
   const int s = threadIdx.x, lane = s & 31, warp = s >> 5;
+  // experiment blockIdx.y (screen_sort.cuh, Experiments): its rows, self
+  // values, outputs, b and table mask (the indices are shared)
+  const int e = blockIdx.y;
+  valid += e * ex.s_mask;
+  const Rows exp_rows = rows.experiment(e);
+  const size_t exp_at = static_cast<size_t>(e) * m * d;
+  const int be = ex.b_of(e, b);
 
   // prologue: the tile's slots, then each node's list of rows in slot order
   // (no index table: the views' slot itself)
@@ -131,7 +138,7 @@ gather_tile_kernel(Rows rows, const int32_t* __restrict__ idx, const uint8_t* __
     const float2* pairs = s_pair + ((ci - ch_begin) & 1) * kMaxListed;
     if constexpr (kCodes) {
       // one barrier a chunk: the other buffer's readers finished before it
-      stage_pairs(rows, s_node, s_cnt, nt, NMAX, ci * chunk / kScaleBlock,
+      stage_pairs(exp_rows, s_node, s_cnt, nt, NMAX, ci * chunk / kScaleBlock,
                   s_pair + ((ci - ch_begin) & 1) * kMaxListed);
       __syncthreads();
     }
@@ -140,12 +147,12 @@ gather_tile_kernel(Rows rows, const int32_t* __restrict__ idx, const uint8_t* __
       const int cl = (task % subs) * 32 * COLS + lane;
       const int cnt = s_cnt[t];
       const int* list = s_node + t * NMAX;
-      const auto src = rows.at(j0 + t);  // the row source bound to the node
+      const auto src = exp_rows.at(j0 + t);  // the row source bound to the node
       float own[COLS];
 #pragma unroll
       for (int q = 0; q < COLS; ++q) {
         // lanes past d read at d - 1 and discard it
-        own[q] = __ldg(self_vals + static_cast<size_t>(j0 + t) * d +
+        own[q] = __ldg(self_vals + exp_at + static_cast<size_t>(j0 + t) * d +
                        min(ci * chunk + cl + 32 * q, d - 1));
       }
       auto column = [&](auto bucket) {
@@ -190,11 +197,11 @@ gather_tile_kernel(Rows rows, const int32_t* __restrict__ idx, const uint8_t* __
             if (kMedian) {
               res = median_sorted<N>(v[q], exact ? N : cnt + 1);
             } else if (exact) {
-              res = trimmed_mean_exact<N>(v[q], b, own[q]);
+              res = trimmed_mean_exact<N>(v[q], be, own[q]);
             } else {
-              res = trimmed_mean_sorted<N>(v[q], cnt, b, own[q]);
+              res = trimmed_mean_sorted<N>(v[q], cnt, be, own[q]);
             }
-            out[static_cast<size_t>(j0 + t) * d + c] = res;
+            out[exp_at + static_cast<size_t>(j0 + t) * d + c] = res;
           }
         }
       };
@@ -215,14 +222,16 @@ struct TileArgs {
   const float* self_vals;
   float* out;
   int m, k, d, b, tile, chunk, segments;
+  Experiments ex;
 };
 
 template <int NMAX, bool kMedian, int COLS, class Rows>
 cudaError_t run_tile(const Rows& rows, const TileArgs& a, cudaStream_t s) {
   if (a.tile * NMAX > kMaxListed) return cudaErrorInvalidValue;
-  const unsigned grid = static_cast<unsigned>((a.m + a.tile - 1) / a.tile) * a.segments;
+  const dim3 grid(static_cast<unsigned>((a.m + a.tile - 1) / a.tile) * a.segments, a.ex.count);
   gather_tile_kernel<NMAX, kMedian, COLS, Rows><<<grid, kTileThreads, 0, s>>>(
-      rows, a.idx, a.valid, a.self_vals, a.out, a.m, a.k, a.d, a.b, a.tile, a.chunk, a.segments);
+      rows, a.idx, a.valid, a.self_vals, a.out, a.m, a.k, a.d, a.b, a.tile, a.chunk, a.segments,
+      a.ex);
   return cudaGetLastError();
 }
 
@@ -245,15 +254,18 @@ inline bool plan_fits(int m, int k, int d, int tile, int chunk, int segments, in
          static_cast<long long>((m + tile - 1) / tile) * segments <= 0x7fffffffLL;
 }
 
-// Launch the tile kernel under a plan; rows to sort K (K + 1 for the
-// median) pick the compiled bucket.  cudaErrorInvalidValue for a shape or
-// plan it does not take.
+// Launch the tile kernel under a plan, ex.count experiments along
+// gridDim.y; rows to sort K (K + 1 for the median) pick the compiled
+// bucket.  cudaErrorInvalidValue for a shape or plan it does not take.
 template <bool kMedian, class Rows>
 cudaError_t launch_tile(const Rows& rows, const int32_t* idx, const uint8_t* valid,
                         const float* self_vals, float* out, int m, int k, int d, int b, int tile,
-                        int chunk, int segments, int cols, cudaStream_t s) {
-  if (!plan_fits(m, k, d, tile, chunk, segments, cols) || b < 0) return cudaErrorInvalidValue;
-  const TileArgs a{idx, valid, self_vals, out, m, k, d, b, tile, chunk, segments};
+                        int chunk, int segments, int cols, cudaStream_t s,
+                        const Experiments& ex = Experiments{}) {
+  if (!plan_fits(m, k, d, tile, chunk, segments, cols) || b < 0 || ex.count < 1 ||
+      ex.count > kMaxExperiments)
+    return cudaErrorInvalidValue;
+  const TileArgs a{idx, valid, self_vals, out, m, k, d, b, tile, chunk, segments, ex};
   const int most = k + (kMedian ? 1 : 0);
   if (most <= 16) return run_tile_cols<16, kMedian>(cols, rows, a, s);
   if (most <= 24) return run_tile_cols<24, kMedian>(cols, rows, a, s);

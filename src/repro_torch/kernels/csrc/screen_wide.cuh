@@ -140,13 +140,17 @@ __device__ __forceinline__ int compact_list(int n, Take take, Row row, int* s_li
   return total;
 }
 
-// Row lists: which rows node j screens.  Dense: the senders of adj[j, :],
+// Row lists: which rows node j screens (experiment(e, s_mask): experiment
+// e's, its mask s_mask bytes after the previous experiment's).  Dense: the senders of adj[j, :],
 // ascending (over mailbox views [M, W, d], the usable slots of mask[j, :]:
 // DenseList{mask, W}).  Slots: the valid slots of row j of the [M, K] table, in slot
 // order (padded slots are left out: they would sort last as +inf).
 struct DenseList {
   const uint8_t* adj;
   int m;
+  __device__ __forceinline__ DenseList experiment(int e, long long s_mask) const {
+    return DenseList{adj + e * s_mask, m};
+  }
   __device__ __forceinline__ int build(int j, int* s_list, int* s_warp) const {
     const uint8_t* row = adj + static_cast<size_t>(j) * m;
     return compact_list(
@@ -158,6 +162,9 @@ struct SlotList {
   const int32_t* idx;
   const uint8_t* valid;
   int m, k;
+  __device__ __forceinline__ SlotList experiment(int e, long long s_mask) const {
+    return SlotList{idx, valid + e * s_mask, m, k};
+  }
   __device__ __forceinline__ int build(int j, int* s_list, int* s_warp) const {
     const size_t at = static_cast<size_t>(j) * k;
     return compact_list(
@@ -218,7 +225,7 @@ template <bool kMedian, int kRmax, class Rows, class List>
 __global__ void __launch_bounds__(kWideThreads, wide_min_blocks(kRmax))
 wide_screen_kernel(Rows rows, List list, const float* __restrict__ self_vals,
                    float* __restrict__ out, int nodes, int d, int cap, int coords, int b,
-                   bool recip) {
+                   bool recip, Experiments ex) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* s_list = reinterpret_cast<int*>(smem);
   int* s_warp = s_list + cap;
@@ -229,14 +236,17 @@ wide_screen_kernel(Rows rows, List list, const float* __restrict__ self_vals,
 
   const int j = blockIdx.x % nodes;
   const int c0 = (blockIdx.x / nodes) * coords;
-  const int count = list.build(j, s_list, s_warp);
-  const auto src = rows.at(j);
+  // experiment blockIdx.y (screen_sort.cuh, Experiments): its rows, self
+  // values, outputs, b and row list
+  const int e = blockIdx.y;
+  const int count = list.experiment(e, ex.s_mask).build(j, s_list, s_warp);
+  const auto src = rows.experiment(e).at(j);
   src.stage(s_list, count, s_pair, c0 / kScaleBlock);
   const int n = kMedian ? count + 1 : count;
   const int padded = wide_padded(n);
   const int pitch = wide_pitch(padded);
   const int live = min(coords, d - c0);
-  const size_t at0 = static_cast<size_t>(j) * d + c0;
+  const size_t at0 = (static_cast<size_t>(e) * nodes + j) * d + c0;
   // every extent below is a power of two: shifts and masks, no division
   const int log_coords = __ffs(coords) - 1, log_padded = __ffs(padded) - 1;
   const int shift = log_padded > 5 ? log_padded - 5 : 31;  // row i sits at i + (i >> shift)
@@ -284,7 +294,7 @@ wide_screen_kernel(Rows rows, List list, const float* __restrict__ self_vals,
       out[at0 + c] =
           __fmul_rn(0.5f, __fadd_rn(col[lo + (lo >> shift)], col[hi + (hi >> shift)]));
     } else {
-      const int b_eff = trim_width(count, b);
+      const int b_eff = trim_width(count, ex.b_of(e, b));
       float total = 0.0f;
       for (int i = b_eff; i < count - b_eff; ++i) total = __fadd_rn(total, col[i + (i >> shift)]);
       out[at0 + c] = trimmed_mean_finish(total, self_vals[at0 + c], count, b_eff, recip);
@@ -295,24 +305,28 @@ wide_screen_kernel(Rows rows, List list, const float* __restrict__ self_vals,
 template <bool kMedian, int kRmax, class Rows, class List>
 cudaError_t launch_wide_kernel(const Rows& rows, const List& list, const float* self_vals,
                                float* out, int nodes, int d, int cap, int coords, int b,
-                               bool recip, size_t bytes, unsigned blocks, cudaStream_t s) {
+                               bool recip, size_t bytes, unsigned blocks, cudaStream_t s,
+                               const Experiments& ex) {
   auto kernel = wide_screen_kernel<kMedian, kRmax, Rows, List>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  kernel<<<blocks, kWideThreads, bytes, s>>>(rows, list, self_vals, out, nodes, d, cap, coords, b,
-                                             recip);
+  kernel<<<dim3(blocks, ex.count), kWideThreads, bytes, s>>>(rows, list, self_vals, out, nodes, d,
+                                                             cap, coords, b, recip, ex);
   return cudaGetLastError();
 }
 
 // Launch over `nodes` nodes whose lists hold at most `cap` rows (the rows to
-// sort: cap, plus one for the median); cudaErrorInvalidValue above
-// kWideMaxRows.
+// sort: cap, plus one for the median), ex.count experiments along
+// gridDim.y; cudaErrorInvalidValue above kWideMaxRows or kMaxExperiments.
 template <bool kMedian, class Rows, class List>
 cudaError_t launch_wide(const Rows& rows, const List& list, const float* self_vals, float* out,
-                        int nodes, int d, int cap, int b, bool recip, cudaStream_t s) {
+                        int nodes, int d, int cap, int b, bool recip, cudaStream_t s,
+                        const Experiments& ex = Experiments{}) {
   const int most = cap + (kMedian ? 1 : 0);
-  if (nodes < 1 || d < 1 || cap < 0 || most > kWideMaxRows) return cudaErrorInvalidValue;
+  if (nodes < 1 || d < 1 || cap < 0 || most > kWideMaxRows || ex.count < 1 ||
+      ex.count > kMaxExperiments)
+    return cudaErrorInvalidValue;
   const int padded = wide_padded(most);
   const int coords = wide_coords(padded);
   const long long tiles = (d + coords - 1) / coords;
@@ -322,16 +336,16 @@ cudaError_t launch_wide(const Rows& rows, const List& list, const float* self_va
   switch (wide_regs(padded)) {
     case 8:
       return launch_wide_kernel<kMedian, 8>(rows, list, self_vals, out, nodes, d, cap, coords, b,
-                                            recip, bytes, blocks, s);
+                                            recip, bytes, blocks, s, ex);
     case 16:
       return launch_wide_kernel<kMedian, 16>(rows, list, self_vals, out, nodes, d, cap, coords, b,
-                                             recip, bytes, blocks, s);
+                                             recip, bytes, blocks, s, ex);
     case 32:
       return launch_wide_kernel<kMedian, 32>(rows, list, self_vals, out, nodes, d, cap, coords, b,
-                                             recip, bytes, blocks, s);
+                                             recip, bytes, blocks, s, ex);
     default:
       return launch_wide_kernel<kMedian, 64>(rows, list, self_vals, out, nodes, d, cap, coords, b,
-                                             recip, bytes, blocks, s);
+                                             recip, bytes, blocks, s, ex);
   }
 }
 

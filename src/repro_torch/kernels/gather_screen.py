@@ -142,31 +142,32 @@ def check_gather_args(w: torch.Tensor, safe_idx: torch.Tensor, valid: torch.Tens
                       self_vals: torch.Tensor) -> None:
     """Validate the sparse screening operands: `build.check_rows`, a
     contiguous int32 ``[M, K]`` index table and a bool/uint8 mask of its
-    shape, all on one device."""
+    shape (or ``[E, M, K]``, one an experiment), all on one device."""
     build.check_rows(w, self_vals)
     if safe_idx.dtype != torch.int32:
         raise TypeError(f"safe_idx must be int32, got {safe_idx.dtype}")
-    if valid.dtype not in (torch.bool, torch.uint8):
-        raise TypeError(f"valid must be bool or uint8, got {valid.dtype}")
-    if safe_idx.ndim != 2 or safe_idx.shape[0] != w.shape[0] or valid.shape != safe_idx.shape:
-        raise ValueError(f"safe_idx {tuple(safe_idx.shape)} and valid {tuple(valid.shape)} "
-                         f"must be one [M={w.shape[0]}, K]")
-    if not (safe_idx.is_contiguous() and valid.is_contiguous()):
+    if safe_idx.ndim != 2 or safe_idx.shape[0] != w.shape[-2]:
+        raise ValueError(f"safe_idx {tuple(safe_idx.shape)} must be [M={w.shape[-2]}, K]")
+    if not safe_idx.is_contiguous():
         raise ValueError("neighbor table operands must be contiguous")
-    if not (w.device == safe_idx.device == valid.device):
-        raise ValueError(f"operands on different devices: {w.device}, {safe_idx.device}, "
-                         f"{valid.device}")
+    if w.device != safe_idx.device:
+        raise ValueError(f"operands on different devices: {w.device}, {safe_idx.device}")
+    build.check_mask(valid, w, tuple(safe_idx.shape), "valid")
 
 
 def _head(rows: tuple, safe_idx: torch.Tensor, valid: torch.Tensor, self_vals: torch.Tensor,
-          out: torch.Tensor, b: int | None) -> tuple:
+          out: torch.Tensor, b) -> tuple:
     """An entry point's operands ahead of the plan: the row source (w, or
     q and scale), the table, self_vals and out, then M, K, d, the
-    codewords' scale blocks and the trimmed mean's b."""
-    m, d = self_vals.shape
-    sizes = (m, safe_idx.shape[1], d, *(rows[1].shape[1:2] if len(rows) == 2 else ()),
-             *(() if b is None else (int(b),)))
-    return (*(t.data_ptr() for t in (*rows, safe_idx, valid, self_vals, out)), *sizes)
+    codewords' scale blocks and the trimmed mean's b; for float rows the
+    experiment operands (`build.experiments`) in place of the scalar b."""
+    m, d = self_vals.shape[-2:]
+    if len(rows) == 2:
+        tail = (rows[1].shape[1], *(() if b is None else (int(b),)))
+    else:
+        tail = build.experiments(self_vals, valid, b)
+    return (*(t.data_ptr() for t in (*rows, safe_idx, valid, self_vals, out)), m,
+            safe_idx.shape[1], d, *tail)
 
 
 def _launch_plan(name: str, plan: TilePlan, head: tuple, stream: int) -> None:
@@ -209,7 +210,7 @@ def _screen(name: str, rows: tuple, safe_idx: torch.Tensor, valid: torch.Tensor,
     returns the output and whether the tile kernel ran."""
     if self_vals.device.type != "cuda":
         raise ValueError(f"no {name} kernel for device {self_vals.device}")
-    (m, d), k = self_vals.shape, safe_idx.shape[1]
+    (m, d), k = self_vals.shape[-2:], safe_idx.shape[1]
     out = torch.empty_like(self_vals)
     tiled = dispatch(name, _head(rows, safe_idx, valid, self_vals, out, b), m, k, d,
                      4 if len(rows) == 1 else 1, b is None, build.stream_of(self_vals))
@@ -217,12 +218,12 @@ def _screen(name: str, rows: tuple, safe_idx: torch.Tensor, valid: torch.Tensor,
 
 
 def gather_screen_trimmed_mean(w: torch.Tensor, safe_idx: torch.Tensor, valid: torch.Tensor,
-                               self_vals: torch.Tensor, b: int) -> torch.Tensor:
+                               self_vals: torch.Tensor, b) -> torch.Tensor:
     """Trimmed-mean screening of every node over its table slots; returns
-    ``[M, d]`` float32."""
+    ``[M, d]`` float32 (the experiment axis: ``w`` and ``self_vals``
+    ``[E, M, d]``, ``b`` an int or an int32 ``[E]`` tensor, one launch)."""
     check_gather_args(w, safe_idx, valid, self_vals)
-    if b < 0:
-        raise ValueError(f"b must be >= 0, got {b}")
+    build.check_b(b, w)
     if w.device.type == "cpu":
         return ref.gather_trimmed_mean(w, safe_idx, valid, self_vals, b)
     out, tiled = _screen("gather_screen_trimmed_mean", (w,), safe_idx, valid, self_vals, b)
@@ -233,7 +234,7 @@ def gather_screen_trimmed_mean(w: torch.Tensor, safe_idx: torch.Tensor, valid: t
 def gather_screen_median(w: torch.Tensor, safe_idx: torch.Tensor, valid: torch.Tensor,
                          self_vals: torch.Tensor) -> torch.Tensor:
     """Median screening of every node over its table slots and itself;
-    returns ``[M, d]`` float32."""
+    returns ``[M, d]`` float32 (``[E, M, d]`` over the experiment axis)."""
     check_gather_args(w, safe_idx, valid, self_vals)
     if w.device.type == "cpu":
         return ref.gather_median(w, safe_idx, valid, self_vals)

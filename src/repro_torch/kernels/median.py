@@ -7,6 +7,9 @@ launches the kernel or raises: the register kernel up to `MAX_ROWS` rows
 (M + 1), the wide path (`screen_wide`, ``screen_wide_median_dense``)
 above.  ``median_dense.launches`` counts the register kernel's launches
 and nothing else; ``screen_wide.launch.launches`` the wide path's.
+
+The experiment axis: ``w`` and ``self_vals`` ``[E, M, d]`` under one shared
+adjacency screen E experiments in one launch; ``[M, d]`` is E = 1.
 """
 from __future__ import annotations
 
@@ -28,10 +31,10 @@ def median_dense(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor) ->
         return ref.median_dense(w, adj, self_vals)
     if w.device.type != "cuda":
         raise ValueError(f"no median kernel for device {w.device}")
-    m, d = w.shape
+    m, d = w.shape[-2:]
     out = torch.empty_like(w)
     args = (w.data_ptr(), adj.data_ptr(), self_vals.data_ptr(), out.data_ptr(), m, d,
-            build.stream_of(w))
+            *build.experiments(w, adj), build.stream_of(w))
     if m + 1 > MAX_ROWS:
         screen_wide.launch("screen_wide_median_dense", m + 1, *args)
         return out

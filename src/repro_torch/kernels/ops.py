@@ -14,6 +14,12 @@ card, its plain PyTorch version on the CPU.
 The views screens (`views_trimmed_mean`, `views_median`) take the
 reference kernels' own form: each node's views ``[M, W, d]`` (the network
 runtime's mailboxes) under ``mask [M, W]``.
+
+The float screens (`trimmed_mean`, `median`, `gather_trimmed_mean`,
+`gather_median`) also take the experiment axis, ``[E, M, d]`` rows and own
+values with ``b`` an int or an int32 ``[E]`` tensor, in one launch; and
+`pairwise_sq_dists_batched` the distances with a batch axis (the node over
+mailbox views, the experiment over a grid).
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from repro_torch.kernels import gather_screen as _gather_screen
 from repro_torch.kernels.gather_screen import gather_screen_median, gather_screen_trimmed_mean
 from repro_torch.kernels.median import median_dense
 from repro_torch.kernels.pairwise import pairwise_sq_dists as _pairwise_sq_dists
+from repro_torch.kernels.pairwise import pairwise_sq_dists_batched as _pairwise_batched
 from repro_torch.kernels.trimmed_mean import trimmed_mean_dense
 from repro_torch.kernels.views_screen import views_screen_median, views_screen_trimmed_mean
 
@@ -110,3 +117,11 @@ def gather_dequant_median(q: torch.Tensor, scale: torch.Tensor, safe_idx: torch.
 def pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:
     with torch.profiler.record_function("kernels.pairwise_sq_dists"):
         return _pairwise_sq_dists(x)
+
+
+def pairwise_sq_dists_batched(x: torch.Tensor,
+                              self_vals: torch.Tensor | None = None) -> torch.Tensor:
+    """Distances among each batch element's rows of ``x [B, n, d]`` (at its
+    strides) and, with ``self_vals [B, d]``, its own value as the last row."""
+    with torch.profiler.record_function("kernels.pairwise_sq_dists_batched"):
+        return _pairwise_batched(x, self_vals)

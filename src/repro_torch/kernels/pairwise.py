@@ -14,6 +14,17 @@ a thread-block cluster, which adds the splits' partial Grams in ascending
 order through distributed shared memory.  `split_plan` picks ``R`` and
 ``C`` from the shape alone, so the summation order of a given ``[n, d]``
 is fixed.
+
+`pairwise_sq_dists_batched` is the same kernel with a leading batch axis,
+``[B, n, d] -> [B, n, n]``, each element's rows read at the operand's own
+strides (a batch stride of 0 reads one set of rows for every element, in
+place) and, optionally, each element's own value appended as its last
+row: the per-node distances of Krum and Bulyan over mailbox views
+(``[M, W, d]`` and the nodes' own values, B = M) and the grid's per-cell
+distances (``[E, M, d]``, B = E).  Every element runs under
+``split_plan(n, d)``, so it equals `pairwise_sq_dists` of its rows bit for
+bit, whatever B.  ``pairwise_sq_dists_batched.launches`` counts its
+launches.
 """
 from __future__ import annotations
 
@@ -159,3 +170,57 @@ def pairwise_sq_dists(x: torch.Tensor, plan: Plan | None = None) -> torch.Tensor
 
 
 pairwise_sq_dists.launches = 0
+
+MAX_BATCH = 2**31 - 1
+
+
+def _check_batched(x: torch.Tensor, self_vals: torch.Tensor | None) -> None:
+    if x.dtype != torch.float32 or (self_vals is not None and self_vals.dtype != torch.float32):
+        raise TypeError("pairwise_sq_dists_batched takes float32 operands")
+    if x.ndim != 3 or min(x.shape) < 1:
+        raise ValueError(f"pairwise_sq_dists_batched takes a non-empty [B, n, d], "
+                         f"got {tuple(x.shape)}")
+    if x.shape[2] > 1 and x.stride(2) != 1:
+        raise ValueError("pairwise_sq_dists_batched rows must have a unit coordinate stride")
+    if self_vals is not None:
+        if self_vals.shape != (x.shape[0], x.shape[2]):
+            raise ValueError(f"self_vals {tuple(self_vals.shape)} must be [B, d] of x "
+                             f"{tuple(x.shape)}")
+        if x.shape[2] > 1 and self_vals.stride(1) != 1:
+            raise ValueError("self_vals must have a unit coordinate stride")
+        if self_vals.device != x.device:
+            raise ValueError(f"operands on different devices: {x.device}, {self_vals.device}")
+
+
+def pairwise_sq_dists_batched(x: torch.Tensor, self_vals: torch.Tensor | None = None,
+                              plan: Plan | None = None) -> torch.Tensor:
+    """``[B, n, n]`` float32 squared distances among each batch element's
+    rows: ``x [B, n_x, d]`` at its strides (the batch stride may be 0), and
+    with ``self_vals [B, d]`` element b's own value as row ``n = n_x + 1``'s
+    last; each element as `pairwise_sq_dists` of those rows computes it, bit
+    for bit, under ``split_plan(n, d)`` (or ``plan``)."""
+    _check_batched(x, self_vals)
+    if x.device.type == "cpu":
+        return ref.pairwise_sq_dists_batched(x, self_vals)
+    if x.device.type != "cuda":
+        raise ValueError(f"no pairwise_sq_dists kernel for device {x.device}")
+    bsz, nx, d = x.shape
+    n = nx + (self_vals is not None)
+    if plan is None:
+        plan = split_plan(n, d)
+    else:
+        check_plan(plan, n, d)
+    if bsz > MAX_BATCH:
+        raise ValueError(f"pairwise_sq_dists_batched takes at most {MAX_BATCH} elements")
+    out = torch.empty((bsz, n, n), dtype=torch.float32, device=x.device)
+    self_ptr, s_self = (None, 0) if self_vals is None else (self_vals.data_ptr(),
+                                                            self_vals.stride(0))
+    err = build.load().pairwise_sq_dists_batched(
+        x.data_ptr(), x.stride(0), x.stride(1), self_ptr, s_self, out.data_ptr(), bsz, n,
+        d, plan.rows_per_thread, plan.cluster, plan.split_len, build.stream_of(x))
+    build.check_launch(err, "pairwise_sq_dists_batched")
+    pairwise_sq_dists_batched.launches += 1
+    return out
+
+
+pairwise_sq_dists_batched.launches = 0

@@ -59,9 +59,13 @@ def sanitize(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(x), torch.inf, x)
 
 
-def effective_trim(b: int, count: torch.Tensor) -> torch.Tensor:
-    """``min(b, max((count - 1) // 2, 0))`` per node (floor division)."""
+def effective_trim(b, count: torch.Tensor) -> torch.Tensor:
+    """``min(b, max((count - 1) // 2, 0))`` per node (floor division).
+    ``b`` is an int, or an integer tensor ``[E]`` of per-experiment bounds
+    against ``count [M]`` or ``[E, M]`` (a negative bound trims nothing)."""
     widest = torch.clamp(torch.div(count - 1, 2, rounding_mode="floor"), min=0)
+    if isinstance(b, torch.Tensor):
+        return torch.minimum(torch.clamp(b.to(count.dtype), min=0)[:, None], widest)
     return torch.clamp(torch.full_like(count, max(int(b), 0)), max=widest)
 
 
@@ -111,63 +115,96 @@ def pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:
     return torch.where(d2 < 0, 0.0, d2)
 
 
+def pairwise_sq_dists_batched(x: torch.Tensor,
+                              self_vals: torch.Tensor | None = None) -> torch.Tensor:
+    """`pairwise_sq_dists` of each batch element of ``x [B, n, d]``, with
+    ``self_vals [B, d]`` (if given) appended as each element's last row:
+    the plain version of the batched distance kernel, which forms the
+    ``[B, n + 1, d]`` stack the kernel reads in place.  Each element is its
+    own unbatched call, so it equals `pairwise_sq_dists` of its rows bit
+    for bit whatever B, as the kernel's elements do (a batched product
+    may sum in another order than the unbatched one)."""
+    if self_vals is not None:
+        x = torch.cat([x, self_vals[:, None, :]], dim=1)
+    return torch.stack([pairwise_sq_dists(x[i]) for i in range(x.shape[0])])
+
+
 def trimmed_mean_views(rows: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
-                       b: int, recip: bool = False) -> torch.Tensor:
+                       b, recip: bool = False) -> torch.Tensor:
     """BRIDGE-T (Eqs. 7-10) at every node over its views ``rows [M, n, d]``
     (or one ``[1, n, d]`` shared by all) under ``mask [M, n]``: drop the
     ``b_eff`` smallest and largest values per coordinate, add the node's own
     (unsanitized) value, divide by ``count - 2 b_eff + 1`` (``recip``:
-    multiply by its float32 reciprocal)."""
+    multiply by its float32 reciprocal).
+
+    The experiment axis: ``rows [E, M or 1, n, d]``, ``self_vals [E, M, d]``
+    and ``b`` an integer tensor ``[E]`` screen E experiments under one
+    shared mask, each as its own unbatched call computes it (every step is
+    elementwise or per column)."""
     mask = mask.bool()
-    n = mask.shape[1]
-    count = mask.sum(dim=1)
+    n = mask.shape[-1]
+    count = mask.sum(dim=-1)
     b_eff = effective_trim(b, count)
-    order = torch.sort(torch.where(mask[:, :, None], sanitize(rows), torch.inf), dim=1).values
-    idx = torch.arange(n, device=rows.device)[None, :, None]
-    keep = (idx >= b_eff[:, None, None]) & (idx < (count - b_eff)[:, None, None])
-    total = sum_rows(torch.where(keep, order, 0.0), dim=1) + self_vals
-    den = (count - 2 * b_eff + 1).to(rows.dtype)[:, None]
+    order = torch.sort(torch.where(mask[..., None], sanitize(rows), torch.inf), dim=-2).values
+    idx = torch.arange(n, device=rows.device)[:, None]
+    keep = (idx >= b_eff[..., None, None]) & (idx < (count - b_eff)[..., None, None])
+    total = sum_rows(torch.where(keep, order, 0.0), dim=-2) + self_vals
+    den = (count - 2 * b_eff + 1).to(rows.dtype)[..., None]
     return total * (1.0 / den) if recip else total / den
 
 
 def median_views(rows: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor) -> torch.Tensor:
     """BRIDGE-M (Eq. 11) at every node: the coordinate-wise median over its
-    masked views (as in `trimmed_mean_views`) and itself (self joins
-    sanitized); an even count averages the two middle order statistics."""
+    masked views (as in `trimmed_mean_views`, experiment axis included) and
+    itself (self joins sanitized); an even count averages the two middle
+    order statistics."""
     mask = mask.bool()
-    masked = torch.where(mask[:, :, None], sanitize(rows), torch.inf)
-    order = torch.sort(torch.cat([masked, sanitize(self_vals)[:, None, :]], dim=1), dim=1).values
-    count = mask.sum(dim=1) + 1
-    d = self_vals.shape[1]
-    lo = torch.div(count - 1, 2, rounding_mode="floor")[:, None, None].expand(-1, 1, d)
-    hi = torch.div(count, 2, rounding_mode="floor")[:, None, None].expand(-1, 1, d)
-    return 0.5 * (order.gather(1, lo)[:, 0] + order.gather(1, hi)[:, 0])
+    masked = torch.where(mask[..., None], sanitize(rows), torch.inf)
+    masked = masked.expand(*self_vals.shape[:-1], *masked.shape[-2:])
+    order = torch.sort(torch.cat([masked, sanitize(self_vals)[..., None, :]], dim=-2),
+                       dim=-2).values
+    count = (mask.sum(dim=-1) + 1).expand(self_vals.shape[:-1])
+    d = self_vals.shape[-1]
+    at = lambda r: r[..., None, None].expand(*r.shape, 1, d)
+    lo = at(torch.div(count - 1, 2, rounding_mode="floor"))
+    hi = at(torch.div(count, 2, rounding_mode="floor"))
+    return 0.5 * (order.gather(-2, lo)[..., 0, :] + order.gather(-2, hi)[..., 0, :])
+
+
+def _shared_rows(w: torch.Tensor) -> torch.Tensor:
+    """The broadcast ``w [M, d]`` (or ``[E, M, d]``) as the views every node
+    shares: ``[1, M, d]`` (``[E, 1, M, d]``)."""
+    return w.unsqueeze(-3)
 
 
 def trimmed_mean_dense(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor,
-                       b: int, recip: bool = False) -> torch.Tensor:
+                       b, recip: bool = False) -> torch.Tensor:
     """`trimmed_mean_views` at every node over the broadcast ``w [M, d]``
-    under the in-neighbor mask ``adj [M, M]``."""
-    return trimmed_mean_views(w[None], adj, self_vals, b, recip)
+    under the in-neighbor mask ``adj [M, M]`` (the experiment axis: ``w``
+    and ``self_vals`` ``[E, M, d]``, ``b`` ``[E]``)."""
+    return trimmed_mean_views(_shared_rows(w), adj, self_vals, b, recip)
 
 
 def median_dense(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor) -> torch.Tensor:
-    """`median_views` at every node over the broadcast ``w [M, d]`` under
-    the in-neighbor mask ``adj [M, M]``."""
-    return median_views(w[None], adj, self_vals)
+    """`median_views` at every node over the broadcast ``w [M, d]`` (or
+    ``[E, M, d]``) under the in-neighbor mask ``adj [M, M]``."""
+    return median_views(_shared_rows(w), adj, self_vals)
 
 
 def gather(w: torch.Tensor, safe_idx: torch.Tensor) -> torch.Tensor:
-    """``[M, K, d]``: slot (j, k) holds row ``safe_idx[j, k]`` of ``w``."""
+    """``[M, K, d]`` (``[E, M, K, d]`` for ``w [E, M, d]``): slot (j, k)
+    holds row ``safe_idx[j, k]`` of ``w``."""
     m, k = safe_idx.shape
-    return w.index_select(0, safe_idx.reshape(-1).long()).reshape(m, k, w.shape[1])
+    rows = w.index_select(-2, safe_idx.reshape(-1).long())
+    return rows.reshape(*w.shape[:-2], m, k, w.shape[-1])
 
 
 def gather_trimmed_mean(w: torch.Tensor, safe_idx: torch.Tensor, valid: torch.Tensor,
-                        self_vals: torch.Tensor, b: int) -> torch.Tensor:
+                        self_vals: torch.Tensor, b) -> torch.Tensor:
     """BRIDGE-T on the sparse layout: node j screens the rows of ``w``
     named by ``safe_idx[j]`` where ``valid[j]`` (padded slots are +inf
-    sentinels), in slot order."""
+    sentinels), in slot order; ``[E, M, d]`` operands and ``b [E]`` for
+    the experiment axis."""
     return trimmed_mean_views(gather(w, safe_idx), valid, self_vals, b)
 
 

@@ -7,6 +7,12 @@ tensor launches the kernel or raises: the register kernel up to `MAX_ROWS`
 senders, the wide path (`screen_wide`, ``screen_wide_trimmed_mean_dense``)
 above.  ``trimmed_mean_dense.launches`` counts the register kernel's
 launches and nothing else; ``screen_wide.launch.launches`` the wide path's.
+
+The experiment axis: ``w`` and ``self_vals`` ``[E, M, d]`` under one shared
+adjacency, ``b`` an int or an int32 ``[E]`` tensor, screen E experiments in
+one launch, each as its own ``[M, d]`` call computes it; the ``[M, d]``
+form is the E = 1 case.  ``adj`` may also be ``[E, M, M]``, a mask an
+experiment (Bulyan's selections).
 """
 from __future__ import annotations
 
@@ -20,23 +26,24 @@ MAX_ROWS = networks.MAX_ROWS
 
 
 def trimmed_mean_dense(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor,
-                       b: int, recip: bool = False) -> torch.Tensor:
+                       b, recip: bool = False) -> torch.Tensor:
     """Trimmed-mean screening of the broadcast ``w [M, d]`` at every node
     under the in-neighbor mask ``adj [M, M]`` with own values
-    ``self_vals [M, d]``; returns ``[M, d]`` float32.  ``recip`` multiplies
-    the kept total by the float32 reciprocal of its divisor instead of
-    dividing (`ref.trimmed_mean_views`)."""
+    ``self_vals [M, d]``; returns ``[M, d]`` float32 (``[E, M, d]`` over
+    the experiment axis).  ``recip`` multiplies the kept total by the
+    float32 reciprocal of its divisor instead of dividing
+    (`ref.trimmed_mean_views`)."""
     build.check_screen_args(w, adj, self_vals)
-    if b < 0:
-        raise ValueError(f"b must be >= 0, got {b}")
+    build.check_b(b, w)
     if w.device.type == "cpu":
         return ref.trimmed_mean_dense(w, adj, self_vals, b, recip)
     if w.device.type != "cuda":
         raise ValueError(f"no trimmed-mean kernel for device {w.device}")
-    m, d = w.shape
+    m, d = w.shape[-2:]
     out = torch.empty_like(w)
-    args = (w.data_ptr(), adj.data_ptr(), self_vals.data_ptr(), out.data_ptr(), m, d, int(b),
-            int(bool(recip)), build.stream_of(w))
+    b0, *exps = build.experiments(w, adj, b)
+    args = (w.data_ptr(), adj.data_ptr(), self_vals.data_ptr(), out.data_ptr(), m, d, b0,
+            int(bool(recip)), *exps, build.stream_of(w))
     if m > MAX_ROWS:
         screen_wide.launch("screen_wide_trimmed_mean_dense", m, *args)
         return out

@@ -1,0 +1,157 @@
+"""The batched experiment sweep — port of `repro.launch.sweep --mode grid`:
+the rule x attack x b x seed matrix on the paper's MNIST-like linear task
+through the grid engine (`repro_torch.sim`), every pending cell in one
+engine run on the card, resumable from the per-cell store (one JSON a
+cell, keyed by the reference's `Cell.tag`, so a store written by either
+package resumes in the other):
+
+    PYTHONPATH=src python -m repro_torch.launch.sweep --mode grid \\
+        --out experiments/grid [--rules trimmed_mean,median] \\
+        [--attacks random,alie] [--byz 1,2] [--seeds 0,1,2,3] \\
+        [--grid-chunk 16] [--sparse] [--device cpu]
+
+It writes the per-cell records and ``GridResult.json`` (the whole store)
+with each cell's honest test accuracy.  The reference's other modes and
+the grid flags that need a layer the port does not have yet raise:
+``--scenarios`` other than ``sync`` (net-scenario grids, ROADMAP Queue 1
+item 11), ``--codecs`` other than ``identity`` (codecs on the grid, item
+11), ``--adversaries`` other than ``none`` (item 12), ``--trace``,
+``--metrics``, ``--profile`` and ``--trust*`` (item 13).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import torch
+
+from repro_torch import prng
+from repro_torch.core.bridge import replicate, stack_batches
+from repro_torch.data.mnist_like import make_mnist_like
+from repro_torch.data.partition import partition_iid, stack_node_batches
+from repro_torch.device import resolve_device
+from repro_torch.models import small
+from repro_torch.sim import ExperimentGrid, GridEngine, default_topology
+from repro_torch.sim import results as results_lib
+
+
+def _refuse_unported(args) -> None:
+    """The flags whose layer the port does not have yet, by ROADMAP item."""
+    if args.mode != "grid":
+        raise ValueError(f"--mode {args.mode}: the port's sweep runs --mode grid only (the "
+                         f"subprocess and breakdown modes belong to the JAX package; "
+                         f"breakdown is ROADMAP Queue 1 item 12)")
+    if args.scenarios not in (None, "sync", "none", ""):
+        raise ValueError("--scenarios other than sync: net-scenario grids are ROADMAP Queue 1 "
+                         "item 11 (the next slice)")
+    if args.codecs != "identity":
+        raise ValueError("--codecs other than identity: codecs on the grid are ROADMAP "
+                         "Queue 1 item 11")
+    if args.adversaries not in (None, "none"):
+        raise ValueError("--adversaries other than none: ROADMAP Queue 1 item 12")
+    for flag in ("trace", "metrics", "profile"):
+        if getattr(args, flag) is not None:
+            raise ValueError(f"--{flag}: the observability layer is ROADMAP Queue 1 item 13")
+    if args.trust:
+        raise ValueError("--trust: the trust layer is ROADMAP Queue 1 item 13")
+
+
+def run_grid_mode(args) -> results_lib.GridResult | None:
+    """The batched sweep over rule x attack x b x seed on the MNIST-like
+    linear task, resuming from the per-cell store; returns this run's
+    result (None when every cell was cached)."""
+    dev = resolve_device(args.device)
+    rules = args.rules.split(",")
+    attacks = args.attacks.split(",")
+    byz = [int(x) for x in args.byz.split(",")]
+    seeds = [int(x) for x in args.seeds.split(",")]
+    m, ticks = args.grid_nodes, args.grid_ticks
+    topo = default_topology(m, rules, byz, seed=0)
+    grid = ExperimentGrid(topo, rules, attacks, byz, seeds, lam=1.0, t0=30.0)
+    done = results_lib.existing_tags(args.out)
+    pending = [c for c in grid.cells() if c.tag not in done]
+    print(f"{grid.num_cells} grid cells ({len(done & {c.tag for c in grid.cells()})} cached) "
+          f"-> {args.out}")
+    if not pending:
+        return None
+    x, y, xt, yt = make_mnist_like(args.grid_train, args.grid_test, seed=0)
+    shards = partition_iid(x, y, m, seed=0)
+    batch_fn = stack_node_batches(shards, args.grid_batch, seed=0)
+    batches = stack_batches(lambda i: tuple(torch.as_tensor(a) for a in batch_fn(i)), ticks,
+                            device=dev)
+
+    def init_fn(seed):
+        key = prng.PRNGKey(seed)
+        return replicate(small.init_linear(key, device=dev), m, perturb=0.01, key=key)
+
+    engine = GridEngine(grid, small.linear_loss_and_grad, cells=pending, sparse=args.sparse,
+                        device=dev)
+    t0 = time.time()
+    state = engine.init(init_fn)
+    state, metrics = engine.run(state, batches, chunk=args.grid_chunk)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.time() - t0
+    result = results_lib.collect(pending, metrics, meta={
+        "num_nodes": m, "ticks": ticks, "wall_s": wall,
+        "cells_per_sec": len(pending) / wall, "us_per_cell": wall / len(pending) * 1e6,
+        "steps_built": engine.num_steps_built, "step_calls": engine.step_calls,
+        "chunk": args.grid_chunk, "rules": engine.rule_bank, "attacks": engine.attack_bank,
+        "scenarios": engine.scenario_bank, "codecs": engine.codec_bank,
+        "adversaries": engine.adversary_bank, "device": str(dev),
+    })
+    # per-cell honest test accuracy (the paper's metric)
+    xt, yt = torch.as_tensor(xt, device=dev), torch.as_tensor(yt, device=dev)
+    for i, rec in enumerate(result.cells):
+        hm = ~engine.byz_masks[i]
+        accs = [float(small.linear_accuracy({k: v[i, j] for k, v in state.params.items()},
+                                            xt, yt))
+                for j in hm.nonzero()[0]]
+        rec["accuracy"] = float(sum(accs) / max(len(accs), 1))
+    result.save_cells(args.out)
+    # the aggregate covers the whole store (earlier runs' cells included)
+    full = results_lib.load_cell_store(args.out)
+    full.meta.update(result.meta)
+    full.meta["computed_this_run"] = len(pending)
+    full.save(os.path.join(args.out, "GridResult.json"))
+    print(f"{len(pending)} cells in {wall:.1f}s ({result.meta['cells_per_sec']:.2f} cells/s, "
+          f"{engine.num_steps_built} step(s) built, {engine.step_calls} group steps)")
+    for rec, row in zip(result.cells, result.rows(), strict=True):
+        print(f"  {row[0]:60s} acc={rec['accuracy']:.4f} loss={rec['final_loss']:.4f}")
+    return result
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", default="grid")
+    ap.add_argument("--out", default="experiments/grid")
+    ap.add_argument("--rules", default="trimmed_mean,median")
+    ap.add_argument("--attacks", default="random,alie")
+    ap.add_argument("--scenarios", default=None, help="sync only (the broadcast path)")
+    ap.add_argument("--byz", default="1", help="comma-separated Byzantine counts")
+    ap.add_argument("--seeds", default="0", help="comma-separated seeds")
+    ap.add_argument("--codecs", default="identity")
+    ap.add_argument("--adversaries", default=None)
+    ap.add_argument("--grid-nodes", type=int, default=12)
+    ap.add_argument("--grid-ticks", type=int, default=60)
+    ap.add_argument("--grid-batch", type=int, default=32)
+    ap.add_argument("--grid-train", type=int, default=2000)
+    ap.add_argument("--grid-test", type=int, default=400)
+    ap.add_argument("--grid-chunk", type=int, default=None,
+                    help="max experiments a group runs at once (memory bound); default "
+                         "runs each group whole")
+    ap.add_argument("--sparse", action="store_true",
+                    help="neighbor-indexed [M, K] layout (the gather kernels)")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    for flag in ("--trace", "--metrics", "--profile"):
+        ap.add_argument(flag, default=None, metavar="DIR")
+    ap.add_argument("--trust", action="store_true")
+    args = ap.parse_args(argv)
+    _refuse_unported(args)
+    os.makedirs(args.out, exist_ok=True)
+    return run_grid_mode(args)
+
+
+if __name__ == "__main__":
+    main()

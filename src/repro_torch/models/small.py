@@ -48,20 +48,27 @@ def linear_loss_and_grad(params: dict[str, torch.Tensor], batch, *, l2: float = 
     ``[M, ...]``, ``batch = (x [M, N, d_in], y [M, N])``.  Returns
     ``(losses [M], grads)`` with ``grads`` shaped like ``params``.
 
+    The grids' experiment axis: leaves ``[E, M, ...]`` under the tick's one
+    batch, shared by every cell as in the reference (``losses [E, M]``);
+    the two products then run as one batched product over the E M nodes
+    (each node's product is its own matrix's, which the card computes as
+    in the ``[M]`` call: ``chip_smoke.py`` holds every grid cell to its own
+    trainer run).
+
     d/ds of ``mean_n sum_c max(0, 1 - t s)^2`` is ``-2 t max(0, 1 - t s) / N``;
     the L2 term adds ``2 l2 p`` to each leaf."""
     x, y = batch
     w, b = params["w"], params["b"]
-    scores = torch.matmul(x, w) + b[:, None, :]  # [M, N, C]
+    scores = torch.matmul(x, w) + b[..., None, :]  # [(E,) M, N, C]
     t = _targets(y, scores.shape[-1])
     margins = torch.clamp(1.0 - t * scores, min=0.0)
-    n = x.shape[1]
-    reg_w = torch.sum(w * w, dim=(1, 2))
-    reg_b = torch.sum(b * b, dim=1)
-    losses = torch.mean(torch.sum(margins * margins, dim=2), dim=1) + l2 * (reg_w + reg_b)
-    g_scores = (-2.0 / n) * t * margins  # [M, N, C]
-    grad_w = torch.matmul(x.transpose(1, 2), g_scores) + (2.0 * l2) * w
-    grad_b = torch.sum(g_scores, dim=1) + (2.0 * l2) * b
+    n = x.shape[-2]
+    reg_w = torch.sum(w * w, dim=(-2, -1))
+    reg_b = torch.sum(b * b, dim=-1)
+    losses = torch.mean(torch.sum(margins * margins, dim=-1), dim=-1) + l2 * (reg_w + reg_b)
+    g_scores = (-2.0 / n) * t * margins  # [(E,) M, N, C]
+    grad_w = torch.matmul(x.transpose(-2, -1), g_scores) + (2.0 * l2) * w
+    grad_b = torch.sum(g_scores, dim=-2) + (2.0 * l2) * b
     return losses, {"b": grad_b, "w": grad_w}
 
 

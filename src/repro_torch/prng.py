@@ -32,6 +32,12 @@ layout enciphered one counter run split in two halves; its bits differ.
   function written for one key and an ``[E, ...]`` operand draws per row
   unchanged.  ``split(key)[..., i, :]`` picks the i-th subkey of either
   form.
+* Host row keys: a ``np.ndarray`` ``[E, 2]`` of uint32 (the grids' per-cell
+  keys, `repro_torch.sim.engine`).  ``split`` and ``fold_in`` derive from
+  them on the host, vectorized over the rows (``[E, n, 2]`` and
+  ``[E, 2]``), so deriving never waits for the card; a draw under them
+  copies the ``E`` keys to the draw's device (pinned, without waiting)
+  and draws as under ``[E, 2]`` row keys.
 
 Equality with ``jax.random``: keys, splits, fold-ins, bits, uniforms and
 32-bit randints are bit for bit (``tests/test_torch_prng.py``).  ``normal`` is
@@ -104,6 +110,33 @@ def is_rows(key) -> bool:
     return isinstance(key, torch.Tensor)
 
 
+def is_host_rows(key) -> bool:
+    """Whether ``key`` is a batch of host row keys (a uint32 ``[E, 2]``
+    array)."""
+    return isinstance(key, np.ndarray) and key.ndim == 2
+
+
+def _np_cipher_rows(keys: np.ndarray, x0: np.ndarray, x1: np.ndarray) -> np.ndarray:
+    """`_np_cipher` under each row key of ``keys [E, 2]``, the counters
+    ``[n]`` broadcast: ``[E, n, 2]``."""
+    k = np.asarray(keys, np.uint32)
+    with np.errstate(over="ignore"):
+        b1, b2 = _threefry2x32(k[:, 0:1], k[:, 1:2], x0.astype(np.uint32)[None],
+                               x1.astype(np.uint32)[None], rotl=_np_rotl,
+                               mask=lambda v: v.astype(np.uint32))
+    return np.stack([b1, b2], axis=-1).astype(np.uint32)
+
+
+def device_rows(keys: np.ndarray, device: str | torch.device) -> torch.Tensor:
+    """Host row keys ``[E, 2]`` as the ``[E, 2]`` int64 row keys of
+    ``device``: a pinned copy that does not wait for the device's queue."""
+    host = torch.from_numpy(np.asarray(keys, np.uint32).astype(np.int64))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return host.pin_memory().to(dev, non_blocking=True)
+    return host.to(dev)
+
+
 def _row_words(keys: torch.Tensor):
     if keys.ndim != 2 or keys.shape[1] != 2 or keys.dtype != torch.int64:
         raise ValueError(f"row keys are an int64 [E, 2] tensor, got {keys.dtype} "
@@ -120,6 +153,9 @@ def split(key, n: int = 2):
         b1, b2 = _t_cipher(k1, k2, i >> 32, i & _MASK)
         return torch.stack([b1, b2], dim=-1)
     i = np.arange(n, dtype=np.uint64)
+    if is_host_rows(key):
+        return _np_cipher_rows(key, (i >> np.uint64(32)).astype(np.uint32),
+                               (i & np.uint64(_MASK)).astype(np.uint32))
     return _np_cipher(np.asarray(key), (i >> np.uint64(32)).astype(np.uint32),
                       (i & np.uint64(_MASK)).astype(np.uint32))
 
@@ -135,6 +171,9 @@ def fold_in(key, data):
         b1, b2 = _t_cipher(k1[:, 0], k2[:, 0], torch.zeros_like(k1[:, 0]),
                            torch.full_like(k1[:, 0], word))
         return torch.stack([b1, b2], dim=-1)
+    if is_host_rows(key):
+        word = np.array([int(data) & _MASK], dtype=np.uint32)
+        return _np_cipher_rows(key, np.zeros(1, np.uint32), word)[:, 0]
     if isinstance(data, torch.Tensor):
         k1, k2 = _key_words(key)
         word = data.reshape(-1).to(torch.int64) & _MASK
@@ -157,6 +196,8 @@ def bits(key, shape, device: str | torch.device) -> torch.Tensor:
     counter.  Under ``[E, 2]`` row keys ``shape[0]`` must be ``E``: row e
     is ``bits(key_e, shape[1:])``, on the keys' device."""
     shape = tuple(int(s) for s in shape)
+    if is_host_rows(key):
+        key = device_rows(key, device)
     if is_rows(key):
         k1, k2 = _row_words(key)
         if not shape or shape[0] != key.shape[0]:

@@ -1,0 +1,300 @@
+"""Batched experiment-grid engine — port of `repro.sim.engine` for
+synchronous grids (dense and ``sparse=True``).
+
+`GridEngine` lowers a list of `Cell`s to stacked ``[E, M, ...]`` state and
+drives the *same* cell-parameterized step `BridgeTrainer` binds
+(`repro_torch.core.bridge.build_cell_step`) over the experiment axis:
+
+* rule and attack selection is data — host indices into static banks that
+  hold only the distinct names the cells use;
+* the Byzantine bound ``b``, the Byzantine masks, the keys and the
+  step-size schedule ride along per cell.
+
+The screening kernels take the experiment axis (`repro_torch.kernels`):
+each launches once a tick for a group of cells, whatever its size.  Since
+real sweeps are (near-)products, the engine **groups** cells with equal
+(rule, attack, adversary, codec) (``group=True``, the default): each group
+runs the single-entry-bank step; ``group=False`` runs one banked step over
+every cell, in which each rule and each attack runs once over the cells
+that chose it.  Cells run group-major internally and results come back in
+the caller's order.
+
+``chunk`` bounds memory: each group's cells run ``chunk`` at a time, the
+ragged last chunk padded with copies of its final cell and trimmed.
+
+PyTorch runs eagerly, so the reference's ``trace_count`` (compilations,
+one per group) has no counterpart: the engine builds one step per group
+(``num_steps_built``, fixed for the engine's life, `set_cells` included)
+and counts the group steps it runs (``step_calls``, one per group, chunk
+and tick).
+
+Correctness anchor, as in the reference: any single cell equals its own
+`BridgeTrainer` run bit for bit (``tests/test_torch_grid.py`` on the CPU,
+``chip_smoke.py`` on the card).
+
+Not yet here (each refused with a `ValueError` that names its ROADMAP
+item): network-scenario cells and ``GridNetRuntime`` (Queue 1 item 11, the
+next slice); lossy codecs and wire attacks on the grid (item 11, after
+it); adversaries other than ``none`` (item 12); the ``trace``, ``trust``,
+``metrics`` and ``events`` specs (item 13).
+"""
+from __future__ import annotations
+
+from collections.abc import Callable, Iterable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import prng
+from repro_torch.adversary import protocols as adv_lib
+from repro_torch.comm import codec as codec_lib
+from repro_torch.core import byzantine as byz_lib
+from repro_torch.core.bridge import BridgeState, CellParams, build_cell_step, stack_batches
+from repro_torch.core.neighbors import NeighborTable
+from repro_torch.device import resolve_device
+from repro_torch.sim import grid as grid_lib
+from repro_torch.sim.grid import Cell, ExperimentGrid
+
+__all__ = ["GridEngine", "stack_batches"]
+
+NET_GRIDS = ("network-scenario cells (GridNetRuntime) are the next slice of the port: "
+             "ROADMAP Queue 1 item 11, net-scenario grids")
+GRID_CODECS = "codecs and wire attacks on the grid: ROADMAP Queue 1 item 11, after net grids"
+GRID_SPECS = "the trace, trust, metrics and events specs: ROADMAP Queue 1 item 13"
+
+
+def _dedup(names: Iterable) -> list:
+    out = []
+    for n in names:
+        if n not in out:
+            out.append(n)
+    return out
+
+
+def _check_sync_cell(c: Cell) -> None:
+    """The refusals of this slice for one cell."""
+    if c.scenario is not None:
+        raise ValueError(f"cell {c.tag}: {NET_GRIDS}")
+    if not codec_lib.get_codec(c.codec).lossless or c.attack in byz_lib.WIRE_ATTACKS:
+        raise ValueError(f"cell {c.tag}: {GRID_CODECS}")
+    adv_lib.get_adversary(c.adversary)  # raises for any but none (item 12)
+
+
+class GridEngine:
+    """Runs a list of grid `Cell`s over stacked state, one step per group.
+
+    ``cells`` defaults to the grid's full cross product; a resumable sweep
+    passes the not-yet-computed subset.  ``grad_fn(params, batch)`` takes
+    the ``[E, M, ...]`` parameters of a group's cells and the tick's one
+    batch (shared by every cell, as in the reference) and returns
+    ``(losses [E, M], grads)`` (`repro_torch.models.small.linear_loss_and_grad`
+    does).  ``sparse=True`` screens through the topology's `NeighborTable`
+    (the gather kernels), each cell bit-identical to its dense twin.
+
+    Usage — a rule x attack x seed product::
+
+        grid = ExperimentGrid(topology, rules=("trimmed_mean", "median"),
+                              attacks=("random", "alie"),
+                              byzantine_counts=(1,), seeds=(0, 1, 2, 3))
+        engine = GridEngine(grid, grad_fn)
+        final, metrics = engine.run(engine.init(init_fn), batches)
+        losses = metrics["loss"]        # [E, T], ordered like engine.cells
+    """
+
+    def __init__(self, grid: ExperimentGrid, grad_fn: Callable, *,
+                 cells: Sequence[Cell] | None = None, group: bool = True, sparse: bool = False, trace=None, trust=None,
+                 metrics=None, events=None, device: str | torch.device = "cuda"):
+        if any(spec is not None for spec in (trace, trust, metrics, events)):
+            raise ValueError(f"GridEngine: {GRID_SPECS}")
+        self.device = resolve_device(device)
+        self.grid = grid
+        self.cells = list(cells) if cells is not None else grid.cells()
+        if not self.cells:
+            raise ValueError("no cells to run")
+        for c in self.cells:
+            _check_sync_cell(c)
+        topo = grid.topology
+        self.rule_bank = _dedup(c.rule for c in self.cells)
+        self.attack_bank = _dedup(c.attack for c in self.cells)
+        self.scenario_bank: list[str] = []
+        self.codec_bank = _dedup(c.codec for c in self.cells)
+        self.adversary_bank = _dedup(c.adversary for c in self.cells)
+        self.sparse = bool(sparse)
+        self._adjacency = torch.as_tensor(topo.adjacency, dtype=torch.bool, device=self.device)
+        self.neighbors = (NeighborTable.from_adjacency(topo.adjacency, device=self.device)
+                          if self.sparse else None)
+        self._group = bool(group)
+        e = len(self.cells)
+        gkey = self._group_keys(self.cells)
+        self._perm = np.asarray(sorted(range(e), key=lambda i: gkey[i]), np.int64)
+        self._inv = np.argsort(self._perm)
+        self._bounds: list[tuple[int, int]] = []
+        self._steps: list[Callable] = []
+        self._banks: list[tuple[tuple[str, ...], tuple[str, ...]]] = []
+        lo = 0
+        for i in range(1, e + 1):
+            if i == e or gkey[self._perm[i]] != gkey[self._perm[lo]]:
+                head = self.cells[self._perm[lo]]
+                rules, attacks = (((head.rule,), (head.attack,)) if self._group
+                                  else (tuple(self.rule_bank), tuple(self.attack_bank)))
+                self._banks.append((rules, attacks))
+                self._steps.append(build_cell_step(
+                    grad_fn, self._adjacency, rules, tuple(byz_lib.get_attack(a) for a in attacks),
+                    neighbors=self.neighbors))
+                self._bounds.append((lo, i))
+                lo = i
+        self.step_calls = 0
+        self._bind_cells(self.cells)
+
+    @property
+    def num_cells(self) -> int:
+        return len(self.cells)
+
+    @property
+    def num_steps_built(self) -> int:
+        """Steps the engine built: one per group (the reference's
+        compilations)."""
+        return len(self._steps)
+
+    def _group_keys(self, cells) -> list[tuple[int, ...]]:
+        if not self._group:
+            return [(0, 0, 0, 0)] * len(cells)
+        return [(self.rule_bank.index(c.rule), self.attack_bank.index(c.attack),
+                 self.adversary_bank.index(c.adversary), self.codec_bank.index(c.codec))
+                for c in cells]
+
+    def _bind_cells(self, cells) -> None:
+        """Stack per-cell parameters (Byzantine masks, bank indices, bounds,
+        schedules) into the `CellParams` rows the steps read, and each
+        group's rows in its own bank's indices."""
+        m = self.grid.topology.num_nodes
+        e = len(cells)
+        self.byz_masks = np.stack(
+            [grid_lib.pick_byz_mask(m, c, self.grid.byzantine_seed) for c in cells])
+        g = self.grid
+        self._cell_stack = CellParams(
+            rule_idx=tuple(self.rule_bank.index(c.rule) for c in cells),
+            attack_idx=tuple(self.attack_bank.index(c.attack) for c in cells),
+            b=tuple(int(c.b) for c in cells),
+            byz_mask=torch.as_tensor(self.byz_masks, device=self.device),
+            lam=(g.lam,) * e, t0=(g.t0,) * e, lr=(g.lr,) * e)
+        self._group_cells = []
+        for (rules, attacks), (lo, hi) in zip(self._banks, self._bounds, strict=True):
+            idx = self._perm[lo:hi]
+            rows = self._cell_stack.select(idx)
+            self._group_cells.append(rows._replace(
+                rule_idx=tuple(rules.index(cells[i].rule) for i in idx),
+                attack_idx=tuple(attacks.index(cells[i].attack) for i in idx)))
+
+    def set_cells(self, cells: Sequence[Cell]) -> None:
+        """Swap the engine onto a new cell list of identical *structure* —
+        same length and same per-position (rule, attack, adversary, codec)
+        group keys — keeping its steps (the reference keeps its compiled
+        programs).  Everything that changed (b, seeds, Byzantine masks) is
+        data the next `run` reads."""
+        cells = list(cells)
+        if len(cells) != len(self.cells):
+            raise ValueError(
+                f"set_cells needs {len(self.cells)} cells (engine shape), got {len(cells)}")
+        for c in cells:
+            for bank, name, axis in ((self.rule_bank, c.rule, "rule"),
+                                     (self.attack_bank, c.attack, "attack"),
+                                     (self.adversary_bank, c.adversary, "adversary"),
+                                     (self.codec_bank, c.codec, "codec")):
+                if name not in bank:
+                    raise ValueError(
+                        f"set_cells: {axis} {name!r} is outside this engine's "
+                        f"bank {bank}; rebuild a GridEngine to change the grid's structure")
+            if c.scenario is not None:
+                raise ValueError("set_cells cannot move cells across the sync/net split")
+        if self._group_keys(self.cells) != self._group_keys(cells):
+            raise ValueError(
+                "set_cells cells must keep the per-position (rule, attack, "
+                "adversary, codec) group keys; rebuild a GridEngine to change "
+                "the grid's structure")
+        old_cells = self.cells
+        try:
+            self.cells = cells
+            self._bind_cells(cells)
+        except Exception:
+            self.cells = old_cells
+            self._bind_cells(old_cells)
+            raise
+
+    def init(self, init_fn: Callable[[int], dict]) -> BridgeState:
+        """Stack per-cell initial states.  ``init_fn(seed) -> [M, ...]``
+        parameters must be exactly what the sequential trainer would be
+        handed: cells with equal seeds share initial replicas, and each
+        cell's key is ``PRNGKey(seed)``, as ``BridgeTrainer.init(params,
+        seed=seed)`` takes it."""
+        m = self.grid.topology.num_nodes
+        params = [init_fn(c.seed) for c in self.cells]
+        for k, leaf in params[0].items():
+            if leaf.shape[0] != m:
+                raise ValueError(f"init_fn params[{k!r}] leading axis {leaf.shape[0]} != "
+                                 f"num_nodes {m}")
+        stacked = {k: torch.stack([p[k].to(self.device) for p in params]) for k in params[0]}
+        keys = np.stack([prng.PRNGKey(c.seed) for c in self.cells])
+        return BridgeState(params=stacked, t=0, key=keys)
+
+    def run(self, state: BridgeState, batches, *, chunk: int | None = None):
+        """Run every cell over ``batches`` (a tensor or a tuple of tensors
+        ``[T, ...]``, shared across cells; `stack_batches` makes them).
+        Returns ``(final_state, metrics)`` with state leaves ``[E, ...]`` and
+        metric leaves ``[E, T]`` (tensors on the engine's device), in the
+        order of ``self.cells``."""
+        if chunk is not None and chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        ticks = int((batches[0] if isinstance(batches, (tuple, list)) else batches).shape[0])
+        tick = (lambda i: tuple(b[i] for b in batches)) if isinstance(batches, (tuple, list)) \
+            else (lambda i: batches[i])
+        keys = np.asarray(state.key, np.uint32)
+        finals, metrics = [], []
+        for gi, (glo, ghi) in enumerate(self._bounds):
+            width = ghi - glo if chunk is None else min(chunk, ghi - glo)
+            for lo in range(glo, ghi, width):
+                hi = min(lo + width, ghi)
+                # pad a ragged chunk with copies of its last cell, trimmed below
+                rows = np.concatenate([np.arange(lo, hi), np.full(width - (hi - lo), hi - 1)])
+                cells_idx = self._perm[rows]
+                sel = torch.as_tensor(cells_idx, device=self.device)
+                cp = self._group_cells[gi].select(rows - glo)
+                st = BridgeState({k: v.index_select(0, sel) for k, v in state.params.items()},
+                                 state.t, keys[cells_idx])
+                f, ms = self._run_chunk(self._steps[gi], cp, st, tick, ticks)
+                valid = hi - lo
+                finals.append(BridgeState({k: v[:valid] for k, v in f.params.items()}, f.t,
+                                          f.key[:valid]))
+                metrics.append({k: v[:valid] for k, v in ms.items()})
+        order = torch.as_tensor(self._inv, device=self.device)
+        params = {k: torch.cat([f.params[k] for f in finals]).index_select(0, order)
+                  for k in state.params}
+        key = np.concatenate([f.key for f in finals])[self._inv]
+        out = {k: torch.cat([ms[k] for ms in metrics]).index_select(0, order)
+               for k in metrics[0]}
+        return BridgeState(params=params, t=finals[0].t, key=key), out
+
+    def _run_chunk(self, step: Callable, cell: CellParams, state: BridgeState, tick: Callable,
+                   ticks: int) -> tuple[BridgeState, dict]:
+        """``ticks`` ticks of one group's chunk; its metrics ``[E_c, T]``."""
+        streams: dict[str, list] = {}
+        for i in range(ticks):
+            state, ms = step(cell, state, tick(i))
+            self.step_calls += 1
+            for k, v in ms.items():
+                streams.setdefault(k, []).append(v)
+        e = cell.num_cells
+        out = {}
+        for k, vals in streams.items():
+            if isinstance(vals[0], torch.Tensor) and vals[0].ndim:
+                out[k] = torch.stack(vals, dim=1)
+            else:  # host values: per-cell arrays or one value a tick
+                host = np.stack([np.broadcast_to(np.asarray(
+                    v.cpu() if isinstance(v, torch.Tensor) else v, np.float32), (e,))
+                    for v in vals], axis=1)
+                out[k] = torch.as_tensor(host, device=self.device)
+        return state, out
+
+    def cell_params_of(self, i: int) -> CellParams:
+        """Row ``i`` of the stacked cell parameters (diagnostics/tests)."""
+        return self._cell_stack.select([i])

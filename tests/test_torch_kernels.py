@@ -902,3 +902,79 @@ def test_views_wide_path_on_card(cuda_device, m, w, stride0):
     tol = 2.0 * w * float(np.finfo(np.float32).eps) * scale
     assert bool(((got - want).abs() <= tol)[fin].all())
     assert bool((torch.isfinite(got) == fin).all())
+
+
+# ---------------------------------------------------------------------------
+# The grids' experiment axis and the batched distance kernel on the card
+# ---------------------------------------------------------------------------
+
+
+def experiment_inputs(e, m, d, seed):
+    """``[E, M, d]`` rows with NaN and +inf payloads, and own values."""
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(e, m, d)).astype(np.float32)
+    w[rng.random(w.shape) < 0.05] = np.nan
+    w[rng.random(w.shape) < 0.03] = np.inf
+    s = rng.normal(size=(e, m, d)).astype(np.float32)
+    return torch.from_numpy(w), torch.from_numpy(s), rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [12, 50, 129])
+def test_experiment_axis_kernels_equal_their_plain_versions(cuda_device, m):
+    """The dense screens' experiment axis (register kernel, and the wide
+    path at M = 129) on the card: each experiment equals the unbatched
+    kernel exactly, and the plain version exactly (the trimmed mean above
+    64 rows, where the plain version sums with a reduction tree, within
+    the summation bound)."""
+    e, d = 5, 999
+    w, s, rng = experiment_inputs(e, m, d, seed=m)
+    adj = torch.from_numpy(rng.random((m, m)) < 0.5)
+    b = torch.tensor([0, 1, 2, 3, 4], dtype=torch.int32)
+    dev = cuda_device
+    wd, sd, ad = w.to(dev), s.to(dev), adj.to(dev)
+    tm = trimmed_mean.trimmed_mean_dense(wd, ad, sd, b.to(dev))
+    md = median.median_dense(wd, ad, sd)
+    for i in range(e):
+        one = trimmed_mean.trimmed_mean_dense(wd[i], ad, sd[i], int(b[i]))
+        torch.testing.assert_close(tm[i], one, rtol=0, atol=0, equal_nan=True)
+        torch.testing.assert_close(md[i], median.median_dense(wd[i], ad, sd[i]), rtol=0, atol=0,
+                                   equal_nan=True)
+    torch.testing.assert_close(md.cpu(), ref.median_dense(w, adj, s), rtol=0, atol=0,
+                               equal_nan=True)
+    want = ref.trimmed_mean_dense(w, adj, s, b)
+    if m <= ref.MAX_EXACT_ROWS:
+        torch.testing.assert_close(tm.cpu(), want, rtol=0, atol=0, equal_nan=True)
+    else:
+        finite = torch.isfinite(want)
+        torch.testing.assert_close(tm.cpu()[finite], want[finite], rtol=1e-5, atol=1e-5)
+        assert torch.equal(torch.isfinite(tm.cpu()), finite)
+
+
+def views_of(m, w, d, seed, stride0):
+    """Views ``[m, w, d]`` (or one broadcast expanded over the receivers)
+    and self values."""
+    rng = np.random.default_rng(seed)
+    if stride0:
+        views = torch.from_numpy(rng.normal(size=(1, w, d)).astype(np.float32)).expand(m, w, d)
+    else:
+        views = torch.from_numpy(rng.normal(size=(m, w, d)).astype(np.float32))
+    return views, torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,w,d,stride0", [(50, 50, 7850, False), (50, 50, 7850, True),
+                                           (512, 16, 7850, False), (64, 64, 999, True)])
+def test_batched_kernel_on_views(cuda_device, m, w, d, stride0):
+    views, self_vals = views_of(m, w, d, seed=m + w, stride0=stride0)
+    views, self_vals = views.to(cuda_device), self_vals.to(cuda_device)
+    got = pairwise.pairwise_sq_dists_batched(views, self_vals)
+    for j in (0, m // 2, m - 1):
+        rows = torch.cat([views[j], self_vals[j:j + 1]]).contiguous()
+        assert torch.equal(got[j], pairwise.pairwise_sq_dists(rows))
+    want = ref.pairwise_sq_dists_batched(views, self_vals)
+    x = torch.cat([views, self_vals[:, None]], dim=1)
+    sq = torch.sum(x * x, dim=2)
+    bound = 4 * d * np.finfo(np.float32).eps * (sq[:, :, None] + sq[:, None, :])
+    assert bool(((got - want).abs() <= bound + 1e-30).all())
+    assert torch.equal(got, got.mT)

@@ -28,7 +28,7 @@ from repro.net import runtime as jruntime
 from repro.net import scenarios as jscenarios
 from repro_torch import prng
 from repro_torch.core import byzantine, graph, neighbors, screening
-from repro_torch.kernels import ref, views_screen
+from repro_torch.kernels import ops, ref, views_screen
 from repro_torch.net import channel, dynamic, runtime, scenarios
 from repro_torch.net import mailbox as mb
 from test_torch_kernels import views_inputs
@@ -517,11 +517,18 @@ def test_views_wrappers_reject_bad_operands(bad):
 
 
 def test_views_distance_rules_refused_off_the_cpu():
-    """Krum and Bulyan over views need a distance kernel with a node axis:
-    off the CPU `screen_views` refuses them before any launch (a ``meta``
-    tensor stands in for the card)."""
+    """Krum and Bulyan over views take each node's distances from the
+    batched distance kernel's wrapper: on the CPU its plain version (each
+    node's stacked ``[W + 1, d]`` views' `ref.pairwise_sq_dists`), and on a
+    device with no kernel it refuses before any launch rather than falling
+    back (a ``meta`` tensor stands in for such a device)."""
     views = torch.empty((4, 4, 8), device="meta")
     mask = torch.empty((4, 4), dtype=torch.bool, device="meta")
-    for rule in screening.VIEWS_DISTANCE_RULES:
-        with pytest.raises(NotImplementedError, match="node axis"):
+    for rule in ("krum", "bulyan"):
+        with pytest.raises(ValueError, match="no pairwise_sq_dists kernel"):
             screening.screen_views(views, mask, views[:, 0], rule=rule, b=1)
+    views, mask, self_vals = views_inputs(6, 5, 8, seed=3)
+    got = ops.pairwise_sq_dists_batched(views, self_vals)
+    stacked = torch.cat([views, self_vals[:, None]], dim=1)
+    want = torch.stack([ref.pairwise_sq_dists(node) for node in stacked])
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)

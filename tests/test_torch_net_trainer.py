@@ -299,9 +299,16 @@ def test_trainer_refusals():
     with pytest.raises(ValueError, match="network runtime"):
         bridge.BridgeTrainer(bridge.BridgeConfig(**{**cfg.__dict__, "attack": "selective_victim"}),
                              pgrad, device="cpu")
-    assert "node axis" in screening.views_distance_refusal("krum")
-    with pytest.raises(RuntimeError if not torch.cuda.is_available() else NotImplementedError):
-        AsyncBridgeTrainer(AsyncBridgeConfig(**{**cfg.__dict__, "rule": "krum"}), pgrad)
+    # BRIDGE-K over views runs on the card (the batched distance kernel);
+    # without a card the default device refuses, as every entry point does
+    kcfg = AsyncBridgeConfig(**{**cfg.__dict__, "rule": "krum",
+                                "topology": graph.complete_graph(M, B)})
+    if torch.cuda.is_available():
+        AsyncBridgeTrainer(kcfg, pgrad)
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            AsyncBridgeTrainer(kcfg, pgrad)
+    AsyncBridgeTrainer(kcfg, pgrad, device="cpu")
 
 
 def test_net_stats_follow_the_reference_stack_batches():

@@ -3,7 +3,7 @@ CPU, at the settings `chip_smoke.py` trains the PyTorch port at: the
 thresholds the port's card runs are held to (within 0.01 of each).
 
     JAX_PLATFORMS=cpu PYTHONPATH=src:. python tools/reference_accuracy.py \
-        [--only dense,sparse,variants,wire,wire_sparse,variants_wire,net]
+        [--only dense,sparse,variants,wire,wire_sparse,variants_wire,net,net_kb]
 
 Configurations (each as `chip_smoke.py` runs it, same seeds and batches):
 
@@ -42,6 +42,11 @@ Configurations (each as `chip_smoke.py` runs it, same seeds and batches):
     0.05, staleness bound 2, t0 = 100, iid partition of 16384 samples,
     batch 8, init and key seed 0, 200 ticks, the sparse layout.
   It took 5 minutes on an 8-core CPU.
+* ``net_kb``: asynchronous BRIDGE-K and BRIDGE-B at the net benchmark's
+  settings on ``erdos_renyi(20, 0.9, 1)`` (whose in-degrees meet Bulyan's
+  Table-II minimum of 6 at b = 1), b = 1, ``alie``, t0 = 30, iid partition
+  of 4000 samples, batch 32, init and key seed 0, 120 ticks, under
+  ``ideal`` and ``lossy``.
 
 Prints one line per configuration and a JSON object of all of them last.
 Takes some minutes (the sparse runs most of it).
@@ -140,14 +145,15 @@ def variants_wire():
 
 
 def run_async(task, topo, *, b, t0, ticks, attack, seed=0, init_seed=0, codec="identity",
-              sparse=False, scenario="ideal", channel=None, staleness=None):
+              sparse=False, scenario="ideal", channel=None, staleness=None,
+              rule="trimmed_mean"):
     from repro.net import AsyncBridgeConfig, AsyncBridgeTrainer
     from repro.net.dynamic import scenario_schedule
     from repro.net.scenarios import get_scenario
 
     spec = get_scenario(scenario)
     cfg = AsyncBridgeConfig(
-        topology=topo, rule="trimmed_mean", num_byzantine=b, attack=attack, lam=1.0, t0=t0,
+        topology=topo, rule=rule, num_byzantine=b, attack=attack, lam=1.0, t0=t0,
         codec=codec, sparse=sparse, channel=spec.channel if channel is None else channel,
         staleness_bound=spec.staleness_bound if staleness is None else staleness,
         schedule=scenario_schedule(spec.schedule_kind, topo, ticks, seed=0,
@@ -187,12 +193,25 @@ def net():
     return out
 
 
+def net_kb():
+    out = {}
+    topo = graph.erdos_renyi(20, 0.9, 1, seed=0)
+    for rule in ("krum", "bulyan"):
+        for name in ("ideal", "lossy"):
+            task = tasks.linear_task(20, 0, partition="iid", num_train=4000, num_test=800,
+                                     batch=32)
+            out[f"net {rule} {name}"] = run_async(task, topo, b=1, t0=30, ticks=120,
+                                                  attack="alie", scenario=name, rule=rule)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="dense,sparse,variants")
     args = ap.parse_args()
     groups = {"dense": dense, "sparse": sparse, "variants": variants, "wire": wire,
-              "wire_sparse": wire_sparse, "variants_wire": variants_wire, "net": net}
+              "wire_sparse": wire_sparse, "variants_wire": variants_wire, "net": net,
+              "net_kb": net_kb}
     results = {}
     for name in args.only.split(","):
         t0 = time.perf_counter()
