@@ -119,19 +119,27 @@ failure of which raises:
    once a tick, ``dequant_carry`` once a tick under int8.  Then the dense
    ``lossy_laggy`` runs and the sparse run are profiled;
 17. views BRIDGE-K / BRIDGE-B — the batched distance kernel (batch = node,
-   each node's mailbox views and its own value) against its plain version,
-   node by node within the float32 dot-product bound, symmetric, with a
-   zero diagonal, each node equal to the unbatched kernel of its rows:
+   each node's mailbox views and its own value; batch = cell, a grid's
+   ``[E, M, d]`` rows) on the body ``pairwise.batch_plan`` picks (the
+   cluster body, or the batch body for elements of at most 17 rows)
+   against its plain version, node by node within the float32 dot-product
+   bound, symmetric, with a zero diagonal, and every node equal bit for
+   bit to the unbatched kernel of its rows and to the cluster body forced:
    dense M = W = 50, materialized and with a receiver stride of 0, sparse
-   M = 512, K = 16, K = 64, and NaN / +-inf / 1e30 rows; timed beside the
-   plain version and ``torch.bmm`` with the same epilogue.  Then
-   `AsyncBridgeTrainer` BRIDGE-K and BRIDGE-B at the net benchmark's
-   settings on ``erdos_renyi(20, 0.9, 1)`` (b = 1, ``alie``, t0 = 30, batch
-   32, 120 ticks) under ``ideal`` and ``lossy``: the distance kernel once a
-   tick (Bulyan's views trimmed mean too, held exactly against its plain
-   version at two ticks), accuracy within 0.01 of the reference's and the
-   channel means equal to its (``REFERENCE_NET``), and 3 ticks of
-   card-vs-CPU parity on honest rows;
+   M = 512, K = 16, the net phase's M = W = 20, the K / B grid's E = 8,
+   M = 50, K = 64, and NaN / +-inf / 1e30 rows at n = 7 and 17; timed
+   (the picked body and the cluster body) beside ``torch.bmm`` with the
+   same epilogue and the bound.  Then `AsyncBridgeTrainer` BRIDGE-K and
+   BRIDGE-B at the net benchmark's settings on ``erdos_renyi(20, 0.9, 1)``
+   (b = 1, ``alie``, t0 = 30, batch 32, 120 ticks) under ``ideal`` and
+   ``lossy``: the distance kernel once a tick (Bulyan's views trimmed mean
+   too, held exactly against its plain version at two ticks), accuracy
+   within 0.01 of the reference's and the channel means equal to its
+   (``REFERENCE_NET``), and 3 ticks of card-vs-CPU parity on honest rows;
+   last BRIDGE-K over the sparse runtime at the scale benchmark's settings
+   (``small_world(512, 6, 1)``, K = 16, b = 1, ``alie``, drop 0.05,
+   staleness 2, t0 = 100, batch 8, 20 ticks): the batch body once a tick,
+   ms/tick, and 3 ticks of card-vs-CPU parity on honest rows;
 18. grids — the experiment-axis forms of the screens (the dense register
    kernels at E = 8, M = 12; the gather kernels at E = 4, M = 512, K = 16
    with per-experiment b; the wide path at E = 2, M = 129) equal their
@@ -226,7 +234,9 @@ KERNELS = {  # JSON name -> wrapper (its `launches` counter)
     "screen_wide": screen_wide.launch,
     "views_screen_trimmed_mean": views_screen.views_screen_trimmed_mean,
     "views_screen_median": views_screen.views_screen_median,
-    "pairwise_sq_dists_batched": pairwise.pairwise_sq_dists_batched,
+    # the batched distances' two bodies (`pairwise.batch_plan` picks one a call)
+    "pairwise_sq_dists_batched": pairwise.cluster_body,
+    "pairwise_sq_dists_batch_body": pairwise.batch_body,
 }
 COUNTED = KERNELS  # every counted wrapper is in the JSON line
 # bits on the wire per message at d = 7850: the reference codec's
@@ -301,6 +311,7 @@ REFERENCE_NET = {
 REFERENCE_ACCURACY.update({tag: acc for tag, (acc, _, _) in REFERENCE_NET.items()})
 NET_TICKS = 120  # the net benchmark's run (benchmarks/net_bench.py)
 NET_DENSE_TICKS = 100  # dense M = 50 under lossy_laggy / narrowband64k
+SPARSE_K_TICKS = 20  # BRIDGE-K over the sparse runtime, M = 512, K = 16
 # Configurations whose run's accuracy is no measure of agreement: Krum's
 # pick under the int4 codec turns on the distances' last bits from the
 # first ticks, so runs that agree step for step (tests/test_torch_wire.py:
@@ -2021,22 +2032,40 @@ def net_trainer_runs(dev, held):
 # ---------------------------------------------------------------------------
 
 
-def views_dist_check(tag: str, views: torch.Tensor, self_vals: torch.Tensor) -> float:
-    """The batched distance kernel on mailbox views against its plain
-    version, node by node (`check_dists`: the dot-product bound, symmetry,
-    zero diagonal, the NaN/inf pattern), and equal bit for bit to the
-    unbatched kernel of a few nodes' stacked rows; returns the largest
-    finite difference."""
+def dist_body(bsz: int, n: int) -> str:
+    """The counter of the body `pairwise.batch_plan` picks for ``[B, n, D]``."""
+    return ("pairwise_sq_dists_batch_body" if pairwise.batch_plan(bsz, n, D).body == "batch"
+            else "pairwise_sq_dists_batched")
+
+
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def views_dist_check(tag: str, views: torch.Tensor, self_vals) -> float:
+    """The batched distance kernel (on the body `batch_plan` picks) on
+    mailbox views (or, with ``self_vals`` None, a grid's ``[E, M, d]``
+    rows) against its plain version, node by node (`check_dists`: the
+    dot-product bound, symmetry, zero diagonal, the NaN/inf pattern), and
+    every node equal bit for bit to the unbatched kernel of its stacked
+    rows and to the cluster body forced; returns the
+    largest finite difference."""
     got = pairwise.pairwise_sq_dists_batched(views, self_vals)
     want = ref.pairwise_sq_dists_batched(views, self_vals)
-    x = torch.cat([views, self_vals[:, None]], dim=1)
-    err = max(check_dists(f"{tag} node {j}", got[j], want[j], x[j]) for j in range(x.shape[0]))
-    for j in sorted({0, x.shape[0] // 2, x.shape[0] - 1}):
-        if not bool(nan_equal(got[j], pairwise.pairwise_sq_dists(x[j].contiguous())).all()):
+    x = views if self_vals is None else torch.cat([views, self_vals[:, None]], dim=1)
+    bsz, n, d = x.shape
+    err = max(check_dists(f"{tag} node {j}", got[j], want[j], x[j]) for j in range(bsz))
+    for j in range(bsz):
+        if not bit_equal(got[j], pairwise.pairwise_sq_dists(x[j].contiguous())):
             raise AssertionError(f"{tag}: node {j} differs from the unbatched kernel of its rows")
+    plan = pairwise.batch_plan(bsz, n, d)
+    cluster = pairwise.pairwise_sq_dists_batched(views, self_vals,
+                                                 pairwise.BatchPlan(pairwise.split_plan(n, d)))
+    if not bit_equal(got, cluster):
+        raise AssertionError(f"{tag}: the {plan.body} body differs from the cluster body")
     print(f"pairwise batched {tag} {tuple(views.shape)} (node stride {views.stride(0)}): max "
-          f"|kernel - plain| {err:.3g}, each node equal to the unbatched kernel; plan "
-          f"{pairwise.split_plan(x.shape[1], x.shape[2])}")
+          f"|kernel - plain| {err:.3g}, every node equal to the unbatched kernel and to the "
+          f"cluster body bit for bit; {plan.body} body, order {plan.order}")
     return err
 
 
@@ -2070,18 +2099,21 @@ def net_parity(tag: str, cfg, task, dev, ticks: int = 3) -> None:
 
 
 def views_kb_phase(dev):
-    """Phase 17: the batched distance kernel on mailbox views, then
-    asynchronous BRIDGE-K and BRIDGE-B on the card; returns its record and
-    the launches of the runs."""
+    """Phase 17: the batched distance kernel on mailbox views and a grid's
+    cells, then asynchronous BRIDGE-K and BRIDGE-B on the card; returns
+    the records of its two bodies and the launches of the runs."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
-    mk = lambda *shape: torch.randn(shape, generator=gen, device=dev) * 0.05
+    mk = lambda *shape: torch.randn(shape, generator=gen, device=dev) * 0.05  # noqa: E731
     cases = {
         "dense W=50": (mk(M, M, D), mk(M, D)),
         "dense W=50 stride 0": (mk(1, M, D).expand(M, M, D), mk(M, D)),
         f"sparse M={SM} K=16": (mk(SM, 16, D), mk(SM, D)),
+        "net M=20 W=20": (mk(20, 20, D), mk(20, D)),
+        f"grid E=8 M={M}": (mk(8, M, D), None),
         "K=64": (mk(64, 64, D), mk(64, D)),
         "edge rows": views_edge_inputs(8, 6, 777, seed=18, dev=dev),
+        "edge rows K=16": views_edge_inputs(64, 16, 777, seed=19, dev=dev),
     }
     errs = {tag: views_dist_check(tag, *args) for tag, args in cases.items()}
 
@@ -2091,35 +2123,53 @@ def views_kb_phase(dev):
         d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * g
         return torch.where(d2 < 0, 0.0, d2)
 
+    def stack(views, self_vals):
+        if self_vals is None:
+            return views.contiguous()
+        return torch.cat([views, self_vals[:, None]], 1)
+
     def cost(views, self_vals):
         """Bytes (the views' distinct rows once, self, the output) and the
         operations (each node's n (n + 1) / 2 dot products of d FMAs)."""
         m, w, d = views.shape
-        n = w + 1
+        n = w + (self_vals is not None)
         rows = w * d if views.stride(0) == 0 else m * w * d
-        return (rows + m * d + m * n * n) * 4, m * n * (n + 1) * d
+        own = 0 if self_vals is None else m * d
+        return (rows + own + m * n * n) * 4, m * n * (n + 1) * d
 
-    for tag in ("dense W=50", "dense W=50 stride 0"):
+    for tag in ("dense W=50", "dense W=50 stride 0", f"sparse M={SM} K=16", "net M=20 W=20",
+                f"grid E=8 M={M}"):
         v, s = cases[tag]
-        stacked = torch.cat([v, s[:, None]], dim=1)
-        nbytes, ops = cost(v, s)
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
-        print(f"pairwise batched {tag} times: kernel "
-              f"{cuda_ms(lambda: pairwise.pairwise_sq_dists_batched(v, s)):.4f} ms, plain "
-              f"{cuda_ms(lambda: ref.pairwise_sq_dists_batched(v, s), reps=11, inner=2):.4f} ms, "
+        n = v.shape[1] + (s is not None)
+        stacked = stack(v, s)
+        nbytes, ops_ = cost(v, s)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops_ / FP32_OPS_PER_S) * 1e3
+        plan = pairwise.batch_plan(v.shape[0], n, D)
+        cluster = pairwise.BatchPlan(plan.order)
+        print(f"pairwise batched {tag} times: kernel ({plan.body} body) "
+              f"{cuda_ms(lambda: pairwise.pairwise_sq_dists_batched(v, s)):.4f} ms, cluster body "
+              f"{cuda_ms(lambda: pairwise.pairwise_sq_dists_batched(v, s, cluster)):.4f} ms, "
               f"torch.bmm {cuda_ms(lambda: library(stacked), reps=11, inner=2):.4f} ms, bound "
               f"{bound:.5f} ms")
-    v, s = cases[f"sparse M={SM} K=16"]
-    stacked = torch.cat([v, s[:, None]], dim=1)
-    nbytes, ops = cost(v, s)
-    rec = record("pairwise_sq_dists_batched", "src/repro_torch/kernels/csrc/pairwise.cu",
-                 "src/repro/kernels/krum.py:44",
-                 lambda: pairwise.pairwise_sq_dists_batched(v, s),
-                 lambda: ref.pairwise_sq_dists_batched(v, s), lambda: library(stacked), nbytes,
-                 ops, errs[f"sparse M={SM} K=16"])
+    records = []
+    # each body's record at the main path's shape it runs: the batch body at
+    # sparse views K / B, the cluster body at the net phase's M = 20 views
+    for name, tag in (("pairwise_sq_dists_batch_body", f"sparse M={SM} K=16"),
+                      ("pairwise_sq_dists_batched", "net M=20 W=20")):
+        v, s = cases[tag]
+        if dist_body(v.shape[0], v.shape[1] + 1) != name:
+            raise AssertionError(f"{tag}: batch_plan no longer picks {name}")
+        stacked = stack(v, s)
+        nbytes, ops_ = cost(v, s)
+        records.append(record(name, "src/repro_torch/kernels/csrc/pairwise.cu",
+                              "src/repro/kernels/krum.py:44",
+                              lambda v=v, s=s: pairwise.pairwise_sq_dists_batched(v, s),
+                              lambda v=v, s=s: ref.pairwise_sq_dists_batched(v, s),
+                              lambda st=stacked: library(st), nbytes, ops_, errs[tag]))
     print(f"library: torch.bmm(x, x.mT) over the stacked [M, K + 1, d] views with the same "
-          f"epilogue (TF32 off), a call the port never makes; timed at sparse M = {SM}, K = 16")
-    del cases, v, s, stacked
+          f"epilogue (TF32 off), a call the port never makes; the batch body timed at sparse "
+          f"M = {SM}, K = 16, the cluster body at M = 20, W = 20")
+    del cases, stacked
 
     # the runtime trainers, BRIDGE-K and BRIDGE-B, each tick through the kernel
     task = net_task(20, dev, num_train=4000, num_test=800, batch=32)
@@ -2137,7 +2187,7 @@ def views_kb_phase(dev):
                     schedule=scenario_schedule(spec.schedule_kind, topo, NET_TICKS, seed=0,
                                                churn_prob=spec.churn_prob))
                 trainer = AsyncBridgeTrainer(cfg, task.grad_fn, device=dev)
-                want = {"pairwise_sq_dists_batched": NET_TICKS}
+                want = {dist_body(20, 21): NET_TICKS}
                 if rule == "bulyan":
                     want["views_screen_trimmed_mean"] = NET_TICKS
                 tag = f"net {rule} {name}"
@@ -2158,7 +2208,35 @@ def views_kb_phase(dev):
           f"{NET_TICKS} ticks, ideal and lossy): the batched distance kernel once a tick, "
           f"Bulyan's views trimmed mean once a tick; 3 ticks on the card and the CPU agree on "
           f"honest rows (rtol 1e-4, atol 1e-5)")
-    return [rec], launches
+    del batches
+
+    # BRIDGE-K over the sparse runtime at the scale benchmark's settings
+    # (M = 512, K = 16): each node's 16 views and itself, the batch body's shape
+    task = net_task(SM, dev, num_train=16384, num_test=1000, batch=8)
+    batches = stack_batches(task.batch_fn, SPARSE_K_TICKS, device=dev)
+    cfg = AsyncBridgeConfig(topology=small_world(SM, NEAREST, 1, rewire_prob=0.2, seed=0),
+                            rule="krum", num_byzantine=1, attack="alie",
+                            channel=ChannelConfig(drop_prob=0.05), staleness_bound=2, lam=1.0,
+                            t0=100, sparse=True)
+    trainer = AsyncBridgeTrainer(cfg, task.grad_fn, device=dev)
+    k = trainer.runtime.neighbors.k  # the mailbox slots a node: its views
+    before = read_launches()
+    with HeldCalls() as held:
+        state, mets, ms_tick = net_run("sparse krum", trainer,
+                                       trainer.init(task.init_fn(0), seed=0), batches,
+                                       {dist_body(SM, k + 1): SPARSE_K_TICKS}, SPARSE_K_TICKS,
+                                       held)
+    for name, n in read_launches().items():
+        launches[name] += n - before[name]
+    acc = task.eval_accuracy(state.params, trainer.honest_mask)
+    net_parity("net sparse krum", cfg, net_task(SM, "cpu", num_train=16384, num_test=1000,
+                                                batch=8), dev)
+    print(f"net sparse krum (small_world({SM}, {NEAREST}, 1), K = {k}, b = 1, alie, drop 0.05, "
+          f"staleness 2, {SPARSE_K_TICKS} ticks): the {pairwise.batch_plan(SM, k + 1, D).body} "
+          f"body once a tick, {ms_tick:.3f} ms/tick, honest test accuracy {acc:.4f}, "
+          f"delivered_frac {float(mets['delivered_frac'].mean())!r}; 3 ticks on the card and "
+          f"the CPU agree on honest rows (rtol 1e-4, atol 1e-5)")
+    return records, launches
 
 
 # ---------------------------------------------------------------------------

@@ -63,6 +63,8 @@ SIGNATURES = {
     # x, its batch and row strides, self_vals (or null) and its stride, out,
     # B, n, d, then the plan
     "pairwise_sq_dists_batched": (_PTR, _I64, _I64, _PTR, _I64, _PTR) + (_INT,) * 6 + (_PTR,),
+    # the batch body: the same operands, then the plan's splits and their length
+    "pairwise_sq_dists_batch_body": (_PTR, _I64, _I64, _PTR, _I64, _PTR) + (_INT,) * 5 + (_PTR,),
     # the wide path (screen_wide.cuh): the register entries' operands
     "screen_wide_trimmed_mean_dense": (_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT,
                                        _I64, _PTR, _PTR),

@@ -35,10 +35,15 @@
 // elements, its row n - 1 optionally from self + e s_self (the node's own
 // value appended without forming the [B, n, d] stack, 273 MB at M = 512,
 // K = 16); s_batch may be 0 (a broadcast expanded over the receivers, read
-// in place).  Elements go on gridDim.z, a cluster's blocks all on one
-// element, with a loop past 65535; each element's tiles are the unbatched
-// kernel's.  The copies are as wide as every row start allows (the row and
-// batch strides, self's stride and the base addresses).
+// in place).  Two bodies take it, both under split_plan(n, d)'s order
+// (kernels/pairwise.py batch_plan picks one from [B, n, d]): the cluster
+// body (pairwise_sq_dists_batched: elements on gridDim.z, a cluster's
+// blocks all on one element, with a loop past 65535; each element's tiles
+// are the unbatched kernel's) and, for elements of at most 17 rows, the
+// batch body (pairwise_sq_dists_batch_body, below the cluster body: a
+// block of four warps an element, no cluster, a lane a split).  The copies
+// are as wide as every row start allows (the row and batch strides,
+// self's stride and the base addresses).
 //
 // Design: one launch, no workspace.
 //   A *unit* of 64 threads (an 8 x 8 grid) computes one T x T output tile,
@@ -81,6 +86,24 @@
 // pairs in clusters of 2 fill the 132 SMs in one wave; its FMAs then run at
 // about a third of the SMs' fp32 peak, the shared-memory loads (2R float4s
 // per 4R^2 FMAs) and their latency taking the rest (PERF.md).
+//
+// The batch body's design and bound.  Many small elements (sparse views
+// K / B: B = 512 nodes of n = 17 rows) are bound by bytes: 273 MB, 82 us
+// at 3.35 TB/s, against 1.2 GFLOP of FMAs for the upper triangles.  The
+// cluster body spends a cluster of eight 120 KB blocks (an SM each) on an
+// element, 16 clusters at once, 32 waves at B = 512.  The batch body
+// gives an element a block of 104 KB (two an SM, all 512 elements in two
+// waves) and the register reuse a Gram of 17 rows allows: a lane holds a
+// split's chains of a quarter of the 153 entries and reads each staged
+// coordinate of the 17 rows once for them (17 loads a coordinate against
+// 38 FMAs), where a thread with an R x R tile loads 2R for R^2.  Its
+// stages are 16 coordinates of all 32 splits (64 contiguous bytes of each
+// split's row), so its reads of device memory come in pieces of 64 bytes
+// at 32 places a row; each copy asks L2 to fetch 128 bytes, and three
+// stages keep two in flight.  It runs at about 1.4 TB/s at B = 512
+// (PERF.md), below the card's streaming rate: device memory serves such
+// pieces more slowly than whole rows, and the FMAs, whose staged loads
+// each warp repeats, overlap the copies only in part.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -516,6 +539,240 @@ int run(const Batch& batch, float* out, int n, int d, int rows_per_thread, int c
   }
 }
 
+// ---------------------------------------------------------------------------
+// The batch body, for elements of at most 17 rows: a block of four warps,
+// no cluster, runs one element, a lane a split.  Lane s of every warp runs
+// split s's chains over the split's coordinates and the zeros that pad
+// them to whole chunks of 32, exactly as the cluster body's unit of that
+// split does; the element's 153 entries (the upper triangle of 17 rows
+// with its diagonal, the norms) are dealt round-robin to the warps, entry
+// e to warp e % 4.  Then each entry's lane values are summed in ascending
+// split order (split 0's value first, then IEEE adds), so it is
+// split_plan's sum bit for bit, the cluster body's.  A stage holds 16
+// coordinates of every split of the element's rows, copied by the block
+// together: eight threads copy a split's row's 64 contiguous bytes, so a
+// copy instruction reads four pieces of device memory, and each copy asks
+// L2 to fetch the 128 bytes around it, so the next stage of that split's
+// row comes from L2.
+// ---------------------------------------------------------------------------
+
+constexpr int kLanes = 32;         // a warp; split_plan's splits are at most 4 x 8 = 32
+constexpr int kWarps = 4;          // warps of a batch block
+constexpr int kBatchThreads = kWarps * kLanes;
+constexpr int kOneTile = 17;       // rows of an element the batch body takes at most
+constexpr int kStageCoords = 16;   // coordinates of every split a stage
+constexpr int kCoordPairs = kStageCoords / 2;
+constexpr int kBatchStages = 3;    // ring depth: two stages in flight while one computes
+constexpr int kEntries = kOneTile * (kOneTile + 1) / 2;
+constexpr int kSlots = (kEntries + kWarps - 1) / kWarps;          // chains a lane
+constexpr int kStageFloats = kOneTile * kStageCoords * kLanes;    // [row][pair][split'][2]
+constexpr int kFoldPitch = kLanes + 1;                            // [slot][split]
+constexpr int kFoldFloats = kWarps * kSlots * kFoldPitch;         // then the totals
+static_assert(kFoldFloats + kEntries <= kBatchStages * kStageFloats, "the fold fits the ring");
+
+// A batch element's rows with its own value, if any, as row `last`.
+struct BatchRows {
+  const float* base;
+  long long s_row;
+  const float* self;  // null: every row from base
+  int last;
+  __device__ __forceinline__ const float* row(int i) const {
+    return self != nullptr && i == last ? self : base + i * s_row;
+  }
+};
+
+// index of (i, j), i <= j, in the upper triangle
+__device__ __forceinline__ int tri(int i, int j) {
+  return i * kOneTile - i * (i - 1) / 2 + (j - i);
+}
+
+// A split's coordinates: [k0, k1), run to kpad (whole chunks of 32, as the
+// cluster body's unit runs it); a split past the last is empty.
+struct SplitRange {
+  int k0, k1, kpad;
+  __device__ __forceinline__ SplitRange(int s, int splits, int split_len, int d) {
+    k0 = s < splits ? min(d, s * split_len) : d;
+    k1 = min(d, k0 + split_len);
+    kpad = k0 + (k1 - k0 + kChunk - 1) / kChunk * kChunk;
+  }
+};
+
+// Where split s's coordinate pair p of a staged row sits among the row's 32
+// float2s of that pair: XOR-swizzled, so that a copy instruction (four
+// splits, eight pairs each) writes two wavefronts and a lane's read (one
+// pair, every split) none twice.
+__device__ __forceinline__ int swizzle(int s, int p) { return s ^ (4 * p); }
+
+// cp_async, asking L2 to fetch the 128 bytes around the source.
+template <int BYTES>
+__device__ __forceinline__ void cp_async_l2(float* dst, const float* src, bool ok) {
+  const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global.L2::128B [%0], [%1], %2, %3;\n" ::"r"(at), "l"(src),
+               "n"(BYTES), "r"(ok ? BYTES : 0)
+               : "memory");
+}
+
+// Stage q into dst: coordinates k0 + 16q .. + 16 of each split of each row
+// (rows >= n are skipped: no entry that is written reads them; so is a
+// split's stage past its padded end), those >= k1 zeros.  Thread t copies
+// coordinate pair t % 8 of splits t / 8 and t / 8 + 16, V floats a copy.
+template <int V>
+__device__ __forceinline__ void stage_element(float* dst, const BatchRows& rows, int n, int q,
+                                              const SplitRange (&range)[2], int t) {
+  const int p = t % kCoordPairs;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int s = t / kCoordPairs + h * (kBatchThreads / kCoordPairs);
+    const int kc = range[h].k0 + q * kStageCoords;
+    if (kc >= range[h].kpad) continue;
+    const int k = kc + 2 * p, k1 = range[h].k1;
+#pragma unroll
+    for (int r = 0; r < kOneTile; ++r) {
+      if (r >= n) break;
+      const float* src = rows.row(r);
+      float* at = dst + ((r * kCoordPairs + p) * kLanes + swizzle(s, p)) * 2;
+      if constexpr (V == 2) {
+        cp_async_l2<8>(at, k < k1 ? src + k : rows.base, k < k1);
+      } else {
+        cp_async_l2<4>(at, k < k1 ? src + k : rows.base, k < k1);
+        cp_async_l2<4>(at + 1, k + 1 < k1 ? src + k + 1 : rows.base, k + 1 < k1);
+      }
+    }
+  }
+}
+
+// One stage of this lane's split into warp W's chains, coordinates
+// ascending: entry e = W + 4 slot, the product of rows i <= j.
+template <int W>
+__device__ __forceinline__ void stage_fmas(const float* stage, int lane, float (&acc)[kSlots]) {
+#pragma unroll
+  for (int p = 0; p < kCoordPairs; ++p) {
+    float2 v[kOneTile];
+#pragma unroll
+    for (int r = 0; r < kOneTile; ++r) {
+      const int at = (r * kCoordPairs + p) * kLanes + swizzle(lane, p);
+      v[r] = *reinterpret_cast<const float2*>(stage + at * 2);
+    }
+    int e = 0;
+#pragma unroll
+    for (int i = 0; i < kOneTile; ++i) {
+#pragma unroll
+      for (int j = i; j < kOneTile; ++j, ++e) {
+        if (e % kWarps == W) {
+          float& a = acc[e / kWarps];
+          a = __fmaf_rn(v[i].x, v[j].x, a);
+          a = __fmaf_rn(v[i].y, v[j].y, a);
+        }
+      }
+    }
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void batch_element(const BatchRows& src, float* __restrict__ out, int n,
+                                              int d, int splits, int split_len, float* smem) {
+  const int t = threadIdx.x, warp = t / kLanes, lane = t % kLanes;
+  const SplitRange mine(lane, splits, split_len, d);
+  const SplitRange copied[2] = {
+      SplitRange(t / kCoordPairs, splits, split_len, d),
+      SplitRange(t / kCoordPairs + kBatchThreads / kCoordPairs, splits, split_len, d)};
+  const int stages = split_len / kStageCoords;
+
+  float acc[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) acc[k] = 0.f;
+
+  auto stage = [&](int q) {
+    if (q < stages)
+      stage_element<V>(smem + (q % kBatchStages) * kStageFloats, src, n, q, copied, t);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int q = 0; q < kBatchStages - 1; ++q) stage(q);
+  for (int q = 0; q < stages; ++q) {
+    __syncthreads();  // every warp has run stage q - 1, whose slot this refills
+    stage(q + kBatchStages - 1);
+    cp_async_wait<kBatchStages - 1>();
+    __syncthreads();  // stage q's copies, by the whole block
+    if (mine.k0 + q * kStageCoords < mine.kpad) {
+      const float* st = smem + (q % kBatchStages) * kStageFloats;
+      switch (warp) {
+        case 0: stage_fmas<0>(st, lane, acc); break;
+        case 1: stage_fmas<1>(st, lane, acc); break;
+        case 2: stage_fmas<2>(st, lane, acc); break;
+        default: stage_fmas<3>(st, lane, acc); break;
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // each warp's chains into fold[warp][slot][split]; lane l sums slots l,
+  // l + 32, ... over the splits in ascending order into totals[entry]
+  float* fold = smem + warp * kSlots * kFoldPitch;
+  float* totals = smem + kFoldFloats;
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) fold[k * kFoldPitch + lane] = acc[k];
+  __syncwarp();
+  for (int k = lane; k < kSlots; k += kLanes) {
+    const int e = k * kWarps + warp;
+    if (e >= kEntries) continue;
+    const float* f = fold + k * kFoldPitch;
+    float v = f[0];
+    for (int s = 1; s < splits; ++s) v = __fadd_rn(v, f[s]);
+    totals[e] = v;
+  }
+  __syncthreads();
+  // d2[i, j]: the Gram from the upper triangle (g_ij and g_ji are one
+  // chain), the norms from its diagonal
+  for (int e = t; e < n * n; e += kBatchThreads) {
+    const int i = e / n, j = e % n;
+    const float g = totals[tri(min(i, j), max(i, j))];
+    const float v = __fsub_rn(__fadd_rn(totals[tri(i, i)], totals[tri(j, j)]), __fmul_rn(2.f, g));
+    out[e] = v < 0.f ? 0.f : v;
+  }
+  // the next element's stages refill the shared memory this epilogue read
+  __syncthreads();
+}
+
+template <int V>
+__global__ void __launch_bounds__(kBatchThreads)
+pairwise_batch_kernel(Batch batch, float* __restrict__ out, int n, int d, int splits,
+                      int split_len) {
+  extern __shared__ __align__(16) float smem[];
+  for (long long e = blockIdx.x; e < batch.count; e += gridDim.x) {
+    const BatchRows rows{batch.x + e * batch.s_batch, batch.s_row,
+                         batch.self == nullptr ? nullptr : batch.self + e * batch.s_self, n - 1};
+    batch_element<V>(rows, out + static_cast<size_t>(e) * n * n, n, d, splits, split_len, smem);
+  }
+}
+
+template <int V>
+cudaError_t launch_batch(const Batch& batch, float* out, int n, int d, int splits, int split_len,
+                         cudaStream_t s) {
+  const size_t bytes = sizeof(float) * kBatchStages * kStageFloats;
+  cudaError_t err = cudaFuncSetAttribute(pairwise_batch_kernel<V>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  pairwise_batch_kernel<V><<<batch.count, kBatchThreads, bytes, s>>>(batch, out, n, d, splits,
+                                                                     split_len);
+  return cudaGetLastError();
+}
+
+int run_batch(const Batch& batch, float* out, int n, int d, int splits, int split_len,
+              void* stream) {
+  if (n < 1 || n > kOneTile || d < 1 || batch.count < 1 || splits < 1 || splits > kLanes ||
+      split_len < kChunk || split_len % kChunk != 0 ||
+      static_cast<long long>(splits) * split_len < d ||
+      reinterpret_cast<uintptr_t>(batch.x) % 4 != 0 || batch.s_row < 0 || batch.s_batch < 0 ||
+      (batch.self != nullptr && (reinterpret_cast<uintptr_t>(batch.self) % 4 != 0 || n < 2)))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return aligned(batch, d, 2) ? launch_batch<2>(batch, out, n, d, splits, split_len, s)
+                              : launch_batch<1>(batch, out, n, d, splits, split_len, s);
+}
+
 }  // namespace
 
 // C entry points (bound with ctypes).  The plan (kernels/pairwise.py,
@@ -543,4 +800,17 @@ extern "C" int pairwise_sq_dists_batched(const float* x, long long s_batch, long
                                          int cluster, int split_len, void* stream) {
   const Batch b{x, s_batch, s_row, self_vals, s_self, batch};
   return run(b, out, n, d, rows_per_thread, cluster, split_len, stream);
+}
+
+// The batch body of the batched form (same operands), for elements of at
+// most 17 rows: a block of four warps, no cluster, an element, a lane a
+// split; the order is split_plan's (splits, split_len: the plan's 4C and
+// split length), so each element equals the cluster body's, and
+// pairwise_sq_dists of its rows, bit for bit.
+extern "C" int pairwise_sq_dists_batch_body(const float* x, long long s_batch, long long s_row,
+                                            const float* self_vals, long long s_self, float* out,
+                                            int batch, int n, int d, int splits, int split_len,
+                                            void* stream) {
+  const Batch b{x, s_batch, s_row, self_vals, s_self, batch};
+  return run_batch(b, out, n, d, splits, split_len, stream);
 }

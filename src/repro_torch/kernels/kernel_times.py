@@ -17,19 +17,30 @@ two single-bucket graphs of the same M (every in-degree 24, every in-degree
 d = 7850 on ``small_world(512, 6, 2)`` (K = 16), the gather screens also on
 ``small_world(512, 8, 2)`` (K = 20) and on a table of 8-16 random senders a
 node (K = 16, few rows shared); the distances at ``[50, 7850]``,
-``[100, 7850]`` and ``[512, 7850]``; and, where the checkout has the wide screening
-path, the register screens at M = 128 and the wide path's four screens
-(float and codeword rows, trimmed mean and median) at dense M = 129 and 513
-and gather K = 64 and 200 (random tables, M = 512), with the medians'
-library call beside them; the decode also at the main path's ``[50, 3925]``
-(topk50_int8's kept values).  ``--compare`` runs each checkout in a process
-of its own, in the order other, this, this, other, so a drift of the card
-over the run shows as a difference between a checkout's two runs, and
-prints each wide time's bound (`wide_bounds`).  ``--sweep`` times every
-plan the distance kernel takes (`pairwise.candidates`) at those shapes and
-at ``[20, 7850]`` and ``[40, 7850]`` (the variants table's M = 20,
-uncompressed and with a lossy codec), each checked against the plain
-version first, and marks `pairwise.split_plan`'s choice.
+``[100, 7850]`` and ``[512, 7850]``, and batched (`batched_shapes`: each
+node's mailbox views and itself at sparse M = 512, K = 16, at M = 20 and at
+dense M = 50, that one also with a batch stride of 0, and a K / B grid
+group, E = 8, M = 50) beside ``torch.bmm`` with the same epilogue and,
+where the checkout has two bodies, its cluster body forced; and, where
+the checkout has the wide screening path, the register screens at
+M = 128 and the wide path's four screens (float and codeword rows,
+trimmed mean and median) at dense M = 129 and 513 and gather K = 64 and
+200 (random tables, M = 512), with the medians' library call beside
+them; the decode also at the main path's ``[50, 3925]`` (topk50_int8's
+kept values).  ``--compare`` runs each checkout in a process of its own,
+in the order other, this, this, other, so a drift of the card over the
+run shows as a difference between a checkout's two runs, and prints each
+wide and batched time's bound (`wide_bounds`, `batched_bound`).
+``--sweep`` times every plan the distance kernel takes
+(`pairwise.candidates`) at those shapes and at ``[20, 7850]`` and
+``[40, 7850]`` (the variants table's M = 20, uncompressed and with a
+lossy codec), each checked against the plain version first, and marks
+`pairwise.split_plan`'s choice; then every plan of the batched kernel
+(`pairwise.batch_candidates`: the cluster body and, for elements of at
+most 17 rows, the batch body) at the batched shapes and on edge-case
+operands, each first checked bit for bit against the cluster body and
+element by element against the unbatched kernel, with
+`pairwise.batch_plan`'s choice marked.
 ``--sweep-gather`` times the gather tile kernel (rows 3 and 8) under
 several plans (tiles, chunks, columns a lane), on the three gather tables,
 each checked equal to the plain version first; beside each it gives the
@@ -167,6 +178,73 @@ def kernel_times() -> dict:
     for n in (50, 100, 512):
         x = torch.from_numpy(rng.normal(size=(n, D)).astype(np.float32) * 0.05).to(dev)
         times[f"pairwise_sq_dists [{n}, {D}]"] = cuda_ms(lambda x=x: pairwise.pairwise_sq_dists(x))
+    times.update(batched_times(dev))
+    return times
+
+
+def batched_shapes(dev) -> dict:
+    """The batched distance kernel's main-path operands, seeded: each node's
+    mailbox views and its own value at sparse M = 512, K = 16 (n = 17), at
+    the net phase's M = 20 (W = 20, n = 21) and at dense M = W = 50
+    (n = 51), the last also as one broadcast expanded over the receivers
+    (a batch stride of 0); and a K / B grid group's ``[E, M, d]`` rows
+    (E = 8, M = 50, no self row).  ``{tag: (x, self_vals or None)}``."""
+    rng = np.random.default_rng(20)
+    mk = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32) * 0.05).to(dev)
+    return {"sparse B=512 n=17": (mk(512, 16, D), mk(512, D)),
+            "M=20 B=20 n=21": (mk(20, 20, D), mk(20, D)),
+            "dense B=50 n=51": (mk(50, 50, D), mk(50, D)),
+            "dense stride 0 B=50 n=51": (mk(1, 50, D).expand(50, 50, D), mk(50, D)),
+            "grid E=8 n=50": (mk(8, 50, D), None)}
+
+
+def batched_cost(x: torch.Tensor, self_vals) -> tuple[int, int]:
+    """Bytes (the distinct rows once, the self rows, the output) and fp32
+    operations (each element's n (n + 1) / 2 dot products of d FMAs) of a
+    batched call, as `chip_smoke.py` counts them."""
+    bsz, nx, d = x.shape
+    n = nx + (self_vals is not None)
+    rows = nx * d if x.stride(0) == 0 else bsz * nx * d
+    return (rows + (0 if self_vals is None else bsz * d) + bsz * n * n) * 4, bsz * n * (n + 1) * d
+
+
+def batched_bound(x: torch.Tensor, self_vals) -> tuple[float, str]:
+    nbytes, ops = batched_cost(x, self_vals)
+    t_bytes, t_ops = nbytes / 3.35e12 * 1e3, ops / 67e12 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bmm_dists(x: torch.Tensor) -> torch.Tensor:
+    """The library yardstick: ``torch.bmm(x, x.mT)`` with the kernel's
+    epilogue, over the stacked ``[B, n, d]`` rows (TF32 off)."""
+    g = torch.bmm(x, x.mT)
+    sq = torch.diagonal(g, dim1=1, dim2=2)
+    d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * g
+    return torch.where(d2 < 0, 0.0, d2)
+
+
+def stacked(x: torch.Tensor, self_vals) -> torch.Tensor:
+    return x.contiguous() if self_vals is None else torch.cat([x, self_vals[:, None]], dim=1)
+
+
+def batched_times(dev) -> dict:
+    """The batched distance kernel at `batched_shapes` under the checkout's
+    own choice of body, ``torch.bmm`` with the same epilogue beside each
+    and, where the checkout has the batch body, its cluster body forced."""
+    from repro_torch.kernels import pairwise
+
+    times = {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for tag, (x, s) in batched_shapes(dev).items():
+        times[f"pairwise_sq_dists_batched {tag}"] = cuda_ms(
+            lambda x=x, s=s: pairwise.pairwise_sq_dists_batched(x, s))
+        if hasattr(pairwise, "batch_plan"):
+            plan = pairwise.BatchPlan(pairwise.split_plan(x.shape[1] + (s is not None), D))
+            times[f"pairwise_sq_dists_batched {tag} cluster body"] = cuda_ms(
+                lambda x=x, s=s, p=plan: pairwise.pairwise_sq_dists_batched(x, s, p))
+        st = stacked(x, s)
+        times[f"library bmm {tag}"] = cuda_ms(lambda st=st: bmm_dists(st), reps=11, inner=2)
     return times
 
 
@@ -375,6 +453,72 @@ def sweep() -> list[dict]:
     return rows
 
 
+def batch_edge_inputs(dev) -> dict:
+    """Operands on which a slip in the order or the staging shows: NaN,
+    +-inf and 1e30 rows, a self row with a NaN, a batch stride of 0 over
+    200 elements, d = 777 (a split's zero-filled tail), and rows of +-1e-25,
+    whose products underflow to signed zeros and subnormals."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    out = {}
+    for d in (777, D):
+        views = torch.randn((64, 16, d), generator=gen, device=dev)
+        views[1, 1] = float("nan")
+        views[2, 0, 3], views[3, 2, 0] = float("inf"), -float("inf")
+        views[4, 3] = 1e30
+        self_vals = torch.randn((64, d), generator=gen, device=dev)
+        self_vals[5, 7] = float("nan")
+        out[f"edge rows d={d}"] = (views, self_vals)
+    signs = torch.randint(0, 2, (96, 40, D), generator=gen, device=dev) * 2.0 - 1.0
+    out["underflow n=40"] = (signs * 1e-25, None)
+    out["stride 0 n=33"] = (torch.randn((1, 32, D), generator=gen, device=dev).expand(200, 32, D),
+                            torch.randn((200, D), generator=gen, device=dev))
+    return out
+
+
+def sweep_batched(dev) -> tuple[list[dict], list[str]]:
+    """Every plan of the batched kernel (`pairwise.batch_candidates`) at
+    `batched_shapes` and on `batch_edge_inputs`: each checked bit for bit
+    against the cluster body and, element by element, against the
+    unbatched kernel of its rows, then timed, with `batch_plan`'s choice
+    marked.  Returns the rows and the failures (a plan that differs is
+    reported, not timed)."""
+    from repro_torch.kernels import pairwise
+
+    rows, failures = [], []
+    cases = {**batched_shapes(dev), **batch_edge_inputs(dev)}
+    for tag, (x, s) in cases.items():
+        bsz, nx, d = x.shape
+        n = nx + (s is not None)
+        order = pairwise.split_plan(n, d)
+        want = pairwise.pairwise_sq_dists_batched(x, s, pairwise.BatchPlan(order))
+        st = stacked(x, s)
+        for e in range(bsz):
+            if not torch.equal(want[e].view(torch.int32),
+                               pairwise.pairwise_sq_dists(st[e].contiguous()).view(torch.int32)):
+                failures.append(f"{tag}: cluster body element {e} != the unbatched kernel")
+                break
+        chosen = pairwise.batch_plan(bsz, n, d)
+        bound, bound_by = batched_bound(x, s)
+        for plan in pairwise.batch_candidates(bsz, n, d):
+            got = pairwise.pairwise_sq_dists_batched(x, s, plan)
+            torch.cuda.synchronize()
+            same = got.view(torch.int32) == want.view(torch.int32)
+            if not bool(same.all()):
+                bad = int((~same).sum())
+                failures.append(f"{tag}: the {plan.body} body differs from the cluster body on "
+                                f"{bad} entries")
+                continue
+            row = {"shape": tag, "B": bsz, "n": n, "d": d, "body": plan.body,
+                   "chosen": plan == chosen,
+                   "model_us": pairwise.batch_cost(plan, bsz, n, d),
+                   "bound_ms": bound, "bound_by": bound_by}
+            row["ms"] = cuda_ms(
+                lambda p=plan, x=x, s=s: pairwise.pairwise_sq_dists_batched(x, s, p), reps=11)
+            rows.append(row)
+    return rows, failures
+
+
 def run_other(src: str) -> dict:
     """This script in a process of its own on the checkout ``src``."""
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--src", src],
@@ -405,6 +549,8 @@ def main(argv=None) -> int:
         print(f"card: {card}; columns: other, this, this, other (ms)")
         sys.path.insert(0, SRC)
         bounds = wide_bounds()
+        for tag, (x, s) in batched_shapes(torch.device("cuda")).items():
+            bounds[f"pairwise_sq_dists_batched {tag}"] = batched_bound(x, s)
         for key in results[1]["times"]:
             cells = [r["times"].get(key) for r in results]
             bound = f"  bound {bounds[key][0]:.5f} ({bounds[key][1]})" if key in bounds else ""
@@ -417,13 +563,23 @@ def main(argv=None) -> int:
     sys.path.insert(0, args.src)
     if args.sweep:
         rows = sweep()
+        batch_rows, failures = sweep_batched(torch.device("cuda"))
         print(f"card: {card}")
         for r in rows:
             print(f"[{r['n']}, {r['d']}] R={r['rows_per_thread']} C={r['cluster']} "
                   f"L={r['split_len']}: {r['ms']:.4f} ms (model {r['model_us']:.1f} us)"
                   f"{'  <- split_plan' if r['chosen'] else ''}")
-        print(json.dumps({"card": card, "sweep": rows}))
-        return 0
+        for r in batch_rows:
+            ms = f"{r['ms']:.4f} ms"
+            print(f"batched {r['shape']} [{r['B']}, {r['n']}, {r['d']}] {r['body']} body: {ms} "
+                  f"(model "
+                  f"{r['model_us']:.1f} us, bound {r['bound_ms']:.5f} ms {r['bound_by']})"
+                  f"{'  <- batch_plan' if r['chosen'] else ''}")
+        for f in failures:
+            print("FAILED:", f)
+        print(json.dumps({"card": card, "sweep": rows, "batched": batch_rows,
+                          "failures": failures}))
+        return 1 if failures else 0
     if args.sweep_gather:
         res = sweep_gather(args.parent)
         l2 = res["l2"]

@@ -15,16 +15,21 @@ order through distributed shared memory.  `split_plan` picks ``R`` and
 ``C`` from the shape alone, so the summation order of a given ``[n, d]``
 is fixed.
 
-`pairwise_sq_dists_batched` is the same kernel with a leading batch axis,
-``[B, n, d] -> [B, n, n]``, each element's rows read at the operand's own
-strides (a batch stride of 0 reads one set of rows for every element, in
-place) and, optionally, each element's own value appended as its last
-row: the per-node distances of Krum and Bulyan over mailbox views
-(``[M, W, d]`` and the nodes' own values, B = M) and the grid's per-cell
-distances (``[E, M, d]``, B = E).  Every element runs under
-``split_plan(n, d)``, so it equals `pairwise_sq_dists` of its rows bit for
-bit, whatever B.  ``pairwise_sq_dists_batched.launches`` counts its
-launches.
+`pairwise_sq_dists_batched` adds a leading batch axis, ``[B, n, d] ->
+[B, n, n]``, each element's rows read at the operand's own strides (a batch
+stride of 0 reads one set of rows for every element, in place) and,
+optionally, each element's own value appended as its last row: the
+per-node distances of Krum and Bulyan over mailbox views (``[M, W, d]``
+and the nodes' own values, B = M) and the grid's per-cell distances
+(``[E, M, d]``, B = E).  It runs on one of two bodies, which `batch_plan`
+picks from ``[B, n, d]``: the *cluster body* (the kernel above, a cluster
+an element and tile pair, elements on gridDim.z) or the *batch body* (a
+block of four warps an element of at most 17 rows, no cluster, a lane a
+split), so that many small elements fill the card.  Both run every
+element under ``split_plan(n, d)``'s order, so each element equals
+`pairwise_sq_dists` of its rows bit for bit, whatever B and whichever
+body.  ``cluster_body.launches`` and ``batch_body.launches`` count each
+body's launches.
 """
 from __future__ import annotations
 
@@ -173,6 +178,83 @@ pairwise_sq_dists.launches = 0
 
 MAX_BATCH = 2**31 - 1
 
+# The batch body (csrc/pairwise.cu pairwise_batch_kernel): a block of four
+# warps an element of at most ONE_TILE rows, a lane a split, a ring of
+# three stages of 16 coordinates of every split.
+ONE_TILE = 17
+BATCH_SMEM = 4 * 3 * 16 * 32 * ONE_TILE  # a block's ring (kBatchStages x kStageFloats floats)
+# batch_plan's model of the two bodies on an H100 SXM, fitted to
+# `kernel_times.py --sweep` (NVIDIA H100 80GB HBM3, 700 W): a launch's fixed
+# cost; a wave of clusters, a fixed part and a part per 256 coordinates of
+# a split; the batch body's time a stage of a block (on a card its blocks
+# do not fill) and the rate its reads of the rows reach on a full card.
+LAUNCH_US = 5.0
+CLUSTER_WAVE_US = (6.0, 12.0)
+BATCH_STAGE_US = 4.8
+BATCH_BYTES_PER_US = 1.38e6
+
+
+@dataclass(frozen=True)
+class BatchPlan:
+    """How the batched kernel runs ``[B, n, d]``: every element under
+    ``order`` (``split_plan(n, d)``: the summation order, and the cluster
+    body's geometry), on ``body``: "cluster" or "batch" (the batch body,
+    n <= ONE_TILE)."""
+
+    order: Plan
+    body: str = "cluster"
+
+
+def _check_batch_shape(bsz: int, n: int, d: int) -> None:
+    _check_shape(n, d)
+    if not 1 <= bsz <= MAX_BATCH:
+        raise ValueError(f"pairwise_sq_dists_batched takes 1 to {MAX_BATCH} elements, got {bsz}")
+
+
+def batch_candidates(bsz: int, n: int, d: int) -> list[BatchPlan]:
+    """Every plan of ``[B, n, d]`` in a fixed order: the cluster body, then
+    the batch body where n <= ONE_TILE."""
+    _check_batch_shape(bsz, n, d)
+    order = split_plan(n, d)
+    return [BatchPlan(order)] + ([BatchPlan(order, "batch")] if n <= ONE_TILE else [])
+
+
+def check_batch_plan(plan: BatchPlan, bsz: int, n: int, d: int) -> None:
+    """Raise unless ``plan`` is one of `batch_candidates` of the shape."""
+    if plan not in batch_candidates(bsz, n, d):
+        raise ValueError(f"batched pairwise plan {plan} is not one the kernel takes for "
+                         f"[{bsz}, {n}, {d}] (order {split_plan(n, d)})")
+
+
+def tile_pairs(tile: int, n: int) -> int:
+    """Upper-triangle tile pairs of ``n`` rows in tiles of ``tile``."""
+    tiles = -(-n // tile)
+    return tiles * (tiles + 1) // 2
+
+
+def batch_cost(plan: BatchPlan, bsz: int, n: int, d: int) -> float:
+    """The model's device time of a plan (microseconds).  Cluster body:
+    waves of clusters (a GPC holds floor(SMs / C) at once).  Batch body:
+    the longer of one block's chain of stages and the element rows' bytes
+    at the rate its copies reach."""
+    order = plan.order
+    if plan.body == "batch":
+        stages = order.split_len // 16
+        nbytes = bsz * n * d * 4
+        return LAUNCH_US + max(stages * BATCH_STAGE_US, nbytes / BATCH_BYTES_PER_US)
+    at_once = sum(sms // order.cluster for sms in GPC_SMS)
+    wave = CLUSTER_WAVE_US[0] + CLUSTER_WAVE_US[1] * order.split_len / 256
+    return LAUNCH_US + -(-bsz * tile_pairs(order.tile, n) // at_once) * wave
+
+
+@functools.cache
+def batch_plan(bsz: int, n: int, d: int) -> BatchPlan:
+    """The plan for ``[B, n, d]``: the cheapest of `batch_candidates` by
+    `batch_cost` (ties to the first: the cluster body), a function of the
+    shape alone.  Every candidate runs ``split_plan(n, d)``'s order, so the
+    choice changes no bit."""
+    return min(batch_candidates(bsz, n, d), key=lambda p: batch_cost(p, bsz, n, d))
+
 
 def _check_batched(x: torch.Tensor, self_vals: torch.Tensor | None) -> None:
     if x.dtype != torch.float32 or (self_vals is not None and self_vals.dtype != torch.float32):
@@ -192,13 +274,50 @@ def _check_batched(x: torch.Tensor, self_vals: torch.Tensor | None) -> None:
             raise ValueError(f"operands on different devices: {x.device}, {self_vals.device}")
 
 
+def _operands(x: torch.Tensor, self_vals: torch.Tensor | None, out: torch.Tensor) -> tuple:
+    """The entry points' leading operands: x and its batch and row strides,
+    self_vals (or null) and its stride, out."""
+    self_ptr, s_self = (None, 0) if self_vals is None else (self_vals.data_ptr(),
+                                                            self_vals.stride(0))
+    return x.data_ptr(), x.stride(0), x.stride(1), self_ptr, s_self, out.data_ptr()
+
+
+def cluster_body(x: torch.Tensor, self_vals: torch.Tensor | None, out: torch.Tensor,
+                 plan: BatchPlan) -> None:
+    """Launch the cluster body into ``out [B, n, n]``; counts its launches."""
+    bsz, n, d = out.shape[0], out.shape[1], x.shape[2]
+    order = plan.order
+    err = build.load().pairwise_sq_dists_batched(
+        *_operands(x, self_vals, out), bsz, n, d, order.rows_per_thread, order.cluster,
+        order.split_len, build.stream_of(x))
+    build.check_launch(err, "pairwise_sq_dists_batched")
+    cluster_body.launches += 1
+
+
+def batch_body(x: torch.Tensor, self_vals: torch.Tensor | None, out: torch.Tensor,
+               plan: BatchPlan) -> None:
+    """Launch the batch body into ``out [B, n, n]``; counts its launches."""
+    bsz, n, d = out.shape[0], out.shape[1], x.shape[2]
+    order = plan.order
+    err = build.load().pairwise_sq_dists_batch_body(
+        *_operands(x, self_vals, out), bsz, n, d, order.splits, order.split_len,
+        build.stream_of(x))
+    build.check_launch(err, "pairwise_sq_dists_batch_body")
+    batch_body.launches += 1
+
+
+cluster_body.launches = 0
+batch_body.launches = 0
+
+
 def pairwise_sq_dists_batched(x: torch.Tensor, self_vals: torch.Tensor | None = None,
-                              plan: Plan | None = None) -> torch.Tensor:
+                              plan: BatchPlan | None = None) -> torch.Tensor:
     """``[B, n, n]`` float32 squared distances among each batch element's
     rows: ``x [B, n_x, d]`` at its strides (the batch stride may be 0), and
     with ``self_vals [B, d]`` element b's own value as row ``n = n_x + 1``'s
     last; each element as `pairwise_sq_dists` of those rows computes it, bit
-    for bit, under ``split_plan(n, d)`` (or ``plan``)."""
+    for bit, on the body ``batch_plan(B, n, d)`` (or ``plan``, one of
+    `batch_candidates`) picks."""
     _check_batched(x, self_vals)
     if x.device.type == "cpu":
         return ref.pairwise_sq_dists_batched(x, self_vals)
@@ -207,20 +326,9 @@ def pairwise_sq_dists_batched(x: torch.Tensor, self_vals: torch.Tensor | None = 
     bsz, nx, d = x.shape
     n = nx + (self_vals is not None)
     if plan is None:
-        plan = split_plan(n, d)
+        plan = batch_plan(bsz, n, d)
     else:
-        check_plan(plan, n, d)
-    if bsz > MAX_BATCH:
-        raise ValueError(f"pairwise_sq_dists_batched takes at most {MAX_BATCH} elements")
+        check_batch_plan(plan, bsz, n, d)
     out = torch.empty((bsz, n, n), dtype=torch.float32, device=x.device)
-    self_ptr, s_self = (None, 0) if self_vals is None else (self_vals.data_ptr(),
-                                                            self_vals.stride(0))
-    err = build.load().pairwise_sq_dists_batched(
-        x.data_ptr(), x.stride(0), x.stride(1), self_ptr, s_self, out.data_ptr(), bsz, n,
-        d, plan.rows_per_thread, plan.cluster, plan.split_len, build.stream_of(x))
-    build.check_launch(err, "pairwise_sq_dists_batched")
-    pairwise_sq_dists_batched.launches += 1
+    (batch_body if plan.body == "batch" else cluster_body)(x, self_vals, out, plan)
     return out
-
-
-pairwise_sq_dists_batched.launches = 0

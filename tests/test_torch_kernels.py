@@ -962,19 +962,49 @@ def views_of(m, w, d, seed, stride0):
     return views, torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32))
 
 
+def bits(x: torch.Tensor) -> torch.Tensor:
+    """The float32 bit patterns, so that equality is bit for bit (NaN too)."""
+    return x.contiguous().view(torch.int32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,w,d,stride0", [(50, 50, 7850, False), (50, 50, 7850, True),
-                                           (512, 16, 7850, False), (64, 64, 999, True)])
+                                           (512, 16, 7850, False), (64, 64, 999, True),
+                                           (20, 20, 7850, False), (64, 16, 777, True),
+                                           (200, 16, 7850, True), (40, 9, 130, False)])
 def test_batched_kernel_on_views(cuda_device, m, w, d, stride0):
+    """Every element equal bit for bit to the unbatched kernel of its rows,
+    on the body `batch_plan` picks and on every other candidate (the
+    cluster body, the batch body up to 17 rows); within the float32
+    dot-product bound of the plain version; symmetric."""
     views, self_vals = views_of(m, w, d, seed=m + w, stride0=stride0)
     views, self_vals = views.to(cuda_device), self_vals.to(cuda_device)
     got = pairwise.pairwise_sq_dists_batched(views, self_vals)
-    for j in (0, m // 2, m - 1):
-        rows = torch.cat([views[j], self_vals[j:j + 1]]).contiguous()
-        assert torch.equal(got[j], pairwise.pairwise_sq_dists(rows))
-    want = ref.pairwise_sq_dists_batched(views, self_vals)
     x = torch.cat([views, self_vals[:, None]], dim=1)
+    for j in range(m):
+        assert torch.equal(bits(got[j]), bits(pairwise.pairwise_sq_dists(x[j].contiguous())))
+    for plan in pairwise.batch_candidates(m, w + 1, d):
+        assert torch.equal(bits(pairwise.pairwise_sq_dists_batched(views, self_vals, plan)),
+                           bits(got)), plan
+    want = ref.pairwise_sq_dists_batched(views, self_vals)
     sq = torch.sum(x * x, dim=2)
     bound = 4 * d * np.finfo(np.float32).eps * (sq[:, :, None] + sq[:, None, :])
     assert bool(((got - want).abs() <= bound + 1e-30).all())
     assert torch.equal(got, got.mT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,n,d", [(8, 50, 7850), (300, 17, 999), (64, 5, 7850)])
+def test_batched_kernel_without_self_rows(cuda_device, e, n, d):
+    """``[E, n, d]`` rows with no self row (a grid's per-cell distances),
+    NaN / +-inf / 1e30 rows among them: every body equal bit for bit, and
+    every element to the unbatched kernel of its rows."""
+    rng = np.random.default_rng(e + n)
+    x = rng.normal(size=(e, n, d)).astype(np.float32)
+    x[0, 1], x[1, 0, 3], x[1, 2, 0], x[2, n - 1] = np.nan, np.inf, -np.inf, 1e30
+    x = torch.from_numpy(x).to(cuda_device)
+    got = pairwise.pairwise_sq_dists_batched(x)
+    for j in range(e):
+        assert torch.equal(bits(got[j]), bits(pairwise.pairwise_sq_dists(x[j])))
+    for plan in pairwise.batch_candidates(e, n, d):
+        assert torch.equal(bits(pairwise.pairwise_sq_dists_batched(x, None, plan)), bits(got)), plan

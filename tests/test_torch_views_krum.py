@@ -8,7 +8,10 @@ and `screening.screen_views` on it.
   place;
 * the views screens of Krum and Bulyan follow the reference's
   ``screen_views_banked`` on the CPU, on stride-0 views too;
-* the wrapper refuses what the kernel does not take.
+* the wrapper refuses what the kernel does not take;
+* `pairwise.batch_plan`, which picks the body (the cluster body or the
+  batch body), is a function of the shape, keeps `split_plan`'s order on
+  every body, fits a block's shared memory and raises outside its limits.
 
 On the card the kernel is held to the unbatched kernel of each node's rows
 and to its plain version by ``tests/test_torch_kernels.py``
@@ -96,3 +99,80 @@ def test_batched_wrapper_rejects_bad_operands(bad):
         self_vals = self_vals.double()
     with pytest.raises((TypeError, ValueError)):
         pairwise.pairwise_sq_dists_batched(views, self_vals)
+
+
+BATCH_SHAPES = [(1, 1, 1), (1, 17, 7850), (20, 17, 7850), (64, 17, 777), (132, 17, 7850),
+                (512, 17, 7850), (20, 21, 7850), (8, 50, 7850), (50, 51, 7850), (200, 33, 7850),
+                (3, 2, 33), (10**6, 5, 100), (pairwise.MAX_BATCH, 17, 64)]
+
+
+@pytest.mark.parametrize("bsz,n,d", BATCH_SHAPES)
+def test_batch_plan_is_a_function_of_the_shape(bsz, n, d):
+    """The same plan from a fresh computation; every candidate (and so the
+    choice) under ``split_plan(n, d)``'s order, the batch body only for
+    elements of one tile, each accepted by `check_batch_plan`."""
+    plan = pairwise.batch_plan(bsz, n, d)
+    cands = pairwise.batch_candidates(bsz, n, d)
+    assert plan == min(cands, key=lambda p: pairwise.batch_cost(p, bsz, n, d))
+    assert plan in cands and cands[0] == pairwise.BatchPlan(pairwise.split_plan(n, d))
+    for cand in cands:
+        assert cand.order == pairwise.split_plan(n, d)
+        assert cand.body in ("cluster", "batch")
+        assert cand.body == "cluster" or n <= pairwise.ONE_TILE
+        pairwise.check_batch_plan(cand, bsz, n, d)
+
+
+@pytest.mark.parametrize("bsz,n,d", BATCH_SHAPES)
+def test_batch_plan_fits_a_blocks_shared_memory(bsz, n, d):
+    """Each body's block within the 227 KB a block may use; the batch body's
+    ring (three stages of 16 coordinates of 32 splits of 17 rows) as the
+    kernel sizes it, and small enough for two blocks an SM."""
+    for cand in pairwise.batch_candidates(bsz, n, d):
+        if cand.body == "batch":
+            assert pairwise.BATCH_SMEM == 3 * 16 * 32 * pairwise.ONE_TILE * 4
+            assert 2 * (pairwise.BATCH_SMEM + 1024) <= 228 * 1024
+        else:
+            assert pairwise.smem_bytes(cand.order) <= 227 * 1024
+
+
+def test_batch_plan_picks_the_bodies_of_the_main_path():
+    """Sparse views K / B (M = 512, K = 16: each node's 16 views and itself)
+    on the batch body; the net phase's M = 20 views and the K / B grid's
+    cells (E = 8, M = 50) on the cluster body, which fills the card there."""
+    assert pairwise.batch_plan(512, 17, 7850).body == "batch"
+    assert pairwise.batch_plan(20, 21, 7850).body == "cluster"
+    assert pairwise.batch_plan(8, 50, 7850).body == "cluster"
+    assert pairwise.batch_plan(50, 51, 7850).body == "cluster"
+
+
+@pytest.mark.parametrize("bsz,n,d", [(0, 5, 10), (pairwise.MAX_BATCH + 1, 5, 10), (5, 0, 10),
+                                     (5, pairwise.MAX_ROWS + 1, 10), (5, 5, 0),
+                                     (5, 5, pairwise.MAX_COORDS + 1)])
+def test_batch_plan_raises_outside_its_limits(bsz, n, d):
+    with pytest.raises(ValueError):
+        pairwise.batch_plan(bsz, n, d)
+
+
+@pytest.mark.parametrize("bad", ["batch_rows", "order", "cluster_order", "body"])
+def test_check_batch_plan_refuses_plans_the_kernel_does_not_take(bad):
+    """The batch body above one tile of rows, an order other than
+    ``split_plan(n, d)``'s on either body, an unknown body."""
+    n = 18 if bad == "batch_rows" else 17
+    order = pairwise.split_plan(n, 7850)
+    plan = {"batch_rows": pairwise.BatchPlan(order, "batch"),
+            "order": pairwise.BatchPlan(pairwise.Plan(4, 4, 512), "batch"),
+            "cluster_order": pairwise.BatchPlan(pairwise.Plan(6, 8, 256)),
+            "body": pairwise.BatchPlan(order, "packed")}[bad]
+    with pytest.raises(ValueError):
+        pairwise.check_batch_plan(plan, 512, n, 7850)
+
+
+def test_batched_wrapper_takes_a_plan_on_the_cpu():
+    """On the CPU every plan gives the plain version (one matrix an
+    element), and neither body's launch count moves."""
+    views, _, self_vals = views_of(6, 16, 40, seed=5, stride0=False)
+    before = (pairwise.cluster_body.launches, pairwise.batch_body.launches)
+    want = ref.pairwise_sq_dists_batched(views, self_vals)
+    for plan in pairwise.batch_candidates(6, 17, 40):
+        assert torch.equal(pairwise.pairwise_sq_dists_batched(views, self_vals, plan), want)
+    assert (pairwise.cluster_body.launches, pairwise.batch_body.launches) == before
