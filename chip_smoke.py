@@ -139,7 +139,9 @@ failure of which raises:
    last BRIDGE-K over the sparse runtime at the scale benchmark's settings
    (``small_world(512, 6, 1)``, K = 16, b = 1, ``alie``, drop 0.05,
    staleness 2, t0 = 100, batch 8, 20 ticks): the batch body once a tick,
-   ms/tick, and 3 ticks of card-vs-CPU parity on honest rows;
+   ms/tick, accuracy within 0.01 of the reference's and the channel means
+   equal to its (``REFERENCE_NET["net sparse krum"]``), and 3 ticks of
+   card-vs-CPU parity on honest rows;
 18. grids — the experiment-axis forms of the screens (the dense register
    kernels at E = 8, M = 12; the gather kernels at E = 4, M = 512, K = 16
    with per-experiment b; the wide path at E = 2, M = 129) equal their
@@ -155,7 +157,25 @@ failure of which raises:
    T / M cells of the 30- and 50-tick grids at 0.95 honest accuracy or
    more, and cells/s and ms/tick of the engine against the cells run one by
    one; last, ``python -m repro_torch.launch.sweep --mode grid`` into a
-   temporary store, whose second run finds every cell cached.
+   temporary store, whose second run finds every cell cached;
+19. net grids — the views kernels with the experiment axis (one launch
+   over ``[E, M, W, d]``, a usable mask a cell, per-cell b) at E = 44,
+   M = W = 20 and E = 8, M = 512, K = 16, exact against their plain
+   versions and each cell against the one-cell kernel, timed beside the
+   path they replace (one launch per b over copied views); then
+   `GridEngine(..., num_ticks=...)` at the net benchmark's task (d = 7850,
+   b = 2, ``alie``, t0 = 30, batch 32, 30 ticks): (a) BRIDGE-T / M x the 11
+   ``NET_SCENARIOS`` x seeds 0-1 on ``default_topology(20, (trimmed_mean,
+   median), (2,))`` (44 cells), (b) BRIDGE-K / B x ``ideal``, ``lossy`` x
+   b in {1, 2} (8 cells, the batched distance kernel over E M nodes), (c)
+   the sparse runtime at the scale setting (``small_world(512, 6, 1)``,
+   T / M x ``lossy``, ``lossy_laggy`` x 2 seeds, b = 1, t0 = 100, batch 8,
+   20 ticks, one union table): each kernel once a tick per group, the
+   views calls of two ticks held exactly against the plain versions on the
+   path's operands, every cell equal to its own trainer run over
+   ``schedule_for(scenario)`` (parameters and key, the channel streams),
+   cells/s and ms/tick against the cells one by one, the mailbox bytes;
+   last the sweep's grid mode with ``--scenarios ideal,lossy``, twice.
 
 Every accuracy of phases 8-11 must land within 0.01 of the reference's
 own CPU run at the same settings (``REFERENCE_ACCURACY``, from
@@ -164,7 +184,7 @@ Krum's picks (``PICK_BOUND``), which is held to card-vs-CPU parity.
 
 Each configuration of a trainer phase trains on a task of its own, so all
 see batches 0..199 of one stream.  Before each main-path phase (5-12,
-16-18) every kernel's launch count is set to 0, and read
+16-19) every kernel's launch count is set to 0, and read
 after its runs: each kernel of the phase must have launched once per
 tick of the runs of its rule (codec), the others not at all; a kernel's
 ``launches`` in the JSON line is the sum over the phases.  Then each
@@ -209,6 +229,7 @@ from repro_torch.kernels import (  # noqa: E402
     screen_wide, trimmed_mean, views_screen)
 from repro_torch.net import AsyncBridgeConfig, AsyncBridgeTrainer, ChannelConfig  # noqa: E402
 from repro_torch.net.dynamic import scenario_schedule  # noqa: E402
+from repro_torch.net.runtime import SparseUnreliableRuntime  # noqa: E402
 from repro_torch.net.scenarios import NET_SCENARIOS, get_scenario  # noqa: E402
 from repro_torch.launch import sweep  # noqa: E402
 from repro_torch.sim import ExperimentGrid, GridEngine, default_topology, variants  # noqa: E402
@@ -307,6 +328,8 @@ REFERENCE_NET = {
     "net krum lossy": (0.9612499851929514, 0.7994758486747742, 0.24931100010871887),
     "net bulyan ideal": (0.9911841875628421, 0.9999999403953552, 0.0),
     "net bulyan lossy": (0.9908552326654133, 0.7994758486747742, 0.24931100010871887),
+    # BRIDGE-K over the sparse runtime at the scale setting, 20 ticks (group net_kb)
+    "net sparse krum": (0.7046027725923318, 0.9514811635017395, 0.04794158786535263),
 }
 REFERENCE_ACCURACY.update({tag: acc for tag, (acc, _, _) in REFERENCE_NET.items()})
 NET_TICKS = 120  # the net benchmark's run (benchmarks/net_bench.py)
@@ -1692,16 +1715,18 @@ def parity_phase(dev):
 
 def left_to_right_views_trimmed_mean(views, mask, self_vals, b):
     """`ref.trimmed_mean_views` with the kept ranks summed left to right at
-    any W: the kernel's order, for exact checks above 64 slots."""
+    any W: the kernel's order, for exact checks above 64 slots (over the
+    experiment axis too: views ``[E, M, W, d]``, b an int or ``[E]``)."""
     mask = mask.bool()
-    count = mask.sum(dim=1)
+    count = mask.sum(dim=-1)
     b_eff = ref.effective_trim(b, count)
-    order = torch.sort(torch.where(mask[:, :, None], ref.sanitize(views), torch.inf), dim=1).values
+    order = torch.sort(torch.where(mask[..., None], ref.sanitize(views), torch.inf),
+                       dim=-2).values
     total = torch.zeros_like(self_vals)
-    for i in range(mask.shape[1]):
+    for i in range(mask.shape[-1]):
         keep = (i >= b_eff) & (i < count - b_eff)
-        total = total + torch.where(keep[:, None], order[:, i], 0.0)
-    return (total + self_vals) / (count - 2 * b_eff + 1).to(torch.float32)[:, None]
+        total = total + torch.where(keep[..., None], order[..., i, :], 0.0)
+    return (total + self_vals) / (count - 2 * b_eff + 1).to(torch.float32)[..., None]
 
 
 def views_bound(counts: np.ndarray, d: int, b: int) -> tuple[int, int, int]:
@@ -1839,7 +1864,7 @@ class HeldCalls:
         if missing := want - {name for name, *_ in self.calls}:
             raise AssertionError(f"{tag}: no call of {sorted(missing)} held")
         for name, i, args, out in self.calls:
-            if name == "views_trimmed_mean" and args[0].shape[1] > gather_screen.MAX_SLOTS:
+            if name == "views_trimmed_mean" and args[0].shape[-2] > gather_screen.MAX_SLOTS:
                 plain = left_to_right_views_trimmed_mean(*args)
             else:
                 plain = self.PLAIN[name](*args)
@@ -1849,7 +1874,8 @@ class HeldCalls:
                                ref_out)
         return "; ".join(
             f"{name} {tuple(args[0].shape)} at call {i}"
-            + (f" ({float(args[1].sum()) / args[1].shape[0]:.2f} usable views a node)"
+            + (f" ({float(args[1].sum()) * args[1].shape[-1] / args[1].numel():.2f} usable views "
+               f"a node)"
                if name != "dequant_carry" else "")
             for name, i, args, _ in self.calls)
 
@@ -2228,14 +2254,15 @@ def views_kb_phase(dev):
                                        held)
     for name, n in read_launches().items():
         launches[name] += n - before[name]
-    acc = task.eval_accuracy(state.params, trainer.honest_mask)
+    acc = net_check("net sparse krum", task, trainer, state, mets, ms_tick)
     net_parity("net sparse krum", cfg, net_task(SM, "cpu", num_train=16384, num_test=1000,
                                                 batch=8), dev)
     print(f"net sparse krum (small_world({SM}, {NEAREST}, 1), K = {k}, b = 1, alie, drop 0.05, "
           f"staleness 2, {SPARSE_K_TICKS} ticks): the {pairwise.batch_plan(SM, k + 1, D).body} "
-          f"body once a tick, {ms_tick:.3f} ms/tick, honest test accuracy {acc:.4f}, "
-          f"delivered_frac {float(mets['delivered_frac'].mean())!r}; 3 ticks on the card and "
-          f"the CPU agree on honest rows (rtol 1e-4, atol 1e-5)")
+          f"body once a tick, {ms_tick:.3f} ms/tick, honest test accuracy {acc:.4f} (the "
+          f"reference's {REFERENCE_ACCURACY['net sparse krum']:.4f}), channel means equal to "
+          f"the reference's; 3 ticks on the card and the CPU agree on honest rows (rtol 1e-4, "
+          f"atol 1e-5)")
     return records, launches
 
 
@@ -2501,6 +2528,253 @@ def grid_phase(dev):
     return records, read_launches()
 
 
+# ---------------------------------------------------------------------------
+# 19. Net-scenario grids
+# ---------------------------------------------------------------------------
+
+NET_GRID_TICKS = 30  # the dense net grids (a) and (b)
+SPARSE_NET_GRID_TICKS = 20  # the sparse net grid (c)
+# rule -> the views kernel a group of its cells launches once a tick
+VIEWS_OF = {"trimmed_mean": "views_screen_trimmed_mean", "median": "views_screen_median",
+            "bulyan": "views_screen_trimmed_mean"}
+
+
+def net_grid_want(engine, ticks: int) -> dict:
+    """The kernels of a net grid's run, per group and tick: BRIDGE-T / M's
+    views kernel once (the wide path above 63 slots), BRIDGE-K / B's
+    batched distance kernel once over the group's E M nodes (the body
+    `pairwise.batch_plan` picks) and Bulyan's views trimmed mean once."""
+    m = engine.grid.topology.num_nodes
+    w = engine.neighbors.k if engine.sparse else m
+    want: dict[str, int] = {}
+    for (rules, _), (lo, hi) in zip(engine._banks, engine._bounds, strict=True):
+        for rule in rules:
+            names = [dist_body((hi - lo) * m, w + 1)] if rule in ("krum", "bulyan") else []
+            if rule in VIEWS_OF:
+                names.append("screen_wide" if w > gather_screen.MAX_SLOTS else VIEWS_OF[rule])
+            for k in names:
+                want[k] = want.get(k, 0) + ticks
+    return want
+
+
+def _net_grid_run(tag, grid, task, dev, ticks, *, sparse=False):
+    """One net grid on the card: the engine's run, timed (each kernel once a
+    tick per group, counted; the views calls of two ticks held exactly
+    against their plain versions on the path's own operands), then every
+    cell's own trainer run over ``schedule_for(scenario)`` (sparse: on the
+    engine's union table), timed; each cell's parameters and key equal (the
+    shared ring may turn a -0.0 payload into +0.0, which torch.equal treats
+    alike), its delivered_frac and mean_staleness streams equal, its loss
+    stream bit for bit (else within rtol 1e-6, the cause printed).  Returns
+    the launches of the engine's run."""
+    batches = stack_batches(task.batch_fn, ticks, device=dev)
+    engine = GridEngine(grid, task.grad_fn, num_ticks=ticks, sparse=sparse, device=dev)
+    state0 = engine.init(task.init_fn)
+    e = engine.num_cells
+    ring = state0.net.nbytes()
+    before = read_launches()
+    with HeldCalls() as held:
+        held.start({ticks // 2, ticks - 1})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, metrics = engine.run(state0, batches)
+        torch.cuda.synchronize()
+        wall_grid = time.perf_counter() - t0
+        check_grew(f"net grid {tag}", before, net_grid_want(engine, ticks))
+        used = {HELD_ENTRIES[VIEWS_OF[r]] for r in engine.rule_bank if r in VIEWS_OF}
+        summary = held.check(f"net grid {tag}", used)
+    grew = {k: n - before[k] for k, n in read_launches().items() if n != before[k]}
+    del state0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = []
+    for cell in engine.cells:
+        spec = get_scenario(cell.scenario)
+        sched = engine.runtime.schedule_for(cell.scenario)
+        kw = dict(topology=grid.topology, rule=cell.rule, num_byzantine=cell.b,
+                  attack=cell.attack, lam=grid.lam, t0=grid.t0, byzantine_seed=cell.mask_seed)
+        if sparse:
+            rt = SparseUnreliableRuntime(sched, spec.channel, staleness_bound=spec.staleness_bound,
+                                         neighbors=engine.neighbors, device=dev)
+            tr = BridgeTrainer(BridgeConfig(**kw, sparse=True), task.grad_fn, runtime=rt,
+                               device=dev)
+        else:
+            tr = AsyncBridgeTrainer(AsyncBridgeConfig(**kw, channel=spec.channel,
+                                                      staleness_bound=spec.staleness_bound,
+                                                      schedule=sched), task.grad_fn, device=dev)
+        st = tr.init(task.init_fn(cell.seed), seed=cell.seed)
+        hist = []
+        for i in range(ticks):
+            st, m = tr.step(st, tuple(x[i] for x in batches))
+            hist.append(m)
+        streams = {k: torch.stack([h[k] for h in hist])
+                   for k in ("loss", "delivered_frac", "mean_staleness")}
+        seq.append((st, streams, tr.honest_mask))
+    torch.cuda.synchronize()
+    wall_seq = time.perf_counter() - t0
+    loss_note, accs = "bit for bit", []
+    for i, (cell, (st, streams, honest)) in enumerate(zip(engine.cells, seq, strict=True)):
+        for k in st.params:
+            if not torch.equal(final.params[k][i], st.params[k]):
+                diff = float((final.params[k][i] - st.params[k]).abs().max())
+                raise AssertionError(f"net grid {tag}: cell {cell.tag} ({k}) differs from its "
+                                     f"trainer run by up to {diff:.3g}")
+        if not np.array_equal(final.key[i], st.key):
+            raise AssertionError(f"net grid {tag}: cell {cell.tag}'s key differs")
+        for k in ("delivered_frac", "mean_staleness"):
+            if not torch.equal(metrics[k][i], streams[k]):
+                raise AssertionError(f"net grid {tag}: cell {cell.tag}'s {k} stream differs")
+        if not torch.equal(metrics["loss"][i], streams["loss"]):
+            torch.testing.assert_close(metrics["loss"][i], streams["loss"], rtol=1e-6, atol=0,
+                                       msg=f"net grid {tag}: cell {cell.tag}'s loss stream")
+            loss_note = ("within rtol 1e-6 (the loss sums over the nodes' margins round per "
+                         "batched reduction shape on the card)")
+        accs.append(task.eval_accuracy({k: v[i] for k, v in final.params.items()}, honest))
+    print(f"net grid {tag}: {e} cells x {ticks} ticks, {engine.num_steps_built} groups, "
+          f"scenarios {engine.scenario_bank}: every cell equal to its own trainer run on the card "
+          f"(parameters and key bit for bit up to the sign of a zero, delivered_frac and "
+          f"mean_staleness streams equal, loss stream {loss_note}); honest accuracy "
+          f"{min(accs):.4f}-{max(accs):.4f}; mailbox state {ring} bytes ({ring // e} a cell)")
+    if summary:
+        print(f"net grid {tag}: held exactly against the plain versions on the path's "
+              f"operands: {summary}")
+    print(f"net grid {tag} throughput: engine {wall_grid:.3f} s ({e / wall_grid:.2f} cells/s, "
+          f"{wall_grid / ticks * 1e3:.3f} ms/tick for all {e} cells); one by one through the "
+          f"trainer {wall_seq:.3f} s ({e / wall_seq:.2f} cells/s, "
+          f"{wall_seq / ticks / e * 1e3:.3f} ms/tick a cell); speedup "
+          f"{wall_seq / wall_grid:.2f}x")
+    return grew
+
+
+def views_experiment_records(dev) -> list:
+    """The views kernels with the experiment axis at the net grids' group
+    shapes: E = 44 cells of M = W = 20 (E M = 880 nodes) and E = 8 of
+    M = 512, K = 16 (4096), a usable mask a cell, per-cell b (1 and 2
+    alternating): one launch, exact against the plain version and each
+    cell bit for bit the one-cell kernel; timed beside the path it replaces
+    (one launch per distinct b over the cells of that b, their views
+    copied into [E_b M, W, d]), the plain version and, for the median,
+    ``torch.nanquantile``.  Records ``views_screen_*[E]`` at the dense
+    shape (their launches are the net grid engines', `net_grid_phase`
+    sets them)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    records = []
+    src = "src/repro_torch/kernels/csrc/views_screen.cu"
+    for tag, e, m, w in (("dense", 44, 20, 20), ("sparse", 8, SM, 16)):
+        views = torch.randn((e, m, w, D), generator=gen, device=dev)
+        views[0, 1, 2, 3], views[1, 0, 1] = float("nan"), float("inf")
+        views[2, 3, 0, :7] = 1e30
+        sv = torch.randn((e, m, D), generator=gen, device=dev)
+        mask = torch.rand((e, m, w), generator=gen, device=dev) < 0.6
+        mask[0, 0] = False  # a starved node
+        bs = [1 + (i % 2) for i in range(e)]
+        b_t = torch.tensor(bs, dtype=torch.int32, device=dev)
+        tm = lambda: views_screen.views_screen_trimmed_mean(views, mask, sv, b_t)  # noqa: E731
+        md = lambda: views_screen.views_screen_median(views, mask, sv)  # noqa: E731
+
+        def per_b():
+            """The replaced path: one launch per distinct b over the cells
+            of that b, their views stacked [E_b M, W, d] (a copy)."""
+            out = torch.empty_like(sv)
+            for b in sorted(set(bs)):
+                sel = torch.as_tensor([i for i in range(e) if bs[i] == b], device=dev)
+                y = views_screen.views_screen_trimmed_mean(
+                    views.index_select(0, sel).reshape(-1, w, D),
+                    mask.index_select(0, sel).reshape(-1, w), sv.index_select(0, sel).reshape(
+                        -1, D), b)
+                out.index_copy_(0, sel, y.reshape(-1, m, D))
+            return out
+
+        got_t, got_m = tm(), md()
+        exact_or_raise(f"views[E] {tag} trimmed mean", got_t,
+                       ref.trimmed_mean_views(views, mask, sv, b_t))
+        exact_or_raise(f"views[E] {tag} median", got_m, ref.median_views(views, mask, sv))
+        exact_or_raise(f"views[E] {tag} trimmed mean vs per b", got_t, per_b())
+        for i in range(e):
+            exact_or_raise(f"views[E] {tag} cell {i} trimmed mean vs the one-cell kernel",
+                           got_t[i], views_screen.views_screen_trimmed_mean(views[i], mask[i],
+                                                                          sv[i], bs[i]))
+            exact_or_raise(f"views[E] {tag} cell {i} median vs the one-cell kernel", got_m[i],
+                           views_screen.views_screen_median(views[i], mask[i], sv[i]))
+        counts = mask.sum(dim=-1).reshape(-1).cpu().numpy()
+        nbytes, _, med_ops = views_bound(counts, D, 0)
+        nbytes += e * m * w + 4 * e
+        tm_ops = D * sum(2 * batcher_pairs(int(c)) + int(c)
+                         - 2 * min(b, max((int(c) - 1) // 2, 0)) + 2
+                         for b, row in zip(bs, counts.reshape(e, m), strict=True) for c in row)
+        print(f"views[E] {tag} (E={e}, M={m}, W={w}, E M = {e * m} nodes, "
+              f"{counts.mean():.2f} usable views a node, b 1 and 2): trimmed mean one launch "
+              f"{cuda_ms(tm):.4f} ms against one launch per b over copied views "
+              f"{cuda_ms(per_b):.4f} ms; median {cuda_ms(md):.4f} ms")
+        if tag != "dense":
+            continue
+        full = torch.cat([torch.where(mask[..., None], views, torch.nan), sv[:, :, None]], dim=2)
+        for name, kern, plain, lib, ops in (
+            ("views_screen_trimmed_mean", tm, lambda: ref.trimmed_mean_views(views, mask, sv, b_t),
+             None, tm_ops),
+            ("views_screen_median", md, lambda: ref.median_views(views, mask, sv),
+             lambda: torch.nanquantile(full, 0.5, dim=2), med_ops),
+        ):
+            rec = record(f"{name}[E]", src, ("src/repro/kernels/trimmed_mean.py:109"
+                                             if "trimmed" in name else
+                                             "src/repro/kernels/median.py:87"),
+                         kern, plain, lib, nbytes, ops, max_abs_err(kern(), plain()))
+            rec["_counter"] = name
+            records.append(rec)
+        del full
+    print("library: the views trimmed mean has no single PyTorch call; the median's is "
+          "torch.nanquantile(q=0.5) over the masked [E, M, W+1, d] views and self")
+    return records
+
+
+def net_grid_phase(dev):
+    """Phase 19: the net-scenario grids on the card (the module docstring's
+    list), then the sweep's grid mode with scenarios into a temporary
+    store, twice; returns the views experiment-axis records and the
+    launches of the runs."""
+    records = views_experiment_records(dev)
+    zero_launches()
+    engine_launches: dict[str, int] = {}  # the engines' runs alone: the [E] forms
+
+    def grid_run(*args, **kw):
+        for k, n in _net_grid_run(*args, **kw).items():
+            engine_launches[k] = engine_launches.get(k, 0) + n
+
+    rules = ("trimmed_mean", "median")
+    # (a) the net benchmark's task over every scenario, one topology
+    task = net_task(20, dev, num_train=4000, num_test=800, batch=32)
+    grid = ExperimentGrid(default_topology(20, rules, (2,), seed=0), rules, ("alie",), (2,),
+                          (0, 1), scenarios=tuple(NET_SCENARIOS), lam=1.0, t0=30.0)
+    grid_run("dense (M=20, 11 scenarios)", grid, task, dev, NET_GRID_TICKS)
+    # (b) BRIDGE-K / BRIDGE-B: the batched distance kernel over E M nodes
+    kb = ("krum", "bulyan")
+    grid = ExperimentGrid(default_topology(20, kb, (1, 2), seed=0), kb, ("alie",), (1, 2), (0,),
+                          scenarios=("ideal", "lossy"), lam=1.0, t0=30.0)
+    grid_run("K/B (M=20)", grid, task, dev, NET_GRID_TICKS)
+    # (c) the sparse runtime at the scale setting, one union table
+    task = net_task(SM, dev, num_train=16384, num_test=1000, batch=8)
+    grid = ExperimentGrid(small_world(SM, NEAREST, 1, rewire_prob=0.2, seed=0), rules, ("alie",),
+                          (1,), (0, 1), scenarios=("lossy", "lossy_laggy"), lam=1.0, t0=100.0)
+    grid_run(f"sparse (M={SM})", grid, task, dev, SPARSE_NET_GRID_TICKS, sparse=True)
+    # the sweep's grid mode with scenarios, into a temporary store, twice
+    with tempfile.TemporaryDirectory() as store:
+        args = ["--mode", "grid", "--out", store, "--scenarios", "ideal,lossy", "--grid-ticks",
+                "10"]
+        res = sweep.main(args)
+        if res is None or len(res.cells) != 8 or any(r["scenario"] is None for r in res.cells):
+            raise AssertionError("sweep --mode grid --scenarios: expected 8 net cells computed")
+        if sweep.main(args) is not None:
+            raise AssertionError("sweep --mode grid --scenarios: the second run recomputed cells")
+        accs = ", ".join(f"{r['accuracy']:.4f}" for r in res.cells)
+        print(f"sweep --mode grid --scenarios ideal,lossy on the card: 8 cells (accuracy "
+              f"{accs}), the second run found every cell cached")
+    for rec in records:
+        rec["launches"] = engine_launches.get(rec.pop("_counter"), 0)
+    print(f"launches of the net grid engines' runs (the [E] forms): {engine_launches}")
+    return records, read_launches()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2536,7 +2810,7 @@ def main() -> int:
         phase_launches[phase.__name__] = phase(dev)
         print(f"({phase.__name__}: {time.perf_counter() - t0:.1f} s)")
     # this slice's paths: each phase's kernel records, then its runs
-    for phase in (views_kb_phase, grid_phase):
+    for phase in (views_kb_phase, grid_phase, net_grid_phase):
         t0 = time.perf_counter()
         phase_records, phase_launches[phase.__name__] = phase(dev)
         records += phase_records

@@ -5,7 +5,8 @@ The reference's checkpoint format (`repro.checkpoint.msgpack_ckpt`) needs
 caller hands over the state as numpy arrays: each leaf of the reference's
 ``state.params``, its ``state.key`` and, for a lossy codec, its
 ``state.comm`` carry; for the batched grids the stacked state of the
-reference's ``GridEngine`` (`grid_state_from_jax`).
+reference's ``GridEngine`` (`grid_state_from_jax`, a net grid's stacked
+mailboxes included).
 """
 from __future__ import annotations
 
@@ -55,19 +56,31 @@ def state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,
 
 
 def grid_state_from_jax(params_np: Mapping[str, np.ndarray], t, keys, *,
+                        net: tuple[np.ndarray, ...] | None = None,
                         device: str | torch.device = "cuda") -> BridgeState:
     """A `repro_torch.sim.GridEngine` state from the reference's
     ``GridEngine`` state: its stacked ``[E, M, ...]`` parameters, its tick
     (``[E]``, one value every cell shares, or an int) and its ``[E, 2]``
-    keys (``np.asarray(jax_state.key)``), in the engine's cell order."""
+    keys (``np.asarray(jax_state.key)``), in the engine's cell order; for a
+    net grid ``net``, its stacked ``MailboxState`` (the five arrays in
+    order, ``[E, M, W, ...]``, the ticks int32)."""
     ticks = np.unique(np.asarray(t))
     if ticks.size != 1:
         raise ValueError(f"the port's grid cells share one tick, got {ticks.tolist()}")
     keys = np.asarray(keys, dtype=np.uint32)
     if keys.ndim != 2 or keys.shape[1] != 2:
         raise ValueError(f"grid keys are [E, 2] uint32, got {keys.shape}")
+    mailbox = None
+    if net is not None:
+        dev = resolve_device(device)
+        mailbox = MailboxState(*(torch.as_tensor(np.array(x, copy=True), device=dev)
+                                 for x in net))
+        if mailbox.send_tick.dtype != torch.int32 or mailbox.values.shape[0] != keys.shape[0]:
+            raise ValueError(f"a net grid's mailboxes are [E={keys.shape[0]}, M, W, ...] with "
+                             f"int32 ticks, got {tuple(mailbox.values.shape)} "
+                             f"{mailbox.send_tick.dtype}")
     return BridgeState(params=params_from_jax(params_np, device=device), t=int(ticks[0]),
-                       key=keys.copy())
+                       key=keys.copy(), net=mailbox)
 
 
 def byrdie_state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,

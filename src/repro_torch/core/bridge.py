@@ -29,20 +29,22 @@ Every random number comes from the reference's Threefry streams
 (`repro_torch.prng`), so a seeded run follows the seeded reference run.
 
 With ``runtime=`` (`repro_torch.net`) the tick is the reference's
-network-runtime iteration (``build_cell_runtime_step``): the attack crafts
+network-runtime iteration (`build_cell_runtime_step`): the attack crafts
 per-link messages (`byzantine.MessageAttack`), a lossy codec encodes each
 link under its own keys ``fold_in(key, edge_id)`` with an ``[M, W, d]``
 carry that advances on the tick's live edges only, the runtime moves the
 messages (``exchange``), every node screens its mailbox views with
-`screening.screen_views` (the views kernels on the card), and a node with
-fewer usable views than its rule's Table-II minimum keeps its own value.
+`screening.screen_views_banked` (the views kernels on the card), and a
+node with fewer usable views than its rule's Table-II minimum keeps its
+own value.
 
-The synchronous tick is `build_cell_step`'s step, as in the reference: it
-takes stacked cells (`CellParams`: rule and attack chosen from static
-banks, ``b``, the Byzantine masks and the step-size schedule per cell) and
-state ``[E, M, ...]``, and `BridgeTrainer.step` is its E = 1 call with the
-trainer's one constant cell.  The batched grids
-(`repro_torch.sim.engine`) run the same step over many cells: every
+Both ticks are the reference's cell steps: `build_cell_step` (synchronous)
+and `build_cell_runtime_step` (through a runtime) take stacked cells
+(`CellParams`: rule and attack chosen from static banks, ``b``, the
+Byzantine masks and the step-size schedule per cell, on a net grid the
+scenario) and state ``[E, M, ...]``, and `BridgeTrainer.step` is their
+E = 1 call with the trainer's one constant cell.  The batched grids
+(`repro_torch.sim.engine`) run the same steps over many cells: every
 screening kernel then launches once a tick for all of them.
 
 PyTorch runs eagerly, so the reference's ``jit``/``scan`` machinery has no
@@ -68,13 +70,16 @@ from repro_torch.device import resolve_device
 Params = dict[str, torch.Tensor]
 
 # Salts decorrelating the streams folded from one tick's subkey (the
-# reference's `repro.core.bridge` constants; the port uses COMM_SALT and
+# reference's `repro.core.bridge` constants; the port uses NET_SALT, COMM_SALT and
 # WIRE_SALT).
 NET_SALT = 0x6E657430
 COMM_SALT = 0x636D6D30
 WIRE_SALT = 0x77697230
 ADV_SALT = 0x61647630
 TRUST_SALT = 0x74727530
+
+GRID_CODECS = ("a lossy codec or a wire attack over more than one cell: codecs and wire "
+               "attacks on the grid are ROADMAP Queue 1 item 11's next step (open item 2)")
 
 
 class BridgeState(NamedTuple):
@@ -101,10 +106,11 @@ def cell_step_size(lam, t0, lr, t: int):
 class CellParams(NamedTuple):
     """The switchable parameters of E stacked cells (the reference's
     ``CellParams`` rows): the rule and the attack as indices into the step's
-    static banks, the Byzantine bound and step-size schedule per cell, and
-    the ``[E, M]`` Byzantine masks on the device.  Indices, bounds and
-    schedules stay on the host, where they pick the banks' branches and the
-    step size without reading the card."""
+    static banks, the Byzantine bound and step-size schedule per cell, the
+    ``[E, M]`` Byzantine masks on the device and, on a net grid, each
+    cell's network scenario as an index into the runtime's bank.  Indices,
+    bounds and schedules stay on the host, where they pick the banks'
+    branches and the step size without reading the card."""
 
     rule_idx: tuple[int, ...]
     attack_idx: tuple[int, ...]
@@ -113,6 +119,7 @@ class CellParams(NamedTuple):
     lam: tuple[float, ...]
     t0: tuple[float, ...]
     lr: tuple[float, ...]
+    scenario_idx: tuple[int, ...] = ()  # empty off a net grid
 
     @property
     def num_cells(self) -> int:
@@ -124,7 +131,8 @@ class CellParams(NamedTuple):
         pick = lambda xs: tuple(xs[i] for i in cells)
         mask = self.byz_mask.index_select(0, torch.as_tensor(cells, device=self.byz_mask.device))
         return CellParams(pick(self.rule_idx), pick(self.attack_idx), pick(self.b), mask,
-                          pick(self.lam), pick(self.t0), pick(self.lr))
+                          pick(self.lam), pick(self.t0), pick(self.lr),
+                          pick(self.scenario_idx) if self.scenario_idx else ())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,9 +306,7 @@ def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str
         w_hat = w_bcast
         if wired:
             if e != 1:
-                raise NotImplementedError(
-                    "a lossy codec or a wire attack over more than one cell: codecs and wire "
-                    "attacks on the grid are ROADMAP Queue 1 item 11's next step")
+                raise NotImplementedError(GRID_CODECS)
             with torch.profiler.record_function("bridge.codec"):
                 x_hat, comm = wire_roundtrip(codec, wire_attack, sub[0], w_bcast[0], state.comm,
                                              cell.byz_mask[0], state.t)
@@ -350,6 +356,142 @@ def codeword_roundtrip(codec, wire_attack, comm_key, wire_key, x: torch.Tensor, 
                            zero_folded=not wire_attack.rewrites_scale)
 
 
+def link_roundtrip(codec, wire_attack, sub: np.ndarray, x: torch.Tensor, comm,
+                   byz_link: torch.Tensor, t: int, edge_ids: torch.Tensor):
+    """`wire_roundtrip` per link: the ``[M, W, d]`` messages flattened to
+    ``[M W, d]`` rows, each encoded, attacked and decoded under its edge's
+    keys ``fold_in(comm_key, edge_id)`` and ``fold_in(wire_key, edge_id)``
+    (the reference's ``vmap`` over the edges), so the dense and the sparse
+    layouts draw the same codewords on matching edges."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    ids = edge_ids.reshape(-1)
+    keys = [prng.fold_in(prng.fold_in(sub, salt), ids) for salt in (COMM_SALT, WIRE_SALT)]
+    carry = None if comm is None else exchange.CommState(*(a.reshape(-1, d) for a in comm))
+    x_hat, carry = codeword_roundtrip(codec, wire_attack, *keys, x.reshape(-1, d), carry,
+                                      byz_link.reshape(-1), t)
+    unrows = lambda a: a.reshape(*lead, d)
+    return unrows(x_hat), (None if carry is None
+                           else exchange.CommState(*(unrows(a) for a in carry)))
+
+
+def _need(counts: np.ndarray, device) -> int | torch.Tensor:
+    """The Table-II minimums ``[E]`` against usable counts ``[E, M]``: an
+    int when every cell shares it, else an ``[E, 1]`` tensor (made once per
+    distinct tuple, `screening.bound_arg`)."""
+    arg = screening.bound_arg(tuple(int(c) for c in counts), device)
+    return arg if isinstance(arg, int) else arg[:, None]
+
+
+def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
+                            message_attacks, *, codec=None, wire_attack=None):
+    """The network-runtime iteration over stacked cells: ``step(cell,
+    state, batch) -> (state, metrics)``, the reference's
+    ``build_cell_runtime_step`` with a rule bank ``rules`` and a bank of
+    `byzantine.MessageAttack`s.
+
+    ``state`` holds ``params`` ``[E, M, ...]``, the tick ``t`` all cells
+    share, ``key`` the cells' host row keys ``[E, 2]`` and ``net`` the
+    runtime's state with a leading ``[E]`` axis.  The stages and keys are
+    the reference's: ``key, sub = split(key)``; per-link messages and the
+    self-views (`byzantine.messages_and_self_bank`, under ``sub``); the
+    exchange under ``fold_in(sub, NET_SALT)``; every node screens its
+    views (`screening.screen_views_banked`: the views kernels with the
+    experiment axis on the card, one launch a rule for all the cells), and
+    a node short of its rule's Table-II minimum keeps its own value; then
+    the local gradient step.  The metrics are ``[E]``, the runtime's stats
+    included.
+
+    A runtime with ``cell_aware = True`` (`repro_torch.sim.engine.GridNetRuntime`)
+    gets the cells, so it can pick each cell's scenario: ``adjacency_at(t,
+    cell)`` and ``exchange(..., cell)``; the others keep their contract,
+    one live mask for every cell.
+
+    ``codec`` and ``wire_attack`` (the trainer's one cell) run the per-link
+    codec stage for E = 1, the carry ``state.comm`` being that cell's
+    ``[M, W, d]``; over more cells they raise (ROADMAP Queue 1 item 11,
+    codecs on the grid).
+    """
+    codec = codec_lib.get_codec("identity") if codec is None else codec
+    wire_attack = byzantine.WIRE_ATTACKS["none"] if wire_attack is None else wire_attack
+    wired = not (codec.lossless and wire_attack.name == "none")
+    cell_aware = bool(getattr(runtime, "cell_aware", False))
+    nbr = getattr(runtime, "neighbors", None)
+
+    def link_codec(sub, msgs, comm, adj_t, byz, t):
+        """The codec per link of the one cell; a link's carry advances only
+        for messages put on the wire this tick (live edges; channel drops
+        are downstream)."""
+        m = msgs.shape[0]
+        if nbr is not None:
+            byz_link, ids = nbr.gather_senders(byz, fill=False), nbr.edge_ids
+        else:
+            byz_link = byz[None, :].expand(m, m)
+            ids = torch.as_tensor(edge_id_grid(m), device=msgs.device)
+        x_hat, new = link_roundtrip(codec, wire_attack, sub, msgs, comm, byz_link, t, ids)
+        if comm is not None and new is not comm:
+            new = exchange.CommState(*(torch.where(adj_t[:, :, None], a, b)
+                                       for a, b in zip(new, comm, strict=True)))
+        return x_hat, new
+
+    def step(cell: CellParams, state: BridgeState, batch) -> tuple[BridgeState, dict]:
+        w, unflatten = stack_flatten(state.params, lead=2)
+        e, m, d = w.shape
+        keys = prng.split(state.key)  # [E, 2, 2] on the host
+        key, sub = keys[:, 0], keys[:, 1]
+        # the tick's live mask: [M, W] (or [E, M, W], one a cell); W = M
+        # dense, the table's K sparse
+        adj_t = runtime.adjacency_at(state.t, cell) if cell_aware else runtime.adjacency_at(state.t)
+        # (Steps 3-4) per-link messages with Byzantine substitution; nodes
+        # screen with the value they broadcast (a message-only attack: the
+        # true iterate)
+        with torch.profiler.record_function("bridge.attack"):
+            msgs, w_self = byzantine.messages_and_self_bank(
+                message_attacks, cell.attack_idx, w, cell.byz_mask, adj_t, sub, state.t, nbr)
+        comm = state.comm
+        if wired:
+            if e != 1:
+                raise NotImplementedError(GRID_CODECS)
+            with torch.profiler.record_function("bridge.codec"):
+                x_hat, comm = link_codec(sub[0], msgs[0], state.comm,
+                                         adj_t[0] if adj_t.ndim == 3 else adj_t,
+                                         cell.byz_mask[0], state.t)
+                msgs = x_hat[None]
+        with torch.profiler.record_function("bridge.exchange"):
+            args = (state.net, msgs, w_self, adj_t, draw_key(prng.fold_in(sub, NET_SALT)),
+                    state.t)
+            kw = {"wire_bits": codec.wire_bits(d)}
+            net, views, mask, net_stats = (runtime.exchange(*args, cell, **kw) if cell_aware
+                                           else runtime.exchange(*args, **kw))
+        # (Step 5) screening over the usable views; a node short of its
+        # rule's Table-II minimum keeps its own value this tick
+        with torch.profiler.record_function("bridge.screen"):
+            y_rule = screening.screen_views_banked(views, mask, w_self, rules, cell.rule_idx,
+                                                   cell.b)
+            need = screening.min_neighbors_banked(rules, cell.rule_idx, cell.b)
+            enough = mask.sum(dim=-1) >= _need(need, w.device)
+            y = torch.where(enough[..., None], y_rule, w_self)
+        # (Step 6) local gradient step at w_j(t)
+        with torch.profiler.record_function("bridge.apply"):
+            losses, grads = grad_fn(state.params, batch)
+            g, _ = stack_flatten(grads, lead=2)
+            rho = cell_step_size(cell.lam, cell.t0, cell.lr, state.t)
+            w_new = y - _per_cell(rho, w.device) * g
+            live = torch.sum(adj_t, dim=(-2, -1)).to(torch.float32).expand(e)
+            metrics = cell_metrics(w_new, losses, ~cell.byz_mask, rho,
+                                   float(codec.wire_bits(d)), live, comm)
+        metrics.update(net_stats)
+        metrics["screened_frac"] = torch.mean(enough.to(torch.float32), dim=-1)
+        return BridgeState(unflatten(w_new), state.t + 1, key, comm, net), metrics
+
+    return step
+
+
+def _cells(net, fn):
+    """``fn`` over every tensor of a runtime state (a NamedTuple of them,
+    or None): adds or drops the cells' axis."""
+    return None if net is None else type(net)(*(fn(x) for x in net))
+
+
 def _one_cell(grad_fn: Callable) -> Callable:
     """A trainer's ``grad_fn`` (over ``[M, ...]``) as the cell step calls it,
     over one cell's ``[1, M, ...]``."""
@@ -395,10 +537,9 @@ class BridgeTrainer:
         else:
             self._check_runtime(runtime)
             self.message_attack = byzantine.get_message_attack(config.attack)
-            nbr = getattr(runtime, "neighbors", None)
-            m = config.topology.num_nodes
-            self._edge_ids = (nbr.edge_ids if nbr is not None else torch.as_tensor(
-                edge_id_grid(m), device=self.device))
+            self._cell_step = build_cell_runtime_step(
+                _one_cell(grad_fn), runtime, (config.rule,), (self.message_attack,),
+                codec=self.codec, wire_attack=self.wire_attack)
         self.byz_mask = byzantine.byzantine_nodes(config.topology.num_nodes, config.num_byzantine,
                                                   config.attack, config.byzantine_seed, self.device)
         self.cell = CellParams((0,), (0,), (config.num_byzantine,), self.byz_mask[None],
@@ -450,96 +591,20 @@ class BridgeTrainer:
         return exchange.init_residual((m, link, dim), self.codec, device=self.device)
 
     def step(self, state: BridgeState, batch: Any) -> tuple[BridgeState, dict]:
-        """One tick: on the synchronous path `build_cell_step`'s step over
-        the trainer's one cell (E = 1).  The metrics are 0-d tensors on the
+        """One tick: `build_cell_step`'s step (synchronous) or
+        `build_cell_runtime_step`'s (through the runtime) over the
+        trainer's one cell (E = 1).  The metrics are 0-d tensors on the
         device (reading one waits for the tick) and Python floats for the
         static quantities."""
-        if self.runtime is not None:
-            return self._runtime_step(state, batch)
         one = BridgeState({k: v[None] for k, v in state.params.items()}, state.t,
-                          np.asarray(state.key, np.uint32)[None], state.comm)
+                          np.asarray(state.key, np.uint32)[None], state.comm,
+                          _cells(state.net, lambda x: x[None]))
         new, metrics = self._cell_step(self.cell, one, batch)
         metrics = {k: (v[0] if isinstance(v, torch.Tensor) and v.ndim else
                        float(v[0]) if isinstance(v, np.ndarray) else v)
                    for k, v in metrics.items()}
         return BridgeState({k: v[0] for k, v in new.params.items()}, new.t, new.key[0],
-                           new.comm), metrics
-
-    def _apply(self, state: BridgeState, batch, y: torch.Tensor, d: int, comm,
-               live_edges) -> tuple[torch.Tensor, dict]:
-        """(Step 6) the local gradient step at w_j(t) from the screened
-        ``y``, and the tick's metrics."""
-        losses, grads = self.grad_fn(state.params, batch)
-        g, _ = stack_flatten(grads)
-        rho = self.config.step_size(state.t)
-        w_new = y - rho * g
-        return w_new, self._metrics(w_new, losses, rho, d, comm, live_edges)
-
-    def _runtime_step(self, state: BridgeState, batch: Any) -> tuple[BridgeState, dict]:
-        """One tick through the runtime (the reference's
-        ``build_cell_runtime_step`` without adversary, trust, trace or
-        metric ring)."""
-        cfg, rt = self.config, self.runtime
-        w, unflatten = stack_flatten(state.params)
-        m, d = w.shape
-        keys = prng.split(state.key)
-        key, sub = keys[0], keys[1]
-        adj_t = rt.adjacency_at(state.t)  # [M, M] dense, the [M, K] live slots sparse
-        nbr = getattr(rt, "neighbors", None)
-        # (Steps 3-4) per-link messages with Byzantine substitution; nodes
-        # screen with the value they broadcast (a message-only attack: the
-        # true iterate)
-        with torch.profiler.record_function("bridge.attack"):
-            msgs, w_self = byzantine.messages_and_self(self.message_attack, w, self.byz_mask,
-                                                        adj_t, sub, state.t, nbr)
-        # the codec per link; a link's carry advances only for messages put
-        # on the wire this tick (live edges; channel drops are downstream)
-        with torch.profiler.record_function("bridge.codec"):
-            if nbr is not None:
-                byz_link = nbr.gather_senders(self.byz_mask, fill=False)
-            else:
-                byz_link = self.byz_mask[None, :].expand(m, m)
-            msgs_hat, comm = self._link_roundtrip(sub, msgs, state.comm, byz_link, state.t)
-            if state.comm is not None and comm is not state.comm:
-                comm = exchange.CommState(*(torch.where(adj_t[:, :, None], new, old)
-                                            for new, old in zip(comm, state.comm, strict=True)))
-        with torch.profiler.record_function("bridge.exchange"):
-            net, views, mask, net_stats = rt.exchange(
-                state.net, msgs_hat, w_self, adj_t, prng.fold_in(sub, NET_SALT), state.t,
-                wire_bits=self.codec.wire_bits(d))
-        # (Step 5) screening over the usable views; a node short of its
-        # rule's Table-II minimum keeps its own value this tick
-        with torch.profiler.record_function("bridge.screen"):
-            y_rule = screening.screen_views(views, mask, w_self, rule=cfg.rule,
-                                            b=cfg.num_byzantine)
-            enough = mask.sum(dim=1) >= screening.min_neighbors(cfg.rule, cfg.num_byzantine)
-            y = torch.where(enough[:, None], y_rule, w_self)
-        with torch.profiler.record_function("bridge.apply"):
-            w_new, metrics = self._apply(state, batch, y, d, comm,
-                                         torch.sum(adj_t).to(torch.float32))
-        metrics.update(net_stats)
-        metrics["screened_frac"] = torch.mean(enough.to(torch.float32))
-        return BridgeState(unflatten(w_new), state.t + 1, key, comm, net), metrics
-
-    def _link_roundtrip(self, sub: np.ndarray, x: torch.Tensor, comm, byz_link: torch.Tensor,
-                        t: int):
-        """`wire_roundtrip` per link: the ``[M, W, d]`` messages flattened
-        to ``[M W, d]`` rows, each encoded, attacked and decoded under its
-        edge's keys ``fold_in(comm_key, edge_id)`` and
-        ``fold_in(wire_key, edge_id)`` (the reference's ``vmap`` over the
-        edges), so the dense and the sparse layouts draw the same codewords
-        on matching edges."""
-        if self.codec.lossless and self.wire_attack.name == "none":
-            return x, comm
-        lead, d = x.shape[:-1], x.shape[-1]
-        ids = self._edge_ids.reshape(-1)
-        keys = [prng.fold_in(prng.fold_in(sub, salt), ids) for salt in (COMM_SALT, WIRE_SALT)]
-        carry = None if comm is None else exchange.CommState(*(a.reshape(-1, d) for a in comm))
-        x_hat, carry = codeword_roundtrip(self.codec, self.wire_attack, *keys, x.reshape(-1, d),
-                                          carry, byz_link.reshape(-1), t)
-        unrows = lambda a: a.reshape(*lead, d)
-        return unrows(x_hat), (None if carry is None
-                               else exchange.CommState(*(unrows(a) for a in carry)))
+                           new.comm, _cells(new.net, lambda x: x[0])), metrics
 
     def _wire_roundtrip(self, sub: np.ndarray, x: torch.Tensor, comm, t: int):
         """The synchronous tick's wire stage (`wire_roundtrip`) over the
@@ -549,13 +614,6 @@ class BridgeTrainer:
         if self.codec.lossless and self.wire_attack.name == "none":
             return x, comm
         return wire_roundtrip(self.codec, self.wire_attack, sub, x, comm, self.byz_mask, t)
-
-    def _metrics(self, w_new: torch.Tensor, losses: torch.Tensor, rho: float, d: int,
-                 comm, live_edges) -> dict:
-        """The reference's diagnostics over honest nodes, plus the codec's
-        wire accounting over the live edges and its residual norm."""
-        return cell_metrics(w_new, losses, self.honest_mask, rho, float(self.codec.wire_bits(d)),
-                            live_edges, comm)
 
     def run(self, state: BridgeState, batch_fn: Callable[[int], Any], num_steps: int,
             eval_fn: Callable | None = None, eval_every: int = 0) -> tuple[BridgeState, list[dict]]:

@@ -25,6 +25,12 @@ per-link tensor ``msgs[receiver, sender]``, ``[M, M, d]`` on the dense
 layout or ``[M, K, d]`` through a `NeighborTable`, the latter the exact
 gather of the former.  A lifted broadcast attack sends every receiver its
 broadcast row; ``selective_victim`` lies only to low in-degree receivers.
+The message tier takes the grids' experiment axis too (``w [E, M, d]``,
+``byz_mask [E, M]``, a live mask every cell shares or one a cell, ``[E, M,
+M]`` or ``[E, M, K]``, and the cells' row keys): each cell's messages are
+its own call's, ``selective_victim``'s in-degrees counted on the cell's
+own live edges.  `apply_message_attack_bank` and its sparse and self-view
+twins pick the attack per cell from a static bank, as the reference's do.
 
 A wire attack (`WireAttack`) corrupts the encoded codeword instead
 (`repro_torch.comm.codec.WireMsg`), after honest encoding and before
@@ -142,20 +148,22 @@ def lift_broadcast_attack(attack: Attack) -> MessageAttack:
 
     def fn(w, byz_mask, adjacency, key, t):
         w_bcast = attack(w, byz_mask, key, t)
-        return w_bcast[None].expand(w.shape[0], *w.shape)
+        m = w.shape[-2]
+        return w_bcast[..., None, :, :].expand(*w.shape[:-2], m, m, w.shape[-1])
 
     def sparse_fn(w, byz_mask, nbr, live, key, t):
-        return nbr.gather_rows(attack(w, byz_mask, key, t))
+        return nbr.gather_rows(attack(w, byz_mask, key, t), lead=w.ndim - 2)
 
     return MessageAttack(attack.name, fn, broadcast=attack, sparse_fn=sparse_fn)
 
 
 def _median_of_counts(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.median`` of an integer vector: the mean of the two middle
-    values for an even count (``torch.median`` would return the lower)."""
-    s = torch.sort(x.to(torch.float32)).values
-    n = s.shape[0]
-    return 0.5 * (s[(n - 1) // 2] + s[n // 2])
+    """``jnp.median`` of an integer vector ``[..., M]`` (one a cell): the
+    mean of the two middle values for an even count (``torch.median``
+    would return the lower); ``[..., 1]``."""
+    s = torch.sort(x.to(torch.float32), dim=-1).values
+    n = s.shape[-1]
+    return 0.5 * (s[..., (n - 1) // 2:(n - 1) // 2 + 1] + s[..., n // 2:n // 2 + 1])
 
 
 def _selective_victim(z: float = 1.5):
@@ -165,21 +173,25 @@ def _selective_victim(z: float = 1.5):
     tick's adjacency."""
 
     def crafted_and_victims(w, byz_mask, in_deg):
+        """The crafted row ``[..., 1, 1, d]`` and the victims ``[..., M]``
+        of each cell (``w [..., M, d]``, ``in_deg [..., M]``)."""
         honest = ~byz_mask
         mu, cnt = _honest_mean(w, honest)
-        var = torch.sum(torch.where(honest[:, None], (w - mu) ** 2, 0.0), dim=0) / cnt
-        return mu + z * torch.sqrt(var + 1e-12), in_deg <= _median_of_counts(in_deg)
+        var = torch.sum(torch.where(honest[..., None], (w - mu[..., None, :]) ** 2, 0.0),
+                        dim=-2) / cnt
+        crafted = mu + z * torch.sqrt(var + 1e-12)
+        return crafted[..., None, None, :], in_deg <= _median_of_counts(in_deg)
 
     def fn(w, byz_mask, adjacency, key, t):
-        crafted, victim = crafted_and_victims(w, byz_mask, adjacency.sum(dim=1))
-        lie_edge = victim[:, None] & byz_mask[None, :]  # [receiver, sender]
-        return torch.where(lie_edge[:, :, None], crafted, w[None])
+        crafted, victim = crafted_and_victims(w, byz_mask, adjacency.sum(dim=-1))
+        lie_edge = victim[..., :, None] & byz_mask[..., None, :]  # [receiver, sender]
+        return torch.where(lie_edge[..., None], crafted, w[..., None, :, :])
 
     def sparse_fn(w, byz_mask, nbr, live, key, t):
         # in-degrees from the live slots are the dense row sums exactly
-        crafted, victim = crafted_and_victims(w, byz_mask, live.sum(dim=1))
-        lie_edge = victim[:, None] & nbr.gather_senders(byz_mask, fill=False)
-        return torch.where(lie_edge[:, :, None], crafted, nbr.gather_rows(w))
+        crafted, victim = crafted_and_victims(w, byz_mask, live.sum(dim=-1))
+        lie_edge = victim[..., :, None] & nbr.gather_senders(byz_mask, fill=False)
+        return torch.where(lie_edge[..., None], crafted, nbr.gather_rows(w, lead=w.ndim - 2))
 
     return fn, sparse_fn
 
@@ -227,6 +239,70 @@ def messages_and_self(attack: MessageAttack, w, byz_mask, adj_t, key, t, nbr=Non
     if nbr is not None:
         return apply_sparse_message_attack(attack, w, byz_mask, nbr, adj_t, key, t), w_self
     return apply_message_attack(attack, w, byz_mask, adj_t, key, t), w_self
+
+
+def _cell_key(keys: np.ndarray):
+    """One cell's host key (``[2]``: the trainer's draw) or the cells' host
+    row keys ``[E, 2]`` (row e drawn under key e)."""
+    return keys[0] if keys.shape[0] == 1 else keys
+
+
+def _per_attack(bank, attack_idx, w, byz_mask, adjacency, keys, run):
+    """``run(attack, w, byz_mask, adjacency, key)`` once per bank entry over
+    the cells ``[E, ...]`` that chose it, the outputs scattered back (one
+    attack for all: a single call, its outputs kept as they come, a
+    receiver stride of 0 included)."""
+    idx = np.asarray(attack_idx, np.int64).reshape(-1)
+    used = sorted(set(idx.tolist()))
+    if len(used) == 1:
+        return run(bank[used[0]], w, byz_mask, adjacency, _cell_key(keys))
+    outs = None
+    for a in used:
+        cells = np.nonzero(idx == a)[0]
+        sel = torch.as_tensor(cells, device=w.device)
+        adj = (adjacency.index_select(0, sel) if adjacency is not None and adjacency.ndim == 3
+               else adjacency)
+        got = run(bank[a], w.index_select(0, sel), byz_mask.index_select(0, sel), adj,
+                  _cell_key(keys[cells]))
+        if outs is None:
+            outs = tuple(torch.empty((w.shape[0], *g.shape[1:]), dtype=g.dtype,
+                                     device=g.device) for g in got)
+        for out, g in zip(outs, got, strict=True):
+            out.index_copy_(0, sel, g)
+    return outs
+
+
+def apply_message_attack_bank(bank, attack_idx, w, byz_mask, adjacency, keys, t):
+    """Each cell's dense per-link messages ``[E, M, M, d]`` from its entry
+    of the static ``bank`` (``attack_idx [E]``, host indices): ``w [E, M,
+    d]``, ``byz_mask [E, M]``, ``adjacency`` ``[M, M]`` or ``[E, M, M]``,
+    ``keys`` the cells' host row keys ``[E, 2]``."""
+    return _per_attack(bank, attack_idx, w, byz_mask, adjacency, keys,
+                       lambda a, w_, bm, adj, k: (apply_message_attack(a, w_, bm, adj, k, t),))[0]
+
+
+def apply_sparse_message_attack_bank(bank, attack_idx, w, byz_mask, nbr, live, keys, t):
+    """The ``[E, M, K, d]`` twin of `apply_message_attack_bank` through the
+    table (``live`` ``[M, K]`` or ``[E, M, K]``)."""
+    return _per_attack(bank, attack_idx, w, byz_mask, live, keys,
+                       lambda a, w_, bm, lv, k: (apply_sparse_message_attack(
+                           a, w_, bm, nbr, lv, k, t),))[0]
+
+
+def apply_self_view_bank(bank, attack_idx, w, byz_mask, keys, t):
+    """Each cell's self-view ``[E, M, d]`` (`apply_self_view` of its bank
+    entry)."""
+    return _per_attack(bank, attack_idx, w, byz_mask, None, keys,
+                       lambda a, w_, bm, _, k: (apply_self_view(a, w_, bm, k, t),))[0]
+
+
+def messages_and_self_bank(bank, attack_idx, w, byz_mask, adj_t, keys, t, nbr=None):
+    """`messages_and_self` of each cell's bank entry over stacked cells:
+    ``(msgs [E, M, W, d], w_self [E, M, d])``, each cell's pair bit for
+    bit its own call's (`apply_message_attack_bank`,
+    `apply_sparse_message_attack_bank` and `apply_self_view_bank`)."""
+    return _per_attack(bank, attack_idx, w, byz_mask, adj_t, keys,
+                       lambda a, w_, bm, adj, k: messages_and_self(a, w_, bm, adj, k, t, nbr))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -99,19 +99,23 @@ class NeighborTable:
         return live & self.valid[None]
 
     def gather_edges(self, mat: torch.Tensor, fill=None) -> torch.Tensor:
-        """``mat [M, M] -> [M, K]``: slot (j, k) holds ``mat[j, idx[j, k]]``;
+        """``mat [..., M, M] -> [..., M, K]``: slot (j, k) holds
+        ``mat[..., j, idx[j, k]]`` (a leading axis: the grids' cells);
         ``fill`` replaces padded slots (None leaves the gathered value)."""
-        out = torch.gather(mat, 1, self.safe_idx.long())
+        idx = self.safe_idx.long().expand(*mat.shape[:-2], self.num_nodes, self.k)
+        out = torch.gather(mat, -1, idx)
         return out if fill is None else torch.where(self.valid_dev, out, fill)
 
-    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+    def gather_rows(self, x: torch.Tensor, lead: int = 0) -> torch.Tensor:
         """``x [M, ...] -> [M, K, ...]``: slot (j, k) holds the row of j's
-        k-th in-neighbor (padded slots hold a real-but-masked row)."""
-        flat = x.index_select(0, self.safe_idx.reshape(-1).long())
-        return flat.reshape((self.num_nodes, self.k, *x.shape[1:]))
+        k-th in-neighbor (padded slots hold a real-but-masked row); with
+        ``lead`` leading axes (the grids' cells), ``x [*lead, M, ...] ->
+        [*lead, M, K, ...]``."""
+        flat = x.index_select(lead, self.safe_idx.reshape(-1).long())
+        return flat.reshape((*x.shape[:lead], self.num_nodes, self.k, *x.shape[lead + 1:]))
 
     def gather_senders(self, vec: torch.Tensor, fill=None) -> torch.Tensor:
-        """``vec [M] -> [M, K]``: per-slot sender attribute (e.g. the
-        Byzantine mask); ``fill`` replaces padded slots."""
-        out = vec[self.safe_idx.long()]
+        """``vec [..., M] -> [..., M, K]``: per-slot sender attribute (e.g.
+        the Byzantine mask); ``fill`` replaces padded slots."""
+        out = vec[..., self.safe_idx.long()]
         return out if fill is None else torch.where(self.valid_dev, out, fill)

@@ -483,21 +483,56 @@ def screen_views(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tenso
     versions), reading the views at their strides.  Krum and Bulyan take
     each node's distances among its own views and itself from the batched
     distance kernel (batch = node, the views read in place), and Bulyan
-    ends in the views trimmed-mean kernel over its selection."""
+    ends in the views trimmed-mean kernel over its selection.  The one-cell
+    form of `screen_views_banked`."""
+    return _screen_views(rule, views[None], mask, self_vals[None], b)[0]
+
+
+def _node_views(views: torch.Tensor) -> torch.Tensor:
+    """The views ``[E, M, W, d]`` as ``[E M, W, d]``, the batched distance
+    kernel's elements, in place: a cell's nodes at one stride, whatever the
+    receiver stride (0 included) when E = 1."""
+    e, m, w_, d = views.shape
+    try:
+        return views.view(e * m, w_, d)
+    except RuntimeError:
+        raise ValueError(f"views of strides {views.stride()} do not flatten to [E M, W, d] in "
+                         f"place") from None
+
+
+def _screen_views(rule: str, views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
+                  b) -> torch.Tensor:
+    """One rule over the views ``[E, M, W, d]`` of E cells (``mask``
+    ``[M, W]`` shared, or ``[E, M, W]``; ``b`` an int or a tuple of E)."""
+    e, m, w_, d = views.shape
+    bk = bound_arg(b, views.device)
     if rule == "trimmed_mean":
-        return ops.views_trimmed_mean(views, mask, self_vals, b)
+        return ops.views_trimmed_mean(views, mask, self_vals, bk)
     if rule == "median":
         return ops.views_median(views, mask, self_vals)
     if rule in ("krum", "bulyan"):
-        full = torch.cat([mask.bool(), torch.ones_like(mask[:, :1], dtype=torch.bool)], dim=1)
-        d2 = masked_dists(ops.pairwise_sq_dists_batched(views, self_vals), full)
+        mk = mask.bool().expand(e, m, w_)
+        full = torch.cat([mk, torch.ones((e, m, 1), dtype=torch.bool, device=mk.device)], dim=-1)
+        d2 = ops.pairwise_sq_dists_batched(_node_views(views), self_vals.reshape(e * m, d))
+        d2 = masked_dists(d2.view(e, m, w_ + 1, w_ + 1), full)
         if rule == "krum":
-            i_star = krum_pick(d2, full, mask, b)
-            return views.gather(1, i_star[:, None, None].expand(-1, 1, views.shape[2]))[:, 0]
-        return ops.views_trimmed_mean(views, bulyan_select(d2, mask, b), self_vals, b)
-    out = _plain_rule(rule, views, mask, self_vals, b, folded=False)
-    if out is None:
+            i_star = krum_pick(d2, full, mk, b)
+            return views.gather(2, i_star[..., None, None].expand(e, m, 1, d))[:, :, 0]
+        return ops.views_trimmed_mean(views, bulyan_select(d2, mk, b).contiguous(), self_vals, bk)
+    if rule not in RULES:
         raise _unknown(rule)
+    # the plain rules: the cells of one bound at a time, their nodes stacked
+    bs = np.broadcast_to(np.asarray(b, np.int64), (e,))
+    out = torch.empty_like(self_vals)
+    for bb in sorted(set(bs.tolist())):
+        cells = np.nonzero(bs == bb)[0]
+        sel = torch.as_tensor(cells, device=views.device)
+        v_r = views.index_select(0, sel) if len(cells) < e else views
+        mk = mask.expand(e, m, w_) if mask.ndim == 2 else mask
+        mk = (mk.index_select(0, sel) if len(cells) < e else mk).reshape(-1, w_).contiguous()
+        y = _plain_rule(rule, v_r.reshape(-1, w_, d), mk,
+                        self_vals.index_select(0, sel).reshape(-1, d), int(bb), folded=False)
+        out.index_copy_(0, sel, y.reshape(len(cells), m, d))
     return out
 
 
@@ -537,15 +572,16 @@ def _screen_gathered(w, table, rule, b, self_vals):
 
 def _banked(screen: Callable, w: torch.Tensor, self_vals: torch.Tensor, rules, rule_idx,
             b) -> torch.Tensor:
-    """``screen(rule, w_r, b_r, self_r)`` once per rule of the bank over the
-    experiments that chose it (``rule_idx [E]``, host indices), scattered
-    back in order; one rule for all is a single call."""
+    """``screen(rule, w_r, b_r, self_r, cells)`` once per rule of the bank
+    over the experiments that chose it (``rule_idx [E]``, host indices;
+    ``cells`` their indices on the device, None when all chose one rule),
+    scattered back in order; one rule for all is a single call."""
     idx = np.asarray(rule_idx, np.int64).reshape(-1)
     if idx.shape[0] != w.shape[0]:
         raise ValueError(f"rule_idx has {idx.shape[0]} entries for {w.shape[0]} experiments")
     used = sorted(set(idx.tolist()))
     if len(used) == 1:
-        return screen(rules[used[0]], w, b, self_vals)
+        return screen(rules[used[0]], w, b, self_vals, None)
     out = torch.empty_like(self_vals)
     same = self_vals is w
     for r in used:
@@ -553,7 +589,7 @@ def _banked(screen: Callable, w: torch.Tensor, self_vals: torch.Tensor, rules, r
         sel = torch.as_tensor(cells, device=w.device)
         w_r = w.index_select(0, sel)
         s_r = w_r if same else self_vals.index_select(0, sel)
-        out.index_copy_(0, sel, screen(rules[r], w_r, _select(b, cells), s_r))
+        out.index_copy_(0, sel, screen(rules[r], w_r, _select(b, cells), s_r, sel))
     return out
 
 
@@ -564,7 +600,7 @@ def screen_all_banked(w: torch.Tensor, adjacency: torch.Tensor, rules, rule_idx,
     ``screen_all_banked`` under its grid's ``vmap``)."""
     if self_vals is None:
         self_vals = w
-    return _banked(lambda rule, w_r, b_r, s_r: _screen_all(w_r, adjacency, rule, b_r, s_r),
+    return _banked(lambda rule, w_r, b_r, s_r, _: _screen_all(w_r, adjacency, rule, b_r, s_r),
                    w, self_vals, rules, rule_idx, b)
 
 
@@ -575,28 +611,22 @@ def screen_gathered_banked(w: torch.Tensor, table: NeighborTable, rules, rule_id
     over the table's gathered rows, without forming them)."""
     if self_vals is None:
         self_vals = w
-    return _banked(lambda rule, w_r, b_r, s_r: _screen_gathered(w_r, table, rule, b_r, s_r),
+    return _banked(lambda rule, w_r, b_r, s_r, _: _screen_gathered(w_r, table, rule, b_r, s_r),
                    w, self_vals, rules, rule_idx, b)
 
 
 def screen_views_banked(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
                         rules, rule_idx, b) -> torch.Tensor:
-    """`screen_views` over views ``[E, M, W, d]`` (a mask ``[M, W]`` every
-    experiment shares, or ``[E, M, W]``) with a rule an experiment from the
-    bank: the experiments that chose a rule and share a bound are one call,
-    their nodes stacked (``[E_r M, W, d]``, read in place where the views'
-    strides allow)."""
-    e, m, w_, d = views.shape
-    idx = np.asarray(rule_idx, np.int64).reshape(-1)
-    bs = np.broadcast_to(np.asarray(b, np.int64), idx.shape)
-    out = torch.empty_like(self_vals)
-    for key in sorted(set(zip(idx.tolist(), bs.tolist()))):
-        cells = np.nonzero((idx == key[0]) & (bs == key[1]))[0]
-        sel = torch.as_tensor(cells, device=views.device)
-        v_r = views.index_select(0, sel) if len(cells) < e else views
-        mk = mask.expand(e, m, w_) if mask.ndim == 2 else mask
-        mk = (mk.index_select(0, sel) if len(cells) < e else mk).reshape(-1, w_).contiguous()
-        y = screen_views(v_r.reshape(-1, w_, d), mk, self_vals.index_select(0, sel).reshape(-1, d),
-                         rule=rules[key[0]], b=int(key[1]))
-        out.index_copy_(0, sel, y.reshape(len(cells), m, d))
-    return out
+    """`screen_views` over the views ``[E, M, W, d]`` of E cells (a mask
+    ``[M, W]`` every cell shares, or ``[E, M, W]``) with a rule and a bound
+    ``b[e]`` a cell: each rule of the bank runs once over the cells that
+    chose it, whatever their bounds (the views kernels and Bulyan's last
+    stage take them per cell; the distance kernel takes the cells' nodes as
+    its batch, ``[E M, W, d]`` in place), and the outputs are scattered
+    back.  One rule for all reads the views at their strides, a receiver
+    stride of 0 included."""
+    if mask.ndim == 3 and mask.shape[0] > 1 and mask.stride(0) == 0:
+        mask = mask[0]  # one mask every cell shares, expanded
+    return _banked(lambda rule, v_r, b_r, s_r, cells: _screen_views(
+        rule, v_r, mask if mask.ndim == 2 or cells is None else mask.index_select(0, cells),
+        s_r, b_r), views, self_vals, rules, rule_idx, b)

@@ -75,12 +75,18 @@ SIGNATURES = {
     "gather_screen_wide_median": (_PTR,) * 5 + (_INT,) * 4 + (_I64, _PTR),
     "gather_dequant_screen_wide_trimmed_mean": (_PTR,) * 6 + (_INT,) * 5 + (_PTR,),
     "gather_dequant_screen_wide_median": (_PTR,) * 6 + (_INT,) * 4 + (_PTR,),
-    # the views screens (views_screen.cu): views, its node and slot strides,
-    # mask, self_vals, out, M, W, d (b), then the tile entries' plan
-    "views_screen_trimmed_mean": (_PTR, _I64, _I64) + (_PTR,) * 3 + (_INT,) * 8 + (_PTR,),
-    "views_screen_median": (_PTR, _I64, _I64) + (_PTR,) * 3 + (_INT,) * 7 + (_PTR,),
-    "views_screen_wide_trimmed_mean": (_PTR, _I64, _I64) + (_PTR,) * 3 + (_INT,) * 4 + (_PTR,),
-    "views_screen_wide_median": (_PTR, _I64, _I64) + (_PTR,) * 3 + (_INT,) * 3 + (_PTR,),
+    # the views screens (views_screen.cu): views, its cell, node and slot
+    # strides, mask, self_vals, out, M, W, d (b), the experiment operands
+    # (E, the mask's cell stride, the per-cell b or null), then the tile
+    # entries' plan
+    "views_screen_trimmed_mean": (_PTR, _I64, _I64, _I64) + (_PTR,) * 3 + (_INT,) * 5
+    + (_I64, _PTR) + (_INT,) * 4 + (_PTR,),
+    "views_screen_median": (_PTR, _I64, _I64, _I64) + (_PTR,) * 3 + (_INT,) * 4 + (_I64,)
+    + (_INT,) * 4 + (_PTR,),
+    "views_screen_wide_trimmed_mean": (_PTR, _I64, _I64, _I64) + (_PTR,) * 3 + (_INT,) * 5
+    + (_I64, _PTR, _PTR),
+    "views_screen_wide_median": (_PTR, _I64, _I64, _I64) + (_PTR,) * 3 + (_INT,) * 4
+    + (_I64, _PTR),
 }
 
 

@@ -9,7 +9,9 @@
 // block of views a node.  The runtime's step screens exactly that, with
 // E = M and n = W: the mailbox views [M, W, d] (W = M on the dense per-link
 // layout, K on the neighbor-indexed one) under the usable mask [M, W]
-// (src/repro/core/bridge.py, screen_views_banked).
+// (src/repro/core/bridge.py, screen_views_banked).  A net grid screens E
+// cells' views [E, M, W, d] in one launch, experiment e on gridDim.y with
+// its own views (ViewRows::experiment), mask, self values, outputs and b.
 //
 // What they compute is the gather screens' arithmetic (gather_screen.cu):
 // NaN -> +inf, each column of node j's usable slots sorted ascending, the
@@ -45,45 +47,64 @@
 #include "screen_tile.cuh"
 #include "screen_wide.cuh"
 
-// C entry points (bound with ctypes).  views [M, W, d] float32 with unit
-// coordinate stride, s_recv and s_slot its node and slot strides in
-// elements; mask [M, W] uint8 contiguous; self_vals and out [M, d]
-// contiguous.  The tile entries take W <= 63 and the plan (tile, chunk,
-// segments, cols) of kernels/gather_screen.py; the wide ones any W up to
-// screen::kWideMaxRows rows to sort.  Each returns cudaGetLastError()
-// after its launch (cudaErrorInvalidValue for a shape or plan it does not
-// take).
-extern "C" int views_screen_trimmed_mean(const float* v, long long s_recv, long long s_slot,
-                                         const uint8_t* mask, const float* self_vals, float* out,
-                                         int m, int w, int d, int b, int tile, int chunk,
-                                         int segments, int cols, void* stream) {
-  return screen::launch_tile<false>(screen::ViewRows{v, s_recv, s_slot}, nullptr, mask,
+// C entry points (bound with ctypes).  views [E, M, W, d] float32 with unit
+// coordinate stride, s_exp, s_recv and s_slot its cell, node and slot
+// strides in elements (s_exp 0 for one cell); mask [M, W] (s_mask 0, every
+// cell's) or [E, M, W] (s_mask = M W) uint8 contiguous; self_vals and out
+// [E, M, d] contiguous; the trimmed mean trims b_e[e] (int32 [E] on the
+// card) or, with a null b_e, b.  The experiment operands are
+// screen_sort.cuh's Experiments (a launch's gridDim.y), as the gather
+// screens take them (gather_screen.cu).  The tile entries take W <= 63 and
+// the plan (tile, chunk, segments, cols) of kernels/gather_screen.py; the
+// wide ones any W up to screen::kWideMaxRows rows to sort.  Each returns
+// cudaGetLastError() after its launch (cudaErrorInvalidValue for a shape
+// or plan it does not take).
+namespace {
+screen::ViewRows view_rows(const float* v, long long s_exp, long long s_recv, long long s_slot) {
+  return screen::ViewRows{v, s_recv, s_slot, s_exp};
+}
+}  // namespace
+
+extern "C" int views_screen_trimmed_mean(const float* v, long long s_exp, long long s_recv,
+                                         long long s_slot, const uint8_t* mask,
+                                         const float* self_vals, float* out, int m, int w, int d,
+                                         int b, int experiments, long long s_mask, const int* b_e,
+                                         int tile, int chunk, int segments, int cols,
+                                         void* stream) {
+  return screen::launch_tile<false>(view_rows(v, s_exp, s_recv, s_slot), nullptr, mask,
                                     self_vals, out, m, w, d, b, tile, chunk, segments, cols,
-                                    static_cast<cudaStream_t>(stream));
+                                    static_cast<cudaStream_t>(stream),
+                                    screen::Experiments{experiments, s_mask, b_e});
 }
 
-extern "C" int views_screen_median(const float* v, long long s_recv, long long s_slot,
-                                   const uint8_t* mask, const float* self_vals, float* out, int m,
-                                   int w, int d, int tile, int chunk, int segments, int cols,
+extern "C" int views_screen_median(const float* v, long long s_exp, long long s_recv,
+                                   long long s_slot, const uint8_t* mask, const float* self_vals,
+                                   float* out, int m, int w, int d, int experiments,
+                                   long long s_mask, int tile, int chunk, int segments, int cols,
                                    void* stream) {
-  return screen::launch_tile<true>(screen::ViewRows{v, s_recv, s_slot}, nullptr, mask,
+  return screen::launch_tile<true>(view_rows(v, s_exp, s_recv, s_slot), nullptr, mask,
                                    self_vals, out, m, w, d, 0, tile, chunk, segments, cols,
-                                   static_cast<cudaStream_t>(stream));
+                                   static_cast<cudaStream_t>(stream),
+                                   screen::Experiments{experiments, s_mask, nullptr});
 }
 
-extern "C" int views_screen_wide_trimmed_mean(const float* v, long long s_recv,
+extern "C" int views_screen_wide_trimmed_mean(const float* v, long long s_exp, long long s_recv,
                                               long long s_slot, const uint8_t* mask,
                                               const float* self_vals, float* out, int m, int w,
-                                              int d, int b, void* stream) {
-  return screen::launch_wide<false>(screen::ViewRows{v, s_recv, s_slot},
+                                              int d, int b, int experiments, long long s_mask,
+                                              const int* b_e, void* stream) {
+  return screen::launch_wide<false>(view_rows(v, s_exp, s_recv, s_slot),
                                     screen::DenseList{mask, w}, self_vals, out, m, d, w, b, false,
-                                    static_cast<cudaStream_t>(stream));
+                                    static_cast<cudaStream_t>(stream),
+                                    screen::Experiments{experiments, s_mask, b_e});
 }
 
-extern "C" int views_screen_wide_median(const float* v, long long s_recv, long long s_slot,
-                                        const uint8_t* mask, const float* self_vals, float* out,
-                                        int m, int w, int d, void* stream) {
-  return screen::launch_wide<true>(screen::ViewRows{v, s_recv, s_slot},
+extern "C" int views_screen_wide_median(const float* v, long long s_exp, long long s_recv,
+                                        long long s_slot, const uint8_t* mask,
+                                        const float* self_vals, float* out, int m, int w, int d,
+                                        int experiments, long long s_mask, void* stream) {
+  return screen::launch_wide<true>(view_rows(v, s_exp, s_recv, s_slot),
                                    screen::DenseList{mask, w}, self_vals, out, m, d, w, 0, false,
-                                   static_cast<cudaStream_t>(stream));
+                                   static_cast<cudaStream_t>(stream),
+                                   screen::Experiments{experiments, s_mask, nullptr});
 }

@@ -1,22 +1,25 @@
 """The batched experiment sweep — port of `repro.launch.sweep --mode grid`:
-the rule x attack x b x seed matrix on the paper's MNIST-like linear task
-through the grid engine (`repro_torch.sim`), every pending cell in one
-engine run on the card, resumable from the per-cell store (one JSON a
-cell, keyed by the reference's `Cell.tag`, so a store written by either
-package resumes in the other):
+the rule x attack x b x seed (x network scenario) matrix on the paper's
+MNIST-like linear task through the grid engine (`repro_torch.sim`), every
+pending cell in one engine run on the card, resumable from the per-cell
+store (one JSON a cell, keyed by the reference's `Cell.tag`, so a store
+written by either package resumes in the other):
 
     PYTHONPATH=src python -m repro_torch.launch.sweep --mode grid \\
         --out experiments/grid [--rules trimmed_mean,median] \\
         [--attacks random,alie] [--byz 1,2] [--seeds 0,1,2,3] \\
+        [--scenarios ideal,lossy] [--grid-ticks 60] \\
         [--grid-chunk 16] [--sparse] [--device cpu]
 
-It writes the per-cell records and ``GridResult.json`` (the whole store)
-with each cell's honest test accuracy.  The reference's other modes and
-the grid flags that need a layer the port does not have yet raise:
-``--scenarios`` other than ``sync`` (net-scenario grids, ROADMAP Queue 1
-item 11), ``--codecs`` other than ``identity`` (codecs on the grid, item
-11), ``--adversaries`` other than ``none`` (item 12), ``--trace``,
-``--metrics``, ``--profile`` and ``--trust*`` (item 13).
+``--scenarios`` names `repro_torch.net.scenarios` entries: every cell then
+runs through the network runtime (`GridNetRuntime`, schedules of
+``--grid-ticks`` ticks); ``sync`` (the default) is the broadcast path.  It
+writes the per-cell records and ``GridResult.json`` (the whole store) with
+each cell's honest test accuracy.  The reference's other modes and the
+grid flags that need a layer the port does not have yet raise:
+``--codecs`` other than ``identity`` (codecs on the grid, ROADMAP Queue 1
+item 11, its next step), ``--adversaries`` other than ``none`` (item 12),
+``--trace``, ``--metrics``, ``--profile`` and ``--trust*`` (item 13).
 """
 from __future__ import annotations
 
@@ -42,12 +45,9 @@ def _refuse_unported(args) -> None:
         raise ValueError(f"--mode {args.mode}: the port's sweep runs --mode grid only (the "
                          f"subprocess and breakdown modes belong to the JAX package; "
                          f"breakdown is ROADMAP Queue 1 item 12)")
-    if args.scenarios not in (None, "sync", "none", ""):
-        raise ValueError("--scenarios other than sync: net-scenario grids are ROADMAP Queue 1 "
-                         "item 11 (the next slice)")
     if args.codecs != "identity":
         raise ValueError("--codecs other than identity: codecs on the grid are ROADMAP "
-                         "Queue 1 item 11")
+                         "Queue 1 item 11, its next step")
     if args.adversaries not in (None, "none"):
         raise ValueError("--adversaries other than none: ROADMAP Queue 1 item 12")
     for flag in ("trace", "metrics", "profile"):
@@ -58,17 +58,21 @@ def _refuse_unported(args) -> None:
 
 
 def run_grid_mode(args) -> results_lib.GridResult | None:
-    """The batched sweep over rule x attack x b x seed on the MNIST-like
-    linear task, resuming from the per-cell store; returns this run's
-    result (None when every cell was cached)."""
+    """The batched sweep over rule x attack x b x seed (x scenario) on the
+    MNIST-like linear task, resuming from the per-cell store; returns this
+    run's result (None when every cell was cached)."""
     dev = resolve_device(args.device)
     rules = args.rules.split(",")
     attacks = args.attacks.split(",")
     byz = [int(x) for x in args.byz.split(",")]
     seeds = [int(x) for x in args.seeds.split(",")]
+    scenarios = None
+    if args.scenarios not in ("sync", "none", ""):
+        scenarios = args.scenarios.split(",")
     m, ticks = args.grid_nodes, args.grid_ticks
     topo = default_topology(m, rules, byz, seed=0)
-    grid = ExperimentGrid(topo, rules, attacks, byz, seeds, lam=1.0, t0=30.0)
+    grid = ExperimentGrid(topo, rules, attacks, byz, seeds, scenarios=scenarios, lam=1.0,
+                          t0=30.0)
     done = results_lib.existing_tags(args.out)
     pending = [c for c in grid.cells() if c.tag not in done]
     print(f"{grid.num_cells} grid cells ({len(done & {c.tag for c in grid.cells()})} cached) "
@@ -85,8 +89,8 @@ def run_grid_mode(args) -> results_lib.GridResult | None:
         key = prng.PRNGKey(seed)
         return replicate(small.init_linear(key, device=dev), m, perturb=0.01, key=key)
 
-    engine = GridEngine(grid, small.linear_loss_and_grad, cells=pending, sparse=args.sparse,
-                        device=dev)
+    engine = GridEngine(grid, small.linear_loss_and_grad, cells=pending,
+                        num_ticks=ticks if scenarios else None, sparse=args.sparse, device=dev)
     t0 = time.time()
     state = engine.init(init_fn)
     state, metrics = engine.run(state, batches, chunk=args.grid_chunk)
@@ -128,7 +132,9 @@ def main(argv=None):
     ap.add_argument("--out", default="experiments/grid")
     ap.add_argument("--rules", default="trimmed_mean,median")
     ap.add_argument("--attacks", default="random,alie")
-    ap.add_argument("--scenarios", default=None, help="sync only (the broadcast path)")
+    ap.add_argument("--scenarios", default="sync",
+                    help="comma-separated net scenarios (repro_torch.net.scenarios), or sync "
+                         "(the broadcast path)")
     ap.add_argument("--byz", default="1", help="comma-separated Byzantine counts")
     ap.add_argument("--seeds", default="0", help="comma-separated seeds")
     ap.add_argument("--codecs", default="identity")

@@ -6,7 +6,10 @@ the message is dropped, how many ticks it spends in flight, and how much of
 the payload survives a bandwidth cap.  Everything is drawn from the tick's
 Threefry key (`repro_torch.prng`), so a seed reproduces the reference's
 loss and latency trace draw for draw.  Draws are shape-static: ``[M, M]``
-whatever the live edges.
+whatever the live edges.  Over the grids' cells (``lead = (E,)``) the key
+is the cells' host row keys ``[E, 2]`` (`repro_torch.prng`) and row e is
+the draw cell e's own key makes; one key with ``lead = (1,)`` draws the
+one-cell trace.
 """
 from __future__ import annotations
 
@@ -78,12 +81,14 @@ class ChannelConfig:
         the largest codeword the run can emit (sizes the mailbox ring)."""
         return self.latency_max + self.serial_ticks(0 if max_wire_bits is None else max_wire_bits)
 
-    def sample(self, key: np.ndarray, num_nodes: int, device: str | torch.device
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-        """One tick of channel events: ``(delay [M, M] int32, drop [M, M]
-        bool)`` under ``split(key)``'s two subkeys, non-edges included."""
-        k_delay, k_drop = prng.split(key)
-        shape = (num_nodes, num_nodes)
+    def sample(self, key: np.ndarray, num_nodes: int, device: str | torch.device,
+               lead: tuple[int, ...] = ()) -> tuple[torch.Tensor, torch.Tensor]:
+        """One tick of channel events: ``(delay [*lead, M, M] int32, drop
+        [*lead, M, M] bool)`` under ``split(key)``'s two subkeys, non-edges
+        included."""
+        keys = prng.split(key)
+        k_delay, k_drop = keys[..., 0, :], keys[..., 1, :]
+        shape = (*lead, num_nodes, num_nodes)
         if self.latency_max > self.latency_min:
             delay = prng.randint(k_delay, shape, self.latency_min, self.latency_max + 1,
                                  torch.int32, device)
@@ -95,14 +100,13 @@ class ChannelConfig:
             drop = torch.zeros(shape, dtype=torch.bool, device=device)
         return delay, drop
 
-    def coord_mask(self, key: np.ndarray, d: int, device: str | torch.device
-                   ) -> torch.Tensor | None:
-        """``[d]`` bool marking this tick's ``bandwidth_cap`` transmitted
-        coordinates (the top of ``d`` uniforms, ``lax.top_k``'s order), or
-        None when uncapped."""
+    def coord_mask(self, key: np.ndarray, d: int, device: str | torch.device,
+                   lead: tuple[int, ...] = ()) -> torch.Tensor | None:
+        """``[*lead, d]`` bool marking this tick's ``bandwidth_cap``
+        transmitted coordinates (the top of ``d`` uniforms, ``lax.top_k``'s
+        order), or None when uncapped."""
         if self.bandwidth_cap is None or self.bandwidth_cap >= d:
             return None
-        idx = top_indices(prng.uniform(key, (d,), device), self.bandwidth_cap)
-        mask = torch.zeros((d,), dtype=torch.bool, device=device)
-        mask[idx.long()] = True
-        return mask
+        idx = top_indices(prng.uniform(key, (*lead, d), device), self.bandwidth_cap)
+        mask = torch.zeros((*lead, d), dtype=torch.bool, device=device)
+        return mask.scatter_(-1, idx.long(), True)

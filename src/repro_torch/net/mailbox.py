@@ -11,9 +11,11 @@ the streaming runtime, not ported).
 
 The slot axis ``W`` is ``M`` on the dense per-link layout or a
 `NeighborTable`'s ``K`` on the sparse one; every function is elementwise
-over ``[M, W]``.  Ticks are int32, as in the reference: ``staleness``
-saturates to ``INT32_MAX`` for empty slots instead of overflowing (a
-Python tick against an int32 tensor stays int32).  No function writes into
+over ``[M, W]`` and over any leading axes ahead of them (the grids'
+cells: ``values [E, M, W, d]``, ``ring_vals [E, M, W, L, d]``).  Ticks
+are int32, as in the reference: ``staleness`` saturates to ``INT32_MAX``
+for empty slots instead of overflowing (a Python tick against an int32
+tensor stays int32).  No function writes into
 the state it is given, and none copies a host value to the card.
 """
 from __future__ import annotations
@@ -36,7 +38,7 @@ class MailboxState(NamedTuple):
 
     @property
     def capacity(self) -> int:
-        return self.ring_vals.shape[2]
+        return self.ring_vals.shape[-2]
 
     def nbytes(self) -> int:
         """Device bytes of the state."""
@@ -44,18 +46,21 @@ class MailboxState(NamedTuple):
 
 
 def init_mailbox(num_nodes: int, dim: int, max_delay: int, dtype=torch.float32, *,
-                 width: int | None = None, device: str | torch.device = "cuda") -> MailboxState:
+                 width: int | None = None, lead: tuple[int, ...] = (),
+                 device: str | torch.device = "cuda") -> MailboxState:
     """Empty mailboxes; ``width`` is the slot axis (``num_nodes`` by
-    default, the dense layout, or a table's ``k``)."""
+    default, the dense layout, or a table's ``k``); ``lead`` leading axes
+    (the grids' cells) ahead of every field."""
     m, L = num_nodes, max_delay + 1
     w = num_nodes if width is None else int(width)
+    lead = tuple(int(x) for x in lead)
     i32 = dict(dtype=torch.int32, device=device)
     return MailboxState(
-        values=torch.zeros((m, w, dim), dtype=dtype, device=device),
-        send_tick=torch.full((m, w), NEVER, **i32),
-        ring_vals=torch.zeros((m, w, L, dim), dtype=dtype, device=device),
-        ring_send=torch.full((m, w, L), NEVER, **i32),
-        ring_valid=torch.zeros((m, w, L), dtype=torch.bool, device=device),
+        values=torch.zeros((*lead, m, w, dim), dtype=dtype, device=device),
+        send_tick=torch.full((*lead, m, w), NEVER, **i32),
+        ring_vals=torch.zeros((*lead, m, w, L, dim), dtype=dtype, device=device),
+        ring_send=torch.full((*lead, m, w, L), NEVER, **i32),
+        ring_valid=torch.zeros((*lead, m, w, L), dtype=torch.bool, device=device),
     )
 
 
@@ -64,10 +69,10 @@ def push(state: MailboxState, msgs: torch.Tensor, send_mask: torch.Tensor,
     """Enqueue this tick's transmissions: ``msgs[j, i]`` goes from slot i
     to j iff ``send_mask[j, i]``, arriving ``delay[j, i]`` ticks later."""
     L = state.capacity
-    slot = (delay + tick) % L  # [M, W] int32
-    hit = send_mask[:, :, None] & (slot[:, :, None] == torch.arange(L, device=slot.device))
+    slot = (delay + tick) % L  # [..., M, W] int32
+    hit = send_mask[..., None] & (slot[..., None] == torch.arange(L, device=slot.device))
     return state._replace(
-        ring_vals=torch.where(hit[..., None], msgs[:, :, None, :], state.ring_vals),
+        ring_vals=torch.where(hit[..., None], msgs[..., None, :], state.ring_vals),
         ring_send=torch.where(hit, tick, state.ring_send),
         ring_valid=state.ring_valid | hit,
     )
@@ -76,7 +81,7 @@ def push(state: MailboxState, msgs: torch.Tensor, send_mask: torch.Tensor,
 def deliver(state: MailboxState, tick: int) -> tuple[MailboxState, torch.Tensor]:
     """Move every message whose arrival slot is ``tick``'s into the
     mailbox, unless the mailbox already holds one sent later; returns the
-    state and the ``[M, W]`` arrival mask.
+    state and the ``[..., M, W]`` arrival mask.
 
     The reference reads the slot as a masked sum over the ring axis; at
     ``L > 1`` its zero start turns a ``-0.0`` payload into ``+0.0``, and at
@@ -84,14 +89,14 @@ def deliver(state: MailboxState, tick: int) -> tuple[MailboxState, torch.Tensor]
     read here directly, with ``+ 0.0`` where the reference sums."""
     L = state.capacity
     cur = tick % L
-    arrived = state.ring_valid[:, :, cur]
-    payload = state.ring_vals[:, :, cur]
+    arrived = state.ring_valid[..., cur]
+    payload = state.ring_vals[..., cur, :]
     if L > 1:
         payload = payload + 0.0
-    sent_at = torch.where(arrived, state.ring_send[:, :, cur], 0)
+    sent_at = torch.where(arrived, state.ring_send[..., cur], 0)
     newer = arrived & (sent_at > state.send_tick)
     ring_valid = state.ring_valid.clone()
-    ring_valid[:, :, cur] = False
+    ring_valid[..., cur] = False
     return state._replace(
         values=torch.where(newer[..., None], payload, state.values),
         send_tick=torch.where(newer, sent_at, state.send_tick),

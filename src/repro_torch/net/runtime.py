@@ -22,6 +22,14 @@ so the two are bit-identical at equal seed.  ``t`` is the tick as a Python
 int and ``key`` a host Threefry key (`repro_torch.prng`); the stats are
 0-d float32 tensors on the device, computed as the reference computes them.
 
+Stacked cells.  `exchange` also takes leading axes ahead of the messages'
+``[M, W, d]`` (the grids' cells: ``[E, M, W, d]``, mailbox state
+``[E, M, W, L, d]``, a live mask ``[M, W]`` every cell shares or
+``[E, M, W]``, and ``key`` one key or the cells' host row keys ``[E, 2]``):
+every channel draw, mailbox step and stat is then per cell, row e bit for
+bit the one-cell exchange under key e, and the stats are ``[E]`` (each
+cell's counts summed over its own ``[M, W]``).
+
 Divisors.  The reference's schedule is a closed-over constant indexed by
 ``t mod T``; with a static schedule (``T = 1``) XLA folds the index, so the
 tick's live-edge count is a constant and ``delivered_frac``'s division by
@@ -61,9 +69,9 @@ def _as_schedule(topology_or_schedule) -> np.ndarray:
 
 
 def _count(x: torch.Tensor) -> torch.Tensor:
-    """``sum(x)`` of a bool tensor as float32, as the reference's
-    ``jnp.sum(...)`` promoted for a float division."""
-    return torch.sum(x).to(torch.float32)
+    """``sum(x)`` over the last two axes (a cell's ``[M, W]``) as float32,
+    as the reference's ``jnp.sum(...)`` promoted for a float division."""
+    return torch.sum(x, dim=(-2, -1)).to(torch.float32)
 
 
 def _per_node(count: torch.Tensor, m: int) -> torch.Tensor:
@@ -78,11 +86,13 @@ def _mailbox_stats(net: mb.MailboxState, arrived, live, mask, t: int, m: int,
     live-edge count of a static schedule (a constant: XLA's reciprocal
     form), None for a time-varying one."""
     stale = torch.where(mask, mb.staleness(net, t), 0)
+    live = live.expand(arrived.shape)
     delivered = _count(arrived & live)
     return {
         "delivered_frac": (delivered / torch.clamp(_count(live), min=1.0) if static_live is None
                            else _per_node(delivered, static_live)),
-        "mean_staleness": torch.sum(stale).to(torch.float32) / torch.clamp(_count(mask), min=1.0),
+        "mean_staleness": torch.sum(stale, dim=(-2, -1)).to(torch.float32)
+        / torch.clamp(_count(mask), min=1.0),
         "active_links": _per_node(_count(live), m),
         # usable entries can exceed active_links: fresh mailbox values from
         # edges that churned away count until they go stale
@@ -116,10 +126,12 @@ class SynchronousRuntime:
 
     def exchange(self, net_state, msgs, self_vals, adjacency, key, t, *, wire_bits=None):
         del self_vals, key, t, wire_bits
-        links = _per_node(_count(adjacency), adjacency.shape[0])
+        lead = msgs.shape[:-3]
+        adjacency = adjacency.expand(*lead, *adjacency.shape[-2:])
+        links = _per_node(_count(adjacency), adjacency.shape[-2])
         dev = adjacency.device
-        stats = {"delivered_frac": torch.ones((), device=dev),
-                 "mean_staleness": torch.zeros((), device=dev),
+        stats = {"delivered_frac": torch.ones(lead, device=dev),
+                 "mean_staleness": torch.zeros(lead, device=dev),
                  "active_links": links, "usable_in": links}
         return net_state, msgs, adjacency, stats
 
@@ -171,31 +183,33 @@ class UnreliableRuntime:
             return None
         return self.channel.coord_mask(prng.split(key)[1], d, self.device)
 
-    def _events(self, key: np.ndarray, m: int):
+    def _events(self, key: np.ndarray, m: int, lead: tuple[int, ...]):
         """The tick's dense ``(delay, drop)`` draw and the coordinate key:
-        the coordinate stream splits off only under a bandwidth cap, so
-        uncapped channels keep the reference's drop and latency trace."""
+        the coordinate stream splits off only under a bandwidth cap (per
+        cell under row keys), so uncapped channels keep the reference's
+        drop and latency trace."""
         k_coord = key
         if self.channel.bandwidth_cap is not None:
-            key, k_coord = prng.split(key)
-        delay, drop = self.channel.sample(key, m, self.device)
+            keys = prng.split(key)
+            key, k_coord = keys[..., 0, :], keys[..., 1, :]
+        delay, drop = self.channel.sample(key, m, self.device, lead)
         return delay, drop, k_coord
 
     def _send(self, net_state, msgs, self_vals, live, delay, drop, k_coord, t, wire_bits):
         delay = delay + self.channel.serial_ticks(wire_bits)
         send_mask = live & ~drop
-        cm = self.channel.coord_mask(k_coord, msgs.shape[-1], self.device)
+        cm = self.channel.coord_mask(k_coord, msgs.shape[-1], self.device, msgs.shape[:-3])
         if cm is not None:
-            msgs = torch.where(cm, msgs, self_vals[:, None, :])
+            msgs = torch.where(cm[..., None, None, :], msgs, self_vals[..., None, :])
         net_state = mb.push(net_state, msgs, send_mask, delay, t)
         net_state, arrived = mb.deliver(net_state, t)
         mask = mb.usable_mask(net_state, t, self.staleness_bound)
-        stats = _mailbox_stats(net_state, arrived, live, mask, t, live.shape[0],
+        stats = _mailbox_stats(net_state, arrived, live, mask, t, live.shape[-2],
                                self._static_live)
         return net_state, net_state.values, mask, stats
 
     def exchange(self, net_state, msgs, self_vals, adjacency, key, t, *, wire_bits=None):
-        delay, drop, k_coord = self._events(key, adjacency.shape[0])
+        delay, drop, k_coord = self._events(key, adjacency.shape[-2], msgs.shape[:-3])
         return self._send(net_state, msgs, self_vals, adjacency, delay, drop, k_coord, t,
                           wire_bits)
 
@@ -242,6 +256,6 @@ class SparseUnreliableRuntime(UnreliableRuntime):
 
     def exchange(self, net_state, msgs, self_vals, live, key, t, *, wire_bits=None):
         nbr = self.neighbors
-        delay_d, drop_d, k_coord = self._events(key, nbr.num_nodes)
+        delay_d, drop_d, k_coord = self._events(key, nbr.num_nodes, msgs.shape[:-3])
         return self._send(net_state, msgs, self_vals, live, nbr.gather_edges(delay_d),
                           nbr.gather_edges(drop_d, fill=True), k_coord, t, wire_bits)

@@ -1,14 +1,18 @@
-"""Batched experiment-grid engine — port of `repro.sim.engine` for
-synchronous grids (dense and ``sparse=True``).
+"""Batched experiment-grid engine — port of `repro.sim.engine`:
+synchronous and network-scenario grids, dense and ``sparse=True``.
 
 `GridEngine` lowers a list of `Cell`s to stacked ``[E, M, ...]`` state and
 drives the *same* cell-parameterized step `BridgeTrainer` binds
-(`repro_torch.core.bridge.build_cell_step`) over the experiment axis:
+(`repro_torch.core.bridge.build_cell_step`, or on a net grid
+`build_cell_runtime_step`) over the experiment axis:
 
-* rule and attack selection is data — host indices into static banks that
-  hold only the distinct names the cells use;
+* rule, attack and scenario selection is data — host indices into static
+  banks that hold only the distinct names the cells use;
 * the Byzantine bound ``b``, the Byzantine masks, the keys and the
-  step-size schedule ride along per cell.
+  step-size schedule ride along per cell;
+* network scenarios stack their `repro_torch.net` mailbox state over E
+  (`GridNetRuntime`: one mailbox ring sized for the slowest scenario, one
+  exchange call a scenario over the cells that chose it).
 
 The screening kernels take the experiment axis (`repro_torch.kernels`):
 each launches once a tick for a group of cells, whatever its size.  Since
@@ -33,10 +37,9 @@ Correctness anchor, as in the reference: any single cell equals its own
 ``chip_smoke.py`` on the card).
 
 Not yet here (each refused with a `ValueError` that names its ROADMAP
-item): network-scenario cells and ``GridNetRuntime`` (Queue 1 item 11, the
-next slice); lossy codecs and wire attacks on the grid (item 11, after
-it); adversaries other than ``none`` (item 12); the ``trace``, ``trust``,
-``metrics`` and ``events`` specs (item 13).
+item): lossy codecs and wire attacks on the grid, net cells included
+(item 11, the next slice); adversaries other than ``none`` (item 12); the
+``trace``, ``trust``, ``metrics`` and ``events`` specs (item 13).
 """
 from __future__ import annotations
 
@@ -49,17 +52,20 @@ from repro_torch import prng
 from repro_torch.adversary import protocols as adv_lib
 from repro_torch.comm import codec as codec_lib
 from repro_torch.core import byzantine as byz_lib
-from repro_torch.core.bridge import BridgeState, CellParams, build_cell_step, stack_batches
+from repro_torch.core.bridge import (BridgeState, CellParams, build_cell_runtime_step,
+                                     build_cell_step, stack_batches, stack_flatten)
 from repro_torch.core.neighbors import NeighborTable
 from repro_torch.device import resolve_device
+from repro_torch.net import mailbox as mb
+from repro_torch.net.runtime import SparseUnreliableRuntime, UnreliableRuntime
+from repro_torch.net.scenarios import build_schedule, get_scenario
 from repro_torch.sim import grid as grid_lib
 from repro_torch.sim.grid import Cell, ExperimentGrid
 
-__all__ = ["GridEngine", "stack_batches"]
+__all__ = ["GridEngine", "GridNetRuntime", "stack_batches"]
 
-NET_GRIDS = ("network-scenario cells (GridNetRuntime) are the next slice of the port: "
-             "ROADMAP Queue 1 item 11, net-scenario grids")
-GRID_CODECS = "codecs and wire attacks on the grid: ROADMAP Queue 1 item 11, after net grids"
+GRID_CODECS = ("codecs and wire attacks on the grid, net cells included: ROADMAP Queue 1 "
+               "item 11, its next step (open item 2)")
 GRID_SPECS = "the trace, trust, metrics and events specs: ROADMAP Queue 1 item 13"
 
 
@@ -71,20 +77,148 @@ def _dedup(names: Iterable) -> list:
     return out
 
 
-def _check_sync_cell(c: Cell) -> None:
-    """The refusals of this slice for one cell."""
-    if c.scenario is not None:
-        raise ValueError(f"cell {c.tag}: {NET_GRIDS}")
+def _check_cell(c: Cell) -> None:
+    """The refusals of the port's grids for one cell."""
     if not codec_lib.get_codec(c.codec).lossless or c.attack in byz_lib.WIRE_ATTACKS:
         raise ValueError(f"cell {c.tag}: {GRID_CODECS}")
     adv_lib.get_adversary(c.adversary)  # raises for any but none (item 12)
+
+
+def _take(x: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """Rows ``sel`` of the cells' axis of ``x``; per-link messages with a
+    receiver stride of 0 (a lifted broadcast) stay expanded."""
+    if x.ndim == 4 and x.stride(1) == 0:
+        return x[:, 0].index_select(0, sel)[:, None].expand(-1, *x.shape[1:])
+    return x.index_select(0, sel)
+
+
+class GridNetRuntime:
+    """A scenario-banked network runtime: the reference's ``GridNetRuntime``
+    over the port's runtimes.
+
+    Holds one `repro_torch.net.runtime.UnreliableRuntime` (or, ``sparse``,
+    `SparseUnreliableRuntime`) per distinct scenario, each with its
+    full-length ``[T, M, M]`` schedule (`build_schedule` under ``seed``).
+    The cells' mailbox state is stacked, ``[E, M, W, L, d]``, with one ring
+    sized for the largest latency in the bank: ring semantics are invariant
+    to extra capacity, so each cell stays its dedicated runtime's, bit for
+    bit up to the sign of a zero (`repro_torch.net.mailbox.deliver` adds
+    ``0.0`` to a payload when ``L > 1``).  `exchange` runs once a scenario
+    over the cells that chose it (``cell.scenario_idx``), each cell's
+    channel drawn under its own key, and scatters the results back.  In
+    sparse mode every scenario shares one `NeighborTable` over the union of
+    all their schedules, so every cell has the same ``[M, K]`` layout;
+    slots a scenario never uses are inert.
+    """
+
+    cell_aware = True  # the step hands it the cells (build_cell_runtime_step)
+
+    def __init__(self, topology, scenarios: Sequence[str], num_ticks: int, *, seed: int = 0,
+                 sparse: bool = False, device: str | torch.device = "cuda"):
+        if not scenarios:
+            raise ValueError("GridNetRuntime needs at least one scenario")
+        self.device = resolve_device(device)
+        self.scenario_names = tuple(scenarios)
+        self._specs = [get_scenario(n) for n in self.scenario_names]
+        self.num_ticks = int(num_ticks)
+        scheds = [np.asarray(build_schedule(s, topology, self.num_ticks, seed=seed), bool)
+                  for s in self._specs]
+        self._schedules_np = np.stack(scheds)  # [S, T, M, M]
+        self.neighbors = None
+        if sparse:
+            self.neighbors = NeighborTable.from_schedule(np.concatenate(scheds, axis=0),
+                                                         device=self.device)
+            self._runtimes = tuple(SparseUnreliableRuntime(
+                sched, s.channel, staleness_bound=s.staleness_bound, neighbors=self.neighbors,
+                device=self.device) for s, sched in zip(self._specs, scheds, strict=True))
+        else:
+            self._runtimes = tuple(UnreliableRuntime(
+                sched, s.channel, staleness_bound=s.staleness_bound, device=self.device)
+                for s, sched in zip(self._specs, scheds, strict=True))
+        # every scenario's live masks, [S, T, M, W] on the device
+        self._lives = torch.stack([rt._schedule for rt in self._runtimes])
+        self._index: dict[tuple[int, ...], torch.Tensor] = {}
+
+    def schedule_for(self, name: str) -> np.ndarray:
+        """The exact ``[T, M, M]`` schedule a sequential comparator run must
+        use to reproduce this runtime's cell bit for bit."""
+        return self._schedules_np[self.scenario_names.index(name)]
+
+    def _scenarios(self, cell: CellParams) -> list[int]:
+        return sorted(set(cell.scenario_idx))
+
+    def adjacency_at(self, t: int, cell: CellParams) -> torch.Tensor:
+        """The tick's live mask of each cell's scenario: ``[M, W]`` when the
+        cells share one scenario, else ``[E, M, W]``."""
+        used = self._scenarios(cell)
+        if len(used) == 1:
+            return self._runtimes[used[0]].adjacency_at(t)
+        idx = self._index.get(cell.scenario_idx)
+        if idx is None:
+            idx = self._index[cell.scenario_idx] = torch.as_tensor(
+                cell.scenario_idx, dtype=torch.int64, device=self.device)
+        return self._lives[:, t % self.num_ticks].index_select(0, idx)
+
+    def init(self, num_nodes: int, dim: int, max_wire_bits: int | None = None, *,
+             lead: tuple[int, ...] = ()) -> mb.MailboxState:
+        """Empty mailboxes, ``lead`` cells of them, with the ring sized for
+        the slowest scenario's worst case (propagation plus the
+        serialization of the largest codeword, a float32 payload by
+        default)."""
+        bits = 32 * dim if max_wire_bits is None else max_wire_bits
+        ring = max(s.channel.max_total_latency(bits) for s in self._specs)
+        width = None if self.neighbors is None else self.neighbors.k
+        return mb.init_mailbox(num_nodes, dim, ring, width=width, lead=lead, device=self.device)
+
+    def exchange(self, net_state, msgs, self_vals, adjacency, key, t, cell: CellParams, *,
+                 wire_bits=None):
+        """Each cell's exchange through its scenario's runtime: ``msgs [E,
+        M, W, d]``, ``key`` one key (E = 1) or the cells' host row keys
+        ``[E, 2]``; returns the stacked state, the views ``[E, M, W, d]``,
+        the usable masks ``[E, M, W]`` and ``[E]`` stats."""
+        used = self._scenarios(cell)
+        if len(used) == 1:
+            return self._runtimes[used[0]].exchange(net_state, msgs, self_vals, adjacency, key,
+                                                    t, wire_bits=wire_bits)
+        keys = np.asarray(key, np.uint32).reshape(-1, 2)
+        idx = np.asarray(cell.scenario_idx, np.int64)
+        state_out = mask_out = stats_out = None
+        for s in used:
+            cells = np.nonzero(idx == s)[0]
+            sel = torch.as_tensor(cells, device=self.device)
+            part = type(net_state)(*(x.index_select(0, sel) for x in net_state))
+            adj = adjacency.index_select(0, sel) if adjacency.ndim == 3 else adjacency
+            k = keys[cells[0]] if len(cells) == 1 else keys[cells]
+            new, _, mask, stats = self._runtimes[s].exchange(
+                part, _take(msgs, sel), self_vals.index_select(0, sel), adj, k, t,
+                wire_bits=wire_bits)
+            if state_out is None:
+                state_out = type(net_state)(*(torch.empty_like(x) for x in net_state))
+                mask_out = torch.empty((idx.shape[0], *mask.shape[1:]), dtype=mask.dtype,
+                                       device=mask.device)
+                stats_out = {k_: torch.empty((idx.shape[0],), dtype=v.dtype, device=v.device)
+                             for k_, v in stats.items()}
+            for out, x in zip(state_out, new, strict=True):
+                out.index_copy_(0, sel, x)
+            mask_out.index_copy_(0, sel, mask)
+            for k_, v in stats.items():
+                stats_out[k_].index_copy_(0, sel, v.reshape(-1))
+        return state_out, state_out.values, mask_out, stats_out
+
+
+def _rows(net, fn):
+    """``fn`` over every tensor of the stacked runtime state (or None)."""
+    return None if net is None else type(net)(*(fn(x) for x in net))
 
 
 class GridEngine:
     """Runs a list of grid `Cell`s over stacked state, one step per group.
 
     ``cells`` defaults to the grid's full cross product; a resumable sweep
-    passes the not-yet-computed subset.  ``grad_fn(params, batch)`` takes
+    passes the not-yet-computed subset.  All cells must be on the same side
+    of the sync/net split (their state differs); ``num_ticks`` is required
+    for net grids (the schedules' length, drawn under ``scenario_seed``),
+    which carry their stacked mailboxes in ``state.net``.  ``grad_fn(params, batch)`` takes
     the ``[E, M, ...]`` parameters of a group's cells and the tick's one
     batch (shared by every cell, as in the reference) and returns
     ``(losses [E, M], grads)`` (`repro_torch.models.small.linear_loss_and_grad`
@@ -102,8 +236,9 @@ class GridEngine:
     """
 
     def __init__(self, grid: ExperimentGrid, grad_fn: Callable, *,
-                 cells: Sequence[Cell] | None = None, group: bool = True, sparse: bool = False, trace=None, trust=None,
-                 metrics=None, events=None, device: str | torch.device = "cuda"):
+                 cells: Sequence[Cell] | None = None, num_ticks: int | None = None,
+                 scenario_seed: int = 0, group: bool = True, sparse: bool = False, trace=None,
+                 trust=None, metrics=None, events=None, device: str | torch.device = "cuda"):
         if any(spec is not None for spec in (trace, trust, metrics, events)):
             raise ValueError(f"GridEngine: {GRID_SPECS}")
         self.device = resolve_device(device)
@@ -112,17 +247,31 @@ class GridEngine:
         if not self.cells:
             raise ValueError("no cells to run")
         for c in self.cells:
-            _check_sync_cell(c)
+            _check_cell(c)
+        scen = [c.scenario for c in self.cells]
+        if any(s is None for s in scen) != all(s is None for s in scen):
+            raise ValueError("cannot mix synchronous and net-scenario cells in one grid batch "
+                             "(their carried state differs); split into two grids")
+        self.net_mode = scen[0] is not None
         topo = grid.topology
         self.rule_bank = _dedup(c.rule for c in self.cells)
         self.attack_bank = _dedup(c.attack for c in self.cells)
-        self.scenario_bank: list[str] = []
+        self.scenario_bank = _dedup(s for s in scen if s is not None)
         self.codec_bank = _dedup(c.codec for c in self.cells)
         self.adversary_bank = _dedup(c.adversary for c in self.cells)
         self.sparse = bool(sparse)
         self._adjacency = torch.as_tensor(topo.adjacency, dtype=torch.bool, device=self.device)
-        self.neighbors = (NeighborTable.from_adjacency(topo.adjacency, device=self.device)
-                          if self.sparse else None)
+        self.runtime = None
+        if self.net_mode:
+            if num_ticks is None:
+                raise ValueError("num_ticks is required for net-scenario grids (schedule length)")
+            self.runtime = GridNetRuntime(topo, self.scenario_bank, num_ticks,
+                                          seed=scenario_seed, sparse=self.sparse,
+                                          device=self.device)
+            self.neighbors = self.runtime.neighbors
+        else:
+            self.neighbors = (NeighborTable.from_adjacency(topo.adjacency, device=self.device)
+                              if self.sparse else None)
         self._group = bool(group)
         e = len(self.cells)
         gkey = self._group_keys(self.cells)
@@ -138,9 +287,14 @@ class GridEngine:
                 rules, attacks = (((head.rule,), (head.attack,)) if self._group
                                   else (tuple(self.rule_bank), tuple(self.attack_bank)))
                 self._banks.append((rules, attacks))
-                self._steps.append(build_cell_step(
-                    grad_fn, self._adjacency, rules, tuple(byz_lib.get_attack(a) for a in attacks),
-                    neighbors=self.neighbors))
+                if self.net_mode:
+                    self._steps.append(build_cell_runtime_step(
+                        grad_fn, self.runtime, rules,
+                        tuple(byz_lib.get_message_attack(a) for a in attacks)))
+                else:
+                    self._steps.append(build_cell_step(
+                        grad_fn, self._adjacency, rules,
+                        tuple(byz_lib.get_attack(a) for a in attacks), neighbors=self.neighbors))
                 self._bounds.append((lo, i))
                 lo = i
         self.step_calls = 0
@@ -177,7 +331,9 @@ class GridEngine:
             attack_idx=tuple(self.attack_bank.index(c.attack) for c in cells),
             b=tuple(int(c.b) for c in cells),
             byz_mask=torch.as_tensor(self.byz_masks, device=self.device),
-            lam=(g.lam,) * e, t0=(g.t0,) * e, lr=(g.lr,) * e)
+            lam=(g.lam,) * e, t0=(g.t0,) * e, lr=(g.lr,) * e,
+            scenario_idx=(tuple(self.scenario_bank.index(c.scenario) for c in cells)
+                          if self.net_mode else ()))
         self._group_cells = []
         for (rules, attacks), (lo, hi) in zip(self._banks, self._bounds, strict=True):
             idx = self._perm[lo:hi]
@@ -205,7 +361,10 @@ class GridEngine:
                     raise ValueError(
                         f"set_cells: {axis} {name!r} is outside this engine's "
                         f"bank {bank}; rebuild a GridEngine to change the grid's structure")
-            if c.scenario is not None:
+            if c.scenario is not None and c.scenario not in self.scenario_bank:
+                raise ValueError(f"set_cells: scenario {c.scenario!r} is outside this engine's "
+                                 f"bank {self.scenario_bank}")
+            if (c.scenario is None) == self.net_mode:
                 raise ValueError("set_cells cannot move cells across the sync/net split")
         if self._group_keys(self.cells) != self._group_keys(cells):
             raise ValueError(
@@ -226,7 +385,8 @@ class GridEngine:
         parameters must be exactly what the sequential trainer would be
         handed: cells with equal seeds share initial replicas, and each
         cell's key is ``PRNGKey(seed)``, as ``BridgeTrainer.init(params,
-        seed=seed)`` takes it."""
+        seed=seed)`` takes it.  A net grid's cells start with empty
+        mailboxes, ``[E, M, W, L, d]``."""
         m = self.grid.topology.num_nodes
         params = [init_fn(c.seed) for c in self.cells]
         for k, leaf in params[0].items():
@@ -235,7 +395,11 @@ class GridEngine:
                                  f"num_nodes {m}")
         stacked = {k: torch.stack([p[k].to(self.device) for p in params]) for k in params[0]}
         keys = np.stack([prng.PRNGKey(c.seed) for c in self.cells])
-        return BridgeState(params=stacked, t=0, key=keys)
+        net = None
+        if self.runtime is not None:
+            dim = stack_flatten(params[0])[0].shape[1]
+            net = self.runtime.init(m, dim, lead=(len(self.cells),))
+        return BridgeState(params=stacked, t=0, key=keys, net=net)
 
     def run(self, state: BridgeState, batches, *, chunk: int | None = None):
         """Run every cell over ``batches`` (a tensor or a tuple of tensors
@@ -260,19 +424,24 @@ class GridEngine:
                 sel = torch.as_tensor(cells_idx, device=self.device)
                 cp = self._group_cells[gi].select(rows - glo)
                 st = BridgeState({k: v.index_select(0, sel) for k, v in state.params.items()},
-                                 state.t, keys[cells_idx])
+                                 state.t, keys[cells_idx],
+                                 net=_rows(state.net, lambda x: x.index_select(0, sel)))
                 f, ms = self._run_chunk(self._steps[gi], cp, st, tick, ticks)
                 valid = hi - lo
                 finals.append(BridgeState({k: v[:valid] for k, v in f.params.items()}, f.t,
-                                          f.key[:valid]))
+                                          f.key[:valid], net=_rows(f.net, lambda x: x[:valid])))
                 metrics.append({k: v[:valid] for k, v in ms.items()})
         order = torch.as_tensor(self._inv, device=self.device)
         params = {k: torch.cat([f.params[k] for f in finals]).index_select(0, order)
                   for k in state.params}
         key = np.concatenate([f.key for f in finals])[self._inv]
+        net = None
+        if state.net is not None:
+            net = type(state.net)(*(torch.cat(xs).index_select(0, order)
+                                    for xs in zip(*(f.net for f in finals), strict=True)))
         out = {k: torch.cat([ms[k] for ms in metrics]).index_select(0, order)
                for k in metrics[0]}
-        return BridgeState(params=params, t=finals[0].t, key=key), out
+        return BridgeState(params=params, t=finals[0].t, key=key, net=net), out
 
     def _run_chunk(self, step: Callable, cell: CellParams, state: BridgeState, tick: Callable,
                    ticks: int) -> tuple[BridgeState, dict]:

@@ -257,7 +257,7 @@ def test_banked_dispatch_equals_each_experiments_own_rule():
 
 def test_refusals_name_their_roadmap_items(tmp_path):
     topo = erdos_renyi(M, 0.8, 2, seed=1)
-    for cell, item in ((Cell("trimmed_mean", "random", 2, 0, "lossy"), "item 11"),
+    for cell, item in ((Cell("trimmed_mean", "random", 2, 0, "lossy", "int8"), "item 11"),
                        (Cell("trimmed_mean", "random", 2, 0, codec="int8"), "item 11"),
                        (Cell("trimmed_mean", "scale_abuse", 2, 0), "item 11")):
         grid = ExperimentGrid(topo, ("trimmed_mean",), ("random",), (2,))
@@ -268,7 +268,8 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     with pytest.raises(ValueError, match="item 13"):
         GridEngine(ExperimentGrid(topo, ("trimmed_mean",), ("random",), (2,)), qgrad,
                    trace=object(), device="cpu")
-    for flags, item in ((["--scenarios", "lossy"], "item 11"), (["--codecs", "int8"], "item 11"),
+    for flags, item in ((["--scenarios", "lossy", "--codecs", "int8"], "item 11"),
+                        (["--codecs", "int8"], "item 11"),
                         (["--adversaries", "ipm"], "item 12"), (["--trace", "x"], "item 13"),
                         (["--trust"], "item 13")):
         with pytest.raises(ValueError, match=item):

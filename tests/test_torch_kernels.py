@@ -904,6 +904,42 @@ def test_views_wide_path_on_card(cuda_device, m, w, stride0):
     assert bool((torch.isfinite(got) == fin).all())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,w,d,stride0,per_mask", [(20, 20, 7850, False, True),
+                                                    (12, 16, 333, True, False),
+                                                    (50, 50, 999, True, True),
+                                                    (30, 129, 300, False, True)])
+def test_views_kernels_with_experiments_on_card(cuda_device, m, w, d, stride0, per_mask):
+    """The views kernels over ``[E, M, W, d]`` (a net grid's cells) in one
+    launch, per-cell b, one mask or one a cell, a receiver stride of 0 in
+    place: each cell equal to the one-cell kernel bit for bit and to the
+    plain version (NaN / +-inf / 1e30 payloads, starved nodes), the wide
+    path's trimmed mean against its left-to-right sum's one-cell kernel."""
+    e = 3
+    cells = [views_inputs(m, w, d, m + i, stride0) for i in range(e)]
+    if stride0:  # one broadcast a cell, expanded over its receivers on the card
+        views = torch.stack([v[0][0] for v in cells])[:, None].to(cuda_device).expand(e, m, w, d)
+    else:
+        views = torch.stack([v[0] for v in cells]).to(cuda_device)
+    mask = (torch.stack([v[1] for v in cells]) if per_mask else cells[0][1]).to(cuda_device)
+    self_vals = torch.stack([v[2] for v in cells]).to(cuda_device)
+    b = torch.tensor([0, 1, 4], dtype=torch.int32, device=cuda_device)
+    at = lambda i: mask[i] if per_mask else mask  # noqa: E731
+    before = views_screen.views_screen_trimmed_mean.launches + screen_wide.launch.launches
+    tm = views_screen.views_screen_trimmed_mean(views, mask, self_vals, b)
+    assert (views_screen.views_screen_trimmed_mean.launches + screen_wide.launch.launches
+            - before) == 1  # one launch for every cell
+    md = views_screen.views_screen_median(views, mask, self_vals)
+    for i in range(e):
+        one = views_screen.views_screen_trimmed_mean(views[i], at(i), self_vals[i], int(b[i]))
+        assert torch.equal(bits(tm[i]), bits(one))
+        assert torch.equal(bits(md[i]),
+                           bits(views_screen.views_screen_median(views[i], at(i), self_vals[i])))
+    assert bool(nan_equal(md, ref.median_views(views, mask, self_vals)).all())
+    if w <= gather_screen.MAX_SLOTS:
+        assert bool(nan_equal(tm, ref.trimmed_mean_views(views, mask, self_vals, b)).all())
+
+
 # ---------------------------------------------------------------------------
 # The grids' experiment axis and the batched distance kernel on the card
 # ---------------------------------------------------------------------------

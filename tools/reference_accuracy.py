@@ -46,7 +46,11 @@ Configurations (each as `chip_smoke.py` runs it, same seeds and batches):
   settings on ``erdos_renyi(20, 0.9, 1)`` (whose in-degrees meet Bulyan's
   Table-II minimum of 6 at b = 1), b = 1, ``alie``, t0 = 30, iid partition
   of 4000 samples, batch 32, init and key seed 0, 120 ticks, under
-  ``ideal`` and ``lossy``.
+  ``ideal`` and ``lossy``; and asynchronous BRIDGE-K at the scale
+  benchmark's sparse settings (as ``net``'s sparse run: ``small_world(512,
+  6, 1, rewire_prob=0.2)``, b = 1, ``alie``, drop 0.05, staleness bound 2,
+  t0 = 100, iid partition of 16384 samples, batch 8, init and key seed 0,
+  the sparse layout) for 20 ticks.
 
 Prints one line per configuration and a JSON object of all of them last.
 Takes some minutes (the sparse runs most of it).
@@ -202,6 +206,13 @@ def net_kb():
                                      batch=32)
             out[f"net {rule} {name}"] = run_async(task, topo, b=1, t0=30, ticks=120,
                                                   attack="alie", scenario=name, rule=rule)
+    from repro.net.channel import ChannelConfig
+
+    topo = graph.small_world(512, 6, 1, rewire_prob=0.2, seed=0)
+    task = tasks.linear_task(512, 0, partition="iid", num_train=16384, num_test=1000, batch=8)
+    out["net sparse krum"] = run_async(task, topo, b=1, t0=100, ticks=20, attack="alie",
+                                       sparse=True, channel=ChannelConfig(drop_prob=0.05),
+                                       staleness=2, rule="krum")
     return out
 
 
