@@ -175,16 +175,50 @@ failure of which raises:
    path's operands, every cell equal to its own trainer run over
    ``schedule_for(scenario)`` (parameters and key, the channel streams),
    cells/s and ms/tick against the cells one by one, the mailbox bytes;
-   last the sweep's grid mode with ``--scenarios ideal,lossy``, twice.
+   last the sweep's grid mode with ``--scenarios ideal,lossy``, twice;
+20. codec grids — lossy codecs and wire attacks over the grids' cells:
+   (a) the ``grid_bench`` grid (M = 12, b = 2, 30 ticks) under T / M x
+   random, alie, scale_abuse, garbage_codeword x identity, int8, int4,
+   topk25_int8 x 2 seeds (64 cells); (b) dense net cells at M = 20 with the
+   per-link int8 and int4 carries x ``lossy``, ``lossy_laggy``,
+   ``narrowband64k`` x T / M x 2 seeds, ``alie`` (24 cells, 30 ticks); (c)
+   the sparse runtime at M = 512, K = 16, int8 x ``lossy`` x T / M x 2
+   seeds (20 ticks): each kernel once a tick per group (a lossy dense
+   group's rows decoded by one ``dequant_carry`` launch), the per-link
+   decodes of two ticks held exactly, every cell equal to its own trainer
+   run (its codec carry included), cells/s against one by one, the carry
+   bytes;
+21. adversaries — the breakdown benchmark's task (M = 10, extreme non-iid,
+   4000 / 800 samples, 60 ticks, ``default_topology(10, (T, M), (3,))``):
+   T / M x random, alie, ipm, alie_online, dissensus, inner_max,
+   equivocate, slander x b in {1, 2, 3} as one grid (48 cells), every cell
+   equal to its own trainer run (its ``AdvState`` included) and its honest
+   accuracy within 0.01 of the reference's (``REFERENCE_ACCURACY``, group
+   ``adversary`` of ``tools/reference_accuracy.py``); whether an adaptive
+   adversary beats the best static attack at equal b, on the card and in
+   the reference; ms/tick of one BRIDGE-T trainer per adversary; BRIDGE-K
+   and BRIDGE-B under ``inner_max`` at M = 20, b = 2; the runtime's message
+   forms (``dissensus``, ``equivocate``, dense M = 20, ``lossy_laggy``) and
+   ``inner_max`` through the views oracle (sparse M = 512, ``lossy``, 20
+   ticks, BRIDGE-T and BRIDGE-M), each within 0.01 of the reference; every
+   run's launches exact (a screen a tick, and under ``inner_max`` K + 3
+   more forwards and K backwards, K = 6: the views backward kernel 6 a
+   sparse tick); under ``inner_max`` the autograd Functions' gradient on
+   the run's last operands held against autograd through the plain twins
+   (rtol 1e-4), and the screen's forward and backward device times (kept
+   off the counts); first the views backward kernels
+   (``views_screen_grad_*``) exact against the plain backward at the
+   sparse oracle's shape, timed beside it, and their wide kernel (above 64
+   slots) exact at M = W = 129.
 
-Every accuracy of phases 8-11 must land within 0.01 of the reference's
+Every accuracy of phases 8-11 and 21 must land within 0.01 of the reference's
 own CPU run at the same settings (``REFERENCE_ACCURACY``, from
 ``tools/reference_accuracy.py``), except where a run's accuracy turns on
 Krum's picks (``PICK_BOUND``), which is held to card-vs-CPU parity.
 
 Each configuration of a trainer phase trains on a task of its own, so all
 see batches 0..199 of one stream.  Before each main-path phase (5-12,
-16-19) every kernel's launch count is set to 0, and read
+16-21) every kernel's launch count is set to 0, and read
 after its runs: each kernel of the phase must have launched once per
 tick of the runs of its rule (codec), the others not at all; a kernel's
 ``launches`` in the JSON line is the sum over the phases.  Then each
@@ -215,18 +249,21 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))  # the kernel tests' edge-case r
 import torch  # noqa: E402
 
 from repro_torch import prng  # noqa: E402
+from repro_torch.adversary import adaptive as adaptive_lib  # noqa: E402
+from repro_torch.adversary import protocols as adv_lib  # noqa: E402
 from repro_torch.comm import codec as codec_lib  # noqa: E402
 from repro_torch.comm import exchange  # noqa: E402
 from repro_torch.core import byzantine, screening  # noqa: E402
 from repro_torch.core.brdso import BrdsoConfig, BrdsoTrainer  # noqa: E402
 from repro_torch.core.bridge import (  # noqa: E402
-    WIRE_SALT, BridgeConfig, BridgeTrainer, stack_batches)
+    WIRE_SALT, BridgeConfig, BridgeTrainer, stack_batches, stack_flatten)
 from repro_torch.core.byrdie import ByrdieConfig, ByrdieTrainer  # noqa: E402
 from repro_torch.core.graph import erdos_renyi, small_world  # noqa: E402
 from repro_torch.core.neighbors import NeighborTable  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     build, dequant, dequant_screen, gather_screen, median, networks, ops, pairwise, ref,
     screen_wide, trimmed_mean, views_screen)
+from repro_torch.kernels import autograd as grad_ops  # noqa: E402
 from repro_torch.net import AsyncBridgeConfig, AsyncBridgeTrainer, ChannelConfig  # noqa: E402
 from repro_torch.net.dynamic import scenario_schedule  # noqa: E402
 from repro_torch.net.runtime import SparseUnreliableRuntime  # noqa: E402
@@ -258,6 +295,9 @@ KERNELS = {  # JSON name -> wrapper (its `launches` counter)
     # the batched distances' two bodies (`pairwise.batch_plan` picks one a call)
     "pairwise_sq_dists_batched": pairwise.cluster_body,
     "pairwise_sq_dists_batch_body": pairwise.batch_body,
+    # the views screens' backward (inner_max through the sparse runtime's oracle)
+    "views_screen_grad_trimmed_mean": grad_ops.views_grad_trimmed_mean,
+    "views_screen_grad_median": grad_ops.views_grad_median,
 }
 COUNTED = KERNELS  # every counted wrapper is in the JSON line
 # bits on the wire per message at d = 7850: the reference codec's
@@ -332,6 +372,63 @@ REFERENCE_NET = {
     "net sparse krum": (0.7046027725923318, 0.9514811635017395, 0.04794158786535263),
 }
 REFERENCE_ACCURACY.update({tag: acc for tag, (acc, _, _) in REFERENCE_NET.items()})
+# the adversaries (tools/reference_accuracy.py group adversary; phase 21)
+REFERENCE_ACCURACY.update({
+    "adversary trimmed_mean random b1": 0.8938888642523024,
+    "adversary trimmed_mean random b2": 0.7879687249660492,
+    "adversary trimmed_mean random b3": 0.7148214152881077,
+    "adversary trimmed_mean alie b1": 0.8879166377915276,
+    "adversary trimmed_mean alie b2": 0.7478124871850014,
+    "adversary trimmed_mean alie b3": 0.5473214132445199,
+    "adversary trimmed_mean ipm b1": 0.8708333174387614,
+    "adversary trimmed_mean ipm b2": 0.7218749821186066,
+    "adversary trimmed_mean ipm b3": 0.5857142635754177,
+    "adversary trimmed_mean alie_online b1": 0.8812499841054281,
+    "adversary trimmed_mean alie_online b2": 0.6437499895691872,
+    "adversary trimmed_mean alie_online b3": 0.5135714156287057,
+    "adversary trimmed_mean dissensus b1": 0.8338888684908549,
+    "adversary trimmed_mean dissensus b2": 0.7926562204957008,
+    "adversary trimmed_mean dissensus b3": 0.6330357023647853,
+    "adversary trimmed_mean inner_max b1": 0.8506944245762296,
+    "adversary trimmed_mean inner_max b2": 0.6162499859929085,
+    "adversary trimmed_mean inner_max b3": 0.5008928392614637,
+    "adversary trimmed_mean equivocate b1": 0.8818055391311646,
+    "adversary trimmed_mean equivocate b2": 0.6448437348008156,
+    "adversary trimmed_mean equivocate b3": 0.5132142731121608,
+    "adversary trimmed_mean slander b1": 0.9874999721844991,
+    "adversary trimmed_mean slander b2": 0.9779687225818634,
+    "adversary trimmed_mean slander b3": 0.9687499914850507,
+    "adversary median random b1": 0.8579166399108039,
+    "adversary median random b2": 0.7948437184095383,
+    "adversary median random b3": 0.7133928452219281,
+    "adversary median alie b1": 0.8515277637375726,
+    "adversary median alie b2": 0.7289062291383743,
+    "adversary median alie b3": 0.46124998586518423,
+    "adversary median ipm b1": 0.8479166428248087,
+    "adversary median ipm b2": 0.7542187348008156,
+    "adversary median ipm b3": 0.6558928489685059,
+    "adversary median alie_online b1": 0.8563888536559211,
+    "adversary median alie_online b2": 0.688906230032444,
+    "adversary median alie_online b3": 0.581964271409171,
+    "adversary median dissensus b1": 0.821249975098504,
+    "adversary median dissensus b2": 0.789374977350235,
+    "adversary median dissensus b3": 0.6783928530556815,
+    "adversary median inner_max b1": 0.8563888536559211,
+    "adversary median inner_max b2": 0.688906230032444,
+    "adversary median inner_max b3": 0.5810714364051819,
+    "adversary median equivocate b1": 0.8563888536559211,
+    "adversary median equivocate b2": 0.688906230032444,
+    "adversary median equivocate b3": 0.5812499948910305,
+    "adversary median slander b1": 0.9527777565850152,
+    "adversary median slander b2": 0.9517187252640724,
+    "adversary median slander b3": 0.9510714071137565,
+    "adversary krum inner_max b2 (M=20)": 0.16576388478279114,
+    "adversary bulyan inner_max b2 (M=20)": 0.7555555436346266,
+    "adversary net lossy_laggy dissensus": 0.8183333178361257,
+    "adversary net lossy_laggy equivocate": 0.8932638731267717,
+    "adversary net sparse lossy inner_max": 0.9296712749391619,
+    "adversary net sparse lossy inner_max median": 0.9245010223640621,
+})
 NET_TICKS = 120  # the net benchmark's run (benchmarks/net_bench.py)
 NET_DENSE_TICKS = 100  # dense M = 50 under lossy_laggy / narrowband64k
 SPARSE_K_TICKS = 20  # BRIDGE-K over the sparse runtime, M = 512, K = 16
@@ -1064,6 +1161,12 @@ def pairwise_kernel_phase(dev):
 def zero_launches() -> None:
     for fn in COUNTED.values():
         fn.launches = 0
+
+
+def set_launches(counts: dict) -> None:
+    """Put every counter back to ``counts`` (a `read_launches` reading)."""
+    for k, fn in COUNTED.items():
+        fn.launches = counts[k]
 
 
 def read_launches() -> dict:
@@ -2278,38 +2381,77 @@ GRID_KERNELS = {"trimmed_mean": ("screen_trimmed_mean_dense",),
                 "bulyan": ("pairwise_sq_dists_batched", "screen_trimmed_mean_dense")}
 
 
+def ascent_screens(thetas) -> tuple[int, int]:
+    """The screen forwards and backwards that `inner_max` adds to a tick
+    over cells of one call with ``thetas`` (None: the default; K their most
+    ascent steps, `adaptive.ascent_steps`): K + 3 forwards (the unattacked
+    reference, the ALIE candidate, the warm start, K - 1 steps, the last
+    step's value) and K backwards (the warm start's and the K - 1 steps')."""
+    if not thetas:
+        return 0, 0
+    default = adv_lib.get_adversary("inner_max").default_theta
+    thetas = [default if t is None else t for t in thetas]
+    k = int(adaptive_lib.ascent_steps(np.asarray(thetas, np.float32)).max())
+    return k + 3, k
+
+
 def grid_want(engine, ticks: int) -> dict:
-    """Each screening kernel once a tick for each group of the grid: on a
+    """Each screening kernel once a tick for each group of the grid (on a
     sparse grid the gather forms, above the register networks' rows the
-    wide path."""
+    wide path), and `ascent_screens` more a tick for the rules of a group's
+    ``inner_max`` cells (the dense and gathered backwards are plain)."""
     want: dict[str, int] = {}
     if engine.sparse:
         wide = engine.neighbors.k + 1 > gather_screen.MAX_SLOTS + 1
     else:
         wide = engine.grid.topology.num_nodes + 1 > trimmed_mean.MAX_ROWS
-    for rules, _ in engine._banks:
+    for (rules, _, codecs, _), (lo, hi) in zip(engine._banks, engine._bounds, strict=True):
+        cells = [engine.cells[i] for i in engine._perm[lo:hi]]
+        ascent = [c for c in cells if c.adversary == "inner_max"]
+        extra, _ = ascent_screens([c.theta for c in ascent])
         for rule in rules:
+            calls = ticks * (1 + (extra if any(c.rule == rule for c in ascent) else 0))
             for k in GRID_KERNELS[rule]:
                 if k.startswith("screen_"):
                     if wide:
                         k = "screen_wide"
                     elif engine.sparse:
                         k = "gather_screen_" + k[len("screen_"):-len("_dense")]
-                want[k] = want.get(k, 0) + ticks
+                want[k] = want.get(k, 0) + calls
+        for k in decode_kernels(codecs):
+            want[k] = want.get(k, 0) + ticks
     return want
 
 
-def _grid_run(tag, grid, task, dev, ticks, *, sparse=False, acc_rules=("trimmed_mean", "median")):
-    """One grid on the card: the engine's run, timed (each screening kernel
-    launched once a tick per group, counted), then every cell's own
-    `BridgeTrainer` run over the same batches, timed; each cell's
-    parameters and key equal bit for bit, its loss stream too (else within
+def decode_kernels(codecs) -> list[str]:
+    """The decode kernels a group's codec bank launches once a tick: the
+    carry decode over every cell's rows (int8, int4), the kept values'
+    decode (a quantized sparse codec)."""
+    out = []
+    for name in codecs:
+        c = codec_lib.get_codec(name)
+        if not c.lossless and c.mode == "dense":
+            out.append("dequant_carry")
+        elif c.bits < 32:
+            out.append("dequant")
+    return out
+
+
+def _grid_run(tag, grid, task, dev, ticks, *, sparse=False, acc_rules=("trimmed_mean", "median"),
+              accs_out=None):
+    """One grid on the card: the engine's run, timed (its launches counted
+    against `grid_want`: each screening kernel once a tick per group, more
+    under ``inner_max``, each lossy codec's decode kernel once), then every
+    cell's own `BridgeTrainer` run (its codec and adversary included) over
+    the same batches, timed; each cell's parameters, key, codec carry and
+    adversary state equal bit for bit, its loss stream too (else within
     rtol 1e-6, with the cause printed); the honest accuracy of every
-    ``acc_rules`` cell at least 0.95.  Returns the launches of the engine's
-    run."""
+    ``acc_rules`` cell at least 0.95 (every cell's into ``accs_out``, by
+    tag).  Returns the launches of the engine's run."""
     batches = stack_batches(task.batch_fn, ticks, device=dev)
     engine = GridEngine(grid, task.grad_fn, sparse=sparse, device=dev)
     state0 = engine.init(task.init_fn)
+    carry = sum(x.nbytes for x in state0.comm) if state0.comm is not None else 0
     before = read_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2324,8 +2466,9 @@ def _grid_run(tag, grid, task, dev, ticks, *, sparse=False, acc_rules=("trimmed_
     seq = []
     for cell in engine.cells:
         cfg = BridgeConfig(topology=grid.topology, rule=cell.rule, num_byzantine=cell.b,
-                           attack=cell.attack, lam=grid.lam, t0=grid.t0, lr=grid.lr,
-                           byzantine_seed=cell.mask_seed, sparse=sparse)
+                           attack=cell.attack, adversary=cell.adversary, codec=cell.codec,
+                           lam=grid.lam, t0=grid.t0, lr=grid.lr, byzantine_seed=cell.mask_seed,
+                           sparse=sparse)
         tr = BridgeTrainer(cfg, task.grad_fn, device=dev)
         st = tr.init(task.init_fn(cell.seed), seed=cell.seed)
         losses = []
@@ -2345,28 +2488,51 @@ def _grid_run(tag, grid, task, dev, ticks, *, sparse=False, acc_rules=("trimmed_
                                      f"BridgeTrainer run by up to {diff:.3g}")
         if not np.array_equal(final.key[i], st.key):
             raise AssertionError(f"grid {tag}: cell {cell.tag}'s key differs")
+        check_carries(f"grid {tag}", cell, final, i, st)
         if not torch.equal(metrics["loss"][i], losses):
             torch.testing.assert_close(metrics["loss"][i], losses, rtol=1e-6, atol=0,
                                        msg=f"grid {tag}: cell {cell.tag}'s loss stream")
             loss_note = ("within rtol 1e-6 (the loss sums over the nodes' [N, C] margins and "
                          "parameters round per batched reduction shape on the card)")
+        acc = task.eval_accuracy({k: v[i] for k, v in final.params.items()}, honest)
+        if accs_out is not None:
+            accs_out[cell.tag] = acc
         if cell.rule in acc_rules:
-            acc = task.eval_accuracy({k: v[i] for k, v in final.params.items()}, honest)
             accs.append(acc)
             if acc < 0.95:
                 raise AssertionError(f"grid {tag}: cell {cell.tag} honest accuracy {acc:.4f} "
                                      f"< 0.95")
     acc_note = (f"; honest accuracy of the {'/'.join(acc_rules)} cells {min(accs):.4f}-"
                 f"{max(accs):.4f}" if accs else "")
+    carry_note = f"; codec carry {carry} bytes" if carry else ""
     print(f"grid {tag}: {e} cells x {ticks} ticks, {engine.num_steps_built} groups: every cell "
-          f"equal to its own BridgeTrainer run on the card (parameters and key bit for bit, "
-          f"loss stream {loss_note}){acc_note}")
+          f"equal to its own BridgeTrainer run on the card (parameters, key, codec carry and "
+          f"adversary state bit for bit, loss stream {loss_note}){acc_note}{carry_note}")
     print(f"grid {tag} throughput: engine {wall_grid:.3f} s ({e / wall_grid:.2f} cells/s, "
           f"{wall_grid / ticks * 1e3:.3f} ms/tick for all {e} cells); one by one through "
           f"BridgeTrainer {wall_seq:.3f} s ({e / wall_seq:.2f} cells/s, "
           f"{wall_seq / ticks / e * 1e3:.3f} ms/tick a cell); speedup "
           f"{wall_seq / wall_grid:.2f}x")
     return grew
+
+
+def check_carries(tag, cell, final, i, st) -> None:
+    """Cell ``i``'s codec carry and adversary state equal its trainer's
+    (NaN-aware: a wire attack's scale rewrite can drive a Byzantine link's
+    residual to inf - inf); where the trainer carries none (a lossless codec or
+    a stateless adversary in a bank that carries one), the cell's rows stay
+    all zeros."""
+    for name in ("comm", "adv"):
+        got, want = getattr(final, name), getattr(st, name)
+        if got is None and want is None:
+            continue
+        if got is None:
+            raise AssertionError(f"{tag}: cell {cell.tag}'s {name} carry is missing")
+        rows = [a[i] for a in got]
+        ok = (all(not bool(r.any()) for r in rows) if want is None
+              else all(bool(nan_equal(r, b).all()) for r, b in zip(rows, want, strict=True)))
+        if not ok:
+            raise AssertionError(f"{tag}: cell {cell.tag}'s {name} carry differs")
 
 
 def experiment_records(dev) -> list:
@@ -2547,17 +2713,19 @@ def net_grid_want(engine, ticks: int) -> dict:
     m = engine.grid.topology.num_nodes
     w = engine.neighbors.k if engine.sparse else m
     want: dict[str, int] = {}
-    for (rules, _), (lo, hi) in zip(engine._banks, engine._bounds, strict=True):
+    for (rules, _, codecs, _), (lo, hi) in zip(engine._banks, engine._bounds, strict=True):
         for rule in rules:
             names = [dist_body((hi - lo) * m, w + 1)] if rule in ("krum", "bulyan") else []
             if rule in VIEWS_OF:
                 names.append("screen_wide" if w > gather_screen.MAX_SLOTS else VIEWS_OF[rule])
             for k in names:
                 want[k] = want.get(k, 0) + ticks
+        for k in decode_kernels(codecs):
+            want[k] = want.get(k, 0) + ticks
     return want
 
 
-def _net_grid_run(tag, grid, task, dev, ticks, *, sparse=False):
+def _net_grid_run(tag, grid, task, dev, ticks, *, sparse=False, accs_out=None):
     """One net grid on the card: the engine's run, timed (each kernel once a
     tick per group, counted; the views calls of two ticks held exactly
     against their plain versions on the path's own operands), then every
@@ -2565,13 +2733,17 @@ def _net_grid_run(tag, grid, task, dev, ticks, *, sparse=False):
     engine's union table), timed; each cell's parameters and key equal (the
     shared ring may turn a -0.0 payload into +0.0, which torch.equal treats
     alike), its delivered_frac and mean_staleness streams equal, its loss
-    stream bit for bit (else within rtol 1e-6, the cause printed).  Returns
-    the launches of the engine's run."""
+    stream bit for bit (else within rtol 1e-6, the cause printed); a codec
+    grid's per-link carry decodes (one ``dequant_carry`` a group and tick)
+    held too, and each cell's codec carry and adversary state equal its
+    trainer's.  ``accs_out`` as in `_grid_run`.
+    Returns the launches of the engine's run."""
     batches = stack_batches(task.batch_fn, ticks, device=dev)
     engine = GridEngine(grid, task.grad_fn, num_ticks=ticks, sparse=sparse, device=dev)
     state0 = engine.init(task.init_fn)
     e = engine.num_cells
     ring = state0.net.nbytes()
+    carry = sum(x.nbytes for x in state0.comm) if state0.comm is not None else 0
     before = read_launches()
     with HeldCalls() as held:
         held.start({ticks // 2, ticks - 1})
@@ -2582,6 +2754,8 @@ def _net_grid_run(tag, grid, task, dev, ticks, *, sparse=False):
         wall_grid = time.perf_counter() - t0
         check_grew(f"net grid {tag}", before, net_grid_want(engine, ticks))
         used = {HELD_ENTRIES[VIEWS_OF[r]] for r in engine.rule_bank if r in VIEWS_OF}
+        if "dequant_carry" in decode_kernels(engine.codec_bank):
+            used.add("dequant_carry")
         summary = held.check(f"net grid {tag}", used)
     grew = {k: n - before[k] for k, n in read_launches().items() if n != before[k]}
     del state0
@@ -2592,7 +2766,8 @@ def _net_grid_run(tag, grid, task, dev, ticks, *, sparse=False):
         spec = get_scenario(cell.scenario)
         sched = engine.runtime.schedule_for(cell.scenario)
         kw = dict(topology=grid.topology, rule=cell.rule, num_byzantine=cell.b,
-                  attack=cell.attack, lam=grid.lam, t0=grid.t0, byzantine_seed=cell.mask_seed)
+                  attack=cell.attack, adversary=cell.adversary, codec=cell.codec, lam=grid.lam,
+                  t0=grid.t0, byzantine_seed=cell.mask_seed)
         if sparse:
             rt = SparseUnreliableRuntime(sched, spec.channel, staleness_bound=spec.staleness_bound,
                                          neighbors=engine.neighbors, device=dev)
@@ -2621,6 +2796,7 @@ def _net_grid_run(tag, grid, task, dev, ticks, *, sparse=False):
                                      f"trainer run by up to {diff:.3g}")
         if not np.array_equal(final.key[i], st.key):
             raise AssertionError(f"net grid {tag}: cell {cell.tag}'s key differs")
+        check_carries(f"net grid {tag}", cell, final, i, st)
         for k in ("delivered_frac", "mean_staleness"):
             if not torch.equal(metrics[k][i], streams[k]):
                 raise AssertionError(f"net grid {tag}: cell {cell.tag}'s {k} stream differs")
@@ -2630,6 +2806,10 @@ def _net_grid_run(tag, grid, task, dev, ticks, *, sparse=False):
             loss_note = ("within rtol 1e-6 (the loss sums over the nodes' margins round per "
                          "batched reduction shape on the card)")
         accs.append(task.eval_accuracy({k: v[i] for k, v in final.params.items()}, honest))
+        if accs_out is not None:
+            accs_out[cell.tag] = accs[-1]
+    if carry:
+        print(f"net grid {tag}: per-link codec carry {carry} bytes ({carry // e} a cell)")
     print(f"net grid {tag}: {e} cells x {ticks} ticks, {engine.num_steps_built} groups, "
           f"scenarios {engine.scenario_bank}: every cell equal to its own trainer run on the card "
           f"(parameters and key bit for bit up to the sign of a zero, delivered_frac and "
@@ -2775,6 +2955,337 @@ def net_grid_phase(dev):
     return records, read_launches()
 
 
+# ---------------------------------------------------------------------------
+# 20. Codec grids
+# ---------------------------------------------------------------------------
+
+
+def codec_grid_phase(dev):
+    """Phase 20: lossy codecs and wire attacks over the grids' cells (the
+    module docstring's list); returns no records and the launches of the
+    runs."""
+    zero_launches()
+    rules = ("trimmed_mean", "median")
+    # (a) the grid_bench grid under the codecs and the wire attacks
+    task = linear_task(12, partition="iid", num_train=4000, num_test=800, batch=32, device=dev)
+    grid = ExperimentGrid(default_topology(12, rules, (2,), seed=0), rules,
+                          ("random", "alie", "scale_abuse", "garbage_codeword"), (2,), (0, 1),
+                          codecs=("identity", "int8", "int4", "topk25_int8"), lam=1.0, t0=30.0)
+    _grid_run("codecs (a) grid_bench (M=12)", grid, task, dev, 30, acc_rules=())
+    # (b) dense net cells, per-link int8 / int4 carries
+    task = net_task(20, dev, num_train=4000, num_test=800, batch=32)
+    grid = ExperimentGrid(default_topology(20, rules, (2,), seed=0), rules, ("alie",), (2,),
+                          (0, 1), scenarios=("lossy", "lossy_laggy", "narrowband64k"),
+                          codecs=("int8", "int4"), lam=1.0, t0=30.0)
+    _net_grid_run("codecs (b) dense (M=20)", grid, task, dev, NET_GRID_TICKS)
+    # (c) the sparse runtime at the scale setting, per-link int8
+    task = net_task(SM, dev, num_train=16384, num_test=1000, batch=8)
+    grid = ExperimentGrid(small_world(SM, NEAREST, 1, rewire_prob=0.2, seed=0), rules, ("alie",),
+                          (1,), (0, 1), scenarios=("lossy",), codecs=("int8",), lam=1.0,
+                          t0=100.0)
+    _net_grid_run(f"codecs (c) sparse (M={SM})", grid, task, dev, SPARSE_NET_GRID_TICKS,
+                  sparse=True)
+    print("dequant_carry launches per group and tick on the codec grids: 1 (counted above: "
+          "each lossy dense group's cells decode in one launch)")
+    return read_launches()
+
+
+# ---------------------------------------------------------------------------
+# 21. Adversaries
+# ---------------------------------------------------------------------------
+
+ADVERSARY_TICKS = 60
+STATIC_ADVERSARIES = ("random", "alie")
+ADAPTIVE_ADVERSARIES = ("ipm", "alie_online", "dissensus", "inner_max", "equivocate", "slander")
+# each screen entry the adversaries' screening oracle reaches, under autograd
+# in the ascent -> its plain twin (autograd through torch's own ops)
+PLAIN_TWINS = {"trimmed_mean": ref.trimmed_mean_dense, "median": ref.median_dense,
+               "gather_trimmed_mean": ref.gather_trimmed_mean, "gather_median": ref.gather_median,
+               "views_trimmed_mean": ref.trimmed_mean_views, "views_median": ref.median_views}
+
+
+class PlainAutograd:
+    """Within it, the screens run their plain twins with torch's autograd
+    through them (no `kernels.autograd` Function, no kernel): the
+    yardstick the Functions' gradients are held against."""
+
+    def __enter__(self):
+        self.saved = {name: getattr(ops, name) for name in PLAIN_TWINS}
+        self.screen = grad_ops.screen
+        for name, fn in PLAIN_TWINS.items():
+            setattr(ops, name, fn)
+        grad_ops.screen = lambda spec, x, s: spec.forward(x, s)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(ops, name, fn)
+        grad_ops.screen = self.screen
+
+
+def delta_gradient(screen, w, byz, delta):
+    """``d/d delta`` of ``sum(cot * screen(w with the Byzantine rows at
+    mu + delta sigma))``, ``cot`` a seeded cotangent: the gradient the
+    ascent reads, through ``screen`` (``[1, M, d] -> [1, M, d]``)."""
+    mu, sigma, _ = adv_lib.honest_stats(w, byz)
+    gen = torch.Generator(device=w.device)
+    gen.manual_seed(21)
+    cot = torch.randn(w.shape, generator=gen, device=w.device)
+    leaf = delta.detach().clone().requires_grad_(True)
+    wb = torch.where(byz[..., None], (mu + leaf * sigma)[:, None], w)
+    (g,) = torch.autograd.grad((screen(wb) * cot).sum(), leaf)
+    return g
+
+
+def check_ascent(tag, screen, w, byz, delta, want: dict) -> str:
+    """The Functions' gradient (kernels forward, plain or kernel backward)
+    against autograd through the plain twins on the same operands, its
+    launches exactly ``want`` (one screen forward and its backward); then
+    the device time of the screen's forward and of its backward (CUDA
+    events); returns a note.  The caller restores the counters after it."""
+    before = read_launches()
+    got = delta_gradient(screen, w, byz, delta)
+    torch.cuda.synchronize()
+    check_grew(f"{tag}: the delta gradient", before, want)
+    with PlainAutograd():
+        want_g = delta_gradient(screen, w, byz, delta)
+    torch.testing.assert_close(got, want_g, rtol=1e-4, atol=1e-5,
+                               msg=f"{tag}: the Functions' delta gradient")
+    err = float((got - want_g).abs().max())
+    x = w.clone().requires_grad_(True)
+    y = screen(x)
+    cot = torch.ones_like(y)
+    fwd = cuda_ms(lambda: screen(w), reps=9, inner=4)
+    bwd = cuda_ms(lambda: torch.autograd.grad(y, x, cot, retain_graph=True), reps=9, inner=4)
+    return (f"delta gradient within {err:.3g} of autograd through the plain twins, kernels "
+            f"{want}; the screen's forward {fwd:.4f} ms, its backward {bwd:.4f} ms (device; "
+            f"the views form's on its kernel)")
+
+
+def adversary_trainer(tag, cfg, make_task, dev, ticks, *, kernels, backward=(), runtime_kw=None,
+                      oracle=None):
+    """One trainer with an adversary on the card, on a task of its own
+    (``make_task()``: batches 0..ticks-1 of its stream): ``ticks`` ticks timed,
+    its launches exactly ``kernels`` (the screen's forward kernels) once a
+    screen and ``backward`` (its backward kernels) once a backward, a screen
+    a tick and under ``inner_max`` `ascent_screens` more; then (``oracle``:
+    the screen its adversary ascends through, built from the trainer) the
+    Functions' gradient held against the plain twins on the run's last
+    operands, its launches and times kept off the counts; returns the honest
+    accuracy and ms/tick."""
+    task = make_task()
+    if runtime_kw is None:
+        tr = BridgeTrainer(cfg, task.grad_fn, device=dev)
+    else:
+        fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+        tr = AsyncBridgeTrainer(AsyncBridgeConfig(**fields, **runtime_kw), task.grad_fn,
+                                device=dev)
+    st = tr.init(task.init_fn(0), seed=0)
+    batches = stack_batches(task.batch_fn, ticks, device=dev)
+    fwd, bwd = ascent_screens([None] if cfg.adversary == "inner_max" else [])
+    want = {k: ticks * (1 + fwd) for k in kernels} | {k: ticks * bwd for k in backward}
+    before = read_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(ticks):
+        st, _ = tr.step(st, tuple(x[i] for x in batches))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / ticks * 1e3
+    check_grew(tag, before, want)
+    acc = task.eval_accuracy(st.params, tr.honest_mask)
+    note = f"; launches {want} ({1 + fwd} screens and {bwd} backwards a tick)"
+    if oracle is not None:
+        saved = read_launches()
+        note += "; " + check_ascent(
+            tag, oracle(tr), stack_flatten(st.params)[0][None], tr.byz_mask[None],
+            st.adv.dir[None] if st.adv.dir.ndim == 1 else st.adv.dir,
+            dict.fromkeys((*kernels, *backward), 1))
+        set_launches(saved)
+    check_accuracy(tag, acc)
+    print(f"{tag}: honest accuracy {acc:.4f} (reference {REFERENCE_ACCURACY[tag]:.4f}), "
+          f"{ms:.3f} ms/tick over {ticks} ticks{note}")
+    return acc, ms
+
+
+# what the views backward kernels stand for: no TPU kernel computes this
+# gradient; the reference takes it with jax.grad of its screening functions
+GRAD_REPLACES = {"trimmed_mean": "jax.grad of src/repro/core/screening.py:165, no pallas_call",
+                 "median": "jax.grad of src/repro/core/screening.py:191, no pallas_call"}
+
+
+def views_grad_records(dev) -> list:
+    """The views screens' backward kernels at the sparse oracle's shape
+    (E = 1, M = 512, W = 16, d = 7850; NaN, inf, ties, a starved node),
+    exact against the plain backward (`kernels.autograd.plain_backward`)
+    for the trimmed mean at b = 1 and at per-cell b, and for the median;
+    timed beside it (records; their launches are the main path's); then
+    the wide kernel (above 64 slots, the dense runtime's views at M = W =
+    129) exact against it and timed."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    e, m, w = 1, SM, 16
+    views = torch.randn((e, m, w, D), generator=gen, device=dev)
+    views[0, 1, 2, 3], views[0, 0, 1] = float("nan"), float("inf")
+    views[0, 2, 3] = views[0, 2, 4]  # a tie
+    mask = torch.rand((m, w), generator=gen, device=dev) < 0.75
+    mask[0] = False  # a starved node
+    sv = torch.randn((e, m, D), generator=gen, device=dev)
+    gy = torch.randn((e, m, D), generator=gen, device=dev)
+    b_t = torch.tensor([1], dtype=torch.int32, device=dev)
+    src = "src/repro_torch/kernels/csrc/views_screen_grad.cu"
+    records = []
+    for name, rule, kern in (
+        ("views_screen_grad_trimmed_mean", "trimmed_mean",
+         lambda: grad_ops.views_grad_trimmed_mean(views, mask, gy, 1)),
+        ("views_screen_grad_median", "median",
+         lambda: grad_ops.views_grad_median(views, mask, sv, gy)),
+    ):
+        spec = grad_ops.ScreenSpec(None, rule, "views", mask, 1)
+        plain = lambda spec=spec: grad_ops.plain_backward(spec, views, sv, gy)  # noqa: E731
+        got, want = kern(), plain()
+        for g, p_ in zip(got, want, strict=True):
+            exact_or_raise(f"{name} against the plain backward", g, p_)
+        if rule == "trimmed_mean":
+            per_cell = grad_ops.views_grad_trimmed_mean(views, mask, gy, b_t)
+            for g, p_ in zip(per_cell, want, strict=True):
+                exact_or_raise(f"{name} with per-cell b", g, p_)
+        n = w + (rule == "median")
+        nbytes = 2 * views.numel() * 4 + mask.numel() + (2 + (rule == "median")) * gy.numel() * 4
+        records.append(record(name, src, GRAD_REPLACES[rule], kern, plain, None, nbytes,
+                              e * m * D * n * n, max(max_abs_err(g, p_) for g, p_ in
+                                                     zip(got, want, strict=True))))
+    print("library: no PyTorch call computes a screen's backward; the plain version is "
+          "autograd.py's sort over every node's views")
+    del views, sv, gy
+    # the wide kernel: every slot of a dense runtime's views above 64 slots
+    m = w = WIDE_M
+    views = torch.randn((1, m, w, D), generator=gen, device=dev)
+    views[0, 3, 5, :7] = float("nan")
+    views[0, 4, 6:9] = views[0, 4, 9]  # ties
+    mask = torch.rand((m, w), generator=gen, device=dev) < 0.9
+    mask[1] = False
+    sv = torch.randn((1, m, D), generator=gen, device=dev)
+    gy = torch.randn((1, m, D), generator=gen, device=dev)
+    for rule, bs in (("trimmed_mean", (0, 3)), ("median", (0,))):
+        for b in bs:
+            spec = grad_ops.ScreenSpec(None, rule, "views", mask, b)
+            before = read_launches()
+            got = grad_ops._backward(spec, views, sv, gy)
+            check_grew(f"views backward {rule} W = {w}", before,
+                       {f"views_screen_grad_{rule}": 1})
+            want = grad_ops.plain_backward(spec, views, sv, gy)
+            for g, p_ in zip(got, want, strict=True):
+                exact_or_raise(f"views backward {rule} b = {b} at W = {w}", g, p_)
+        kern_ms = cuda_ms(lambda spec=spec: grad_ops._backward(spec, views, sv, gy), reps=5,
+                          inner=2)
+        plain_ms = cuda_ms(lambda spec=spec: grad_ops.plain_backward(spec, views, sv, gy),
+                           reps=5, inner=2)
+        print(f"views backward {rule}, wide kernel at M = W = {w}, d = {D}: exact against the "
+              f"plain backward; {kern_ms:.4f} ms, plain {plain_ms:.4f} ms (device)")
+    return records
+
+
+def adversary_phase(dev):
+    """Phase 21: the adversaries on the card (the module docstring's list);
+    returns the views backward kernels' records and the launches of the
+    runs."""
+    records = views_grad_records(dev)
+    zero_launches()
+    rules = ("trimmed_mean", "median")
+    names = STATIC_ADVERSARIES + ADAPTIVE_ADVERSARIES
+    extreme = lambda m: lambda: linear_task(  # noqa: E731
+        m, partition="extreme", num_train=4000, num_test=800, batch=32, device=dev)
+    task = extreme(10)()
+    grid = ExperimentGrid(default_topology(10, rules, (3,), seed=0), rules, ("none",), (1, 2, 3),
+                          (0,), adversaries=names, lam=1.0, t0=30.0)
+    accs: dict[str, float] = {}
+    _grid_run("adversaries (M=10)", grid, task, dev, ADVERSARY_TICKS, acc_rules=(),
+              accs_out=accs)
+    # each cell's accuracy against the reference's; the static / adaptive inversion
+    by_cell, worst = {}, 0.0
+    for cell in grid.cells():
+        acc = accs[cell.tag]
+        tag = f"adversary {cell.rule} {cell.adversary} b{cell.b}"
+        check_accuracy(tag, acc)
+        by_cell[cell.rule, cell.adversary, cell.b] = acc
+        worst = max(worst, abs(acc - REFERENCE_ACCURACY[tag]))
+    print(f"grid adversaries (M=10): every honest accuracy within {worst:.2g} of the "
+          f"reference's ({min(accs.values()):.4f}-{max(accs.values()):.4f})")
+    for rule in rules:
+        for b in (1, 2, 3):
+            static = min(by_cell[rule, a, b] for a in STATIC_ADVERSARIES)
+            worst = min(ADAPTIVE_ADVERSARIES, key=lambda a: by_cell[rule, a, b])
+            adaptive = by_cell[rule, worst, b]
+            ref_static = min(REFERENCE_ACCURACY[f"adversary {rule} {a} b{b}"]
+                             for a in STATIC_ADVERSARIES)
+            ref_adaptive = min(REFERENCE_ACCURACY[f"adversary {rule} {a} b{b}"]
+                               for a in ADAPTIVE_ADVERSARIES)
+            print(f"adversary inversion {rule} b={b}: best static attack leaves {static:.4f}, "
+                  f"the worst adaptive ({worst}) {adaptive:.4f}: "
+                  f"{'holds' if adaptive < static else 'does not hold'} on the card "
+                  f"(reference {ref_static:.4f} / {ref_adaptive:.4f}: "
+                  f"{'holds' if ref_adaptive < ref_static else 'does not hold'})")
+    ms_tick = {}
+    for name in names:
+        cfg = BridgeConfig(topology=grid.topology, rule="trimmed_mean", num_byzantine=2,
+                           adversary=name, lam=1.0, t0=30.0, byzantine_seed=0)
+        oracle = None
+        if name == "inner_max":
+            oracle = lambda tr: (lambda wb: screening.screen_all_banked(  # noqa: E731
+                wb, tr.adjacency, ("trimmed_mean",), (0,), (2,), self_vals=wb))
+        _, ms_tick[name] = adversary_trainer(
+            f"adversary trimmed_mean {name} b2", cfg, extreme(10), dev, ADVERSARY_TICKS,
+            kernels=("screen_trimmed_mean_dense",), oracle=oracle)
+    print("adversary ms/tick (BRIDGE-T, M = 10, b = 2, one trainer): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms_tick.items()))
+    # BRIDGE-K / BRIDGE-B under inner_max at M = 20
+    kb = ("krum", "bulyan")
+    topo = default_topology(20, kb, (2,), seed=0)
+    for rule in kb:
+        cfg = BridgeConfig(topology=topo, rule=rule, num_byzantine=2, adversary="inner_max",
+                           lam=1.0, t0=30.0, byzantine_seed=0)
+        oracle = (lambda r: lambda tr: (lambda wb: screening.screen_all_banked(
+            wb, tr.adjacency, (r,), (0,), (2,), self_vals=wb)))(rule)
+        # one experiment's distances run the unbatched kernel (`screening._dists`)
+        adversary_trainer(f"adversary {rule} inner_max b2 (M=20)", cfg, extreme(20), dev,
+                          ADVERSARY_TICKS, oracle=oracle,
+                          kernels=("pairwise_sq_dists",) + (("screen_trimmed_mean_dense",)
+                                                            if rule == "bulyan" else ()))
+    # the runtime: the message forms, then the sparse views oracle
+    topo = default_topology(20, ("trimmed_mean",), (2,), seed=0)
+    spec = get_scenario("lossy_laggy")
+    sched = scenario_schedule(spec.schedule_kind, topo, ADVERSARY_TICKS, seed=0,
+                              churn_prob=spec.churn_prob)
+    for name in ("dissensus", "equivocate"):
+        cfg = BridgeConfig(topology=topo, rule="trimmed_mean", num_byzantine=2, adversary=name,
+                           lam=1.0, t0=30.0)
+        adversary_trainer(f"adversary net lossy_laggy {name}", cfg, extreme(20), dev,
+                          ADVERSARY_TICKS, kernels=(VIEWS_OF["trimmed_mean"],),
+                          runtime_kw=dict(channel=spec.channel,
+                                          staleness_bound=spec.staleness_bound, schedule=sched))
+    topo = small_world(SM, NEAREST, 1, rewire_prob=0.2, seed=0)
+    spec = get_scenario("lossy")
+    sched = scenario_schedule(spec.schedule_kind, topo, SPARSE_NET_GRID_TICKS, seed=0,
+                              churn_prob=spec.churn_prob)
+    for rule, tag in (("trimmed_mean", ""), ("median", " median")):
+        cfg = BridgeConfig(topology=topo, rule=rule, num_byzantine=1, adversary="inner_max",
+                           lam=1.0, t0=100.0, sparse=True)
+
+        def views_oracle(tr, rule=rule):
+            nbr = tr.runtime.neighbors
+            live = tr.runtime.adjacency_at(0)
+            return lambda wb: screening.screen_views_banked(nbr.gather_rows(wb, lead=1), live, wb,
+                                                            (rule,), (0,), (1,))
+
+        adversary_trainer(f"adversary net sparse lossy inner_max{tag}", cfg,
+                          lambda: net_task(SM, dev, num_train=16384, num_test=1000, batch=8), dev,
+                          SPARSE_NET_GRID_TICKS, oracle=views_oracle,
+                          kernels=(VIEWS_OF[rule],), backward=(f"views_screen_grad_{rule}",),
+                          runtime_kw=dict(channel=spec.channel,
+                                          staleness_bound=spec.staleness_bound, schedule=sched))
+    return records, read_launches()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2815,6 +3326,13 @@ def main() -> int:
         phase_records, phase_launches[phase.__name__] = phase(dev)
         records += phase_records
         print(f"({phase.__name__}: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_launches["codec_grid_phase"] = codec_grid_phase(dev)
+    print(f"(codec_grid_phase: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_records, phase_launches["adversary_phase"] = adversary_phase(dev)
+    records += phase_records
+    print(f"(adversary_phase: {time.perf_counter() - t0:.1f} s)")
     for name, launches in phase_launches.items():
         print(f"launches in {name}: {({k: v for k, v in launches.items() if v})}")
     for rec in records:

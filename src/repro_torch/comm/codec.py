@@ -285,6 +285,11 @@ def get_codec(name: str) -> Codec:
                      f"topk<P>[_int8|_int4], randk<P>[_int8|_int4] (P = percent kept)")
 
 
+def codec_bank(names) -> tuple[Codec, ...]:
+    """The static bank of the named codecs, in order."""
+    return tuple(get_codec(n) for n in names)
+
+
 def codec_names() -> list[str]:
     """The reference's fixed registry names."""
     return ["identity", "int8", "int4", "topk25", "randk25", "topk25_int8"]

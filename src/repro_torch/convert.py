@@ -4,9 +4,10 @@ The reference's checkpoint format (`repro.checkpoint.msgpack_ckpt`) needs
 ``msgpack``, which the card's machine lacks; until the port reads it, a
 caller hands over the state as numpy arrays: each leaf of the reference's
 ``state.params``, its ``state.key`` and, for a lossy codec, its
-``state.comm`` carry; for the batched grids the stacked state of the
-reference's ``GridEngine`` (`grid_state_from_jax`, a net grid's stacked
-mailboxes included).
+``state.comm`` carry, for a stateful adversary its ``state.adv``; for the
+batched grids the stacked state of the reference's ``GridEngine``
+(`grid_state_from_jax`, a net grid's stacked mailboxes, the codec carries
+and the adversary's state included).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.adversary.protocols import AdvState
 from repro_torch.comm.exchange import CommState
 from repro_torch.core.brdso import BrdsoState
 from repro_torch.core.bridge import BridgeState
@@ -39,31 +41,44 @@ def _key(key) -> np.ndarray:
 def state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,
                    comm: tuple[np.ndarray, np.ndarray] | None = None,
                    net: tuple[np.ndarray, ...] | None = None,
+                   adv: tuple[np.ndarray, ...] | None = None,
                    device: str | torch.device = "cuda") -> BridgeState:
     """A `BridgeState` at tick ``t`` holding the reference's parameters and
     its key (``np.asarray(jax_state.key)``; ``PRNGKey(0)`` when None) —
     resumes a JAX trajectory in the port.  ``comm`` is the reference's codec
     carry ``(est, resid)`` as numpy arrays, for a lossy codec; ``net`` its
     runtime's mailbox state (the five arrays of ``MailboxState``, in order),
-    for the network runtime."""
+    for the network runtime; ``adv`` its adversary state (``mean``,
+    ``var``, ``dir``, ``count``), for a stateful adversary."""
     dev = resolve_device(device)
     key = _key(key)
-    tensors = lambda arrays: (torch.as_tensor(np.array(x, copy=True), device=dev) for x in arrays)
-    carry = None if comm is None else CommState(*tensors(comm))
-    mailbox = None if net is None else MailboxState(*tensors(net))
     return BridgeState(params=params_from_jax(params_np, device=dev), t=int(t), key=key,
-                       comm=carry, net=mailbox)
+                       comm=_carry(CommState, comm, dev), net=_carry(MailboxState, net, dev),
+                       adv=_carry(AdvState, adv, dev))
+
+
+def _carry(kind, arrays, dev):
+    """A carried state of type ``kind`` from its fields as numpy arrays (or
+    None)."""
+    if arrays is None:
+        return None
+    return kind(*(torch.as_tensor(np.array(x, copy=True), device=dev) for x in arrays))
 
 
 def grid_state_from_jax(params_np: Mapping[str, np.ndarray], t, keys, *,
                         net: tuple[np.ndarray, ...] | None = None,
+                        comm: tuple[np.ndarray, np.ndarray] | None = None,
+                        adv: tuple[np.ndarray, ...] | None = None,
                         device: str | torch.device = "cuda") -> BridgeState:
     """A `repro_torch.sim.GridEngine` state from the reference's
     ``GridEngine`` state: its stacked ``[E, M, ...]`` parameters, its tick
     (``[E]``, one value every cell shares, or an int) and its ``[E, 2]``
     keys (``np.asarray(jax_state.key)``), in the engine's cell order; for a
     net grid ``net``, its stacked ``MailboxState`` (the five arrays in
-    order, ``[E, M, W, ...]``, the ticks int32)."""
+    order, ``[E, M, W, ...]``, the ticks int32); for a lossy codec bank
+    ``comm``, its stacked carry ``(est, resid)`` (``[E, M, d]``, per link
+    ``[E, M, W, d]``); for a stateful adversary bank ``adv``, its stacked
+    ``AdvState`` (``[E, d]`` rows, ``count [E]``)."""
     ticks = np.unique(np.asarray(t))
     if ticks.size != 1:
         raise ValueError(f"the port's grid cells share one tick, got {ticks.tolist()}")
@@ -79,8 +94,14 @@ def grid_state_from_jax(params_np: Mapping[str, np.ndarray], t, keys, *,
             raise ValueError(f"a net grid's mailboxes are [E={keys.shape[0]}, M, W, ...] with "
                              f"int32 ticks, got {tuple(mailbox.values.shape)} "
                              f"{mailbox.send_tick.dtype}")
+    dev = resolve_device(device)
+    carry, adv_state = _carry(CommState, comm, dev), _carry(AdvState, adv, dev)
+    for name, x in (("comm", carry), ("adv", adv_state)):
+        if x is not None and x[0].shape[0] != keys.shape[0]:
+            raise ValueError(f"a grid's {name} carry leads with E={keys.shape[0]} cells, got "
+                             f"{tuple(x[0].shape)}")
     return BridgeState(params=params_from_jax(params_np, device=device), t=int(ticks[0]),
-                       key=keys.copy(), net=mailbox)
+                       key=keys.copy(), comm=carry, net=mailbox, adv=adv_state)
 
 
 def byrdie_state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,

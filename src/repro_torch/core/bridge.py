@@ -1,13 +1,19 @@
-"""The BRIDGE trainer — Algorithm 1 of the paper; port of the synchronous
-broadcast path of `repro.core.bridge` (``build_cell_step`` with one codec
-and no adversary, trace, trust or metrics spec, driven by
-``BridgeTrainer``), on the dense or the sparse ``[M, K]`` layout.
+"""The BRIDGE trainer — Algorithm 1 of the paper; port of
+`repro.core.bridge` (``build_cell_step`` and ``build_cell_runtime_step``
+with their rule, attack, adversary and codec banks, without the trace,
+trust or metrics specs, driven by ``BridgeTrainer``), on the dense or the
+sparse ``[M, K]`` layout.
 
 All M node replicas live on one device as a stacked ``[M, ...]`` parameter
 dict.  One tick, after ``key, sub = split(state.key)``:
 
 1. **attack** — Byzantine rows of the broadcast ``w [M, d]`` are substituted
    (`repro_torch.core.byzantine`, keyed by ``sub``);
+1b. **adversary** — an adaptive adversary (`repro_torch.adversary`) observes
+   the honest rows, advances its carried state (``state.adv``) and
+   re-crafts the Byzantine rows under ``fold_in(sub, ADV_SALT)``;
+   ``inner_max`` ascends through the cell's own screen (the kernels under
+   autograd, `repro_torch.kernels.autograd`); ``none`` skips the stage;
 2. **codec** — every sender's value (a lossy codec: its delta) is encoded
    under ``fold_in(sub, COMM_SALT)``, a wire attack corrupts the Byzantine
    senders' codewords under ``fold_in(sub, WIRE_SALT)``, and receivers
@@ -30,7 +36,8 @@ Every random number comes from the reference's Threefry streams
 
 With ``runtime=`` (`repro_torch.net`) the tick is the reference's
 network-runtime iteration (`build_cell_runtime_step`): the attack crafts
-per-link messages (`byzantine.MessageAttack`), a lossy codec encodes each
+per-link messages (`byzantine.MessageAttack`), an adversary re-crafts the
+Byzantine senders' links (its message form), a lossy codec encodes each
 link under its own keys ``fold_in(key, edge_id)`` with an ``[M, W, d]``
 carry that advances on the tick's live edges only, the runtime moves the
 messages (``exchange``), every node screens its mailbox views with
@@ -40,12 +47,15 @@ own value.
 
 Both ticks are the reference's cell steps: `build_cell_step` (synchronous)
 and `build_cell_runtime_step` (through a runtime) take stacked cells
-(`CellParams`: rule and attack chosen from static banks, ``b``, the
-Byzantine masks and the step-size schedule per cell, on a net grid the
-scenario) and state ``[E, M, ...]``, and `BridgeTrainer.step` is their
-E = 1 call with the trainer's one constant cell.  The batched grids
+(`CellParams`: rule, attack, codec and adversary chosen from static
+banks, ``b``, the Byzantine masks, the adversary's hyperparameters and the
+step-size schedule per cell, on a net grid the scenario) and state
+``[E, M, ...]`` (the codec carry ``[E, M, d]`` or per link ``[E, M, W,
+d]``, the adversary's ``[E, d]``), and `BridgeTrainer.step` is their E = 1
+call with the trainer's one constant cell.  The batched grids
 (`repro_torch.sim.engine`) run the same steps over many cells: every
-screening kernel then launches once a tick for all of them.
+screening kernel then launches once a tick for all of them, and a lossy
+dense codec decodes every cell's rows in one ``dequant_carry`` launch.
 
 PyTorch runs eagerly, so the reference's ``jit``/``scan`` machinery has no
 counterpart: `BridgeTrainer.run` is a Python loop over `BridgeTrainer.step`.
@@ -60,6 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.adversary import protocols as adv_lib
 from repro_torch.comm import codec as codec_lib
 from repro_torch.comm import exchange
 from repro_torch.core import byzantine, screening
@@ -70,17 +81,13 @@ from repro_torch.device import resolve_device
 Params = dict[str, torch.Tensor]
 
 # Salts decorrelating the streams folded from one tick's subkey (the
-# reference's `repro.core.bridge` constants; the port uses NET_SALT, COMM_SALT and
-# WIRE_SALT).
+# reference's `repro.core.bridge` constants; the port uses all but
+# TRUST_SALT).
 NET_SALT = 0x6E657430
 COMM_SALT = 0x636D6D30
 WIRE_SALT = 0x77697230
 ADV_SALT = 0x61647630
 TRUST_SALT = 0x74727530
-
-GRID_CODECS = ("a lossy codec or a wire attack over more than one cell: codecs and wire "
-               "attacks on the grid are ROADMAP Queue 1 item 11's next step (open item 2)")
-
 
 class BridgeState(NamedTuple):
     params: Params  # leaves with leading node axis [M, ...]
@@ -90,6 +97,10 @@ class BridgeState(NamedTuple):
     # link on the runtime path; None for a lossless codec
     comm: exchange.CommState | None = None
     net: Any = None  # the runtime's state (mailboxes); None when synchronous
+    # the adversary's carried observations (adversary.AdvState): [d] rows
+    # for a trainer, [E, d] for stacked cells; None when no adversary of
+    # the bank is stateful
+    adv: Any = None
 
 
 def cell_step_size(lam, t0, lr, t: int):
@@ -105,12 +116,15 @@ def cell_step_size(lam, t0, lr, t: int):
 
 class CellParams(NamedTuple):
     """The switchable parameters of E stacked cells (the reference's
-    ``CellParams`` rows): the rule and the attack as indices into the step's
-    static banks, the Byzantine bound and step-size schedule per cell, the
-    ``[E, M]`` Byzantine masks on the device and, on a net grid, each
-    cell's network scenario as an index into the runtime's bank.  Indices,
-    bounds and schedules stay on the host, where they pick the banks'
-    branches and the step size without reading the card."""
+    ``CellParams`` rows): the rule, the attack, the codec and the adversary
+    as indices into the step's static banks, the Byzantine bound, the
+    adversary's ``[E, THETA_DIM]`` hyperparameters and the step-size
+    schedule per cell, the ``[E, M]`` Byzantine masks on the device and, on
+    a net grid, each cell's network scenario as an index into the runtime's
+    bank.  Indices, bounds, thetas and schedules stay on the host, where
+    they pick the banks' branches, the ascent's steps and the step size
+    without reading the card.  An empty ``codec_idx`` or ``adv_idx`` is
+    entry 0 for every cell."""
 
     rule_idx: tuple[int, ...]
     attack_idx: tuple[int, ...]
@@ -120,6 +134,9 @@ class CellParams(NamedTuple):
     t0: tuple[float, ...]
     lr: tuple[float, ...]
     scenario_idx: tuple[int, ...] = ()  # empty off a net grid
+    codec_idx: tuple[int, ...] = ()  # empty: entry 0 for all
+    adv_idx: tuple[int, ...] = ()  # empty: entry 0 for all
+    adv_theta: np.ndarray | None = None  # [E, THETA_DIM] float32; None: the defaults
 
     @property
     def num_cells(self) -> int:
@@ -128,11 +145,12 @@ class CellParams(NamedTuple):
     def select(self, cells) -> CellParams:
         """The rows ``cells`` (host indices) of every field."""
         cells = [int(i) for i in cells]
-        pick = lambda xs: tuple(xs[i] for i in cells)
+        pick = lambda xs: tuple(xs[i] for i in cells) if xs else ()
         mask = self.byz_mask.index_select(0, torch.as_tensor(cells, device=self.byz_mask.device))
         return CellParams(pick(self.rule_idx), pick(self.attack_idx), pick(self.b), mask,
-                          pick(self.lam), pick(self.t0), pick(self.lr),
-                          pick(self.scenario_idx) if self.scenario_idx else ())
+                          pick(self.lam), pick(self.t0), pick(self.lr), pick(self.scenario_idx),
+                          pick(self.codec_idx), pick(self.adv_idx),
+                          None if self.adv_theta is None else self.adv_theta[cells])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +162,10 @@ class BridgeConfig:
     rule: str = "trimmed_mean"  # any of screening.RULES
     num_byzantine: int = 0  # the bound b given to the screening rule
     attack: str = "none"
+    # adaptive adversary (repro_torch.adversary): none, ipm, alie_online,
+    # dissensus, inner_max, equivocate, slander or a static attack's name;
+    # it acts after `attack` (both substitute Byzantine rows: use one)
+    adversary: str = "none"
     codec: str = "identity"  # wire codec (repro_torch.comm.codec.get_codec)
     byzantine_seed: int = 0
     lam: float = 1.0
@@ -215,21 +237,33 @@ def replicate(params: Params, num_nodes: int, *, perturb: float = 0.0,
 
 
 def cell_metrics(w_new: torch.Tensor, losses: torch.Tensor, honest: torch.Tensor, rho,
-                 bits: float, live_edges, comm) -> dict:
+                 bits, live_edges, comm) -> dict:
     """The reference's diagnostics over the honest nodes of ``w_new``
     (``[M, d]``, or ``[E, M, d]`` with ``honest [E, M]``: one value a cell),
-    with the codec's wire accounting over the live edges and the carry's
-    residual norm."""
+    with the codec's wire accounting over the live edges (``bits`` an int,
+    or a tuple of E in a mixed codec bank) and the carry's residual
+    norm."""
     cnt = torch.sum(honest, dim=-1).to(torch.float32)
     mu = torch.sum(torch.where(honest[..., None], w_new, 0.0), dim=-2) / cnt[..., None]
     dev = torch.where(honest[..., None], w_new - mu[..., None, :], 0.0)
-    resid = 0.0 if comm is None else torch.sqrt(torch.sum(comm.resid * comm.resid))
+    resid = 0.0
+    if comm is not None:  # one norm a cell
+        sq = comm.resid * comm.resid
+        resid = torch.sqrt(torch.sum(sq.reshape(sq.shape[0], -1), dim=-1))
+    if isinstance(bits, tuple):
+        bits = np.asarray(bits, np.float32)
+        total = (bits / np.float32(8.0) * live_edges if not isinstance(live_edges, torch.Tensor)
+                 else torch.as_tensor(bits / np.float32(8.0), device=live_edges.device)
+                 * live_edges)
+    else:
+        bits = float(bits)
+        total = bits / 8.0 * live_edges
     return {
         "loss": torch.sum(torch.where(honest, losses, 0.0), dim=-1) / cnt,
         "consensus_dist": torch.sqrt(torch.amax(torch.sum(dev * dev, dim=-1), dim=-1)),
         "rho": rho,
         "wire_bits_per_edge": bits,
-        "wire_bytes_total": bits / 8.0 * live_edges,
+        "wire_bytes_total": total,
         "ef_residual_norm": resid,
     }
 
@@ -260,30 +294,96 @@ def draw_key(keys: np.ndarray):
     return keys[0] if keys.shape[0] == 1 else keys
 
 
+def _index(idx, units: int):
+    """A bank index a cell as the banks take it: None (entry 0 for all)
+    when empty, else repeated ``units`` times a cell (its links)."""
+    if not idx:
+        return None
+    return np.repeat(np.asarray(idx, np.int64), units) if units > 1 else idx
+
+
+def wire_stage(codecs, wire_attacks, cell: CellParams, sub: np.ndarray, x: torch.Tensor,
+               comm, byz: torch.Tensor, t: int, edge_ids: torch.Tensor | None = None):
+    """Encode -> codeword attack -> decode with the carry, for E cells:
+    the reference's ``_wire_roundtrip``.  ``codecs`` and ``wire_attacks``
+    are static banks (each cell's entries chosen by ``cell.codec_idx`` and
+    ``cell.attack_idx``), ``sub`` the cells' host subkeys ``[E, 2]``.
+
+    Synchronous (``edge_ids`` None): ``x [E, M, d]`` per sender, cell e
+    encoded under ``fold_in(sub_e, COMM_SALT)`` and attacked under
+    ``fold_in(sub_e, WIRE_SALT)``, ``byz [E, M]``.  Per link: ``x [E, M,
+    W, d]``, every link under its edge's keys ``fold_in(.., edge_id)``
+    (``edge_ids [M, W]``), ``byz [E, M, W]`` the senders' mask, so the dense
+    and the sparse layouts draw the same codewords on matching edges.
+    Returns ``(x_hat, comm')``.  Banks that cannot alter a payload (every
+    codec lossless, no wire attack) skip the stage."""
+    if exchange.bank_is_lossless(codecs) and all(a.name == "none" for a in wire_attacks):
+        return x, comm
+    d = x.shape[-1]
+    zero_folded = not any(a.rewrites_scale for a in wire_attacks)
+    comm_key, wire_key = prng.fold_in(sub, COMM_SALT), prng.fold_in(sub, WIRE_SALT)
+    if edge_ids is None:
+        c_idx = _index(cell.codec_idx, 1) if len(codecs) > 1 else None
+        a_idx = cell.attack_idx if len(wire_attacks) > 1 else None
+        ck, wk = draw_key(comm_key), draw_key(wire_key)
+        msg, target = exchange.encode_bank(codecs, c_idx, ck, x, comm)
+        msg = byzantine.apply_wire_attack_bank(wire_attacks, a_idx, msg, byz, wk, t, d)
+        return exchange.decode_bank(codecs, c_idx, msg, target, comm, ck, zero_folded)
+    lead = x.shape[:-1]
+    links = int(np.prod(lead[1:]))
+    ids = edge_ids.reshape(-1)
+    ck, wk = prng.fold_in(comm_key, ids), prng.fold_in(wire_key, ids)
+    c_idx = _index(cell.codec_idx, links) if len(codecs) > 1 else None
+    a_idx = _index(cell.attack_idx, links) if len(wire_attacks) > 1 else None
+    rows = lambda a: a.reshape(-1, d)
+    carry = None if comm is None else exchange.CommState(*(rows(a) for a in comm))
+    msg, target = exchange.encode_bank(codecs, c_idx, ck, rows(x), carry)
+    msg = byzantine.apply_wire_attack_bank(wire_attacks, a_idx, msg, byz.reshape(-1), wk, t, d)
+    x_hat, carry = exchange.decode_bank(codecs, c_idx, msg, target, carry, ck, zero_folded)
+    unrows = lambda a: a.reshape(*lead, d)
+    return unrows(x_hat), (None if carry is None
+                           else exchange.CommState(*(unrows(a) for a in carry)))
+
+
+def _adversary_bank(adversaries):
+    """The static adversary bank, or None when it cannot alter a broadcast
+    (the stage is then skipped)."""
+    bank = None if adversaries is None else adv_lib.adversary_bank(adversaries)
+    return bank if adv_lib.bank_engaged(bank) else None
+
+
+def _theta(bank, cell: CellParams) -> np.ndarray:
+    return adv_lib.cell_theta(bank, cell.adv_idx or (0,) * cell.num_cells, cell.adv_theta)
+
+
 def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str, ...],
-                    attacks, *, neighbors: NeighborTable | None = None, codec=None,
-                    wire_attack=None):
+                    attacks, *, neighbors: NeighborTable | None = None,
+                    codecs: tuple[str, ...] = ("identity",), wire_attacks=None,
+                    adversaries: tuple[str, ...] | None = None):
     """The synchronous-broadcast iteration over stacked cells:
     ``step(cell, state, batch) -> (state, metrics)``, the reference's
     ``build_cell_step`` with a rule bank ``rules``, an attack bank
-    ``attacks`` (`byzantine.Attack`s) and ``cell`` a `CellParams` of E cells.
+    ``attacks`` (`byzantine.Attack`s), a codec bank ``codecs`` (names), the
+    wire attacks ``wire_attacks`` parallel to ``attacks`` (default: none)
+    and an adversary bank ``adversaries`` (names; None or all ``none``
+    skips the stage), and ``cell`` a `CellParams` of E cells.
 
     ``state`` holds ``params`` ``[E, M, ...]``, the tick ``t`` all cells
-    share and ``key`` the cells' host row keys ``[E, 2]``; ``grad_fn``
-    takes the ``[E, M, ...]`` parameters and the tick's one batch and
-    returns ``(losses [E, M], grads)``.  Screening is
-    `screening.screen_all_banked` under the ``[M, M]`` ``adjacency`` or,
-    with ``neighbors``, `screening.screen_gathered_banked`: each kernel
-    launches once for the cells that chose its rule.  The metrics are
-    ``[E]`` tensors (``rho`` a float32 ``[E]`` array).
-
-    ``codec`` and ``wire_attack`` (the trainer's one cell) run the wire
-    stage of `BridgeTrainer` for E = 1; a lossy codec or a wire attack over
-    more cells raises (ROADMAP Queue 1 item 11, codecs on the grid).
+    share, ``key`` the cells' host row keys ``[E, 2]``, the codec carry
+    ``comm`` ``[E, M, d]`` (a lossy bank) and the adversary's ``adv``
+    ``[E, d]`` (a stateful bank); ``grad_fn`` takes the ``[E, M, ...]``
+    parameters and the tick's one batch and returns ``(losses [E, M],
+    grads)``.  Screening is `screening.screen_all_banked` under the
+    ``[M, M]`` ``adjacency`` or, with ``neighbors``,
+    `screening.screen_gathered_banked`: each kernel launches once for the
+    cells that chose its rule.  The adversary's screening oracle is the
+    same screen, each node's own value the crafted broadcast.  The metrics
+    are ``[E]`` tensors (``rho`` a float32 ``[E]`` array).
     """
-    codec = codec_lib.get_codec("identity") if codec is None else codec
-    wire_attack = byzantine.WIRE_ATTACKS["none"] if wire_attack is None else wire_attack
-    wired = not (codec.lossless and wire_attack.name == "none")
+    codec_bank = codec_lib.codec_bank(codecs)
+    if wire_attacks is None:
+        wire_attacks = (byzantine.WIRE_ATTACKS["none"],) * len(attacks)
+    adv_bank = _adversary_bank(adversaries)
     n_edges = float(torch.sum(adjacency.to(torch.float32)))
 
     def screen(w_hat, w_bcast, cell):
@@ -295,22 +395,26 @@ def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str
 
     def step(cell: CellParams, state: BridgeState, batch) -> tuple[BridgeState, dict]:
         w, unflatten = stack_flatten(state.params, lead=2)
-        e, _, d = w.shape
+        d = w.shape[-1]
         keys = prng.split(state.key)  # [E, 2, 2] on the host
         key, sub = keys[:, 0], keys[:, 1]
         # (Steps 3-4) broadcast with Byzantine substitution
         with torch.profiler.record_function("bridge.attack"):
             w_bcast = apply_attack_bank(attacks, cell.attack_idx, w, cell.byz_mask, sub, state.t)
+        adv = state.adv
+        if adv_bank is not None:
+            # the adversary observes the honest rows and re-crafts the
+            # Byzantine ones; its oracle is the cells' own screen
+            with torch.profiler.record_function("bridge.adversary"):
+                ctx = adv_lib.AdvCtx(screen=lambda wb, cells: screen(
+                    wb, wb, cell if cells is None else cell.select(cells)))
+                w_bcast, adv = adv_lib.apply_adversary_bank(
+                    adv_bank, cell.adv_idx or None, ctx, state.adv, _theta(adv_bank, cell),
+                    w_bcast, cell.byz_mask, draw_key(prng.fold_in(sub, ADV_SALT)), state.t)
         # wire codec: what receivers decode (identity: w_bcast itself)
-        comm = state.comm
-        w_hat = w_bcast
-        if wired:
-            if e != 1:
-                raise NotImplementedError(GRID_CODECS)
-            with torch.profiler.record_function("bridge.codec"):
-                x_hat, comm = wire_roundtrip(codec, wire_attack, sub[0], w_bcast[0], state.comm,
-                                             cell.byz_mask[0], state.t)
-                w_hat = x_hat[None]
+        with torch.profiler.record_function("bridge.codec"):
+            w_hat, comm = wire_stage(codec_bank, wire_attacks, cell, sub, w_bcast, state.comm,
+                                     cell.byz_mask, state.t)
         # (Step 5) screening at every node; self is the node's own broadcast,
         # which never travels the wire
         with torch.profiler.record_function("bridge.screen"):
@@ -322,8 +426,9 @@ def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str
             rho = cell_step_size(cell.lam, cell.t0, cell.lr, state.t)
             w_new = y - _per_cell(rho, w.device) * g
             metrics = cell_metrics(w_new, losses, ~cell.byz_mask, rho,
-                                   float(codec.wire_bits(d)), n_edges, comm)
-        return BridgeState(unflatten(w_new), state.t + 1, key, comm), metrics
+                                   exchange.wire_bits_bank(codec_bank, cell.codec_idx or None, d),
+                                   n_edges, comm)
+        return BridgeState(unflatten(w_new), state.t + 1, key, comm, adv=adv), metrics
 
     return step
 
@@ -337,43 +442,6 @@ def _per_cell(rho: np.ndarray, device) -> float | torch.Tensor:
     return torch.as_tensor(rho, device=device)[:, None, None]
 
 
-def wire_roundtrip(codec, wire_attack, sub: np.ndarray, x: torch.Tensor, comm, byz: torch.Tensor,
-                   t: int):
-    """Encode -> codeword attack -> decode with error feedback, per sender,
-    under ``fold_in(sub, COMM_SALT)`` and ``fold_in(sub, WIRE_SALT)``."""
-    return codeword_roundtrip(codec, wire_attack, prng.fold_in(sub, COMM_SALT),
-                              prng.fold_in(sub, WIRE_SALT), x, comm, byz, t)
-
-
-def codeword_roundtrip(codec, wire_attack, comm_key, wire_key, x: torch.Tensor, comm,
-                       byz: torch.Tensor, t: int):
-    """Encode ``x [n, d]`` under ``comm_key``, corrupt the Byzantine rows'
-    codewords under ``wire_key``, decode with the carry; the keys are host
-    keys or ``[n, 2]`` row keys (`repro_torch.prng`)."""
-    msg, target = exchange.encode(codec, comm_key, x, comm)
-    msg = wire_attack(msg, byz, wire_key, t, x.shape[-1])
-    return exchange.decode(codec, msg, target, comm, comm_key,
-                           zero_folded=not wire_attack.rewrites_scale)
-
-
-def link_roundtrip(codec, wire_attack, sub: np.ndarray, x: torch.Tensor, comm,
-                   byz_link: torch.Tensor, t: int, edge_ids: torch.Tensor):
-    """`wire_roundtrip` per link: the ``[M, W, d]`` messages flattened to
-    ``[M W, d]`` rows, each encoded, attacked and decoded under its edge's
-    keys ``fold_in(comm_key, edge_id)`` and ``fold_in(wire_key, edge_id)``
-    (the reference's ``vmap`` over the edges), so the dense and the sparse
-    layouts draw the same codewords on matching edges."""
-    lead, d = x.shape[:-1], x.shape[-1]
-    ids = edge_ids.reshape(-1)
-    keys = [prng.fold_in(prng.fold_in(sub, salt), ids) for salt in (COMM_SALT, WIRE_SALT)]
-    carry = None if comm is None else exchange.CommState(*(a.reshape(-1, d) for a in comm))
-    x_hat, carry = codeword_roundtrip(codec, wire_attack, *keys, x.reshape(-1, d), carry,
-                                      byz_link.reshape(-1), t)
-    unrows = lambda a: a.reshape(*lead, d)
-    return unrows(x_hat), (None if carry is None
-                           else exchange.CommState(*(unrows(a) for a in carry)))
-
-
 def _need(counts: np.ndarray, device) -> int | torch.Tensor:
     """The Table-II minimums ``[E]`` against usable counts ``[E, M]``: an
     int when every cell shares it, else an ``[E, 1]`` tensor (made once per
@@ -383,19 +451,25 @@ def _need(counts: np.ndarray, device) -> int | torch.Tensor:
 
 
 def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
-                            message_attacks, *, codec=None, wire_attack=None):
+                            message_attacks, *, codecs: tuple[str, ...] = ("identity",),
+                            wire_attacks=None, adversaries: tuple[str, ...] | None = None):
     """The network-runtime iteration over stacked cells: ``step(cell,
     state, batch) -> (state, metrics)``, the reference's
-    ``build_cell_runtime_step`` with a rule bank ``rules`` and a bank of
-    `byzantine.MessageAttack`s.
+    ``build_cell_runtime_step`` with a rule bank ``rules``, a bank of
+    `byzantine.MessageAttack`s and the codec, wire-attack and adversary
+    banks of `build_cell_step`.
 
     ``state`` holds ``params`` ``[E, M, ...]``, the tick ``t`` all cells
-    share, ``key`` the cells' host row keys ``[E, 2]`` and ``net`` the
-    runtime's state with a leading ``[E]`` axis.  The stages and keys are
-    the reference's: ``key, sub = split(key)``; per-link messages and the
-    self-views (`byzantine.messages_and_self_bank`, under ``sub``); the
-    exchange under ``fold_in(sub, NET_SALT)``; every node screens its
-    views (`screening.screen_views_banked`: the views kernels with the
+    share, ``key`` the cells' host row keys ``[E, 2]``, ``net`` the
+    runtime's state with a leading ``[E]`` axis, the per-link codec carry
+    ``comm`` ``[E, M, W, d]`` and the adversary's ``adv``.  The stages and
+    keys are the reference's: ``key, sub = split(key)``; per-link messages
+    and the self-views (`byzantine.messages_and_self_bank`, under ``sub``);
+    the adversary's message form, whose lies replace the Byzantine senders'
+    links only (honest links keep their messages bitwise); the codec per
+    link (`wire_stage`), a link's carry advancing on the tick's live edges
+    only; the exchange under ``fold_in(sub, NET_SALT)``; every node screens
+    its views (`screening.screen_views_banked`: the views kernels with the
     experiment axis on the card, one launch a rule for all the cells), and
     a node short of its rule's Table-II minimum keeps its own value; then
     the local gradient step.  The metrics are ``[E]``, the runtime's stats
@@ -404,32 +478,67 @@ def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
     A runtime with ``cell_aware = True`` (`repro_torch.sim.engine.GridNetRuntime`)
     gets the cells, so it can pick each cell's scenario: ``adjacency_at(t,
     cell)`` and ``exchange(..., cell)``; the others keep their contract,
-    one live mask for every cell.
-
-    ``codec`` and ``wire_attack`` (the trainer's one cell) run the per-link
-    codec stage for E = 1, the carry ``state.comm`` being that cell's
-    ``[M, W, d]``; over more cells they raise (ROADMAP Queue 1 item 11,
-    codecs on the grid).
+    one live mask for every cell.  The adversary's oracle screens the live
+    edges; on a runtime with one channel it also sees the coordinates a
+    capped channel delivers this tick and the channel's mean latency (a
+    cell-aware runtime: every coordinate, latency 0, as in the reference).
     """
-    codec = codec_lib.get_codec("identity") if codec is None else codec
-    wire_attack = byzantine.WIRE_ATTACKS["none"] if wire_attack is None else wire_attack
-    wired = not (codec.lossless and wire_attack.name == "none")
+    codec_bank = codec_lib.codec_bank(codecs)
+    if wire_attacks is None:
+        wire_attacks = (byzantine.WIRE_ATTACKS["none"],) * len(message_attacks)
+    adv_bank = _adversary_bank(adversaries)
     cell_aware = bool(getattr(runtime, "cell_aware", False))
     nbr = getattr(runtime, "neighbors", None)
+    channel = getattr(runtime, "channel", None)
+    adv_latency = 0.0 if channel is None else 0.5 * (channel.latency_min + channel.latency_max)
 
-    def link_codec(sub, msgs, comm, adj_t, byz, t):
-        """The codec per link of the one cell; a link's carry advances only
-        for messages put on the wire this tick (live edges; channel drops
-        are downstream)."""
-        m = msgs.shape[0]
+    def oracle(wb, adj_t, cell, cells):
+        """The adversary's screen over the cells ``cells`` of the call."""
+        c = cell if cells is None else cell.select(cells)
+        if adj_t.ndim == 3 and cells is not None:
+            adj_t = adj_t.index_select(0, torch.as_tensor(cells, device=adj_t.device))
         if nbr is not None:
-            byz_link, ids = nbr.gather_senders(byz, fill=False), nbr.edge_ids
+            return screening.screen_views_banked(nbr.gather_rows(wb, lead=1), adj_t, wb, rules,
+                                                 c.rule_idx, c.b)
+        return screening.screen_all_banked(wb, adj_t, rules, c.rule_idx, c.b, self_vals=wb)
+
+    def adversary(cell, state, w, msgs, w_self, adj_t, sub):
+        """The adversary's message form over the Byzantine senders' links."""
+        e, m, d = w.shape
+        deliver = None
+        peek = getattr(runtime, "delivered_coord_mask", None)
+        if peek is not None and not cell_aware:
+            deliver = peek(prng.fold_in(sub[0], NET_SALT), d)
+        ctx = adv_lib.AdvCtx(screen=lambda wb, cells: oracle(wb, adj_t, cell, cells),
+                             deliver_mask=deliver, latency=adv_latency)
+        args = (adv_bank, cell.adv_idx or None, ctx, state.adv, _theta(adv_bank, cell), w,
+                cell.byz_mask)
+        key = draw_key(prng.fold_in(sub, ADV_SALT))
+        if nbr is not None:
+            adv_msgs, adv_self, adv = adv_lib.apply_sparse_message_adversary_bank(
+                *args, nbr, adj_t, key, state.t)
+            senders = nbr.gather_senders(cell.byz_mask, fill=False)
         else:
-            byz_link = byz[None, :].expand(m, m)
+            adv_msgs, adv_self, adv = adv_lib.apply_message_adversary_bank(
+                *args, adj_t, key, state.t)
+            senders = cell.byz_mask[:, None, :].expand(e, m, m)
+        msgs = torch.where(senders[..., None], adv_msgs, msgs)
+        w_self = torch.where(cell.byz_mask[..., None], adv_self, w_self)
+        return msgs, w_self, adv
+
+    def link_codec(cell, sub, msgs, comm, adj_t, t):
+        """The codec per link; a link's carry advances only for messages put
+        on the wire this tick (live edges; channel drops are downstream)."""
+        e, m = msgs.shape[:2]
+        if nbr is not None:
+            byz_link, ids = nbr.gather_senders(cell.byz_mask, fill=False), nbr.edge_ids
+        else:
+            byz_link = cell.byz_mask[:, None, :].expand(e, m, m)
             ids = torch.as_tensor(edge_id_grid(m), device=msgs.device)
-        x_hat, new = link_roundtrip(codec, wire_attack, sub, msgs, comm, byz_link, t, ids)
+        x_hat, new = wire_stage(codec_bank, wire_attacks, cell, sub, msgs, comm, byz_link, t,
+                                edge_ids=ids)
         if comm is not None and new is not comm:
-            new = exchange.CommState(*(torch.where(adj_t[:, :, None], a, b)
+            new = exchange.CommState(*(torch.where(adj_t[..., None], a, b)
                                        for a, b in zip(new, comm, strict=True)))
         return x_hat, new
 
@@ -447,21 +556,19 @@ def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
         with torch.profiler.record_function("bridge.attack"):
             msgs, w_self = byzantine.messages_and_self_bank(
                 message_attacks, cell.attack_idx, w, cell.byz_mask, adj_t, sub, state.t, nbr)
-        comm = state.comm
-        if wired:
-            if e != 1:
-                raise NotImplementedError(GRID_CODECS)
-            with torch.profiler.record_function("bridge.codec"):
-                x_hat, comm = link_codec(sub[0], msgs[0], state.comm,
-                                         adj_t[0] if adj_t.ndim == 3 else adj_t,
-                                         cell.byz_mask[0], state.t)
-                msgs = x_hat[None]
+        adv = state.adv
+        if adv_bank is not None:
+            with torch.profiler.record_function("bridge.adversary"):
+                msgs, w_self, adv = adversary(cell, state, w, msgs, w_self, adj_t, sub)
+        with torch.profiler.record_function("bridge.codec"):
+            msgs, comm = link_codec(cell, sub, msgs, state.comm, adj_t, state.t)
+        bits = exchange.wire_bits_bank(codec_bank, cell.codec_idx or None, d)
         with torch.profiler.record_function("bridge.exchange"):
             args = (state.net, msgs, w_self, adj_t, draw_key(prng.fold_in(sub, NET_SALT)),
                     state.t)
-            kw = {"wire_bits": codec.wire_bits(d)}
-            net, views, mask, net_stats = (runtime.exchange(*args, cell, **kw) if cell_aware
-                                           else runtime.exchange(*args, **kw))
+            net, views, mask, net_stats = (runtime.exchange(*args, cell, wire_bits=bits)
+                                           if cell_aware else
+                                           runtime.exchange(*args, wire_bits=bits))
         # (Step 5) screening over the usable views; a node short of its
         # rule's Table-II minimum keeps its own value this tick
         with torch.profiler.record_function("bridge.screen"):
@@ -477,17 +584,16 @@ def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
             rho = cell_step_size(cell.lam, cell.t0, cell.lr, state.t)
             w_new = y - _per_cell(rho, w.device) * g
             live = torch.sum(adj_t, dim=(-2, -1)).to(torch.float32).expand(e)
-            metrics = cell_metrics(w_new, losses, ~cell.byz_mask, rho,
-                                   float(codec.wire_bits(d)), live, comm)
+            metrics = cell_metrics(w_new, losses, ~cell.byz_mask, rho, bits, live, comm)
         metrics.update(net_stats)
         metrics["screened_frac"] = torch.mean(enough.to(torch.float32), dim=-1)
-        return BridgeState(unflatten(w_new), state.t + 1, key, comm, net), metrics
+        return BridgeState(unflatten(w_new), state.t + 1, key, comm, net, adv), metrics
 
     return step
 
 
 def _cells(net, fn):
-    """``fn`` over every tensor of a runtime state (a NamedTuple of them,
+    """``fn`` over every tensor of a carried state (a NamedTuple of them,
     or None): adds or drops the cells' axis."""
     return None if net is None else type(net)(*(fn(x) for x in net))
 
@@ -526,6 +632,11 @@ class BridgeTrainer:
         adj = config.topology.adjacency
         self.adjacency = torch.as_tensor(adj, dtype=torch.bool, device=self.device)
         self.codec = codec_lib.get_codec(config.codec)
+        # the adversary stage is engaged only when one is named
+        self.adversary = (None if config.adversary == "none"
+                          else adv_lib.get_adversary(config.adversary))
+        advs = None if self.adversary is None else (config.adversary,)
+        banks = dict(codecs=(config.codec,), wire_attacks=(self.wire_attack,), adversaries=advs)
         self.neighbors = None
         if runtime is None:
             self.attack = byzantine.get_attack(config.attack)
@@ -533,17 +644,22 @@ class BridgeTrainer:
                 self.neighbors = NeighborTable.from_adjacency(adj, device=self.device)
             self._cell_step = build_cell_step(
                 _one_cell(grad_fn), self.adjacency, (config.rule,), (self.attack,),
-                neighbors=self.neighbors, codec=self.codec, wire_attack=self.wire_attack)
+                neighbors=self.neighbors, **banks)
         else:
             self._check_runtime(runtime)
             self.message_attack = byzantine.get_message_attack(config.attack)
             self._cell_step = build_cell_runtime_step(
-                _one_cell(grad_fn), runtime, (config.rule,), (self.message_attack,),
-                codec=self.codec, wire_attack=self.wire_attack)
+                _one_cell(grad_fn), runtime, (config.rule,), (self.message_attack,), **banks)
+        # an adversary alone also draws the Byzantine nodes (the reference's rule)
+        engaged = config.attack if self.adversary is None else config.adversary
         self.byz_mask = byzantine.byzantine_nodes(config.topology.num_nodes, config.num_byzantine,
-                                                  config.attack, config.byzantine_seed, self.device)
+                                                  engaged, config.byzantine_seed, self.device)
+        theta = None
+        if self.adversary is not None:
+            theta = np.asarray([self.adversary.default_theta], np.float32)
         self.cell = CellParams((0,), (0,), (config.num_byzantine,), self.byz_mask[None],
-                               (config.lam,), (config.t0,), (config.lr,))
+                               (config.lam,), (config.t0,), (config.lr,), codec_idx=(0,),
+                               adv_idx=() if self.adversary is None else (0,), adv_theta=theta)
 
     def _check_runtime(self, runtime) -> None:
         """The reference's refusals, and the port's: a runtime on another
@@ -570,12 +686,14 @@ class BridgeTrainer:
             if leaf.shape[0] != m:
                 raise ValueError(f"params[{k!r}] leading axis {leaf.shape[0]} != num_nodes {m}")
         params = {k: v.to(self.device) for k, v in params.items()}
-        net = None
+        dim = stack_flatten(params)[0].shape[1]
+        net = adv = None
         if self.runtime is not None:
-            dim = stack_flatten(params)[0].shape[1]
             net = self.runtime.init(m, dim, max_wire_bits=self.codec.wire_bits(dim))
+        if self.adversary is not None and self.adversary.stateful:
+            adv = adv_lib.init_state(dim, lead=(), device=self.device)
         return BridgeState(params=params, t=0, key=prng.PRNGKey(seed),
-                           comm=self.init_comm(params), net=net)
+                           comm=self.init_comm(params), net=net, adv=adv)
 
     def init_comm(self, params: Params) -> exchange.CommState | None:
         """The codec carry at tick 0: zero estimate and residual, ``[M, d]``
@@ -596,24 +714,31 @@ class BridgeTrainer:
         trainer's one cell (E = 1).  The metrics are 0-d tensors on the
         device (reading one waits for the tick) and Python floats for the
         static quantities."""
+        add = lambda x: x[None]
         one = BridgeState({k: v[None] for k, v in state.params.items()}, state.t,
-                          np.asarray(state.key, np.uint32)[None], state.comm,
-                          _cells(state.net, lambda x: x[None]))
+                          np.asarray(state.key, np.uint32)[None], _cells(state.comm, add),
+                          _cells(state.net, add), _cells(state.adv, add))
         new, metrics = self._cell_step(self.cell, one, batch)
         metrics = {k: (v[0] if isinstance(v, torch.Tensor) and v.ndim else
                        float(v[0]) if isinstance(v, np.ndarray) else v)
                    for k, v in metrics.items()}
+        drop = lambda x: x[0]
         return BridgeState({k: v[0] for k, v in new.params.items()}, new.t, new.key[0],
-                           new.comm, _cells(new.net, lambda x: x[0])), metrics
+                           _cells(new.comm, drop), _cells(new.net, drop),
+                           _cells(new.adv, drop)), metrics
 
     def _wire_roundtrip(self, sub: np.ndarray, x: torch.Tensor, comm, t: int):
-        """The synchronous tick's wire stage (`wire_roundtrip`) over the
-        trainer's Byzantine senders.  A lossless codec under no wire attack
-        skips the wire entirely (no ``+ 0.0`` anywhere), so the identity
-        path is exactly the uncompressed trainer."""
+        """The synchronous tick's wire stage (`wire_stage`) of ``x [M, d]``
+        over the trainer's Byzantine senders under the host subkey ``sub``.
+        A lossless codec under no wire attack skips the wire entirely (no
+        ``+ 0.0`` anywhere), so the identity path is exactly the
+        uncompressed trainer."""
         if self.codec.lossless and self.wire_attack.name == "none":
             return x, comm
-        return wire_roundtrip(self.codec, self.wire_attack, sub, x, comm, self.byz_mask, t)
+        x_hat, new = wire_stage((self.codec,), (self.wire_attack,), self.cell,
+                                np.asarray(sub, np.uint32)[None], x[None],
+                                _cells(comm, lambda a: a[None]), self.byz_mask[None], t)
+        return x_hat[0], _cells(new, lambda a: a[0])
 
     def run(self, state: BridgeState, batch_fn: Callable[[int], Any], num_steps: int,
             eval_fn: Callable | None = None, eval_every: int = 0) -> tuple[BridgeState, list[dict]]:

@@ -375,6 +375,39 @@ def wire_attack_for(name: str) -> WireAttack:
     return WIRE_ATTACKS.get(name, WIRE_ATTACKS["none"])
 
 
+def wire_attack_bank(names) -> tuple[WireAttack, ...]:
+    """The codeword component of each attack name (`wire_attack_for`),
+    indexed by the same ``attack_idx`` as the iterate banks."""
+    return tuple(wire_attack_for(n) for n in names)
+
+
+def apply_wire_attack_bank(bank, attack_idx, msg, byz, key, t, d: int):
+    """Each unit's codeword attacked by its entry of ``bank``: the units
+    are ``msg``'s leading axis (a cell's ``[M, ...]`` codewords, or one
+    link's), ``attack_idx`` one host index a unit (None: entry 0), ``byz``
+    the senders' Byzantine mask over the codewords' leading axes and
+    ``key`` one key, host row keys or device row keys ``[U, 2]``.  Each
+    attack runs once over the units that chose it."""
+    idx = (np.zeros((msg.payload.shape[0],), np.int64) if attack_idx is None
+           else np.asarray(attack_idx, np.int64).reshape(-1))
+    used = sorted(set(idx.tolist()))
+    if len(used) == 1:
+        return bank[used[0]](msg, byz, key, t, d)
+    out = type(msg)(*(f.clone() for f in msg))
+    for a in used:
+        if bank[a].name == "none":
+            continue
+        cells = np.nonzero(idx == a)[0]
+        sel = torch.as_tensor(cells, device=msg.payload.device)
+        k = (key.index_select(0, sel) if isinstance(key, torch.Tensor)
+             else key[cells] if np.ndim(key) == 2 else key)
+        got = bank[a](type(msg)(*(f.index_select(0, sel) for f in msg)), byz.index_select(0, sel),
+                      k, t, d)
+        for o, g in zip(out, got, strict=True):
+            o.index_copy_(0, sel, g)
+    return out
+
+
 def attack_names() -> list[str]:
     return sorted(set(ATTACKS) | set(MESSAGE_ATTACKS) | set(WIRE_ATTACKS))
 

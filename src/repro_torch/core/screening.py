@@ -71,6 +71,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.neighbors import NeighborTable
+from repro_torch.kernels import autograd as grad_ops
 from repro_torch.kernels import ops, ref
 
 RULES: tuple[str, ...] = ("trimmed_mean", "median", "krum", "bulyan", "geomedian",
@@ -418,13 +419,19 @@ def _vector_rule(rule: str, w: torch.Tensor, rows: torch.Tensor, mask: torch.Ten
     ``[E, M, d]``) over the candidate rows ``rows`` (``[M, n]`` indices into
     ``w``) under ``mask``; ``trimmed_mean(sel)`` is Bulyan's last stage over
     the ``[E, M, n]`` selection."""
-    d2_global, self_rows = _dists_of_broadcast(w, self_vals)
-    d2, full = node_dists(d2_global, rows, self_rows, mask)
+    with torch.no_grad():  # the distances only pick rows; gradients flow through the picks
+        same = self_vals is w
+        w_d = w.detach()
+        d2_global, self_rows = _dists_of_broadcast(w_d, w_d if same else self_vals.detach())
+        d2, full = node_dists(d2_global, rows, self_rows, mask)
+        if rule == "krum":
+            i_star = krum_pick(d2, full, mask, b)
+        else:
+            sel = bulyan_select(d2, mask, b)
     if rule == "krum":
-        i_star = krum_pick(d2, full, mask, b)
         ids = rows.long()[None].expand(*i_star.shape, rows.shape[1]).gather(-1, i_star[..., None])
         return _pick_rows(w, ids[..., 0])
-    return trimmed_mean(bulyan_select(d2, mask, b))
+    return trimmed_mean(sel)
 
 
 # ---------------------------------------------------------------------------
@@ -460,14 +467,14 @@ def screen_all(w: torch.Tensor, adjacency: torch.Tensor, *, rule: str, b,
 def _screen_all(w, adjacency, rule, b, self_vals, recip=False):
     bk = bound_arg(b, w.device)
     if rule == "trimmed_mean":
-        return ops.trimmed_mean(w, adjacency, self_vals, bk, recip)
+        return grad_ops.trimmed_mean(w, adjacency, self_vals, bk, recip)
     if rule == "median":
-        return ops.median(w, adjacency, self_vals)
+        return grad_ops.median(w, adjacency, self_vals)
     if rule in ("krum", "bulyan"):
         m = w.shape[-2]
         rows = torch.arange(m, device=w.device).expand(m, m)
         return _vector_rule(rule, w, rows, adjacency, self_vals, b,
-                            lambda sel: ops.trimmed_mean(w, sel, self_vals, bk))
+                            lambda sel: grad_ops.trimmed_mean(w, sel, self_vals, bk))
     out = _plain_rule(rule, w.unsqueeze(-3), adjacency, self_vals, b)
     if out is None:
         raise _unknown(rule)
@@ -507,18 +514,23 @@ def _screen_views(rule: str, views: torch.Tensor, mask: torch.Tensor, self_vals:
     e, m, w_, d = views.shape
     bk = bound_arg(b, views.device)
     if rule == "trimmed_mean":
-        return ops.views_trimmed_mean(views, mask, self_vals, bk)
+        return grad_ops.views_trimmed_mean(views, mask, self_vals, bk)
     if rule == "median":
-        return ops.views_median(views, mask, self_vals)
+        return grad_ops.views_median(views, mask, self_vals)
     if rule in ("krum", "bulyan"):
         mk = mask.bool().expand(e, m, w_)
         full = torch.cat([mk, torch.ones((e, m, 1), dtype=torch.bool, device=mk.device)], dim=-1)
-        d2 = ops.pairwise_sq_dists_batched(_node_views(views), self_vals.reshape(e * m, d))
-        d2 = masked_dists(d2.view(e, m, w_ + 1, w_ + 1), full)
+        with torch.no_grad():  # the distances only pick rows
+            d2 = ops.pairwise_sq_dists_batched(_node_views(views.detach()),
+                                               self_vals.detach().reshape(e * m, d))
+            d2 = masked_dists(d2.view(e, m, w_ + 1, w_ + 1), full)
+            if rule == "krum":
+                i_star = krum_pick(d2, full, mk, b)
+            else:
+                sel = bulyan_select(d2, mk, b).contiguous()
         if rule == "krum":
-            i_star = krum_pick(d2, full, mk, b)
             return views.gather(2, i_star[..., None, None].expand(e, m, 1, d))[:, :, 0]
-        return ops.views_trimmed_mean(views, bulyan_select(d2, mk, b).contiguous(), self_vals, bk)
+        return grad_ops.views_trimmed_mean(views, sel, self_vals, bk)
     if rule not in RULES:
         raise _unknown(rule)
     # the plain rules: the cells of one bound at a time, their nodes stacked
@@ -553,13 +565,13 @@ def screen_gathered(w: torch.Tensor, table: NeighborTable, *, rule: str, b,
 def _screen_gathered(w, table, rule, b, self_vals):
     bk = bound_arg(b, w.device)
     if rule == "trimmed_mean":
-        return ops.gather_trimmed_mean(w, table.safe_idx, table.valid_dev, self_vals, bk)
+        return grad_ops.gather_trimmed_mean(w, table.safe_idx, table.valid_dev, self_vals, bk)
     if rule == "median":
-        return ops.gather_median(w, table.safe_idx, table.valid_dev, self_vals)
+        return grad_ops.gather_median(w, table.safe_idx, table.valid_dev, self_vals)
     if rule in ("krum", "bulyan"):
         return _vector_rule(rule, w, table.safe_idx, table.valid_dev, self_vals, b,
-                            lambda sel: ops.gather_trimmed_mean(w, table.safe_idx, sel, self_vals,
-                                                                bk))
+                            lambda sel: grad_ops.gather_trimmed_mean(w, table.safe_idx, sel,
+                                                                     self_vals, bk))
     if rule not in RULES:
         raise _unknown(rule)
     return _plain_rule(rule, ref.gather(w, table.safe_idx), table.valid_dev, self_vals, b)
@@ -597,10 +609,14 @@ def screen_all_banked(w: torch.Tensor, adjacency: torch.Tensor, rules, rule_idx,
                       self_vals: torch.Tensor | None = None) -> torch.Tensor:
     """`screen_all` over ``w [E, M, d]`` with experiment e screening by
     ``rules[rule_idx[e]]`` at bound ``b[e]`` (the reference's
-    ``screen_all_banked`` under its grid's ``vmap``)."""
+    ``screen_all_banked`` under its grid's ``vmap``); ``adjacency`` is
+    ``[M, M]`` or an experiment's own ``[E, M, M]``."""
     if self_vals is None:
         self_vals = w
-    return _banked(lambda rule, w_r, b_r, s_r, _: _screen_all(w_r, adjacency, rule, b_r, s_r),
+    adj_of = lambda cells: (adjacency if adjacency.ndim == 2 or cells is None
+                            else adjacency.index_select(0, cells))
+    return _banked(lambda rule, w_r, b_r, s_r, cells: _screen_all(w_r, adj_of(cells), rule, b_r,
+                                                                  s_r),
                    w, self_vals, rules, rule_idx, b)
 
 

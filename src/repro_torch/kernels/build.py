@@ -87,6 +87,13 @@ SIGNATURES = {
     + (_I64, _PTR, _PTR),
     "views_screen_wide_median": (_PTR, _I64, _I64, _I64) + (_PTR,) * 3 + (_INT,) * 4
     + (_I64, _PTR),
+    # the views screens' backward (views_screen_grad.cu): views and its three
+    # strides, mask and its cell stride, (the median's self_vals,) gy,
+    # g_views, g_self, E, M, W, d, (the trimmed mean's b and [E] b or null)
+    "views_screen_grad_trimmed_mean": (_PTR, _I64, _I64, _I64, _PTR, _I64) + (_PTR,) * 3
+    + (_INT,) * 5 + (_PTR, _PTR),
+    "views_screen_grad_median": (_PTR, _I64, _I64, _I64, _PTR, _I64) + (_PTR,) * 4
+    + (_INT,) * 4 + (_PTR,),
 }
 
 

@@ -221,15 +221,20 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor | float, c: torch.Tensor) -> torch.
     sum is rounded to float64 *to odd* (a rounded result with an even last
     bit moves one ulp toward the error that TwoSum recovers), and rounding
     that to float32 is then correctly rounded, since float64 carries more
-    than float32's 24 + 2 bits."""
+    than float32's 24 + 2 bits.  Differentiable as ``a * b + c``: the
+    one-ulp step to odd is added as a constant (``nextafter`` has no
+    derivative on every torch)."""
     p = a.double() * (b.double() if isinstance(b, torch.Tensor) else float(b))
     c = c.double()
     s = p + c
     bp = s - p
     err = (p - (s - bp)) + (c - bp)
-    even = (s.view(torch.int64) & 1) == 0
+    sd = s.detach()
+    even = (sd.view(torch.int64) & 1) == 0
     toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
-    s = torch.where((err != 0) & even & torch.isfinite(s), torch.nextafter(s, toward), s)
+    # s + (nextafter(s) - s) is nextafter(s) exactly (a one-ulp difference)
+    s = torch.where((err != 0) & even & torch.isfinite(sd),
+                    s + (torch.nextafter(sd, toward) - sd).detach(), s)
     return s.float()
 
 

@@ -1,5 +1,6 @@
 """The batched experiment sweep — port of `repro.launch.sweep --mode grid`:
-the rule x attack x b x seed (x network scenario) matrix on the paper's
+the rule x attack x b x seed (x network scenario x codec x adversary)
+matrix on the paper's
 MNIST-like linear task through the grid engine (`repro_torch.sim`), every
 pending cell in one engine run on the card, resumable from the per-cell
 store (one JSON a cell, keyed by the reference's `Cell.tag`, so a store
@@ -8,17 +9,19 @@ written by either package resumes in the other):
     PYTHONPATH=src python -m repro_torch.launch.sweep --mode grid \\
         --out experiments/grid [--rules trimmed_mean,median] \\
         [--attacks random,alie] [--byz 1,2] [--seeds 0,1,2,3] \\
-        [--scenarios ideal,lossy] [--grid-ticks 60] \\
+        [--scenarios ideal,lossy] [--codecs identity,int8] \\
+        [--adversaries none,inner_max] [--grid-ticks 60] \\
         [--grid-chunk 16] [--sparse] [--device cpu]
 
 ``--scenarios`` names `repro_torch.net.scenarios` entries: every cell then
 runs through the network runtime (`GridNetRuntime`, schedules of
-``--grid-ticks`` ticks); ``sync`` (the default) is the broadcast path.  It
+``--grid-ticks`` ticks); ``sync`` (the default) is the broadcast path.
+``--codecs`` names wire codecs (`repro_torch.comm.codec`) and
+``--adversaries`` `repro_torch.adversary` entries, two more grid axes.  It
 writes the per-cell records and ``GridResult.json`` (the whole store) with
 each cell's honest test accuracy.  The reference's other modes and the
 grid flags that need a layer the port does not have yet raise:
-``--codecs`` other than ``identity`` (codecs on the grid, ROADMAP Queue 1
-item 11, its next step), ``--adversaries`` other than ``none`` (item 12),
+``--mode breakdown`` (ROADMAP Queue 1 item 12, its breakdown and search),
 ``--trace``, ``--metrics``, ``--profile`` and ``--trust*`` (item 13).
 """
 from __future__ import annotations
@@ -43,13 +46,8 @@ def _refuse_unported(args) -> None:
     """The flags whose layer the port does not have yet, by ROADMAP item."""
     if args.mode != "grid":
         raise ValueError(f"--mode {args.mode}: the port's sweep runs --mode grid only (the "
-                         f"subprocess and breakdown modes belong to the JAX package; "
-                         f"breakdown is ROADMAP Queue 1 item 12)")
-    if args.codecs != "identity":
-        raise ValueError("--codecs other than identity: codecs on the grid are ROADMAP "
-                         "Queue 1 item 11, its next step")
-    if args.adversaries not in (None, "none"):
-        raise ValueError("--adversaries other than none: ROADMAP Queue 1 item 12")
+                         f"subprocess mode belongs to the JAX package; breakdown is ROADMAP "
+                         f"Queue 1 item 12, its breakdown and search)")
     for flag in ("trace", "metrics", "profile"):
         if getattr(args, flag) is not None:
             raise ValueError(f"--{flag}: the observability layer is ROADMAP Queue 1 item 13")
@@ -69,10 +67,12 @@ def run_grid_mode(args) -> results_lib.GridResult | None:
     scenarios = None
     if args.scenarios not in ("sync", "none", ""):
         scenarios = args.scenarios.split(",")
+    codecs = args.codecs.split(",")
+    adversaries = args.adversaries.split(",") if args.adversaries else ["none"]
     m, ticks = args.grid_nodes, args.grid_ticks
     topo = default_topology(m, rules, byz, seed=0)
-    grid = ExperimentGrid(topo, rules, attacks, byz, seeds, scenarios=scenarios, lam=1.0,
-                          t0=30.0)
+    grid = ExperimentGrid(topo, rules, attacks, byz, seeds, scenarios=scenarios, codecs=codecs,
+                          adversaries=adversaries, lam=1.0, t0=30.0)
     done = results_lib.existing_tags(args.out)
     pending = [c for c in grid.cells() if c.tag not in done]
     print(f"{grid.num_cells} grid cells ({len(done & {c.tag for c in grid.cells()})} cached) "
@@ -137,8 +137,10 @@ def main(argv=None):
                          "(the broadcast path)")
     ap.add_argument("--byz", default="1", help="comma-separated Byzantine counts")
     ap.add_argument("--seeds", default="0", help="comma-separated seeds")
-    ap.add_argument("--codecs", default="identity")
-    ap.add_argument("--adversaries", default=None)
+    ap.add_argument("--codecs", default="identity",
+                    help="comma-separated wire codecs (repro_torch.comm.codec), a grid axis")
+    ap.add_argument("--adversaries", default=None,
+                    help="comma-separated repro_torch.adversary names, a grid axis")
     ap.add_argument("--grid-nodes", type=int, default=12)
     ap.add_argument("--grid-ticks", type=int, default=60)
     ap.add_argument("--grid-batch", type=int, default=32)

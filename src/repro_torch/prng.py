@@ -164,13 +164,22 @@ def fold_in(key, data):
     """``jax.random.fold_in(key, data)``: the cipher of the counter
     ``(0, uint32(data))``.  A host key with an integer tensor ``data [E]``
     gives ``[E, 2]`` row keys (``vmap`` of ``fold_in`` over the data, on
-    its device), and row keys fold ``data`` into each row."""
+    its device), and row keys fold ``data`` into each row.  Host row keys
+    ``[C, 2]`` with a tensor ``data [n]`` give the ``[C n, 2]`` row keys of
+    every key folded with every datum (the per-link keys of C cells)."""
     if is_rows(key):
         k1, k2 = _row_words(key)
         word = int(data) & _MASK
         b1, b2 = _t_cipher(k1[:, 0], k2[:, 0], torch.zeros_like(k1[:, 0]),
                            torch.full_like(k1[:, 0], word))
         return torch.stack([b1, b2], dim=-1)
+    if is_host_rows(key) and isinstance(data, torch.Tensor):
+        # each host row key folded with every datum: [E n, 2] row keys,
+        # row e n + i = fold_in(key_e, data_i)
+        k = device_rows(key, data.device)
+        word = (data.reshape(-1).to(torch.int64) & _MASK)[None, :]
+        b1, b2 = _t_cipher(k[:, 0:1], k[:, 1:2], torch.zeros_like(word), word)
+        return torch.stack([b1, b2], dim=-1).reshape(-1, 2)
     if is_host_rows(key):
         word = np.array([int(data) & _MASK], dtype=np.uint32)
         return _np_cipher_rows(key, np.zeros(1, np.uint32), word)[:, 0]

@@ -14,14 +14,25 @@ drives the *same* cell-parameterized step `BridgeTrainer` binds
   (`GridNetRuntime`: one mailbox ring sized for the slowest scenario, one
   exchange call a scenario over the cells that chose it).
 
+* codecs and wire attacks: each cell encodes under its own keys, the carry
+  ``[E, M, d]`` (per link ``[E, M, W, d]``) is stacked like the state, and
+  a lossy dense codec decodes a group's rows in one ``dequant_carry``
+  launch a tick;
+* adversaries (`repro_torch.adversary`): the stacked ``AdvState`` ``[E, d]``
+  (allocated only when the bank is stateful) and each cell's ``theta``
+  ride along; ``inner_max`` ascends through the group's own screen.
+
 The screening kernels take the experiment axis (`repro_torch.kernels`):
 each launches once a tick for a group of cells, whatever its size.  Since
 real sweeps are (near-)products, the engine **groups** cells with equal
 (rule, attack, adversary, codec) (``group=True``, the default): each group
 runs the single-entry-bank step; ``group=False`` runs one banked step over
-every cell, in which each rule and each attack runs once over the cells
-that chose it.  Cells run group-major internally and results come back in
-the caller's order.
+every cell, in which each rule, attack, codec and adversary runs once over
+the cells that chose it.  Cells run group-major internally and results
+come back in the caller's order.  With several lossy codecs in one banked
+step a cell may differ from its grouped twin (the reference allows about
+1 ulp a tick there, its codewords padded to the bank's largest); grouped
+cells are bit for bit their trainers'.
 
 ``chunk`` bounds memory: each group's cells run ``chunk`` at a time, the
 ragged last chunk padded with copies of its final cell and trimmed.
@@ -36,10 +47,10 @@ Correctness anchor, as in the reference: any single cell equals its own
 `BridgeTrainer` run bit for bit (``tests/test_torch_grid.py`` on the CPU,
 ``chip_smoke.py`` on the card).
 
-Not yet here (each refused with a `ValueError` that names its ROADMAP
-item): lossy codecs and wire attacks on the grid, net cells included
-(item 11, the next slice); adversaries other than ``none`` (item 12); the
-``trace``, ``trust``, ``metrics`` and ``events`` specs (item 13).
+Not yet here (refused with a `ValueError` that names its ROADMAP item):
+the ``trace``, ``trust``, ``metrics`` and ``events`` specs (Queue 1 item
+13), and with them the trust layer that would read ``slander``'s forged
+digests.
 """
 from __future__ import annotations
 
@@ -51,6 +62,7 @@ import torch
 from repro_torch import prng
 from repro_torch.adversary import protocols as adv_lib
 from repro_torch.comm import codec as codec_lib
+from repro_torch.comm import exchange
 from repro_torch.core import byzantine as byz_lib
 from repro_torch.core.bridge import (BridgeState, CellParams, build_cell_runtime_step,
                                      build_cell_step, stack_batches, stack_flatten)
@@ -64,8 +76,6 @@ from repro_torch.sim.grid import Cell, ExperimentGrid
 
 __all__ = ["GridEngine", "GridNetRuntime", "stack_batches"]
 
-GRID_CODECS = ("codecs and wire attacks on the grid, net cells included: ROADMAP Queue 1 "
-               "item 11, its next step (open item 2)")
 GRID_SPECS = "the trace, trust, metrics and events specs: ROADMAP Queue 1 item 13"
 
 
@@ -78,10 +88,12 @@ def _dedup(names: Iterable) -> list:
 
 
 def _check_cell(c: Cell) -> None:
-    """The refusals of the port's grids for one cell."""
-    if not codec_lib.get_codec(c.codec).lossless or c.attack in byz_lib.WIRE_ATTACKS:
-        raise ValueError(f"cell {c.tag}: {GRID_CODECS}")
-    adv_lib.get_adversary(c.adversary)  # raises for any but none (item 12)
+    """Each of the cell's names resolves, and its theta has `THETA_DIM`
+    entries."""
+    codec_lib.get_codec(c.codec)
+    adv_lib.get_adversary(c.adversary)
+    if c.theta is not None and len(c.theta) != adv_lib.THETA_DIM:
+        raise ValueError(f"cell {c.tag}: theta must have {adv_lib.THETA_DIM} entries")
 
 
 def _take(x: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
@@ -163,8 +175,8 @@ class GridNetRuntime:
              lead: tuple[int, ...] = ()) -> mb.MailboxState:
         """Empty mailboxes, ``lead`` cells of them, with the ring sized for
         the slowest scenario's worst case (propagation plus the
-        serialization of the largest codeword, a float32 payload by
-        default)."""
+        serialization of the largest codeword of the codec bank,
+        `exchange.max_wire_bits`; a float32 payload by default)."""
         bits = 32 * dim if max_wire_bits is None else max_wire_bits
         ring = max(s.channel.max_total_latency(bits) for s in self._specs)
         width = None if self.neighbors is None else self.neighbors.k
@@ -174,24 +186,31 @@ class GridNetRuntime:
                  wire_bits=None):
         """Each cell's exchange through its scenario's runtime: ``msgs [E,
         M, W, d]``, ``key`` one key (E = 1) or the cells' host row keys
-        ``[E, 2]``; returns the stacked state, the views ``[E, M, W, d]``,
-        the usable masks ``[E, M, W]`` and ``[E]`` stats."""
-        used = self._scenarios(cell)
-        if len(used) == 1:
-            return self._runtimes[used[0]].exchange(net_state, msgs, self_vals, adjacency, key,
-                                                    t, wire_bits=wire_bits)
+        ``[E, 2]``, ``wire_bits`` an int or one a cell (a mixed codec
+        bank); returns the stacked state, the views ``[E, M, W, d]``, the
+        usable masks ``[E, M, W]`` and ``[E]`` stats.  One exchange runs
+        per (scenario, wire bits) the cells use."""
+        e = len(cell.scenario_idx)
+        bits = (np.asarray(wire_bits, np.int64) if isinstance(wire_bits, tuple)
+                else np.full((e,), -1 if wire_bits is None else wire_bits, np.int64))
+        pairs = sorted(set(zip(cell.scenario_idx, bits.tolist())))
+        as_bits = lambda b: None if b < 0 else int(b)
+        if len(pairs) == 1:
+            s, b = pairs[0]
+            return self._runtimes[s].exchange(net_state, msgs, self_vals, adjacency, key,
+                                              t, wire_bits=as_bits(b))
         keys = np.asarray(key, np.uint32).reshape(-1, 2)
         idx = np.asarray(cell.scenario_idx, np.int64)
         state_out = mask_out = stats_out = None
-        for s in used:
-            cells = np.nonzero(idx == s)[0]
+        for s, b in pairs:
+            cells = np.nonzero((idx == s) & (bits == b))[0]
             sel = torch.as_tensor(cells, device=self.device)
             part = type(net_state)(*(x.index_select(0, sel) for x in net_state))
             adj = adjacency.index_select(0, sel) if adjacency.ndim == 3 else adjacency
             k = keys[cells[0]] if len(cells) == 1 else keys[cells]
             new, _, mask, stats = self._runtimes[s].exchange(
                 part, _take(msgs, sel), self_vals.index_select(0, sel), adj, k, t,
-                wire_bits=wire_bits)
+                wire_bits=as_bits(b))
             if state_out is None:
                 state_out = type(net_state)(*(torch.empty_like(x) for x in net_state))
                 mask_out = torch.empty((idx.shape[0], *mask.shape[1:]), dtype=mask.dtype,
@@ -207,7 +226,7 @@ class GridNetRuntime:
 
 
 def _rows(net, fn):
-    """``fn`` over every tensor of the stacked runtime state (or None)."""
+    """``fn`` over every tensor of a stacked carry (or None)."""
     return None if net is None else type(net)(*(fn(x) for x in net))
 
 
@@ -259,6 +278,10 @@ class GridEngine:
         self.scenario_bank = _dedup(s for s in scen if s is not None)
         self.codec_bank = _dedup(c.codec for c in self.cells)
         self.adversary_bank = _dedup(c.adversary for c in self.cells)
+        # the adversary stage engages only when some cell names one
+        self._adv_engaged = any(c.adversary != "none" for c in self.cells)
+        self._adv_stateful = self._adv_engaged and adv_lib.bank_stateful(
+            adv_lib.adversary_bank(self.adversary_bank))
         self.sparse = bool(sparse)
         self._adjacency = torch.as_tensor(topo.adjacency, dtype=torch.bool, device=self.device)
         self.runtime = None
@@ -279,22 +302,17 @@ class GridEngine:
         self._inv = np.argsort(self._perm)
         self._bounds: list[tuple[int, int]] = []
         self._steps: list[Callable] = []
-        self._banks: list[tuple[tuple[str, ...], tuple[str, ...]]] = []
+        self._banks: list[tuple[tuple[str, ...], ...]] = []
         lo = 0
         for i in range(1, e + 1):
             if i == e or gkey[self._perm[i]] != gkey[self._perm[lo]]:
                 head = self.cells[self._perm[lo]]
-                rules, attacks = (((head.rule,), (head.attack,)) if self._group
-                                  else (tuple(self.rule_bank), tuple(self.attack_bank)))
-                self._banks.append((rules, attacks))
-                if self.net_mode:
-                    self._steps.append(build_cell_runtime_step(
-                        grad_fn, self.runtime, rules,
-                        tuple(byz_lib.get_message_attack(a) for a in attacks)))
-                else:
-                    self._steps.append(build_cell_step(
-                        grad_fn, self._adjacency, rules,
-                        tuple(byz_lib.get_attack(a) for a in attacks), neighbors=self.neighbors))
+                banks = (((head.rule,), (head.attack,), (head.codec,), (head.adversary,))
+                         if self._group else
+                         (tuple(self.rule_bank), tuple(self.attack_bank), tuple(self.codec_bank),
+                          tuple(self.adversary_bank)))
+                self._banks.append(banks)
+                self._steps.append(self._build_step(grad_fn, *banks))
                 self._bounds.append((lo, i))
                 lo = i
         self.step_calls = 0
@@ -310,6 +328,19 @@ class GridEngine:
         compilations)."""
         return len(self._steps)
 
+    def _build_step(self, grad_fn, rules, attacks, codecs, adversaries) -> Callable:
+        """One group's step over its banks (the adversary stage only when a
+        cell of the engine names one)."""
+        kw = dict(codecs=codecs, wire_attacks=byz_lib.wire_attack_bank(attacks),
+                  adversaries=adversaries if self._adv_engaged else None)
+        if self.net_mode:
+            return build_cell_runtime_step(
+                grad_fn, self.runtime, rules,
+                tuple(byz_lib.get_message_attack(a) for a in attacks), **kw)
+        return build_cell_step(grad_fn, self._adjacency, rules,
+                               tuple(byz_lib.get_attack(a) for a in attacks),
+                               neighbors=self.neighbors, **kw)
+
     def _group_keys(self, cells) -> list[tuple[int, ...]]:
         if not self._group:
             return [(0, 0, 0, 0)] * len(cells)
@@ -319,13 +350,19 @@ class GridEngine:
 
     def _bind_cells(self, cells) -> None:
         """Stack per-cell parameters (Byzantine masks, bank indices, bounds,
-        schedules) into the `CellParams` rows the steps read, and each
-        group's rows in its own bank's indices."""
+        adversary thetas, schedules) into the `CellParams` rows the steps
+        read, and each group's rows in its own banks' indices."""
         m = self.grid.topology.num_nodes
         e = len(cells)
         self.byz_masks = np.stack(
             [grid_lib.pick_byz_mask(m, c, self.grid.byzantine_seed) for c in cells])
         g = self.grid
+        adv_idx, adv_theta = (), None
+        if self._adv_engaged:
+            adv_idx = tuple(self.adversary_bank.index(c.adversary) for c in cells)
+            adv_theta = np.asarray([c.theta if c.theta is not None
+                                    else adv_lib.get_adversary(c.adversary).default_theta
+                                    for c in cells], np.float32)
         self._cell_stack = CellParams(
             rule_idx=tuple(self.rule_bank.index(c.rule) for c in cells),
             attack_idx=tuple(self.attack_bank.index(c.attack) for c in cells),
@@ -333,21 +370,27 @@ class GridEngine:
             byz_mask=torch.as_tensor(self.byz_masks, device=self.device),
             lam=(g.lam,) * e, t0=(g.t0,) * e, lr=(g.lr,) * e,
             scenario_idx=(tuple(self.scenario_bank.index(c.scenario) for c in cells)
-                          if self.net_mode else ()))
+                          if self.net_mode else ()),
+            codec_idx=tuple(self.codec_bank.index(c.codec) for c in cells),
+            adv_idx=adv_idx, adv_theta=adv_theta)
         self._group_cells = []
-        for (rules, attacks), (lo, hi) in zip(self._banks, self._bounds, strict=True):
+        for (rules, attacks, codecs, advs), (lo, hi) in zip(self._banks, self._bounds,
+                                                            strict=True):
             idx = self._perm[lo:hi]
             rows = self._cell_stack.select(idx)
             self._group_cells.append(rows._replace(
                 rule_idx=tuple(rules.index(cells[i].rule) for i in idx),
-                attack_idx=tuple(attacks.index(cells[i].attack) for i in idx)))
+                attack_idx=tuple(attacks.index(cells[i].attack) for i in idx),
+                codec_idx=tuple(codecs.index(cells[i].codec) for i in idx),
+                adv_idx=(tuple(advs.index(cells[i].adversary) for i in idx)
+                         if self._adv_engaged else ())))
 
     def set_cells(self, cells: Sequence[Cell]) -> None:
         """Swap the engine onto a new cell list of identical *structure* —
         same length and same per-position (rule, attack, adversary, codec)
         group keys — keeping its steps (the reference keeps its compiled
-        programs).  Everything that changed (b, seeds, Byzantine masks) is
-        data the next `run` reads."""
+        programs).  Everything that changed (b, seeds, Byzantine masks,
+        adversary thetas) is data the next `run` reads."""
         cells = list(cells)
         if len(cells) != len(self.cells):
             raise ValueError(
@@ -366,6 +409,12 @@ class GridEngine:
                                  f"bank {self.scenario_bank}")
             if (c.scenario is None) == self.net_mode:
                 raise ValueError("set_cells cannot move cells across the sync/net split")
+        if not self._adv_engaged and any(c.adversary != "none" for c in cells):
+            raise ValueError("set_cells: this engine was built without the adversary stage "
+                             "(every cell was adversary='none'); rebuild a GridEngine to add one")
+        for c in cells:
+            if c.theta is not None and len(c.theta) != adv_lib.THETA_DIM:
+                raise ValueError(f"cell theta must have {adv_lib.THETA_DIM} entries")
         if self._group_keys(self.cells) != self._group_keys(cells):
             raise ValueError(
                 "set_cells cells must keep the per-position (rule, attack, "
@@ -386,7 +435,10 @@ class GridEngine:
         handed: cells with equal seeds share initial replicas, and each
         cell's key is ``PRNGKey(seed)``, as ``BridgeTrainer.init(params,
         seed=seed)`` takes it.  A net grid's cells start with empty
-        mailboxes, ``[E, M, W, L, d]``."""
+        mailboxes, ``[E, M, W, L, d]``, the ring sized for the bank's largest
+        codeword.  A lossy codec bank adds the zero codec carry (``[E, M,
+        d]``, per link ``[E, M, W, d]``) for every cell, a stateful
+        adversary bank the zero ``AdvState`` ``[E, d]``."""
         m = self.grid.topology.num_nodes
         params = [init_fn(c.seed) for c in self.cells]
         for k, leaf in params[0].items():
@@ -395,11 +447,18 @@ class GridEngine:
                                  f"num_nodes {m}")
         stacked = {k: torch.stack([p[k].to(self.device) for p in params]) for k in params[0]}
         keys = np.stack([prng.PRNGKey(c.seed) for c in self.cells])
+        e = len(self.cells)
+        dim = stack_flatten(params[0])[0].shape[1]
+        bank = codec_lib.codec_bank(self.codec_bank)
         net = None
+        shape = (e, m, dim)
         if self.runtime is not None:
-            dim = stack_flatten(params[0])[0].shape[1]
-            net = self.runtime.init(m, dim, lead=(len(self.cells),))
-        return BridgeState(params=stacked, t=0, key=keys, net=net)
+            net = self.runtime.init(m, dim, exchange.max_wire_bits(bank, dim), lead=(e,))
+            shape = (e, m, m if self.neighbors is None else self.neighbors.k, dim)
+        comm = exchange.init_residual(shape, bank, device=self.device)
+        adv = (adv_lib.init_state(dim, lead=(e,), device=self.device) if self._adv_stateful
+               else None)
+        return BridgeState(params=stacked, t=0, key=keys, comm=comm, net=net, adv=adv)
 
     def run(self, state: BridgeState, batches, *, chunk: int | None = None):
         """Run every cell over ``batches`` (a tensor or a tuple of tensors
@@ -423,25 +482,33 @@ class GridEngine:
                 cells_idx = self._perm[rows]
                 sel = torch.as_tensor(cells_idx, device=self.device)
                 cp = self._group_cells[gi].select(rows - glo)
-                st = BridgeState({k: v.index_select(0, sel) for k, v in state.params.items()},
-                                 state.t, keys[cells_idx],
-                                 net=_rows(state.net, lambda x: x.index_select(0, sel)))
+                take = lambda x: x.index_select(0, sel)
+                st = BridgeState({k: take(v) for k, v in state.params.items()}, state.t,
+                                 keys[cells_idx], _rows(state.comm, take),
+                                 _rows(state.net, take), _rows(state.adv, take))
                 f, ms = self._run_chunk(self._steps[gi], cp, st, tick, ticks)
                 valid = hi - lo
+                trim = lambda x: x[:valid]
                 finals.append(BridgeState({k: v[:valid] for k, v in f.params.items()}, f.t,
-                                          f.key[:valid], net=_rows(f.net, lambda x: x[:valid])))
+                                          f.key[:valid], _rows(f.comm, trim), _rows(f.net, trim),
+                                          _rows(f.adv, trim)))
                 metrics.append({k: v[:valid] for k, v in ms.items()})
         order = torch.as_tensor(self._inv, device=self.device)
         params = {k: torch.cat([f.params[k] for f in finals]).index_select(0, order)
                   for k in state.params}
         key = np.concatenate([f.key for f in finals])[self._inv]
-        net = None
-        if state.net is not None:
-            net = type(state.net)(*(torch.cat(xs).index_select(0, order)
-                                    for xs in zip(*(f.net for f in finals), strict=True)))
+
+        def carried(field: str):
+            if getattr(state, field) is None:
+                return None
+            parts = [getattr(f, field) for f in finals]
+            return type(parts[0])(*(torch.cat(xs).index_select(0, order)
+                                    for xs in zip(*parts, strict=True)))
+
         out = {k: torch.cat([ms[k] for ms in metrics]).index_select(0, order)
                for k in metrics[0]}
-        return BridgeState(params=params, t=finals[0].t, key=key, net=net), out
+        return BridgeState(params=params, t=finals[0].t, key=key, comm=carried("comm"),
+                           net=carried("net"), adv=carried("adv")), out
 
     def _run_chunk(self, step: Callable, cell: CellParams, state: BridgeState, tick: Callable,
                    ticks: int) -> tuple[BridgeState, dict]:

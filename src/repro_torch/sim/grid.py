@@ -25,18 +25,21 @@ from repro_torch.core.graph import Topology, erdos_renyi
 
 
 class Cell(NamedTuple):
-    """One experiment: a single point of the grid's cross product.
+    """One experiment: a single point of the grid's cross product, run by
+    `repro_torch.sim.engine.GridEngine` as its own trainer would run it.
 
     ``scenario`` is ``None`` for the synchronous broadcast path, or a
     `repro_torch.net.scenarios` name for the unreliable-network path.
-    ``codec`` names the wire format (`repro_torch.comm`) neighbor exchange
-    travels in.  ``adversary`` names a `repro_torch.adversary` entry
-    (``"none"`` keeps the classic attack-only path), ``theta`` its
-    optional per-cell hyperparameter override (`THETA_DIM` floats — the
-    red-team search's proposal vector), and ``mask_seed`` the draw that
-    picks *which* nodes are Byzantine (None falls back to the grid's shared
-    ``byzantine_seed`` — the pre-fix behavior where every seed reran the
-    same mask).
+    ``attack`` may be a wire attack (``garbage_codeword``, ``scale_abuse``,
+    ``index_lie``), which corrupts the Byzantine senders' codewords.
+    ``codec`` names the wire format (`repro_torch.comm.codec`) neighbor
+    exchange travels in, per sender or, on a net cell, per link, with its
+    carry.  ``adversary`` names a `repro_torch.adversary` entry (``"none"``
+    skips the adversary stage), ``theta`` its per-cell hyperparameters
+    (`THETA_DIM` floats, the step's ``CellParams.adv_theta``; None takes the
+    adversary's defaults), and ``mask_seed`` the draw that picks *which*
+    nodes are Byzantine (None falls back to the grid's shared
+    ``byzantine_seed``, so every seed draws the same mask).
     """
 
     rule: str

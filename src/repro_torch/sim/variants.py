@@ -18,10 +18,12 @@ at 4000 / 800 samples over ``erdos_renyi(M, 0.5, b)``, ByRDiE with
 ``--codec`` takes every codec of `repro_torch.comm.codec` and ``--attack``
 the wire attacks too (``garbage_codeword``, ``scale_abuse``,
 ``index_lie``); the baselines take the broadcast attack, ``random`` in
-place of a wire attack, as the reference's example does.  Not ported yet
-(it raises `NotImplementedError`): ``--adversary`` (ROADMAP Queue 1 item
-10).  ``--sparse`` runs the variants on the neighbor-table layout;
-``--device`` defaults to ``cuda``.
+place of a wire attack, as the reference's example does.  ``--adversary``
+swaps the attack for a `repro_torch.adversary` entry (``ipm``,
+``alie_online``, ``dissensus``, ``inner_max``, ``equivocate``,
+``slander`` or a static attack's name); the baselines, which take no
+adversary bank, keep ``--attack``.  ``--sparse`` runs the variants on the
+neighbor-table layout; ``--device`` defaults to ``cuda``.
 """
 from __future__ import annotations
 
@@ -82,16 +84,13 @@ def run_decentralized(*, rule: str = "trimmed_mean", attack: str = "none",
     accuracy, the last tick's consensus distance and loss, the wire bits per
     edge and the steady time per step (the first step, which builds the
     kernels on a card, excluded)."""
-    if adversary != "none":
-        raise NotImplementedError(f"adversary {adversary!r}: repro.adversary is not ported "
-                                  f"yet (ROADMAP Queue 1 item 10)")
     dev = resolve_device(device)
     x, y, xt, yt = dataset(4000, 800, 0)  # the reference's benchmark data, at seed 0
     shards = PARTITIONS[partition](x, y, num_nodes, seed=seed)
     batch_fn = stack_node_batches(shards, batch, seed=seed)
     topo = pick_topology(num_nodes, num_byzantine, rule, seed)
     cfg = BridgeConfig(topology=topo, rule=rule, num_byzantine=num_byzantine, attack=attack,
-                       codec=codec, lam=lam, t0=t0, sparse=sparse)
+                       adversary=adversary, codec=codec, lam=lam, t0=t0, sparse=sparse)
     trainer = BridgeTrainer(cfg, small.linear_loss_and_grad, device=dev)
     key = prng.PRNGKey(seed)
     state = trainer.init(replicate(small.init_linear(key, device=dev), num_nodes, perturb=0.01,
@@ -182,7 +181,8 @@ def main(argv: Sequence[str] | None = None) -> list[dict]:
     ap.add_argument("--byzantine", type=int, default=2)
     ap.add_argument("--attack", default="random", choices=ATTACK_CHOICES)
     ap.add_argument("--adversary", default="none",
-                    help="adaptive adversary; not ported yet (raises unless 'none')")
+                    help="adaptive adversary (repro_torch.adversary): ipm, alie_online, "
+                         "dissensus, inner_max, equivocate, slander; overrides --attack")
     ap.add_argument("--codec", default=None,
                     help="wire codec (identity, int8, int4, topk<P>[_int8|_int4], "
                          "randk<P>[_int8|_int4]); when set, each variant runs uncompressed AND "

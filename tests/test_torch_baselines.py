@@ -148,16 +148,17 @@ def test_byrdie_block_screen_bit_exact(m, b, seed):
 @pytest.mark.parametrize("argv", [["--adversary", "ipm"], ["--codec", "int4"],
                                   ["--attack", "garbage_codeword"]])
 def test_variants_unported_options_raise(argv, capsys):
-    """Only the adaptive adversary is still to be ported and raises; the
-    codecs and the wire attacks run, the baselines under the reference's
-    ``random`` in place of a wire attack."""
+    """Every option runs now, the adaptive adversary included (it replaces
+    the attack in the table's header); the codecs and the wire attacks
+    run, the baselines under the reference's ``random`` in place of a wire
+    attack."""
     run = lambda: variants.main([*argv, "--nodes", "8", "--byzantine", "1", "--steps", "1",
                                  "--device", "cpu", "--no-baselines"])
-    if argv[0] == "--adversary":
-        with pytest.raises(NotImplementedError):
-            run()
-        return
     rows = run()
+    if argv[0] == "--adversary":
+        assert "attack=ipm" in capsys.readouterr().out
+        assert len(rows) == 5 and all(0.0 <= r["accuracy"] <= 1.0 for r in rows)
+        return
     codecs = ["identity", "int4"] if argv[0] == "--codec" else ["identity"]
     assert [r["codec"] for r in rows] == codecs * 5
     assert f"attack={argv[1] if argv[0] == '--attack' else 'random'}" in capsys.readouterr().out

@@ -256,22 +256,21 @@ def test_banked_dispatch_equals_each_experiments_own_rule():
 
 
 def test_refusals_name_their_roadmap_items(tmp_path):
+    """The refusals left name their ROADMAP items (trust and telemetry:
+    item 13; the breakdown mode: item 12's remainder); codecs, wire attacks
+    and adversaries, refused before, now build."""
     topo = erdos_renyi(M, 0.8, 2, seed=1)
-    for cell, item in ((Cell("trimmed_mean", "random", 2, 0, "lossy", "int8"), "item 11"),
-                       (Cell("trimmed_mean", "random", 2, 0, codec="int8"), "item 11"),
-                       (Cell("trimmed_mean", "scale_abuse", 2, 0), "item 11")):
-        grid = ExperimentGrid(topo, ("trimmed_mean",), ("random",), (2,))
-        with pytest.raises(ValueError, match=item):
-            GridEngine(grid, qgrad, cells=[cell], device="cpu")
-    with pytest.raises(ValueError, match="item 12"):
-        ExperimentGrid(topo, ("trimmed_mean",), ("random",), (2,), adversaries=("ipm",))
+    grid = ExperimentGrid(topo, ("trimmed_mean",), ("random",), (2,))
+    for cell in (Cell("trimmed_mean", "random", 2, 0, "lossy", "int8"),
+                 Cell("trimmed_mean", "random", 2, 0, codec="int8"),
+                 Cell("trimmed_mean", "scale_abuse", 2, 0),
+                 Cell("trimmed_mean", "none", 2, 0, adversary="ipm")):
+        GridEngine(grid, qgrad, cells=[cell], num_ticks=3, device="cpu")
+    ExperimentGrid(topo, ("trimmed_mean",), ("random",), (2,), adversaries=("ipm",))
     with pytest.raises(ValueError, match="item 13"):
-        GridEngine(ExperimentGrid(topo, ("trimmed_mean",), ("random",), (2,)), qgrad,
-                   trace=object(), device="cpu")
-    for flags, item in ((["--scenarios", "lossy", "--codecs", "int8"], "item 11"),
-                        (["--codecs", "int8"], "item 11"),
-                        (["--adversaries", "ipm"], "item 12"), (["--trace", "x"], "item 13"),
-                        (["--trust"], "item 13")):
+        GridEngine(grid, qgrad, trace=object(), device="cpu")
+    for flags, item in ((["--trace", "x"], "item 13"), (["--trust"], "item 13"),
+                        (["--mode", "breakdown"], "item 12")):
         with pytest.raises(ValueError, match=item):
             sweep.main(["--out", str(tmp_path), "--device", "cpu", *flags])
 

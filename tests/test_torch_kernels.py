@@ -1044,3 +1044,29 @@ def test_batched_kernel_without_self_rows(cuda_device, e, n, d):
         assert torch.equal(bits(got[j]), bits(pairwise.pairwise_sq_dists(x[j])))
     for plan in pairwise.batch_candidates(e, n, d):
         assert torch.equal(bits(pairwise.pairwise_sq_dists_batched(x, None, plan)), bits(got)), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [3, 16, 17, 40, 64, 65, 129])
+@pytest.mark.parametrize("stride0", [False, True])
+def test_views_backward_kernels_equal_the_plain_backward_on_card(cuda_device, w, stride0):
+    """The views screens' backward kernels (`kernels.autograd`,
+    ``csrc/views_screen_grad.cu``; above 64 slots the wide kernel) against
+    the plain backward (the sort), bit for bit, on edge-case views (NaN,
+    +-inf, ties, +-0, starved nodes, a receiver stride of 0), b of 0-2 and
+    per cell, two cells."""
+    from repro_torch.kernels import autograd as grad_ops
+
+    views, mask, sv = views_inputs(6, w, 301, seed=w, stride0=stride0)
+    views = views.to(cuda_device)[None].expand(2, *views.shape)
+    mask, sv = mask.to(cuda_device), sv.to(cuda_device)[None].expand(2, -1, -1).contiguous()
+    gy = torch.randn(sv.shape, device=cuda_device)
+    for rule, bs in (("trimmed_mean", (0, 1, 2, torch.tensor([2, 0], dtype=torch.int32,
+                                                              device=cuda_device))),
+                     ("median", (0,))):
+        for b in bs:
+            spec = grad_ops.ScreenSpec(None, rule, "views", mask, b)
+            want = grad_ops.plain_backward(spec, views, sv, gy)
+            got = grad_ops._backward(spec, views, sv, gy)
+            for g, p in zip(got, want, strict=True):
+                assert torch.equal(g, p), (rule, b)

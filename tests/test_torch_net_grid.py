@@ -241,10 +241,9 @@ def test_views_plain_screens_over_cells_equal_per_experiment(per_mask, stride0):
 
 
 def test_runtime_step_refuses_codecs_over_cells_and_flattens_views_in_place(targets):
-    """A lossy codec over more than one cell raises, naming its ROADMAP
-    item (the trainer's one cell keeps the per-link codec path); the
-    distance kernel's E M elements are the views themselves, no copy."""
-    from repro_torch.comm import codec as codec_lib
+    """A lossy codec over more than one cell, refused before, runs and
+    needs the carry (a state without it raises); the distance kernel's
+    E M elements are the views themselves, no copy."""
     from repro_torch.core import screening
     from repro_torch.core.bridge import build_cell_runtime_step
     from repro_torch.core.byzantine import get_message_attack
@@ -253,9 +252,8 @@ def test_runtime_step_refuses_codecs_over_cells_and_flattens_views_in_place(targ
                           scenarios=("lossy",), lam=1.0, t0=10.0)
     engine = GridEngine(grid, qgrad, num_ticks=T, device="cpu")
     step = build_cell_runtime_step(qgrad, engine.runtime, ("trimmed_mean",),
-                                   (get_message_attack("random"),),
-                                   codec=codec_lib.get_codec("int8"))
-    with pytest.raises(NotImplementedError, match="item 11"):
+                                   (get_message_attack("random"),), codecs=("int8",))
+    with pytest.raises(ValueError, match="CommState"):
         step(engine._group_cells[0], engine.init(init_fn), targets)
     views = torch.zeros(3, M, 4, D)
     assert screening._node_views(views).data_ptr() == views.data_ptr()

@@ -3,7 +3,7 @@ CPU, at the settings `chip_smoke.py` trains the PyTorch port at: the
 thresholds the port's card runs are held to (within 0.01 of each).
 
     JAX_PLATFORMS=cpu PYTHONPATH=src:. python tools/reference_accuracy.py \
-        [--only dense,sparse,variants,wire,wire_sparse,variants_wire,net,net_kb]
+        [--only dense,sparse,variants,wire,wire_sparse,variants_wire,net,net_kb,adversary]
 
 Configurations (each as `chip_smoke.py` runs it, same seeds and batches):
 
@@ -51,6 +51,21 @@ Configurations (each as `chip_smoke.py` runs it, same seeds and batches):
   6, 1, rewire_prob=0.2)``, b = 1, ``alie``, drop 0.05, staleness bound 2,
   t0 = 100, iid partition of 16384 samples, batch 8, init and key seed 0,
   the sparse layout) for 20 ticks.
+* ``adversary``: the breakdown benchmark's task (``benchmarks/
+  breakdown_bench.py``): M = 10, the extreme non-iid partition of 4000
+  samples (800 test), batch 32, 60 ticks, t0 = 30, init and key seed 0,
+  ``default_topology(10, (trimmed_mean, median), (3,))``; BRIDGE-T and
+  BRIDGE-M under each of ``random``, ``alie`` (as stateless adversaries),
+  ``ipm``, ``alie_online``, ``dissensus``, ``inner_max``, ``equivocate``
+  and ``slander`` at b = 1, 2, 3 (each cell's own `BridgeTrainer`, its
+  Byzantine mask drawn with seed 0, as the grid's cells); BRIDGE-K and
+  BRIDGE-B under ``inner_max`` at M = 20, b = 2 on ``default_topology(20,
+  (krum, bulyan), (2,))``, the same task at M = 20; asynchronous BRIDGE-T
+  at M = 20, b = 2 under ``lossy_laggy`` with ``dissensus`` and
+  ``equivocate`` (the message forms) on ``default_topology(20,
+  (trimmed_mean,), (2,))``; and asynchronous BRIDGE-T with ``inner_max``
+  under ``lossy`` at the scale benchmark's sparse settings (as ``net``'s
+  sparse run, the schedule of ``lossy``) for 20 ticks, and BRIDGE-M there.
 
 Prints one line per configuration and a JSON object of all of them last.
 Takes some minutes (the sparse runs most of it).
@@ -150,7 +165,7 @@ def variants_wire():
 
 def run_async(task, topo, *, b, t0, ticks, attack, seed=0, init_seed=0, codec="identity",
               sparse=False, scenario="ideal", channel=None, staleness=None,
-              rule="trimmed_mean"):
+              rule="trimmed_mean", adversary="none"):
     from repro.net import AsyncBridgeConfig, AsyncBridgeTrainer
     from repro.net.dynamic import scenario_schedule
     from repro.net.scenarios import get_scenario
@@ -158,7 +173,8 @@ def run_async(task, topo, *, b, t0, ticks, attack, seed=0, init_seed=0, codec="i
     spec = get_scenario(scenario)
     cfg = AsyncBridgeConfig(
         topology=topo, rule=rule, num_byzantine=b, attack=attack, lam=1.0, t0=t0,
-        codec=codec, sparse=sparse, channel=spec.channel if channel is None else channel,
+        adversary=adversary, codec=codec, sparse=sparse,
+        channel=spec.channel if channel is None else channel,
         staleness_bound=spec.staleness_bound if staleness is None else staleness,
         schedule=scenario_schedule(spec.schedule_kind, topo, ticks, seed=0,
                                    churn_prob=spec.churn_prob))
@@ -216,13 +232,65 @@ def net_kb():
     return out
 
 
+ADVERSARY_NAMES = ("random", "alie", "ipm", "alie_online", "dissensus", "inner_max",
+                   "equivocate", "slander")
+
+
+def adversary():
+    from repro.sim.grid import default_topology
+
+    out = {}
+
+    def run(task, topo, rule, b, name, ticks=60):
+        cfg = bridge.BridgeConfig(topology=topo, rule=rule, num_byzantine=b, attack="none",
+                                  adversary=name, lam=1.0, t0=30.0, byzantine_seed=0)
+        trainer = bridge.BridgeTrainer(cfg, task.grad_fn)
+        state = trainer.init(task.init_fn(0), seed=0)
+        for i in range(ticks):
+            state, _ = trainer.step(state, jax.tree_util.tree_map(lambda x: x[i], task.batches))
+        return task.eval_accuracy(state.params, trainer.honest_mask)
+
+    task = tasks.linear_task(10, 60, partition="extreme", num_train=4000, num_test=800, seed=0)
+    topo = default_topology(10, ("trimmed_mean", "median"), (3,), seed=0)
+    for rule in ("trimmed_mean", "median"):
+        for name in ADVERSARY_NAMES:
+            for b in (1, 2, 3):
+                out[f"adversary {rule} {name} b{b}"] = run(task, topo, rule, b, name)
+    task = tasks.linear_task(20, 60, partition="extreme", num_train=4000, num_test=800, seed=0)
+    topo = default_topology(20, ("krum", "bulyan"), (2,), seed=0)
+    for rule in ("krum", "bulyan"):
+        out[f"adversary {rule} inner_max b2 (M=20)"] = run(task, topo, rule, 2, "inner_max")
+    topo = default_topology(20, ("trimmed_mean",), (2,), seed=0)
+    for name in ("dissensus", "equivocate"):
+        task = tasks.linear_task(20, 0, partition="extreme", num_train=4000, num_test=800)
+        out[f"adversary net lossy_laggy {name}"] = run_async(
+            task, topo, b=2, t0=30, ticks=60, attack="none", adversary=name,
+            scenario="lossy_laggy")
+    topo = graph.small_world(512, 6, 1, rewire_prob=0.2, seed=0)
+    task = tasks.linear_task(512, 0, partition="iid", num_train=16384, num_test=1000, batch=8)
+    out["adversary net sparse lossy inner_max"] = run_async(
+        task, topo, b=1, t0=100, ticks=20, attack="none", adversary="inner_max", sparse=True,
+        scenario="lossy")
+    out.update(adversary_sparse_median())
+    return out
+
+
+def adversary_sparse_median():
+    """``adversary``'s sparse `inner_max` run under BRIDGE-M."""
+    topo = graph.small_world(512, 6, 1, rewire_prob=0.2, seed=0)
+    task = tasks.linear_task(512, 0, partition="iid", num_train=16384, num_test=1000, batch=8)
+    return {"adversary net sparse lossy inner_max median": run_async(
+        task, topo, b=1, t0=100, ticks=20, attack="none", adversary="inner_max", sparse=True,
+        scenario="lossy", rule="median")}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="dense,sparse,variants")
     args = ap.parse_args()
     groups = {"dense": dense, "sparse": sparse, "variants": variants, "wire": wire,
               "wire_sparse": wire_sparse, "variants_wire": variants_wire, "net": net,
-              "net_kb": net_kb}
+              "net_kb": net_kb, "adversary": adversary}
     results = {}
     for name in args.only.split(","):
         t0 = time.perf_counter()
