@@ -209,7 +209,33 @@ failure of which raises:
    off the counts); first the views backward kernels
    (``views_screen_grad_*``) exact against the plain backward at the
    sparse oracle's shape, timed beside it, and their wide kernel (above 64
-   slots) exact at M = W = 129.
+   slots) exact at M = W = 129;
+22. breakdown and search — (a) ``benchmarks/breakdown_bench.py``'s
+   certification through `repro_torch.adversary.BreakdownEngine` (M = 10,
+   extreme non-iid, 4000 / 800 samples, ``linear_task(10, 60)``'s batches
+   stacked on the card, T / M x random, alie, ipm, inner_max, b_max 3, the
+   ladder, score_drop 0.25, loss_ratio 50, measure_compile): b*,
+   ``certified_monotone`` and every verdict the reference's
+   (``REFERENCE_BREAKDOWN``, group ``breakdown`` of
+   ``tools/reference_accuracy.py``), every final loss (the b = 0 probe's
+   included) within rtol 1e-4 and every score within ``ACC_TOL`` (a
+   verdict may move only where the reference's score is within
+   ``ACC_TOL`` of its threshold, and is then printed); the bisection's b*
+   the ladder's; (b) ``red_team_search`` at its CLI's defaults (BRIDGE-T,
+   ipm, b = 2, 40 ticks, population 12, 4 generations): one step built,
+   its step calls, best >= default, and generation 0's fitness proposal by
+   proposal within rtol 1e-4 of the reference's; (c) a certification
+   through the net grids (``lossy``, T x alie_online, b_max 2, 30 ticks:
+   the views kernels' experiment axis) held as (a); (d) the sentinel dates
+   each probe of the unstable quadratic at the reference's first bad tick,
+   and the events file holds the divergences; (e) the batch draw alone and
+   BRIDGE-T ms/tick over 200 ticks (dense M = 50, sparse M = 512) with
+   ``stack_node_batches`` and a pageable copy and with the device gather,
+   each device batch first held bit for bit against the host's; (f)
+   ``sweep --mode breakdown`` into a temporary directory, its JSON read
+   back, its two rounds' launches held to one screen a tick each.  Every
+   round's launches exact (`grid_want` / `net_grid_want`;
+   measure_compile runs a round twice).
 
 Every accuracy of phases 8-11 and 21 must land within 0.01 of the reference's
 own CPU run at the same settings (``REFERENCE_ACCURACY``, from
@@ -218,7 +244,7 @@ Krum's picks (``PICK_BOUND``), which is held to card-vs-CPU parity.
 
 Each configuration of a trainer phase trains on a task of its own, so all
 see batches 0..199 of one stream.  Before each main-path phase (5-12,
-16-21) every kernel's launch count is set to 0, and read
+16-22) every kernel's launch count is set to 0, and read
 after its runs: each kernel of the phase must have launched once per
 tick of the runs of its rule (codec), the others not at all; a kernel's
 ``launches`` in the JSON line is the sum over the phases.  Then each
@@ -233,6 +259,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -251,12 +278,14 @@ import torch  # noqa: E402
 from repro_torch import prng  # noqa: E402
 from repro_torch.adversary import adaptive as adaptive_lib  # noqa: E402
 from repro_torch.adversary import protocols as adv_lib  # noqa: E402
+from repro_torch.adversary.breakdown import BreakdownConfig, BreakdownEngine  # noqa: E402
+from repro_torch.adversary.search import SearchConfig, red_team_search  # noqa: E402
 from repro_torch.comm import codec as codec_lib  # noqa: E402
 from repro_torch.comm import exchange  # noqa: E402
 from repro_torch.core import byzantine, screening  # noqa: E402
 from repro_torch.core.brdso import BrdsoConfig, BrdsoTrainer  # noqa: E402
 from repro_torch.core.bridge import (  # noqa: E402
-    WIRE_SALT, BridgeConfig, BridgeTrainer, stack_batches, stack_flatten)
+    WIRE_SALT, BridgeConfig, BridgeTrainer, replicate, stack_batches, stack_flatten)
 from repro_torch.core.byrdie import ByrdieConfig, ByrdieTrainer  # noqa: E402
 from repro_torch.core.graph import erdos_renyi, small_world  # noqa: E402
 from repro_torch.core.neighbors import NeighborTable  # noqa: E402
@@ -269,8 +298,11 @@ from repro_torch.net.dynamic import scenario_schedule  # noqa: E402
 from repro_torch.net.runtime import SparseUnreliableRuntime  # noqa: E402
 from repro_torch.net.scenarios import NET_SCENARIOS, get_scenario  # noqa: E402
 from repro_torch.launch import sweep  # noqa: E402
-from repro_torch.sim import ExperimentGrid, GridEngine, default_topology, variants  # noqa: E402
-from repro_torch.sim.tasks import linear_task  # noqa: E402
+from repro_torch.models import small as small_model  # noqa: E402
+from repro_torch.obs import EventLog, read_events  # noqa: E402
+from repro_torch.sim import (  # noqa: E402
+    Cell, ExperimentGrid, GridEngine, default_topology, variants)
+from repro_torch.sim.tasks import honest_accuracy, linear_task  # noqa: E402
 from test_torch_kernels import views_inputs  # noqa: E402
 
 M, B, D = 50, 4, 7850
@@ -1202,9 +1234,9 @@ def run_trainer(tag, make_task, topo, cfg, dev, ticks, want_launches, wire_bits=
     ms_tick = (time.perf_counter() - t0) / ticks * 1e3
     acc = task.eval_accuracy(state.params, trainer.honest_mask)
     cons = float(metrics["consensus_dist"])
-    # the batch draw and copy alone, on an idle card (inside a tick the copy
-    # also waits for the card to finish the previous tick), from this
-    # configuration's own stream, which no later run reads
+    # the batch draw alone (host indices, one copy, the gather on the
+    # card), on an idle card, from this configuration's own stream, which
+    # no later run reads
     torch.cuda.synchronize()
     tb = time.perf_counter()
     for i in range(20):
@@ -1221,7 +1253,7 @@ def run_trainer(tag, make_task, topo, cfg, dev, ticks, want_launches, wire_bits=
     if wire_bits is not None and bits != wire_bits:
         raise AssertionError(f"{tag}: wire_bits_per_edge {bits} != the reference's {wire_bits}")
     print(f"trainer {tag}: honest test accuracy {acc:.4f}, consensus {cons:.6g}, "
-          f"{ms_tick:.3f} ms/tick over {ticks} ticks; the host batch draw and copy alone "
+          f"{ms_tick:.3f} ms/tick over {ticks} ticks; the batch draw alone "
           f"{ms_batch:.3f} ms; wire_bits_per_edge {bits:.0f} (M={topo.num_nodes}, "
           f"b={cfg.num_byzantine}, {cfg.attack} attack, {'sparse' if cfg.sparse else 'dense'}, "
           f"codec {cfg.codec})")
@@ -3286,6 +3318,529 @@ def adversary_phase(dev):
     return records, read_launches()
 
 
+# ---------------------------------------------------------------------------
+# 22. Breakdown certification, the red-team search, batches gathered on the card
+# ---------------------------------------------------------------------------
+
+# tools/reference_accuracy.py group breakdown (the reference on a CPU):
+# each certification's feasible_b, reference probe, b*, certified_monotone
+# and probes (survived, final_loss, score); the unstable quadratic's first
+# bad ticks (b: tick, "0" the reference probe); the search's generation 0
+REFERENCE_BREAKDOWN = {
+    "breakdown certification": {
+        "trimmed_mean": {"feasible_b": 3, "ref": {"final_loss": 0.4208391606807709,
+                   "score": 0.9906249821186066}, "adversaries": {
+            "random": {"bstar": 2, "certified_monotone": True, "probes": {
+                "1": {"survived": True, "final_loss": 0.35683566331863403,
+                      "score": 0.8938888642523024},
+                "2": {"survived": True, "final_loss": 0.34383445978164673,
+                      "score": 0.7879687249660492},
+                "3": {"survived": False, "final_loss": 0.2624909281730652,
+                      "score": 0.7148214152881077},
+            }},
+            "alie": {"bstar": 2, "certified_monotone": True, "probes": {
+                "1": {"survived": True, "final_loss": 1.1993119716644287,
+                      "score": 0.8879166377915276},
+                "2": {"survived": True, "final_loss": 14.913347244262695,
+                      "score": 0.7478124871850014},
+                "3": {"survived": False, "final_loss": 80.99855041503906,
+                      "score": 0.5473214132445199},
+            }},
+            "ipm": {"bstar": 1, "certified_monotone": True, "probes": {
+                "1": {"survived": True, "final_loss": 0.5649731159210205,
+                      "score": 0.8708333174387614},
+                "2": {"survived": False, "final_loss": 0.7561164498329163,
+                      "score": 0.7218749821186066},
+                "3": {"survived": False, "final_loss": 0.8992071151733398,
+                      "score": 0.5857142635754177},
+            }},
+            "inner_max": {"bstar": 1, "certified_monotone": True, "probes": {
+                "1": {"survived": True, "final_loss": 0.8323385715484619,
+                      "score": 0.8506944245762296},
+                "2": {"survived": False, "final_loss": 15.775032997131348,
+                      "score": 0.6162499859929085},
+                "3": {"survived": False, "final_loss": 37.673805236816406,
+                      "score": 0.5008928392614637},
+            }},
+        }},
+        "median": {"feasible_b": 3, "ref": {"final_loss": 0.6548618078231812,
+                   "score": 0.9532499790191651}, "adversaries": {
+            "random": {"bstar": 3, "certified_monotone": True, "probes": {
+                "1": {"survived": True, "final_loss": 0.6231481432914734,
+                      "score": 0.8579166399108039},
+                "2": {"survived": True, "final_loss": 0.47345539927482605,
+                      "score": 0.7948437184095383},
+                "3": {"survived": True, "final_loss": 0.44231048226356506,
+                      "score": 0.7133928452219281},
+            }},
+            "alie": {"bstar": 2, "certified_monotone": True, "probes": {
+                "1": {"survived": True, "final_loss": 1.1381888389587402,
+                      "score": 0.8515277637375726},
+                "2": {"survived": True, "final_loss": 4.506916046142578,
+                      "score": 0.7289062291383743},
+                "3": {"survived": False, "final_loss": 117.13956451416016,
+                      "score": 0.46124998586518423},
+            }},
+            "ipm": {"bstar": 2, "certified_monotone": True, "probes": {
+                "1": {"survived": True, "final_loss": 0.6981427669525146,
+                      "score": 0.8479166428248087},
+                "2": {"survived": True, "final_loss": 0.6849954128265381,
+                      "score": 0.7542187348008156},
+                "3": {"survived": False, "final_loss": 0.7974771857261658,
+                      "score": 0.6558928489685059},
+            }},
+            "inner_max": {"bstar": 1, "certified_monotone": True, "probes": {
+                "1": {"survived": True, "final_loss": 0.9527460932731628,
+                      "score": 0.8563888536559211},
+                "2": {"survived": False, "final_loss": 3.648162364959717,
+                      "score": 0.688906230032444},
+                "3": {"survived": False, "final_loss": 10.91140079498291,
+                      "score": 0.5810714364051819},
+            }},
+        }},
+    },
+    "breakdown scenario lossy": {
+        "trimmed_mean": {"feasible_b": 2, "ref": {"final_loss": 0.7292684316635132,
+                   "score": 0.9687499880790711}, "adversaries": {
+            "alie_online": {"bstar": 2, "certified_monotone": True, "probes": {
+                "1": {"survived": True, "final_loss": 1.1555041074752808,
+                      "score": 0.8548611005147299},
+                "2": {"survived": True, "final_loss": 3.261141061782837,
+                      "score": 0.7284374758601189},
+            }},
+        }},
+    },
+}
+REFERENCE_UNSTABLE = {"0": 6, "1": 6, "2": 6}
+REFERENCE_SEARCH = {
+    "thetas": [
+        [6.0, 1.5, 0.0, 0.0],
+        [12.92075290276836, 1.1744667844096757, 0.0, 0.0],
+        [1.2989837167557965, 0.5413190888213227, 0.0, 0.0],
+        [16.35876966440531, 2.7818889431943044, 0.0, 0.0],
+        [12.329397627460008, 2.323741402459996, 0.0, 0.0],
+        [11.100687333575745, 2.8376810594694204, 0.0, 0.0],
+        [16.40914430536988, 0.5068462504253702, 0.0, 0.0],
+        [17.2193833934576, 0.5839639382636609, 0.0, 0.0],
+        [14.72828120538391, 0.9391390515063975, 0.0, 0.0],
+        [17.33198898582279, 1.8536530506227293, 0.0, 0.0],
+        [6.344381865479003, 1.556718052994146, 0.0, 0.0],
+        [1.0522335873365278, 0.8107081912489098, 0.0, 0.0],
+    ],
+    "generation0_fitness": [
+        0.7621195912361145, 0.8234375715255737, 0.4216989278793335,
+        1.064594030380249, 0.9393932819366455, 0.9283605813980103,
+        0.46325862407684326, 0.5293097496032715, 0.709145724773407,
+        1.0385804176330566, 0.7753125429153442, 0.4303092360496521,
+    ],
+    "best_fitness": 1.0904512405395508, "default_fitness": 0.7621195912361145,
+}
+BREAKDOWN_TICKS = 60  # benchmarks/breakdown_bench.py's certification
+SCORE_DROP, LOSS_RATIO = 0.25, 50.0
+SEARCH_TICKS, SEARCH_GENERATIONS = 40, 4  # the search CLI's defaults
+SCENARIO_TICKS = 30
+LOSS_RTOL = 1e-4  # a final loss (a search fitness is one) against the reference's
+DRAW_TICKS = 200
+
+
+def round_want(bd, ticks: int, *, net: bool = False, runs: int = 1) -> dict:
+    """The launches of every probe round of a `BreakdownEngine` (each
+    round's engine `grid_want` or `net_grid_want`, ``runs`` runs a round)."""
+    want: dict[str, int] = {}
+    for eng in bd.round_engines:
+        for k, n in (net_grid_want(eng, ticks) if net else grid_want(eng, ticks)).items():
+            want[k] = want.get(k, 0) + runs * n
+    return want
+
+
+def ascent_launches(bd, ticks: int, runs: int = 1) -> int:
+    """Of `round_want`'s launches, those of ``inner_max``'s ascent (the
+    screens under autograd: `ascent_screens`' forwards a tick for each
+    group with ``inner_max`` cells)."""
+    total = 0
+    for eng in bd.round_engines:
+        for lo, hi in eng._bounds:
+            ascent = [eng.cells[i].theta for i in eng._perm[lo:hi]
+                      if eng.cells[i].adversary == "inner_max"]
+            total += runs * ticks * ascent_screens(ascent)[0]
+    return total
+
+
+def loss_err(tag: str, got: float, want: float) -> float:
+    """``got``'s relative distance from the reference's final loss
+    ``want``; raises above ``LOSS_RTOL`` (a non-finite ``want`` must be
+    met by a non-finite ``got``)."""
+    if not math.isfinite(want):
+        if math.isfinite(got):
+            raise AssertionError(f"{tag}: final loss {got} finite, the reference's {want}")
+        return 0.0
+    err = abs(got - want) / abs(want)
+    if not err <= LOSS_RTOL:
+        raise AssertionError(f"{tag}: final loss {got!r} not within rtol {LOSS_RTOL} of the "
+                             f"reference's {want!r}")
+    return err
+
+
+def hold_certificate(tag: str, got: dict, want: dict) -> tuple[list[str], float]:
+    """A certification against the reference's (``REFERENCE_BREAKDOWN``):
+    each rule's ``feasible_b``, every probe's final loss (the b = 0
+    reference probe's included) within ``LOSS_RTOL`` and score within
+    ``ACC_TOL``, each verdict equal, each pair's b* and
+    ``certified_monotone`` equal.  A verdict may differ only where the
+    reference's score lies within ``ACC_TOL`` of its threshold (the
+    reference probe's score less ``SCORE_DROP``); b* then follows the
+    card's verdicts.  Returns those probes, described, and the largest
+    relative loss error."""
+    moved = []
+    worst_loss = 0.0
+    for rule, wr in want.items():
+        gr = got["rules"][rule]
+        if gr["feasible_b"] != wr["feasible_b"]:
+            raise AssertionError(f"{tag}: {rule} feasible_b {gr['feasible_b']} != the "
+                                 f"reference's {wr['feasible_b']}")
+        worst_loss = max(worst_loss, loss_err(f"{tag}: {rule} b = 0", gr["ref"]["final_loss"],
+                                              wr["ref"]["final_loss"]))
+        if not abs(gr["ref"]["score"] - wr["ref"]["score"]) <= ACC_TOL:
+            raise AssertionError(f"{tag}: {rule}'s b = 0 score {gr['ref']['score']:.4f} not "
+                                 f"within {ACC_TOL} of the reference's {wr['ref']['score']:.4f}")
+        threshold = wr["ref"]["score"] - SCORE_DROP
+        for adv, wa in wr["adversaries"].items():
+            ga = gr["adversaries"][adv]
+            if set(ga["probes"]) != set(wa["probes"]):
+                raise AssertionError(f"{tag}: {rule} {adv} probed b {sorted(ga['probes'])}, the "
+                                     f"reference {sorted(wa['probes'])}")
+            differ = []
+            for b, wp in wa["probes"].items():
+                gp = ga["probes"][b]
+                worst_loss = max(worst_loss, loss_err(f"{tag}: {rule} {adv} b={b}",
+                                                      gp["final_loss"], wp["final_loss"]))
+                if gp["score"] is None or not abs(gp["score"] - wp["score"]) <= ACC_TOL:
+                    raise AssertionError(f"{tag}: {rule} {adv} b={b} score {gp['score']} not "
+                                         f"within {ACC_TOL} of the reference's {wp['score']:.4f}")
+                if gp["survived"] != wp["survived"]:
+                    if not abs(wp["score"] - threshold) <= ACC_TOL:
+                        raise AssertionError(f"{tag}: {rule} {adv} b={b} survived "
+                                             f"{gp['survived']}, the reference {wp['survived']}")
+                    differ.append(b)
+                    moved.append(f"{rule} {adv} b={b} (card {gp['score']:.4f}, reference "
+                                 f"{wp['score']:.4f}, threshold {threshold:.4f})")
+            if not differ and (ga["bstar"], ga["certified_monotone"]) != (
+                    wa["bstar"], wa["certified_monotone"]):
+                raise AssertionError(f"{tag}: {rule} {adv} b* {ga['bstar']} (certified "
+                                     f"{ga['certified_monotone']}), the reference "
+                                     f"{wa['bstar']} ({wa['certified_monotone']})")
+    return moved, worst_loss
+
+
+def stars(res: dict) -> str:
+    return "; ".join(f"{rule} " + ", ".join(f"{a} {r['bstar']}"
+                                            for a, r in rrec["adversaries"].items())
+                     for rule, rrec in res["rules"].items())
+
+
+def certification_runs(dev, grew) -> None:
+    """Phase 22 (a) and (c): the breakdown benchmark's certification, its
+    bisection, and a certification through the net grids."""
+    rules = ("trimmed_mean", "median")
+    advs = ("random", "alie", "ipm", "inner_max")
+    topo = default_topology(10, rules, (3,), seed=0)
+    t0 = time.perf_counter()
+    task = linear_task(10, BREAKDOWN_TICKS, num_train=4000, num_test=800, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"breakdown task: linear_task(10, {BREAKDOWN_TICKS}) with its batches stacked on the "
+          f"card, {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    cfg = dict(b_max=3, score_drop=SCORE_DROP, loss_ratio=LOSS_RATIO)
+    results = {}
+    for mode in ("ladder", "bisect"):
+        before = read_launches()
+        t0 = time.perf_counter()
+        bd = BreakdownEngine(topo, rules, advs, task.grad_fn, task.init_fn, task.batches,
+                             lam=1.0, t0=30.0, eval_fn=task.eval_accuracy, device=dev,
+                             config=BreakdownConfig(mode=mode, measure_compile=mode == "ladder",
+                                                    **cfg))
+        res = results[mode] = bd.run()
+        wall = time.perf_counter() - t0
+        want = round_want(bd, BREAKDOWN_TICKS, runs=2 if mode == "ladder" else 1)
+        check_grew(f"breakdown {mode}", before, want)
+        grew(before)
+        meta = res["meta"]
+        rounds = [e.num_cells for e in bd.round_engines]
+        print(f"breakdown {mode}: {meta['cells_run']} cells in {len(rounds)} rounds {rounds}, "
+              f"{meta['compiles']} steps built, {wall:.2f} s ({meta['cells_per_sec']:.2f} "
+              f"cells/s); b* {stars(res)}; every round's launches exact ({want}; of them "
+              f"inner_max's ascent forwards through the autograd Functions "
+              f"{ascent_launches(bd, BREAKDOWN_TICKS, 2 if mode == 'ladder' else 1)})")
+        if mode == "ladder":
+            print(f"breakdown ladder: compile_s {meta['compile_s']:.3f} (the first run's excess "
+                  f"over the second's), steady_state_s {meta['steady_state_s']:.3f}")
+            moved, loss_worst = hold_certificate("breakdown ladder", res,
+                                                 REFERENCE_BREAKDOWN["breakdown certification"])
+            worst = max(abs(p["score"] - REFERENCE_BREAKDOWN["breakdown certification"][r][
+                "adversaries"][a]["probes"][b]["score"])
+                for r, rr in res["rules"].items() for a, ar in rr["adversaries"].items()
+                for b, p in ar["probes"].items())
+            print(f"breakdown ladder: b*, certified_monotone and every verdict equal to the "
+                  f"reference's, every score within {worst:.3g} of its, every final loss "
+                  f"within {loss_worst:.3g} (relative) of its"
+                  + (f"; verdicts at the threshold that moved: {moved}" if moved else ""))
+    for rule in rules:
+        for adv in advs:
+            lad = results["ladder"]["rules"][rule]["adversaries"][adv]
+            bis = results["bisect"]["rules"][rule]["adversaries"][adv]
+            if bis["bstar"] != lad["bstar"]:
+                raise AssertionError(f"breakdown: {rule} {adv} bisect b* {bis['bstar']} != the "
+                                     f"ladder's {lad['bstar']}")
+            for b, p in bis["probes"].items():
+                if p != lad["probes"][b]:
+                    raise AssertionError(f"breakdown: {rule} {adv} b={b}: the bisection's probe "
+                                         f"differs from the ladder's")
+    print("breakdown bisect: every b* the ladder's, every probe it ran equal to the ladder's")
+    # (c) through the net grids: the views kernels with the experiment axis
+    task = linear_task(10, SCENARIO_TICKS, num_train=4000, num_test=800, seed=0, device=dev)
+    topo = default_topology(10, ("trimmed_mean",), (2,), seed=0)
+    before = read_launches()
+    t0 = time.perf_counter()
+    bd = BreakdownEngine(topo, ("trimmed_mean",), ("alie_online",), task.grad_fn, task.init_fn,
+                         task.batches, lam=1.0, t0=30.0, eval_fn=task.eval_accuracy,
+                         scenario="lossy", device=dev,
+                         config=BreakdownConfig(b_max=2, score_drop=SCORE_DROP,
+                                                loss_ratio=LOSS_RATIO))
+    res = bd.run()
+    wall = time.perf_counter() - t0
+    want = round_want(bd, SCENARIO_TICKS, net=True)
+    check_grew("breakdown scenario lossy", before, want)
+    grew(before)
+    moved, loss_worst = hold_certificate("breakdown scenario lossy", res,
+                                         REFERENCE_BREAKDOWN["breakdown scenario lossy"])
+    print(f"breakdown scenario lossy: {res['meta']['cells_run']} net cells, {wall:.2f} s, b* "
+          f"{stars(res)}, held to the reference's (final losses within {loss_worst:.3g}, "
+          f"relative); launches {want}"
+          + (f"; verdicts at the threshold that moved: {moved}" if moved else ""))
+
+
+def search_run(dev, grew) -> None:
+    """Phase 22 (b): the red-team search at its CLI's defaults, and its
+    generation 0 proposal by proposal against the reference's."""
+    topo = default_topology(10, ("trimmed_mean",), (2,), seed=0)
+    task = linear_task(10, SEARCH_TICKS, seed=0, device=dev)
+    before = read_launches()
+    t0 = time.perf_counter()
+    led = red_team_search(topo, "trimmed_mean", "ipm", 2, task.grad_fn, task.init_fn,
+                          task.batches, lam=1.0, t0=30.0, device=dev,
+                          config=SearchConfig(generations=SEARCH_GENERATIONS))
+    wall = time.perf_counter() - t0
+    check_grew("search", before, {"screen_trimmed_mean_dense": SEARCH_GENERATIONS * SEARCH_TICKS})
+    grew(before)
+    if led["trace_count"] != 1 or led["step_calls"] != SEARCH_GENERATIONS * SEARCH_TICKS:
+        raise AssertionError(f"search: trace_count {led['trace_count']}, step_calls "
+                             f"{led['step_calls']} (one group: 1 and {SEARCH_GENERATIONS} "
+                             f"generations x {SEARCH_TICKS} ticks)")
+    if not led["best_fitness"] >= led["default_fitness"]:
+        raise AssertionError(f"search: best fitness {led['best_fitness']} below the default's "
+                             f"{led['default_fitness']}")
+    thetas = [tuple(t) for t in REFERENCE_SEARCH["thetas"]]
+    cells = [Cell("trimmed_mean", "none", 2, 0, adversary="ipm", mask_seed=0, theta=th)
+             for th in thetas]
+    grid = ExperimentGrid(topo, ("trimmed_mean",), ("none",), (2,), (0,), adversaries=("ipm",),
+                          lam=1.0, t0=30.0)
+    engine = GridEngine(grid, task.grad_fn, cells=cells, device=dev)
+    before = read_launches()
+    _, metrics = engine.run(engine.init(task.init_fn), task.batches)
+    check_grew("search generation 0", before, grid_want(engine, SEARCH_TICKS))
+    grew(before)
+    fits = metrics["loss"][:, -1].double().cpu().numpy()
+    want = np.asarray(REFERENCE_SEARCH["generation0_fitness"])
+    np.testing.assert_allclose(fits, want, rtol=LOSS_RTOL,
+                               err_msg="search: generation 0's fitness against the reference's")
+    gen0 = led["generations"][0]
+    np.testing.assert_allclose([gen0["best_fitness"], gen0["mean_fitness"]],
+                               [fits.max(), fits.mean()], rtol=LOSS_RTOL)
+    print(f"search trimmed_mean ipm b=2: {led['proposals_evaluated']} proposals in {wall:.2f} s, "
+          f"trace_count {led['trace_count']}, step_calls {led['step_calls']}; generation 0 "
+          f"within {float(np.max(np.abs(fits / want - 1))):.3g} (relative) of the reference's "
+          f"fitness proposal by proposal; best {led['best_fitness']:.6f} (reference "
+          f"{REFERENCE_SEARCH['best_fitness']:.6f}) >= default {led['default_fitness']:.6f} "
+          f"(reference {REFERENCE_SEARCH['default_fitness']:.6f}), theta "
+          f"{[round(t, 3) for t in led['best_theta']]}")
+
+
+def sentinel_run(dev, grew) -> None:
+    """Phase 22 (d): the sentinel dates each probe of the unstable quadratic
+    at the reference's first bad tick; the events file holds the
+    divergences."""
+    m, d, ticks = 10, 4, 12
+    targets = torch.as_tensor((3.0 * np.random.default_rng(0).normal(size=(m, d))).astype(
+        np.float32), device=dev)
+
+    def unstable(params, batch):
+        w = params["w"]
+        return 0.5e4 * torch.sum((w - batch) ** 2, dim=-1), {"w": 1e4 * (w - batch)}
+
+    def init_fn(seed):
+        return replicate({"w": torch.zeros(d, device=dev)}, m, perturb=0.1,
+                         key=prng.PRNGKey(seed))
+
+    before = read_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "events.jsonl")
+        with EventLog(path) as ev:
+            bd = BreakdownEngine(erdos_renyi(m, 0.8, 2, seed=1), ("trimmed_mean",), ("random",),
+                                 unstable, init_fn, targets[None].expand(ticks, m, d).contiguous(),
+                                 lam=1.0, t0=10.0, config=BreakdownConfig(b_max=2), events=ev,
+                                 device=dev)
+            bd.run()
+        tags = [r["tag"] for r in read_events(path)]
+    check_grew("breakdown sentinel", before, round_want(bd, ticks))
+    grew(before)
+    got = {str(b): rec["first_bad_tick"] for (_, _, b), rec in bd.probes.items()}
+    if got != REFERENCE_UNSTABLE:
+        raise AssertionError(f"breakdown sentinel: first bad ticks {got}, the reference's "
+                             f"{REFERENCE_UNSTABLE}")
+    # a divergence event a probe, the reference probe's included
+    if tags.count("obs.divergence") != len(got) or "breakdown.round" not in tags:
+        raise AssertionError(f"breakdown sentinel: events {tags}")
+    print(f"breakdown sentinel: the unstable quadratic's probes dated at the reference's first "
+          f"bad ticks {got} (b: tick; 0 the reference probe); events {sorted(set(tags))}")
+
+
+def batch_draw_runs(dev) -> dict:
+    """Phase 22 (e): the batch draw alone and the dense T (M = 50) and sparse
+    T (M = 512) trainers over 200 ticks, with `stack_node_batches` and a
+    pageable copy, and with the device form; each device batch first held
+    bit for bit against the host's.  Returns the trainers' launches."""
+    from repro_torch.data.partition import (device_node_batches, partition_iid,
+                                            stack_node_batches)
+    from repro_torch.sim.tasks import dataset
+
+    setups = {
+        "dense": (M, 6000, 32, dict(topology=erdos_renyi(M, 0.5, B, seed=0), num_byzantine=B,
+                                    t0=30)),
+        "sparse": (SM, 16384, 8, dict(topology=small_world(SM, NEAREST, SB, rewire_prob=0.2,
+                                                           seed=0),
+                                      num_byzantine=SB, t0=100, sparse=True)),
+    }
+    kernel = {"dense": "screen_trimmed_mean_dense", "sparse": "gather_screen_trimmed_mean"}
+    launches: dict[str, int] = {}
+    for name, (m, n, bsz, kw) in setups.items():
+        x, y, xt, yt = dataset(n, 1000, 0)
+        shards = partition_iid(x, y, m, seed=0)
+        host, drawer = (stack_node_batches(shards, bsz, seed=0),
+                        device_node_batches(shards, bsz, seed=0, device=dev))
+        for i in range(20):
+            hx, hy = host(i)
+            dx, dy = drawer(i)
+            if not (torch.equal(dx, torch.as_tensor(hx, device=dev))
+                    and torch.equal(dy, torch.as_tensor(hy, device=dev))):
+                raise AssertionError(f"batches {name}: tick {i} differs from stack_node_batches'")
+        sx, sy = drawer.stacked(20)
+        for i in range(20):
+            hx, hy = host(20 + i)
+            if not (torch.equal(sx[i], torch.as_tensor(hx, device=dev))
+                    and torch.equal(sy[i], torch.as_tensor(hy, device=dev))):
+                raise AssertionError(f"batches {name}: stacked tick {i} differs")
+        del sx, sy
+
+        def paths():
+            host = stack_node_batches(shards, bsz, seed=0)
+
+            def host_fn(i):
+                bx, by = host(i)
+                return torch.as_tensor(bx, device=dev), torch.as_tensor(by, device=dev)
+
+            return {"stack_node_batches + pageable copy": host_fn,
+                    "device gather": device_node_batches(shards, bsz, seed=0, device=dev)}
+
+        draw_ms = {}
+        for path, fn in paths().items():
+            fn(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(DRAW_TICKS):
+                fn(i)
+            torch.cuda.synchronize()
+            draw_ms[path] = (time.perf_counter() - t0) / DRAW_TICKS * 1e3
+        stacked = device_node_batches(shards, bsz, seed=0, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sx, sy = stacked.stacked(DRAW_TICKS)
+        torch.cuda.synchronize()
+        stacked_ms = (time.perf_counter() - t0) / DRAW_TICKS * 1e3
+        del sx, sy
+        xt, yt = torch.as_tensor(xt, device=dev), torch.as_tensor(yt, device=dev)
+        cfg = BridgeConfig(rule="trimmed_mean", attack="random", **kw)
+        tick_ms, accs = {}, {}
+        for path, fn in paths().items():
+            tr = BridgeTrainer(cfg, small_model.linear_loss_and_grad, device=dev)
+            key = prng.PRNGKey(0)
+            st = tr.init(replicate(small_model.init_linear(key, device=dev), m, perturb=0.01,
+                                   key=key), seed=1)
+            before = read_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(DRAW_TICKS):
+                st, _ = tr.step(st, fn(i))
+            torch.cuda.synchronize()
+            tick_ms[path] = (time.perf_counter() - t0) / DRAW_TICKS * 1e3
+            check_grew(f"batches {name} trainer ({path})", before, {kernel[name]: DRAW_TICKS})
+            launches[kernel[name]] = launches.get(kernel[name], 0) + DRAW_TICKS
+            accs[path] = honest_accuracy(st.params, tr.honest_mask, xt, yt)
+        if accs["device gather"] != accs["stack_node_batches + pageable copy"]:
+            raise AssertionError(f"batches {name}: the two batch paths trained apart {accs}")
+        print(f"batches {name} (M = {m}, B = {bsz}, {DRAW_TICKS} ticks): draw alone "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in draw_ms.items())
+              + f", stacked({DRAW_TICKS}) {stacked_ms:.3f} ms a tick; BRIDGE-T ms/tick "
+              + ", ".join(f"{k} {v:.3f}" for k, v in tick_ms.items())
+              + f" (honest accuracy {accs['device gather']:.4f} both)")
+    return launches
+
+
+def breakdown_phase(dev):
+    """Phase 22: breakdown certification, the red-team search, the sentinel
+    and the batches gathered on the card (the module docstring's list);
+    returns the launches of the phase and those of its grid engines (the
+    experiment-axis forms)."""
+    zero_launches()
+    t_phase = time.perf_counter()
+    engine_launches: dict[str, int] = {}
+
+    def grew(before):
+        for k, n in read_launches().items():
+            if n != before[k]:
+                engine_launches[k] = engine_launches.get(k, 0) + n - before[k]
+
+    certification_runs(dev, grew)
+    search_run(dev, grew)
+    sentinel_run(dev, grew)
+    trainer_launches = batch_draw_runs(dev)
+    # the sweep's breakdown mode, into a temporary directory: a ladder runs
+    # two rounds (the b = 0 reference, then every b), each one group (one
+    # rule, one adversary), so one dense screen a tick a round
+    sweep_ticks = 20
+    with tempfile.TemporaryDirectory() as out:
+        before = read_launches()
+        res = sweep.main(["--mode", "breakdown", "--out", out, "--rules", "trimmed_mean",
+                          "--adversaries", "ipm", "--breakdown-b-max", "2", "--grid-nodes", "10",
+                          "--grid-ticks", str(sweep_ticks), "--trace", os.path.join(out, "trace")])
+        check_grew("sweep --mode breakdown", before,
+                   {"screen_trimmed_mean_dense": 2 * sweep_ticks})
+        grew(before)
+        with open(os.path.join(out, "BENCH_breakdown.json")) as f:
+            saved = json.load(f)
+        if saved != json.loads(json.dumps(res, sort_keys=True)) or not os.path.exists(
+                os.path.join(out, "trace", "events.jsonl")):
+            raise AssertionError("sweep --mode breakdown: BENCH_breakdown.json or the events "
+                                 "file does not hold the run")
+        print(f"sweep --mode breakdown on the card: BENCH_breakdown.json read back, b* "
+              f"{stars(saved)}, {saved['meta']['cells_run']} cells, launches exact "
+              f"(screen_trimmed_mean_dense {2 * sweep_ticks})")
+    launches = read_launches()
+    total = {k: engine_launches.get(k, 0) + trainer_launches.get(k, 0) for k in launches}
+    if total != launches:
+        raise AssertionError(f"breakdown phase: launches {launches} != the runs' {total}")
+    print(f"(phase 22 alone: {time.perf_counter() - t_phase:.1f} s)")
+    return launches, engine_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3333,6 +3888,12 @@ def main() -> int:
     phase_records, phase_launches["adversary_phase"] = adversary_phase(dev)
     records += phase_records
     print(f"(adversary_phase: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_launches["breakdown_phase"], breakdown_engines = breakdown_phase(dev)
+    print(f"(breakdown_phase: {time.perf_counter() - t0:.1f} s)")
+    for rec in records:
+        if rec["name"].endswith("[E]"):  # this phase's grid engines ran the experiment forms
+            rec["launches"] += breakdown_engines.get(rec["name"][:-len("[E]")], 0)
     for name, launches in phase_launches.items():
         print(f"launches in {name}: {({k: v for k, v in launches.items() if v})}")
     for rec in records:

@@ -70,9 +70,9 @@ class AdvCtx(NamedTuple):
 
 
 def init_state(dim: int, *, lead: tuple[int, ...] = (),
-               device: str | torch.device = "cpu") -> AdvState:
+               device: str | torch.device) -> AdvState:
     """All-zeros carried state with leading axes ``lead`` (one row a
-    cell)."""
+    cell), on ``device`` (the caller names it)."""
     z = lambda: torch.zeros((*lead, dim), dtype=torch.float32, device=device)
     return AdvState(z(), z(), z(), torch.zeros(lead, dtype=torch.float32, device=device))
 

@@ -4,10 +4,11 @@ The reference's checkpoint format (`repro.checkpoint.msgpack_ckpt`) needs
 ``msgpack``, which the card's machine lacks; until the port reads it, a
 caller hands over the state as numpy arrays: each leaf of the reference's
 ``state.params``, its ``state.key`` and, for a lossy codec, its
-``state.comm`` carry, for a stateful adversary its ``state.adv``; for the
-batched grids the stacked state of the reference's ``GridEngine``
-(`grid_state_from_jax`, a net grid's stacked mailboxes, the codec carries
-and the adversary's state included).
+``state.comm`` carry, for a stateful adversary its ``state.adv``, for a
+traced run its ``state.obs``; for the batched grids the stacked state of
+the reference's ``GridEngine`` (`grid_state_from_jax`, a net grid's
+stacked mailboxes, the codec carries, the adversary's state and the
+trace's aggregates included).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from repro_torch.core.bridge import BridgeState
 from repro_torch.net.mailbox import MailboxState
 from repro_torch.core.byrdie import ByrdieState
 from repro_torch.device import resolve_device
+from repro_torch.obs.trace import TraceState
 
 
 def params_from_jax(tree: Mapping[str, np.ndarray], *,
@@ -42,6 +44,7 @@ def state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,
                    comm: tuple[np.ndarray, np.ndarray] | None = None,
                    net: tuple[np.ndarray, ...] | None = None,
                    adv: tuple[np.ndarray, ...] | None = None,
+                   obs: tuple[np.ndarray, ...] | None = None,
                    device: str | torch.device = "cuda") -> BridgeState:
     """A `BridgeState` at tick ``t`` holding the reference's parameters and
     its key (``np.asarray(jax_state.key)``; ``PRNGKey(0)`` when None) —
@@ -49,12 +52,14 @@ def state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,
     carry ``(est, resid)`` as numpy arrays, for a lossy codec; ``net`` its
     runtime's mailbox state (the five arrays of ``MailboxState``, in order),
     for the network runtime; ``adv`` its adversary state (``mean``,
-    ``var``, ``dir``, ``count``), for a stateful adversary."""
+    ``var``, ``dir``, ``count``), for a stateful adversary; ``obs`` its
+    trace's ``TraceState`` (the thirteen arrays in order, a forensics-free
+    spec's), for a traced run."""
     dev = resolve_device(device)
     key = _key(key)
     return BridgeState(params=params_from_jax(params_np, device=dev), t=int(t), key=key,
                        comm=_carry(CommState, comm, dev), net=_carry(MailboxState, net, dev),
-                       adv=_carry(AdvState, adv, dev))
+                       adv=_carry(AdvState, adv, dev), obs=_carry(TraceState, obs, dev))
 
 
 def _carry(kind, arrays, dev):
@@ -69,6 +74,7 @@ def grid_state_from_jax(params_np: Mapping[str, np.ndarray], t, keys, *,
                         net: tuple[np.ndarray, ...] | None = None,
                         comm: tuple[np.ndarray, np.ndarray] | None = None,
                         adv: tuple[np.ndarray, ...] | None = None,
+                        obs: tuple[np.ndarray, ...] | None = None,
                         device: str | torch.device = "cuda") -> BridgeState:
     """A `repro_torch.sim.GridEngine` state from the reference's
     ``GridEngine`` state: its stacked ``[E, M, ...]`` parameters, its tick
@@ -78,7 +84,9 @@ def grid_state_from_jax(params_np: Mapping[str, np.ndarray], t, keys, *,
     order, ``[E, M, W, ...]``, the ticks int32); for a lossy codec bank
     ``comm``, its stacked carry ``(est, resid)`` (``[E, M, d]``, per link
     ``[E, M, W, d]``); for a stateful adversary bank ``adv``, its stacked
-    ``AdvState`` (``[E, d]`` rows, ``count [E]``)."""
+    ``AdvState`` (``[E, d]`` rows, ``count [E]``); for a traced grid
+    ``obs``, its stacked ``TraceState`` (the thirteen arrays, ``[E, ...]``,
+    the ticks int32)."""
     ticks = np.unique(np.asarray(t))
     if ticks.size != 1:
         raise ValueError(f"the port's grid cells share one tick, got {ticks.tolist()}")
@@ -96,12 +104,13 @@ def grid_state_from_jax(params_np: Mapping[str, np.ndarray], t, keys, *,
                              f"{mailbox.send_tick.dtype}")
     dev = resolve_device(device)
     carry, adv_state = _carry(CommState, comm, dev), _carry(AdvState, adv, dev)
-    for name, x in (("comm", carry), ("adv", adv_state)):
+    trace = _carry(TraceState, obs, dev)
+    for name, x in (("comm", carry), ("adv", adv_state), ("obs", trace)):
         if x is not None and x[0].shape[0] != keys.shape[0]:
             raise ValueError(f"a grid's {name} carry leads with E={keys.shape[0]} cells, got "
                              f"{tuple(x[0].shape)}")
     return BridgeState(params=params_from_jax(params_np, device=device), t=int(ticks[0]),
-                       key=keys.copy(), comm=carry, net=mailbox, adv=adv_state)
+                       key=keys.copy(), comm=carry, net=mailbox, adv=adv_state, obs=trace)
 
 
 def byrdie_state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,

@@ -1,8 +1,8 @@
 """The BRIDGE trainer — Algorithm 1 of the paper; port of
 `repro.core.bridge` (``build_cell_step`` and ``build_cell_runtime_step``
-with their rule, attack, adversary and codec banks, without the trace,
-trust or metrics specs, driven by ``BridgeTrainer``), on the dense or the
-sparse ``[M, K]`` layout.
+with their rule, attack, adversary and codec banks and the trace's
+forensics-free half, without the trust or metrics specs, driven by
+``BridgeTrainer``), on the dense or the sparse ``[M, K]`` layout.
 
 All M node replicas live on one device as a stacked ``[M, ...]`` parameter
 dict.  One tick, after ``key, sub = split(state.key)``:
@@ -29,7 +29,12 @@ dict.  One tick, after ``key, sub = split(state.key)``:
    ``clipped_mean`` and the ``rep_*`` rules are plain PyTorch;
 4. **apply** — ``w_j <- y_j - rho(t) * grad f_j(w_j)`` with
    ``rho(t) = 1 / (lam (t0 + t))``, ``rho * g`` rounded to float32 before the
-   subtract as in the reference.
+   subtract as in the reference;
+5. **obs** — with a `repro_torch.obs.TraceSpec` (``BridgeConfig.trace``),
+   the tick's honest loss and consensus distance fold into the carried
+   `TraceState` (``state.obs``: loss trace, reservoir, the first
+   non-finite tick).  The stage only reads the metrics: the trajectory is
+   bit for bit the untraced one.
 
 Every random number comes from the reference's Threefry streams
 (`repro_torch.prng`), so a seeded run follows the seeded reference run.
@@ -77,6 +82,7 @@ from repro_torch.core import byzantine, screening
 from repro_torch.core.graph import Topology
 from repro_torch.core.neighbors import NeighborTable, edge_id_grid
 from repro_torch.device import resolve_device
+from repro_torch.obs import trace as obs_trace
 
 Params = dict[str, torch.Tensor]
 
@@ -101,6 +107,9 @@ class BridgeState(NamedTuple):
     # for a trainer, [E, d] for stacked cells; None when no adversary of
     # the bank is stateful
     adv: Any = None
+    # the trace's aggregates (obs.TraceState, a leading [E] for stacked
+    # cells); None when untraced
+    obs: Any = None
 
 
 def cell_step_size(lam, t0, lr, t: int):
@@ -174,6 +183,9 @@ class BridgeConfig:
     # neighbor-indexed [M, K] layout (repro_torch.core.neighbors): screening
     # reads each node's K table slots instead of masking all M rows
     sparse: bool = False
+    # observability (repro_torch.obs.TraceSpec, forensics off); None =
+    # untraced
+    trace: Any = None
 
     def step_size(self, t: int) -> float:
         return cell_step_size(self.lam, self.t0, self.lr, t)
@@ -356,22 +368,34 @@ def _theta(bank, cell: CellParams) -> np.ndarray:
     return adv_lib.cell_theta(bank, cell.adv_idx or (0,) * cell.num_cells, cell.adv_theta)
 
 
+def obs_stage(spec, state: BridgeState, metrics: dict):
+    """The ``bridge.obs`` stage: the tick's metrics folded into
+    ``state.obs`` (unchanged when ``spec`` is None)."""
+    if spec is None:
+        return state.obs
+    with torch.profiler.record_function("bridge.obs"):
+        return obs_trace.update(spec, state.obs, t=state.t, loss=metrics["loss"],
+                                consensus=metrics["consensus_dist"])
+
+
 def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str, ...],
                     attacks, *, neighbors: NeighborTable | None = None,
                     codecs: tuple[str, ...] = ("identity",), wire_attacks=None,
-                    adversaries: tuple[str, ...] | None = None):
+                    adversaries: tuple[str, ...] | None = None, trace=None):
     """The synchronous-broadcast iteration over stacked cells:
     ``step(cell, state, batch) -> (state, metrics)``, the reference's
     ``build_cell_step`` with a rule bank ``rules``, an attack bank
     ``attacks`` (`byzantine.Attack`s), a codec bank ``codecs`` (names), the
-    wire attacks ``wire_attacks`` parallel to ``attacks`` (default: none)
-    and an adversary bank ``adversaries`` (names; None or all ``none``
-    skips the stage), and ``cell`` a `CellParams` of E cells.
+    wire attacks ``wire_attacks`` parallel to ``attacks`` (default: none),
+    an adversary bank ``adversaries`` (names; None or all ``none`` skips
+    the stage) and a `repro_torch.obs.TraceSpec` ``trace`` (None: no obs
+    stage), and ``cell`` a `CellParams` of E cells.
 
     ``state`` holds ``params`` ``[E, M, ...]``, the tick ``t`` all cells
     share, ``key`` the cells' host row keys ``[E, 2]``, the codec carry
     ``comm`` ``[E, M, d]`` (a lossy bank) and the adversary's ``adv``
-    ``[E, d]`` (a stateful bank); ``grad_fn`` takes the ``[E, M, ...]``
+    ``[E, d]`` (a stateful bank), the trace's ``obs`` (a ``trace``);
+    ``grad_fn`` takes the ``[E, M, ...]``
     parameters and the tick's one batch and returns ``(losses [E, M],
     grads)``.  Screening is `screening.screen_all_banked` under the
     ``[M, M]`` ``adjacency`` or, with ``neighbors``,
@@ -380,6 +404,7 @@ def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str
     same screen, each node's own value the crafted broadcast.  The metrics
     are ``[E]`` tensors (``rho`` a float32 ``[E]`` array).
     """
+    obs_trace.check(trace)
     codec_bank = codec_lib.codec_bank(codecs)
     if wire_attacks is None:
         wire_attacks = (byzantine.WIRE_ATTACKS["none"],) * len(attacks)
@@ -428,7 +453,8 @@ def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str
             metrics = cell_metrics(w_new, losses, ~cell.byz_mask, rho,
                                    exchange.wire_bits_bank(codec_bank, cell.codec_idx or None, d),
                                    n_edges, comm)
-        return BridgeState(unflatten(w_new), state.t + 1, key, comm, adv=adv), metrics
+        obs = obs_stage(trace, state, metrics)
+        return BridgeState(unflatten(w_new), state.t + 1, key, comm, adv=adv, obs=obs), metrics
 
     return step
 
@@ -452,12 +478,13 @@ def _need(counts: np.ndarray, device) -> int | torch.Tensor:
 
 def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
                             message_attacks, *, codecs: tuple[str, ...] = ("identity",),
-                            wire_attacks=None, adversaries: tuple[str, ...] | None = None):
+                            wire_attacks=None, adversaries: tuple[str, ...] | None = None,
+                            trace=None):
     """The network-runtime iteration over stacked cells: ``step(cell,
     state, batch) -> (state, metrics)``, the reference's
     ``build_cell_runtime_step`` with a rule bank ``rules``, a bank of
     `byzantine.MessageAttack`s and the codec, wire-attack and adversary
-    banks of `build_cell_step`.
+    banks and the ``trace`` of `build_cell_step`.
 
     ``state`` holds ``params`` ``[E, M, ...]``, the tick ``t`` all cells
     share, ``key`` the cells' host row keys ``[E, 2]``, ``net`` the
@@ -483,6 +510,7 @@ def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
     capped channel delivers this tick and the channel's mean latency (a
     cell-aware runtime: every coordinate, latency 0, as in the reference).
     """
+    obs_trace.check(trace)
     codec_bank = codec_lib.codec_bank(codecs)
     if wire_attacks is None:
         wire_attacks = (byzantine.WIRE_ATTACKS["none"],) * len(message_attacks)
@@ -587,7 +615,8 @@ def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
             metrics = cell_metrics(w_new, losses, ~cell.byz_mask, rho, bits, live, comm)
         metrics.update(net_stats)
         metrics["screened_frac"] = torch.mean(enough.to(torch.float32), dim=-1)
-        return BridgeState(unflatten(w_new), state.t + 1, key, comm, net, adv), metrics
+        obs = obs_stage(trace, state, metrics)
+        return BridgeState(unflatten(w_new), state.t + 1, key, comm, net, adv, obs), metrics
 
     return step
 
@@ -636,7 +665,8 @@ class BridgeTrainer:
         self.adversary = (None if config.adversary == "none"
                           else adv_lib.get_adversary(config.adversary))
         advs = None if self.adversary is None else (config.adversary,)
-        banks = dict(codecs=(config.codec,), wire_attacks=(self.wire_attack,), adversaries=advs)
+        banks = dict(codecs=(config.codec,), wire_attacks=(self.wire_attack,), adversaries=advs,
+                     trace=config.trace)
         self.neighbors = None
         if runtime is None:
             self.attack = byzantine.get_attack(config.attack)
@@ -680,7 +710,8 @@ class BridgeTrainer:
 
     def init(self, params: Params, seed: int = 0) -> BridgeState:
         """The state at tick 0 from stacked ``params``, with the key
-        ``PRNGKey(seed)`` and a zero codec carry for a lossy codec."""
+        ``PRNGKey(seed)``, a zero codec carry for a lossy codec and fresh
+        trace aggregates for a ``trace``."""
         m = self.config.topology.num_nodes
         for k, leaf in params.items():
             if leaf.shape[0] != m:
@@ -692,8 +723,9 @@ class BridgeTrainer:
             net = self.runtime.init(m, dim, max_wire_bits=self.codec.wire_bits(dim))
         if self.adversary is not None and self.adversary.stateful:
             adv = adv_lib.init_state(dim, lead=(), device=self.device)
+        obs = obs_trace.init_state(self.config.trace, device=self.device)
         return BridgeState(params=params, t=0, key=prng.PRNGKey(seed),
-                           comm=self.init_comm(params), net=net, adv=adv)
+                           comm=self.init_comm(params), net=net, adv=adv, obs=obs)
 
     def init_comm(self, params: Params) -> exchange.CommState | None:
         """The codec carry at tick 0: zero estimate and residual, ``[M, d]``
@@ -717,7 +749,7 @@ class BridgeTrainer:
         add = lambda x: x[None]
         one = BridgeState({k: v[None] for k, v in state.params.items()}, state.t,
                           np.asarray(state.key, np.uint32)[None], _cells(state.comm, add),
-                          _cells(state.net, add), _cells(state.adv, add))
+                          _cells(state.net, add), _cells(state.adv, add), _cells(state.obs, add))
         new, metrics = self._cell_step(self.cell, one, batch)
         metrics = {k: (v[0] if isinstance(v, torch.Tensor) and v.ndim else
                        float(v[0]) if isinstance(v, np.ndarray) else v)
@@ -725,7 +757,7 @@ class BridgeTrainer:
         drop = lambda x: x[0]
         return BridgeState({k: v[0] for k, v in new.params.items()}, new.t, new.key[0],
                            _cells(new.comm, drop), _cells(new.net, drop),
-                           _cells(new.adv, drop)), metrics
+                           _cells(new.adv, drop), _cells(new.obs, drop)), metrics
 
     def _wire_roundtrip(self, sub: np.ndarray, x: torch.Tensor, comm, t: int):
         """The synchronous tick's wire stage (`wire_stage`) of ``x [M, d]``

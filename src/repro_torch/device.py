@@ -24,3 +24,10 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "repro_torch: device 'cuda' requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain PyTorch versions")
     return dev
+
+
+def wait(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a host clock then times it);
+    nothing to wait for on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -19,40 +19,60 @@ runs through the network runtime (`GridNetRuntime`, schedules of
 ``--codecs`` names wire codecs (`repro_torch.comm.codec`) and
 ``--adversaries`` `repro_torch.adversary` entries, two more grid axes.  It
 writes the per-cell records and ``GridResult.json`` (the whole store) with
-each cell's honest test accuracy.  The reference's other modes and the
-grid flags that need a layer the port does not have yet raise:
-``--mode breakdown`` (ROADMAP Queue 1 item 12, its breakdown and search),
-``--trace``, ``--metrics``, ``--profile`` and ``--trust*`` (item 13).
+each cell's honest test accuracy.
+
+``--mode breakdown`` certifies b* per (rule, adversary) on the MNIST-like
+linear task with the extreme non-iid partition
+(`repro_torch.adversary.breakdown`), writing ``BENCH_breakdown.json``
+under ``--out`` (default ``experiments/breakdown``):
+
+    PYTHONPATH=src python -m repro_torch.launch.sweep --mode breakdown \
+        [--rules trimmed_mean,median] [--adversaries random,alie,ipm,inner_max] \
+        [--breakdown-mode ladder|bisect] [--breakdown-b-max 3] \
+        [--breakdown-scenario lossy] [--trace DIR] [--device cpu]
+
+``--trace DIR`` writes the run's events to ``DIR/events.jsonl``.  The
+reference's other modes (``dryrun``, ``net``: the JAX package's lowering
+matrix and subprocess fan-out) and the flags that need a layer the port
+does not have yet raise: ``--trace`` in grid mode, ``--metrics``,
+``--profile`` and ``--trust`` (ROADMAP Queue 1 open item 5, trust and
+telemetry).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 
 import torch
 
 from repro_torch import prng
-from repro_torch.core.bridge import replicate, stack_batches
+from repro_torch.core.bridge import replicate
 from repro_torch.data.mnist_like import make_mnist_like
-from repro_torch.data.partition import partition_iid, stack_node_batches
-from repro_torch.device import resolve_device
+from repro_torch.data.partition import device_node_batches, partition_iid
+from repro_torch.device import resolve_device, wait
 from repro_torch.models import small
 from repro_torch.sim import ExperimentGrid, GridEngine, default_topology
 from repro_torch.sim import results as results_lib
 
 
+ITEM = "ROADMAP Queue 1 open item 5 (trust and telemetry)"
+
+
 def _refuse_unported(args) -> None:
-    """The flags whose layer the port does not have yet, by ROADMAP item."""
-    if args.mode != "grid":
-        raise ValueError(f"--mode {args.mode}: the port's sweep runs --mode grid only (the "
-                         f"subprocess mode belongs to the JAX package; breakdown is ROADMAP "
-                         f"Queue 1 item 12, its breakdown and search)")
-    for flag in ("trace", "metrics", "profile"):
+    """The modes and flags whose layer the port does not have, by ROADMAP
+    item."""
+    if args.mode not in ("grid", "breakdown"):
+        raise ValueError(f"--mode {args.mode}: the port's sweep runs --mode grid and "
+                         f"--mode breakdown (the lowering matrix and the subprocess mode "
+                         f"belong to the JAX package)")
+    flags = ("metrics", "profile") + (("trace",) if args.mode == "grid" else ())
+    for flag in flags:
         if getattr(args, flag) is not None:
-            raise ValueError(f"--{flag}: the observability layer is ROADMAP Queue 1 item 13")
+            raise ValueError(f"--{flag}: the trace's forensics and the metric rings are {ITEM}")
     if args.trust:
-        raise ValueError("--trust: the trust layer is ROADMAP Queue 1 item 13")
+        raise ValueError(f"--trust: the trust layer is {ITEM}")
 
 
 def run_grid_mode(args) -> results_lib.GridResult | None:
@@ -81,9 +101,7 @@ def run_grid_mode(args) -> results_lib.GridResult | None:
         return None
     x, y, xt, yt = make_mnist_like(args.grid_train, args.grid_test, seed=0)
     shards = partition_iid(x, y, m, seed=0)
-    batch_fn = stack_node_batches(shards, args.grid_batch, seed=0)
-    batches = stack_batches(lambda i: tuple(torch.as_tensor(a) for a in batch_fn(i)), ticks,
-                            device=dev)
+    batches = device_node_batches(shards, args.grid_batch, seed=0, device=dev).stacked(ticks)
 
     def init_fn(seed):
         key = prng.PRNGKey(seed)
@@ -94,8 +112,7 @@ def run_grid_mode(args) -> results_lib.GridResult | None:
     t0 = time.time()
     state = engine.init(init_fn)
     state, metrics = engine.run(state, batches, chunk=args.grid_chunk)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    wait(dev)
     wall = time.time() - t0
     result = results_lib.collect(pending, metrics, meta={
         "num_nodes": m, "ticks": ticks, "wall_s": wall,
@@ -126,10 +143,61 @@ def run_grid_mode(args) -> results_lib.GridResult | None:
     return result
 
 
+def run_breakdown_mode(args) -> dict:
+    """Breakdown-point certification on the MNIST-like linear task (extreme
+    non-iid partition: consensus is required for honest test accuracy,
+    which is what adaptive adversaries break); returns the result written
+    to ``BENCH_breakdown.json``."""
+    from repro_torch.adversary.breakdown import BreakdownConfig, BreakdownEngine
+    from repro_torch.obs import EventLog
+    from repro_torch.sim.tasks import linear_task
+
+    dev = resolve_device(args.device)
+    rules = args.rules.split(",")
+    adversaries = (args.adversaries or "random,alie,ipm,inner_max").split(",")
+    m, ticks = args.grid_nodes, args.grid_ticks
+    # the topology must admit the whole probed ladder, not just b = 1
+    topo = default_topology(m, rules, [max(args.breakdown_b_max, 1)], seed=0)
+    task = linear_task(m, ticks, batch=args.grid_batch, num_train=args.grid_train,
+                       num_test=args.grid_test, seed=0, device=dev)
+    events = None
+    if args.trace is not None:
+        os.makedirs(args.trace, exist_ok=True)
+        events = EventLog(os.path.join(args.trace, "events.jsonl"))
+    try:
+        engine = BreakdownEngine(
+            topo, rules, adversaries, task.grad_fn, task.init_fn, task.batches,
+            lam=1.0, t0=30.0,
+            config=BreakdownConfig(mode=args.breakdown_mode,
+                                   seeds=tuple(int(s) for s in args.seeds.split(",")),
+                                   b_max=args.breakdown_b_max,
+                                   loss_ratio=args.breakdown_loss_ratio,
+                                   score_drop=args.breakdown_score_drop),
+            eval_fn=task.eval_accuracy, engine_chunk=args.grid_chunk,
+            scenario=args.breakdown_scenario, events=events, device=dev)
+        result = engine.run()
+    finally:
+        if events is not None:
+            events.close()
+    path = os.path.join(args.out, "BENCH_breakdown.json")
+    with open(path, "w") as f:
+        json.dump(result, f, indent=2, sort_keys=True)
+    print(f"breakdown certification ({result['meta']['cells_run']} cells, "
+          f"{result['meta']['compiles']} steps built, "
+          f"{result['meta']['wall_s']:.1f}s) -> {path}")
+    for rule, rrec in result["rules"].items():
+        stars = "  ".join(f"{a}:b*={arec['bstar']}"
+                          for a, arec in rrec["adversaries"].items())
+        print(f"  {rule:14s} feasible_b={rrec['feasible_b']}  {stars}  "
+              f"worst={rrec['bstar_worst_adversary']}")
+    return result
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", default="grid")
-    ap.add_argument("--out", default="experiments/grid")
+    ap.add_argument("--mode", default="grid", choices=["dryrun", "net", "grid", "breakdown"])
+    ap.add_argument("--out", default=None,
+                    help="default experiments/grid (grid mode), experiments/breakdown")
     ap.add_argument("--rules", default="trimmed_mean,median")
     ap.add_argument("--attacks", default="random,alie")
     ap.add_argument("--scenarios", default="sync",
@@ -140,7 +208,21 @@ def main(argv=None):
     ap.add_argument("--codecs", default="identity",
                     help="comma-separated wire codecs (repro_torch.comm.codec), a grid axis")
     ap.add_argument("--adversaries", default=None,
-                    help="comma-separated repro_torch.adversary names, a grid axis")
+                    help="comma-separated repro_torch.adversary names: a grid axis (grid "
+                         "mode; default none) and the certified suite (breakdown mode; "
+                         "default random,alie,ipm,inner_max)")
+    ap.add_argument("--breakdown-mode", default="ladder", choices=["ladder", "bisect"])
+    ap.add_argument("--breakdown-b-max", type=int, default=3,
+                    help="largest b probed (capped by each rule's feasible b)")
+    ap.add_argument("--breakdown-loss-ratio", type=float, default=4.0,
+                    help="a probe diverges above this multiple of the b = 0 reference's "
+                         "final loss")
+    ap.add_argument("--breakdown-score-drop", type=float, default=0.15,
+                    help="a probe diverges when its honest accuracy falls this far below "
+                         "the reference's")
+    ap.add_argument("--breakdown-scenario", default=None,
+                    help="run the probes through the net runtime on this "
+                         "repro_torch.net.scenarios entry")
     ap.add_argument("--grid-nodes", type=int, default=12)
     ap.add_argument("--grid-ticks", type=int, default=60)
     ap.add_argument("--grid-batch", type=int, default=32)
@@ -152,12 +234,18 @@ def main(argv=None):
     ap.add_argument("--sparse", action="store_true",
                     help="neighbor-indexed [M, K] layout (the gather kernels)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    for flag in ("--trace", "--metrics", "--profile"):
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="breakdown mode: write the run's events to DIR/events.jsonl")
+    for flag in ("--metrics", "--profile"):
         ap.add_argument(flag, default=None, metavar="DIR")
     ap.add_argument("--trust", action="store_true")
     args = ap.parse_args(argv)
     _refuse_unported(args)
+    if args.out is None:
+        args.out = {"grid": "experiments/grid", "breakdown": "experiments/breakdown"}[args.mode]
     os.makedirs(args.out, exist_ok=True)
+    if args.mode == "breakdown":
+        return run_breakdown_mode(args)
     return run_grid_mode(args)
 
 

@@ -20,7 +20,13 @@ drives the *same* cell-parameterized step `BridgeTrainer` binds
   launch a tick;
 * adversaries (`repro_torch.adversary`): the stacked ``AdvState`` ``[E, d]``
   (allocated only when the bank is stateful) and each cell's ``theta``
-  ride along; ``inner_max`` ascends through the group's own screen.
+  ride along; ``inner_max`` ascends through the group's own screen;
+* observability (`repro_torch.obs`): an engine-wide forensics-free
+  ``trace`` spec stacks its `TraceState` over ``[E]`` (each cell's loss
+  trace, reservoir and first non-finite tick; bit-inert), and an
+  ``events`` log (`repro_torch.obs.EventLog`) receives the reference's
+  ``run.start``, ``grid.chunk``, ``run.end`` and ``obs.divergence``
+  records.
 
 The screening kernels take the experiment axis (`repro_torch.kernels`):
 each launches once a tick for a group of cells, whatever its size.  Since
@@ -48,12 +54,13 @@ Correctness anchor, as in the reference: any single cell equals its own
 ``chip_smoke.py`` on the card).
 
 Not yet here (refused with a `ValueError` that names its ROADMAP item):
-the ``trace``, ``trust``, ``metrics`` and ``events`` specs (Queue 1 item
-13), and with them the trust layer that would read ``slander``'s forged
-digests.
+the ``trust`` and ``metrics`` specs and a ``trace`` with forensics (Queue
+1 open item 5), and with them the trust layer that would read
+``slander``'s forged digests.
 """
 from __future__ import annotations
 
+import time
 from collections.abc import Callable, Iterable, Sequence
 
 import numpy as np
@@ -67,16 +74,18 @@ from repro_torch.core import byzantine as byz_lib
 from repro_torch.core.bridge import (BridgeState, CellParams, build_cell_runtime_step,
                                      build_cell_step, stack_batches, stack_flatten)
 from repro_torch.core.neighbors import NeighborTable
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, wait
 from repro_torch.net import mailbox as mb
 from repro_torch.net.runtime import SparseUnreliableRuntime, UnreliableRuntime
 from repro_torch.net.scenarios import build_schedule, get_scenario
+from repro_torch.obs import trace as obs_trace
 from repro_torch.sim import grid as grid_lib
 from repro_torch.sim.grid import Cell, ExperimentGrid
 
 __all__ = ["GridEngine", "GridNetRuntime", "stack_batches"]
 
-GRID_SPECS = "the trace, trust, metrics and events specs: ROADMAP Queue 1 item 13"
+GRID_SPECS = ("the trust and metrics specs: ROADMAP Queue 1 open item 5 (trust and "
+              "telemetry)")
 
 
 def _dedup(names: Iterable) -> list:
@@ -244,6 +253,10 @@ class GridEngine:
     does).  ``sparse=True`` screens through the topology's `NeighborTable`
     (the gather kernels), each cell bit-identical to its dense twin.
 
+    ``trace`` (a `repro_torch.obs.TraceSpec` with ``forensics=False``)
+    carries each cell's aggregates in ``state.obs``; ``events`` (an
+    `EventLog`) gets the run's records.
+
     Usage — a rule x attack x seed product::
 
         grid = ExperimentGrid(topology, rules=("trimmed_mean", "median"),
@@ -258,8 +271,11 @@ class GridEngine:
                  cells: Sequence[Cell] | None = None, num_ticks: int | None = None,
                  scenario_seed: int = 0, group: bool = True, sparse: bool = False, trace=None,
                  trust=None, metrics=None, events=None, device: str | torch.device = "cuda"):
-        if any(spec is not None for spec in (trace, trust, metrics, events)):
+        if trust is not None or metrics is not None:
             raise ValueError(f"GridEngine: {GRID_SPECS}")
+        obs_trace.check(trace)
+        self._trace_spec = trace
+        self._events = events
         self.device = resolve_device(device)
         self.grid = grid
         self.cells = list(cells) if cells is not None else grid.cells()
@@ -332,7 +348,8 @@ class GridEngine:
         """One group's step over its banks (the adversary stage only when a
         cell of the engine names one)."""
         kw = dict(codecs=codecs, wire_attacks=byz_lib.wire_attack_bank(attacks),
-                  adversaries=adversaries if self._adv_engaged else None)
+                  adversaries=adversaries if self._adv_engaged else None,
+                  trace=self._trace_spec)
         if self.net_mode:
             return build_cell_runtime_step(
                 grad_fn, self.runtime, rules,
@@ -438,7 +455,8 @@ class GridEngine:
         mailboxes, ``[E, M, W, L, d]``, the ring sized for the bank's largest
         codeword.  A lossy codec bank adds the zero codec carry (``[E, M,
         d]``, per link ``[E, M, W, d]``) for every cell, a stateful
-        adversary bank the zero ``AdvState`` ``[E, d]``."""
+        adversary bank the zero ``AdvState`` ``[E, d]``, a ``trace`` fresh
+        `TraceState` rows ``[E, ...]``."""
         m = self.grid.topology.num_nodes
         params = [init_fn(c.seed) for c in self.cells]
         for k, leaf in params[0].items():
@@ -458,17 +476,28 @@ class GridEngine:
         comm = exchange.init_residual(shape, bank, device=self.device)
         adv = (adv_lib.init_state(dim, lead=(e,), device=self.device) if self._adv_stateful
                else None)
-        return BridgeState(params=stacked, t=0, key=keys, comm=comm, net=net, adv=adv)
+        obs = obs_trace.init_state(self._trace_spec, lead=(e,), device=self.device)
+        return BridgeState(params=stacked, t=0, key=keys, comm=comm, net=net, adv=adv, obs=obs)
 
     def run(self, state: BridgeState, batches, *, chunk: int | None = None):
         """Run every cell over ``batches`` (a tensor or a tuple of tensors
         ``[T, ...]``, shared across cells; `stack_batches` makes them).
         Returns ``(final_state, metrics)`` with state leaves ``[E, ...]`` and
         metric leaves ``[E, T]`` (tensors on the engine's device), in the
-        order of ``self.cells``."""
+        order of ``self.cells``.  With an ``events`` log: ``run.start``, a
+        ``grid.chunk`` per chunk when ``chunk`` splits the cells (each
+        chunk waited for, so its wall time is its work), ``run.end`` and an
+        ``obs.divergence`` per cell whose sentinel fired."""
         if chunk is not None and chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         ticks = int((batches[0] if isinstance(batches, (tuple, list)) else batches).shape[0])
+        ev = self._events
+        chunked = chunk is not None and chunk < self.num_cells
+        t_run = time.perf_counter()
+        if ev is not None:
+            ev.emit("run.start", kind="grid", cells=self.num_cells, ticks=ticks, chunk=chunk,
+                    groups=len(self._bounds), sparse=self.sparse,
+                    traced=self._trace_spec is not None)
         tick = (lambda i: tuple(b[i] for b in batches)) if isinstance(batches, (tuple, list)) \
             else (lambda i: batches[i])
         keys = np.asarray(state.key, np.uint32)
@@ -485,13 +514,19 @@ class GridEngine:
                 take = lambda x: x.index_select(0, sel)
                 st = BridgeState({k: take(v) for k, v in state.params.items()}, state.t,
                                  keys[cells_idx], _rows(state.comm, take),
-                                 _rows(state.net, take), _rows(state.adv, take))
+                                 _rows(state.net, take), _rows(state.adv, take),
+                                 _rows(state.obs, take))
+                t_chunk = time.perf_counter()
                 f, ms = self._run_chunk(self._steps[gi], cp, st, tick, ticks)
+                if ev is not None and chunked:
+                    wait(self.device)
+                    ev.emit("grid.chunk", group=gi, lo=int(lo), hi=int(hi),
+                            wall_s=time.perf_counter() - t_chunk)
                 valid = hi - lo
                 trim = lambda x: x[:valid]
                 finals.append(BridgeState({k: v[:valid] for k, v in f.params.items()}, f.t,
                                           f.key[:valid], _rows(f.comm, trim), _rows(f.net, trim),
-                                          _rows(f.adv, trim)))
+                                          _rows(f.adv, trim), _rows(f.obs, trim)))
                 metrics.append({k: v[:valid] for k, v in ms.items()})
         order = torch.as_tensor(self._inv, device=self.device)
         params = {k: torch.cat([f.params[k] for f in finals]).index_select(0, order)
@@ -507,8 +542,17 @@ class GridEngine:
 
         out = {k: torch.cat([ms[k] for ms in metrics]).index_select(0, order)
                for k in metrics[0]}
-        return BridgeState(params=params, t=finals[0].t, key=key, comm=carried("comm"),
-                           net=carried("net"), adv=carried("adv")), out
+        final = BridgeState(params=params, t=finals[0].t, key=key, comm=carried("comm"),
+                            net=carried("net"), adv=carried("adv"), obs=carried("obs"))
+        if ev is not None:
+            wait(self.device)
+            ev.emit("run.end", kind="grid", wall_s=time.perf_counter() - t_run,
+                    trace_count=self.num_steps_built)
+            if final.obs is not None and self._trace_spec.sentinel:
+                for i, tick in enumerate(final.obs.first_bad.cpu().tolist()):
+                    if tick >= 0:
+                        ev.emit("obs.divergence", cell=self.cells[i].tag, first_bad_tick=tick)
+        return final, out
 
     def _run_chunk(self, step: Callable, cell: CellParams, state: BridgeState, tick: Callable,
                    ticks: int) -> tuple[BridgeState, dict]:

@@ -1,16 +1,19 @@
 """The MNIST-like linear task — port of `repro.sim.tasks.linear_task`: the
-same data, partition and per-tick batches (numpy, draw-for-draw identical),
+same data, partition and per-tick batches (draw-for-draw the reference's),
 the linear squared-hinge model, and honest-node test accuracy.
 
-The reference also returns the batches stacked over ticks for its
-scan-over-ticks paths; the port runs ticks in a Python loop and returns the
-per-tick ``batch_fn`` only.
+Breakdown certification (`repro_torch.adversary.breakdown`, ``sweep --mode
+breakdown``) and the red-team search (`repro_torch.adversary.search`) run
+this task over ``ticks`` batches stacked on the device (``batches``); the
+trainers step through ``batch_fn``, a fresh drawer that replays the same
+sequence.  Both gather on the device from the shards held there
+(`repro_torch.data.partition.device_node_batches`).
 """
 from __future__ import annotations
 
 import functools
 from collections.abc import Callable
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
@@ -21,7 +24,7 @@ from repro_torch.data.partition import (
     partition_extreme_noniid,
     partition_iid,
     partition_moderate_noniid,
-    stack_node_batches,
+    device_node_batches,
 )
 from repro_torch.device import resolve_device
 from repro_torch.models import small
@@ -36,18 +39,26 @@ def dataset(num_train: int, num_test: int, seed: int):
 
 
 class LinearTask(NamedTuple):
-    grad_fn: Callable  # (params [M, ...], batch) -> (losses [M], grads)
+    """Everything a trainer or a grid needs to run and score the task (the
+    reference's fields, in its order)."""
+
+    grad_fn: Callable  # (params [..., M, ...], batch) -> (losses [..., M], grads)
     init_fn: Callable  # seed -> [M, ...] replicated params on the device
-    batch_fn: Callable  # tick -> (x [M, B, 784], y [M, B]) on the device
+    # (x [T, M, B, 784], y [T, M, B]) on the device; None when ticks == 0
+    batches: Any
     eval_accuracy: Callable  # (params [M, ...], honest_mask [M]) -> mean honest accuracy
     x_test: torch.Tensor
     y_test: torch.Tensor
+    # a fresh per-tick drawer, tick -> (x [M, B, 784], y [M, B]) on the
+    # device: it replays the sequence `batches` holds from its first tick
+    batch_fn: Callable = None
 
 
-def linear_task(num_nodes: int, *, partition: str = "extreme", batch: int = 32,
+def linear_task(num_nodes: int, ticks: int = 0, *, partition: str = "extreme", batch: int = 32,
                 num_train: int = 2000, num_test: int = 400, seed: int = 0,
                 device: str | torch.device = "cuda") -> LinearTask:
-    """Assemble the linear task for ``num_nodes`` nodes on ``device``.
+    """Assemble the linear task for ``num_nodes`` nodes on ``device``, with
+    ``ticks`` batches stacked (``ticks == 0``: ``batches`` is None).
     ``partition="extreme"`` (each node sees one class) needs
     ``num_nodes >= 10``."""
     dev = resolve_device(device)
@@ -55,13 +66,10 @@ def linear_task(num_nodes: int, *, partition: str = "extreme", batch: int = 32,
             "moderate": partition_moderate_noniid}[partition]
     x, y, xt, yt = dataset(num_train, num_test, seed)
     shards = part(x, y, num_nodes, seed=seed)
-    host_batches = stack_node_batches(shards, batch, seed=seed)
+    drawer = device_node_batches(shards, batch, seed=seed, device=dev)
+    batches = drawer.stacked(ticks) if ticks > 0 else None
     x_test = torch.as_tensor(xt, device=dev)
     y_test = torch.as_tensor(yt, device=dev)
-
-    def batch_fn(i: int):
-        bx, by = host_batches(i)
-        return torch.as_tensor(bx, device=dev), torch.as_tensor(by, device=dev)
 
     def init_fn(seed: int):
         # the reference's init: one key for the model draw and the perturbation
@@ -71,8 +79,8 @@ def linear_task(num_nodes: int, *, partition: str = "extreme", batch: int = 32,
     def eval_accuracy(params, honest_mask) -> float:
         return honest_accuracy(params, honest_mask, x_test, y_test)
 
-    return LinearTask(small.linear_loss_and_grad, init_fn, batch_fn, eval_accuracy,
-                      x_test, y_test)
+    return LinearTask(small.linear_loss_and_grad, init_fn, batches, eval_accuracy,
+                      x_test, y_test, batch_fn=drawer.replay())
 
 
 def honest_accuracy(params, honest_mask, x_test: torch.Tensor, y_test: torch.Tensor) -> float:

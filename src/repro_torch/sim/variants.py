@@ -40,10 +40,10 @@ from repro_torch.core import byzantine
 from repro_torch.core.byrdie import ByrdieConfig, ByrdieTrainer
 from repro_torch.core.graph import erdos_renyi
 from repro_torch.data.partition import (
+    device_node_batches,
     partition_extreme_noniid,
     partition_iid,
     partition_moderate_noniid,
-    stack_node_batches,
 )
 from repro_torch.device import resolve_device
 from repro_torch.models import small
@@ -87,7 +87,7 @@ def run_decentralized(*, rule: str = "trimmed_mean", attack: str = "none",
     dev = resolve_device(device)
     x, y, xt, yt = dataset(4000, 800, 0)  # the reference's benchmark data, at seed 0
     shards = PARTITIONS[partition](x, y, num_nodes, seed=seed)
-    batch_fn = stack_node_batches(shards, batch, seed=seed)
+    batch_fn = device_node_batches(shards, batch, seed=seed, device=dev)
     topo = pick_topology(num_nodes, num_byzantine, rule, seed)
     cfg = BridgeConfig(topology=topo, rule=rule, num_byzantine=num_byzantine, attack=attack,
                        adversary=adversary, codec=codec, lam=lam, t0=t0, sparse=sparse)
@@ -98,9 +98,7 @@ def run_decentralized(*, rule: str = "trimmed_mean", attack: str = "none",
     t_start = time.perf_counter()
     first_s = 0.0
     for i in range(steps):
-        bx, by = batch_fn(i)
-        state, metrics = trainer.step(state, (torch.as_tensor(bx, device=dev),
-                                              torch.as_tensor(by, device=dev)))
+        state, metrics = trainer.step(state, batch_fn(i))
         if i == 0:
             _sync(dev)
             first_s = time.perf_counter() - t_start

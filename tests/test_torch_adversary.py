@@ -129,7 +129,7 @@ def test_adversary_functions_match_the_reference_over_ticks(name, form):
     ref = _reference_call(form, jadv, jp.AdvCtx(latency=1.5 if form != "broadcast" else 0.0),
                           jnbr)
     ctx = tp.AdvCtx(latency=1.5 if form != "broadcast" else 0.0)
-    jst, st = jp.init_state(D), tp.init_state(D, lead=(1,))
+    jst, st = jp.init_state(D), tp.init_state(D, lead=(1,), device="cpu")
     theta = np.asarray(jadv.default_theta, np.float32)
     for t in range(3):
         w = (rng.normal(size=(M, D)) * (1 + t)).astype(np.float32)
@@ -256,7 +256,7 @@ def test_inner_max_crafted_rows_match_the_reference(rule):
     ctx = tp.AdvCtx(screen=lambda wb: screening.screen_all_banked(
         wb, torch.from_numpy(adj), (rule,), (0,), (2,), self_vals=wb))
     theta = np.asarray(jadv.default_theta, np.float32)
-    jst, st = jp.init_state(D), tp.init_state(D, lead=(1,))
+    jst, st = jp.init_state(D), tp.init_state(D, lead=(1,), device="cpu")
     w = rng.normal(size=(M, D)).astype(np.float32)
     for _ in range(3):
         w = (w + 0.1 * rng.normal(size=(M, D))).astype(np.float32)

@@ -33,6 +33,7 @@ from repro_torch.core import BridgeConfig, BridgeTrainer, complete_graph, erdos_
 from repro_torch.core.neighbors import NeighborTable
 from repro_torch.kernels import gather_screen, median, ref, trimmed_mean
 from repro_torch.launch import sweep
+from repro_torch.obs import TraceSpec
 from repro_torch.sim import (Cell, ExperimentGrid, GridEngine, GridResult, cell_of, collect,
                              existing_tags, load_cell_store)
 
@@ -256,9 +257,10 @@ def test_banked_dispatch_equals_each_experiments_own_rule():
 
 
 def test_refusals_name_their_roadmap_items(tmp_path):
-    """The refusals left name their ROADMAP items (trust and telemetry:
-    item 13; the breakdown mode: item 12's remainder); codecs, wire attacks
-    and adversaries, refused before, now build."""
+    """The refusals left name their ROADMAP items (trust, the metric rings
+    and the trace's forensics: Queue 1 open item 5); codecs, wire attacks,
+    adversaries, a forensics-free trace and the breakdown mode, refused
+    before, now build."""
     topo = erdos_renyi(M, 0.8, 2, seed=1)
     grid = ExperimentGrid(topo, ("trimmed_mean",), ("random",), (2,))
     for cell in (Cell("trimmed_mean", "random", 2, 0, "lossy", "int8"),
@@ -267,10 +269,12 @@ def test_refusals_name_their_roadmap_items(tmp_path):
                  Cell("trimmed_mean", "none", 2, 0, adversary="ipm")):
         GridEngine(grid, qgrad, cells=[cell], num_ticks=3, device="cpu")
     ExperimentGrid(topo, ("trimmed_mean",), ("random",), (2,), adversaries=("ipm",))
-    with pytest.raises(ValueError, match="item 13"):
-        GridEngine(grid, qgrad, trace=object(), device="cpu")
-    for flags, item in ((["--trace", "x"], "item 13"), (["--trust"], "item 13"),
-                        (["--mode", "breakdown"], "item 12")):
+    GridEngine(grid, qgrad, trace=TraceSpec(forensics=False), device="cpu")
+    for kw in (dict(trace=TraceSpec()), dict(trust=object()), dict(metrics=object())):
+        with pytest.raises(ValueError, match="item 5"):
+            GridEngine(grid, qgrad, device="cpu", **kw)
+    for flags, item in ((["--trace", "x"], "item 5"), (["--trust"], "item 5"),
+                        (["--mode", "dryrun"], "belong to the JAX package")):
         with pytest.raises(ValueError, match=item):
             sweep.main(["--out", str(tmp_path), "--device", "cpu", *flags])
 

@@ -3,7 +3,8 @@ CPU, at the settings `chip_smoke.py` trains the PyTorch port at: the
 thresholds the port's card runs are held to (within 0.01 of each).
 
     JAX_PLATFORMS=cpu PYTHONPATH=src:. python tools/reference_accuracy.py \
-        [--only dense,sparse,variants,wire,wire_sparse,variants_wire,net,net_kb,adversary]
+        [--only dense,sparse,variants,wire,wire_sparse,variants_wire,net,net_kb,adversary,
+                breakdown]
 
 Configurations (each as `chip_smoke.py` runs it, same seeds and batches):
 
@@ -66,6 +67,24 @@ Configurations (each as `chip_smoke.py` runs it, same seeds and batches):
   (trimmed_mean,), (2,))``; and asynchronous BRIDGE-T with ``inner_max``
   under ``lossy`` at the scale benchmark's sparse settings (as ``net``'s
   sparse run, the schedule of ``lossy``) for 20 ticks, and BRIDGE-M there.
+* ``breakdown``: certification and the red-team search, not accuracies:
+  - ``benchmarks/breakdown_bench.py``'s ``run_certification`` at its
+    defaults (M = 10, extreme non-iid, 4000 / 800 samples, 60 ticks,
+    BRIDGE-T / M x ``random``, ``alie``, ``ipm``, ``inner_max``, b_max 3,
+    the ladder, score_drop 0.25, loss_ratio 50): each rule's ``feasible_b``
+    and reference probe, each pair's b* and ``certified_monotone``, each
+    probe's ``survived``, ``final_loss`` and ``score``;
+  - a certification through the net grids: the same task at 30 ticks,
+    ``lossy``, BRIDGE-T x ``alie_online``, b_max 2;
+  - the divergence sentinel on ``tests/test_adversary.py``'s quadratic
+    task made unstable (``tests/test_obs.py``: M = 10, D = 4, 12 ticks,
+    ``erdos_renyi(10, 0.8, 2, seed=1)``, t0 = 10, the gradient times
+    1e4): BRIDGE-T x ``random``, b_max 2, each probe's ``first_bad_tick``;
+  - ``repro.adversary.search``'s CLI defaults (BRIDGE-T, ``ipm``, b = 2,
+    M = 10, 40 ticks, population 12, 4 generations): generation 0's
+    fitness of each proposal (the registered default, then 11 draws of
+    ``default_rng(0)``), and the search's ``best_fitness`` and
+    ``default_fitness``.
 
 Prints one line per configuration and a JSON object of all of them last.
 Takes some minutes (the sparse runs most of it).
@@ -284,18 +303,102 @@ def adversary_sparse_median():
         scenario="lossy", rule="median")}
 
 
+def _certificate(result: dict) -> dict:
+    """What `chip_smoke.py` holds the port's certification to."""
+    out = {}
+    for rule, rrec in result["rules"].items():
+        out[rule] = {"feasible_b": rrec["feasible_b"],
+                     "ref": {k: rrec["ref"][k] for k in ("final_loss", "score")},
+                     "adversaries": {adv: {
+                         "bstar": arec["bstar"],
+                         "certified_monotone": arec["certified_monotone"],
+                         "probes": {b: {k: p[k] for k in ("survived", "final_loss", "score")}
+                                    for b, p in arec["probes"].items()}}
+                         for adv, arec in rrec["adversaries"].items()}}
+    return out
+
+
+def unstable_quadratic() -> dict:
+    """Each probe's first bad tick (the reference probe's, key "0") on the
+    unstable quadratic."""
+    import jax.numpy as jnp
+
+    from repro.adversary.breakdown import BreakdownConfig, BreakdownEngine
+    from repro.sim.engine import stack_batches
+
+    m, d, ticks = 10, 4, 12
+    targets = jnp.asarray((3.0 * np.random.default_rng(0).normal(size=(m, d))).astype(np.float32))
+
+    def grad_fn(params, batch):
+        w = params["w"]
+        return 0.5e4 * jnp.sum((w - batch) ** 2), {"w": 1e4 * (w - batch)}
+
+    def init_fn(seed):
+        return bridge.replicate({"w": jnp.zeros(d)}, m, perturb=0.1,
+                                key=jax.random.PRNGKey(seed))
+
+    engine = BreakdownEngine(graph.erdos_renyi(m, 0.8, 2, seed=1), ("trimmed_mean",),
+                             ("random",), grad_fn, init_fn, stack_batches(lambda i: targets, ticks),
+                             lam=1.0, t0=10.0, config=BreakdownConfig(b_max=2))
+    engine.run()
+    return {str(b): rec["first_bad_tick"] for (_, _, b), rec in engine.probes.items()}
+
+
+def breakdown():
+    from benchmarks.breakdown_bench import run_certification
+    from repro.adversary import protocols as adv_lib
+    from repro.adversary.breakdown import BreakdownConfig, BreakdownEngine
+    from repro.adversary.search import SearchConfig, _sample_theta, red_team_search
+    from repro.sim import Cell, ExperimentGrid, GridEngine
+    from repro.sim.grid import default_topology
+
+    out = {"breakdown certification": _certificate(run_certification())}
+    task = tasks.linear_task(10, 30, num_train=4000, num_test=800, seed=0)
+    topo = default_topology(10, ("trimmed_mean",), (2,), seed=0)
+    engine = BreakdownEngine(
+        topo, ("trimmed_mean",), ("alie_online",), task.grad_fn, task.init_fn, task.batches,
+        lam=1.0, t0=30.0, config=BreakdownConfig(b_max=2, score_drop=0.25, loss_ratio=50.0),
+        eval_fn=task.eval_accuracy, scenario="lossy")
+    out["breakdown scenario lossy"] = _certificate(engine.run())
+    out["breakdown unstable quadratic"] = unstable_quadratic()
+    # the search CLI's defaults; generation 0 as red_team_search draws it
+    topo = default_topology(10, ("trimmed_mean",), (2,), seed=0)
+    task = tasks.linear_task(10, 40, seed=0)
+    adv = adv_lib.get_adversary("ipm")
+    rng = np.random.default_rng(SearchConfig().seed)
+    thetas = [tuple(map(float, adv.default_theta))]
+    thetas += [_sample_theta(rng, adv.theta_bounds) for _ in range(SearchConfig().population - 1)]
+    grid = ExperimentGrid(topo, ("trimmed_mean",), ("none",), byzantine_counts=(2,),
+                          seeds=(0,), adversaries=("ipm",), lam=1.0, t0=30.0)
+    cells = [Cell("trimmed_mean", "none", 2, 0, adversary="ipm", mask_seed=0, theta=th)
+             for th in thetas]
+    eng = GridEngine(grid, task.grad_fn, cells=cells)
+    _, metrics = eng.run(eng.init(task.init_fn), task.batches)
+    loss = np.asarray(metrics["loss"], np.float64)[:, -1]
+    ledger = red_team_search(topo, "trimmed_mean", "ipm", 2, task.grad_fn, task.init_fn,
+                             task.batches, lam=1.0, t0=30.0)
+    out["search trimmed_mean ipm b2"] = {
+        "thetas": [list(t) for t in thetas], "generation0_fitness": loss.tolist(),
+        "best_fitness": ledger["best_fitness"], "default_fitness": ledger["default_fitness"],
+        "best_theta": ledger["best_theta"], "trace_count": ledger["trace_count"]}
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="dense,sparse,variants")
     args = ap.parse_args()
     groups = {"dense": dense, "sparse": sparse, "variants": variants, "wire": wire,
               "wire_sparse": wire_sparse, "variants_wire": variants_wire, "net": net,
-              "net_kb": net_kb, "adversary": adversary}
+              "net_kb": net_kb, "adversary": adversary, "breakdown": breakdown}
     results = {}
     for name in args.only.split(","):
         t0 = time.perf_counter()
         res = groups[name]()
         for k, v in res.items():
+            if isinstance(v, dict) and "accuracy" not in v:
+                print(f"{k}: {json.dumps(v)}")
+                continue
             acc = v["accuracy"] if isinstance(v, dict) else v
             print(f"{k}: honest test accuracy {acc:.4f}")
         print(f"({name}: {time.perf_counter() - t0:.0f} s, backend {jax.default_backend()})")
