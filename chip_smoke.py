@@ -235,7 +235,42 @@ failure of which raises:
    ``sweep --mode breakdown`` into a temporary directory, its JSON read
    back, its two rounds' launches held to one screen a tick each.  Every
    round's launches exact (`grid_want` / `net_grid_want`;
-   measure_compile runs a round twice).
+   measure_compile runs a round twice);
+23. trust and forensics — (a) the screens' decide form
+   (``csrc/screen_decide.cu``, ``gather_screen_decide.cu``,
+   ``views_screen_decide.cu``: the screening rules' decision twins) against
+   its plain twins (``ref.*_decide``), y and trim exactly, y also against
+   the plain kernel's: dense M = 50, d = 7850, b = 4 (T and M) and E = 8
+   cells with a mask and a b each, gather M = 512, K = 16 and E = 4 with
+   per-cell table masks, views M = 512, K = 16, dense views M = W = 50
+   (materialized and with a receiver stride of 0) and E = 4, strides 1 and
+   16, edge-case payloads on 40 and 100 dense nodes (the 128-row bucket)
+   and at K in {3, 16, 40, 63}; timed beside the plain
+   kernel, the plain sort and the bound; the wide shapes refused; (b)
+   ``benchmarks/trust_bench.py``'s smoke measurements through the port: the
+   breakdown study (M = 15, the complete graph, moderate non-iid,
+   ``equivocate`` through ``ideal``, 64 ticks, b_max 7, score_drop 0.15:
+   static BRIDGE-T against ``rep_trimmed_mean`` with the trust layer), its
+   certificates held to the reference's (``REFERENCE_TRUST``, group
+   ``trust`` of ``tools/reference_accuracy.py``) and detect-and-expel's b*
+   above the static one's; the detection grid (M = 12, the d = 64
+   quadratic, 16 ticks, b = 2, ``equivocate`` and ``slander``), each trust
+   summary the reference's; the inertness cell (dense async M = 32, 12
+   ticks), trust on but inert bit for bit trust off, each ms/tick; (c)
+   ``benchmarks/obs_bench.py``'s ``trace_overhead`` cells through the
+   sparse runtime (``small_world(512, 6, 2)``, ``alie``, drop 0.05): the
+   d = 64 quadratic (20 ticks, stride 4) and the linear task (d = 7850, 3
+   ticks, stride 16), traced against untraced bit for bit, AUC, edges seen
+   and trim frequencies against the reference's, ms/tick of each; the
+   stress cell under BRIDGE-M too; (d) a forensic trace on the synchronous
+   trainers at d = 7850 (dense M = 50, sparse M = 512, BRIDGE-T and
+   BRIDGE-M, 20 ticks, stride 16), traced against untraced bit for bit;
+   (e) ``rep_median`` with the trust layer on its three layouts (dense M =
+   50 and sparse M = 512 synchronous at d = 7850, the dense M = 32 runtime
+   with the echo; 8 ticks): its decisions from the median decide kernel of
+   the layout, the trust state and parameters bit for bit the same run's
+   with the decide entries swapped for their plain twins.  Every run's
+   launches exact.
 
 Every accuracy of phases 8-11 and 21 must land within 0.01 of the reference's
 own CPU run at the same settings (``REFERENCE_ACCURACY``, from
@@ -244,7 +279,7 @@ Krum's picks (``PICK_BOUND``), which is held to card-vs-CPU parity.
 
 Each configuration of a trainer phase trains on a task of its own, so all
 see batches 0..199 of one stream.  Before each main-path phase (5-12,
-16-22) every kernel's launch count is set to 0, and read
+16-23) every kernel's launch count is set to 0, and read
 after its runs: each kernel of the phase must have launched once per
 tick of the runs of its rule (codec), the others not at all; a kernel's
 ``launches`` in the JSON line is the sum over the phases.  Then each
@@ -257,6 +292,7 @@ The line before the last is the ``{"kernels": [...]}`` record; the last is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -291,7 +327,7 @@ from repro_torch.core.graph import erdos_renyi, small_world  # noqa: E402
 from repro_torch.core.neighbors import NeighborTable  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     build, dequant, dequant_screen, gather_screen, median, networks, ops, pairwise, ref,
-    screen_wide, trimmed_mean, views_screen)
+    screen_decide, screen_wide, trimmed_mean, views_screen)
 from repro_torch.kernels import autograd as grad_ops  # noqa: E402
 from repro_torch.net import AsyncBridgeConfig, AsyncBridgeTrainer, ChannelConfig  # noqa: E402
 from repro_torch.net.dynamic import scenario_schedule  # noqa: E402
@@ -330,6 +366,13 @@ KERNELS = {  # JSON name -> wrapper (its `launches` counter)
     # the views screens' backward (inner_max through the sparse runtime's oracle)
     "views_screen_grad_trimmed_mean": grad_ops.views_grad_trimmed_mean,
     "views_screen_grad_median": grad_ops.views_grad_median,
+    # the screens' decide form (the trace's forensics and the trust layer)
+    "screen_trimmed_mean_dense_decide": screen_decide.trimmed_mean_dense_decide,
+    "screen_median_dense_decide": screen_decide.median_dense_decide,
+    "gather_screen_trimmed_mean_decide": screen_decide.gather_screen_trimmed_mean_decide,
+    "gather_screen_median_decide": screen_decide.gather_screen_median_decide,
+    "views_screen_trimmed_mean_decide": screen_decide.views_screen_trimmed_mean_decide,
+    "views_screen_median_decide": screen_decide.views_screen_median_decide,
 }
 COUNTED = KERNELS  # every counted wrapper is in the JSON line
 # bits on the wire per message at d = 7850: the reference codec's
@@ -3481,7 +3524,8 @@ def loss_err(tag: str, got: float, want: float) -> float:
     return err
 
 
-def hold_certificate(tag: str, got: dict, want: dict) -> tuple[list[str], float]:
+def hold_certificate(tag: str, got: dict, want: dict,
+                     score_drop: float | None = None) -> tuple[list[str], float]:
     """A certification against the reference's (``REFERENCE_BREAKDOWN``):
     each rule's ``feasible_b``, every probe's final loss (the b = 0
     reference probe's included) within ``LOSS_RTOL`` and score within
@@ -3490,7 +3534,8 @@ def hold_certificate(tag: str, got: dict, want: dict) -> tuple[list[str], float]
     reference's score lies within ``ACC_TOL`` of its threshold (the
     reference probe's score less ``SCORE_DROP``); b* then follows the
     card's verdicts.  Returns those probes, described, and the largest
-    relative loss error."""
+    relative loss error.  ``score_drop`` is the run's (default
+    ``SCORE_DROP``)."""
     moved = []
     worst_loss = 0.0
     for rule, wr in want.items():
@@ -3503,7 +3548,7 @@ def hold_certificate(tag: str, got: dict, want: dict) -> tuple[list[str], float]
         if not abs(gr["ref"]["score"] - wr["ref"]["score"]) <= ACC_TOL:
             raise AssertionError(f"{tag}: {rule}'s b = 0 score {gr['ref']['score']:.4f} not "
                                  f"within {ACC_TOL} of the reference's {wr['ref']['score']:.4f}")
-        threshold = wr["ref"]["score"] - SCORE_DROP
+        threshold = wr["ref"]["score"] - (SCORE_DROP if score_drop is None else score_drop)
         for adv, wa in wr["adversaries"].items():
             ga = gr["adversaries"][adv]
             if set(ga["probes"]) != set(wa["probes"]):
@@ -3841,6 +3886,695 @@ def breakdown_phase(dev):
     return launches, engine_launches
 
 
+# ---------------------------------------------------------------------------
+# 23. Trust and forensics: the screens' decide form, the trust layer, the
+#     trace's forensics
+# ---------------------------------------------------------------------------
+
+DECIDE_REPLACES = {
+    "trimmed_mean": "none: src/repro/core/screening.py:489 trimmed_mean_with_decisions "
+                    "(jnp, no pallas_call)",
+    "median": "none: src/repro/core/screening.py:525 coordinate_median_with_decisions "
+              "(jnp, no pallas_call)"}
+DECIDE_STRIDES = (1, 16)
+
+
+def decide_or_raise(tag: str, got, want, plain_y) -> float:
+    """A decide kernel's ``(y, trim)`` against its plain twin's, exactly,
+    and its y against the plain kernel's; returns the largest |trim|
+    difference (0)."""
+    exact_or_raise(f"{tag} y", got[0], want[0])
+    exact_or_raise(f"{tag} y against the plain kernel", got[0], plain_y)
+    exact_or_raise(f"{tag} trim", got[1], want[1])
+    return max_abs_err(got[1], want[1])
+
+
+def decide_ops(counts: np.ndarray, d: int, b, stride: int, median: bool) -> int:
+    """The plain screen's operations (`views_bound`) plus the decisions':
+    two compares a listed row and decided column."""
+    cols = -(-d // stride)
+    bb = b if isinstance(b, int) else 0
+    tm, med = views_bound(counts, d, bb)[1:]
+    return (med if median else tm) + 2 * int(counts.sum()) * cols
+
+
+def decide_kernel_phase(dev):
+    """(a) The decide form of the dense, gather and views screens against
+    its plain twins (`ref.*_decide`), exactly, y also against the plain
+    kernel: dense M = 50, d = 7850, b = 4 (T and M) and E = 8 cells with a
+    mask and a b each; gather M = 512, K = 16; views M = 512, K = 16 and
+    dense M = W = 50 (materialized and with a receiver stride of 0);
+    strides 1 and 16; edge-case payloads (NaN, +-inf, 1e30, ties, +-0,
+    starved nodes: count <= 2b and count 0).  Timed beside the plain kernel,
+    the plain sort and the bound; the wide shapes refused."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    records = []
+    src = {"dense": "src/repro_torch/kernels/csrc/screen_decide.cu",
+           "gather": "src/repro_torch/kernels/csrc/gather_screen_decide.cu",
+           "views": "src/repro_torch/kernels/csrc/views_screen_decide.cu"}
+    # dense, the main path's shape
+    topo = erdos_renyi(M, 0.5, B, seed=0)
+    adj = torch.as_tensor(topo.adjacency, device=dev)
+    w = torch.randn((M, D), generator=gen, device=dev)
+    counts = topo.adjacency.sum(axis=1)
+    for rule, kern, plain, ykern in (
+        ("trimmed_mean", lambda s, a=adj: screen_decide.trimmed_mean_dense_decide(w, a, w, B, s),
+         lambda s, a=adj: ref.trimmed_mean_dense_decide(w, a, w, B, s),
+         lambda: trimmed_mean.trimmed_mean_dense(w, adj, w, B)),
+        ("median", lambda s, a=adj: screen_decide.median_dense_decide(w, a, w, s),
+         lambda s, a=adj: ref.median_dense_decide(w, a, w, s),
+         lambda: median.median_dense(w, adj, w)),
+    ):
+        name = f"screen_{rule}_dense_decide"
+        err = max(decide_or_raise(f"{name} stride {s}", kern(s), plain(s), ykern())
+                  for s in DECIDE_STRIDES)
+        nbytes = 2 * M * D * 4 + M * M + 4 * M * M
+        rec = record(name, src["dense"], DECIDE_REPLACES[rule], lambda: kern(16),
+                     lambda: plain(16), None, nbytes,
+                     decide_ops(counts, D, B, 16, rule == "median"), err)
+        rec["plain_kernel_ms"] = cuda_ms(ykern)
+        print(f"  {name}: plain kernel {rec['plain_kernel_ms']:.4f} ms, decide stride 1 "
+              f"{cuda_ms(lambda: kern(1)):.4f} ms")
+        records.append(rec)
+    # E = 8 cells, a mask (evictions) and a b each
+    e = 8
+    we = torch.randn((e, M, D), generator=gen, device=dev)
+    adj_e = (adj[None] & (torch.rand((e, M, M), generator=gen, device=dev) < 0.8)).contiguous()
+    b_e = torch.tensor([1, 2, 3, 4, 4, 3, 2, 1], dtype=torch.int32, device=dev)
+    for s in DECIDE_STRIDES:
+        decide_or_raise(f"dense trimmed mean decide E = {e} stride {s}",
+                        screen_decide.trimmed_mean_dense_decide(we, adj_e, we, b_e, s),
+                        ref.trimmed_mean_dense_decide(we, adj_e, we, b_e, s),
+                        trimmed_mean.trimmed_mean_dense(we, adj_e, we, b_e))
+        decide_or_raise(f"dense median decide E = {e} stride {s}",
+                        screen_decide.median_dense_decide(we, adj_e, we, s),
+                        ref.median_dense_decide(we, adj_e, we, s),
+                        median.median_dense(we, adj_e, we))
+    # edge-case payloads, starved nodes; 100 nodes sort in the 128-row
+    # bucket (rows re-read), where the plain twin's trimmed mean sums with
+    # torch.sum: its y is held to the summation bound, its trim exactly
+    for n_e in (40, 100):
+        w_np, adj_np, sv_np = edge_case_inputs(n_e, 300, seed=5)
+        wx, ax, sx = (torch.as_tensor(x, device=dev) for x in (w_np, adj_np, sv_np))
+        for s in (1, 4):
+            tag = f"dense trimmed mean decide edge cases n = {n_e} stride {s}"
+            got = screen_decide.trimmed_mean_dense_decide(wx, ax, sx, 3, s)
+            want = ref.trimmed_mean_dense_decide(wx, ax, sx, 3, s)
+            plain_y = trimmed_mean.trimmed_mean_dense(wx, ax, sx, 3)
+            if n_e <= 64:
+                decide_or_raise(tag, got, want, plain_y)
+            else:
+                exact_or_raise(f"{tag} y against the plain kernel", got[0], plain_y)
+                exact_or_raise(f"{tag} trim", got[1], want[1])
+                summation_or_raise(f"{tag} y", got[0], want[0], wx[None], ax.sum(dim=1), sx)
+            decide_or_raise(f"dense median decide edge cases n = {n_e} stride {s}",
+                            screen_decide.median_dense_decide(wx, ax, sx, s),
+                            ref.median_dense_decide(wx, ax, sx, s),
+                            median.median_dense(wx, ax, sx))
+    # gather: the sparse path's table
+    stopo = small_world(SM, NEAREST, SB, rewire_prob=0.2, seed=0)
+    table = NeighborTable.from_adjacency(stopo.adjacency, device=dev)
+    ws = torch.randn((SM, D), generator=gen, device=dev)
+    idx, valid = table.safe_idx, table.valid_dev
+    scounts = table.valid.sum(axis=1)
+    for rule, kern, plain, ykern in (
+        ("trimmed_mean",
+         lambda s, v=valid: screen_decide.gather_screen_trimmed_mean_decide(ws, idx, v, ws, SB, s),
+         lambda s, v=valid: ref.gather_trimmed_mean_decide(ws, idx, v, ws, SB, s),
+         lambda: gather_screen.gather_screen_trimmed_mean(ws, idx, valid, ws, SB)),
+        ("median",
+         lambda s, v=valid: screen_decide.gather_screen_median_decide(ws, idx, v, ws, s),
+         lambda s, v=valid: ref.gather_median_decide(ws, idx, v, ws, s),
+         lambda: gather_screen.gather_screen_median(ws, idx, valid, ws)),
+    ):
+        name = f"gather_screen_{rule}_decide"
+        err = max(decide_or_raise(f"{name} stride {s}", kern(s), plain(s), ykern())
+                  for s in DECIDE_STRIDES)
+        nbytes = 3 * SM * D * 4 + SM * table.k * (4 + 1 + 4)
+        rec = record(name, src["gather"], DECIDE_REPLACES[rule], lambda: kern(16),
+                     lambda: plain(16), None, nbytes,
+                     decide_ops(scounts, D, SB, 16, rule == "median"), err)
+        rec["plain_kernel_ms"] = cuda_ms(ykern)
+        print(f"  {name}: plain kernel {rec['plain_kernel_ms']:.4f} ms, decide stride 1 "
+              f"{cuda_ms(lambda: kern(1)):.4f} ms")
+        records.append(rec)
+    # gather: per-cell table masks, and edge cases on a table with padded slots
+    e = 4
+    wg = torch.randn((e, SM, D), generator=gen, device=dev)
+    valid_e = (valid[None] & (torch.rand((e, SM, table.k), generator=gen, device=dev) < 0.8))
+    valid_e = valid_e.contiguous()
+    b_g = torch.tensor([1, 2, 3, 2], dtype=torch.int32, device=dev)
+    for s in DECIDE_STRIDES:
+        decide_or_raise(f"gather trimmed mean decide E = {e} stride {s}",
+                        screen_decide.gather_screen_trimmed_mean_decide(wg, idx, valid_e, wg,
+                                                                        b_g, s),
+                        ref.gather_trimmed_mean_decide(wg, idx, valid_e, wg, b_g, s),
+                        gather_screen.gather_screen_trimmed_mean(wg, idx, valid_e, wg, b_g))
+        decide_or_raise(f"gather median decide E = {e} stride {s}",
+                        screen_decide.gather_screen_median_decide(wg, idx, valid_e, wg, s),
+                        ref.gather_median_decide(wg, idx, valid_e, wg, s),
+                        gather_screen.gather_screen_median(wg, idx, valid_e, wg))
+    for k in (3, 16, 40, 63):
+        w_np, adj_np, sv_np = sparse_case_inputs(k, 300, seed=k)
+        tab = NeighborTable.from_adjacency(adj_np, k=k, device=dev)
+        wx, sx = torch.as_tensor(w_np, device=dev), torch.as_tensor(sv_np, device=dev)
+        for s in (1, 4):
+            decide_or_raise(f"gather trimmed mean decide edge cases K = {k} stride {s}",
+                            screen_decide.gather_screen_trimmed_mean_decide(
+                                wx, tab.safe_idx, tab.valid_dev, sx, 2, s),
+                            ref.gather_trimmed_mean_decide(wx, tab.safe_idx, tab.valid_dev, sx, 2,
+                                                           s),
+                            gather_screen.gather_screen_trimmed_mean(wx, tab.safe_idx,
+                                                                     tab.valid_dev, sx, 2))
+            decide_or_raise(f"gather median decide edge cases K = {k} stride {s}",
+                            screen_decide.gather_screen_median_decide(
+                                wx, tab.safe_idx, tab.valid_dev, sx, s),
+                            ref.gather_median_decide(wx, tab.safe_idx, tab.valid_dev, sx, s),
+                            gather_screen.gather_screen_median(wx, tab.safe_idx, tab.valid_dev,
+                                                               sx))
+    # views: sparse M = 512, K = 16 (each node's gathered rows), dense M = W = 50
+    views_s = ref.gather(ws, idx).contiguous()
+    views_d = w[None].expand(M, M, D)  # a broadcast over the receivers, stride 0
+    for tag, views, mask, sv, b, cnt in (("sparse", views_s, valid, ws, SB, scounts),
+                                         ("dense", views_d.contiguous(), adj, w, B, counts)):
+        for rule in ("trimmed_mean", "median"):
+            if rule == "trimmed_mean":
+                kern = lambda s, v=views, mk=mask, x=sv, bb=b: \
+                    screen_decide.views_screen_trimmed_mean_decide(v, mk, x, bb, s)
+                plain = lambda s, v=views, mk=mask, x=sv, bb=b: \
+                    ref.trimmed_mean_views_decide(v, mk, x, bb, s)
+                ykern = lambda v=views, mk=mask, x=sv, bb=b: \
+                    views_screen.views_screen_trimmed_mean(v, mk, x, bb)
+            else:
+                kern = lambda s, v=views, mk=mask, x=sv: \
+                    screen_decide.views_screen_median_decide(v, mk, x, s)
+                plain = lambda s, v=views, mk=mask, x=sv: ref.median_views_decide(v, mk, x, s)
+                ykern = lambda v=views, mk=mask, x=sv: views_screen.views_screen_median(v, mk, x)
+            name = f"views_screen_{rule}_decide"
+            err = max(decide_or_raise(f"{name} {tag} stride {s}", kern(s), plain(s), ykern())
+                      for s in DECIDE_STRIDES)
+            if tag == "dense":  # the stride-0 receivers read in place
+                decide_or_raise(f"{name} dense stride-0 views", kern(16, views_d), plain(16),
+                                ykern())
+                continue
+            mw = mask.shape[1]
+            nbytes = int(cnt.sum()) * D * 4 + 2 * SM * D * 4 + SM * mw * (1 + 4)
+            rec = record(name, src["views"], DECIDE_REPLACES[rule], lambda k_=kern: k_(16),
+                         lambda p_=plain: p_(16), None, nbytes,
+                         decide_ops(cnt, D, b, 16, rule == "median"), err)
+            rec["plain_kernel_ms"] = cuda_ms(ykern)
+            print(f"  {name} ({tag}): plain kernel {rec['plain_kernel_ms']:.4f} ms, decide "
+                  f"stride 1 {cuda_ms(lambda k_=kern: k_(1)):.4f} ms")
+            records.append(rec)
+    # views: per-cell masks over E cells' views
+    e = 4
+    ve = torch.randn((e, SM, table.k, D // 8), generator=gen, device=dev)
+    me = (valid[None] & (torch.rand((e, SM, table.k), generator=gen, device=dev) < 0.8))
+    me = me.contiguous()
+    se = torch.randn((e, SM, D // 8), generator=gen, device=dev)
+    for s in DECIDE_STRIDES:
+        decide_or_raise(f"views trimmed mean decide E = {e} stride {s}",
+                        screen_decide.views_screen_trimmed_mean_decide(ve, me, se, b_g, s),
+                        ref.trimmed_mean_views_decide(ve, me, se, b_g, s),
+                        views_screen.views_screen_trimmed_mean(ve, me, se, b_g))
+        decide_or_raise(f"views median decide E = {e} stride {s}",
+                        screen_decide.views_screen_median_decide(ve, me, se, s),
+                        ref.median_views_decide(ve, me, se, s),
+                        views_screen.views_screen_median(ve, me, se))
+    # above the register networks the decide form refuses (no wide path)
+    wide = torch.randn((WIDE_M, 64), generator=gen, device=dev)
+    wide_adj = torch.ones((WIDE_M, WIDE_M), dtype=torch.bool, device=dev)
+    for call in (lambda: screen_decide.trimmed_mean_dense_decide(wide, wide_adj, wide, 1),
+                 lambda: screen_decide.views_screen_median_decide(
+                     wide[None].expand(WIDE_M, WIDE_M, 64), wide_adj, wide)):
+        try:
+            call()
+        except ValueError as err:
+            if "ROADMAP" not in str(err):
+                raise
+        else:
+            raise AssertionError("a decide form above the register networks did not refuse")
+    print("decide kernels: every y and trim equal to the plain twins (strides 1 and 16, edge "
+          "cases, per-cell masks); library: no PyTorch call computes the decisions")
+    return records
+
+
+# The reference's trust and forensics runs (tools/reference_accuracy.py,
+# group trust: trust_bench's smoke sizes, obs_bench's trace_overhead cells
+# at M = 512), on a CPU; phase 23 holds the card to them.
+REFERENCE_TRUST = {
+    "trust breakdown": {
+        "static": {"feasible_b": 6,
+            "ref": {"final_loss": 0.2471114844083786, "score": 0.996666669845581},
+            "adversaries": {"equivocate": {"bstar": 6, "certified_monotone": True, "probes": {
+            "1": {"survived": True, "final_loss": 0.2423565536737442, "score": 0.9982142874172756},
+            "2": {"survived": True, "final_loss": 0.3583698272705078, "score": 0.989999954517071},
+            "3": {"survived": True, "final_loss": 0.2686183750629425, "score": 0.9883332848548889},
+            "4": {"survived": True, "final_loss": 0.30991142988204956, "score": 0.9565908908843994},
+            "5": {"survived": True, "final_loss": 0.27027639746665955, "score": 0.9584999799728393},
+            "6": {"survived": True, "final_loss": 0.21238496899604797, "score": 0.863611082235972},
+            }}}},
+        "rep_trust": {"feasible_b": 7,
+            "ref": {"final_loss": 0.2471114993095398, "score": 0.996666669845581},
+            "adversaries": {"equivocate": {"bstar": 7, "certified_monotone": True, "probes": {
+            "1": {"survived": True, "final_loss": 0.24950312077999115, "score": 0.9978571449007306},
+            "2": {"survived": True, "final_loss": 0.3152696490287781, "score": 0.9865384147717402},
+            "3": {"survived": True, "final_loss": 0.2942735552787781, "score": 0.9822916239500046},
+            "4": {"survived": True, "final_loss": 0.43668463826179504, "score": 0.9320454434915022},
+            "5": {"survived": True, "final_loss": 0.26773467659950256, "score": 0.9444999933242798},
+            "6": {"survived": True, "final_loss": 0.23564580082893372, "score": 0.8477777507570055},
+            "7": {"survived": True, "final_loss": 0.3887954354286194, "score": 0.8637499660253525},
+            }}}},
+    },
+    "trust detection": {
+        "equivocate": {
+            "edges_evicted": 22, "echo_mismatch_total": 110.0, "max_suspicion": 1.0,
+            "byz_edges": 20, "honest_edges": 100, "byz_evicted": 20, "honest_evicted": 0,
+            "honest_eviction_rate": 0.0, "byz_eviction_rate": 1.0, "auc_byzantine_edges": 1.0},
+        "slander": {
+            "edges_evicted": 22, "echo_mismatch_total": 110.0, "max_suspicion": 1.0,
+            "byz_edges": 20, "honest_edges": 100, "byz_evicted": 0, "honest_evicted": 0,
+            "honest_eviction_rate": 0.0, "byz_eviction_rate": 0.0, "auc_byzantine_edges": 1.0},
+    },
+    "trust inertness": {"bit_identical": True},
+    "obs trace stress": {"bit_identical": True, "auc_byzantine_edges": 0.9727895341207349,
+        "k": 16, "dim": 64, "survival": {
+            "byz_edges_seen": 479.0,
+            "byz_trim_freq": 0.649008350730689,
+            "honest_edges_seen": 122072.0,
+            "honest_trim_freq": 0.3329930287043712,
+        }},
+    "obs trace paper": {"bit_identical": True, "auc_byzantine_edges": 1.0,
+        "k": 16, "dim": 7850, "survival": {
+            "byz_edges_seen": 71.0,
+            "byz_trim_freq": 0.8170448088310134,
+            "honest_edges_seen": 18037.0,
+            "honest_trim_freq": 0.3374168538542302,
+        }},
+}
+# AUC and trim-frequency tolerance of the obs cells: their trajectories are
+# the reference's within the crafted rows' ulps, not bit for bit (on an
+# H100 the stress cell's AUC and survival read the reference's exactly, the
+# paper cell's survival within 5.4e-08)
+OBS_TOL = 1e-5
+TRUST_TICKS, DETECT_TICKS, INERT_TICKS = 64, 16, 12
+STRESS_TICKS, PAPER_TICKS, FORENSIC_TICKS, REP_TICKS = 20, 3, 20, 8
+QUAD_DIM = 64  # the trust and obs benchmarks' synthetic quadratic
+
+
+def quad_task(m: int, dev, seed: int = 0):
+    """The trust and obs benchmarks' d = 64 quadratic (``0.5 |w - c|^2``,
+    targets ``default_rng(seed).normal((M, 64))``, replicas from ``PRNGKey``
+    perturbed by 0.1): ``(grad_fn, init_fn, targets)``."""
+    targets = torch.as_tensor(np.random.default_rng(seed).normal(size=(m, QUAD_DIM))
+                              .astype(np.float32), device=dev)
+
+    def grad_fn(params, batch):
+        w = params["w"]
+        return 0.5 * torch.sum((w - batch) ** 2, dim=-1), {"w": w - batch}
+
+    def init_fn(s):
+        return replicate({"w": torch.zeros(QUAD_DIM, device=dev)}, m, perturb=0.1,
+                         key=prng.PRNGKey(s))
+
+    return grad_fn, init_fn, targets
+
+
+def trust_breakdown_runs(dev) -> None:
+    """(b) trust_bench's breakdown study: static BRIDGE-T against
+    ``rep_trimmed_mean`` with the trust layer, ``equivocate`` through
+    ``ideal`` on the complete graph, held to the reference's certificate."""
+    from repro_torch.core.graph import complete_graph
+    from repro_torch.trust import TrustSpec
+
+    m, b_max, drop = 15, 7, 0.15
+    task = linear_task(m, TRUST_TICKS, partition="moderate", num_train=2000, num_test=400, seed=0,
+                       device=dev)
+    cfg = BreakdownConfig(mode="ladder", seeds=(0,), b_max=b_max, loss_ratio=LOSS_RATIO,
+                          score_drop=drop)
+    stars_of = {}
+    for arm, rule, spec in (("static", "trimmed_mean", None),
+                            ("rep_trust", "rep_trimmed_mean", TrustSpec(warmup=4))):
+        before = read_launches()
+        t0 = time.perf_counter()
+        bd = BreakdownEngine(complete_graph(m, b_max), (rule,), ("equivocate",), task.grad_fn,
+                             task.init_fn, task.batches, lam=1.0, t0=30.0, config=cfg,
+                             eval_fn=task.eval_accuracy, scenario="ideal", trust=spec, device=dev)
+        res = bd.run()
+        wall = time.perf_counter() - t0
+        check_grew(f"trust breakdown {arm}", before, round_want(bd, TRUST_TICKS, net=True))
+        moved, loss_worst = hold_certificate(f"trust breakdown {arm}", res,
+                                             {rule: REFERENCE_TRUST["trust breakdown"][arm]},
+                                             score_drop=drop)
+        arec = res["rules"][rule]["adversaries"]["equivocate"]
+        stars_of[arm] = arec["bstar"]
+        print(f"trust breakdown {arm} ({rule}{', trust' if spec else ''}): b* {arec['bstar']} "
+              f"(feasible {res['rules'][rule]['feasible_b']}; the reference's "
+              f"{REFERENCE_TRUST['trust breakdown'][arm]['adversaries']['equivocate']['bstar']}),"
+              f" {res['meta']['cells_run']} cells, {wall:.2f} s; scores "
+              + ", ".join(f"b={b} {p['score']:.4f}" for b, p in arec["probes"].items())
+              + f"; final losses within {loss_worst:.3g} of the reference's"
+              + (f"; verdicts at the threshold that moved: {moved}" if moved else ""))
+    if not stars_of["rep_trust"] > stars_of["static"]:
+        raise AssertionError(f"trust breakdown: detect-and-expel b* {stars_of['rep_trust']} does "
+                             f"not beat the static {stars_of['static']}")
+    print(f"trust breakdown: detect_and_expel_beats_static True ({stars_of['rep_trust']} > "
+          f"{stars_of['static']})")
+
+
+def trust_detection_runs(dev) -> None:
+    """(b) trust_bench's detection cells: one net grid (``ideal``, the
+    complete graph, ``rep_trimmed_mean``), ``equivocate`` evicted and
+    ``slander`` evicting nothing, each summary the reference's."""
+    from repro_torch.core.graph import complete_graph
+    from repro_torch.trust import TrustSpec
+    from repro_torch.trust import summarize as trust_summary
+
+    m, b = 12, 2
+    grad_fn, init_fn, targets = quad_task(m, dev)
+    spec = TrustSpec(warmup=4)
+    grid = ExperimentGrid(complete_graph(m, b), ("rep_trimmed_mean",), ("none",), (b,), (0,),
+                          scenarios=("ideal",), adversaries=("equivocate", "slander"),
+                          lam=1.0, t0=30.0)
+    before = read_launches()
+    engine = GridEngine(grid, grad_fn, num_ticks=DETECT_TICKS, trust=spec, device=dev)
+    t0 = time.perf_counter()
+    final, _ = engine.run(engine.init(init_fn), targets[None].expand(DETECT_TICKS, m, QUAD_DIM))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_grew("trust detection", before, net_grid_want(engine, DETECT_TICKS))
+    senders = engine.sender_grid()
+    want = REFERENCE_TRUST["trust detection"]
+    for i, cell in enumerate(engine.cells):
+        rec = trust_summary(spec, type(final.trust)(*(x[i] for x in final.trust)),
+                            byz_mask=engine.byz_masks[i], senders=senders)
+        rec.pop("spec")
+        ref_rec = want[cell.adversary]
+        exact = {k: v for k, v in rec.items() if k != "max_suspicion"}
+        if exact != {k: v for k, v in ref_rec.items() if k != "max_suspicion"} or not math.isclose(
+                rec["max_suspicion"], ref_rec["max_suspicion"], rel_tol=1e-5):
+            raise AssertionError(f"trust detection {cell.adversary}: {rec} != the reference's "
+                                 f"{ref_rec}")
+        print(f"trust detection {cell.adversary}: evicted {rec['edges_evicted']}, byz rate "
+              f"{rec['byz_eviction_rate']:.2f}, honest evicted {rec['honest_evicted']}, AUC "
+              f"{rec['auc_byzantine_edges']}: the reference's")
+    eq, sl = (want[a] for a in ("equivocate", "slander"))
+    acc = {"equivocators_detected": eq["byz_eviction_rate"] >= 0.8
+           and (eq["auc_byzantine_edges"] or 0.0) >= 0.9,
+           "honest_eviction_rate_zero": eq["honest_evicted"] == 0 and sl["honest_evicted"] == 0,
+           "slander_evicts_nothing": sl["honest_evicted"] == 0 and sl["byz_evicted"] == 0}
+    if not all(acc.values()):
+        raise AssertionError(f"trust detection: {acc}")
+    print(f"trust detection: {acc}, {wall:.2f} s for {DETECT_TICKS} ticks")
+
+
+def steady_run(trainer, state, batches, reps: int = 2):
+    """(min wall over ``reps`` runs after a first, final state) of
+    ``run_scan`` from ``state``, each run ending in a synchronize."""
+    walls = []
+    for i in range(reps + 1):
+        t0 = time.perf_counter()
+        fin, _ = trainer.run_scan(state, batches)
+        torch.cuda.synchronize()
+        if i:
+            walls.append(time.perf_counter() - t0)
+    return min(walls), fin
+
+
+def trust_inertness_run(dev) -> dict:
+    """(b) trust_bench's inertness cell: a dense async cell (M = 32, the
+    complete graph, BRIDGE-T, ``alie``, drop 0.05) trust off against trust
+    on but inert (warmup past the horizon): bit for bit, and the wall of
+    each (the echo and the reputation's cost)."""
+    from repro_torch.core.graph import complete_graph
+    from repro_torch.trust import TrustSpec
+
+    m = 32
+    grad_fn, init_fn, targets = quad_task(m, dev)
+    batches = targets[None].expand(INERT_TICKS, m, QUAD_DIM).contiguous()
+    out = {}
+    for tag, spec in (("off", None), ("on", TrustSpec(warmup=INERT_TICKS + 1))):
+        cfg = AsyncBridgeConfig(topology=complete_graph(m, 2), rule="trimmed_mean",
+                                num_byzantine=2, attack="alie",
+                                channel=ChannelConfig(drop_prob=0.05), staleness_bound=2,
+                                lam=1.0, t0=100.0, trust=spec)
+        tr = AsyncBridgeTrainer(cfg, grad_fn, device=dev)
+        out[tag] = steady_run(tr, tr.init(init_fn(0), seed=0), batches)
+        # where the tick's time goes: 13 ticks, profiled
+        profile_trainer(f"trust inertness {tag}", tr, tr.init(init_fn(0), seed=0),
+                        lambda i: targets)
+    if not bit_equal(out["off"][1].params["w"], out["on"][1].params["w"]):
+        raise AssertionError("trust inertness: trust on but inert moved the trajectory")
+    off, on = out["off"][0], out["on"][0]
+    ref_inert = REFERENCE_TRUST["trust inertness"]["bit_identical"]
+    print(f"trust inertness (M = {m}, {INERT_TICKS} ticks): bit_identical True (the reference: "
+          f"{ref_inert}); off {off / INERT_TICKS * 1e3:.3f} ms/tick, on "
+          f"{on / INERT_TICKS * 1e3:.3f} ms/tick ({on / off - 1.0:+.1%})")
+    return {"views_screen_trimmed_mean": 3 * INERT_TICKS + 13,
+            "views_screen_trimmed_mean_decide": 3 * INERT_TICKS + 13}
+
+
+def obs_cell(dev, paper: bool):
+    """obs_bench's sparse cell (`_build`): ``(task pieces, config kw)``."""
+    if paper:
+        task = net_task(SM, dev, num_train=max(2000, 32 * SM), num_test=200, batch=8)
+        return task.grad_fn, task.init_fn, task.batch_fn
+    grad_fn, init_fn, targets = quad_task(SM, dev)
+    return grad_fn, init_fn, lambda i: targets
+
+
+def obs_trace_runs(dev) -> dict:
+    """(c) obs_bench's ``trace_overhead`` cells through the sparse runtime
+    (``small_world(512, 6, 2)``, BRIDGE-T, ``alie``, drop 0.05): traced
+    against untraced, bit for bit; AUC and survival against the
+    reference's; ms/tick of each and the overhead.  Then the stress cell
+    under BRIDGE-M, traced against untraced (the views median's decide
+    form)."""
+    from repro_torch.obs import TraceSpec
+    from repro_torch.obs import trace as obs_trace
+
+    topo = small_world(SM, NEAREST, SB, rewire_prob=0.2, seed=0)
+    want: dict[str, int] = {}
+    for name, ticks, stride, rule in (("stress", STRESS_TICKS, 4, "trimmed_mean"),
+                                      ("paper", PAPER_TICKS, 16, "trimmed_mean"),
+                                      ("stress", STRESS_TICKS, 4, "median")):
+        grad_fn, init_fn, batch_fn = obs_cell(dev, name == "paper")
+        batches = stack_batches(batch_fn, ticks, device=dev)
+        spec = TraceSpec(decide_stride=stride)
+        runs = {}
+        for tag, trace in (("untraced", None), ("traced", spec)):
+            cfg = AsyncBridgeConfig(topology=topo, rule=rule, num_byzantine=SB, attack="alie",
+                                    channel=ChannelConfig(drop_prob=0.05), staleness_bound=2,
+                                    lam=1.0, t0=100.0, sparse=True, trace=trace)
+            tr = AsyncBridgeTrainer(cfg, grad_fn, device=dev)
+            runs[tag] = steady_run(tr, tr.init(init_fn(0), seed=0), batches), tr
+        (off, fin_off), tr_off = runs["untraced"]
+        (on, fin_on), tr = runs["traced"]
+        if name == "paper":  # where the stage's time goes: 13 ticks each, profiled
+            step_of = lambda i: tuple(x[i % ticks] for x in batches)  # noqa: E731
+            for tag, trainer in (("untraced", tr_off), ("traced", tr)):
+                profile_trainer(f"obs trace paper {tag}", trainer,
+                                trainer.init(init_fn(0), seed=0), step_of)
+            kern = VIEWS_OF[rule]
+            for k in (kern, f"{kern}_decide"):
+                want[k] = want.get(k, 0) + 13
+        for k in fin_off.params:
+            if not bit_equal(fin_off.params[k], fin_on.params[k]):
+                raise AssertionError(f"obs trace {name} {rule}: the traced run moved the "
+                                     f"trajectory")
+        kern = VIEWS_OF[rule]
+        for k, n in ((kern, 3 * ticks), (f"{kern}_decide", 3 * ticks)):
+            want[k] = want.get(k, 0) + n
+        summary = obs_trace.summarize(spec, fin_on.obs, byz_mask=tr.byz_mask.cpu().numpy(),
+                                      senders=obs_trace.sender_grid(SM, neighbors=tr.runtime
+                                                                    .neighbors))
+        line = (f"obs trace {name} {rule} (M = {SM}, K = {tr.runtime.neighbors.k}, {ticks} "
+                f"ticks, stride {stride}): bit_identical True, untraced "
+                f"{off / ticks * 1e3:.3f} ms/tick, traced {on / ticks * 1e3:.3f} ms/tick "
+                f"({on / off - 1.0:+.1%}), AUC {summary['auc_byzantine_edges']}, survival "
+                f"{summary['survival']}")
+        if rule == "trimmed_mean":
+            ref_rec = REFERENCE_TRUST[f"obs trace {name}"]
+            auc_err = abs(summary["auc_byzantine_edges"] - ref_rec["auc_byzantine_edges"])
+            surv_err = max(abs(summary["survival"][k] - v)
+                           for k, v in ref_rec["survival"].items())
+            seen = {k: summary["survival"][k] for k in ("byz_edges_seen", "honest_edges_seen")}
+            if seen != {k: ref_rec["survival"][k] for k in seen} or auc_err > OBS_TOL or \
+                    surv_err > OBS_TOL:
+                raise AssertionError(f"obs trace {name}: AUC / survival beyond {OBS_TOL} of the "
+                                     f"reference's {ref_rec} ({summary})")
+            line += (f"; the reference's: AUC {ref_rec['auc_byzantine_edges']}, edges seen "
+                     f"equal, trim frequencies within {surv_err:.3g}")
+        print(line)
+    return want
+
+
+def forensic_trainer_runs(dev) -> dict:
+    """(d) The trace's forensics on the synchronous main path at d = 7850:
+    BRIDGE-T and BRIDGE-M, dense (M = 50, random, b = 4: the dense decide
+    kernels) and sparse (``small_world(512, 6, 2)``, b = 2: the gather
+    decide kernels), traced (stride 16) against untraced over
+    `FORENSIC_TICKS` ticks, bit for bit."""
+    from repro_torch.obs import TraceSpec
+
+    want: dict[str, int] = {}
+    for path, m, b, batch, topo in (
+            ("dense", M, B, 32, erdos_renyi(M, 0.5, B, seed=0)),
+            ("sparse", SM, SB, 8, small_world(SM, NEAREST, SB, rewire_prob=0.2, seed=0))):
+        task = linear_task(m, FORENSIC_TICKS, partition="iid",
+                           num_train=6000 if path == "dense" else 16384, num_test=1000,
+                           batch=batch, seed=0, device=dev)
+        for rule in ("trimmed_mean", "median"):
+            finals, times = [], []
+            for trace in (None, TraceSpec(decide_stride=16)):
+                tr = BridgeTrainer(BridgeConfig(topology=topo, rule=rule, num_byzantine=b,
+                                                attack="random", lam=1.0, t0=30.0,
+                                                sparse=path == "sparse", trace=trace),
+                                   task.grad_fn, device=dev)
+                st = tr.init(task.init_fn(0), seed=1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(FORENSIC_TICKS):
+                    st, _ = tr.step(st, tuple(x[i] for x in task.batches))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) / FORENSIC_TICKS * 1e3)
+                finals.append(st)
+            for k in finals[0].params:
+                if not bit_equal(finals[0].params[k], finals[1].params[k]):
+                    raise AssertionError(f"forensic trainer {path} {rule}: traced != untraced")
+            kern = {"dense": {"trimmed_mean": "screen_trimmed_mean_dense",
+                              "median": "screen_median_dense"},
+                    "sparse": {"trimmed_mean": "gather_screen_trimmed_mean",
+                               "median": "gather_screen_median"}}[path][rule]
+            for k in (kern, f"{kern}_decide"):
+                want[k] = want.get(k, 0) + FORENSIC_TICKS
+            obs = finals[1].obs
+            freq = float(obs.byz_trim / torch.clamp(obs.byz_seen, min=1.0))
+            hon = float(obs.hon_trim / torch.clamp(obs.hon_seen, min=1.0))
+            print(f"forensic trainer {path} {rule} (d = {D}, stride 16): traced == untraced bit "
+                  f"for bit; {times[0]:.3f} -> {times[1]:.3f} ms/tick; byz trim freq "
+                  f"{freq:.4f}, honest {hon:.4f}")
+    return want
+
+
+class PlainDecide:
+    """Within it, the median's decide entries (`kernels.ops`) run their
+    plain twins, no kernel: the yardstick of `rep_median_trust_runs`."""
+
+    TWINS = {"median_decide": ref.median_dense_decide,
+             "gather_median_decide": ref.gather_median_decide,
+             "views_median_decide": ref.median_views_decide}
+
+    def __enter__(self):
+        self.saved = {name: getattr(ops, name) for name in self.TWINS}
+        for name, fn in self.TWINS.items():
+            setattr(ops, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(ops, name, fn)
+
+
+def rep_median_trust_runs(dev) -> dict:
+    """(e) ``rep_median`` with the trust layer (warmup 2) on its three
+    layouts: dense (M = 50, random, b = 4) and sparse (``small_world(512,
+    6, 2)``) synchronous on the linear task, and the dense runtime with
+    the echo (M = 32, the complete graph, ``alie``, drop 0.05) on the d =
+    64 quadratic.  Its trim comes from the median decide kernel of the
+    layout (one launch a tick, no other kernel); the trust state and the
+    parameters must equal, bit for bit, the same run's under
+    `PlainDecide`."""
+    from repro_torch.core.graph import complete_graph
+    from repro_torch.trust import TrustSpec
+
+    spec = TrustSpec(warmup=2)
+    runs = []
+    for path, m, b, batch, topo in (
+            ("dense", M, B, 32, erdos_renyi(M, 0.5, B, seed=0)),
+            ("sparse", SM, SB, 8, small_world(SM, NEAREST, SB, rewire_prob=0.2, seed=0))):
+        task = linear_task(m, REP_TICKS, partition="iid",
+                           num_train=6000 if path == "dense" else 16384, num_test=1000,
+                           batch=batch, seed=0, device=dev)
+        cfg = BridgeConfig(topology=topo, rule="rep_median", num_byzantine=b, attack="random",
+                           lam=1.0, t0=30.0, sparse=path == "sparse", trust=spec)
+        runs.append((f"{path} synchronous", "screen_median_dense_decide" if path == "dense"
+                     else "gather_screen_median_decide",
+                     lambda cfg=cfg, task=task: BridgeTrainer(cfg, task.grad_fn, device=dev),
+                     task.init_fn, lambda i, task=task: tuple(x[i] for x in task.batches)))
+    grad_fn, init_fn, targets = quad_task(32, dev)
+    rcfg = AsyncBridgeConfig(topology=complete_graph(32, 2), rule="rep_median", num_byzantine=2,
+                             attack="alie", channel=ChannelConfig(drop_prob=0.05),
+                             staleness_bound=2, lam=1.0, t0=100.0, trust=spec)
+    runs.append(("dense runtime with the echo", "views_screen_median_decide",
+                 lambda: AsyncBridgeTrainer(rcfg, grad_fn, device=dev), init_fn,
+                 lambda i: targets))
+    want: dict[str, int] = {}
+    for tag, kern, make, init, batch_of in runs:
+        saved = read_launches()  # two warm-up ticks each way, not counted
+        for plain in (False, True):
+            tr = make()
+            st = tr.init(init(0), seed=1)
+            with PlainDecide() if plain else contextlib.nullcontext():
+                for i in range(2):
+                    st, _ = tr.step(st, batch_of(i))
+        torch.cuda.synchronize()
+        set_launches(saved)
+        finals, ms = [], []
+        for plain in (False, True):
+            tr = make()
+            st = tr.init(init(0), seed=1)
+            torch.cuda.synchronize()
+            before = read_launches()
+            t0 = time.perf_counter()
+            with PlainDecide() if plain else contextlib.nullcontext():
+                for i in range(REP_TICKS):
+                    st, _ = tr.step(st, batch_of(i))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) / REP_TICKS * 1e3)
+            grown = {k: v - before[k] for k, v in read_launches().items() if v != before[k]}
+            if grown != ({} if plain else {kern: REP_TICKS}):
+                raise AssertionError(f"rep_median trust {tag} ({'twins' if plain else 'kernels'}"
+                                     f"): launches {grown}")
+            finals.append(st)
+        got, yard = finals
+        for name, x, y in (*zip(got.trust._fields, got.trust, yard.trust),
+                           *((k, got.params[k], yard.params[k]) for k in got.params)):
+            if not (bit_equal(x, y) if x.is_floating_point() else torch.equal(x, y)):
+                raise AssertionError(f"rep_median trust {tag}: {name} differs from the plain "
+                                     f"twins' run")
+        want[kern] = want.get(kern, 0) + REP_TICKS
+        print(f"rep_median trust {tag} ({REP_TICKS} ticks): {kern} {REP_TICKS} launches; trust "
+              f"state and parameters equal to the plain twins' run bit for bit (max suspicion "
+              f"{float(got.trust.suspicion.max()):.4f}, {int(got.trust.evicted.sum())} edges "
+              f"evicted); {ms[0]:.3f} ms/tick, the plain twins {ms[1]:.3f} (after two "
+              f"warm-up ticks each)")
+    return want
+
+
+def trust_phase(dev):
+    """Phase 23 (the module docstring's list): the decide kernels' records,
+    then the main-path runs, each held to its exact launches; returns the
+    records and the phase's launches."""
+    t_phase = time.perf_counter()
+    records = decide_kernel_phase(dev)
+    zero_launches()
+    want: dict[str, int] = {}
+    before = read_launches()
+    trust_breakdown_runs(dev)
+    trust_detection_runs(dev)
+    grown = {k: v - before[k] for k, v in read_launches().items() if v != before[k]}
+    for part in (grown, trust_inertness_run(dev), obs_trace_runs(dev),
+                 forensic_trainer_runs(dev), rep_median_trust_runs(dev)):
+        for k, n in part.items():
+            want[k] = want.get(k, 0) + n
+    launches = read_launches()
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"phase 23: launches {launches} != the runs' {want}")
+    print(f"(phase 23 alone: {time.perf_counter() - t_phase:.1f} s)")
+    return records, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3891,6 +4625,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_launches["breakdown_phase"], breakdown_engines = breakdown_phase(dev)
     print(f"(breakdown_phase: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_records, phase_launches["trust_phase"] = trust_phase(dev)
+    records += phase_records
+    print(f"(trust_phase: {time.perf_counter() - t0:.1f} s)")
     for rec in records:
         if rec["name"].endswith("[E]"):  # this phase's grid engines ran the experiment forms
             rec["launches"] += breakdown_engines.get(rec["name"][:-len("[E]")], 0)

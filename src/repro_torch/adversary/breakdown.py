@@ -21,8 +21,11 @@ screening kernel launches once a tick for a group of cells.
 
 The reference counts compilations (``compiles``); the port runs eagerly,
 so ``compiles`` is the sum of each round's `GridEngine.num_steps_built`
-(one step a group).  Not here: ``trust=`` (the detect-and-expel ladder),
-which needs the trust layer, ROADMAP Queue 1 open item 5.
+(one step a group).  ``trust`` (a `repro_torch.trust.TrustSpec`) runs
+every probe with the trust layer: the detect-and-expel ladder of the
+reference's ``benchmarks/trust_bench.py``, where a ``rep_*`` rule's
+``b + 1`` degree requirement (`screening.MIN_NEIGHBORS`) lets it certify
+past the static ``2b + 1`` wall.
 """
 from __future__ import annotations
 
@@ -37,8 +40,6 @@ from repro_torch.core import screening
 from repro_torch.device import resolve_device, wait
 from repro_torch.obs import TraceSpec
 from repro_torch.sim import Cell, ExperimentGrid, GridEngine
-
-TRUST = "trust=: the trust layer is ROADMAP Queue 1 open item 5 (trust and telemetry)"
 
 # ctor sentinel: "use the default sentinel-only trace" (pass trace=None to
 # run with observability off)
@@ -119,8 +120,6 @@ class BreakdownEngine:
                  device: str | torch.device = "cuda"):
         if "none" in adversaries:
             raise ValueError("'none' is the reference, not a certifiable adversary")
-        if trust is not None:
-            raise ValueError(TRUST)
         self.device = resolve_device(device)
         self.topology = topology
         self.rules = tuple(rules)
@@ -136,7 +135,7 @@ class BreakdownEngine:
         # first bad tick) instead of inferred from NaNs; bit-inert
         self.trace = (TraceSpec(forensics=False, sentinel=True)
                       if trace is _DEFAULT_TRACE else trace)
-        self.trust = None
+        self.trust = trust
         self.scenario = scenario
         # net-mode grids need the schedule length up front
         self.num_ticks = _leading_ticks(batches)
@@ -173,6 +172,7 @@ class BreakdownEngine:
                       adversary=adv, mask_seed=s)
                  for (rule, adv, b) in keys for s in self.config.seeds]
         engine = GridEngine(self._grid(), self.grad_fn, cells=cells, trace=self.trace,
+                            trust=self.trust,
                             num_ticks=self.num_ticks if self.scenario else None,
                             device=self.device)
         self.round_engines.append(engine)
@@ -272,7 +272,7 @@ class BreakdownEngine:
             "loss_ratio": self.config.loss_ratio,
             "adversaries": list(self.adversaries),
             "scenario": self.scenario,
-            "trust": False,
+            "trust": self.trust is not None,
         }}
         for rule in self.rules:
             rrec = {"feasible_b": self.feasible[rule],

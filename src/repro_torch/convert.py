@@ -5,10 +5,11 @@ The reference's checkpoint format (`repro.checkpoint.msgpack_ckpt`) needs
 caller hands over the state as numpy arrays: each leaf of the reference's
 ``state.params``, its ``state.key`` and, for a lossy codec, its
 ``state.comm`` carry, for a stateful adversary its ``state.adv``, for a
-traced run its ``state.obs``; for the batched grids the stacked state of
-the reference's ``GridEngine`` (`grid_state_from_jax`, a net grid's
-stacked mailboxes, the codec carries, the adversary's state and the
-trace's aggregates included).
+traced run its ``state.obs`` (the forensic fields included), for a run
+with the trust layer its ``state.trust``; for the batched grids the
+stacked state of the reference's ``GridEngine`` (`grid_state_from_jax`, a
+net grid's stacked mailboxes, the codec carries, the adversary's state,
+the trace's aggregates and the trust states included).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from repro_torch.net.mailbox import MailboxState
 from repro_torch.core.byrdie import ByrdieState
 from repro_torch.device import resolve_device
 from repro_torch.obs.trace import TraceState
+from repro_torch.trust.reputation import TrustState
 
 
 def params_from_jax(tree: Mapping[str, np.ndarray], *,
@@ -45,6 +47,7 @@ def state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,
                    net: tuple[np.ndarray, ...] | None = None,
                    adv: tuple[np.ndarray, ...] | None = None,
                    obs: tuple[np.ndarray, ...] | None = None,
+                   trust: tuple[np.ndarray, ...] | None = None,
                    device: str | torch.device = "cuda") -> BridgeState:
     """A `BridgeState` at tick ``t`` holding the reference's parameters and
     its key (``np.asarray(jax_state.key)``; ``PRNGKey(0)`` when None) —
@@ -53,13 +56,15 @@ def state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,
     runtime's mailbox state (the five arrays of ``MailboxState``, in order),
     for the network runtime; ``adv`` its adversary state (``mean``,
     ``var``, ``dir``, ``count``), for a stateful adversary; ``obs`` its
-    trace's ``TraceState`` (the thirteen arrays in order, a forensics-free
-    spec's), for a traced run."""
+    trace's ``TraceState`` (the thirteen arrays in order), for a traced
+    run; ``trust`` its ``TrustState`` (suspicion, evicted, echo_mism), for
+    a run with the trust layer."""
     dev = resolve_device(device)
     key = _key(key)
     return BridgeState(params=params_from_jax(params_np, device=dev), t=int(t), key=key,
                        comm=_carry(CommState, comm, dev), net=_carry(MailboxState, net, dev),
-                       adv=_carry(AdvState, adv, dev), obs=_carry(TraceState, obs, dev))
+                       adv=_carry(AdvState, adv, dev), obs=_carry(TraceState, obs, dev),
+                       trust=_carry(TrustState, trust, dev))
 
 
 def _carry(kind, arrays, dev):
@@ -75,6 +80,7 @@ def grid_state_from_jax(params_np: Mapping[str, np.ndarray], t, keys, *,
                         comm: tuple[np.ndarray, np.ndarray] | None = None,
                         adv: tuple[np.ndarray, ...] | None = None,
                         obs: tuple[np.ndarray, ...] | None = None,
+                        trust: tuple[np.ndarray, ...] | None = None,
                         device: str | torch.device = "cuda") -> BridgeState:
     """A `repro_torch.sim.GridEngine` state from the reference's
     ``GridEngine`` state: its stacked ``[E, M, ...]`` parameters, its tick
@@ -86,7 +92,8 @@ def grid_state_from_jax(params_np: Mapping[str, np.ndarray], t, keys, *,
     ``[E, M, W, d]``); for a stateful adversary bank ``adv``, its stacked
     ``AdvState`` (``[E, d]`` rows, ``count [E]``); for a traced grid
     ``obs``, its stacked ``TraceState`` (the thirteen arrays, ``[E, ...]``,
-    the ticks int32)."""
+    the ticks int32); with the trust layer ``trust``, its stacked
+    ``TrustState`` (``[E, M, W]`` each)."""
     ticks = np.unique(np.asarray(t))
     if ticks.size != 1:
         raise ValueError(f"the port's grid cells share one tick, got {ticks.tolist()}")
@@ -105,12 +112,15 @@ def grid_state_from_jax(params_np: Mapping[str, np.ndarray], t, keys, *,
     dev = resolve_device(device)
     carry, adv_state = _carry(CommState, comm, dev), _carry(AdvState, adv, dev)
     trace = _carry(TraceState, obs, dev)
-    for name, x in (("comm", carry), ("adv", adv_state), ("obs", trace)):
+    trust_state = _carry(TrustState, trust, dev)
+    for name, x in (("comm", carry), ("adv", adv_state), ("obs", trace),
+                    ("trust", trust_state)):
         if x is not None and x[0].shape[0] != keys.shape[0]:
             raise ValueError(f"a grid's {name} carry leads with E={keys.shape[0]} cells, got "
                              f"{tuple(x[0].shape)}")
     return BridgeState(params=params_from_jax(params_np, device=device), t=int(ticks[0]),
-                       key=keys.copy(), comm=carry, net=mailbox, adv=adv_state, obs=trace)
+                       key=keys.copy(), comm=carry, net=mailbox, adv=adv_state, obs=trace,
+                       trust=trust_state)
 
 
 def byrdie_state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,

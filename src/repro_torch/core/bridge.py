@@ -1,8 +1,8 @@
 """The BRIDGE trainer — Algorithm 1 of the paper; port of
 `repro.core.bridge` (``build_cell_step`` and ``build_cell_runtime_step``
-with their rule, attack, adversary and codec banks and the trace's
-forensics-free half, without the trust or metrics specs, driven by
-``BridgeTrainer``), on the dense or the sparse ``[M, K]`` layout.
+with their rule, attack, adversary and codec banks, the trace and the
+trust layer, without the metrics spec, driven by ``BridgeTrainer``), on
+the dense or the sparse ``[M, K]`` layout.
 
 All M node replicas live on one device as a stacked ``[M, ...]`` parameter
 dict.  One tick, after ``key, sub = split(state.key)``:
@@ -31,10 +31,21 @@ dict.  One tick, after ``key, sub = split(state.key)``:
    ``rho(t) = 1 / (lam (t0 + t))``, ``rho * g`` rounded to float32 before the
    subtract as in the reference;
 5. **obs** — with a `repro_torch.obs.TraceSpec` (``BridgeConfig.trace``),
-   the tick's honest loss and consensus distance fold into the carried
-   `TraceState` (``state.obs``: loss trace, reservoir, the first
-   non-finite tick).  The stage only reads the metrics: the trajectory is
-   bit for bit the untraced one.
+   the tick folds into the carried `TraceState` (``state.obs``): with
+   forensics the screen runs its decide form (the screening rules'
+   decision twins, `screening.screen_all_decide_banked` and its siblings:
+   the plain output bit for bit, plus the ``[M, W]`` per-edge trim
+   fractions), whose fractions feed the per-edge counters and survival
+   sums; the loss trace, reservoir and sentinel read the metrics.  The
+   trajectory is bit for bit the untraced one;
+6. **trust** — with a `repro_torch.trust.TrustSpec` (``BridgeConfig.trust``)
+   the screen always decides: the carried `TrustState` (``state.trust``)
+   gives the ``rep_*`` rules their reputation weights and clears evicted
+   edges from the mask, and the ``bridge.trust`` stage folds the tick's
+   trim fractions into it.  On the runtime the ``bridge.echo`` stage first
+   digests each node's views under ``fold_in(sub, TRUST_SALT)``, lets
+   ``slander``'s nodes forge the rows they gossip, and cross-checks the
+   digests for equivocation (`repro_torch.trust.echo`).
 
 Every random number comes from the reference's Threefry streams
 (`repro_torch.prng`), so a seeded run follows the seeded reference run.
@@ -83,12 +94,13 @@ from repro_torch.core.graph import Topology
 from repro_torch.core.neighbors import NeighborTable, edge_id_grid
 from repro_torch.device import resolve_device
 from repro_torch.obs import trace as obs_trace
+from repro_torch.trust import echo as echo_lib
+from repro_torch.trust import reputation as trust_lib
 
 Params = dict[str, torch.Tensor]
 
 # Salts decorrelating the streams folded from one tick's subkey (the
-# reference's `repro.core.bridge` constants; the port uses all but
-# TRUST_SALT).
+# reference's `repro.core.bridge` constants).
 NET_SALT = 0x6E657430
 COMM_SALT = 0x636D6D30
 WIRE_SALT = 0x77697230
@@ -110,6 +122,9 @@ class BridgeState(NamedTuple):
     # the trace's aggregates (obs.TraceState, a leading [E] for stacked
     # cells); None when untraced
     obs: Any = None
+    # the trust layer's state (trust.TrustState, [M, W] suspicion, evictions
+    # and echo counts, a leading [E] for stacked cells); None when off
+    trust: Any = None
 
 
 def cell_step_size(lam, t0, lr, t: int):
@@ -183,9 +198,11 @@ class BridgeConfig:
     # neighbor-indexed [M, K] layout (repro_torch.core.neighbors): screening
     # reads each node's K table slots instead of masking all M rows
     sparse: bool = False
-    # observability (repro_torch.obs.TraceSpec, forensics off); None =
-    # untraced
+    # observability (repro_torch.obs.TraceSpec); None = untraced
     trace: Any = None
+    # the trust layer (repro_torch.trust.TrustSpec); None = off.  Trust on
+    # changes the trajectory once it acts (weights, evictions)
+    trust: Any = None
 
     def step_size(self, t: int) -> float:
         return cell_step_size(self.lam, self.t0, self.lr, t)
@@ -368,33 +385,63 @@ def _theta(bank, cell: CellParams) -> np.ndarray:
     return adv_lib.cell_theta(bank, cell.adv_idx or (0,) * cell.num_cells, cell.adv_theta)
 
 
-def obs_stage(spec, state: BridgeState, metrics: dict):
-    """The ``bridge.obs`` stage: the tick's metrics folded into
-    ``state.obs`` (unchanged when ``spec`` is None)."""
+def obs_stage(spec, state: BridgeState, metrics: dict, *, trim=None, live=None, byz_edge=None,
+              staleness=None, wire_bits=None, live_edges=None, d: int | None = None):
+    """The ``bridge.obs`` stage: the tick folded into ``state.obs``
+    (unchanged when ``spec`` is None); with the tick's trim fractions
+    ``trim`` (forensics), also the ``obs_trim_frac`` metric."""
     if spec is None:
         return state.obs
     with torch.profiler.record_function("bridge.obs"):
+        if trim is not None:
+            metrics["obs_trim_frac"] = obs_trace.obs_trim_frac(trim, live)
         return obs_trace.update(spec, state.obs, t=state.t, loss=metrics["loss"],
-                                consensus=metrics["consensus_dist"])
+                                consensus=metrics["consensus_dist"], trim_frac=trim, live=live,
+                                byz_edge=byz_edge, staleness=staleness, wire_bits=wire_bits,
+                                live_edges=live_edges, d=d)
+
+
+def decide_stride(trace, trust) -> int:
+    """The decide form's column stride: the trace's when it has forensics,
+    else the trust spec's (the reference's precedence)."""
+    return trace.decide_stride if trace is not None and trace.forensics else trust.decide_stride
+
+
+def trust_stage(spec, state: BridgeState, metrics: dict, *, trim, screened, live,
+                echo_evidence=None):
+    """The ``bridge.trust`` stage: the tick's trim fractions on the
+    ``screened`` edges (and the echo's evidence) folded into
+    ``state.trust`` over the ``live`` edges, and the
+    ``trust_evicted_frac`` metric (unchanged when ``spec`` is None)."""
+    if spec is None:
+        return state.trust
+    with torch.profiler.record_function("bridge.trust"):
+        new = trust_lib.update(spec, state.trust, t=state.t,
+                               trim_frac=torch.where(screened, trim, 0.0), live=live,
+                               echo_evidence=echo_evidence)
+        metrics["trust_evicted_frac"] = torch.mean(new.evicted.to(torch.float32), dim=(-2, -1))
+    return new
 
 
 def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str, ...],
                     attacks, *, neighbors: NeighborTable | None = None,
                     codecs: tuple[str, ...] = ("identity",), wire_attacks=None,
-                    adversaries: tuple[str, ...] | None = None, trace=None):
+                    adversaries: tuple[str, ...] | None = None, trace=None, trust=None):
     """The synchronous-broadcast iteration over stacked cells:
     ``step(cell, state, batch) -> (state, metrics)``, the reference's
     ``build_cell_step`` with a rule bank ``rules``, an attack bank
     ``attacks`` (`byzantine.Attack`s), a codec bank ``codecs`` (names), the
     wire attacks ``wire_attacks`` parallel to ``attacks`` (default: none),
     an adversary bank ``adversaries`` (names; None or all ``none`` skips
-    the stage) and a `repro_torch.obs.TraceSpec` ``trace`` (None: no obs
+    the stage), a `repro_torch.obs.TraceSpec` ``trace`` (None: no obs
+    stage) and a `repro_torch.trust.TrustSpec` ``trust`` (None: no trust
     stage), and ``cell`` a `CellParams` of E cells.
 
     ``state`` holds ``params`` ``[E, M, ...]``, the tick ``t`` all cells
     share, ``key`` the cells' host row keys ``[E, 2]``, the codec carry
     ``comm`` ``[E, M, d]`` (a lossy bank) and the adversary's ``adv``
-    ``[E, d]`` (a stateful bank), the trace's ``obs`` (a ``trace``);
+    ``[E, d]`` (a stateful bank), the trace's ``obs`` (a ``trace``) and the
+    trust layer's ``trust`` (a ``trust``);
     ``grad_fn`` takes the ``[E, M, ...]``
     parameters and the tick's one batch and returns ``(losses [E, M],
     grads)``.  Screening is `screening.screen_all_banked` under the
@@ -403,13 +450,19 @@ def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str
     cells that chose its rule.  The adversary's screening oracle is the
     same screen, each node's own value the crafted broadcast.  The metrics
     are ``[E]`` tensors (``rho`` a float32 ``[E]`` array).
+
+    The screen takes the reference's branch order: trust on always runs
+    the decide form, with the reputation weights and the evictions cleared
+    from each cell's mask (``[E, M, W]``); forensics alone decides under
+    the static mask; otherwise the plain screen.
     """
-    obs_trace.check(trace)
     codec_bank = codec_lib.codec_bank(codecs)
     if wire_attacks is None:
         wire_attacks = (byzantine.WIRE_ATTACKS["none"],) * len(attacks)
     adv_bank = _adversary_bank(adversaries)
     n_edges = float(torch.sum(adjacency.to(torch.float32)))
+    static_live = neighbors.valid_dev.bool() if neighbors is not None else adjacency.bool()
+    forensics = trace is not None and trace.forensics
 
     def screen(w_hat, w_bcast, cell):
         if neighbors is not None:
@@ -417,6 +470,19 @@ def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str
                                                     cell.b, self_vals=w_bcast)
         return screening.screen_all_banked(w_hat, adjacency, rules, cell.rule_idx, cell.b,
                                            self_vals=w_bcast)
+
+    def screen_decide(w_hat, w_bcast, cell, stride, weights=None, evicted=None):
+        """The decide form: ``(y, trim)``; ``evicted`` clears a cell's
+        evicted edges from its mask (whose divisors the averaging rules
+        then divide, as the reference's run-time mask does)."""
+        mask = None if evicted is None else static_live & ~evicted
+        if neighbors is not None:
+            return screening.screen_gathered_decide_banked(
+                w_hat, neighbors, rules, cell.rule_idx, cell.b, self_vals=w_bcast, valid=mask,
+                decide_stride=stride, weights=weights, folded=evicted is None)
+        return screening.screen_all_decide_banked(
+            w_hat, adjacency if mask is None else mask, rules, cell.rule_idx, cell.b,
+            self_vals=w_bcast, decide_stride=stride, weights=weights, folded=evicted is None)
 
     def step(cell: CellParams, state: BridgeState, batch) -> tuple[BridgeState, dict]:
         w, unflatten = stack_flatten(state.params, lead=2)
@@ -442,8 +508,16 @@ def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str
                                      cell.byz_mask, state.t)
         # (Step 5) screening at every node; self is the node's own broadcast,
         # which never travels the wire
+        trim = None
         with torch.profiler.record_function("bridge.screen"):
-            y = screen(w_hat, w_bcast, cell)
+            if trust is not None:
+                y, trim = screen_decide(w_hat, w_bcast, cell, decide_stride(trace, trust),
+                                        weights=trust_lib.edge_weights(trust, state.trust),
+                                        evicted=state.trust.evicted)
+            elif forensics:
+                y, trim = screen_decide(w_hat, w_bcast, cell, trace.decide_stride)
+            else:
+                y = screen(w_hat, w_bcast, cell)
         # (Step 6) local gradient step at w_j(t)
         with torch.profiler.record_function("bridge.apply"):
             losses, grads = grad_fn(state.params, batch)
@@ -453,8 +527,25 @@ def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str
             metrics = cell_metrics(w_new, losses, ~cell.byz_mask, rho,
                                    exchange.wire_bits_bank(codec_bank, cell.codec_idx or None, d),
                                    n_edges, comm)
-        obs = obs_stage(trace, state, metrics)
-        return BridgeState(unflatten(w_new), state.t + 1, key, comm, adv=adv, obs=obs), metrics
+        live = byz_edge = None
+        if trim is not None:
+            e, m = w.shape[:2]
+            live = static_live.expand(e, *static_live.shape)
+            byz_edge = (neighbors.gather_senders(cell.byz_mask, fill=False) if neighbors is not None
+                        else cell.byz_mask[:, None, :].expand(e, m, m))
+        obs = obs_stage(trace, state, metrics, trim=trim, live=live,
+                        byz_edge=byz_edge,
+                        wire_bits=exchange.wire_bits_bank(codec_bank, cell.codec_idx or None, d),
+                        live_edges=n_edges, d=d)
+        # no echo on the broadcast path: one payload a sender, so trim
+        # evidence only
+        new_trust = None
+        if trust is not None:
+            live_t = static_live & ~state.trust.evicted
+            new_trust = trust_stage(trust, state, metrics, trim=trim, screened=live_t,
+                                    live=live_t)
+        return BridgeState(unflatten(w_new), state.t + 1, key, comm, adv=adv, obs=obs,
+                           trust=new_trust), metrics
 
     return step
 
@@ -479,12 +570,12 @@ def _need(counts: np.ndarray, device) -> int | torch.Tensor:
 def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
                             message_attacks, *, codecs: tuple[str, ...] = ("identity",),
                             wire_attacks=None, adversaries: tuple[str, ...] | None = None,
-                            trace=None):
+                            trace=None, trust=None):
     """The network-runtime iteration over stacked cells: ``step(cell,
     state, batch) -> (state, metrics)``, the reference's
     ``build_cell_runtime_step`` with a rule bank ``rules``, a bank of
     `byzantine.MessageAttack`s and the codec, wire-attack and adversary
-    banks and the ``trace`` of `build_cell_step`.
+    banks, the ``trace`` and the ``trust`` of `build_cell_step`.
 
     ``state`` holds ``params`` ``[E, M, ...]``, the tick ``t`` all cells
     share, ``key`` the cells' host row keys ``[E, 2]``, ``net`` the
@@ -509,12 +600,20 @@ def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
     edges; on a runtime with one channel it also sees the coordinates a
     capped channel delivers this tick and the channel's mean latency (a
     cell-aware runtime: every coordinate, latency 0, as in the reference).
+
+    With ``trust`` the screen decides over the usable mask less each
+    cell's evictions, and, with ``trust.echo``, the ``bridge.echo`` stage
+    cross-checks the nodes' digests of their views for equivocation
+    (`repro_torch.trust.echo`; ``slander``'s nodes forge the digest rows
+    they gossip) before the ``bridge.trust`` stage folds the evidence in.
     """
-    obs_trace.check(trace)
+    forensics = trace is not None and trace.forensics
     codec_bank = codec_lib.codec_bank(codecs)
     if wire_attacks is None:
         wire_attacks = (byzantine.WIRE_ATTACKS["none"],) * len(message_attacks)
     adv_bank = _adversary_bank(adversaries)
+    accuses = adv_lib.bank_accuses(adv_bank)
+    from repro_torch.net.mailbox import NEVER  # the net package imports this module
     cell_aware = bool(getattr(runtime, "cell_aware", False))
     nbr = getattr(runtime, "neighbors", None)
     channel = getattr(runtime, "channel", None)
@@ -570,6 +669,40 @@ def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
                                        for a, b in zip(new, comm, strict=True)))
         return x_hat, new
 
+    def byz_links(cell, e, m):
+        """``[E, M, W]``: whether each link's sender is Byzantine."""
+        if nbr is not None:
+            return nbr.gather_senders(cell.byz_mask, fill=False)
+        return cell.byz_mask[:, None, :].expand(e, m, m)
+
+    def echo(cell, state, net, views, mask, mask_eff, adj_t, sub):
+        """The ``bridge.echo`` stage: ``[E, M, W]`` 0 / 1 evidence of
+        quorum-confirmed equivocation on each usable edge."""
+        with torch.profiler.record_function("bridge.echo"):
+            trust_key = prng.fold_in(sub, TRUST_SALT)  # [E, 2] on the host
+            gens = getattr(net, "send_tick", None)
+            if gens is None:  # a net-less runtime: every usable view was sent this tick
+                gens = torch.where(mask, state.t, NEVER).to(torch.int32)
+            e, m = views.shape[:2]
+            adj = adj_t.expand(e, *adj_t.shape[-2:])
+            dig = echo_lib.digest_all(trust, views, trust_key)
+            if nbr is not None:
+                dig = echo_lib.scatter_dense(nbr, dig, 0.0, tail=1)
+                gens = echo_lib.scatter_dense(nbr, gens.expand(e, *gens.shape[-2:]), NEVER)
+                valid = echo_lib.scatter_dense(nbr, mask_eff, False)
+                gossip = echo_lib.scatter_dense(nbr, adj, False)
+            else:
+                valid, gossip = mask_eff, adj
+            if accuses:
+                # slanderers forge the digest rows they report; their own
+                # receptions stay honest
+                dig = adv_lib.apply_accuse_bank(adv_bank, cell.adv_idx or None,
+                                                _theta(adv_bank, cell), dig, cell.byz_mask,
+                                                draw_key(trust_key), state.t)
+            ev, _ = echo_lib.equivocation_evidence(dig, gens, valid, gossip, cell.b,
+                                                   tol=trust.echo_tol)
+            return nbr.gather_edges(ev, 0.0) if nbr is not None else ev
+
     def step(cell: CellParams, state: BridgeState, batch) -> tuple[BridgeState, dict]:
         w, unflatten = stack_flatten(state.params, lead=2)
         e, m, d = w.shape
@@ -599,11 +732,25 @@ def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
                                            runtime.exchange(*args, wire_bits=bits))
         # (Step 5) screening over the usable views; a node short of its
         # rule's Table-II minimum keeps its own value this tick
+        trim = None
+        mask_eff = mask
         with torch.profiler.record_function("bridge.screen"):
-            y_rule = screening.screen_views_banked(views, mask, w_self, rules, cell.rule_idx,
-                                                   cell.b)
+            if trust is not None:
+                # evicted edges leave the usable mask, as if the link had died
+                mask_eff = mask & ~state.trust.evicted
+                y_rule, trim = screening.screen_views_decide_banked(
+                    views, mask_eff, w_self, rules, cell.rule_idx, cell.b,
+                    decide_stride=decide_stride(trace, trust),
+                    weights=trust_lib.edge_weights(trust, state.trust))
+            elif forensics:
+                y_rule, trim = screening.screen_views_decide_banked(
+                    views, mask, w_self, rules, cell.rule_idx, cell.b,
+                    decide_stride=trace.decide_stride)
+            else:
+                y_rule = screening.screen_views_banked(views, mask, w_self, rules, cell.rule_idx,
+                                                       cell.b)
             need = screening.min_neighbors_banked(rules, cell.rule_idx, cell.b)
-            enough = mask.sum(dim=-1) >= _need(need, w.device)
+            enough = mask_eff.sum(dim=-1) >= _need(need, w.device)
             y = torch.where(enough[..., None], y_rule, w_self)
         # (Step 6) local gradient step at w_j(t)
         with torch.profiler.record_function("bridge.apply"):
@@ -615,8 +762,25 @@ def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
             metrics = cell_metrics(w_new, losses, ~cell.byz_mask, rho, bits, live, comm)
         metrics.update(net_stats)
         metrics["screened_frac"] = torch.mean(enough.to(torch.float32), dim=-1)
-        obs = obs_stage(trace, state, metrics)
-        return BridgeState(unflatten(w_new), state.t + 1, key, comm, net, adv, obs), metrics
+        live_o = byz_edge = None
+        if trim is not None:
+            # nodes starved below the Table-II minimum kept their own value:
+            # their rows were not screened this tick
+            live_o = mask_eff & enough[..., None]
+            trim = torch.where(live_o, trim, 0.0)
+            byz_edge = byz_links(cell, e, m) & live_o
+        obs = obs_stage(trace, state, metrics, trim=trim, live=live_o, byz_edge=byz_edge,
+                        staleness=obs_trace.staleness_of(net, state.t), wire_bits=bits,
+                        live_edges=live, d=d)
+        new_trust = None
+        if trust is not None:
+            echo_ev = (echo(cell, state, net, views, mask, mask_eff, adj_t, sub) if trust.echo
+                       else None)
+            new_trust = trust_stage(trust, state, metrics, trim=trim,
+                                    screened=mask_eff & enough[..., None], live=mask_eff,
+                                    echo_evidence=echo_ev)
+        return BridgeState(unflatten(w_new), state.t + 1, key, comm, net, adv, obs,
+                           new_trust), metrics
 
     return step
 
@@ -666,7 +830,7 @@ class BridgeTrainer:
                           else adv_lib.get_adversary(config.adversary))
         advs = None if self.adversary is None else (config.adversary,)
         banks = dict(codecs=(config.codec,), wire_attacks=(self.wire_attack,), adversaries=advs,
-                     trace=config.trace)
+                     trace=config.trace, trust=config.trust)
         self.neighbors = None
         if runtime is None:
             self.attack = byzantine.get_attack(config.attack)
@@ -710,8 +874,9 @@ class BridgeTrainer:
 
     def init(self, params: Params, seed: int = 0) -> BridgeState:
         """The state at tick 0 from stacked ``params``, with the key
-        ``PRNGKey(seed)``, a zero codec carry for a lossy codec and fresh
-        trace aggregates for a ``trace``."""
+        ``PRNGKey(seed)``, a zero codec carry for a lossy codec, fresh trace
+        aggregates for a ``trace`` and an all-trusting state for a
+        ``trust`` (``[M, W]``: W = M dense, the table's K sparse)."""
         m = self.config.topology.num_nodes
         for k, leaf in params.items():
             if leaf.shape[0] != m:
@@ -723,9 +888,18 @@ class BridgeTrainer:
             net = self.runtime.init(m, dim, max_wire_bits=self.codec.wire_bits(dim))
         if self.adversary is not None and self.adversary.stateful:
             adv = adv_lib.init_state(dim, lead=(), device=self.device)
-        obs = obs_trace.init_state(self.config.trace, device=self.device)
+        width = self.edge_width
+        obs = obs_trace.init_state(self.config.trace, m, width, device=self.device)
+        trust = trust_lib.init_state(self.config.trust, m, width, device=self.device)
         return BridgeState(params=params, t=0, key=prng.PRNGKey(seed),
-                           comm=self.init_comm(params), net=net, adv=adv, obs=obs)
+                           comm=self.init_comm(params), net=net, adv=adv, obs=obs, trust=trust)
+
+    @property
+    def edge_width(self) -> int:
+        """W, the per-node edge slots of the trace's and the trust layer's
+        ``[M, W]`` state: M dense, the neighbor table's K sparse."""
+        nbr = self.neighbors if self.runtime is None else getattr(self.runtime, "neighbors", None)
+        return self.config.topology.num_nodes if nbr is None else nbr.k
 
     def init_comm(self, params: Params) -> exchange.CommState | None:
         """The codec carry at tick 0: zero estimate and residual, ``[M, d]``
@@ -749,7 +923,8 @@ class BridgeTrainer:
         add = lambda x: x[None]
         one = BridgeState({k: v[None] for k, v in state.params.items()}, state.t,
                           np.asarray(state.key, np.uint32)[None], _cells(state.comm, add),
-                          _cells(state.net, add), _cells(state.adv, add), _cells(state.obs, add))
+                          _cells(state.net, add), _cells(state.adv, add), _cells(state.obs, add),
+                          _cells(state.trust, add))
         new, metrics = self._cell_step(self.cell, one, batch)
         metrics = {k: (v[0] if isinstance(v, torch.Tensor) and v.ndim else
                        float(v[0]) if isinstance(v, np.ndarray) else v)
@@ -757,7 +932,8 @@ class BridgeTrainer:
         drop = lambda x: x[0]
         return BridgeState({k: v[0] for k, v in new.params.items()}, new.t, new.key[0],
                            _cells(new.comm, drop), _cells(new.net, drop),
-                           _cells(new.adv, drop), _cells(new.obs, drop)), metrics
+                           _cells(new.adv, drop), _cells(new.obs, drop),
+                           _cells(new.trust, drop)), metrics
 
     def _wire_roundtrip(self, sub: np.ndarray, x: torch.Tensor, comm, t: int):
         """The synchronous tick's wire stage (`wire_stage`) of ``x [M, d]``

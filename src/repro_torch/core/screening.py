@@ -248,6 +248,17 @@ def rep_trimmed_mean(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.T
     an XLA scheduling device that never fires, since the sorted values are
     NaN-free; it is left out."""
     mask = mask.bool()
+    masked, kept = _rep_window(views, mask, self_vals, b)
+    wk = torch.where(kept, _weights(mask, weights, views.dtype)[..., None], 0.0)
+    total = ref.sum_rows_mat(wk * torch.where(kept, masked, 0.0), dim=-2) + self_vals
+    return total / (ref.sum_rows_mat(wk, dim=-2) + 1.0)
+
+
+def _rep_window(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor, b):
+    """The rep rules' kept window (the reference's ``_rep_trim_window``):
+    ``(masked, kept)``, ``kept`` the masked values between the ``b_eff``-th
+    order statistic and rank ``max(count - b_eff - 1, b_eff)``, ties
+    included."""
     count = mask.sum(dim=-1)
     b_eff = ref.effective_trim(bound_arg(b, views.device), count)
     masked = torch.where(mask[..., None], ref.sanitize(views), torch.inf)
@@ -257,10 +268,7 @@ def rep_trimmed_mean(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.T
     at = lambda r: r.expand(lead)[..., None, None].expand(*lead, 1, d)
     lo = order.gather(-2, at(b_eff))
     hi = order.gather(-2, at(torch.maximum(count - b_eff - 1, b_eff)))
-    kept = mask[..., None] & (masked >= lo) & (masked <= hi)
-    wk = torch.where(kept, _weights(mask, weights, views.dtype)[..., None], 0.0)
-    total = ref.sum_rows_mat(wk * torch.where(kept, masked, 0.0), dim=-2) + self_vals
-    return total / (ref.sum_rows_mat(wk, dim=-2) + 1.0)
+    return masked, mask[..., None] & (masked >= lo) & (masked <= hi)
 
 
 def rep_median(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor, *,
@@ -419,19 +427,31 @@ def _vector_rule(rule: str, w: torch.Tensor, rows: torch.Tensor, mask: torch.Ten
     ``[E, M, d]``) over the candidate rows ``rows`` (``[M, n]`` indices into
     ``w``) under ``mask``; ``trimmed_mean(sel)`` is Bulyan's last stage over
     the ``[E, M, n]`` selection."""
+    pick = _vector_pick(rule, w, rows, mask, self_vals, b)
+    if rule == "krum":
+        return _krum_rows(w, rows, pick)
+    return trimmed_mean(pick)
+
+
+def _vector_pick(rule: str, w: torch.Tensor, rows: torch.Tensor, mask: torch.Tensor,
+                 self_vals: torch.Tensor, b) -> torch.Tensor:
+    """Krum's pick ``[E, M]`` (an index into each node's n candidates) or
+    Bulyan's selection ``[E, M, n]`` over the candidate rows ``rows`` of
+    ``w [E, M, d]``, from the tick's distance matrix."""
     with torch.no_grad():  # the distances only pick rows; gradients flow through the picks
         same = self_vals is w
         w_d = w.detach()
         d2_global, self_rows = _dists_of_broadcast(w_d, w_d if same else self_vals.detach())
         d2, full = node_dists(d2_global, rows, self_rows, mask)
         if rule == "krum":
-            i_star = krum_pick(d2, full, mask, b)
-        else:
-            sel = bulyan_select(d2, mask, b)
-    if rule == "krum":
-        ids = rows.long()[None].expand(*i_star.shape, rows.shape[1]).gather(-1, i_star[..., None])
-        return _pick_rows(w, ids[..., 0])
-    return trimmed_mean(sel)
+            return krum_pick(d2, full, mask, b)
+        return bulyan_select(d2, mask, b)
+
+
+def _krum_rows(w: torch.Tensor, rows: torch.Tensor, i_star: torch.Tensor) -> torch.Tensor:
+    """Row ``rows[j, i_star[e, j]]`` of experiment e's ``w`` for every node."""
+    ids = rows.long()[None].expand(*i_star.shape, rows.shape[1]).gather(-1, i_star[..., None])
+    return _pick_rows(w, ids[..., 0])
 
 
 # ---------------------------------------------------------------------------
@@ -507,45 +527,84 @@ def _node_views(views: torch.Tensor) -> torch.Tensor:
                          f"place") from None
 
 
+def _views_pick(rule: str, views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
+                b) -> tuple[torch.Tensor, torch.Tensor]:
+    """Krum's pick (``[E, M]``) or Bulyan's selection (``[E, M, W]``) of
+    every node over its views ``[E, M, W, d]`` and itself, from the batched
+    distance kernel (batch = node, the views read in place); returned with
+    the mask expanded to ``[E, M, W]``."""
+    e, m, w_, d = views.shape
+    mk = mask.bool().expand(e, m, w_)
+    full = torch.cat([mk, torch.ones((e, m, 1), dtype=torch.bool, device=mk.device)], dim=-1)
+    with torch.no_grad():  # the distances only pick rows
+        d2 = ops.pairwise_sq_dists_batched(_node_views(views.detach()),
+                                           self_vals.detach().reshape(e * m, d))
+        d2 = masked_dists(d2.view(e, m, w_ + 1, w_ + 1), full)
+        if rule == "krum":
+            return mk, krum_pick(d2, full, mk, b)
+        return mk, bulyan_select(d2, mk, b).contiguous()
+
+
+def _views_row(views: torch.Tensor, i_star: torch.Tensor) -> torch.Tensor:
+    """View ``i_star[e, j]`` of every node of ``views [E, M, W, d]``."""
+    e, m, _, d = views.shape
+    return views.gather(2, i_star[..., None, None].expand(e, m, 1, d))[:, :, 0]
+
+
 def _screen_views(rule: str, views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
                   b) -> torch.Tensor:
     """One rule over the views ``[E, M, W, d]`` of E cells (``mask``
     ``[M, W]`` shared, or ``[E, M, W]``; ``b`` an int or a tuple of E)."""
-    e, m, w_, d = views.shape
     bk = bound_arg(b, views.device)
     if rule == "trimmed_mean":
         return grad_ops.views_trimmed_mean(views, mask, self_vals, bk)
     if rule == "median":
         return grad_ops.views_median(views, mask, self_vals)
-    if rule in ("krum", "bulyan"):
-        mk = mask.bool().expand(e, m, w_)
-        full = torch.cat([mk, torch.ones((e, m, 1), dtype=torch.bool, device=mk.device)], dim=-1)
-        with torch.no_grad():  # the distances only pick rows
-            d2 = ops.pairwise_sq_dists_batched(_node_views(views.detach()),
-                                               self_vals.detach().reshape(e * m, d))
-            d2 = masked_dists(d2.view(e, m, w_ + 1, w_ + 1), full)
-            if rule == "krum":
-                i_star = krum_pick(d2, full, mk, b)
-            else:
-                sel = bulyan_select(d2, mk, b).contiguous()
-        if rule == "krum":
-            return views.gather(2, i_star[..., None, None].expand(e, m, 1, d))[:, :, 0]
+    if rule == "krum":
+        return _views_row(views, _views_pick(rule, views, mask, self_vals, b)[1])
+    if rule == "bulyan":
+        sel = _views_pick(rule, views, mask, self_vals, b)[1]
         return grad_ops.views_trimmed_mean(views, sel, self_vals, bk)
     if rule not in RULES:
         raise _unknown(rule)
-    # the plain rules: the cells of one bound at a time, their nodes stacked
+    return _per_bound(lambda v, mk, s, bb, _: _plain_rule(rule, v, mk, s, bb, folded=False),
+                      views, mask, self_vals, b)
+
+
+def _scatter(outs, n: int, sel: torch.Tensor, res):
+    """Scatter ``res`` (a tensor, or a tuple of them, whose rows are the
+    cells ``sel``) into ``outs``, allocated ``[n, ..]`` from the first
+    result when None; returns ``outs``."""
+    parts = res if isinstance(res, tuple) else (res,)
+    if outs is None:
+        outs = tuple(p.new_empty((n, *p.shape[1:])) for p in parts)
+    for o, p in zip(outs, parts, strict=True):
+        o.index_copy_(0, sel, p)
+    return outs
+
+
+def _per_bound(fn: Callable, views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
+               b, weights: torch.Tensor | None = None):
+    """A plain rule over the views ``[E, M, W, d]`` of E cells, the cells
+    of one bound at a time with their nodes stacked: ``fn(views [N, W, d],
+    mask [N, W], self_vals [N, d], b, weights [N, W] or None)`` returns a
+    tensor or a tuple of them, ``[N, ..]``, scattered back to ``[E, M,
+    ..]``."""
+    e, m, w_, d = views.shape
     bs = np.broadcast_to(np.asarray(b, np.int64), (e,))
-    out = torch.empty_like(self_vals)
+    mk = mask.expand(e, m, w_) if mask.ndim == 2 else mask
+    outs = None
     for bb in sorted(set(bs.tolist())):
         cells = np.nonzero(bs == bb)[0]
         sel = torch.as_tensor(cells, device=views.device)
-        v_r = views.index_select(0, sel) if len(cells) < e else views
-        mk = mask.expand(e, m, w_) if mask.ndim == 2 else mask
-        mk = (mk.index_select(0, sel) if len(cells) < e else mk).reshape(-1, w_).contiguous()
-        y = _plain_rule(rule, v_r.reshape(-1, w_, d), mk,
-                        self_vals.index_select(0, sel).reshape(-1, d), int(bb), folded=False)
-        out.index_copy_(0, sel, y.reshape(len(cells), m, d))
-    return out
+        part = (lambda x: x.index_select(0, sel)) if len(cells) < e else (lambda x: x)
+        res = fn(part(views).reshape(-1, w_, d), part(mk).reshape(-1, w_).contiguous(),
+                 part(self_vals).reshape(-1, d), int(bb),
+                 None if weights is None else part(weights).reshape(-1, w_))
+        parts = res if isinstance(res, tuple) else (res,)
+        outs = _scatter(outs, e, sel, tuple(p.reshape(len(cells), m, *p.shape[1:])
+                                            for p in parts))
+    return outs if isinstance(res, tuple) else outs[0]
 
 
 def screen_gathered(w: torch.Tensor, table: NeighborTable, *, rule: str, b,
@@ -582,11 +641,11 @@ def _screen_gathered(w, table, rule, b, self_vals):
 # ---------------------------------------------------------------------------
 
 
-def _banked(screen: Callable, w: torch.Tensor, self_vals: torch.Tensor, rules, rule_idx,
-            b) -> torch.Tensor:
+def _banked(screen: Callable, w: torch.Tensor, self_vals: torch.Tensor, rules, rule_idx, b):
     """``screen(rule, w_r, b_r, self_r, cells)`` once per rule of the bank
     over the experiments that chose it (``rule_idx [E]``, host indices;
     ``cells`` their indices on the device, None when all chose one rule),
+    its tensor (or tuple of tensors: the decide forms' ``(y, trim)``)
     scattered back in order; one rule for all is a single call."""
     idx = np.asarray(rule_idx, np.int64).reshape(-1)
     if idx.shape[0] != w.shape[0]:
@@ -594,15 +653,16 @@ def _banked(screen: Callable, w: torch.Tensor, self_vals: torch.Tensor, rules, r
     used = sorted(set(idx.tolist()))
     if len(used) == 1:
         return screen(rules[used[0]], w, b, self_vals, None)
-    out = torch.empty_like(self_vals)
+    outs = None
     same = self_vals is w
     for r in used:
         cells = np.nonzero(idx == r)[0]
         sel = torch.as_tensor(cells, device=w.device)
         w_r = w.index_select(0, sel)
         s_r = w_r if same else self_vals.index_select(0, sel)
-        out.index_copy_(0, sel, screen(rules[r], w_r, _select(b, cells), s_r, sel))
-    return out
+        res = screen(rules[r], w_r, _select(b, cells), s_r, sel)
+        outs = _scatter(outs, idx.shape[0], sel, res)
+    return outs if isinstance(res, tuple) else outs[0]
 
 
 def screen_all_banked(w: torch.Tensor, adjacency: torch.Tensor, rules, rule_idx, b, *,
@@ -646,3 +706,293 @@ def screen_views_banked(views: torch.Tensor, mask: torch.Tensor, self_vals: torc
     return _banked(lambda rule, v_r, b_r, s_r, cells: _screen_views(
         rule, v_r, mask if mask.ndim == 2 or cells is None else mask.index_select(0, cells),
         s_r, b_r), views, self_vals, rules, rule_idx, b)
+
+
+# ---------------------------------------------------------------------------
+# Decision twins (the trace's forensics and the trust layer's evidence)
+# ---------------------------------------------------------------------------
+#
+# Each `<rule>_with_decisions` returns ``(y, trim)``: ``y`` the plain rule's
+# output bit for bit (the trace-inertness contract) and ``trim [.., M, n]``
+# the fraction of the coordinates on which node j excluded row i from its
+# aggregate, 0 for rows off its mask (0 / 1 for the vector rules); the
+# coordinate-wise rules decide on the columns 0, s, 2s, .. (``decide_stride``
+# s).  They take the views form: values ``[.., M or 1, n, d]`` (one block a
+# node, or one every node shares) under ``mask [.., M, n]``.  The trimmed
+# mean and the median run the screening kernels' decide form
+# (`repro_torch.kernels.screen_decide`: the views kernels here, the dense and
+# the gather kernels through the dispatchers below); the rest are plain
+# PyTorch.
+
+# Rules that take per-edge reputation weights (the trust layer's
+# `edge_weights`); the rest ignore the operand, and eviction reaches them
+# through the mask.
+WEIGHTED_RULES: frozenset = frozenset({"rep_trimmed_mean", "rep_median"})
+
+
+def _zeros_trim(mask: torch.Tensor, self_vals: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((*self_vals.shape[:-1], mask.shape[-1]), dtype=torch.float32,
+                       device=self_vals.device)
+
+
+def _node_axis(views: torch.Tensor, self_vals: torch.Tensor) -> torch.Tensor:
+    """Views every node shares (``[.., 1, n, d]``) expanded to one block a
+    node (receiver stride 0), as the views kernels take them."""
+    return views.expand(*self_vals.shape[:-1], *views.shape[-2:])
+
+
+def trimmed_mean_with_decisions(views, mask, self_vals, b, *, decide_stride=1):
+    """BRIDGE-T with the per-edge fractions outside its kept window
+    ``[o[b_eff], o[max(count - b_eff - 1, b_eff)]]`` (ties kept): the views
+    kernels' decide form."""
+    return ops.views_trimmed_mean_decide(_node_axis(views, self_vals), mask, self_vals,
+                                         bound_arg(b, views.device), decide_stride)
+
+
+def coordinate_median_with_decisions(views, mask, self_vals, b=0, *, decide_stride=1):
+    """BRIDGE-M with the per-edge fractions outside its two middle order
+    statistics (self included in the sort, its own decision dropped)."""
+    return ops.views_median_decide(_node_axis(views, self_vals), mask, self_vals, decide_stride)
+
+
+def krum_with_decisions(views, mask, self_vals, b, *, decide_stride=1):
+    """BRIDGE-K with a whole-vector decision: every masked row but the pick
+    is trimmed (1), the pick kept (0)."""
+    views = _node_axis(views, self_vals)
+    lead = views.shape[:-3]
+    v4 = views.reshape(-1, *views.shape[-3:])
+    mk, i_star = _views_pick("krum", v4, mask.reshape(-1, *mask.shape[-2:]) if mask.ndim > 2
+                             else mask, self_vals.reshape(-1, *self_vals.shape[-2:]), b)
+    y = _views_row(v4, i_star).reshape(self_vals.shape)
+    return y, _krum_trim(mk, i_star).reshape(*lead, *mk.shape[-2:])
+
+
+def _krum_trim(mask: torch.Tensor, i_star: torch.Tensor) -> torch.Tensor:
+    slots = torch.arange(mask.shape[-1], device=mask.device)
+    return (mask & (slots != i_star[..., None])).to(torch.float32)
+
+
+def _bulyan_trim(mask: torch.Tensor, sel: torch.Tensor, inner: torch.Tensor) -> torch.Tensor:
+    """Bulyan's decisions: rows Krum deselected are trimmed outright, the
+    rest carry the trimmed mean's fractions over the selection."""
+    return torch.where(mask & ~sel, 1.0, inner)
+
+
+def bulyan_with_decisions(views, mask, self_vals, b, *, decide_stride=1):
+    """BRIDGE-B with its decisions: the trimmed mean's decide form over the
+    selection, deselected rows trimmed outright."""
+    views = _node_axis(views, self_vals)
+    lead = views.shape[:-3]
+    v4 = views.reshape(-1, *views.shape[-3:])
+    s3 = self_vals.reshape(-1, *self_vals.shape[-2:])
+    mk, sel = _views_pick("bulyan", v4, mask.reshape(-1, *mask.shape[-2:]) if mask.ndim > 2
+                          else mask, s3, b)
+    y, inner = ops.views_trimmed_mean_decide(v4, sel, s3, bound_arg(b, views.device),
+                                             decide_stride)
+    trim = _bulyan_trim(mk, sel, inner)
+    return y.reshape(self_vals.shape), trim.reshape(*lead, *mk.shape[-2:])
+
+
+def geometric_median_with_decisions(views, mask, self_vals, b=0, *, iters: int = 8,
+                                    eps: float = 1e-6, decide_stride=1, folded: bool = True):
+    """The geometric median with a soft decision: ``clip(1 - med /
+    max(dist, 1e-12), 0, 1)`` on masked rows, ``dist`` a row's distance to
+    the output and ``med`` the median of the masked distances (the
+    reference's; ``torch.sum`` over d sums in its own order, so the
+    fractions are within a few ulps of the reference's)."""
+    y = geometric_median(views, mask, self_vals, iters=iters, eps=eps, folded=folded)
+    mask = mask.bool()
+    diff = views - y[..., None, :]
+    dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + eps)
+    mask = mask.expand(dist.shape)
+    cnt = mask.sum(dim=-1, keepdim=True)
+    order = torch.sort(torch.where(mask, dist, torch.inf), dim=-1).values
+    lo = torch.clamp(torch.div(cnt - 1, 2, rounding_mode="floor"), min=0)
+    hi = torch.clamp(torch.div(cnt, 2, rounding_mode="floor"), min=0)
+    med = 0.5 * (order.gather(-1, lo) + order.gather(-1, hi))
+    trim = torch.clamp(1.0 - med / torch.clamp(dist, min=1e-12), 0.0, 1.0)
+    return y, torch.where(mask, trim, 0.0).to(torch.float32)
+
+
+def clipped_mean_with_decisions(views, mask, self_vals, b=0, *, tau: float = 1.0,
+                                decide_stride=1, folded: bool = True):
+    """Centered clipping with a whole-vector decision: a masked row whose
+    delta from self exceeds the ball of radius ``tau`` is trimmed (1)."""
+    y = clipped_mean(views, mask, self_vals, tau=tau, folded=folded)
+    delta = views - self_vals[..., None, :]
+    nrm = torch.sqrt(torch.sum(delta * delta, dim=-1) + 1e-12)
+    return y, (mask.bool() & (nrm > tau)).to(torch.float32)
+
+
+def mean_with_decisions(views, mask, self_vals, b=0, *, decide_stride=1, folded: bool = True):
+    """DGD's mean decides nothing: every fraction 0."""
+    return mean_views(views, mask, self_vals, folded=folded), _zeros_trim(mask, self_vals)
+
+
+def rep_trimmed_mean_with_decisions(views, mask, self_vals, b, *, weights=None,
+                                    decide_stride=1):
+    """The reputation-weighted trimmed mean with the fractions of masked
+    rows outside its kept window (the rule's own ``kept``)."""
+    y = rep_trimmed_mean(views, mask, self_vals, b, weights=weights)
+    mask = mask.bool()
+    _, kept = _rep_window(views, mask, self_vals, b)
+    trimmed = mask[..., None] & ~kept[..., ::decide_stride]
+    return y, ref.count_fraction(trimmed.sum(dim=-1), -(-views.shape[-1] // decide_stride))
+
+
+def rep_median_with_decisions(views, mask, self_vals, b=0, *, weights=None, decide_stride=1):
+    """The reputation-weighted median with the (unweighted) median's
+    decisions: who keeps landing outside the middle ranks is a rank
+    property, independent of the weights."""
+    y = rep_median(views, mask, self_vals, weights=weights)
+    return y, coordinate_median_with_decisions(views, mask, self_vals,
+                                               decide_stride=decide_stride)[1]
+
+
+RULES_WITH_DECISIONS: dict[str, Callable] = {
+    "trimmed_mean": trimmed_mean_with_decisions,
+    "median": coordinate_median_with_decisions,
+    "krum": krum_with_decisions,
+    "bulyan": bulyan_with_decisions,
+    "geomedian": geometric_median_with_decisions,
+    "clipped_mean": clipped_mean_with_decisions,
+    "mean": mean_with_decisions,
+    "rep_trimmed_mean": rep_trimmed_mean_with_decisions,
+    "rep_median": rep_median_with_decisions,
+}
+_FOLDABLE = ("mean", "geomedian", "clipped_mean")
+
+
+def _plain_decide(rule: str, views, mask, self_vals, b, stride: int, weights, folded: bool):
+    """A rule with no kernel, with its decisions, over views; ``weights``
+    reach `WEIGHTED_RULES` only; ``folded`` the averaging rules' divisor
+    form (see the module docstring)."""
+    fn = RULES_WITH_DECISIONS[rule]
+    if rule in WEIGHTED_RULES:
+        return fn(views, mask, self_vals, b, weights=weights, decide_stride=stride)
+    if rule in _FOLDABLE:
+        return fn(views, mask, self_vals, b, decide_stride=stride, folded=folded)
+    return fn(views, mask, self_vals, b, decide_stride=stride)
+
+
+def _decide_all(rule, w, adjacency, b, self_vals, stride, weights, folded):
+    bk = bound_arg(b, w.device)
+    if rule == "trimmed_mean":
+        return ops.trimmed_mean_decide(w, adjacency, self_vals, bk, stride)
+    if rule == "median":
+        return ops.median_decide(w, adjacency, self_vals, stride)
+    if rule == "rep_median":
+        return (rep_median(w.unsqueeze(-3), adjacency, self_vals, weights=weights),
+                ops.median_decide(w, adjacency, self_vals, stride)[1])
+    m = w.shape[-2]
+    if rule in ("krum", "bulyan"):
+        return _vector_decide(rule, w, torch.arange(m, device=w.device).expand(m, m), adjacency,
+                              self_vals, b, lambda sel: ops.trimmed_mean_decide(
+                                  w, sel, self_vals, bk, stride))
+    if rule not in RULES:
+        raise _unknown(rule)
+    return _plain_decide(rule, w.unsqueeze(-3), adjacency, self_vals, b, stride, weights, folded)
+
+
+def _decide_gathered(rule, w, table, valid, b, self_vals, stride, weights, folded):
+    bk = bound_arg(b, w.device)
+    if rule == "trimmed_mean":
+        return ops.gather_trimmed_mean_decide(w, table.safe_idx, valid, self_vals, bk, stride)
+    if rule == "median":
+        return ops.gather_median_decide(w, table.safe_idx, valid, self_vals, stride)
+    if rule == "rep_median":
+        return (rep_median(ref.gather(w, table.safe_idx), valid, self_vals, weights=weights),
+                ops.gather_median_decide(w, table.safe_idx, valid, self_vals, stride)[1])
+    if rule in ("krum", "bulyan"):
+        return _vector_decide(rule, w, table.safe_idx, valid, self_vals, b,
+                              lambda sel: ops.gather_trimmed_mean_decide(
+                                  w, table.safe_idx, sel, self_vals, bk, stride))
+    if rule not in RULES:
+        raise _unknown(rule)
+    return _plain_decide(rule, ref.gather(w, table.safe_idx), valid, self_vals, b, stride,
+                         weights, folded)
+
+
+def _vector_decide(rule, w, rows, mask, self_vals, b, trimmed_mean_decide):
+    """BRIDGE-K or BRIDGE-B with decisions over the candidate rows ``rows``
+    of ``w [E, M, d]`` (see `_vector_rule`)."""
+    pick = _vector_pick(rule, w, rows, mask, self_vals, b)
+    mk = mask.bool().expand(*self_vals.shape[:-1], rows.shape[-1])
+    if rule == "krum":
+        return _krum_rows(w, rows, pick), _krum_trim(mk, pick)
+    y, inner = trimmed_mean_decide(pick)
+    return y, _bulyan_trim(mk, pick, inner)
+
+
+def _decide_views(rule, views, mask, self_vals, b, stride, weights):
+    """One rule with its decisions over the views ``[E, M, W, d]`` of E
+    cells (the reference's operand form: every divisor a true division)."""
+    if rule in ("trimmed_mean", "median", "krum", "bulyan"):
+        return RULES_WITH_DECISIONS[rule](views, mask, self_vals, b, decide_stride=stride)
+    if rule not in RULES:
+        raise _unknown(rule)
+    # the plain rules as `_screen_views` runs them, so y is its bit for bit
+    return _per_bound(lambda v, mk, s, bb, wt: _plain_decide(rule, v, mk, s, bb, stride, wt,
+                                                             folded=False),
+                      views, mask, self_vals, b, weights)
+
+
+def _rule_weights(weights: torch.Tensor | None, rule: str, cells) -> torch.Tensor | None:
+    """The cells' reputation weights where ``rule`` takes them, else None."""
+    if weights is None or rule not in WEIGHTED_RULES:
+        return None
+    return weights if cells is None else weights.index_select(0, cells)
+
+
+def screen_all_decide_banked(w: torch.Tensor, adjacency: torch.Tensor, rules, rule_idx, b, *,
+                             self_vals: torch.Tensor | None = None, decide_stride: int = 1,
+                             weights: torch.Tensor | None = None,
+                             folded: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """`screen_all_banked` returning ``(y, trim)``: ``y`` bit for bit the
+    plain call's, ``trim [E, M, M]`` the fraction of the coordinates on
+    which receiver j excluded sender i this tick (on every
+    ``decide_stride``-th one).  ``adjacency`` is ``[M, M]`` or a cell's own
+    ``[E, M, M]`` (the trust layer's evictions cleared from it);
+    ``weights`` (``[E, M, M]`` reputation rows) reach `WEIGHTED_RULES`
+    only.  ``folded=False`` divides the averaging rules' counts, as the
+    reference does once the adjacency is a run-time value (trust on)."""
+    if self_vals is None:
+        self_vals = w
+    adj_of = lambda cells: (adjacency if adjacency.ndim == 2 or cells is None
+                            else adjacency.index_select(0, cells))
+    return _banked(lambda rule, w_r, b_r, s_r, cells: _decide_all(
+        rule, w_r, adj_of(cells), b_r, s_r, decide_stride, _rule_weights(weights, rule, cells),
+        folded), w, self_vals, rules, rule_idx, b)
+
+
+def screen_gathered_decide_banked(w: torch.Tensor, table: NeighborTable, rules, rule_idx, b, *,
+                                  self_vals: torch.Tensor | None = None,
+                                  valid: torch.Tensor | None = None, decide_stride: int = 1,
+                                  weights: torch.Tensor | None = None,
+                                  folded: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """`screen_gathered_banked` returning ``(y, trim [E, M, K])`` by table
+    slot (the reference's ``screen_views_decide_banked`` over the table's
+    gathered rows, without forming them).  ``valid`` replaces the table's
+    mask, ``[M, K]`` or a cell's own ``[E, M, K]`` (evictions cleared);
+    ``weights`` and ``folded`` as in `screen_all_decide_banked`."""
+    if self_vals is None:
+        self_vals = w
+    mask = table.valid_dev if valid is None else valid
+    mask_of = lambda cells: mask if mask.ndim == 2 or cells is None else mask.index_select(0, cells)
+    return _banked(lambda rule, w_r, b_r, s_r, cells: _decide_gathered(
+        rule, w_r, table, mask_of(cells), b_r, s_r, decide_stride,
+        _rule_weights(weights, rule, cells), folded), w, self_vals, rules, rule_idx, b)
+
+
+def screen_views_decide_banked(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
+                               rules, rule_idx, b, *, decide_stride: int = 1,
+                               weights: torch.Tensor | None = None
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`screen_views_banked` returning ``(y, trim [E, M, W])`` by view slot;
+    ``weights`` (``[E, M, W]``) reach `WEIGHTED_RULES` only."""
+    if mask.ndim == 3 and mask.shape[0] > 1 and mask.stride(0) == 0:
+        mask = mask[0]  # one mask every cell shares, expanded
+    return _banked(lambda rule, v_r, b_r, s_r, cells: _decide_views(
+        rule, v_r, mask if mask.ndim == 2 or cells is None else mask.index_select(0, cells),
+        s_r, b_r, decide_stride, _rule_weights(weights, rule, cells)),
+        views, self_vals, rules, rule_idx, b)

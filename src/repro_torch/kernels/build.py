@@ -94,6 +94,19 @@ SIGNATURES = {
     + (_INT,) * 5 + (_PTR, _PTR),
     "views_screen_grad_median": (_PTR, _I64, _I64, _I64, _PTR, _I64) + (_PTR,) * 4
     + (_INT,) * 4 + (_PTR,),
+    # the decide forms (screen_decide.cu, gather_screen_decide.cu,
+    # views_screen_decide.cu): the float entries' operands with the int32
+    # counts after out, the stride after the experiment operands, then the
+    # tile entries' plan (tile, chunk, segments)
+    "screen_trimmed_mean_dense_decide": (_PTR,) * 5 + (_INT,) * 4 + (_I64, _PTR, _INT, _PTR),
+    "screen_median_dense_decide": (_PTR,) * 5 + (_INT,) * 3 + (_I64, _INT, _PTR),
+    "gather_screen_trimmed_mean_decide": (_PTR,) * 6 + (_INT,) * 5 + (_I64, _PTR)
+    + (_INT,) * 4 + (_PTR,),
+    "gather_screen_median_decide": (_PTR,) * 6 + (_INT,) * 4 + (_I64,) + (_INT,) * 4 + (_PTR,),
+    "views_screen_trimmed_mean_decide": (_PTR, _I64, _I64, _I64) + (_PTR,) * 4 + (_INT,) * 5
+    + (_I64, _PTR) + (_INT,) * 4 + (_PTR,),
+    "views_screen_median_decide": (_PTR, _I64, _I64, _I64) + (_PTR,) * 4 + (_INT,) * 4
+    + (_I64,) + (_INT,) * 4 + (_PTR,),
 }
 
 

@@ -142,6 +142,7 @@ struct Experiments {
 };
 constexpr int kMaxExperiments = 65535;  // a grid dimension
 
+
 // Trimmed mean of a sorted column: ranks [b_eff, count - b_eff) summed left
 // to right, the node's own value added, and the total divided (IEEE) by
 // c = count - 2 b_eff + 1, with b_eff = min(b, (count - 1) / 2) — or, with
@@ -198,6 +199,103 @@ __device__ __forceinline__ float median_sorted(const float (&v)[N], int rows) {
     if (i == hi) c = v[i];
   }
   return __fmul_rn(0.5f, __fadd_rn(a, c));
+}
+
+// The decisions a decide launch records beside its output (the decide form
+// of the dense and the tile kernels): per (experiment e, node j, slot s)
+// the number of columns c with c % stride == 0 on which the row in slot s
+// fell outside its column's kept window [lo, hi] (ties kept), summed into
+// counts[(e M + j) width + s], int32, zeroed by the caller.  Integer sums
+// make the counts independent of the order the blocks add them in.  A slot
+// is a sender on the dense layout (width M), a table slot or a view's slot
+// on the sparse ones (width K or W).
+struct Decide {
+  int* counts = nullptr;
+  int width = 0;
+  int stride = 1;
+};
+
+// v[r] of a register column (r uniform or not; one select a rank).
+template <int N>
+__device__ __forceinline__ float rank_of(const float (&v)[N], int r) {
+  float x = 0.0f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (i == r) x = v[i];
+  }
+  return x;
+}
+
+// The kept window of a sorted column (or one median_select left): the
+// trimmed mean's ranks b_eff and max(count - b_eff - 1, b_eff) over its
+// `count` rows; the median's two middle ranks over its `rows` (count + 1,
+// the node's own value included).
+template <int N>
+__device__ __forceinline__ float2 trim_window(const float (&v)[N], int count, int b) {
+  const int b_eff = trim_width(count, b);
+  return make_float2(rank_of<N>(v, b_eff), rank_of<N>(v, max(count - b_eff - 1, b_eff)));
+}
+
+template <int N>
+__device__ __forceinline__ float2 median_window(const float (&v)[N], int rows) {
+  return make_float2(rank_of<N>(v, (rows - 1) / 2), rank_of<N>(v, rows / 2));
+}
+
+// Whether a listed row's value x is outside the window w = (lo, hi).
+__device__ __forceinline__ bool outside(float x, float2 w) { return !(x >= w.x && x <= w.y); }
+
+// Columns a decide form keeps unsorted in registers beside its sort (a
+// bucket of at most this many rows), deciding without re-reading the rows;
+// above, it re-reads each listed row (L2-resident).
+constexpr int kDecideRegs = 32;
+
+// A warp's trimmed-column counts of up to ROWS listed rows, held by its
+// lanes: lane l owns rows l, l + 32, ..; `add` gives row `row` the count
+// `n` (a popc of the row's ballot, uniform over the warp), `flush` adds
+// each lane's counts into the block's shared sums with one atomic a lane
+// and a nonzero count (in place of one atomic a row by a single lane).
+template <int ROWS>
+struct LaneCounts {
+  static constexpr int kWords = (ROWS + 31) / 32;
+  int a[kWords] = {};
+  __device__ __forceinline__ void add(int row, int n, int lane) {
+    if (lane == (row & 31)) {
+#pragma unroll
+      for (int r = 0; r < kWords; ++r) {
+        if ((row >> 5) == r) a[r] += n;
+      }
+    }
+  }
+  __device__ __forceinline__ void flush(int* s_trim, int lane) const {
+#pragma unroll
+    for (int r = 0; r < kWords; ++r) {
+      if (a[r] != 0) atomicAdd(s_trim + 32 * r + lane, a[r]);
+    }
+  }
+};
+
+// One column's decisions into a warp's LaneCounts: for each of the `count`
+// listed rows, the ballot of the lanes whose column is `counted` and whose
+// value lies outside the window.  `kept` holds the unsorted column (rows
+// < count) where N <= kDecideRegs; above, `reread(i)` loads row i again.
+template <int N, int ROWS, class Reread>
+__device__ __forceinline__ void decide_column(LaneCounts<ROWS>& lanes, const float (&kept)[N],
+                                              int count, float2 window, bool counted, int lane,
+                                              Reread reread) {
+  if constexpr (N <= kDecideRegs) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (i < count) {
+        lanes.add(i, __popc(__ballot_sync(0xffffffffu, counted && outside(kept[i], window))),
+                  lane);
+      }
+    }
+  } else {
+    for (int i = 0; i < count; ++i) {
+      lanes.add(i, __popc(__ballot_sync(0xffffffffu, counted && outside(reread(i), window))),
+                lane);
+    }
+  }
 }
 
 }  // namespace screen

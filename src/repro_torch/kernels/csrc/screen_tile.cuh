@@ -26,6 +26,9 @@
 //     row in shared memory once (a chunk lies in one scale block: C divides
 //     128), in two buffers, so one barrier a chunk orders their writes and
 //     reads.
+// Each kernel has a decide form (kDecide: float rows and views), the same
+// output bit for bit and the per-slot decisions of screen_sort.cuh's
+// Decide, which the trust layer and the trace's forensics read.
 // Above 63 slots the wrappers launch the wide path instead
 // (screen_wide.cuh): the same arithmetic, each column sorted by a warp in
 // registers.
@@ -87,15 +90,29 @@ constexpr int tile_min_blocks() {
 }
 
 // COLS columns a lane: coordinates 32 apart of one node, so one network.
-template <int NMAX, bool kMedian, int COLS, class Rows>
+// kDecide: the decide form (float rows and views only, one column a lane),
+// which also records the decisions (screen_sort.cuh, Decide): after a
+// column's network a lane holds its kept window and, per listed row, the
+// warp counts its trimmed columns with a ballot (decide_column: from the
+// unsorted column it kept in registers, up to kDecideRegs rows, above by
+// re-reading the row from L2) into counts its lanes hold; the block sums
+// them in shared memory, by node and listed row, and ends in one integer
+// atomicAdd a listed row into dec.counts at the row's slot.
+template <int NMAX, bool kMedian, int COLS, class Rows, bool kDecide = false>
 __global__ void __launch_bounds__(kTileThreads, (tile_min_blocks<NMAX, Rows>()))
 gather_tile_kernel(Rows rows, const int32_t* __restrict__ idx, const uint8_t* __restrict__ valid,
                    const float* __restrict__ self_vals, float* __restrict__ out, int m, int k,
-                   int d, int b, int tile, int chunk, int segments, Experiments ex) {
+                   int d, int b, int tile, int chunk, int segments, Experiments ex,
+                   Decide dec) {
   constexpr bool kCodes = Rows::kStaged;
+  static_assert(!(kDecide && kCodes), "the decide form reads float rows or views");
+  static_assert(!kDecide || COLS == 1, "the decide form sorts one column a lane");
   __shared__ int s_slot[kMaxTileSlots];  // slot -> row, -1 when padded
   __shared__ int s_node[kMaxListed];     // node t's valid slots' rows, at t * NMAX
   __shared__ int s_cnt[kMaxTileNodes];   // node -> valid slots
+  // decide: each listed row's slot and its trimmed columns, at t * NMAX
+  __shared__ int s_lslot[kDecide ? kMaxListed : 1];
+  __shared__ int s_trim[kDecide ? kMaxListed : 1];
   // codeword blocks: every listed row's scale pair for the chunk, two chunks
   __shared__ float2 s_pair[kCodes ? 2 * kMaxListed : 1];
 
@@ -126,10 +143,16 @@ gather_tile_kernel(Rows rows, const int32_t* __restrict__ idx, const uint8_t* __
     int cnt = 0;
     for (int i = 0; i < k; ++i) {
       const int r = s_slot[s * k + i];
-      if (r >= 0) s_node[s * NMAX + cnt++] = r;
+      if (r >= 0) {
+        if constexpr (kDecide) s_lslot[s * NMAX + cnt] = i;
+        s_node[s * NMAX + cnt++] = r;
+      }
     }
     for (int i = cnt; i < NMAX; ++i) s_node[s * NMAX + i] = 0;
     s_cnt[s] = cnt;
+  }
+  if constexpr (kDecide) {
+    for (int x = s; x < nt * NMAX; x += kTileThreads) s_trim[x] = 0;
   }
   __syncthreads();
 
@@ -161,6 +184,7 @@ gather_tile_kernel(Rows rows, const int32_t* __restrict__ idx, const uint8_t* __
         // the median, whose own value then takes the last row
         constexpr bool exact = decltype(bucket)::lo == N;
         float v[COLS][N];
+        float kept[N];  // decide: the unsorted column (one a lane), up to kDecideRegs rows
 #pragma unroll
         for (int i = 0; i < N; ++i) {
           if (kMedian && exact && i == N - 1) {
@@ -179,6 +203,7 @@ gather_tile_kernel(Rows rows, const int32_t* __restrict__ idx, const uint8_t* __
               v[q][i] = i < cnt ? x
                                 : (kMedian && i == cnt ? sanitize(own[q]) : CUDART_INF_F);
             }
+            if constexpr (kDecide && N <= kDecideRegs) kept[i] = x;
           }
         }
 #pragma unroll
@@ -204,12 +229,33 @@ gather_tile_kernel(Rows rows, const int32_t* __restrict__ idx, const uint8_t* __
             out[exp_at + static_cast<size_t>(j0 + t) * d + c] = res;
           }
         }
+        if constexpr (kDecide) {
+          const int c = ci * chunk + cl;
+          const float2 window = kMedian ? median_window<N>(v[0], exact ? N : cnt + 1)
+                                        : trim_window<N>(v[0], exact ? N : cnt, be);
+          LaneCounts<NMAX> lanes;
+          decide_column<N>(lanes, kept, cnt, window, c < d && c % dec.stride == 0, lane,
+                           [&](int i) {
+                             return load_value(src, list[i], d, min(c, d - 1), float2{});
+                           });
+          lanes.flush(s_trim + t * NMAX, lane);
+        }
       };
       const int rows_to_sort = kMedian ? cnt + 1 : cnt;
       if constexpr (NMAX <= kExactRows) {
         for_rows<NMAX>(rows_to_sort, column);
       } else {
         for_bucket<NMAX>(rows_to_sort, column);
+      }
+    }
+  }
+  if constexpr (kDecide) {
+    __syncthreads();
+    for (int x = s; x < nt * NMAX; x += kTileThreads) {
+      const int t = x / NMAX;
+      if (x - t * NMAX < s_cnt[t] && s_trim[x] != 0) {
+        atomicAdd(dec.counts + (static_cast<size_t>(e) * m + j0 + t) * dec.width + s_lslot[x],
+                  s_trim[x]);
       }
     }
   }
@@ -223,20 +269,28 @@ struct TileArgs {
   float* out;
   int m, k, d, b, tile, chunk, segments;
   Experiments ex;
+  Decide dec;
 };
 
-template <int NMAX, bool kMedian, int COLS, class Rows>
+template <int NMAX, bool kMedian, int COLS, class Rows, bool kDecide = false>
 cudaError_t run_tile(const Rows& rows, const TileArgs& a, cudaStream_t s) {
   if (a.tile * NMAX > kMaxListed) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>((a.m + a.tile - 1) / a.tile) * a.segments, a.ex.count);
-  gather_tile_kernel<NMAX, kMedian, COLS, Rows><<<grid, kTileThreads, 0, s>>>(
+  gather_tile_kernel<NMAX, kMedian, COLS, Rows, kDecide><<<grid, kTileThreads, 0, s>>>(
       rows, a.idx, a.valid, a.self_vals, a.out, a.m, a.k, a.d, a.b, a.tile, a.chunk, a.segments,
-      a.ex);
+      a.ex, a.dec);
   return cudaGetLastError();
 }
 
 template <int NMAX, bool kMedian, class Rows>
 cudaError_t run_tile_cols(int cols, const Rows& rows, const TileArgs& a, cudaStream_t s) {
+  if (a.dec.counts != nullptr) {
+    // the decide form: float rows or views, one column a lane
+    if constexpr (!Rows::kStaged) {
+      if (cols == 1) return run_tile<NMAX, kMedian, 1, Rows, true>(rows, a, s);
+    }
+    return cudaErrorInvalidValue;
+  }
   if (cols == 1) return run_tile<NMAX, kMedian, 1>(rows, a, s);
   // two columns a lane: the float median of at most 32 rows only
   // (kernels/gather_screen.py); two arrays of 64 would spill
@@ -257,15 +311,18 @@ inline bool plan_fits(int m, int k, int d, int tile, int chunk, int segments, in
 // Launch the tile kernel under a plan, ex.count experiments along
 // gridDim.y; rows to sort K (K + 1 for the median) pick the compiled
 // bucket.  cudaErrorInvalidValue for a shape or plan it does not take.
+// A non-null dec.counts launches the decide form (float rows or views, one
+// column a lane: cols 1), recording into dec (width K, stride >= 1).
 template <bool kMedian, class Rows>
 cudaError_t launch_tile(const Rows& rows, const int32_t* idx, const uint8_t* valid,
                         const float* self_vals, float* out, int m, int k, int d, int b, int tile,
                         int chunk, int segments, int cols, cudaStream_t s,
-                        const Experiments& ex = Experiments{}) {
+                        const Experiments& ex = Experiments{}, const Decide& dec = Decide{}) {
   if (!plan_fits(m, k, d, tile, chunk, segments, cols) || b < 0 || ex.count < 1 ||
-      ex.count > kMaxExperiments)
+      ex.count > kMaxExperiments ||
+      (dec.counts != nullptr && (dec.width != k || dec.stride < 1)))
     return cudaErrorInvalidValue;
-  const TileArgs a{idx, valid, self_vals, out, m, k, d, b, tile, chunk, segments, ex};
+  const TileArgs a{idx, valid, self_vals, out, m, k, d, b, tile, chunk, segments, ex, dec};
   const int most = k + (kMedian ? 1 : 0);
   if (most <= 16) return run_tile_cols<16, kMedian>(cols, rows, a, s);
   if (most <= 24) return run_tile_cols<24, kMedian>(cols, rows, a, s);

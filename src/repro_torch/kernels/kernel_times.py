@@ -4,6 +4,7 @@ path's shapes, on one CUDA card; a script, not part of the package's API.
     python src/repro_torch/kernels/kernel_times.py                     # this checkout
     python src/repro_torch/kernels/kernel_times.py --src OTHER/src     # another checkout's kernels
     python src/repro_torch/kernels/kernel_times.py --compare OTHER/src # OTHER, this, this, OTHER
+    python src/repro_torch/kernels/kernel_times.py [--compare OTHER/src] --decide  # decide forms
     python src/repro_torch/kernels/kernel_times.py --sweep             # every pairwise plan
     python src/repro_torch/kernels/kernel_times.py --sweep-gather [--parent OTHER/src]
 
@@ -27,7 +28,8 @@ M = 128 and the wide path's four screens (float and codeword rows,
 trimmed mean and median) at dense M = 129 and 513 and gather K = 64 and
 200 (random tables, M = 512), with the medians' library call beside
 them; the decode also at the main path's ``[50, 3925]`` (topk50_int8's
-kept values).  ``--compare`` runs each checkout in a process of its own,
+kept values); where the checkout has them, the screens' decide forms
+(`decide_times`) at strides 1 and 16.  ``--compare`` runs each checkout in a process of its own,
 in the order other, this, this, other, so a drift of the card over the
 run shows as a difference between a checkout's two runs, and prints each
 wide and batched time's bound (`wide_bounds`, `batched_bound`).
@@ -122,8 +124,9 @@ def gather_tables(dev) -> dict:
                                                         device=dev)}
 
 
-def kernel_times() -> dict:
-    """Times of every kernel entry of the checkout on ``sys.path``."""
+def kernel_times(decide_only: bool = False) -> dict:
+    """Times of every kernel entry of the checkout on ``sys.path`` (with
+    ``decide_only``, the decide forms and the plain screens beside them)."""
     from repro_torch.comm import codec as codec_lib
     from repro_torch.core.graph import erdos_renyi
     from repro_torch.kernels import dequant, dequant_screen, gather_screen, median, pairwise
@@ -139,6 +142,8 @@ def kernel_times() -> dict:
               "deg24": regular_adjacency(m, 24, 1), "deg31": regular_adjacency(m, 31, 2),
               "deg49": regular_adjacency(m, 49, 3)}
     times = {}
+    if decide_only:
+        graphs = {"er": graphs["er"]}
     for tag, adj_np in graphs.items():
         adj = torch.from_numpy(adj_np).to(dev)
         times[f"screen_trimmed_mean_dense {tag}"] = cuda_ms(
@@ -155,6 +160,8 @@ def kernel_times() -> dict:
     smsg = codec_lib.get_codec("int8").encode(np.array([0, 8], np.uint32), ws * 0.05)
     sq, ss = smsg.payload, smsg.scale
     for tag, table in gather_tables(dev).items():
+        if decide_only and tag != "K=16":
+            continue
         idx, valid = table.safe_idx, table.valid_dev
         sfx = "" if tag == "K=16" else f" {tag}"
         times["gather_screen_trimmed_mean" + sfx] = cuda_ms(
@@ -166,6 +173,9 @@ def kernel_times() -> dict:
                                                                                   ws, 2))
         times["gather_dequant_screen_median" + sfx] = cuda_ms(
             lambda i=idx, v=valid: gather_screen.gather_dequant_screen_median(sq, ss, i, v, ws))
+    has_decide = importlib.util.find_spec("repro_torch.kernels.screen_decide") is not None
+    if decide_only:
+        return {**times, **(decide_times(dev, w, ws) if has_decide else {})}
     if importlib.util.find_spec("repro_torch.kernels.screen_wide") is not None:
         times.update(wide_times(dev, rng))
     times["dequant"] = cuda_ms(lambda: dequant.dequant(sq, ss))
@@ -179,6 +189,39 @@ def kernel_times() -> dict:
         x = torch.from_numpy(rng.normal(size=(n, D)).astype(np.float32) * 0.05).to(dev)
         times[f"pairwise_sq_dists [{n}, {D}]"] = cuda_ms(lambda x=x: pairwise.pairwise_sq_dists(x))
     times.update(batched_times(dev))
+    if has_decide:
+        times.update(decide_times(dev, w, ws))
+    return times
+
+
+def decide_times(dev, w: torch.Tensor, ws: torch.Tensor) -> dict:
+    """The screens' decide form (`screen_decide`) at strides 1 and 16: dense
+    M = 50 on ``erdos_renyi(50, 0.5, 4)``, gather and views at M = 512,
+    K = 16 (the views: each node's gathered rows), dense views M = W = 50."""
+    from repro_torch.core.graph import erdos_renyi
+    from repro_torch.kernels import ref, screen_decide
+
+    adj = torch.from_numpy(erdos_renyi(50, 0.5, 4, seed=0).adjacency).to(dev)
+    table = gather_tables(dev)["K=16"]
+    idx, valid = table.safe_idx, table.valid_dev
+    views_s = ref.gather(ws, idx).contiguous()
+    views_d = w[None].expand(50, 50, D).contiguous()
+    times = {}
+    for s in (1, 16):
+        times[f"screen_trimmed_mean_dense_decide s{s}"] = cuda_ms(
+            lambda s=s: screen_decide.trimmed_mean_dense_decide(w, adj, w, 4, s))
+        times[f"screen_median_dense_decide s{s}"] = cuda_ms(
+            lambda s=s: screen_decide.median_dense_decide(w, adj, w, s))
+        times[f"gather_screen_trimmed_mean_decide s{s}"] = cuda_ms(
+            lambda s=s: screen_decide.gather_screen_trimmed_mean_decide(ws, idx, valid, ws, 2, s))
+        times[f"gather_screen_median_decide s{s}"] = cuda_ms(
+            lambda s=s: screen_decide.gather_screen_median_decide(ws, idx, valid, ws, s))
+        times[f"views_screen_trimmed_mean_decide s{s}"] = cuda_ms(
+            lambda s=s: screen_decide.views_screen_trimmed_mean_decide(views_s, valid, ws, 2, s))
+        times[f"views_screen_median_decide s{s}"] = cuda_ms(
+            lambda s=s: screen_decide.views_screen_median_decide(views_s, valid, ws, s))
+        times[f"views_screen_trimmed_mean_decide dense s{s}"] = cuda_ms(
+            lambda s=s: screen_decide.views_screen_trimmed_mean_decide(views_d, adj, w, 4, s))
     return times
 
 
@@ -391,6 +434,8 @@ def sweep_gather(parent: str | None) -> dict:
               (16, 128, 1), (16, 64, 1), (16, 32, 1))  # (tile, chunk, columns a lane)
     rows = []
     for tag, table in gather_tables(dev).items():
+        if decide_only and tag != "K=16":
+            continue
         idx, valid = table.safe_idx, table.valid_dev
         k = table.k
         for rule in ("trimmed_mean", "median"):
@@ -519,9 +564,9 @@ def sweep_batched(dev) -> tuple[list[dict], list[str]]:
     return rows, failures
 
 
-def run_other(src: str) -> dict:
+def run_other(src: str, extra: tuple = ()) -> dict:
     """This script in a process of its own on the checkout ``src``."""
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--src", src],
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--src", src, *extra],
                           capture_output=True, text=True, check=False, timeout=1200)
     if proc.returncode != 0:
         raise RuntimeError(f"kernel_times on {src} failed:\n{proc.stdout}\n{proc.stderr}")
@@ -536,6 +581,8 @@ def main(argv=None) -> int:
     parser.add_argument("--sweep-gather", action="store_true",
                         help="time the gather tile kernel's plans beside their L2 traffic")
     parser.add_argument("--parent", metavar="SRC", help="with --sweep-gather: SRC's gather times")
+    parser.add_argument("--decide", action="store_true",
+                        help="time the decide forms and the plain screens beside them only")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: torch.cuda.is_available() is False", file=sys.stderr)
@@ -545,7 +592,7 @@ def main(argv=None) -> int:
     card = smi.stdout.strip().splitlines()[0]
     if args.compare:
         runs = [("other", args.compare), ("this", SRC), ("this", SRC), ("other", args.compare)]
-        results = [run_other(src) for _, src in runs]
+        results = [run_other(src, ("--decide",) if args.decide else ()) for _, src in runs]
         print(f"card: {card}; columns: other, this, this, other (ms)")
         sys.path.insert(0, SRC)
         bounds = wide_bounds()
@@ -596,7 +643,7 @@ def main(argv=None) -> int:
             print(f"parent {key}: {ms:.4f} ms")
         print(json.dumps({"card": card, **res}))
         return 0
-    print(json.dumps({"card": card, "src": args.src, "times": kernel_times()}))
+    print(json.dumps({"card": card, "src": args.src, "times": kernel_times(args.decide)}))
     return 0
 
 

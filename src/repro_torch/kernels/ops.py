@@ -20,6 +20,13 @@ The float screens (`trimmed_mean`, `median`, `gather_trimmed_mean`,
 values with ``b`` an int or an int32 ``[E]`` tensor, in one launch; and
 `pairwise_sq_dists_batched` the distances with a batch axis (the node over
 mailbox views, the experiment over a grid).
+
+The decide forms (`trimmed_mean_decide`, `median_decide` and their gather
+and views forms, `repro_torch.kernels.screen_decide`) return ``(y,
+trim)``: the plain screen's output bit for bit and the per-edge trim
+fractions of the reference's ``*_with_decisions`` twins over every
+``stride``-th coordinate, the input of the trust layer and the trace's
+forensics.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import torch
 from repro_torch.kernels import dequant as _dequant
 from repro_torch.kernels import dequant_screen as _dequant_screen
 from repro_torch.kernels import gather_screen as _gather_screen
+from repro_torch.kernels import screen_decide as _decide
 from repro_torch.kernels.gather_screen import gather_screen_median, gather_screen_trimmed_mean
 from repro_torch.kernels.median import median_dense
 from repro_torch.kernels.pairwise import pairwise_sq_dists as _pairwise_sq_dists
@@ -125,3 +133,42 @@ def pairwise_sq_dists_batched(x: torch.Tensor,
     strides) and, with ``self_vals [B, d]``, its own value as the last row."""
     with torch.profiler.record_function("kernels.pairwise_sq_dists_batched"):
         return _pairwise_batched(x, self_vals)
+
+
+def trimmed_mean_decide(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor, b,
+                        stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    with torch.profiler.record_function("kernels.trimmed_mean_decide"):
+        return _decide.trimmed_mean_dense_decide(w, adj, self_vals, b, stride)
+
+
+def median_decide(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor,
+                  stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    with torch.profiler.record_function("kernels.median_decide"):
+        return _decide.median_dense_decide(w, adj, self_vals, stride)
+
+
+def gather_trimmed_mean_decide(w: torch.Tensor, safe_idx: torch.Tensor, valid: torch.Tensor,
+                               self_vals: torch.Tensor, b,
+                               stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    with torch.profiler.record_function("kernels.gather_trimmed_mean_decide"):
+        return _decide.gather_screen_trimmed_mean_decide(w, safe_idx, valid, self_vals, b,
+                                                         stride)
+
+
+def gather_median_decide(w: torch.Tensor, safe_idx: torch.Tensor, valid: torch.Tensor,
+                         self_vals: torch.Tensor,
+                         stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    with torch.profiler.record_function("kernels.gather_median_decide"):
+        return _decide.gather_screen_median_decide(w, safe_idx, valid, self_vals, stride)
+
+
+def views_trimmed_mean_decide(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
+                              b, stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    with torch.profiler.record_function("kernels.views_trimmed_mean_decide"):
+        return _decide.views_screen_trimmed_mean_decide(views, mask, self_vals, b, stride)
+
+
+def views_median_decide(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
+                        stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    with torch.profiler.record_function("kernels.views_median_decide"):
+        return _decide.views_screen_median_decide(views, mask, self_vals, stride)

@@ -43,6 +43,7 @@ reference's chain for summands that hold a product.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # The reference's bound for the sequential sum / sorting network
@@ -141,16 +142,86 @@ def trimmed_mean_views(rows: torch.Tensor, mask: torch.Tensor, self_vals: torch.
     and ``b`` an integer tensor ``[E]`` screen E experiments under one
     shared mask, each as its own unbatched call computes it (every step is
     elementwise or per column)."""
-    mask = mask.bool()
-    n = mask.shape[-1]
-    count = mask.sum(dim=-1)
-    b_eff = effective_trim(b, count)
-    order = torch.sort(torch.where(mask[..., None], sanitize(rows), torch.inf), dim=-2).values
-    idx = torch.arange(n, device=rows.device)[:, None]
+    _, order, count, b_eff = _trim_order(rows, mask, b)
+    return _kept_mean(order, count, b_eff, self_vals, recip)
+
+
+def _kept_mean(order: torch.Tensor, count: torch.Tensor, b_eff: torch.Tensor,
+               self_vals: torch.Tensor, recip: bool = False) -> torch.Tensor:
+    """Ranks ``[b_eff, count - b_eff)`` of ``order`` summed left to right,
+    self added, over ``count - 2 b_eff + 1`` (or times its reciprocal)."""
+    idx = torch.arange(order.shape[-2], device=order.device)[:, None]
     keep = (idx >= b_eff[..., None, None]) & (idx < (count - b_eff)[..., None, None])
     total = sum_rows(torch.where(keep, order, 0.0), dim=-2) + self_vals
-    den = (count - 2 * b_eff + 1).to(rows.dtype)[..., None]
+    den = (count - 2 * b_eff + 1).to(order.dtype)[..., None]
     return total * (1.0 / den) if recip else total / den
+
+
+def _trim_order(rows: torch.Tensor, mask: torch.Tensor, b):
+    """The trimmed mean's sort: ``(masked, order, count, b_eff)`` with
+    ``masked`` the sanitized views, +inf off the mask, and ``order`` its
+    columns sorted over the view axis."""
+    mask = mask.bool()
+    count = mask.sum(dim=-1)
+    b_eff = effective_trim(b, count)
+    masked = torch.where(mask[..., None], sanitize(rows), torch.inf)
+    return masked, torch.sort(masked, dim=-2).values, count, b_eff
+
+
+def _rank(order: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Rank ``r`` (one a node, ``[.., M]``) of each column of ``order``
+    ``[.., M, n, d]``: ``[.., M, d]``."""
+    lead, d = order.shape[:-2], order.shape[-1]
+    return order.gather(-2, r.expand(lead)[..., None, None].expand(*lead, 1, d))[..., 0, :]
+
+
+def count_fraction(counts: torch.Tensor, ncols: int) -> torch.Tensor:
+    """Integer counts of trimmed columns as fractions of the ``ncols``
+    columns decided: ``float32(count) * float32(1 / ncols)``, one rounding
+    each — the form XLA compiles the reference's ``jnp.mean`` over a static
+    width into (``tools/xla_divisor_forms.py``)."""
+    # a Python float that holds the float32 reciprocal exactly: the multiply
+    # takes it as a kernel argument, with no copy to the card
+    return counts.to(torch.float32) * float(np.float32(1.0) / np.float32(ncols))
+
+
+def kept_window(masked: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                stride: int) -> torch.Tensor:
+    """Whether each row's value of the columns ``0, s, 2s, ..`` lies in the
+    kept window ``[lo, hi]`` (ties at a boundary kept): ``masked [.., n,
+    d]`` against ``lo``, ``hi [.., d]``."""
+    s = stride
+    return (masked[..., ::s] >= lo[..., None, ::s]) & (masked[..., ::s] <= hi[..., None, ::s])
+
+
+def trimmed_mean_views_decide(rows: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
+                              b, stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """`trimmed_mean_views` with its decisions (the reference's
+    ``trimmed_mean_with_decisions``): ``(y, trim)``, ``y`` the plain
+    screen's bit for bit and ``trim [.., M, n]`` the fraction of the
+    columns ``0, s, 2s, ..`` on which a masked row's value fell outside the
+    kept window ``[o[b_eff], o[max(count - b_eff - 1, b_eff)]]`` of its
+    column's order statistics ``o`` (ties kept); 0 off the mask."""
+    masked, order, count, b_eff = _trim_order(rows, mask, b)
+    y = _kept_mean(order, count, b_eff, self_vals)
+    lo = _rank(order, b_eff)
+    hi = _rank(order, torch.maximum(count - b_eff - 1, b_eff))
+    masked = masked.expand(*lo.shape[:-1], *masked.shape[-2:])
+    trimmed = mask.bool()[..., None] & ~kept_window(masked, lo, hi, stride)
+    return y, count_fraction(trimmed.sum(dim=-1), -(-rows.shape[-1] // stride))
+
+
+def _median_order(rows: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor):
+    """The median's sort over the masked views and self: ``(masked, order,
+    count)``, ``masked`` the sanitized views (+inf off the mask) expanded
+    to every node, ``count`` the rows a node sorts (its mask's and self)."""
+    mask = mask.bool()
+    masked = torch.where(mask[..., None], sanitize(rows), torch.inf)
+    masked = masked.expand(*self_vals.shape[:-1], *masked.shape[-2:])
+    order = torch.sort(torch.cat([masked, sanitize(self_vals)[..., None, :]], dim=-2),
+                       dim=-2).values
+    count = (mask.sum(dim=-1) + 1).expand(self_vals.shape[:-1])
+    return masked, order, count
 
 
 def median_views(rows: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor) -> torch.Tensor:
@@ -158,17 +229,24 @@ def median_views(rows: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor
     masked views (as in `trimmed_mean_views`, experiment axis included) and
     itself (self joins sanitized); an even count averages the two middle
     order statistics."""
-    mask = mask.bool()
-    masked = torch.where(mask[..., None], sanitize(rows), torch.inf)
-    masked = masked.expand(*self_vals.shape[:-1], *masked.shape[-2:])
-    order = torch.sort(torch.cat([masked, sanitize(self_vals)[..., None, :]], dim=-2),
-                       dim=-2).values
-    count = (mask.sum(dim=-1) + 1).expand(self_vals.shape[:-1])
-    d = self_vals.shape[-1]
-    at = lambda r: r[..., None, None].expand(*r.shape, 1, d)
-    lo = at(torch.div(count - 1, 2, rounding_mode="floor"))
-    hi = at(torch.div(count, 2, rounding_mode="floor"))
-    return 0.5 * (order.gather(-2, lo)[..., 0, :] + order.gather(-2, hi)[..., 0, :])
+    _, order, count = _median_order(rows, mask, self_vals)
+    lo = _rank(order, torch.div(count - 1, 2, rounding_mode="floor"))
+    hi = _rank(order, torch.div(count, 2, rounding_mode="floor"))
+    return 0.5 * (lo + hi)
+
+
+def median_views_decide(rows: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
+                        stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """`median_views` with its decisions (the reference's
+    ``coordinate_median_with_decisions``): ``trim [.., M, n]`` the fraction
+    of the columns ``0, s, 2s, ..`` on which a masked row's value fell
+    outside the two middle order statistics of the ``count + 1`` rows, self
+    included (ties kept); the self row's own decision is dropped."""
+    masked, order, count = _median_order(rows, mask, self_vals)
+    lo = _rank(order, torch.div(count - 1, 2, rounding_mode="floor"))
+    hi = _rank(order, torch.div(count, 2, rounding_mode="floor"))
+    trimmed = mask.bool()[..., None] & ~kept_window(masked, lo, hi, stride)
+    return 0.5 * (lo + hi), count_fraction(trimmed.sum(dim=-1), -(-rows.shape[-1] // stride))
 
 
 def _shared_rows(w: torch.Tensor) -> torch.Tensor:
@@ -189,6 +267,21 @@ def median_dense(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor) ->
     """`median_views` at every node over the broadcast ``w [M, d]`` (or
     ``[E, M, d]``) under the in-neighbor mask ``adj [M, M]``."""
     return median_views(_shared_rows(w), adj, self_vals)
+
+
+def trimmed_mean_dense_decide(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor, b,
+                              stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """`trimmed_mean_views_decide` over the broadcast ``w [M, d]`` (or
+    ``[E, M, d]``) under ``adj [M, M]`` (or ``[E, M, M]``, a mask a cell):
+    ``trim [.., M, M]``, receiver by sender."""
+    return trimmed_mean_views_decide(_shared_rows(w), adj, self_vals, b, stride)
+
+
+def median_dense_decide(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor,
+                        stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """`median_views_decide` over the broadcast ``w [M, d]`` (or ``[E, M,
+    d]``) under ``adj``."""
+    return median_views_decide(_shared_rows(w), adj, self_vals, stride)
 
 
 def gather(w: torch.Tensor, safe_idx: torch.Tensor) -> torch.Tensor:
@@ -212,6 +305,21 @@ def gather_median(w: torch.Tensor, safe_idx: torch.Tensor, valid: torch.Tensor,
                   self_vals: torch.Tensor) -> torch.Tensor:
     """BRIDGE-M on the sparse layout (see `gather_trimmed_mean`)."""
     return median_views(gather(w, safe_idx), valid, self_vals)
+
+
+def gather_trimmed_mean_decide(w: torch.Tensor, safe_idx: torch.Tensor, valid: torch.Tensor,
+                               self_vals: torch.Tensor, b,
+                               stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """`gather_trimmed_mean` with its decisions: ``trim [.., M, K]`` by
+    table slot (``valid`` ``[M, K]`` or ``[E, M, K]``, a mask a cell)."""
+    return trimmed_mean_views_decide(gather(w, safe_idx), valid, self_vals, b, stride)
+
+
+def gather_median_decide(w: torch.Tensor, safe_idx: torch.Tensor, valid: torch.Tensor,
+                         self_vals: torch.Tensor,
+                         stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """`gather_median` with its decisions, ``trim [.., M, K]`` by slot."""
+    return median_views_decide(gather(w, safe_idx), valid, self_vals, stride)
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor | float, c: torch.Tensor) -> torch.Tensor:

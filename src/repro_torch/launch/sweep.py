@@ -31,12 +31,16 @@ under ``--out`` (default ``experiments/breakdown``):
         [--breakdown-mode ladder|bisect] [--breakdown-b-max 3] \
         [--breakdown-scenario lossy] [--trace DIR] [--device cpu]
 
-``--trace DIR`` writes the run's events to ``DIR/events.jsonl``.  The
+``--trace DIR`` writes the run's events to ``DIR/events.jsonl``.
+``--trust`` (with ``--trust-evict`` and ``--trust-warmup``) runs every cell
+with the trust layer (`repro_torch.trust.TrustSpec`), in grid and in
+breakdown mode; breakdown with ``--trust`` runs on the complete graph (the
+echo's quorums need gossip triangles), as the reference does.  The
 reference's other modes (``dryrun``, ``net``: the JAX package's lowering
 matrix and subprocess fan-out) and the flags that need a layer the port
-does not have yet raise: ``--trace`` in grid mode, ``--metrics``,
-``--profile`` and ``--trust`` (ROADMAP Queue 1 open item 5, trust and
-telemetry).
+does not have yet raise: ``--trace`` in grid mode, ``--metrics`` and
+``--profile`` (the metric rings, manifests and the grid's traced run:
+ROADMAP Queue 1 open item 5's next slice).
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.bridge import replicate
+from repro_torch.core.graph import complete_graph
 from repro_torch.data.mnist_like import make_mnist_like
 from repro_torch.data.partition import device_node_batches, partition_iid
 from repro_torch.device import resolve_device, wait
@@ -57,7 +62,8 @@ from repro_torch.sim import ExperimentGrid, GridEngine, default_topology
 from repro_torch.sim import results as results_lib
 
 
-ITEM = "ROADMAP Queue 1 open item 5 (trust and telemetry)"
+ITEM = ("ROADMAP Queue 1 open item 5's next slice (obs/metrics.py, obs/manifest.py, "
+        "run_chunks)")
 
 
 def _refuse_unported(args) -> None:
@@ -70,9 +76,17 @@ def _refuse_unported(args) -> None:
     flags = ("metrics", "profile") + (("trace",) if args.mode == "grid" else ())
     for flag in flags:
         if getattr(args, flag) is not None:
-            raise ValueError(f"--{flag}: the trace's forensics and the metric rings are {ITEM}")
-    if args.trust:
-        raise ValueError(f"--trust: the trust layer is {ITEM}")
+            raise ValueError(f"--{flag}: the metric rings and the grid's traced run are {ITEM}")
+
+
+def _trust_spec(args):
+    """The `repro_torch.trust.TrustSpec` the --trust flags describe (None
+    when --trust is off: the trust-free step)."""
+    if not args.trust:
+        return None
+    from repro_torch.trust import TrustSpec
+
+    return TrustSpec(evict_threshold=args.trust_evict, warmup=args.trust_warmup)
 
 
 def run_grid_mode(args) -> results_lib.GridResult | None:
@@ -108,7 +122,8 @@ def run_grid_mode(args) -> results_lib.GridResult | None:
         return replicate(small.init_linear(key, device=dev), m, perturb=0.01, key=key)
 
     engine = GridEngine(grid, small.linear_loss_and_grad, cells=pending,
-                        num_ticks=ticks if scenarios else None, sparse=args.sparse, device=dev)
+                        num_ticks=ticks if scenarios else None, sparse=args.sparse,
+                        trust=_trust_spec(args), device=dev)
     t0 = time.time()
     state = engine.init(init_fn)
     state, metrics = engine.run(state, batches, chunk=args.grid_chunk)
@@ -156,8 +171,13 @@ def run_breakdown_mode(args) -> dict:
     rules = args.rules.split(",")
     adversaries = (args.adversaries or "random,alie,ipm,inner_max").split(",")
     m, ticks = args.grid_nodes, args.grid_ticks
-    # the topology must admit the whole probed ladder, not just b = 1
-    topo = default_topology(m, rules, [max(args.breakdown_b_max, 1)], seed=0)
+    if args.trust:
+        # echo quorums need gossip triangles: a sender's witnesses must be
+        # adjacent to the receiver, so trust runs take the complete graph
+        topo = complete_graph(m, max(args.breakdown_b_max, 1))
+    else:
+        # the topology must admit the whole probed ladder, not just b = 1
+        topo = default_topology(m, rules, [max(args.breakdown_b_max, 1)], seed=0)
     task = linear_task(m, ticks, batch=args.grid_batch, num_train=args.grid_train,
                        num_test=args.grid_test, seed=0, device=dev)
     events = None
@@ -174,7 +194,8 @@ def run_breakdown_mode(args) -> dict:
                                    loss_ratio=args.breakdown_loss_ratio,
                                    score_drop=args.breakdown_score_drop),
             eval_fn=task.eval_accuracy, engine_chunk=args.grid_chunk,
-            scenario=args.breakdown_scenario, events=events, device=dev)
+            trust=_trust_spec(args), scenario=args.breakdown_scenario, events=events,
+            device=dev)
         result = engine.run()
     finally:
         if events is not None:
@@ -238,7 +259,14 @@ def main(argv=None):
                     help="breakdown mode: write the run's events to DIR/events.jsonl")
     for flag in ("--metrics", "--profile"):
         ap.add_argument(flag, default=None, metavar="DIR")
-    ap.add_argument("--trust", action="store_true")
+    # the trust layer (repro_torch.trust; grid and breakdown modes)
+    ap.add_argument("--trust", action="store_true",
+                    help="run every cell with reputation-weighted screening and eviction "
+                         "(repro_torch.trust); pair with the rep_* rules for the weights")
+    ap.add_argument("--trust-evict", type=float, default=0.5,
+                    help="the suspicion above which an edge is evicted")
+    ap.add_argument("--trust-warmup", type=int, default=8,
+                    help="ticks before an eviction can latch")
     args = ap.parse_args(argv)
     _refuse_unported(args)
     if args.out is None:

@@ -32,7 +32,9 @@ from repro_torch.net.runtime import SparseUnreliableRuntime, UnreliableRuntime
 class AsyncBridgeConfig(BridgeConfig):
     """`BridgeConfig` plus the network scenario: the channel, the staleness
     bound and an optional ``[T, M, M]`` schedule (`repro_torch.net.dynamic`;
-    None runs the static topology)."""
+    None runs the static topology).  ``trust`` (a
+    `repro_torch.trust.TrustSpec`, from `BridgeConfig`) runs the trust layer
+    with the echo protocol over the runtime's mailboxes."""
 
     channel: ChannelConfig = ChannelConfig.ideal()
     staleness_bound: int = 5

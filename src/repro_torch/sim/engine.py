@@ -21,12 +21,17 @@ drives the *same* cell-parameterized step `BridgeTrainer` binds
 * adversaries (`repro_torch.adversary`): the stacked ``AdvState`` ``[E, d]``
   (allocated only when the bank is stateful) and each cell's ``theta``
   ride along; ``inner_max`` ascends through the group's own screen;
-* observability (`repro_torch.obs`): an engine-wide forensics-free
-  ``trace`` spec stacks its `TraceState` over ``[E]`` (each cell's loss
-  trace, reservoir and first non-finite tick; bit-inert), and an
+* observability (`repro_torch.obs`): an engine-wide ``trace`` spec stacks
+  its `TraceState` over ``[E]`` (each cell's per-edge trim counters and
+  survival sums under forensics, its loss trace, reservoir and first
+  non-finite tick; bit-inert; `sender_grid` names the edge slots), and an
   ``events`` log (`repro_torch.obs.EventLog`) receives the reference's
   ``run.start``, ``grid.chunk``, ``run.end`` and ``obs.divergence``
-  records.
+  records;
+* the trust layer (`repro_torch.trust`): an engine-wide ``trust`` spec
+  stacks its `TrustState` over ``[E]``; each cell's evictions clear its own
+  mask, which the screening kernels take per cell, and ``slander``'s
+  forged digests reach the net grids' echo stage.
 
 The screening kernels take the experiment axis (`repro_torch.kernels`):
 each launches once a tick for a group of cells, whatever its size.  Since
@@ -54,9 +59,7 @@ Correctness anchor, as in the reference: any single cell equals its own
 ``chip_smoke.py`` on the card).
 
 Not yet here (refused with a `ValueError` that names its ROADMAP item):
-the ``trust`` and ``metrics`` specs and a ``trace`` with forensics (Queue
-1 open item 5), and with them the trust layer that would read
-``slander``'s forged digests.
+the ``metrics`` spec (the metric rings, Queue 1 open item 5's next slice).
 """
 from __future__ import annotations
 
@@ -81,11 +84,12 @@ from repro_torch.net.scenarios import build_schedule, get_scenario
 from repro_torch.obs import trace as obs_trace
 from repro_torch.sim import grid as grid_lib
 from repro_torch.sim.grid import Cell, ExperimentGrid
+from repro_torch.trust import reputation as trust_lib
 
 __all__ = ["GridEngine", "GridNetRuntime", "stack_batches"]
 
-GRID_SPECS = ("the trust and metrics specs: ROADMAP Queue 1 open item 5 (trust and "
-              "telemetry)")
+GRID_SPECS = ("the metrics spec: the metric rings are ROADMAP Queue 1 open item 5's next "
+              "slice (obs/metrics.py, obs/manifest.py, run_chunks)")
 
 
 def _dedup(names: Iterable) -> list:
@@ -253,9 +257,10 @@ class GridEngine:
     does).  ``sparse=True`` screens through the topology's `NeighborTable`
     (the gather kernels), each cell bit-identical to its dense twin.
 
-    ``trace`` (a `repro_torch.obs.TraceSpec` with ``forensics=False``)
-    carries each cell's aggregates in ``state.obs``; ``events`` (an
-    `EventLog`) gets the run's records.
+    ``trace`` (a `repro_torch.obs.TraceSpec`) carries each cell's
+    aggregates in ``state.obs``, ``trust`` (a `repro_torch.trust.TrustSpec`)
+    each cell's trust state in ``state.trust``; ``events`` (an `EventLog`)
+    gets the run's records.
 
     Usage — a rule x attack x seed product::
 
@@ -271,10 +276,10 @@ class GridEngine:
                  cells: Sequence[Cell] | None = None, num_ticks: int | None = None,
                  scenario_seed: int = 0, group: bool = True, sparse: bool = False, trace=None,
                  trust=None, metrics=None, events=None, device: str | torch.device = "cuda"):
-        if trust is not None or metrics is not None:
+        if metrics is not None:
             raise ValueError(f"GridEngine: {GRID_SPECS}")
-        obs_trace.check(trace)
         self._trace_spec = trace
+        self._trust_spec = trust
         self._events = events
         self.device = resolve_device(device)
         self.grid = grid
@@ -349,7 +354,7 @@ class GridEngine:
         cell of the engine names one)."""
         kw = dict(codecs=codecs, wire_attacks=byz_lib.wire_attack_bank(attacks),
                   adversaries=adversaries if self._adv_engaged else None,
-                  trace=self._trace_spec)
+                  trace=self._trace_spec, trust=self._trust_spec)
         if self.net_mode:
             return build_cell_runtime_step(
                 grad_fn, self.runtime, rules,
@@ -456,7 +461,8 @@ class GridEngine:
         codeword.  A lossy codec bank adds the zero codec carry (``[E, M,
         d]``, per link ``[E, M, W, d]``) for every cell, a stateful
         adversary bank the zero ``AdvState`` ``[E, d]``, a ``trace`` fresh
-        `TraceState` rows ``[E, ...]``."""
+        `TraceState` rows ``[E, ...]``, a ``trust`` all-trusting
+        `TrustState` rows ``[E, M, W]``."""
         m = self.grid.topology.num_nodes
         params = [init_fn(c.seed) for c in self.cells]
         for k, leaf in params[0].items():
@@ -476,8 +482,11 @@ class GridEngine:
         comm = exchange.init_residual(shape, bank, device=self.device)
         adv = (adv_lib.init_state(dim, lead=(e,), device=self.device) if self._adv_stateful
                else None)
-        obs = obs_trace.init_state(self._trace_spec, lead=(e,), device=self.device)
-        return BridgeState(params=stacked, t=0, key=keys, comm=comm, net=net, adv=adv, obs=obs)
+        width = m if self.neighbors is None else self.neighbors.k
+        obs = obs_trace.init_state(self._trace_spec, m, width, lead=(e,), device=self.device)
+        trust = trust_lib.init_state(self._trust_spec, m, width, lead=(e,), device=self.device)
+        return BridgeState(params=stacked, t=0, key=keys, comm=comm, net=net, adv=adv, obs=obs,
+                           trust=trust)
 
     def run(self, state: BridgeState, batches, *, chunk: int | None = None):
         """Run every cell over ``batches`` (a tensor or a tuple of tensors
@@ -515,7 +524,7 @@ class GridEngine:
                 st = BridgeState({k: take(v) for k, v in state.params.items()}, state.t,
                                  keys[cells_idx], _rows(state.comm, take),
                                  _rows(state.net, take), _rows(state.adv, take),
-                                 _rows(state.obs, take))
+                                 _rows(state.obs, take), _rows(state.trust, take))
                 t_chunk = time.perf_counter()
                 f, ms = self._run_chunk(self._steps[gi], cp, st, tick, ticks)
                 if ev is not None and chunked:
@@ -526,7 +535,8 @@ class GridEngine:
                 trim = lambda x: x[:valid]
                 finals.append(BridgeState({k: v[:valid] for k, v in f.params.items()}, f.t,
                                           f.key[:valid], _rows(f.comm, trim), _rows(f.net, trim),
-                                          _rows(f.adv, trim), _rows(f.obs, trim)))
+                                          _rows(f.adv, trim), _rows(f.obs, trim),
+                                          _rows(f.trust, trim)))
                 metrics.append({k: v[:valid] for k, v in ms.items()})
         order = torch.as_tensor(self._inv, device=self.device)
         params = {k: torch.cat([f.params[k] for f in finals]).index_select(0, order)
@@ -543,7 +553,8 @@ class GridEngine:
         out = {k: torch.cat([ms[k] for ms in metrics]).index_select(0, order)
                for k in metrics[0]}
         final = BridgeState(params=params, t=finals[0].t, key=key, comm=carried("comm"),
-                            net=carried("net"), adv=carried("adv"), obs=carried("obs"))
+                            net=carried("net"), adv=carried("adv"), obs=carried("obs"),
+                            trust=carried("trust"))
         if ev is not None:
             wait(self.device)
             ev.emit("run.end", kind="grid", wall_s=time.perf_counter() - t_run,
@@ -578,3 +589,15 @@ class GridEngine:
     def cell_params_of(self, i: int) -> CellParams:
         """Row ``i`` of the stacked cell parameters (diagnostics/tests)."""
         return self._cell_stack.select([i])
+
+    def sender_grid(self) -> np.ndarray:
+        """``[M, W]`` sender node id per edge slot (-1 = never live), what
+        `repro_torch.obs.trace.summarize` and `repro_torch.trust.summarize`
+        need to name edges: the table's slots sparse; on a dense net grid
+        every slot (schedules vary by tick), on a synchronous one the
+        adjacency's."""
+        m = self.grid.topology.num_nodes
+        if self.neighbors is not None:
+            return obs_trace.sender_grid(m, neighbors=self.neighbors)
+        return obs_trace.sender_grid(
+            m, adjacency=None if self.net_mode else self.grid.topology.adjacency)

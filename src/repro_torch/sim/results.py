@@ -31,8 +31,9 @@ from repro_torch.sim.grid import Cell
 # `collect` used to reduce two hardcoded key tuples — any other engine metric
 # stream vanished silently (``rho`` and ``active_links`` already had).  The
 # registry is extensible: subsystems that add metric streams register a
-# reducer for them (in the reference `repro.obs.trace` registers its
-# aggregates at import; the port has no trace layer yet), and `collect`
+# reducer for them (in the reference `repro.obs.trace` and
+# `repro.trust.reputation` register theirs at import; here they are
+# registered below, beside the engine's), and `collect`
 # *warns* on streams nothing registered instead of dropping them without a
 # trace.
 
@@ -66,6 +67,10 @@ for _k in ("delivered_frac", "mean_staleness", "screened_frac", "usable_in",
 # stream per cell; the mean reducer collapses ticks AND blocks, matching the
 # scalar obs_trim_frac semantics at NB = 1
 register_mean("stream_block_trim_frac")
+# the trace's live-edge mean trim fraction and the trust layer's evicted
+# share (repro_torch.obs.trace, repro_torch.trust.reputation)
+register_mean("obs_trim_frac")
+register_mean("trust_evicted_frac")
 
 
 def collect(cells: Sequence[Cell], metrics: dict, *, meta: dict | None = None) -> "GridResult":

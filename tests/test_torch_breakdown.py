@@ -302,13 +302,30 @@ def test_breakdown_through_a_net_scenario_matches_the_reference(targets, batches
     assert all(e.net_mode for e in eng.round_engines)
 
 
-def test_breakdown_refusals_name_their_roadmap_items(batches):
-    with pytest.raises(ValueError, match="item 5"):
-        BreakdownEngine(topo(), ("trimmed_mean",), ("ipm",), qgrad, init_fn, batches,
-                        trust=object(), device="cpu")
-    with pytest.raises(ValueError, match="item 5"):
-        BreakdownEngine(topo(), ("trimmed_mean",), ("ipm",), qgrad, init_fn, batches,
-                        trace=TraceSpec(), device="cpu").run()
+def test_breakdown_refusals_name_their_roadmap_items(targets, batches, jbatches, ladder):
+    """The trust layer and a forensic trace, refused before, now run: a
+    forensic trace leaves the certificate the sentinel-only run's (the
+    ladder fixture's reference), and a trust run matches the reference's."""
+    from repro.trust import TrustSpec as JTrustSpec
+    from repro_torch.trust import TrustSpec
+
+    jres = ladder[0]
+    eng = BreakdownEngine(topo(), ("trimmed_mean",), ("random", "ipm"), qgrad, init_fn, batches,
+                          lam=1.0, t0=10.0,
+                          config=BreakdownConfig(mode="ladder", seeds=(0,), b_max=2,
+                                                 score_drop=0.5),
+                          eval_fn=eval_fn(targets), trace=TraceSpec(), device="cpu")
+    assert_same_result(jres, eng.run())
+    assert all(e._trace_spec.forensics for e in eng.round_engines)
+    cfg = dict(mode="ladder", seeds=(0,), b_max=2)
+    jt = JEngine(jerdos_renyi(M, 0.8, 2, seed=1), ("rep_trimmed_mean",), ("ipm",), jqgrad,
+                 jinit_fn, jbatches, lam=1.0, t0=10.0, config=JConfig(**cfg),
+                 trust=JTrustSpec(warmup=2)).run()
+    tt = BreakdownEngine(topo(), ("rep_trimmed_mean",), ("ipm",), qgrad, init_fn, batches,
+                         lam=1.0, t0=10.0, config=BreakdownConfig(**cfg),
+                         trust=TrustSpec(warmup=2), device="cpu").run()
+    assert tt["meta"]["trust"] and jt["meta"]["trust"]
+    assert_same_result(jt, tt)
     with pytest.raises(ValueError, match="reference"):
         BreakdownEngine(topo(), ("trimmed_mean",), ("none",), qgrad, init_fn, batches,
                         device="cpu")
@@ -379,8 +396,12 @@ def test_sweep_breakdown_mode_writes_its_json_and_events(tmp_path):
     assert all(0.0 <= p["score"] <= 1.0 for a in advs.values() for p in a["probes"].values())
     tags = [e["tag"] for e in read_events(os.path.join(trace, "events.jsonl"))]
     assert tags.count("breakdown.round") == 2
-    with pytest.raises(ValueError, match="item 5"):
-        sweep.main(["--mode", "breakdown", "--out", out, "--device", "cpu", "--trust"])
+    # --trust: the trust layer on the complete graph (the echo's quorums)
+    res = sweep.main(["--mode", "breakdown", "--out", out, "--device", "cpu", "--trust",
+                      "--rules", "rep_trimmed_mean", "--adversaries", "ipm",
+                      "--breakdown-b-max", "1", "--grid-nodes", "10", "--grid-ticks", "3",
+                      "--grid-train", "300", "--grid-test", "50"])
+    assert res["meta"]["trust"] and res["rules"]["rep_trimmed_mean"]["feasible_b"] == 1
     with pytest.raises(ValueError, match="JAX package"):
         sweep.main(["--mode", "net", "--out", out, "--device", "cpu"])
 

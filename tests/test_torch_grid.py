@@ -257,10 +257,10 @@ def test_banked_dispatch_equals_each_experiments_own_rule():
 
 
 def test_refusals_name_their_roadmap_items(tmp_path):
-    """The refusals left name their ROADMAP items (trust, the metric rings
-    and the trace's forensics: Queue 1 open item 5); codecs, wire attacks,
-    adversaries, a forensics-free trace and the breakdown mode, refused
-    before, now build."""
+    """The refusals left name their ROADMAP items (the metric rings and the
+    grid's traced sweep: Queue 1 open item 5's next slice); codecs, wire
+    attacks, adversaries, a trace (forensics too), the trust layer and the
+    breakdown mode, refused before, now build and run."""
     topo = erdos_renyi(M, 0.8, 2, seed=1)
     grid = ExperimentGrid(topo, ("trimmed_mean",), ("random",), (2,))
     for cell in (Cell("trimmed_mean", "random", 2, 0, "lossy", "int8"),
@@ -270,13 +270,28 @@ def test_refusals_name_their_roadmap_items(tmp_path):
         GridEngine(grid, qgrad, cells=[cell], num_ticks=3, device="cpu")
     ExperimentGrid(topo, ("trimmed_mean",), ("random",), (2,), adversaries=("ipm",))
     GridEngine(grid, qgrad, trace=TraceSpec(forensics=False), device="cpu")
-    for kw in (dict(trace=TraceSpec()), dict(trust=object()), dict(metrics=object())):
-        with pytest.raises(ValueError, match="item 5"):
-            GridEngine(grid, qgrad, device="cpu", **kw)
-    for flags, item in ((["--trace", "x"], "item 5"), (["--trust"], "item 5"),
+    # a forensic trace and the trust layer run: each leaves its [E, M, W]
+    # state, the forensic trace bit-inert against the untraced grid
+    from repro_torch.trust import TrustSpec
+
+    batches = torch.zeros((2, M, D))
+    runs = [GridEngine(grid, qgrad, device="cpu", **kw) for kw in
+            (dict(), dict(trace=TraceSpec()), dict(trust=TrustSpec()))]
+    finals = [eng.run(eng.init(init_fn), batches)[0] for eng in runs]
+    assert torch.equal(finals[0].params["w"], finals[1].params["w"])
+    assert finals[1].obs.edge_seen.shape == finals[2].trust.suspicion.shape == (1, M, M)
+    with pytest.raises(ValueError, match="item 5"):
+        GridEngine(grid, qgrad, device="cpu", metrics=object())
+    for flags, item in ((["--trace", "x"], "item 5"), (["--metrics", "x"], "item 5"),
                         (["--mode", "dryrun"], "belong to the JAX package")):
         with pytest.raises(ValueError, match=item):
             sweep.main(["--out", str(tmp_path), "--device", "cpu", *flags])
+    # --trust runs the grid with the trust layer, its evicted share reduced
+    out = str(tmp_path / "trust")
+    sweep.main(["--out", out, "--device", "cpu", "--trust", "--rules", "trimmed_mean",
+                "--attacks", "alie", "--grid-nodes", "10", "--grid-ticks", "2",
+                "--grid-train", "300", "--grid-test", "50"])
+    assert "mean_trust_evicted_frac" in load_cell_store(out).cells[0]
 
 
 def test_sweep_grid_mode_writes_and_resumes(tmp_path, capsys):

@@ -13,7 +13,9 @@ pairwise distances within the float32 dot-product bound
 (``test_torch_krum.py``) with exact symmetry, an exact zero diagonal and
 the NaN/inf pattern kept; the views screens (the network runtime's, over
 each node's own mailbox views) exact up to 63 slots, a receiver stride of
-0 and starved nodes included, and above on the wide path.
+0 and starved nodes included, and above on the wide path; the screens'
+decide form (y and the per-edge trim fractions) exact against its plain
+twins, refusing above the register networks.
 
 This file imports nothing of JAX, so it runs on the card's machine:
 
@@ -29,8 +31,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import (
-    build, dequant, dequant_screen, gather_screen, median, networks, pairwise, ref, screen_wide,
-    trimmed_mean, views_screen)
+    build, dequant, dequant_screen, gather_screen, median, networks, pairwise, ref, screen_decide,
+    screen_wide, trimmed_mean, views_screen)
 
 
 def edge_inputs(n: int, d: int, seed: int):
@@ -1070,3 +1072,76 @@ def test_views_backward_kernels_equal_the_plain_backward_on_card(cuda_device, w,
             got = grad_ops._backward(spec, views, sv, gy)
             for g, p in zip(got, want, strict=True):
                 assert torch.equal(g, p), (rule, b)
+
+
+def _decide_equal(got, want, plain_y, bound=None) -> None:
+    """``(y, trim)`` of a decide kernel: trim the twin's and y the plain
+    kernel's, bit for bit; y the twin's (NaN-aware ``==``), or within
+    ``bound`` where the twin sums in another order."""
+    for g, w_ in ((got[0], plain_y), (got[1], want[1])):
+        assert torch.equal(bits(g), bits(w_))
+    if bound is None:
+        assert bool(nan_equal(got[0], want[0]).all())
+        return
+    y, ty = got[0], want[0]
+    finite = torch.isfinite(y) & torch.isfinite(ty)
+    assert bool(nan_equal(y[~finite], ty[~finite]).all())
+    assert bool(((y - ty).abs()[finite] <= bound[finite]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 20, 50, 64, 100])
+def test_dense_decide_kernels_equal_their_plain_twins(cuda_device, n):
+    """The dense screens' decide form at strides 1 and 4 (buckets with the
+    register copy, up to 32 rows, and with the re-read above, the 128-row
+    bucket included): trim the plain twin's and y the plain kernel's, bit
+    for bit; y the twin's exactly, except the trimmed mean above 64 rows,
+    where the twin sums with ``torch.sum`` (`summation_bound`); the wide
+    shapes refuse."""
+    w, adj = edge_inputs(n, 999, seed=n)
+    tw, ta = torch.from_numpy(w).to(cuda_device), torch.from_numpy(adj).to(cuda_device)
+    for s in (1, 4):
+        for b in (0, 2):
+            _decide_equal(screen_decide.trimmed_mean_dense_decide(tw, ta, tw, b, s),
+                          ref.trimmed_mean_dense_decide(tw, ta, tw, b, s),
+                          trimmed_mean.trimmed_mean_dense(tw, ta, tw, b),
+                          summation_bound(tw, ta, b) if n > 64 else None)
+        _decide_equal(screen_decide.median_dense_decide(tw, ta, tw, s),
+                      ref.median_dense_decide(tw, ta, tw, s), median.median_dense(tw, ta, tw))
+    wide = torch.zeros((129, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        screen_decide.trimmed_mean_dense_decide(
+            wide, torch.ones((129, 129), dtype=torch.bool, device=cuda_device), wide, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 16, 40, 63])
+def test_tile_decide_kernels_equal_their_plain_twins(cuda_device, k):
+    """The gather and views screens' decide form on tables with padded
+    slots and starved nodes, exact against the plain twins and the plain
+    kernels; above 63 slots the decide form refuses."""
+    from repro_torch.core.neighbors import NeighborTable
+
+    w, adj = sparse_inputs(k, 300, seed=k)
+    tab = NeighborTable.from_adjacency(adj, k=k, device=cuda_device)
+    tw = torch.from_numpy(w).to(cuda_device)
+    idx, valid = tab.safe_idx, tab.valid_dev
+    views = ref.gather(tw, idx).contiguous()
+    for s in (1, 4):
+        _decide_equal(screen_decide.gather_screen_trimmed_mean_decide(tw, idx, valid, tw, 2, s),
+                      ref.gather_trimmed_mean_decide(tw, idx, valid, tw, 2, s),
+                      gather_screen.gather_screen_trimmed_mean(tw, idx, valid, tw, 2))
+        _decide_equal(screen_decide.gather_screen_median_decide(tw, idx, valid, tw, s),
+                      ref.gather_median_decide(tw, idx, valid, tw, s),
+                      gather_screen.gather_screen_median(tw, idx, valid, tw))
+        _decide_equal(screen_decide.views_screen_trimmed_mean_decide(views, valid, tw, 2, s),
+                      ref.trimmed_mean_views_decide(views, valid, tw, 2, s),
+                      views_screen.views_screen_trimmed_mean(views, valid, tw, 2))
+        _decide_equal(screen_decide.views_screen_median_decide(views, valid, tw, s),
+                      ref.median_views_decide(views, valid, tw, s),
+                      views_screen.views_screen_median(views, valid, tw))
+    wide = torch.zeros((70, 70, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        screen_decide.views_screen_median_decide(
+            wide, torch.ones((70, 70), dtype=torch.bool, device=cuda_device),
+            wide[:, 0].contiguous())

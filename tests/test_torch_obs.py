@@ -109,17 +109,24 @@ def test_trace_update_matches_the_reference(ema, reservoir, stride):
 
 
 def test_trace_spec_checks_and_the_forensics_refusal():
+    """The spec's checks; forensics, refused before, now builds its [M, W]
+    counters (the reference's shapes); the grid's metrics spec still
+    refuses, naming the next slice."""
     with pytest.raises(ValueError, match="invalid TraceSpec"):
         TraceSpec(reservoir=-1)
     with pytest.raises(ValueError, match="invalid TraceSpec"):
         TraceSpec(stride=0)
     assert TraceSpec() == TraceSpec(forensics=True) and hash(TraceSpec(forensics=False))
     assert obs_trace.init_state(None, device="cpu") is None
-    for call in (lambda: obs_trace.init_state(TraceSpec(), device="cpu"),
-                 lambda: BridgeTrainer(BridgeConfig(topology=topo(), trace=TraceSpec()), qgrad,
-                                       device="cpu")):
-        with pytest.raises(ValueError, match="ROADMAP Queue 1 open item 5"):
-            call()
+    st = obs_trace.init_state(TraceSpec(reservoir=2), M, 6, lead=(3,), device="cpu")
+    jst = jtrace.init_state(JSpec(reservoir=2), M, 6, lead=(3,))
+    for f in jtrace.TraceState._fields:
+        assert getattr(st, f).shape == getattr(jst, f).shape, f
+    tr = BridgeTrainer(BridgeConfig(topology=topo(), trace=TraceSpec()), qgrad, device="cpu")
+    assert tr.init(init_fn(0)).obs.edge_seen.shape == (M, M)
+    grid = ExperimentGrid(topo(), ("trimmed_mean",), ("none",), (1,))
+    with pytest.raises(ValueError, match="next slice"):
+        GridEngine(grid, qgrad, metrics=object(), device="cpu")
 
 
 def test_event_log_round_trip(tmp_path):
@@ -288,3 +295,160 @@ def test_grid_state_crosses_over_with_its_trace(targets):
     assert all(torch.equal(a, b) for a, b in zip(moved.obs, st, strict=True))
     with pytest.raises(ValueError, match="obs carry"):
         convert.grid_state_from_jax(params, 0, keys[:2], obs=arrays, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the trace's forensics
+# ---------------------------------------------------------------------------
+
+
+def _forensic_tick(rng, e, w):
+    live = rng.random((e, M, w)) < 0.7
+    trim = np.where(live, rng.integers(0, 65, size=(e, M, w)) / 64.0, 0.0).astype(np.float32)
+    byz = rng.random((e, M, w)) < 0.2
+    stale = rng.integers(0, 40, size=(e, M, w)).astype(np.int32)
+    return live, trim, byz, stale
+
+
+@pytest.mark.parametrize("reservoir,stride,with_net", [(3, 2, True), (0, 1, False)])
+def test_trace_update_with_forensics_matches_the_reference(reservoir, stride, with_net):
+    """``trace.update`` with forensics over 8 ticks and 4 cells against
+    ``jax.jit`` of the reference's, bit for bit: the per-edge counters, the
+    survival sums (fractions over 64 columns: exact sums), the staleness
+    and wire-bits histograms, the reservoir's trim matrices."""
+    e, w, d = 4, 7, 1000
+    rng = np.random.default_rng(5)
+    js = JSpec(reservoir=reservoir, stride=stride, hist_bins=8, stale_max=20)
+    ts = TraceSpec(reservoir=reservoir, stride=stride, hist_bins=8, stale_max=20)
+    jst = jtrace.init_state(js, M, w, lead=(e,))
+    st = obs_trace.init_state(ts, M, w, lead=(e,), device="cpu")
+    bits = (32000, 8000, 33000, 64)
+    up = jax.jit(jax.vmap(lambda s, lo, c, tr, lv, bz, sl, wb, le, t: jtrace.update(
+        js, s, t=t, loss=lo, consensus=c, trim_frac=tr, live=lv, byz_edge=bz,
+        staleness=sl if with_net else None, wire_bits=wb, live_edges=le, d=d),
+        in_axes=(0, 0, 0, 0, 0, 0, 0, 0, 0, None)))
+    for t in range(8):
+        live, trim, byz, stale = _forensic_tick(rng, e, w)
+        loss = rng.normal(size=e).astype(np.float32)
+        le = rng.integers(10, 50, size=e).astype(np.float32)
+        jst = up(jst, jnp.asarray(loss), jnp.asarray(loss), jnp.asarray(trim), jnp.asarray(live),
+                 jnp.asarray(byz), jnp.asarray(stale), jnp.asarray(bits), jnp.asarray(le), t)
+        st = obs_trace.update(ts, st, t=t, loss=torch.from_numpy(loss),
+                              consensus=torch.from_numpy(loss), trim_frac=torch.from_numpy(trim),
+                              live=torch.from_numpy(live), byz_edge=torch.from_numpy(byz),
+                              staleness=torch.from_numpy(stale) if with_net else None,
+                              wire_bits=bits, live_edges=torch.from_numpy(le), d=d)
+        for f in jtrace.TraceState._fields:
+            np.testing.assert_array_equal(getattr(st, f).numpy(), np.asarray(getattr(jst, f)),
+                                          err_msg=f"{f} at tick {t}")
+    senders = np.where(rng.random((M, w)) < 0.8, rng.integers(0, M, size=(M, w)), -1)
+    byz_mask = np.zeros(M, bool)
+    byz_mask[[1, 4]] = True
+    one = obs_trace.TraceState(*(x[1] for x in st))
+    jone = jtrace.TraceState(*(x[1] for x in jst))
+    assert (obs_trace.summarize(ts, one, byz_mask=byz_mask, senders=senders)
+            == jtrace.summarize(js, jone, byz_mask=byz_mask, senders=senders))
+
+
+def test_ranking_auc_sender_grid_and_staleness_are_the_reference():
+    rng = np.random.default_rng(3)
+    for scores, labels in ((rng.normal(size=40), rng.random(40) < 0.3),
+                           (np.round(rng.normal(size=40)), rng.random(40) < 0.5),
+                           (np.zeros(5), np.ones(5, bool))):
+        assert obs_trace.ranking_auc(scores, labels) == jtrace.ranking_auc(scores, labels)
+    adj = jerdos_renyi(M, 0.5, 2, seed=3).adjacency
+    np.testing.assert_array_equal(obs_trace.sender_grid(M, adjacency=adj),
+                                  jtrace.sender_grid(M, adjacency=adj))
+    np.testing.assert_array_equal(obs_trace.sender_grid(M), jtrace.sender_grid(M))
+    from repro.core.neighbors import NeighborTable as JTable
+    from repro_torch.core.neighbors import NeighborTable
+
+    np.testing.assert_array_equal(
+        obs_trace.sender_grid(M, neighbors=NeighborTable.from_adjacency(adj, device="cpu")),
+        jtrace.sender_grid(M, neighbors=JTable.from_adjacency(adj)))
+    from repro.net import mailbox as jmb
+    from repro_torch.net import mailbox as tmb
+
+    ticks = rng.integers(-3, 9, size=(M, M)).astype(np.int32)
+    ticks[ticks < 0] = tmb.NEVER
+    net = tmb.MailboxState(*(torch.zeros(1) for _ in tmb.MailboxState._fields))._replace(
+        send_tick=torch.from_numpy(ticks))
+    jnet = type("Net", (), {"send_tick": jnp.asarray(ticks)})()
+    np.testing.assert_array_equal(obs_trace.staleness_of(net, 9).numpy(),
+                                  np.asarray(jtrace.staleness_of(jnet, 9)))
+    assert obs_trace.staleness_of(None, 3) is None
+    np.testing.assert_array_equal(
+        tmb.generation_match(torch.from_numpy(ticks), torch.from_numpy(ticks.T.copy())).numpy(),
+        np.asarray(jmb.generation_match(jnp.asarray(ticks), jnp.asarray(ticks.T))))
+
+
+@pytest.mark.parametrize("path", ["dense", "sparse", "runtime"])
+def test_forensic_trace_is_bit_inert_and_matches_the_reference(path, targets):
+    """Forensics on: the trajectory is the untraced one bit for bit, and
+    the counters, the survival sums and ``obs_trim_frac`` are the
+    reference's traced trainer's (an `alie` run that agrees within rtol
+    1e-5: counters exact, sums within rtol 1e-5)."""
+    from repro.net import AsyncBridgeConfig as JAsyncConfig
+    from repro.net import AsyncBridgeTrainer as JAsyncTrainer
+    from repro.net import ChannelConfig as JChannel
+    from repro_torch.net import ChannelConfig
+
+    kw = dict(rule="trimmed_mean", num_byzantine=2, attack="alie", lam=1.0, t0=10.0,
+              sparse=path == "sparse")
+    spec_kw_ = dict(decide_stride=2, reservoir=2, stride=3)
+    runs = []
+    for trace in (None, TraceSpec(**spec_kw_)):
+        if path == "runtime":
+            tr = AsyncBridgeTrainer(AsyncBridgeConfig(topology=topo(), trace=trace,
+                                                      channel=ChannelConfig(drop_prob=0.1),
+                                                      staleness_bound=2, **kw), qgrad,
+                                    device="cpu")
+        else:
+            tr = BridgeTrainer(BridgeConfig(topology=topo(), trace=trace, **kw), qgrad,
+                               device="cpu")
+        st = tr.init(init_fn(0), seed=0)
+        for _ in range(T):
+            st, m = tr.step(st, torch.from_numpy(targets))
+        runs.append((st, m))
+    assert_states_equal(runs[0][0], runs[1][0])
+    st, m = runs[1]
+    jtopo = jerdos_renyi(M, 0.8, 2, seed=1)
+    if path == "runtime":
+        jtr = JAsyncTrainer(JAsyncConfig(topology=jtopo, trace=JSpec(**spec_kw_),
+                                         channel=JChannel(drop_prob=0.1), staleness_bound=2,
+                                         **kw), jqgrad)
+    else:
+        jtr = JTrainer(JConfig(topology=jtopo, trace=JSpec(**spec_kw_), **kw), jqgrad)
+    jst = jtr.init(jinit_fn(0), seed=0)
+    for _ in range(T):
+        jst, jm = jtr.step(jst, jnp.asarray(targets))
+    for f in ("edge_seen", "stale_hist", "bits_hist", "byz_seen", "hon_seen", "res_tick"):
+        np.testing.assert_array_equal(getattr(st.obs, f).numpy(), np.asarray(getattr(jst.obs, f)),
+                                      err_msg=f)
+    for f in ("edge_trim", "byz_trim", "hon_trim", "res_trim"):
+        np.testing.assert_allclose(getattr(st.obs, f).numpy(), np.asarray(getattr(jst.obs, f)),
+                                   rtol=1e-5, atol=1e-6, err_msg=f)
+    np.testing.assert_allclose(float(m["obs_trim_frac"]), float(jm["obs_trim_frac"]), rtol=1e-5)
+    assert float(st.obs.edge_seen.sum()) > 0
+
+
+def test_forensic_grid_cells_equal_their_trainer_runs(targets):
+    """A forensic trace over a grid's cells (sync, sparse, banked): each
+    cell's aggregates its own traced trainer's, bit for bit."""
+    grid = ExperimentGrid(topo(), ("trimmed_mean", "median"), ("alie",), (1, 2), (0,),
+                          lam=1.0, t0=10.0)
+    spec = TraceSpec(decide_stride=2)
+    eng = GridEngine(grid, qgrad, trace=spec, sparse=True, group=False, device="cpu")
+    tg = torch.from_numpy(targets)
+    final, _ = eng.run(eng.init(init_fn), torch.stack([tg] * T))
+    assert final.obs.edge_seen.shape == (4, M, eng.neighbors.k)
+    for i, c in enumerate(eng.cells):
+        tr = BridgeTrainer(BridgeConfig(topology=grid.topology, rule=c.rule, num_byzantine=c.b,
+                                        attack=c.attack, lam=1.0, t0=10.0, sparse=True,
+                                        byzantine_seed=grid.byzantine_seed, trace=spec),
+                           qgrad, device="cpu")
+        st = tr.init(init_fn(0), seed=0)
+        for _ in range(T):
+            st, _ = tr.step(st, tg)
+        for f in obs_trace.TraceState._fields:
+            assert torch.equal(getattr(final.obs, f)[i], getattr(st.obs, f)), (c, f)

@@ -4,7 +4,7 @@ thresholds the port's card runs are held to (within 0.01 of each).
 
     JAX_PLATFORMS=cpu PYTHONPATH=src:. python tools/reference_accuracy.py \
         [--only dense,sparse,variants,wire,wire_sparse,variants_wire,net,net_kb,adversary,
-                breakdown]
+                breakdown,trust]
 
 Configurations (each as `chip_smoke.py` runs it, same seeds and batches):
 
@@ -85,6 +85,24 @@ Configurations (each as `chip_smoke.py` runs it, same seeds and batches):
     fitness of each proposal (the registered default, then 11 draws of
     ``default_rng(0)``), and the search's ``best_fitness`` and
     ``default_fitness``.
+
+* ``trust``: the trust layer and the trace's forensics, not accuracies:
+  - ``benchmarks/trust_bench.py``'s three measurements at its smoke sizes:
+    the breakdown study (M = 15, complete graph, moderate non-iid, 2000 /
+    400 samples, 64 ticks, ``equivocate`` through ``ideal``, b_max 7,
+    score_drop 0.15, loss_ratio 50: static BRIDGE-T against
+    ``rep_trimmed_mean`` with ``TrustSpec(warmup=4)``), each arm's b*,
+    feasible b, every probe's ``survived`` and ``score``; the detection
+    cells (M = 12, the d = 64 quadratic, 16 ticks, b = 2, ``equivocate``
+    and ``slander`` through ``ideal``), each cell's trust summary; the
+    inertness check (M = 32, 12 ticks), whether trust on but inert is bit
+    for bit trust off;
+  - ``benchmarks/obs_bench.py``'s ``trace_overhead`` cells at M = 512
+    (``small_world(512, 6, 2)``, BRIDGE-T, ``alie``, drop 0.05, staleness
+    bound 2, t0 = 100, the sparse runtime): the d = 64 quadratic over 20
+    ticks with ``decide_stride`` 4 and the MNIST-like linear task (d =
+    7850) over 3 ticks with stride 16; each one's bit-identity, AUC and
+    survival rates.
 
 Prints one line per configuration and a JSON object of all of them last.
 Takes some minutes (the sparse runs most of it).
@@ -384,13 +402,45 @@ def breakdown():
     return out
 
 
+def trust():
+    from benchmarks import obs_bench, trust_bench
+
+    from repro.adversary.breakdown import BreakdownConfig, BreakdownEngine
+    from repro.core import complete_graph
+    from repro.trust import TrustSpec
+
+    # trust_bench.breakdown_study(15, ticks=64, b_max=7), each arm's whole
+    # certificate kept (its b = 0 reference probe included)
+    task = tasks.linear_task(15, 64, partition="moderate", num_train=2000, num_test=400, seed=0)
+    cfg = BreakdownConfig(mode="ladder", seeds=(0,), b_max=7, loss_ratio=50.0, score_drop=0.15)
+    out = {"trust breakdown": {}}
+    for arm, rule, spec in (("static", "trimmed_mean", None),
+                            ("rep_trust", "rep_trimmed_mean", TrustSpec(warmup=4))):
+        res = BreakdownEngine(complete_graph(15, 7), (rule,), ("equivocate",), task.grad_fn,
+                              task.init_fn, task.batches, lam=1.0, t0=30.0, config=cfg,
+                              eval_fn=task.eval_accuracy, scenario="ideal", trust=spec).run()
+        out["trust breakdown"][arm] = _certificate(res)[rule]
+    det = trust_bench.detection_cells(12, ticks=16, b=2)
+    out["trust detection"] = {adv: {k: v for k, v in rec.items() if k != "spec"}
+                              for adv, rec in det["cells"].items()}
+    out["trust inertness"] = {
+        "bit_identical": trust_bench.inertness_overhead(32, ticks=12, reps=1)["bit_identical"]}
+    for name, kw in (("stress", dict(ticks=20)),
+                     ("paper", dict(ticks=3, paper=True, decide_stride=16))):
+        rec = obs_bench.trace_overhead(512, reps=1, budget=1.0, **kw)
+        out[f"obs trace {name}"] = {k: rec[k] for k in ("bit_identical", "auc_byzantine_edges",
+                                                         "survival", "k", "dim")}
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="dense,sparse,variants")
     args = ap.parse_args()
     groups = {"dense": dense, "sparse": sparse, "variants": variants, "wire": wire,
               "wire_sparse": wire_sparse, "variants_wire": variants_wire, "net": net,
-              "net_kb": net_kb, "adversary": adversary, "breakdown": breakdown}
+              "net_kb": net_kb, "adversary": adversary, "breakdown": breakdown,
+              "trust": trust}
     results = {}
     for name in args.only.split(","):
         t0 = time.perf_counter()

@@ -15,6 +15,10 @@ The trainer form closes over the adjacency and passes ``b`` as an operand
   multiply, and the multiply fused with the add of self (one rounding);
 * XLA's ``rsqrt`` against a correctly rounded ``1 / sqrt`` and ``1 / sqrtf``.
 
+The decision twins' per-edge trim fraction (``jnp.mean`` over the decided
+columns, `repro.core.screening.trimmed_mean_with_decisions`): the count
+over the column count, or times its float32 reciprocal.
+
 ByRDiE's block screen (`repro.core.byrdie`) closes over the adjacency and
 passes ``b`` static: ``jax.jit(lambda w: screen_all(w, adj, rule=
 "trimmed_mean", b=2))`` at M = 20 on ``erdos_renyi(20, 0.5, 2)``, d = 512,
@@ -108,6 +112,7 @@ def main() -> None:
           f"fused multiply-add {share(fused, want):.4f}")
 
     byrdie_form()
+    decision_forms()
     codeword_forms(rng)
 
     x = np.concatenate([np.arange(1, 200001, dtype=np.float32),
@@ -131,6 +136,29 @@ def byrdie_form() -> None:
     rcp = ref.trimmed_mean_dense(tw, ta, tw, b, recip=True).numpy()
     print(f"ByRDiE block screen (closed-over adjacency, static b, M = {m}): division "
           f"{float((div == want).mean()):.4f}, reciprocal multiply {float((rcp == want).mean()):.4f}")
+
+
+def decision_forms() -> None:
+    """The decision twins' per-edge fraction, ``jnp.mean`` of the trimmed
+    bits over the ``ceil(d / s)`` decided columns: against the count
+    divided by that width and times its float32 reciprocal, at M = 20 on
+    ``erdos_renyi(20, 0.5, 2)``, d = 7850, strides 1, 3, 4 and 16, the
+    trainer's form (adjacency closed over, b an operand)."""
+    m, b = 20, 2
+    adj_j = jnp.asarray(graph.erdos_renyi(m, 0.5, b, seed=0).adjacency)
+    w = jnp.asarray(np.random.default_rng(0).normal(size=(m, D)).astype(np.float32))
+    for s in (1, 3, 4, 16):
+        fn = jax.jit(lambda w_, b_, s=s: screening.screen_all_decide_banked(
+            w_, adj_j, ("trimmed_mean",), 0, b_, self_vals=w_, decide_stride=s))
+        trim = np.asarray(fn(w, jnp.int32(b))[1])
+        n = len(range(0, D, s))
+        count = np.round(trim.astype(np.float64) * n).astype(np.float32)  # exact integers
+        div = count / np.float32(n)
+        rcp = count * (np.float32(1) / np.float32(n))
+        print(f"decision fraction (stride {s}, {n} columns): division "
+              f"{float((div == trim).mean()):.4f}, reciprocal multiply "
+              f"{float((rcp == trim).mean()):.4f} (the two differ on {int((div != rcp).sum())} "
+              f"of {trim.size} edges)")
 
 
 def codeword_forms(rng) -> None:
