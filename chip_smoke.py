@@ -270,7 +270,40 @@ failure of which raises:
    with the echo; 8 ticks): its decisions from the median decide kernel of
    the layout, the trust state and parameters bit for bit the same run's
    with the decide entries swapped for their plain twins.  Every run's
-   launches exact.
+   launches exact;
+24. live metrics, manifests and streaming — first every screen at the
+   stream's block widths (dense M = 50: 1024, the 672-wide tail of the
+   784 x 10 leaf, the 10-wide bias; sparse M = 512, K = 16: 2048, 1696,
+   10 under every candidate tile plan; the views form over a mailbox's
+   strided column blocks; the decide forms of all three at strides 1 and
+   16) exact against its plain version on the blocks of the model, and
+   the block's copy timed beside its screen; the honest mean's node sum
+   (``byzantine.node_sum``) bit for bit a row-by-row loop, whole and per
+   block; (a) ``benchmarks/obs_bench.py``'s ``metrics_overhead`` paper
+   cell (the sparse runtime, M = 512, K = 16, d = 7850, 4 ticks, capacity
+   2; then 40 ticks, capacity 20) through ``run_chunks`` with a real
+   writer, event log, manifest and Perfetto export: metrics on bit for
+   bit metrics off, rows gapless (one a tick across the repeated runs),
+   ``monitor --once`` parsing the run, ``trace.json`` written, the
+   manifest naming the card; off and on run in turn six times each, their
+   median ms/tick and range and the overhead beside the reference's 0.10,
+   then a profiled run of each naming what the metered tick adds; (b)
+   ``sweep --mode grid --metrics --trace --profile`` at grid_bench's grid
+   (48 cells, M = 12, 30 ticks): a ``metrics.jsonl`` stream a cell, every
+   cell's AUC in ``obs_summary.json`` the reference's
+   (``REFERENCE_SWEEP_OBS``, group ``sweep_obs`` of
+   ``tools/reference_accuracy.py``), the manifest naming the card, a
+   profiler trace with the kernels in it, the decide launches a (rule,
+   attack) group and tick; (c) `repro_torch.stream.StreamBridgeTrainer`
+   on the dense M = 50 paper task over 20 ticks: one block (the model as
+   one 7850-wide leaf) for BRIDGE-T and BRIDGE-M under ``random`` and
+   ``sign_flip`` bit for bit its `BridgeTrainer` run; ``screen_chunk =
+   1024`` on ``{w [784, 10], b [10]}`` (9 blocks) under ``sign_flip`` and
+   ``alie`` bit for bit; sparse M = 512, K
+   = 16 at chunk 2048 (5 blocks) bit for bit; a forensic stream bit for
+   bit its untraced run; the network path at drop 0.1; ms/tick of the
+   flat trainer, the one-block and the 9-block stream.  Every run's
+   launches exact (a screen a block and tick).
 
 Every accuracy of phases 8-11 and 21 must land within 0.01 of the reference's
 own CPU run at the same settings (``REFERENCE_ACCURACY``, from
@@ -279,7 +312,7 @@ Krum's picks (``PICK_BOUND``), which is held to card-vs-CPU parity.
 
 Each configuration of a trainer phase trains on a task of its own, so all
 see batches 0..199 of one stream.  Before each main-path phase (5-12,
-16-23) every kernel's launch count is set to 0, and read
+16-24) every kernel's launch count is set to 0, and read
 after its runs: each kernel of the phase must have launched once per
 tick of the runs of its rule (codec), the others not at all; a kernel's
 ``launches`` in the JSON line is the sum over the phases.  Then each
@@ -294,6 +327,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
+import io
 import json
 import math
 import os
@@ -4575,6 +4610,512 @@ def trust_phase(dev):
     return records, launches
 
 
+# ---------------------------------------------------------------------------
+# 24. Live metric rings, run manifests, the obs CLIs and streaming
+# ---------------------------------------------------------------------------
+
+METRICS_CELLS = ((4, 2), (40, 20))  # obs_bench's metrics_overhead cell (ticks, capacity); longer
+METRICS_REPS = 6  # runs each of metrics off and on, in turn
+METRICS_BUDGET = 0.10  # the reference's acceptance bound on the paper cell
+STREAM_TICKS = 20
+STREAM_CHUNK = 1024
+SPARSE_STREAM_CHUNK = 2048
+FORENSIC_STREAM_TICKS = 5
+DECIDE_STRIDES = (1, 16)
+# grid_bench's grid through the sweep (tools/reference_accuracy.py's SWEEP_OBS_ARGS)
+SWEEP_OBS_RULES = ("trimmed_mean", "median")
+SWEEP_OBS_ATTACKS = ("random", "alie", "sign_flip")
+SWEEP_OBS_TICKS = 30
+SWEEP_OBS_ARGS = ["--mode", "grid", "--rules", ",".join(SWEEP_OBS_RULES), "--attacks",
+                  ",".join(SWEEP_OBS_ATTACKS), "--byz", "2", "--seeds", "0,1,2,3,4,5,6,7",
+                  "--grid-nodes", "12", "--grid-ticks", str(SWEEP_OBS_TICKS), "--grid-train",
+                  "4000", "--grid-test", "800"]
+# each cell's AUC in obs_summary.json after the reference's sweep at
+# SWEEP_OBS_ARGS (tools/reference_accuracy.py --only sweep_obs, JAX on the CPU)
+_AUC_ALIE = {"trimmed_mean": (0.9888888888888889, 0.9501466275659824, 0.946949602122016,
+                              0.9389920424403183, 0.9777777777777777, 0.9888888888888889,
+                              0.8571428571428571, 0.9738095238095238),
+             "median": (0.8583333333333333, 1.0, 1.0, 1.0, 1.0, 0.8583333333333333,
+                        0.9030612244897959, 0.8809523809523809)}
+REFERENCE_SWEEP_OBS = {
+    f"{rule}_{attack}_b2_s{s}" + ("" if s == 0 else f"_m{s}"):
+        (_AUC_ALIE[rule][s] if attack == "alie" else 1.0)
+    for rule in ("trimmed_mean", "median") for attack in ("random", "alie", "sign_flip")
+    for s in range(8)}
+
+
+def one_leaf(task):
+    """The paper model as one ``[M, 7850]`` leaf ``theta`` (``[b | w]``,
+    stack_flatten's order): ``(grad_fn, init_fn)`` over it."""
+    def grad_fn(params, batch):
+        th = params["theta"]
+        lead = th.shape[:-1]
+        losses, g = task.grad_fn({"b": th[..., :10], "w": th[..., 10:].reshape(*lead, 784, 10)},
+                                 batch)
+        return losses, {"theta": torch.cat([g["b"], g["w"].reshape(*lead, -1)], dim=-1)}
+
+    return grad_fn, lambda seed: {"theta": stack_flatten(task.init_fn(seed))[0]}
+
+
+def stream_run(trainer, params, batch_fn, ticks):
+    """``ticks`` steps from ``params``; (final state, ms a tick on the host
+    clock, ending in a synchronize; Python's collector run before the
+    clock starts)."""
+    state = trainer.init(params, seed=1)
+    gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(ticks):
+        state, _ = trainer.step(state, batch_fn(i))
+    torch.cuda.synchronize()
+    return state, (time.perf_counter() - t0) / ticks * 1e3
+
+
+def block_kernel_checks(dev) -> None:
+    """Every screen and its decide form (strides 1 and 16) at the stream's
+    block widths, on the blocks of the models' parameters (a strided column
+    slice copied contiguous, as the stream does), exact against its plain
+    version; the copy's device time beside the screen's.  Then the honest
+    mean's node sum (`byzantine.node_sum`, one cumsum launch on the card)
+    against the loop that adds the rows one after another."""
+    topo = erdos_renyi(M, 0.5, B, seed=0)
+    adj = torch.as_tensor(topo.adjacency, device=dev)
+    task = linear_task(M, partition="iid", num_train=6000, num_test=1000, batch=32, device=dev)
+    p = task.init_fn(0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    w2d = p["w"].reshape(M, -1) + 0.01 * torch.randn((M, 7840), generator=gen, device=dev)
+    b2d = p["b"] + 0.01 * torch.randn((M, 10), generator=gen, device=dev)
+    blocks = {1024: w2d[:, :1024], 672: w2d[:, 7168:], 10: b2d}
+    lines = []
+    for width, blk in blocks.items():
+        x = blk.contiguous()
+        for name, kern, plain in (
+                ("trimmed_mean", lambda v: trimmed_mean.trimmed_mean_dense(v, adj, v, B),
+                 lambda v: ref.trimmed_mean_dense(v, adj, v, B)),
+                ("median", lambda v: median.median_dense(v, adj, v),
+                 lambda v: ref.median_dense(v, adj, v)),
+                *((f"trimmed_mean decide {s_}",
+                   lambda v, s_=s_: screen_decide.trimmed_mean_dense_decide(v, adj, v, B, s_),
+                   lambda v, s_=s_: ref.trimmed_mean_dense_decide(v, adj, v, B, s_))
+                  for s_ in DECIDE_STRIDES),
+                *((f"median decide {s_}",
+                   lambda v, s_=s_: screen_decide.median_dense_decide(v, adj, v, s_),
+                   lambda v, s_=s_: ref.median_dense_decide(v, adj, v, s_))
+                  for s_ in DECIDE_STRIDES)):
+            got, want = kern(x), plain(x)
+            for g_, w_ in zip(got if isinstance(got, tuple) else (got,),
+                              want if isinstance(want, tuple) else (want,), strict=True):
+                exact_or_raise(f"stream block dense {name} width {width}", g_, w_)
+        copy_ms = cuda_ms(lambda b_=blk: b_.contiguous())
+        screen_ms = cuda_ms(lambda v=x: trimmed_mean.trimmed_mean_dense(v, adj, v, B))
+        lines.append(f"{width}: copy {copy_ms:.4f} ms, screen {screen_ms:.4f} ms")
+    print(f"stream blocks dense M = {M} (T, M and their decide forms at strides "
+          f"{DECIDE_STRIDES} exact at every width): "
+          + "; ".join(lines))
+    # sparse: the gather tile kernel under every candidate plan
+    table = NeighborTable.from_adjacency(small_world(SM, NEAREST, SB, rewire_prob=0.2, seed=0),
+                                         device=dev)
+    wsp = torch.randn((SM, 7840), generator=gen, device=dev)
+    bsp = torch.randn((SM, 10), generator=gen, device=dev)
+    lines = []
+    for width, blk in ((2048, wsp[:, :2048]), (1696, wsp[:, 6144:]), (10, bsp)):
+        x = blk.contiguous()
+        for median_, kern, plain in (
+                (False, gather_screen.gather_screen_trimmed_mean,
+                 lambda v: ref.gather_trimmed_mean(v, table.safe_idx, table.valid_dev, v, SB)),
+                (True, gather_screen.gather_screen_median,
+                 lambda v: ref.gather_median(v, table.safe_idx, table.valid_dev, v))):
+            b_ = () if median_ else (SB,)
+            want = plain(x)
+            exact_or_raise(f"stream block gather width {width}",
+                           kern(x, table.safe_idx, table.valid_dev, x, *b_), want)
+            plans = gather_screen.candidates(SM, table.k, width, 4, median_)
+            for plan in plans:
+                got = gather_screen.launch_tile(kern.__name__, plan, (x,), table.safe_idx,
+                                                table.valid_dev, x, *b_)
+                exact_or_raise(f"stream block gather width {width} {plan}", got, want)
+            for s_ in DECIDE_STRIDES:
+                if median_:
+                    got = screen_decide.gather_screen_median_decide(
+                        x, table.safe_idx, table.valid_dev, x, s_)
+                    want_d = ref.gather_median_decide(x, table.safe_idx, table.valid_dev, x, s_)
+                else:
+                    got = screen_decide.gather_screen_trimmed_mean_decide(
+                        x, table.safe_idx, table.valid_dev, x, SB, s_)
+                    want_d = ref.gather_trimmed_mean_decide(x, table.safe_idx, table.valid_dev,
+                                                            x, SB, s_)
+                for g_, w_ in zip(got, want_d, strict=True):
+                    exact_or_raise(f"stream block gather decide {s_} width {width}", g_, w_)
+        copy_ms = cuda_ms(lambda b_=blk: b_.contiguous())
+        screen_ms = cuda_ms(lambda v=x: gather_screen.gather_screen_trimmed_mean(
+            v, table.safe_idx, table.valid_dev, v, SB))
+        lines.append(f"{width}: {len(plans)} plans, copy {copy_ms:.4f} ms, screen "
+                     f"{screen_ms:.4f} ms")
+    print(f"stream blocks gather M = {SM}, K = {table.k} (T and M exact under every candidate "
+          f"plan, their decide forms at strides {DECIDE_STRIDES}): " + "; ".join(lines))
+    # the network path's views: a per-leaf mailbox read in place at each block
+    slots = 24
+    mb_vals = torch.randn((M, slots, 7840), generator=gen, device=dev)
+    mask = torch.rand((M, slots), generator=gen, device=dev) < 0.8
+    for width, lo in ((1024, 0), (672, 7168), (10, 100)):
+        views = mb_vals[..., lo:lo + width]
+        sv = torch.randn((M, width), generator=gen, device=dev)
+        exact_or_raise(f"stream block views trimmed_mean width {width}",
+                       views_screen.views_screen_trimmed_mean(views, mask, sv, B),
+                       ref.trimmed_mean_views(views, mask, sv, B))
+        exact_or_raise(f"stream block views median width {width}",
+                       views_screen.views_screen_median(views, mask, sv),
+                       ref.median_views(views, mask, sv))
+        for s_ in DECIDE_STRIDES:
+            for name, got, want in (
+                    ("trimmed_mean", screen_decide.views_screen_trimmed_mean_decide(
+                        views, mask, sv, B, s_), ref.trimmed_mean_views_decide(
+                        views, mask, sv, B, s_)),
+                    ("median", screen_decide.views_screen_median_decide(views, mask, sv, s_),
+                     ref.median_views_decide(views, mask, sv, s_))):
+                for g_, w_ in zip(got, want, strict=True):
+                    exact_or_raise(f"stream block views {name} decide {s_} width {width}", g_,
+                                   w_)
+    print(f"stream blocks views M = {M}, W = {slots} (strided mailbox blocks, read in "
+          f"place): T, M and their decide forms at strides {DECIDE_STRIDES} exact at widths "
+          f"1024, 672, 10")
+    # the honest mean's node sum: one order at every width, on the card too
+    for shape in ((M, 7850), (SM, 7850), (4, 12, 7850)):
+        x = torch.randn(shape, generator=gen, device=dev)
+        loop = torch.zeros_like(x[..., 0, :])
+        for i in range(shape[-2]):
+            loop = loop + x[..., i, :]
+        whole = byzantine.node_sum(x)
+        exact_or_raise(f"node_sum {shape}", whole, loop)
+        for lo, width in ((10, 1024), (7178, 672), (0, 10)):
+            exact_or_raise(f"node_sum {shape} block {lo}:{lo + width}",
+                           byzantine.node_sum(x[..., lo:lo + width].contiguous()),
+                           whole[..., lo:lo + width])
+    print("node_sum (cumsum over the node axis) bit for bit the row-by-row loop at M = 50, "
+          "512 and [4, 12], whole and at block widths 1024, 672, 10")
+
+
+def metrics_overhead_runs(dev) -> dict:
+    """(a) obs_bench's ``metrics_overhead`` paper cell through
+    ``run_chunks``: metrics off and on run in turn (off, on, on, off, ...)
+    ``METRICS_REPS`` times each after a warm run, the median and the range
+    of ms/tick each, then one profiled run of each whose difference names
+    the ops that the metered tick adds; returns the launches of its runs."""
+    from repro_torch.obs import (AlertRules, EventLog, MetricSpec, MetricWriter, perfetto,
+                                 read_manifest, read_metrics, write_manifest)
+    from repro_torch.obs import monitor as obs_monitor
+
+    topo = small_world(SM, NEAREST, SB, rewire_prob=0.2, seed=0)
+    grad_fn, init_fn, batch_fn = obs_cell(dev, paper=True)
+    want = {"views_screen_trimmed_mean": 0}
+    for ticks, capacity in METRICS_CELLS:
+        batches = stack_batches(batch_fn, ticks, device=dev)
+        batch_at = lambda i, b_=batches: tuple(x[i] for x in b_)  # noqa: E731
+        with tempfile.TemporaryDirectory() as live:
+            write_manifest(live, kind="obs-bench-live",
+                           config={"num_nodes": SM, "ticks": ticks, "capacity": capacity})
+            events = EventLog(os.path.join(live, "events.jsonl"))
+            writer = MetricWriter(os.path.join(live, "metrics.jsonl"), alerts=AlertRules(),
+                                  events=events)
+            runners = {}
+            for tag, spec in (("off", None), ("on", MetricSpec(capacity=capacity))):
+                cfg = AsyncBridgeConfig(topology=topo, rule="trimmed_mean", num_byzantine=SB,
+                                        attack="alie", channel=ChannelConfig(drop_prob=0.05),
+                                        staleness_bound=2, lam=1.0, t0=100.0, sparse=True,
+                                        metrics=spec)
+                tr = AsyncBridgeTrainer(cfg, grad_fn, device=dev)
+                io_ = dict(writer=writer, events=events) if spec is not None else {}
+                runners[tag] = (tr, tr.init(init_fn(0), seed=0), io_)
+
+            def run(tag):
+                tr, st0, io_ = runners[tag]
+                gc.collect()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fin, _ = tr.run_chunks(st0, batch_at, ticks, **io_)
+                torch.cuda.synchronize()
+                want["views_screen_trimmed_mean"] += ticks
+                return fin, (time.perf_counter() - t0) / ticks * 1e3
+
+            finals = {tag: run(tag)[0] for tag in runners}  # warm
+            ms = {"off": [], "on": []}
+            for rep in range(METRICS_REPS):
+                for tag in (("off", "on") if rep % 2 == 0 else ("on", "off")):
+                    ms[tag].append(run(tag)[1])
+            profiles = {}
+            for tag in runners:
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                        torch.profiler.ProfilerActivity.CUDA]) as pr:
+                    run(tag)
+                profiles[tag] = list(pr.key_averages())
+            writer.close()
+            events.close()
+            write_manifest(live, extra={"ended": True})
+            rows = read_metrics(os.path.join(live, "metrics.jsonl"))
+            if [r["tick"] for r in rows] != list(range(ticks)):
+                raise AssertionError(f"metrics {ticks} ticks: rows {[r['tick'] for r in rows]}")
+            trace_bytes = os.path.getsize(perfetto.export(live))
+            snap_out = io.StringIO()
+            with contextlib.redirect_stdout(snap_out):
+                obs_monitor.main([live, "--once"])
+            snap = json.loads(snap_out.getvalue())
+            env = read_manifest(live)["environment"]
+            chunks = sum(e["tag"] == "train.chunk" for e in read_events(
+                os.path.join(live, "events.jsonl")))
+            if (snap["rows"] != ticks or not trace_bytes
+                    or env["device_kind"] != torch.cuda.get_device_name(0)
+                    or env["backend"] != "cuda" or not env["power_limit"]):
+                raise AssertionError(f"metrics {ticks} ticks: monitor {snap['rows']} rows, "
+                                     f"manifest {env}")
+        for k in finals["off"].params:
+            if not bit_equal(finals["off"].params[k], finals["on"].params[k]):
+                raise AssertionError(f"metrics {ticks} ticks: metrics on moved the trajectory")
+        off, on = statistics.median(ms["off"]), statistics.median(ms["on"])
+        pair = sorted(b / a - 1.0 for a, b in zip(ms["off"], ms["on"], strict=True))
+        print(f"metrics overhead (obs_bench paper cell, M = {SM}, K = 16, d = {D}, {ticks} "
+              f"ticks, capacity {capacity}, {ticks // capacity} chunks a run, {METRICS_REPS} "
+              f"runs each in turn): bit_identical True, metrics off median {off:.3f} ms/tick "
+              f"(range {min(ms['off']):.3f}-{max(ms['off']):.3f}), on median {on:.3f} "
+              f"(range {min(ms['on']):.3f}-{max(ms['on']):.3f}); overhead of the medians "
+              f"{on / off - 1.0:+.4f}, of each pair {pair[0]:+.4f} to {pair[-1]:+.4f} (median "
+              f"{statistics.median(pair):+.4f}), the reference's budget {METRICS_BUDGET}; rows "
+              f"streamed {len(rows)} of {ticks} ticks ({chunks} train.chunk events), monitor "
+              f"--once {snap['rows']} rows, trace.json {trace_bytes} bytes, manifest "
+              f"{env['device_kind']} / {env['power_limit']}")
+        print(f"metrics profile ({ticks} ticks, one run each): " + profile_diff(profiles, ticks))
+    return want
+
+
+def profile_diff(profiles: dict, ticks: int, top: int = 8) -> str:
+    """What the metered run adds, from two profiler runs' key averages
+    (lists): the host time of the ``bridge.metrics`` range, the kernels'
+    device time, and the ops whose self host time grew most, each in us a
+    tick."""
+    def is_range(e):
+        return getattr(e, "is_user_annotation", False) or e.key.startswith(("bridge.",
+                                                                             "kernels."))
+
+    def host(tag, key):
+        return sum(e.self_cpu_time_total for e in profiles[tag]
+                   if e.key == key and not is_range(e)) / ticks
+
+    def kernels(tag):
+        return sum(e.self_device_time_total for e in profiles[tag]
+                   if e.device_type == torch.autograd.DeviceType.CUDA and not is_range(e)) / ticks
+
+    metered = max((e.cpu_time_total for e in profiles["on"] if e.key == "bridge.metrics"),
+                  default=0.0) / ticks
+    keys = {e.key for tag in profiles for e in profiles[tag] if not is_range(e)}
+    grew = sorted(keys, key=lambda k: host("off", k) - host("on", k))[:top]
+    return (f"bridge.metrics {metered:.1f} us host a tick; kernels' device time off "
+            f"{kernels('off'):.1f}, on {kernels('on'):.1f} us a tick; ops' self host time grown "
+            f"(us a tick): " + ", ".join(f"{k} {host('on', k) - host('off', k):+.1f}"
+                                         for k in grew))
+
+
+def sweep_obs_run(dev) -> dict:
+    """(b) ``sweep --mode grid --metrics --trace --profile`` at grid_bench's
+    grid; returns the launches of its run."""
+    from repro_torch.obs import read_manifest, read_metrics
+    from repro_torch.sim.results import cell_of
+
+    # the engine groups cells by (rule, attack); the forensic trace screens
+    # every tick of a group through its rule's decide form, and nothing else
+    want = {f"screen_{rule}_dense_decide": len(SWEEP_OBS_ATTACKS) * SWEEP_OBS_TICKS
+            for rule in SWEEP_OBS_RULES}
+    before = {k: fn.launches for k, fn in COUNTED.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        run, prof = os.path.join(tmp, "run"), os.path.join(tmp, "prof")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = sweep.main(SWEEP_OBS_ARGS + ["--out", os.path.join(tmp, "out"), "--metrics",
+                                               run, "--trace", run, "--profile", prof])
+        wall = time.perf_counter() - t0
+        tags = [cell_of(c).tag for c in res.cells]
+        rows = read_metrics(os.path.join(run, "metrics.jsonl"))
+        for tag in tags:
+            if [r["tick"] for r in rows if r["tag"] == tag] != list(range(SWEEP_OBS_TICKS)):
+                raise AssertionError(f"sweep obs: cell {tag}'s metric rows are not gapless")
+        with open(os.path.join(run, "obs_summary.json")) as f:
+            summary = {c["tag"]: c for c in json.load(f)["cells"]}
+        if set(summary) != set(REFERENCE_SWEEP_OBS) or set(tags) != set(REFERENCE_SWEEP_OBS):
+            raise AssertionError(f"sweep obs: cells {sorted(summary)}")
+        errs = {t: abs(summary[t]["auc_byzantine_edges"] - want)
+                for t, want in REFERENCE_SWEEP_OBS.items()}
+        worst = max(errs, key=errs.get)
+        if errs[worst] > OBS_TOL:
+            raise AssertionError(f"sweep obs: {worst}'s AUC {summary[worst]['auc_byzantine_edges']}"
+                                 f" not within {OBS_TOL} of the reference's "
+                                 f"{REFERENCE_SWEEP_OBS[worst]}")
+        man = read_manifest(run)
+        env = man["environment"]
+        if not man.get("ended") or env["device_kind"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"sweep obs: manifest {man}")
+        ev = [e["tag"] for e in read_events(os.path.join(run, "events.jsonl"))]
+        if not {"run.start", "run.end", "profile.capture"} <= set(ev):
+            raise AssertionError(f"sweep obs: events {sorted(set(ev))}")
+        trace_file = os.path.join(prof, "profile.trace.json")
+        with open(trace_file) as f:
+            trace_events = json.load(f)["traceEvents"]
+        kernels = sum(e.get("cat") == "kernel" for e in trace_events)
+        ranges = {e["name"] for e in trace_events if str(e.get("name", "")).startswith("bridge.")}
+        if not kernels or "bridge.metrics" not in ranges:
+            raise AssertionError(f"sweep obs: the profiler trace has {kernels} kernels, "
+                                 f"ranges {sorted(ranges)}")
+        size = os.path.getsize(trace_file)
+    check_grew("sweep obs", before, want)
+    print(f"sweep --mode grid --metrics --trace --profile ({len(tags)} cells, M = 12, "
+          f"{SWEEP_OBS_TICKS} ticks): {wall:.1f} s; metrics.jsonl {len(rows)} rows, "
+          f"{SWEEP_OBS_TICKS} a cell, gapless; obs_summary.json AUCs the reference's (worst "
+          f"{errs[worst]:.3g}, {worst}); manifest {env['device_kind']} / {env['power_limit']}; "
+          f"events {sorted(set(ev))}; profile.trace.json {size} bytes, {kernels} kernel events, "
+          f"ranges {sorted(ranges)}; launches {want}, as worked out")
+    return want
+
+
+def stream_runs(dev) -> dict:
+    """(c) the chunk-streaming trainer against the flat trainer on the
+    card; returns the launches of its runs."""
+    from repro_torch.obs import TraceSpec
+    from repro_torch.stream import StreamBridgeTrainer, StreamChannelConfig
+
+    want: dict[str, int] = {}
+
+    def add(kernel, n):
+        want[kernel] = want.get(kernel, 0) + n
+
+    kern = {"trimmed_mean": "screen_trimmed_mean_dense", "median": "screen_median_dense"}
+    topo = erdos_renyi(M, 0.5, B, seed=0)
+    # the batches stacked once, so every run sees the same ones
+    task = linear_task(M, STREAM_TICKS, partition="iid", num_train=6000, num_test=1000, batch=32,
+                       device=dev)
+    batch_at = lambda i: tuple(x[i] for x in task.batches)  # noqa: E731
+    grad1, init1 = one_leaf(task)
+    times = {}
+    for rule in ("trimmed_mean", "median"):
+        for attack in ("random", "sign_flip"):
+            cfg = BridgeConfig(topology=topo, rule=rule, num_byzantine=B, attack=attack, t0=30)
+            flat, ms_flat = stream_run(BridgeTrainer(cfg, grad1, device=dev), init1(0),
+                                       batch_at, STREAM_TICKS)
+            st, ms_one = stream_run(StreamBridgeTrainer(cfg, grad1, device=dev), init1(0),
+                                    batch_at, STREAM_TICKS)
+            if not bit_equal(flat.params["theta"], st.params["theta"]):
+                raise AssertionError(f"stream one block {rule} {attack}: != BridgeTrainer")
+            add(kern[rule], 2 * STREAM_TICKS)
+            times[rule, attack] = ms_flat, ms_one
+    print(f"stream one block (the paper model as one {D}-wide leaf, M = {M}, {STREAM_TICKS} "
+          f"ticks): BRIDGE-T / M under random and sign_flip bit for bit their BridgeTrainer "
+          f"runs; ms/tick flat / stream: " + ", ".join(
+              f"{r} {a} {f:.3f} / {o:.3f}" for (r, a), (f, o) in times.items()))
+    spec_blocks = None
+    # sign_flip, and alie, whose honest mean and variance add the nodes in
+    # one order at every width (`byzantine.node_sum`)
+    for attack in ("sign_flip", "alie"):
+        for rule in ("trimmed_mean", "median"):
+            cfg = BridgeConfig(topology=topo, rule=rule, num_byzantine=B, attack=attack, t0=30)
+            flat, ms_flat = stream_run(BridgeTrainer(cfg, task.grad_fn, device=dev),
+                                       task.init_fn(0), batch_at, STREAM_TICKS)
+            tr = StreamBridgeTrainer(dataclasses.replace(cfg, screen_chunk=STREAM_CHUNK),
+                                     task.grad_fn, device=dev)
+            st, ms_blocks = stream_run(tr, task.init_fn(0), batch_at, STREAM_TICKS)
+            spec_blocks = tr.spec.block_sizes()
+            for k in flat.params:
+                if not bit_equal(flat.params[k], st.params[k]):
+                    raise AssertionError(f"stream chunk {STREAM_CHUNK} {rule} {attack}: {k} != "
+                                         f"BridgeTrainer")
+            add(kern[rule], STREAM_TICKS * (1 + len(spec_blocks)))
+            acc = task.eval_accuracy(st.params, tr.honest_mask)
+            one = (f", one block {times[rule, attack][1]:.3f}" if (rule, attack) in times
+                   else "")
+            print(f"stream screen_chunk {STREAM_CHUNK} {rule} {attack} ({len(spec_blocks)} "
+                  f"blocks {spec_blocks}, {STREAM_TICKS} ticks): bit for bit BridgeTrainer's, "
+                  f"honest accuracy {acc:.4f}; ms/tick flat {ms_flat:.3f}{one}, "
+                  f"{len(spec_blocks)} blocks {ms_blocks:.3f}; screens a tick {len(spec_blocks)}")
+    # a forensic stream: the decide form a block, bit-inert
+    traced = StreamBridgeTrainer(BridgeConfig(topology=topo, rule="trimmed_mean", num_byzantine=B,
+                                              attack="sign_flip", t0=30,
+                                              screen_chunk=STREAM_CHUNK,
+                                              trace=TraceSpec(decide_stride=16)),
+                                 task.grad_fn, device=dev)
+    plain = StreamBridgeTrainer(BridgeConfig(topology=topo, rule="trimmed_mean", num_byzantine=B,
+                                             attack="sign_flip", t0=30, screen_chunk=STREAM_CHUNK),
+                                task.grad_fn, device=dev)
+    st_t, ms_t = stream_run(traced, task.init_fn(0), batch_at, FORENSIC_STREAM_TICKS)
+    st_p, _ = stream_run(plain, task.init_fn(0), batch_at, FORENSIC_STREAM_TICKS)
+    for k in st_t.params:
+        if not bit_equal(st_t.params[k], st_p.params[k]):
+            raise AssertionError("forensic stream: the trace moved the trajectory")
+    add("screen_trimmed_mean_dense_decide", FORENSIC_STREAM_TICKS * len(spec_blocks))
+    add("screen_trimmed_mean_dense", FORENSIC_STREAM_TICKS * len(spec_blocks))
+    print(f"stream forensic (chunk {STREAM_CHUNK}, {FORENSIC_STREAM_TICKS} ticks, stride 16): bit "
+          f"for bit untraced, {ms_t:.3f} ms/tick, edges seen "
+          f"{int((st_t.obs.edge_seen > 0).sum())}")
+    # sparse M = 512 at chunk 2048
+    stopo = small_world(SM, NEAREST, SB, rewire_prob=0.2, seed=0)
+    stask = linear_task(SM, STREAM_TICKS, partition="iid", num_train=16384, num_test=1000,
+                        batch=8, device=dev)
+    sbatch_at = lambda i: tuple(x[i] for x in stask.batches)  # noqa: E731
+    cfg = BridgeConfig(topology=stopo, rule="trimmed_mean", num_byzantine=SB, attack="sign_flip",
+                       t0=100, sparse=True)
+    flat, ms_flat = stream_run(BridgeTrainer(cfg, stask.grad_fn, device=dev), stask.init_fn(0),
+                               sbatch_at, STREAM_TICKS)
+    tr = StreamBridgeTrainer(dataclasses.replace(cfg, screen_chunk=SPARSE_STREAM_CHUNK),
+                             stask.grad_fn, device=dev)
+    st, ms_blocks = stream_run(tr, stask.init_fn(0), sbatch_at, STREAM_TICKS)
+    for k in flat.params:
+        if not bit_equal(flat.params[k], st.params[k]):
+            raise AssertionError(f"sparse stream: {k} != BridgeTrainer")
+    sblocks = tr.spec.block_sizes()
+    add("gather_screen_trimmed_mean", STREAM_TICKS * (1 + len(sblocks)))
+    print(f"stream sparse M = {SM}, K = {tr.neighbors.k}, chunk {SPARSE_STREAM_CHUNK} "
+          f"({len(sblocks)} blocks {sblocks}, sign_flip, {STREAM_TICKS} ticks): bit for bit "
+          f"BridgeTrainer's; ms/tick flat {ms_flat:.3f}, stream {ms_blocks:.3f}")
+    # the network path at drop 0.1
+    cfg = BridgeConfig(topology=topo, rule="trimmed_mean", num_byzantine=B, attack="random",
+                       t0=30, screen_chunk=STREAM_CHUNK)
+    tr = StreamBridgeTrainer(cfg, task.grad_fn, channel=StreamChannelConfig(drop_prob=0.1,
+                                                                           staleness_bound=2),
+                             device=dev)
+    state = tr.init(task.init_fn(0), seed=1)
+    delivered = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(STREAM_TICKS):
+        state, m = tr.step(state, batch_at(i))
+        delivered.append(m["delivered_frac"])
+    torch.cuda.synchronize()
+    ms_net = (time.perf_counter() - t0) / STREAM_TICKS * 1e3
+    frac = float(torch.stack(delivered).mean())
+    if not (all(torch.isfinite(v).all() for v in state.params.values()) and 0.8 < frac < 1.0):
+        raise AssertionError(f"stream network path: delivered_frac {frac}")
+    add("views_screen_trimmed_mean", STREAM_TICKS * len(spec_blocks))
+    print(f"stream network path (drop 0.1, staleness 2, chunk {STREAM_CHUNK}, M = {M}, "
+          f"{STREAM_TICKS} ticks): delivered_frac {frac:.4f}, honest accuracy "
+          f"{task.eval_accuracy(state.params, tr.honest_mask):.4f}, {ms_net:.3f} ms/tick, "
+          f"views screens a tick {len(spec_blocks)}")
+    return want
+
+
+def stream_phase(dev):
+    """Phase 24 (the module docstring's list): the block widths' kernel
+    checks, then the main-path runs, each held to its exact launches;
+    returns the phase's launches."""
+    t_phase = time.perf_counter()
+    block_kernel_checks(dev)
+    zero_launches()
+    want: dict[str, int] = {}
+    for part in (metrics_overhead_runs(dev), sweep_obs_run(dev), stream_runs(dev)):
+        for k, n in part.items():
+            want[k] = want.get(k, 0) + n
+    launches = read_launches()
+    if {k: v for k, v in launches.items() if v} != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"phase 24: launches {launches} != the runs' {want}")
+    print(f"(phase 24 alone: {time.perf_counter() - t_phase:.1f} s)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4629,6 +5170,9 @@ def main() -> int:
     phase_records, phase_launches["trust_phase"] = trust_phase(dev)
     records += phase_records
     print(f"(trust_phase: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_launches["stream_phase"] = stream_phase(dev)
+    print(f"(stream_phase: {time.perf_counter() - t0:.1f} s)")
     for rec in records:
         if rec["name"].endswith("[E]"):  # this phase's grid engines ran the experiment forms
             rec["launches"] += breakdown_engines.get(rec["name"][:-len("[E]")], 0)

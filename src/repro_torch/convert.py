@@ -6,10 +6,14 @@ caller hands over the state as numpy arrays: each leaf of the reference's
 ``state.params``, its ``state.key`` and, for a lossy codec, its
 ``state.comm`` carry, for a stateful adversary its ``state.adv``, for a
 traced run its ``state.obs`` (the forensic fields included), for a run
-with the trust layer its ``state.trust``; for the batched grids the
-stacked state of the reference's ``GridEngine`` (`grid_state_from_jax`, a
-net grid's stacked mailboxes, the codec carries, the adversary's state,
-the trace's aggregates and the trust states included).
+with the trust layer its ``state.trust``, for a run with a metrics spec its
+ring ``state.mets``; for the batched grids the stacked state of the
+reference's ``GridEngine`` (`grid_state_from_jax`, a net grid's stacked
+mailboxes, the codec carries, the adversary's state, the trace's
+aggregates, the trust states and the metric rings included); for the
+chunk-streaming trainer the reference's ``StreamBridgeTrainer`` state
+(`stream_state_from_jax`: the per-leaf codec carries and the per-block
+mailboxes).
 """
 from __future__ import annotations
 
@@ -23,9 +27,10 @@ from repro_torch.adversary.protocols import AdvState
 from repro_torch.comm.exchange import CommState
 from repro_torch.core.brdso import BrdsoState
 from repro_torch.core.bridge import BridgeState
-from repro_torch.net.mailbox import MailboxState
+from repro_torch.net.mailbox import BlockMailboxState, MailboxState
 from repro_torch.core.byrdie import ByrdieState
 from repro_torch.device import resolve_device
+from repro_torch.obs.metrics import MetricState
 from repro_torch.obs.trace import TraceState
 from repro_torch.trust.reputation import TrustState
 
@@ -48,6 +53,7 @@ def state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,
                    adv: tuple[np.ndarray, ...] | None = None,
                    obs: tuple[np.ndarray, ...] | None = None,
                    trust: tuple[np.ndarray, ...] | None = None,
+                   mets: tuple[np.ndarray, np.ndarray] | None = None,
                    device: str | torch.device = "cuda") -> BridgeState:
     """A `BridgeState` at tick ``t`` holding the reference's parameters and
     its key (``np.asarray(jax_state.key)``; ``PRNGKey(0)`` when None) —
@@ -58,13 +64,37 @@ def state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,
     ``var``, ``dir``, ``count``), for a stateful adversary; ``obs`` its
     trace's ``TraceState`` (the thirteen arrays in order), for a traced
     run; ``trust`` its ``TrustState`` (suspicion, evicted, echo_mism), for
-    a run with the trust layer."""
+    a run with the trust layer; ``mets`` its ``MetricState`` (``buf``,
+    ``count``), for a run with a metrics spec."""
     dev = resolve_device(device)
     key = _key(key)
     return BridgeState(params=params_from_jax(params_np, device=dev), t=int(t), key=key,
                        comm=_carry(CommState, comm, dev), net=_carry(MailboxState, net, dev),
                        adv=_carry(AdvState, adv, dev), obs=_carry(TraceState, obs, dev),
-                       trust=_carry(TrustState, trust, dev))
+                       trust=_carry(TrustState, trust, dev), mets=_carry(MetricState, mets, dev))
+
+
+def stream_state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,
+                          comm=None, net=None, obs: tuple[np.ndarray, ...] | None = None,
+                          trust: tuple[np.ndarray, ...] | None = None,
+                          mets: tuple[np.ndarray, np.ndarray] | None = None,
+                          device: str | torch.device = "cuda") -> BridgeState:
+    """A `repro_torch.stream.StreamBridgeTrainer` state from the reference's
+    ``StreamBridgeTrainer`` state: ``comm`` its per-leaf codec carries (a
+    tuple, one ``(est, resid)`` a leaf in the leaves' sorted-key order),
+    ``net`` its ``BlockMailboxState`` as ``(send_tick, (values per
+    leaf))``, the rest as in `state_from_jax`."""
+    dev = resolve_device(device)
+    carries = None if comm is None else tuple(_carry(CommState, c, dev) for c in comm)
+    mailbox = None
+    if net is not None:
+        send_tick, values = net
+        mailbox = BlockMailboxState(
+            torch.as_tensor(np.array(send_tick, copy=True), device=dev),
+            tuple(torch.as_tensor(np.array(v, copy=True), device=dev) for v in values))
+    return BridgeState(params=params_from_jax(params_np, device=dev), t=int(t), key=_key(key),
+                       comm=carries, net=mailbox, obs=_carry(TraceState, obs, dev),
+                       trust=_carry(TrustState, trust, dev), mets=_carry(MetricState, mets, dev))
 
 
 def _carry(kind, arrays, dev):
@@ -81,6 +111,7 @@ def grid_state_from_jax(params_np: Mapping[str, np.ndarray], t, keys, *,
                         adv: tuple[np.ndarray, ...] | None = None,
                         obs: tuple[np.ndarray, ...] | None = None,
                         trust: tuple[np.ndarray, ...] | None = None,
+                        mets: tuple[np.ndarray, np.ndarray] | None = None,
                         device: str | torch.device = "cuda") -> BridgeState:
     """A `repro_torch.sim.GridEngine` state from the reference's
     ``GridEngine`` state: its stacked ``[E, M, ...]`` parameters, its tick
@@ -93,7 +124,8 @@ def grid_state_from_jax(params_np: Mapping[str, np.ndarray], t, keys, *,
     ``AdvState`` (``[E, d]`` rows, ``count [E]``); for a traced grid
     ``obs``, its stacked ``TraceState`` (the thirteen arrays, ``[E, ...]``,
     the ticks int32); with the trust layer ``trust``, its stacked
-    ``TrustState`` (``[E, M, W]`` each)."""
+    ``TrustState`` (``[E, M, W]`` each); with a metrics spec ``mets``, its
+    stacked rings (``buf [E, C, S]``, ``count [E]``)."""
     ticks = np.unique(np.asarray(t))
     if ticks.size != 1:
         raise ValueError(f"the port's grid cells share one tick, got {ticks.tolist()}")
@@ -113,14 +145,15 @@ def grid_state_from_jax(params_np: Mapping[str, np.ndarray], t, keys, *,
     carry, adv_state = _carry(CommState, comm, dev), _carry(AdvState, adv, dev)
     trace = _carry(TraceState, obs, dev)
     trust_state = _carry(TrustState, trust, dev)
+    rings = _carry(MetricState, mets, dev)
     for name, x in (("comm", carry), ("adv", adv_state), ("obs", trace),
-                    ("trust", trust_state)):
+                    ("trust", trust_state), ("mets", rings)):
         if x is not None and x[0].shape[0] != keys.shape[0]:
             raise ValueError(f"a grid's {name} carry leads with E={keys.shape[0]} cells, got "
                              f"{tuple(x[0].shape)}")
     return BridgeState(params=params_from_jax(params_np, device=device), t=int(ticks[0]),
                        key=keys.copy(), comm=carry, net=mailbox, adv=adv_state, obs=trace,
-                       trust=trust_state)
+                       trust=trust_state, mets=rings)
 
 
 def byrdie_state_from_jax(params_np: Mapping[str, np.ndarray], t: int, *, key=None,

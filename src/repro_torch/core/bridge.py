@@ -1,8 +1,8 @@
 """The BRIDGE trainer — Algorithm 1 of the paper; port of
 `repro.core.bridge` (``build_cell_step`` and ``build_cell_runtime_step``
-with their rule, attack, adversary and codec banks, the trace and the
-trust layer, without the metrics spec, driven by ``BridgeTrainer``), on
-the dense or the sparse ``[M, K]`` layout.
+with their rule, attack, adversary and codec banks, the trace, the trust
+layer and the live metric ring, driven by ``BridgeTrainer``), on the dense
+or the sparse ``[M, K]`` layout.
 
 All M node replicas live on one device as a stacked ``[M, ...]`` parameter
 dict.  One tick, after ``key, sub = split(state.key)``:
@@ -45,7 +45,16 @@ dict.  One tick, after ``key, sub = split(state.key)``:
    trim fractions into it.  On the runtime the ``bridge.echo`` stage first
    digests each node's views under ``fold_in(sub, TRUST_SALT)``, lets
    ``slander``'s nodes forge the rows they gossip, and cross-checks the
-   digests for equivocation (`repro_torch.trust.echo`).
+   digests for equivocation (`repro_torch.trust.echo`);
+7. **metrics** — with a `repro_torch.obs.MetricSpec` (``BridgeConfig.metrics``)
+   the tick's scalars (the metrics above, the honest-mean gradient norm,
+   the trace's trim fraction, trust's evicted share, on the runtime the
+   delivered messages' age quantiles) fold into the carried ring
+   (``state.mets``) on the device; bit-inert.
+
+Past ``BridgeConfig.screen_chunk`` coordinates the plain rules screen node
+by node and chunk by chunk, as the reference does (`screening._streams`);
+the kernel rules run whole, which is the same result.
 
 Every random number comes from the reference's Threefry streams
 (`repro_torch.prng`), so a seeded run follows the seeded reference run.
@@ -74,11 +83,15 @@ screening kernel then launches once a tick for all of them, and a lossy
 dense codec decodes every cell's rows in one ``dequant_carry`` launch.
 
 PyTorch runs eagerly, so the reference's ``jit``/``scan`` machinery has no
-counterpart: `BridgeTrainer.run` is a Python loop over `BridgeTrainer.step`.
+counterpart: `BridgeTrainer.run` is a Python loop over `BridgeTrainer.step`,
+and `BridgeTrainer.run_chunks` one over chunks of ticks (no synchronize
+inside a chunk), the metric ring handed to a `repro_torch.obs.MetricWriter`
+after each.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections.abc import Callable
 from typing import Any, NamedTuple
 
@@ -93,6 +106,7 @@ from repro_torch.core import byzantine, screening
 from repro_torch.core.graph import Topology
 from repro_torch.core.neighbors import NeighborTable, edge_id_grid
 from repro_torch.device import resolve_device
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.trust import echo as echo_lib
 from repro_torch.trust import reputation as trust_lib
@@ -125,6 +139,9 @@ class BridgeState(NamedTuple):
     # the trust layer's state (trust.TrustState, [M, W] suspicion, evictions
     # and echo counts, a leading [E] for stacked cells); None when off
     trust: Any = None
+    # the live metric ring (obs.MetricState, [C, S] and its count, a leading
+    # [E] for stacked cells); None without a metrics spec
+    mets: Any = None
 
 
 def cell_step_size(lam, t0, lr, t: int):
@@ -148,7 +165,9 @@ class CellParams(NamedTuple):
     bank.  Indices, bounds, thetas and schedules stay on the host, where
     they pick the banks' branches, the ascent's steps and the step size
     without reading the card.  An empty ``codec_idx`` or ``adv_idx`` is
-    entry 0 for every cell."""
+    entry 0 for every cell.  ``metrics`` is the cells' one
+    `repro_torch.obs.MetricSpec` (None: no metric ring), as the
+    reference's field."""
 
     rule_idx: tuple[int, ...]
     attack_idx: tuple[int, ...]
@@ -161,6 +180,7 @@ class CellParams(NamedTuple):
     codec_idx: tuple[int, ...] = ()  # empty: entry 0 for all
     adv_idx: tuple[int, ...] = ()  # empty: entry 0 for all
     adv_theta: np.ndarray | None = None  # [E, THETA_DIM] float32; None: the defaults
+    metrics: Any = None  # the live metric ring's spec (obs.MetricSpec); None: off
 
     @property
     def num_cells(self) -> int:
@@ -174,7 +194,8 @@ class CellParams(NamedTuple):
         return CellParams(pick(self.rule_idx), pick(self.attack_idx), pick(self.b), mask,
                           pick(self.lam), pick(self.t0), pick(self.lr), pick(self.scenario_idx),
                           pick(self.codec_idx), pick(self.adv_idx),
-                          None if self.adv_theta is None else self.adv_theta[cells])
+                          None if self.adv_theta is None else self.adv_theta[cells],
+                          self.metrics)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,6 +216,9 @@ class BridgeConfig:
     lam: float = 1.0
     t0: float = 50.0
     lr: float = 0.0  # if > 0, a constant step size instead
+    # coordinate streaming chunk: past it the plain rules screen node by
+    # node and chunk by chunk (repro_torch.stream: the block width)
+    screen_chunk: int | None = 1 << 20
     # neighbor-indexed [M, K] layout (repro_torch.core.neighbors): screening
     # reads each node's K table slots instead of masking all M rows
     sparse: bool = False
@@ -203,6 +227,9 @@ class BridgeConfig:
     # the trust layer (repro_torch.trust.TrustSpec); None = off.  Trust on
     # changes the trajectory once it acts (weights, evictions)
     trust: Any = None
+    # the live metric ring (repro_torch.obs.MetricSpec); None = off.  Bit-inert;
+    # `BridgeTrainer.run_chunks` flushes it to a MetricWriter after each chunk
+    metrics: Any = None
 
     def step_size(self, t: int) -> float:
         return cell_step_size(self.lam, self.t0, self.lr, t)
@@ -423,10 +450,41 @@ def trust_stage(spec, state: BridgeState, metrics: dict, *, trim, screened, live
     return new
 
 
+def grad_norm(g: torch.Tensor, honest: torch.Tensor) -> torch.Tensor:
+    """The ``grad_norm`` metric: the honest nodes' mean per-node gradient
+    l2 norm, one a cell (``g [E, M, d]``, ``honest [E, M]``)."""
+    gn = torch.sqrt(torch.sum(g * g, dim=-1))
+    return (torch.sum(torch.where(honest, gn, 0.0), dim=-1)
+            / torch.sum(honest, dim=-1).to(torch.float32))
+
+
+def fold_metric_ring(spec, state: BridgeState, metrics: dict, *, staleness=None, live=None):
+    """The ``bridge.metrics`` stage: the tick's scalars, already computed,
+    folded into ``state.mets`` (unchanged when ``spec`` is None).  The
+    trace's ``obs_trim_frac`` is the ring's ``trim_frac``, trust's
+    ``trust_evicted_frac`` its ``evicted_frac``; with the delivered
+    messages' ages ``staleness`` and their ``live`` mask (the runtime), the
+    ``stale_p50`` / ``stale_p90`` columns."""
+    if spec is None:
+        return state.mets
+    with torch.profiler.record_function("bridge.metrics"):
+        vals = {k: metrics[k] for k in ("loss", "consensus_dist", "grad_norm", "rho",
+                                        "wire_bits_per_edge", "wire_bytes_total")
+                if k in metrics}
+        if "obs_trim_frac" in metrics:
+            vals["trim_frac"] = metrics["obs_trim_frac"]
+        if "trust_evicted_frac" in metrics:
+            vals["evicted_frac"] = metrics["trust_evicted_frac"]
+        if staleness is not None and live is not None:
+            vals.update(obs_metrics.stale_quantiles(staleness, live))
+        return obs_metrics.update(spec, state.mets, t=state.t, vals=vals)
+
+
 def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str, ...],
                     attacks, *, neighbors: NeighborTable | None = None,
                     codecs: tuple[str, ...] = ("identity",), wire_attacks=None,
-                    adversaries: tuple[str, ...] | None = None, trace=None, trust=None):
+                    adversaries: tuple[str, ...] | None = None, trace=None, trust=None,
+                    screen_chunk: int | None = None):
     """The synchronous-broadcast iteration over stacked cells:
     ``step(cell, state, batch) -> (state, metrics)``, the reference's
     ``build_cell_step`` with a rule bank ``rules``, an attack bank
@@ -454,7 +512,9 @@ def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str
     The screen takes the reference's branch order: trust on always runs
     the decide form, with the reputation weights and the evictions cleared
     from each cell's mask (``[E, M, W]``); forensics alone decides under
-    the static mask; otherwise the plain screen.
+    the static mask; otherwise the plain screen, whose plain rules stream
+    past ``screen_chunk`` coordinates.  With ``cell.metrics`` the tick's
+    scalars fold into ``state.mets`` (`fold_metric_ring`).
     """
     codec_bank = codec_lib.codec_bank(codecs)
     if wire_attacks is None:
@@ -467,9 +527,9 @@ def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str
     def screen(w_hat, w_bcast, cell):
         if neighbors is not None:
             return screening.screen_gathered_banked(w_hat, neighbors, rules, cell.rule_idx,
-                                                    cell.b, self_vals=w_bcast)
+                                                    cell.b, self_vals=w_bcast, chunk=screen_chunk)
         return screening.screen_all_banked(w_hat, adjacency, rules, cell.rule_idx, cell.b,
-                                           self_vals=w_bcast)
+                                           self_vals=w_bcast, chunk=screen_chunk)
 
     def screen_decide(w_hat, w_bcast, cell, stride, weights=None, evicted=None):
         """The decide form: ``(y, trim)``; ``evicted`` clears a cell's
@@ -509,6 +569,8 @@ def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str
         # (Step 5) screening at every node; self is the node's own broadcast,
         # which never travels the wire
         trim = None
+        if trust is not None or forensics:
+            screening.check_decide_streams(rules, d, screen_chunk)
         with torch.profiler.record_function("bridge.screen"):
             if trust is not None:
                 y, trim = screen_decide(w_hat, w_bcast, cell, decide_stride(trace, trust),
@@ -527,6 +589,8 @@ def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str
             metrics = cell_metrics(w_new, losses, ~cell.byz_mask, rho,
                                    exchange.wire_bits_bank(codec_bank, cell.codec_idx or None, d),
                                    n_edges, comm)
+            if cell.metrics is not None:
+                metrics["grad_norm"] = grad_norm(g, ~cell.byz_mask)
         live = byz_edge = None
         if trim is not None:
             e, m = w.shape[:2]
@@ -544,8 +608,9 @@ def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str
             live_t = static_live & ~state.trust.evicted
             new_trust = trust_stage(trust, state, metrics, trim=trim, screened=live_t,
                                     live=live_t)
+        mets = fold_metric_ring(cell.metrics, state, metrics)
         return BridgeState(unflatten(w_new), state.t + 1, key, comm, adv=adv, obs=obs,
-                           trust=new_trust), metrics
+                           trust=new_trust, mets=mets), metrics
 
     return step
 
@@ -570,7 +635,7 @@ def _need(counts: np.ndarray, device) -> int | torch.Tensor:
 def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
                             message_attacks, *, codecs: tuple[str, ...] = ("identity",),
                             wire_attacks=None, adversaries: tuple[str, ...] | None = None,
-                            trace=None, trust=None):
+                            trace=None, trust=None, screen_chunk: int | None = None):
     """The network-runtime iteration over stacked cells: ``step(cell,
     state, batch) -> (state, metrics)``, the reference's
     ``build_cell_runtime_step`` with a rule bank ``rules``, a bank of
@@ -606,6 +671,9 @@ def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
     cross-checks the nodes' digests of their views for equivocation
     (`repro_torch.trust.echo`; ``slander``'s nodes forge the digest rows
     they gossip) before the ``bridge.trust`` stage folds the evidence in.
+    With ``cell.metrics`` the tick's scalars, the delivered messages' age
+    quantiles included, fold into ``state.mets``; ``screen_chunk`` as in
+    `build_cell_step`.
     """
     forensics = trace is not None and trace.forensics
     codec_bank = codec_lib.codec_bank(codecs)
@@ -626,8 +694,9 @@ def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
             adj_t = adj_t.index_select(0, torch.as_tensor(cells, device=adj_t.device))
         if nbr is not None:
             return screening.screen_views_banked(nbr.gather_rows(wb, lead=1), adj_t, wb, rules,
-                                                 c.rule_idx, c.b)
-        return screening.screen_all_banked(wb, adj_t, rules, c.rule_idx, c.b, self_vals=wb)
+                                                 c.rule_idx, c.b, chunk=screen_chunk)
+        return screening.screen_all_banked(wb, adj_t, rules, c.rule_idx, c.b, self_vals=wb,
+                                           chunk=screen_chunk)
 
     def adversary(cell, state, w, msgs, w_self, adj_t, sub):
         """The adversary's message form over the Byzantine senders' links."""
@@ -734,6 +803,8 @@ def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
         # rule's Table-II minimum keeps its own value this tick
         trim = None
         mask_eff = mask
+        if trust is not None or forensics:
+            screening.check_decide_streams(rules, d, screen_chunk)
         with torch.profiler.record_function("bridge.screen"):
             if trust is not None:
                 # evicted edges leave the usable mask, as if the link had died
@@ -748,7 +819,7 @@ def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
                     decide_stride=trace.decide_stride)
             else:
                 y_rule = screening.screen_views_banked(views, mask, w_self, rules, cell.rule_idx,
-                                                       cell.b)
+                                                       cell.b, chunk=screen_chunk)
             need = screening.min_neighbors_banked(rules, cell.rule_idx, cell.b)
             enough = mask_eff.sum(dim=-1) >= _need(need, w.device)
             y = torch.where(enough[..., None], y_rule, w_self)
@@ -760,6 +831,8 @@ def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
             w_new = y - _per_cell(rho, w.device) * g
             live = torch.sum(adj_t, dim=(-2, -1)).to(torch.float32).expand(e)
             metrics = cell_metrics(w_new, losses, ~cell.byz_mask, rho, bits, live, comm)
+            if cell.metrics is not None:
+                metrics["grad_norm"] = grad_norm(g, ~cell.byz_mask)
         metrics.update(net_stats)
         metrics["screened_frac"] = torch.mean(enough.to(torch.float32), dim=-1)
         live_o = byz_edge = None
@@ -779,16 +852,22 @@ def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
             new_trust = trust_stage(trust, state, metrics, trim=trim,
                                     screened=mask_eff & enough[..., None], live=mask_eff,
                                     echo_evidence=echo_ev)
+        mets = fold_metric_ring(cell.metrics, state, metrics,
+                                staleness=obs_trace.staleness_of(net, state.t), live=mask)
         return BridgeState(unflatten(w_new), state.t + 1, key, comm, net, adv, obs,
-                           new_trust), metrics
+                           new_trust, mets), metrics
 
     return step
 
 
 def _cells(net, fn):
-    """``fn`` over every tensor of a carried state (a NamedTuple of them,
-    or None): adds or drops the cells' axis."""
-    return None if net is None else type(net)(*(fn(x) for x in net))
+    """``fn`` over every tensor of a carried state (a tensor, a NamedTuple
+    or a tuple of them, nested: the stream's per-leaf carries; or None):
+    adds or drops the cells' axis."""
+    if net is None or isinstance(net, torch.Tensor):
+        return None if net is None else fn(net)
+    parts = (_cells(x, fn) for x in net)
+    return type(net)(*parts) if hasattr(net, "_fields") else tuple(parts)
 
 
 def _one_cell(grad_fn: Callable) -> Callable:
@@ -802,7 +881,100 @@ def _one_cell(grad_fn: Callable) -> Callable:
     return fn
 
 
-class BridgeTrainer:
+def stack_streams(history: list[dict], device) -> dict:
+    """Per-tick metric dicts as ``[T]`` float32 tensors on ``device``: the
+    device values stacked, the host values (floats) copied over once a
+    key."""
+    out = {}
+    for k in history[0] if history else ():
+        vals = [h[k] for h in history]
+        if isinstance(vals[0], torch.Tensor):
+            out[k] = torch.stack([v.to(torch.float32) for v in vals])
+        else:
+            out[k] = torch.as_tensor(np.asarray(vals, np.float32), device=device)
+    return out
+
+
+class CellTrainer:
+    """The loops of a trainer of one cell: `step`, `run` and `run_chunks`
+    over ``self._cell_step`` (a cell step, `build_cell_step`'s signature)
+    and ``self.cell`` (its `CellParams`, E = 1), with ``self.config`` and
+    ``self.device``, which a subclass sets."""
+
+    def step(self, state: BridgeState, batch: Any) -> tuple[BridgeState, dict]:
+        """One tick of the trainer's cell step over its one cell (E = 1).  The metrics are 0-d tensors on the
+        device (reading one waits for the tick) and Python floats for the
+        static quantities."""
+        add = lambda x: x[None]
+        one = BridgeState({k: v[None] for k, v in state.params.items()}, state.t,
+                          np.asarray(state.key, np.uint32)[None], _cells(state.comm, add),
+                          _cells(state.net, add), _cells(state.adv, add), _cells(state.obs, add),
+                          _cells(state.trust, add), _cells(state.mets, add))
+        new, metrics = self._cell_step(self.cell, one, batch)
+        metrics = {k: (v[0] if isinstance(v, torch.Tensor) and v.ndim else
+                       float(v[0]) if isinstance(v, np.ndarray) else v)
+                   for k, v in metrics.items()}
+        drop = lambda x: x[0]
+        return BridgeState({k: v[0] for k, v in new.params.items()}, new.t, new.key[0],
+                           _cells(new.comm, drop), _cells(new.net, drop),
+                           _cells(new.adv, drop), _cells(new.obs, drop),
+                           _cells(new.trust, drop), _cells(new.mets, drop)), metrics
+
+    def run(self, state: BridgeState, batch_fn: Callable[[int], Any], num_steps: int,
+            eval_fn: Callable | None = None, eval_every: int = 0) -> tuple[BridgeState, list[dict]]:
+        """``num_steps`` ticks; every ``eval_every`` ticks the metrics (as
+        Python numbers) and ``eval_fn(state)`` join the returned history."""
+        history = []
+        for i in range(num_steps):
+            state, metrics = self.step(state, batch_fn(i))
+            if eval_fn is not None and eval_every and (i + 1) % eval_every == 0:
+                rec = {k: float(v) for k, v in metrics.items()}
+                rec.update(eval_fn(state))
+                rec["step"] = i + 1
+                history.append(rec)
+        return state, history
+
+    def run_chunks(self, state: BridgeState, batch_fn: Callable[[int], Any], num_steps: int, *,
+                   chunk: int | None = None, writer=None, events=None, tag: str = "train",
+                   start: int = 0) -> tuple[BridgeState, dict]:
+        """``num_steps`` ticks (batches ``batch_fn(start)``,
+        ``batch_fn(start + 1)``, ...) as a host loop over chunks of
+        ``chunk`` ticks, the reference's ``run_chunks``: within a chunk the
+        ticks are launched back to back, never waited for; after each chunk
+        the metric ring goes to ``writer`` (a `repro_torch.obs.MetricWriter`,
+        whose copy does not wait for the card) and a ``train.chunk`` record
+        (``train_tag``, ``lo``, ``hi``, ``dispatch_s``: the host's time to
+        launch the chunk) to ``events``.  ``chunk`` defaults to the metric
+        spec's capacity (no tick overwritten before it is flushed), or 64
+        without one.  Returns ``(final_state, metrics)`` with ``[T]``
+        tensor streams, each tick's values those of `step` in a loop."""
+        mspec = self.config.metrics
+        if chunk is None:
+            chunk = mspec.capacity if mspec is not None else 64
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if mspec is not None and chunk > mspec.capacity:
+            raise ValueError(f"chunk {chunk} exceeds MetricSpec.capacity {mspec.capacity}: the "
+                             f"ring would overwrite unflushed ticks")
+        history: list[dict] = []
+        done = start
+        while done < start + num_steps:
+            hi = min(done + chunk, start + num_steps)
+            t_chunk = time.perf_counter()
+            for i in range(done, hi):
+                state, metrics = self.step(state, batch_fn(i))
+                history.append(metrics)
+            if writer is not None:
+                writer.flush(state.mets, tag=tag)
+            if events is not None:
+                # `train_tag`, not `tag`: the event's first field is its tag
+                events.emit("train.chunk", train_tag=tag, lo=done, hi=hi,
+                            dispatch_s=time.perf_counter() - t_chunk)
+            done = hi
+        return state, stack_streams(history, self.device)
+
+
+class BridgeTrainer(CellTrainer):
     """Drives Algorithm 1.  ``grad_fn(params, batch) -> (losses [M], grads)``
     computes every node's local loss and gradient over the stacked
     ``[M, ...]`` parameters (e.g. `repro_torch.models.small.linear_loss_and_grad`).
@@ -830,7 +1002,7 @@ class BridgeTrainer:
                           else adv_lib.get_adversary(config.adversary))
         advs = None if self.adversary is None else (config.adversary,)
         banks = dict(codecs=(config.codec,), wire_attacks=(self.wire_attack,), adversaries=advs,
-                     trace=config.trace, trust=config.trust)
+                     trace=config.trace, trust=config.trust, screen_chunk=config.screen_chunk)
         self.neighbors = None
         if runtime is None:
             self.attack = byzantine.get_attack(config.attack)
@@ -853,7 +1025,8 @@ class BridgeTrainer:
             theta = np.asarray([self.adversary.default_theta], np.float32)
         self.cell = CellParams((0,), (0,), (config.num_byzantine,), self.byz_mask[None],
                                (config.lam,), (config.t0,), (config.lr,), codec_idx=(0,),
-                               adv_idx=() if self.adversary is None else (0,), adv_theta=theta)
+                               adv_idx=() if self.adversary is None else (0,), adv_theta=theta,
+                               metrics=config.metrics)
 
     def _check_runtime(self, runtime) -> None:
         """The reference's refusals, and the port's: a runtime on another
@@ -875,8 +1048,9 @@ class BridgeTrainer:
     def init(self, params: Params, seed: int = 0) -> BridgeState:
         """The state at tick 0 from stacked ``params``, with the key
         ``PRNGKey(seed)``, a zero codec carry for a lossy codec, fresh trace
-        aggregates for a ``trace`` and an all-trusting state for a
-        ``trust`` (``[M, W]``: W = M dense, the table's K sparse)."""
+        aggregates for a ``trace``, an all-trusting state for a ``trust``
+        (``[M, W]``: W = M dense, the table's K sparse) and an empty ring
+        for a ``metrics`` spec."""
         m = self.config.topology.num_nodes
         for k, leaf in params.items():
             if leaf.shape[0] != m:
@@ -891,8 +1065,10 @@ class BridgeTrainer:
         width = self.edge_width
         obs = obs_trace.init_state(self.config.trace, m, width, device=self.device)
         trust = trust_lib.init_state(self.config.trust, m, width, device=self.device)
+        mets = obs_metrics.init_state(self.config.metrics, device=self.device)
         return BridgeState(params=params, t=0, key=prng.PRNGKey(seed),
-                           comm=self.init_comm(params), net=net, adv=adv, obs=obs, trust=trust)
+                           comm=self.init_comm(params), net=net, adv=adv, obs=obs, trust=trust,
+                           mets=mets)
 
     @property
     def edge_width(self) -> int:
@@ -914,27 +1090,6 @@ class BridgeTrainer:
         link = m if nbr is None else nbr.k
         return exchange.init_residual((m, link, dim), self.codec, device=self.device)
 
-    def step(self, state: BridgeState, batch: Any) -> tuple[BridgeState, dict]:
-        """One tick: `build_cell_step`'s step (synchronous) or
-        `build_cell_runtime_step`'s (through the runtime) over the
-        trainer's one cell (E = 1).  The metrics are 0-d tensors on the
-        device (reading one waits for the tick) and Python floats for the
-        static quantities."""
-        add = lambda x: x[None]
-        one = BridgeState({k: v[None] for k, v in state.params.items()}, state.t,
-                          np.asarray(state.key, np.uint32)[None], _cells(state.comm, add),
-                          _cells(state.net, add), _cells(state.adv, add), _cells(state.obs, add),
-                          _cells(state.trust, add))
-        new, metrics = self._cell_step(self.cell, one, batch)
-        metrics = {k: (v[0] if isinstance(v, torch.Tensor) and v.ndim else
-                       float(v[0]) if isinstance(v, np.ndarray) else v)
-                   for k, v in metrics.items()}
-        drop = lambda x: x[0]
-        return BridgeState({k: v[0] for k, v in new.params.items()}, new.t, new.key[0],
-                           _cells(new.comm, drop), _cells(new.net, drop),
-                           _cells(new.adv, drop), _cells(new.obs, drop),
-                           _cells(new.trust, drop)), metrics
-
     def _wire_roundtrip(self, sub: np.ndarray, x: torch.Tensor, comm, t: int):
         """The synchronous tick's wire stage (`wire_stage`) of ``x [M, d]``
         over the trainer's Byzantine senders under the host subkey ``sub``.
@@ -947,17 +1102,3 @@ class BridgeTrainer:
                                 np.asarray(sub, np.uint32)[None], x[None],
                                 _cells(comm, lambda a: a[None]), self.byz_mask[None], t)
         return x_hat[0], _cells(new, lambda a: a[0])
-
-    def run(self, state: BridgeState, batch_fn: Callable[[int], Any], num_steps: int,
-            eval_fn: Callable | None = None, eval_every: int = 0) -> tuple[BridgeState, list[dict]]:
-        """``num_steps`` ticks; every ``eval_every`` ticks the metrics (as
-        Python numbers) and ``eval_fn(state)`` join the returned history."""
-        history = []
-        for i in range(num_steps):
-            state, metrics = self.step(state, batch_fn(i))
-            if eval_fn is not None and eval_every and (i + 1) % eval_every == 0:
-                rec = {k: float(v) for k, v in metrics.items()}
-                rec.update(eval_fn(state))
-                rec["step"] = i + 1
-                history.append(rec)
-        return state, history

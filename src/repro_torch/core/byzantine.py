@@ -89,18 +89,41 @@ def _same_value(w, byz_mask, key, t, value: float = 100.0):
     return torch.where(byz_mask[..., None], torch.full_like(w, value), w)
 
 
+def node_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x [.., M, c]`` summed over the node axis, ``[.., c]``: from 0, one
+    row after another, in ``x``'s dtype.  Every column takes the same
+    additions in the same order at any width ``c``, so an attack on a block
+    of columns is that block of the attack on the whole row
+    (`repro_torch.stream`); it is also XLA's order at the reference's test
+    sizes.  `torch.sum`'s order follows the width.  On CUDA the
+    outer-dimension scan of `torch.cumsum` adds the rows in this order in one
+    launch (a tensor that is one column and nothing else goes to a parallel
+    scan instead); on the CPU cumsum accumulates in double, so a loop."""
+    if x.is_cuda and x.numel() > x.shape[-2]:
+        return torch.cumsum(x, dim=-2)[..., -1, :]
+    acc = torch.zeros_like(x[..., 0, :])
+    for i in range(x.shape[-2]):
+        acc = acc + x[..., i, :]
+    return acc
+
+
 def _honest_mean(w, honest):
     """The honest rows' mean ``[.., d]`` of ``w [.., M, d]`` and their count
     ``[.., 1]``, per cell."""
     cnt = torch.sum(honest, dim=-1, keepdim=True).to(w.dtype)
-    return torch.sum(torch.where(honest[..., None], w, 0.0), dim=-2) / cnt, cnt
+    return node_sum(torch.where(honest[..., None], w, 0.0)) / cnt, cnt
+
+
+def _honest_var(w, honest, mu, cnt):
+    """The honest rows' variance ``[.., d]`` about their mean ``mu``."""
+    return node_sum(torch.where(honest[..., None], (w - mu[..., None, :]) ** 2, 0.0)) / cnt
 
 
 def _alie(w, byz_mask, key, t, z: float = 1.5):
     """'A Little Is Enough': collude on mean + z*std of the honest iterates."""
     honest = ~byz_mask
     mu, cnt = _honest_mean(w, honest)
-    var = torch.sum(torch.where(honest[..., None], (w - mu[..., None, :]) ** 2, 0.0), dim=-2) / cnt
+    var = _honest_var(w, honest, mu, cnt)
     crafted = mu + z * torch.sqrt(var + 1e-12)
     return torch.where(byz_mask[..., None], crafted[..., None, :], w)
 
@@ -177,8 +200,7 @@ def _selective_victim(z: float = 1.5):
         of each cell (``w [..., M, d]``, ``in_deg [..., M]``)."""
         honest = ~byz_mask
         mu, cnt = _honest_mean(w, honest)
-        var = torch.sum(torch.where(honest[..., None], (w - mu[..., None, :]) ** 2, 0.0),
-                        dim=-2) / cnt
+        var = _honest_var(w, honest, mu, cnt)
         crafted = mu + z * torch.sqrt(var + 1e-12)
         return crafted[..., None, None, :], in_deg <= _median_of_counts(in_deg)
 

@@ -306,6 +306,89 @@ def _plain_rule(rule: str, views: torch.Tensor, mask: torch.Tensor, self_vals: t
 
 
 # ---------------------------------------------------------------------------
+# Coordinate streaming (the reference's ``screen_chunk``)
+# ---------------------------------------------------------------------------
+
+
+def _streams(rule: str, d: int, chunk: int | None) -> bool:
+    """True when the reference streams coordinate chunks: any rule but
+    Krum and Bulyan once ``d > chunk``."""
+    return rule not in ("krum", "bulyan") and chunk is not None and d > chunk
+
+
+# Rules whose output on a coordinate block equals the same block of the
+# full-d output, the block-streaming contract of `repro_torch.stream`.
+# geomedian's Weiszfeld weights and clipped_mean's radii are functions of
+# full-vector norms, so chunking changes their result (the reference
+# returns that changed result past ``screen_chunk``); these rules are per
+# coordinate, so block results are bit for bit the whole ones.
+STREAMABLE_RULES: frozenset = frozenset(
+    {"trimmed_mean", "median", "mean", "rep_trimmed_mean", "rep_median"})
+
+# The rules the port streams per node and chunk past ``screen_chunk``: the
+# plain ones.  BRIDGE-T and BRIDGE-M run whole through the kernels, which
+# never form ``[M, M+1, d]`` (they are coordinate-wise, so whole equals
+# chunked bit for bit); Krum and Bulyan ignore the chunk, as there.
+_CHUNKED_PLAIN = frozenset({"mean", "geomedian", "clipped_mean", "rep_trimmed_mean",
+                            "rep_median"})
+
+
+def check_streamable(rules) -> None:
+    """Raise for rules whose blockwise result differs from the whole one
+    (`repro_torch.stream` refuses them instead of changing the rule)."""
+    bad = [r for r in rules if r not in STREAMABLE_RULES]
+    if bad:
+        raise ValueError(
+            f"rules {bad} are not coordinate-decomposable and cannot stream over parameter "
+            f"blocks (repro_torch.stream); streamable rules: {sorted(STREAMABLE_RULES)}")
+
+
+def check_decide_streams(rules, d: int, chunk: int | None) -> None:
+    """Raise where the reference does: the decision path evaluates rules
+    unchunked, so forensics or trust where streaming would engage is an
+    error."""
+    bad = [r for r in rules if _streams(r, d, chunk)]
+    if bad:
+        raise ValueError(
+            f"screening forensics cannot stream coordinates: rules {bad} at d={d} engage "
+            f"screen_chunk={chunk}; raise screen_chunk above d or set "
+            f"TraceSpec(forensics=False)")
+
+
+def _chunked(rule: str, rows_of: Callable, mask: torch.Tensor, self_vals: torch.Tensor, b,
+             chunk: int) -> torch.Tensor:
+    """A plain rule node by node and ``chunk`` coordinates at a time, the
+    reference's streamed ``_apply_rule``: node j of ``self_vals [N, d]``
+    screens ``rows_of(j) [n, d]`` under ``mask[j]`` (``mask [N, n]``) at
+    bound ``b`` (an int), one ``[n + 1, chunk]`` block at a time; the last
+    block takes the tail's exact width (the reference's zero padding adds
+    nothing to a norm or a column).  The reference maps the nodes with
+    ``lax.map``, whose mask row is an operand, not a constant, so every
+    divisor is a true division here."""
+    out = torch.empty_like(self_vals)
+    d = self_vals.shape[-1]
+    for j in range(self_vals.shape[0]):
+        rows = rows_of(j)
+        for lo in range(0, d, chunk):
+            hi = min(lo + chunk, d)
+            out[j, lo:hi] = _plain_rule(rule, rows[None, :, lo:hi], mask[j:j + 1],
+                                        self_vals[j:j + 1, lo:hi], b, folded=False)[0]
+    return out
+
+
+def _chunked_cells(rule: str, w: torch.Tensor, rows_of: Callable, mask: torch.Tensor,
+                   self_vals: torch.Tensor, b, chunk: int) -> torch.Tensor:
+    """`_chunked` over the cells of ``self_vals [E, M, d]``: ``rows_of(e,
+    j)`` node j's rows in cell e, ``mask`` ``[M, n]`` or ``[E, M, n]``,
+    ``b`` an int or E bounds."""
+    bs = np.broadcast_to(np.asarray(b, np.int64), (self_vals.shape[0],))
+    return torch.stack([
+        _chunked(rule, lambda j, e=e: rows_of(e, j), mask if mask.ndim == 2 else mask[e],
+                 self_vals[e], int(bs[e]), chunk)
+        for e in range(self_vals.shape[0])])
+
+
+# ---------------------------------------------------------------------------
 # Vector rules (BRIDGE-K, BRIDGE-B) over per-node distance matrices
 # ---------------------------------------------------------------------------
 
@@ -484,7 +567,7 @@ def screen_all(w: torch.Tensor, adjacency: torch.Tensor, *, rule: str, b,
     return y[0] if added else y
 
 
-def _screen_all(w, adjacency, rule, b, self_vals, recip=False):
+def _screen_all(w, adjacency, rule, b, self_vals, recip=False, chunk=None):
     bk = bound_arg(b, w.device)
     if rule == "trimmed_mean":
         return grad_ops.trimmed_mean(w, adjacency, self_vals, bk, recip)
@@ -495,6 +578,8 @@ def _screen_all(w, adjacency, rule, b, self_vals, recip=False):
         rows = torch.arange(m, device=w.device).expand(m, m)
         return _vector_rule(rule, w, rows, adjacency, self_vals, b,
                             lambda sel: grad_ops.trimmed_mean(w, sel, self_vals, bk))
+    if rule in _CHUNKED_PLAIN and _streams(rule, w.shape[-1], chunk):
+        return _chunked_cells(rule, w, lambda e, j: w[e], adjacency.bool(), self_vals, b, chunk)
     out = _plain_rule(rule, w.unsqueeze(-3), adjacency, self_vals, b)
     if out is None:
         raise _unknown(rule)
@@ -552,7 +637,7 @@ def _views_row(views: torch.Tensor, i_star: torch.Tensor) -> torch.Tensor:
 
 
 def _screen_views(rule: str, views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
-                  b) -> torch.Tensor:
+                  b, chunk: int | None = None) -> torch.Tensor:
     """One rule over the views ``[E, M, W, d]`` of E cells (``mask``
     ``[M, W]`` shared, or ``[E, M, W]``; ``b`` an int or a tuple of E)."""
     bk = bound_arg(b, views.device)
@@ -567,6 +652,10 @@ def _screen_views(rule: str, views: torch.Tensor, mask: torch.Tensor, self_vals:
         return grad_ops.views_trimmed_mean(views, sel, self_vals, bk)
     if rule not in RULES:
         raise _unknown(rule)
+    if rule in _CHUNKED_PLAIN and _streams(rule, views.shape[-1], chunk):
+        return _per_bound(lambda v, mk, s, bb, _: _chunked(rule, lambda j: v[j], mk.bool(), s, bb,
+                                                           chunk),
+                          views, mask, self_vals, b)
     return _per_bound(lambda v, mk, s, bb, _: _plain_rule(rule, v, mk, s, bb, folded=False),
                       views, mask, self_vals, b)
 
@@ -621,7 +710,7 @@ def screen_gathered(w: torch.Tensor, table: NeighborTable, *, rule: str, b,
     return y[0] if added else y
 
 
-def _screen_gathered(w, table, rule, b, self_vals):
+def _screen_gathered(w, table, rule, b, self_vals, chunk=None):
     bk = bound_arg(b, w.device)
     if rule == "trimmed_mean":
         return grad_ops.gather_trimmed_mean(w, table.safe_idx, table.valid_dev, self_vals, bk)
@@ -633,6 +722,10 @@ def _screen_gathered(w, table, rule, b, self_vals):
                                                                      self_vals, bk))
     if rule not in RULES:
         raise _unknown(rule)
+    if rule in _CHUNKED_PLAIN and _streams(rule, w.shape[-1], chunk):
+        idx = table.safe_idx.long()
+        return _chunked_cells(rule, w, lambda e, j: w[e].index_select(0, idx[j]),
+                              table.valid_dev.bool(), self_vals, b, chunk)
     return _plain_rule(rule, ref.gather(w, table.safe_idx), table.valid_dev, self_vals, b)
 
 
@@ -666,33 +759,39 @@ def _banked(screen: Callable, w: torch.Tensor, self_vals: torch.Tensor, rules, r
 
 
 def screen_all_banked(w: torch.Tensor, adjacency: torch.Tensor, rules, rule_idx, b, *,
-                      self_vals: torch.Tensor | None = None) -> torch.Tensor:
+                      self_vals: torch.Tensor | None = None,
+                      chunk: int | None = None) -> torch.Tensor:
     """`screen_all` over ``w [E, M, d]`` with experiment e screening by
     ``rules[rule_idx[e]]`` at bound ``b[e]`` (the reference's
     ``screen_all_banked`` under its grid's ``vmap``); ``adjacency`` is
-    ``[M, M]`` or an experiment's own ``[E, M, M]``."""
+    ``[M, M]`` or an experiment's own ``[E, M, M]``.  Past ``chunk``
+    coordinates the plain rules stream node by node and chunk by chunk
+    (the reference's ``screen_chunk``)."""
     if self_vals is None:
         self_vals = w
     adj_of = lambda cells: (adjacency if adjacency.ndim == 2 or cells is None
                             else adjacency.index_select(0, cells))
     return _banked(lambda rule, w_r, b_r, s_r, cells: _screen_all(w_r, adj_of(cells), rule, b_r,
-                                                                  s_r),
+                                                                  s_r, chunk=chunk),
                    w, self_vals, rules, rule_idx, b)
 
 
 def screen_gathered_banked(w: torch.Tensor, table: NeighborTable, rules, rule_idx, b, *,
-                           self_vals: torch.Tensor | None = None) -> torch.Tensor:
+                           self_vals: torch.Tensor | None = None,
+                           chunk: int | None = None) -> torch.Tensor:
     """`screen_gathered` over ``w [E, M, d]`` with a rule an experiment from
     the bank (the reference's sparse trainer path, ``screen_views_banked``
-    over the table's gathered rows, without forming them)."""
+    over the table's gathered rows, without forming them); ``chunk`` as in
+    `screen_all_banked`."""
     if self_vals is None:
         self_vals = w
-    return _banked(lambda rule, w_r, b_r, s_r, _: _screen_gathered(w_r, table, rule, b_r, s_r),
+    return _banked(lambda rule, w_r, b_r, s_r, _: _screen_gathered(w_r, table, rule, b_r, s_r,
+                                                                   chunk=chunk),
                    w, self_vals, rules, rule_idx, b)
 
 
 def screen_views_banked(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
-                        rules, rule_idx, b) -> torch.Tensor:
+                        rules, rule_idx, b, *, chunk: int | None = None) -> torch.Tensor:
     """`screen_views` over the views ``[E, M, W, d]`` of E cells (a mask
     ``[M, W]`` every cell shares, or ``[E, M, W]``) with a rule and a bound
     ``b[e]`` a cell: each rule of the bank runs once over the cells that
@@ -700,12 +799,12 @@ def screen_views_banked(views: torch.Tensor, mask: torch.Tensor, self_vals: torc
     stage take them per cell; the distance kernel takes the cells' nodes as
     its batch, ``[E M, W, d]`` in place), and the outputs are scattered
     back.  One rule for all reads the views at their strides, a receiver
-    stride of 0 included."""
+    stride of 0 included.  ``chunk`` as in `screen_all_banked`."""
     if mask.ndim == 3 and mask.shape[0] > 1 and mask.stride(0) == 0:
         mask = mask[0]  # one mask every cell shares, expanded
     return _banked(lambda rule, v_r, b_r, s_r, cells: _screen_views(
         rule, v_r, mask if mask.ndim == 2 or cells is None else mask.index_select(0, cells),
-        s_r, b_r), views, self_vals, rules, rule_idx, b)
+        s_r, b_r, chunk), views, self_vals, rules, rule_idx, b)
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,8 @@ written by either package resumes in the other):
         [--attacks random,alie] [--byz 1,2] [--seeds 0,1,2,3] \\
         [--scenarios ideal,lossy] [--codecs identity,int8] \\
         [--adversaries none,inner_max] [--grid-ticks 60] \\
-        [--grid-chunk 16] [--sparse] [--device cpu]
+        [--grid-chunk 16] [--sparse] [--metrics DIR] [--metrics-capacity 64] \\
+        [--trace DIR] [--profile DIR] [--device cpu]
 
 ``--scenarios`` names `repro_torch.net.scenarios` entries: every cell then
 runs through the network runtime (`GridNetRuntime`, schedules of
@@ -20,6 +21,18 @@ runs through the network runtime (`GridNetRuntime`, schedules of
 ``--adversaries`` `repro_torch.adversary` entries, two more grid axes.  It
 writes the per-cell records and ``GridResult.json`` (the whole store) with
 each cell's honest test accuracy.
+
+The observability flags of grid mode: ``--metrics DIR`` runs every cell
+with the live metric ring (``--metrics-capacity`` slots, bit-inert) and
+streams each cell's rows, tagged by cell, to ``DIR/metrics.jsonl`` through
+a writer that raises ``obs.alert`` events (watch with ``python -m
+repro_torch.obs.monitor DIR``); ``--trace DIR`` runs every cell with the
+trace's forensics (bit-inert) and writes ``DIR/obs_summary.json``, each
+cell's forensic summary (render with ``python -m repro_torch.obs.report
+DIR``); either writes ``manifest.json`` at the run's start and end and the
+run's events to ``events.jsonl``; ``--profile DIR`` records the engine run
+under `torch.profiler` (the ``bridge.*`` and ``kernels.*`` ranges) and
+writes its Chrome trace to ``DIR/profile.trace.json``.
 
 ``--mode breakdown`` certifies b* per (rule, adversary) on the MNIST-like
 linear task with the extreme non-iid partition
@@ -37,14 +50,12 @@ with the trust layer (`repro_torch.trust.TrustSpec`), in grid and in
 breakdown mode; breakdown with ``--trust`` runs on the complete graph (the
 echo's quorums need gossip triangles), as the reference does.  The
 reference's other modes (``dryrun``, ``net``: the JAX package's lowering
-matrix and subprocess fan-out) and the flags that need a layer the port
-does not have yet raise: ``--trace`` in grid mode, ``--metrics`` and
-``--profile`` (the metric rings, manifests and the grid's traced run:
-ROADMAP Queue 1 open item 5's next slice).
+matrix and subprocess fan-out) raise.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -58,25 +69,20 @@ from repro_torch.data.mnist_like import make_mnist_like
 from repro_torch.data.partition import device_node_batches, partition_iid
 from repro_torch.device import resolve_device, wait
 from repro_torch.models import small
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.events import EventLog
+from repro_torch.obs.manifest import write_manifest
 from repro_torch.sim import ExperimentGrid, GridEngine, default_topology
 from repro_torch.sim import results as results_lib
 
 
-ITEM = ("ROADMAP Queue 1 open item 5's next slice (obs/metrics.py, obs/manifest.py, "
-        "run_chunks)")
-
-
 def _refuse_unported(args) -> None:
-    """The modes and flags whose layer the port does not have, by ROADMAP
-    item."""
+    """The reference's modes that belong to the JAX package."""
     if args.mode not in ("grid", "breakdown"):
         raise ValueError(f"--mode {args.mode}: the port's sweep runs --mode grid and "
                          f"--mode breakdown (the lowering matrix and the subprocess mode "
                          f"belong to the JAX package)")
-    flags = ("metrics", "profile") + (("trace",) if args.mode == "grid" else ())
-    for flag in flags:
-        if getattr(args, flag) is not None:
-            raise ValueError(f"--{flag}: the metric rings and the grid's traced run are {ITEM}")
 
 
 def _trust_spec(args):
@@ -121,14 +127,45 @@ def run_grid_mode(args) -> results_lib.GridResult | None:
         key = prng.PRNGKey(seed)
         return replicate(small.init_linear(key, device=dev), m, perturb=0.01, key=key)
 
+    run_dir = args.trace or args.metrics
+    events = trace_spec = metric_spec = writer = None
+    if run_dir is not None:
+        os.makedirs(run_dir, exist_ok=True)
+        write_manifest(run_dir, kind="sweep-grid", config=vars(args))
+        events = EventLog(os.path.join(run_dir, "events.jsonl"))
+    if args.trace is not None:
+        trace_spec = obs_trace.TraceSpec()
+    if args.metrics is not None:
+        metric_spec = obs_metrics.MetricSpec(capacity=args.metrics_capacity)
+        writer = obs_metrics.MetricWriter(os.path.join(args.metrics, "metrics.jsonl"),
+                                          alerts=obs_metrics.AlertRules(), events=events)
     engine = GridEngine(grid, small.linear_loss_and_grad, cells=pending,
                         num_ticks=ticks if scenarios else None, sparse=args.sparse,
-                        trust=_trust_spec(args), device=dev)
+                        trace=trace_spec, trust=_trust_spec(args), metrics=metric_spec,
+                        events=events, device=dev)
+    prof = contextlib.nullcontext()
+    if args.profile is not None:
+        os.makedirs(args.profile, exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
     t0 = time.time()
-    state = engine.init(init_fn)
-    state, metrics = engine.run(state, batches, chunk=args.grid_chunk)
-    wait(dev)
+    with prof:
+        state = engine.init(init_fn)
+        state, metrics = engine.run(state, batches, chunk=args.grid_chunk, metric_writer=writer)
+        wait(dev)
     wall = time.time() - t0
+    if writer is not None:
+        writer.close()
+        print(f"metric stream -> {writer.path}  (watch: python -m repro_torch.obs.monitor "
+              f"{args.metrics})")
+    if args.profile is not None:
+        path = os.path.join(args.profile, "profile.trace.json")
+        prof.export_chrome_trace(path)
+        if events is not None:
+            events.emit("profile.capture", dir=args.profile)
+        print(f"profiler trace -> {path}")
     result = results_lib.collect(pending, metrics, meta={
         "num_nodes": m, "ticks": ticks, "wall_s": wall,
         "cells_per_sec": len(pending) / wall, "us_per_cell": wall / len(pending) * 1e6,
@@ -145,6 +182,24 @@ def run_grid_mode(args) -> results_lib.GridResult | None:
                                             xt, yt))
                 for j in hm.nonzero()[0]]
         rec["accuracy"] = float(sum(accs) / max(len(accs), 1))
+    if events is not None:
+        events.close()
+    if run_dir is not None:
+        write_manifest(run_dir, extra={"ended": True, "wall_s": wall, "cells": len(pending)})
+    if trace_spec is not None:
+        senders = engine.sender_grid()
+        cells_out = []
+        for i, c in enumerate(pending):
+            one = obs_trace.TraceState(*(x[i] for x in state.obs))
+            cells_out.append({"tag": c.tag, "rule": c.rule,
+                              **obs_trace.summarize(trace_spec, one, byz_mask=engine.byz_masks[i],
+                                                    senders=senders)})
+        summary_path = os.path.join(args.trace, "obs_summary.json")
+        with open(summary_path, "w") as f:
+            json.dump({"meta": {"mode": "grid", "num_nodes": m, "ticks": ticks},
+                       "cells": cells_out}, f, indent=2, sort_keys=True)
+        print(f"obs summary -> {summary_path}  (render: python -m repro_torch.obs.report "
+              f"{args.trace})")
     result.save_cells(args.out)
     # the aggregate covers the whole store (earlier runs' cells included)
     full = results_lib.load_cell_store(args.out)
@@ -256,9 +311,20 @@ def main(argv=None):
                     help="neighbor-indexed [M, K] layout (the gather kernels)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--trace", default=None, metavar="DIR",
-                    help="breakdown mode: write the run's events to DIR/events.jsonl")
-    for flag in ("--metrics", "--profile"):
-        ap.add_argument(flag, default=None, metavar="DIR")
+                    help="grid mode: run every cell with the trace's forensics (bit-inert) "
+                         "and write DIR/events.jsonl, DIR/manifest.json and "
+                         "DIR/obs_summary.json (python -m repro_torch.obs.report DIR); "
+                         "breakdown mode: write the run's events to DIR/events.jsonl")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="grid mode: record the engine run under torch.profiler and write "
+                         "its Chrome trace to DIR/profile.trace.json")
+    ap.add_argument("--metrics", default=None, metavar="DIR",
+                    help="grid mode: run every cell with the live metric ring (bit-inert) and "
+                         "stream its rows, tagged by cell, to DIR/metrics.jsonl "
+                         "(python -m repro_torch.obs.monitor DIR)")
+    ap.add_argument("--metrics-capacity", type=int, default=64,
+                    help="metric ring slots a cell; a grid streams each cell's last "
+                         "`capacity` ticks")
     # the trust layer (repro_torch.trust; grid and breakdown modes)
     ap.add_argument("--trust", action="store_true",
                     help="run every cell with reputation-weighted screening and eviction "

@@ -12,7 +12,9 @@ and a static schedule it equals the synchronous `BridgeTrainer` bit for bit.
 The reference's hot path is one jitted ``lax.scan`` over ticks; here
 `AsyncBridgeTrainer.run_scan` is a Python loop over the leading axis of
 batches already stacked on the device (`repro_torch.core.bridge.stack_batches`),
-the per-tick metrics stacked to ``[T]`` tensors at the end.
+the per-tick metrics stacked to ``[T]`` tensors at the end; the chunked
+runner `BridgeTrainer.run_chunks` (the live metric ring, whose runtime
+columns include the delivered messages' age quantiles) is inherited.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.bridge import BridgeConfig, BridgeState, BridgeTrainer, stack_batches
+from repro_torch.core.bridge import (BridgeConfig, BridgeState, BridgeTrainer, stack_batches,
+                                     stack_streams)
 from repro_torch.net.channel import ChannelConfig
 from repro_torch.net.runtime import SparseUnreliableRuntime, UnreliableRuntime
 
@@ -63,9 +66,7 @@ class AsyncBridgeTrainer(BridgeTrainer):
                      else batches[i])
             state, metrics = self.step(state, batch)
             history.append(metrics)
-        stacked = {k: torch.stack([torch.as_tensor(h[k], dtype=torch.float32, device=self.device)
-                                   for h in history]) for k in history[0]} if history else {}
-        return state, stacked
+        return state, stack_streams(history, self.device)
 
     def run_ticks(self, state: BridgeState, batch_fn: Callable[[int], Any],
                   num_ticks: int) -> tuple[BridgeState, dict]:

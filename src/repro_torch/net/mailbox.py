@@ -1,6 +1,7 @@
 """Fixed-capacity per-node mailboxes with in-flight message tracking — port
-of `repro.net.mailbox` (the per-link mailbox; the per-block one belongs to
-the streaming runtime, not ported).
+of `repro.net.mailbox`: the per-link mailbox and, for the chunk-streaming
+network path (`repro_torch.stream`), the per-block one
+(`BlockMailboxState`).
 
 * ``values[j, i]`` / ``send_tick[j, i]`` — the newest payload node j has
   received from sender slot i, tagged with the tick it was sent
@@ -15,8 +16,9 @@ over ``[M, W]`` and over any leading axes ahead of them (the grids'
 cells: ``values [E, M, W, d]``, ``ring_vals [E, M, W, L, d]``).  Ticks
 are int32, as in the reference: ``staleness`` saturates to ``INT32_MAX``
 for empty slots instead of overflowing (a Python tick against an int32
-tensor stays int32).  No function writes into
-the state it is given, and none copies a host value to the card.
+tensor stays int32).  No function but `push_block` writes into the state
+it is given (the streaming step hands it the tick's own copy of a leaf's
+store), and none copies a host value to the card.
 """
 from __future__ import annotations
 
@@ -121,3 +123,53 @@ def usable_mask(state: MailboxState, tick: int, bound: int) -> torch.Tensor:
     """``[M, W]`` entries that ever arrived and are at most ``bound`` ticks
     stale (a bound on ``send_tick``, exact at any tick count)."""
     return (state.send_tick > NEVER) & (state.send_tick >= tick - bound)
+
+
+# ---------------------------------------------------------------------------
+# Per-block mailboxes (the chunk-streaming network path)
+# ---------------------------------------------------------------------------
+#
+# The streaming runtime stores payloads per parameter leaf instead of one
+# [M, W, d] matrix and updates them one coordinate block at a time.  The
+# metadata stays one shared [M, W] ``send_tick``: every block of a tick's
+# message travels the same channel, so there is one arrival event per edge
+# and tick, and `staleness` / `usable_mask` apply unchanged.
+
+
+class BlockMailboxState(NamedTuple):
+    send_tick: torch.Tensor  # [.., M, W] int32 tick the stored payload was sent
+    values: tuple  # per leaf [.., M, W, s_l] float32 newest delivered payloads
+
+
+def init_block_mailbox(num_nodes: int, sizes: tuple[int, ...], *, width: int | None = None,
+                       lead: tuple[int, ...] = (),
+                       device: str | torch.device = "cuda") -> BlockMailboxState:
+    """Empty per-block mailboxes: ``sizes`` the leaves' coordinate counts
+    (`repro_torch.stream.BlockSpec`), ``width`` and ``lead`` as in
+    `init_mailbox`."""
+    m = num_nodes
+    w = num_nodes if width is None else int(width)
+    lead = tuple(int(x) for x in lead)
+    return BlockMailboxState(
+        send_tick=torch.full((*lead, m, w), NEVER, dtype=torch.int32, device=device),
+        values=tuple(torch.zeros((*lead, m, w, s), dtype=torch.float32, device=device)
+                     for s in sizes))
+
+
+def stamp(send_tick: torch.Tensor, arrived: torch.Tensor, tick: int) -> torch.Tensor:
+    """The shared metadata after this tick's arrivals (once a tick, outside
+    the block loop)."""
+    return torch.where(arrived, torch.full_like(send_tick, tick), send_tick)
+
+
+def push_block(values_leaf: torch.Tensor, msgs_blk: torch.Tensor, arrived: torch.Tensor,
+               start: int) -> torch.Tensor:
+    """Write one coordinate block of this tick's arrivals into a leaf's
+    store, in place: ``msgs_blk [.., M, W, c]`` lands at column ``start``
+    of ``values_leaf [.., M, W, s]`` on the edges where ``arrived [.., M,
+    W]``; dropped edges keep their previous (now stale) payload.  Returns
+    ``values_leaf``."""
+    c = msgs_blk.shape[-1]
+    cur = values_leaf[..., start:start + c]
+    cur.copy_(torch.where(arrived[..., None], msgs_blk, cur))
+    return values_leaf

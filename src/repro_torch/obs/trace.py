@@ -206,6 +206,14 @@ def update(spec: TraceSpec, st: TraceState, *, t: int, loss: torch.Tensor,
     return st._replace(**kw)
 
 
+# The metric key of the chunk-streaming step's per-block trim fractions
+# (`repro_torch.stream`): one ``[NB]`` vector a tick, each coordinate
+# block's live-edge-mean trim fraction in global block order, beside the
+# scalar ``obs_trim_frac`` (a layer whose block trims everything while the
+# others stay quiet is a localized attack the scalar would dilute).
+BLOCK_TRIM_STREAM = "stream_block_trim_frac"
+
+
 def staleness_of(net, t: int) -> torch.Tensor | None:
     """The delivered messages' ages ``[.., M, W]`` of a mailbox state (duck
     typed on ``send_tick``; 0 where nothing arrived yet), or None when the

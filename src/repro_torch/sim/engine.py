@@ -31,7 +31,11 @@ drives the *same* cell-parameterized step `BridgeTrainer` binds
 * the trust layer (`repro_torch.trust`): an engine-wide ``trust`` spec
   stacks its `TrustState` over ``[E]``; each cell's evictions clear its own
   mask, which the screening kernels take per cell, and ``slander``'s
-  forged digests reach the net grids' echo stage.
+  forged digests reach the net grids' echo stage;
+* live metrics (`repro_torch.obs.metrics`): an engine-wide ``metrics``
+  spec stacks each cell's ring over ``[E]`` (bit-inert), and
+  ``run(..., metric_writer=)`` flushes every cell's ring under its tag,
+  as each chunk of cells finishes or at the end.
 
 The screening kernels take the experiment axis (`repro_torch.kernels`):
 each launches once a tick for a group of cells, whatever its size.  Since
@@ -57,9 +61,6 @@ and tick).
 Correctness anchor, as in the reference: any single cell equals its own
 `BridgeTrainer` run bit for bit (``tests/test_torch_grid.py`` on the CPU,
 ``chip_smoke.py`` on the card).
-
-Not yet here (refused with a `ValueError` that names its ROADMAP item):
-the ``metrics`` spec (the metric rings, Queue 1 open item 5's next slice).
 """
 from __future__ import annotations
 
@@ -81,15 +82,13 @@ from repro_torch.device import resolve_device, wait
 from repro_torch.net import mailbox as mb
 from repro_torch.net.runtime import SparseUnreliableRuntime, UnreliableRuntime
 from repro_torch.net.scenarios import build_schedule, get_scenario
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.sim import grid as grid_lib
 from repro_torch.sim.grid import Cell, ExperimentGrid
 from repro_torch.trust import reputation as trust_lib
 
 __all__ = ["GridEngine", "GridNetRuntime", "stack_batches"]
-
-GRID_SPECS = ("the metrics spec: the metric rings are ROADMAP Queue 1 open item 5's next "
-              "slice (obs/metrics.py, obs/manifest.py, run_chunks)")
 
 
 def _dedup(names: Iterable) -> list:
@@ -259,8 +258,9 @@ class GridEngine:
 
     ``trace`` (a `repro_torch.obs.TraceSpec`) carries each cell's
     aggregates in ``state.obs``, ``trust`` (a `repro_torch.trust.TrustSpec`)
-    each cell's trust state in ``state.trust``; ``events`` (an `EventLog`)
-    gets the run's records.
+    each cell's trust state in ``state.trust``, ``metrics`` (a
+    `repro_torch.obs.MetricSpec`) each cell's metric ring in
+    ``state.mets``; ``events`` (an `EventLog`) gets the run's records.
 
     Usage — a rule x attack x seed product::
 
@@ -276,10 +276,9 @@ class GridEngine:
                  cells: Sequence[Cell] | None = None, num_ticks: int | None = None,
                  scenario_seed: int = 0, group: bool = True, sparse: bool = False, trace=None,
                  trust=None, metrics=None, events=None, device: str | torch.device = "cuda"):
-        if metrics is not None:
-            raise ValueError(f"GridEngine: {GRID_SPECS}")
         self._trace_spec = trace
         self._trust_spec = trust
+        self._metric_spec = metrics
         self._events = events
         self.device = resolve_device(device)
         self.grid = grid
@@ -394,7 +393,7 @@ class GridEngine:
             scenario_idx=(tuple(self.scenario_bank.index(c.scenario) for c in cells)
                           if self.net_mode else ()),
             codec_idx=tuple(self.codec_bank.index(c.codec) for c in cells),
-            adv_idx=adv_idx, adv_theta=adv_theta)
+            adv_idx=adv_idx, adv_theta=adv_theta, metrics=self._metric_spec)
         self._group_cells = []
         for (rules, attacks, codecs, advs), (lo, hi) in zip(self._banks, self._bounds,
                                                             strict=True):
@@ -462,7 +461,8 @@ class GridEngine:
         d]``, per link ``[E, M, W, d]``) for every cell, a stateful
         adversary bank the zero ``AdvState`` ``[E, d]``, a ``trace`` fresh
         `TraceState` rows ``[E, ...]``, a ``trust`` all-trusting
-        `TrustState` rows ``[E, M, W]``."""
+        `TrustState` rows ``[E, M, W]``, a ``metrics`` spec empty rings
+        ``[E, C, S]``."""
         m = self.grid.topology.num_nodes
         params = [init_fn(c.seed) for c in self.cells]
         for k, leaf in params[0].items():
@@ -485,10 +485,12 @@ class GridEngine:
         width = m if self.neighbors is None else self.neighbors.k
         obs = obs_trace.init_state(self._trace_spec, m, width, lead=(e,), device=self.device)
         trust = trust_lib.init_state(self._trust_spec, m, width, lead=(e,), device=self.device)
+        mets = obs_metrics.init_state(self._metric_spec, lead=(e,), device=self.device)
         return BridgeState(params=stacked, t=0, key=keys, comm=comm, net=net, adv=adv, obs=obs,
-                           trust=trust)
+                           trust=trust, mets=mets)
 
-    def run(self, state: BridgeState, batches, *, chunk: int | None = None):
+    def run(self, state: BridgeState, batches, *, chunk: int | None = None,
+            metric_writer=None):
         """Run every cell over ``batches`` (a tensor or a tuple of tensors
         ``[T, ...]``, shared across cells; `stack_batches` makes them).
         Returns ``(final_state, metrics)`` with state leaves ``[E, ...]`` and
@@ -496,9 +498,18 @@ class GridEngine:
         order of ``self.cells``.  With an ``events`` log: ``run.start``, a
         ``grid.chunk`` per chunk when ``chunk`` splits the cells (each
         chunk waited for, so its wall time is its work), ``run.end`` and an
-        ``obs.divergence`` per cell whose sentinel fired."""
+        ``obs.divergence`` per cell whose sentinel fired.
+
+        ``metric_writer`` (a `repro_torch.obs.MetricWriter`; needs the
+        engine's ``metrics`` spec) gets each cell's ring under the cell's
+        tag: as each chunk of cells finishes when ``chunk`` splits them,
+        else once at the end.  A ring holds a cell's last ``capacity``
+        ticks, so a grid's streams are that tail (a trainer's `run_chunks`
+        streams every tick)."""
         if chunk is not None and chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if metric_writer is not None and self._metric_spec is None:
+            raise ValueError("metric_writer needs GridEngine(..., metrics=MetricSpec(...))")
         ticks = int((batches[0] if isinstance(batches, (tuple, list)) else batches).shape[0])
         ev = self._events
         chunked = chunk is not None and chunk < self.num_cells
@@ -524,7 +535,8 @@ class GridEngine:
                 st = BridgeState({k: take(v) for k, v in state.params.items()}, state.t,
                                  keys[cells_idx], _rows(state.comm, take),
                                  _rows(state.net, take), _rows(state.adv, take),
-                                 _rows(state.obs, take), _rows(state.trust, take))
+                                 _rows(state.obs, take), _rows(state.trust, take),
+                                 _rows(state.mets, take))
                 t_chunk = time.perf_counter()
                 f, ms = self._run_chunk(self._steps[gi], cp, st, tick, ticks)
                 if ev is not None and chunked:
@@ -536,7 +548,10 @@ class GridEngine:
                 finals.append(BridgeState({k: v[:valid] for k, v in f.params.items()}, f.t,
                                           f.key[:valid], _rows(f.comm, trim), _rows(f.net, trim),
                                           _rows(f.adv, trim), _rows(f.obs, trim),
-                                          _rows(f.trust, trim)))
+                                          _rows(f.trust, trim), _rows(f.mets, trim)))
+                if metric_writer is not None and chunked:
+                    metric_writer.flush(finals[-1].mets,
+                                        tags=[self.cells[i].tag for i in self._perm[lo:hi]])
                 metrics.append({k: v[:valid] for k, v in ms.items()})
         order = torch.as_tensor(self._inv, device=self.device)
         params = {k: torch.cat([f.params[k] for f in finals]).index_select(0, order)
@@ -554,7 +569,9 @@ class GridEngine:
                for k in metrics[0]}
         final = BridgeState(params=params, t=finals[0].t, key=key, comm=carried("comm"),
                             net=carried("net"), adv=carried("adv"), obs=carried("obs"),
-                            trust=carried("trust"))
+                            trust=carried("trust"), mets=carried("mets"))
+        if metric_writer is not None and not chunked:
+            metric_writer.flush(final.mets, tags=[c.tag for c in self.cells])
         if ev is not None:
             wait(self.device)
             ev.emit("run.end", kind="grid", wall_s=time.perf_counter() - t_run,

@@ -71,6 +71,8 @@ register_mean("stream_block_trim_frac")
 # share (repro_torch.obs.trace, repro_torch.trust.reputation)
 register_mean("obs_trim_frac")
 register_mean("trust_evicted_frac")
+# the metrics-on step's honest-mean gradient norm (repro_torch.obs.metrics)
+register_mean("grad_norm")
 
 
 def collect(cells: Sequence[Cell], metrics: dict, *, meta: dict | None = None) -> "GridResult":

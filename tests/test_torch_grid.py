@@ -14,8 +14,10 @@ port's own trainer and against the reference's grid engine, on the CPU.
   reference's ``test_grid.py`` batched-kernel check; the kernels against
   them on the card: ``tests/test_torch_kernels.py``, ``cuda``-marked);
 * the sweep's grid mode writes the store and resumes from it, and the
-  refusals name their ROADMAP items.
+  refusals name where their modes belong.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -257,10 +259,11 @@ def test_banked_dispatch_equals_each_experiments_own_rule():
 
 
 def test_refusals_name_their_roadmap_items(tmp_path):
-    """The refusals left name their ROADMAP items (the metric rings and the
-    grid's traced sweep: Queue 1 open item 5's next slice); codecs, wire
-    attacks, adversaries, a trace (forensics too), the trust layer and the
-    breakdown mode, refused before, now build and run."""
+    """The refusal left names where its mode belongs (the reference's
+    dryrun and net modes: the JAX package); codecs, wire attacks,
+    adversaries, a trace (forensics too), the trust layer, the breakdown
+    mode, the metric rings and the grid's traced, metered and profiled
+    sweep, refused before, now build and run."""
     topo = erdos_renyi(M, 0.8, 2, seed=1)
     grid = ExperimentGrid(topo, ("trimmed_mean",), ("random",), (2,))
     for cell in (Cell("trimmed_mean", "random", 2, 0, "lossy", "int8"),
@@ -280,12 +283,19 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     finals = [eng.run(eng.init(init_fn), batches)[0] for eng in runs]
     assert torch.equal(finals[0].params["w"], finals[1].params["w"])
     assert finals[1].obs.edge_seen.shape == finals[2].trust.suspicion.shape == (1, M, M)
-    with pytest.raises(ValueError, match="item 5"):
-        GridEngine(grid, qgrad, device="cpu", metrics=object())
-    for flags, item in ((["--trace", "x"], "item 5"), (["--metrics", "x"], "item 5"),
-                        (["--mode", "dryrun"], "belong to the JAX package")):
-        with pytest.raises(ValueError, match=item):
-            sweep.main(["--out", str(tmp_path), "--device", "cpu", *flags])
+    from repro_torch.obs import MetricSpec
+
+    metered = GridEngine(grid, qgrad, device="cpu", metrics=MetricSpec(capacity=2))
+    assert metered.run(metered.init(init_fn), batches)[0].mets.count.tolist() == [2]
+    for mode in ("dryrun", "net"):
+        with pytest.raises(ValueError, match="belong to the JAX package"):
+            sweep.main(["--out", str(tmp_path), "--device", "cpu", "--mode", mode])
+    obs_dir = str(tmp_path / "obs")
+    sweep.main(["--out", str(tmp_path / "m"), "--device", "cpu", "--rules", "trimmed_mean",
+                "--attacks", "alie", "--grid-nodes", "10", "--grid-ticks", "2", "--grid-train",
+                "300", "--grid-test", "50", "--trace", obs_dir, "--metrics", obs_dir])
+    assert {"metrics.jsonl", "obs_summary.json", "manifest.json",
+            "events.jsonl"} <= set(os.listdir(obs_dir))
     # --trust runs the grid with the trust layer, its evicted share reduced
     out = str(tmp_path / "trust")
     sweep.main(["--out", out, "--device", "cpu", "--trust", "--rules", "trimmed_mean",

@@ -110,8 +110,8 @@ def test_trace_update_matches_the_reference(ema, reservoir, stride):
 
 def test_trace_spec_checks_and_the_forensics_refusal():
     """The spec's checks; forensics, refused before, now builds its [M, W]
-    counters (the reference's shapes); the grid's metrics spec still
-    refuses, naming the next slice."""
+    counters (the reference's shapes); the grid's metrics spec, refused
+    before, now builds its stacked rings."""
     with pytest.raises(ValueError, match="invalid TraceSpec"):
         TraceSpec(reservoir=-1)
     with pytest.raises(ValueError, match="invalid TraceSpec"):
@@ -125,8 +125,10 @@ def test_trace_spec_checks_and_the_forensics_refusal():
     tr = BridgeTrainer(BridgeConfig(topology=topo(), trace=TraceSpec()), qgrad, device="cpu")
     assert tr.init(init_fn(0)).obs.edge_seen.shape == (M, M)
     grid = ExperimentGrid(topo(), ("trimmed_mean",), ("none",), (1,))
-    with pytest.raises(ValueError, match="next slice"):
-        GridEngine(grid, qgrad, metrics=object(), device="cpu")
+    from repro_torch.obs import MetricSpec
+
+    eng = GridEngine(grid, qgrad, metrics=MetricSpec(capacity=3), device="cpu")
+    assert eng.init(init_fn).mets.buf.shape == (1, 3, 12)
 
 
 def test_event_log_round_trip(tmp_path):

@@ -345,5 +345,15 @@ def test_sweep_trust_runs_in_grid_and_breakdown_modes(tmp_path):
                       "--grid-ticks", "3", "--grid-train", "300", "--grid-test", "50",
                       "--trust"])
     assert res["meta"]["trust"] and res["rules"]["rep_trimmed_mean"]["feasible_b"] == 2
-    with pytest.raises(ValueError, match="next slice"):
-        sweep.main(["--mode", "grid", "--out", out, "--device", "cpu", "--metrics", "x"])
+    # --metrics, refused before, streams the trusting cells' rings (the
+    # evicted share in the ring's evicted_frac column)
+    from repro_torch.obs import read_metrics
+
+    mdir = str(tmp_path / "m")
+    sweep.main(["--mode", "grid", "--out", str(tmp_path / "g2"), "--device", "cpu", "--rules",
+                "rep_trimmed_mean", "--attacks", "alie", "--grid-nodes", "10", "--grid-ticks",
+                "3", "--grid-train", "300", "--grid-test", "50", "--trust", "--trust-warmup",
+                "1", "--metrics", mdir])
+    rows = read_metrics(os.path.join(mdir, "metrics.jsonl"))
+    assert [r["tick"] for r in rows] == [0, 1, 2]
+    assert all(r["evicted_frac"] is not None for r in rows)

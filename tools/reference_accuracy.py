@@ -4,7 +4,7 @@ thresholds the port's card runs are held to (within 0.01 of each).
 
     JAX_PLATFORMS=cpu PYTHONPATH=src:. python tools/reference_accuracy.py \
         [--only dense,sparse,variants,wire,wire_sparse,variants_wire,net,net_kb,adversary,
-                breakdown,trust]
+                breakdown,trust,sweep_obs]
 
 Configurations (each as `chip_smoke.py` runs it, same seeds and batches):
 
@@ -103,6 +103,10 @@ Configurations (each as `chip_smoke.py` runs it, same seeds and batches):
     ticks with ``decide_stride`` 4 and the MNIST-like linear task (d =
     7850) over 3 ticks with stride 16; each one's bit-identity, AUC and
     survival rates.
+* ``sweep_obs``: ``python -m repro.launch.sweep --mode grid --trace DIR`` at
+  grid_bench's grid (``SWEEP_OBS_ARGS``: BRIDGE-T and BRIDGE-M under
+  ``random``, ``alie`` and ``sign_flip``, b = 2, seeds 0-7, M = 12, 30
+  ticks, 4000 / 800 samples), each cell's AUC in ``obs_summary.json``.
 
 Prints one line per configuration and a JSON object of all of them last.
 Takes some minutes (the sparse runs most of it).
@@ -111,6 +115,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import jax
@@ -433,6 +438,30 @@ def trust():
     return out
 
 
+# `chip_smoke.py` phase 24(b)'s sweep: grid_bench's grid (T / M x random,
+# alie, sign_flip x 8 seeds, M = 12, b = 2) through `sweep --mode grid --trace`
+SWEEP_OBS_ARGS = ["--mode", "grid", "--rules", "trimmed_mean,median", "--attacks",
+                  "random,alie,sign_flip", "--byz", "2", "--seeds", "0,1,2,3,4,5,6,7",
+                  "--grid-nodes", "12", "--grid-ticks", "30", "--grid-train", "4000",
+                  "--grid-test", "800"]
+
+
+def sweep_obs():
+    """Each cell's AUC of the trim frequencies ranking Byzantine in-edges in
+    ``obs_summary.json`` after the reference's ``sweep --mode grid --trace``
+    at `SWEEP_OBS_ARGS`."""
+    import tempfile
+
+    from repro.launch import sweep as jsweep
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run = os.path.join(tmp, "run")
+        jsweep.main(SWEEP_OBS_ARGS + ["--out", os.path.join(tmp, "out"), "--trace", run])
+        with open(os.path.join(run, "obs_summary.json")) as f:
+            cells = json.load(f)["cells"]
+    return {"sweep obs auc": {c["tag"]: c["auc_byzantine_edges"] for c in cells}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="dense,sparse,variants")
@@ -440,7 +469,7 @@ def main() -> None:
     groups = {"dense": dense, "sparse": sparse, "variants": variants, "wire": wire,
               "wire_sparse": wire_sparse, "variants_wire": variants_wire, "net": net,
               "net_kb": net_kb, "adversary": adversary, "breakdown": breakdown,
-              "trust": trust}
+              "trust": trust, "sweep_obs": sweep_obs}
     results = {}
     for name in args.only.split(","):
         t0 = time.perf_counter()
