@@ -177,13 +177,13 @@ failure of which raises:
    cells/s and ms/tick against the cells one by one, the mailbox bytes;
    last the sweep's grid mode with ``--scenarios ideal,lossy``, twice;
 20. codec grids — lossy codecs and wire attacks over the grids' cells:
-   (a) the ``grid_bench`` grid (M = 12, b = 2, 30 ticks) under T / M x
+   (a) the ``grid_bench`` grid (M = 12, b = 2, 10 ticks) under T / M x
    random, alie, scale_abuse, garbage_codeword x identity, int8, int4,
    topk25_int8 x 2 seeds (64 cells); (b) dense net cells at M = 20 with the
    per-link int8 and int4 carries x ``lossy``, ``lossy_laggy``,
-   ``narrowband64k`` x T / M x 2 seeds, ``alie`` (24 cells, 30 ticks); (c)
+   ``narrowband64k`` x T / M x 2 seeds, ``alie`` (24 cells, 10 ticks); (c)
    the sparse runtime at M = 512, K = 16, int8 x ``lossy`` x T / M x 2
-   seeds (20 ticks): each kernel once a tick per group (a lossy dense
+   seeds (10 ticks): each kernel once a tick per group (a lossy dense
    group's rows decoded by one ``dequant_carry`` launch), the per-link
    decodes of two ticks held exactly, every cell equal to its own trainer
    run (its codec carry included), cells/s against one by one, the carry
@@ -285,7 +285,7 @@ failure of which raises:
    writer, event log, manifest and Perfetto export: metrics on bit for
    bit metrics off, rows gapless (one a tick across the repeated runs),
    ``monitor --once`` parsing the run, ``trace.json`` written, the
-   manifest naming the card; off and on run in turn six times each, their
+   manifest naming the card; off and on run in turn three times each, their
    median ms/tick and range and the overhead beside the reference's 0.10,
    then a profiled run of each naming what the metered tick adds; (b)
    ``sweep --mode grid --metrics --trace --profile`` at grid_bench's grid
@@ -303,7 +303,30 @@ failure of which raises:
    = 16 at chunk 2048 (5 blocks) bit for bit; a forensic stream bit for
    bit its untraced run; the network path at drop 0.1; ms/tick of the
    flat trainer, the one-block and the 9-block stream.  Every run's
-   launches exact (a screen a block and tick).
+   launches exact (a screen a block and tick);
+25. the wide decide form, the model zoo's dense family and the training
+   CLIs — (a) the wide path's decide form (``screen_wide.cuh``, kDecide)
+   against its plain twins at dense M = 129 and the views form at W = 129
+   (edge-case payloads, the main path's d = 7850), gather and views at
+   K = 64, strides 1, 4 and 16: trim exact, y the plain wide kernel's bit
+   for bit; timed beside the plain sort; then the wide trainers of phase 12
+   with a forensic trace, 3 ticks, bit for bit untraced, one wide decide
+   launch a tick; (b) each reduced dense arch (starcoder2-3b, qwen3-4b,
+   mistral-nemo-12b, gemma3-12b): ``init_params`` and ``train_loss`` with
+   its gradients on the card against the CPU (TF32 off; loss rtol 1e-5,
+   gradients rtol 1e-4, atol 1e-6); (c) ``train_llm --small`` at
+   stream_bench's cell (M = 4, b = 1, trimmed mean, sign_flip): flat and
+   stream (chunk 65536) bit for bit over 3 ticks, ``--resume`` from tick 2
+   bit for bit; (d) qwen3-4b at its published widths cut to 2 layers
+   (979,776,512 parameters a node) through the stream at M = 4, sequence
+   128: 3 ticks after a warm-up, ms/tick, finite losses, the peak memory
+   of a tick less the bytes resident before it less the gradient below one
+   flat [M, d] float32 matrix; (e) ``train_llm`` at its default ~126M
+   config (5 ticks), ``--trace --trust``, ``--sparse --codec int8`` and
+   ``--net`` at ``--small``, ``launch.train --arch <arch> --reduce`` for
+   each dense arch (5 steps) and ``sweep --mode net`` (2 jobs): finite
+   losses, their screening kernels launched.  The exact runs' launches
+   are held (a screen a block and tick, the wide forms a tick).
 
 Every accuracy of phases 8-11 and 21 must land within 0.01 of the reference's
 own CPU run at the same settings (``REFERENCE_ACCURACY``, from
@@ -312,7 +335,7 @@ Krum's picks (``PICK_BOUND``), which is held to card-vs-CPU parity.
 
 Each configuration of a trainer phase trains on a task of its own, so all
 see batches 0..199 of one stream.  Before each main-path phase (5-12,
-16-24) every kernel's launch count is set to 0, and read
+16-25) every kernel's launch count is set to 0, and read
 after its runs: each kernel of the phase must have launched once per
 tick of the runs of its rule (codec), the others not at all; a kernel's
 ``launches`` in the JSON line is the sum over the phases.  Then each
@@ -408,6 +431,8 @@ KERNELS = {  # JSON name -> wrapper (its `launches` counter)
     "gather_screen_median_decide": screen_decide.gather_screen_median_decide,
     "views_screen_trimmed_mean_decide": screen_decide.views_screen_trimmed_mean_decide,
     "views_screen_median_decide": screen_decide.views_screen_median_decide,
+    # the wide path's decide form (above 128 dense rows or 63 slots)
+    "screen_wide_decide": screen_wide.launch_decide,
 }
 COUNTED = KERNELS  # every counted wrapper is in the JSON line
 # bits on the wire per message at d = 7850: the reference codec's
@@ -2810,6 +2835,9 @@ def grid_phase(dev):
 
 NET_GRID_TICKS = 30  # the dense net grids (a) and (b)
 SPARSE_NET_GRID_TICKS = 20  # the sparse net grid (c)
+# the codec grids' ticks (cut from 30 and 20 so that the script with phase 25
+# stays well inside its time limit; their checks hold at any count)
+CODEC_GRID_TICKS = 10
 # rule -> the views kernel a group of its cells launches once a tick
 VIEWS_OF = {"trimmed_mean": "views_screen_trimmed_mean", "median": "views_screen_median",
             "bulyan": "views_screen_trimmed_mean"}
@@ -3081,19 +3109,19 @@ def codec_grid_phase(dev):
     grid = ExperimentGrid(default_topology(12, rules, (2,), seed=0), rules,
                           ("random", "alie", "scale_abuse", "garbage_codeword"), (2,), (0, 1),
                           codecs=("identity", "int8", "int4", "topk25_int8"), lam=1.0, t0=30.0)
-    _grid_run("codecs (a) grid_bench (M=12)", grid, task, dev, 30, acc_rules=())
+    _grid_run("codecs (a) grid_bench (M=12)", grid, task, dev, CODEC_GRID_TICKS, acc_rules=())
     # (b) dense net cells, per-link int8 / int4 carries
     task = net_task(20, dev, num_train=4000, num_test=800, batch=32)
     grid = ExperimentGrid(default_topology(20, rules, (2,), seed=0), rules, ("alie",), (2,),
                           (0, 1), scenarios=("lossy", "lossy_laggy", "narrowband64k"),
                           codecs=("int8", "int4"), lam=1.0, t0=30.0)
-    _net_grid_run("codecs (b) dense (M=20)", grid, task, dev, NET_GRID_TICKS)
+    _net_grid_run("codecs (b) dense (M=20)", grid, task, dev, CODEC_GRID_TICKS)
     # (c) the sparse runtime at the scale setting, per-link int8
     task = net_task(SM, dev, num_train=16384, num_test=1000, batch=8)
     grid = ExperimentGrid(small_world(SM, NEAREST, 1, rewire_prob=0.2, seed=0), rules, ("alie",),
                           (1,), (0, 1), scenarios=("lossy",), codecs=("int8",), lam=1.0,
                           t0=100.0)
-    _net_grid_run(f"codecs (c) sparse (M={SM})", grid, task, dev, SPARSE_NET_GRID_TICKS,
+    _net_grid_run(f"codecs (c) sparse (M={SM})", grid, task, dev, CODEC_GRID_TICKS,
                   sparse=True)
     print("dequant_carry launches per group and tick on the codec grids: 1 (counted above: "
           "each lossy dense group's cells decode in one launch)")
@@ -3961,7 +3989,7 @@ def decide_kernel_phase(dev):
     dense M = W = 50 (materialized and with a receiver stride of 0);
     strides 1 and 16; edge-case payloads (NaN, +-inf, 1e30, ties, +-0,
     starved nodes: count <= 2b and count 0).  Timed beside the plain kernel,
-    the plain sort and the bound; the wide shapes refused."""
+    the plain sort and the bound; the wide shapes are phase 25's."""
     gen = torch.Generator(device=dev).manual_seed(23)
     records = []
     src = {"dense": "src/repro_torch/kernels/csrc/screen_decide.cu",
@@ -4136,19 +4164,7 @@ def decide_kernel_phase(dev):
                         screen_decide.views_screen_median_decide(ve, me, se, s),
                         ref.median_views_decide(ve, me, se, s),
                         views_screen.views_screen_median(ve, me, se))
-    # above the register networks the decide form refuses (no wide path)
-    wide = torch.randn((WIDE_M, 64), generator=gen, device=dev)
-    wide_adj = torch.ones((WIDE_M, WIDE_M), dtype=torch.bool, device=dev)
-    for call in (lambda: screen_decide.trimmed_mean_dense_decide(wide, wide_adj, wide, 1),
-                 lambda: screen_decide.views_screen_median_decide(
-                     wide[None].expand(WIDE_M, WIDE_M, 64), wide_adj, wide)):
-        try:
-            call()
-        except ValueError as err:
-            if "ROADMAP" not in str(err):
-                raise
-        else:
-            raise AssertionError("a decide form above the register networks did not refuse")
+    # above the register networks: the wide path's decide form, phase 25(a)
     print("decide kernels: every y and trim equal to the plain twins (strides 1 and 16, edge "
           "cases, per-cell masks); library: no PyTorch call computes the decisions")
     return records
@@ -4615,7 +4631,7 @@ def trust_phase(dev):
 # ---------------------------------------------------------------------------
 
 METRICS_CELLS = ((4, 2), (40, 20))  # obs_bench's metrics_overhead cell (ticks, capacity); longer
-METRICS_REPS = 6  # runs each of metrics off and on, in turn
+METRICS_REPS = 3  # runs each of metrics off and on, in turn
 METRICS_BUDGET = 0.10  # the reference's acceptance bound on the paper cell
 STREAM_TICKS = 20
 STREAM_CHUNK = 1024
@@ -5116,6 +5132,400 @@ def stream_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the wide decide form, the model zoo's dense family and the
+# training CLIs
+# ---------------------------------------------------------------------------
+
+ZOO_ARCHS = ("starcoder2-3b", "qwen3-4b", "mistral-nemo-12b", "gemma3-12b")
+MODEL_LOSS_RTOL, MODEL_GRAD_RTOL, MODEL_GRAD_ATOL = 1e-5, 1e-4, 1e-6  # card against CPU
+FULL_WIDTH_PARAMS = 979_776_512  # qwen3-4b cut to 2 layers, the reference's param_count
+FULL_TICKS = 3  # the full-width run's measured ticks, after one warm-up tick
+FULL_SEQ = 128
+STREAM_BENCH_CHUNK = 1 << 16  # benchmarks/stream_bench.py's CHUNK, train_llm's --chunk
+WIDE_DECIDE_TICKS = 3
+
+
+def wide_decide_records(dev) -> list:
+    """(a) The wide path's decide form against its plain twins: dense M =
+    129 and the views form over the same rows (a broadcast, stride 0) on
+    edge-case payloads, gather and views at K = 64 with padded slots and
+    starved nodes, strides 1 and 4; then dense M = 129, d = 7850
+    (`wide_trainer_phase`'s graph) at strides 1 and 16.  trim exact; y
+    exact against the plain wide kernel; y against the twin exact but the
+    trimmed mean above 64 rows, where the twin sums with ``torch.sum``
+    (within the summation bound).  Timed: the dense trimmed mean (the
+    record) and median, and the views form at W = 129, beside the plain
+    sort (the twin) and the plain wide kernel."""
+    gen = torch.Generator(device=dev).manual_seed(25)
+    w_np, adj_np, sv_np = edge_case_inputs(WIDE_M, 300, seed=25)
+    wx, ax, sx = (torch.as_tensor(x, device=dev) for x in (w_np, adj_np, sv_np))
+    vx = wx[None].expand(WIDE_M, WIDE_M, 300)
+    for s in (1, 4):
+        for tag, got, want, plain_y in (
+            ("dense", screen_decide.trimmed_mean_dense_decide(wx, ax, sx, 3, s),
+             ref.trimmed_mean_dense_decide(wx, ax, sx, 3, s),
+             trimmed_mean.trimmed_mean_dense(wx, ax, sx, 3)),
+            ("views", screen_decide.views_screen_trimmed_mean_decide(vx, ax, sx, 3, s),
+             ref.trimmed_mean_views_decide(vx, ax, sx, 3, s),
+             views_screen.views_screen_trimmed_mean(vx, ax, sx, 3)),
+        ):
+            name = f"wide decide {tag} trimmed mean edge cases M = {WIDE_M} stride {s}"
+            exact_or_raise(f"{name} y against the plain wide kernel", got[0], plain_y)
+            exact_or_raise(f"{name} trim", got[1], want[1])
+            summation_or_raise(f"{name} y", got[0], want[0], wx[None], ax.sum(dim=1), sx)
+        decide_or_raise(f"wide decide dense median edge cases stride {s}",
+                        screen_decide.median_dense_decide(wx, ax, sx, s),
+                        ref.median_dense_decide(wx, ax, sx, s), median.median_dense(wx, ax, sx))
+        decide_or_raise(f"wide decide views median edge cases stride {s}",
+                        screen_decide.views_screen_median_decide(vx, ax, sx, s),
+                        ref.median_views_decide(vx, ax, sx, s),
+                        views_screen.views_screen_median(vx, ax, sx))
+    k = 64
+    w_np, adj_np, sv_np = sparse_case_inputs(k, 300, seed=k)
+    tab = NeighborTable.from_adjacency(adj_np, k=k, device=dev)
+    wk, sk = torch.as_tensor(w_np, device=dev), torch.as_tensor(sv_np, device=dev)
+    idx, valid = tab.safe_idx, tab.valid_dev
+    views = ref.gather(wk, idx).contiguous()
+    for s in (1, 4):
+        decide_or_raise(f"wide decide gather trimmed mean K = {k} stride {s}",
+                        screen_decide.gather_screen_trimmed_mean_decide(wk, idx, valid, sk, 2, s),
+                        ref.gather_trimmed_mean_decide(wk, idx, valid, sk, 2, s),
+                        gather_screen.gather_screen_trimmed_mean(wk, idx, valid, sk, 2))
+        decide_or_raise(f"wide decide gather median K = {k} stride {s}",
+                        screen_decide.gather_screen_median_decide(wk, idx, valid, sk, s),
+                        ref.gather_median_decide(wk, idx, valid, sk, s),
+                        gather_screen.gather_screen_median(wk, idx, valid, sk))
+        decide_or_raise(f"wide decide views trimmed mean K = {k} stride {s}",
+                        screen_decide.views_screen_trimmed_mean_decide(views, valid, sk, 2, s),
+                        ref.trimmed_mean_views_decide(views, valid, sk, 2, s),
+                        views_screen.views_screen_trimmed_mean(views, valid, sk, 2))
+        decide_or_raise(f"wide decide views median K = {k} stride {s}",
+                        screen_decide.views_screen_median_decide(views, valid, sk, s),
+                        ref.median_views_decide(views, valid, sk, s),
+                        views_screen.views_screen_median(views, valid, sk))
+    # the main path's shape: dense M = 129, d = 7850
+    topo = erdos_renyi(WIDE_M, 0.5, B, seed=0)
+    adj = torch.as_tensor(topo.adjacency, device=dev)
+    w = torch.randn((WIDE_M, D), generator=gen, device=dev)
+    counts = topo.adjacency.sum(axis=1)
+    kern = lambda s=16: screen_decide.trimmed_mean_dense_decide(w, adj, w, B, s)  # noqa: E731
+    plain = lambda s=16: ref.trimmed_mean_dense_decide(w, adj, w, B, s)  # noqa: E731
+    ykern = lambda: trimmed_mean.trimmed_mean_dense(w, adj, w, B)  # noqa: E731
+    err = 0.0
+    for s in DECIDE_STRIDES:
+        got, want = kern(s), plain(s)
+        exact_or_raise(f"wide decide M = {WIDE_M} d = {D} stride {s} y against the plain wide "
+                       f"kernel", got[0], ykern())
+        exact_or_raise(f"wide decide M = {WIDE_M} d = {D} stride {s} trim", got[1], want[1])
+        summation_or_raise(f"wide decide M = {WIDE_M} d = {D} stride {s} y", got[0], want[0],
+                           w[None], adj.sum(dim=1), w)
+        err = max(err, max_abs_err(got[1], want[1]))
+    nbytes = 2 * WIDE_M * D * 4 + WIDE_M * WIDE_M + 4 * WIDE_M * WIDE_M
+    rec = record("screen_wide_decide", "src/repro_torch/kernels/csrc/screen_wide.cuh",
+                 DECIDE_REPLACES["trimmed_mean"], kern, plain, None, nbytes,
+                 decide_ops(counts, D, B, 16, False), err)
+    rec["plain_kernel_ms"] = cuda_ms(ykern)
+    mkern = lambda: screen_decide.median_dense_decide(w, adj, w, 16)  # noqa: E731
+    decide_or_raise(f"wide decide median M = {WIDE_M} d = {D}", mkern(),
+                    ref.median_dense_decide(w, adj, w, 16), median.median_dense(w, adj, w))
+    vw = w[None].expand(WIDE_M, WIDE_M, D)
+    vkern = lambda: screen_decide.views_screen_trimmed_mean_decide(  # noqa: E731
+        vw, adj, w, B, 16)
+    vplain = lambda: ref.trimmed_mean_views_decide(vw, adj, w, B, 16)  # noqa: E731
+    vgot, vwant = vkern(), vplain()
+    exact_or_raise(f"wide views decide W = {WIDE_M} trim", vgot[1], vwant[1])
+    exact_or_raise(f"wide views decide W = {WIDE_M} y against the plain wide kernel", vgot[0],
+                   views_screen.views_screen_trimmed_mean(vw, adj, w, B))
+    v_bytes = int(counts.sum()) * D * 4 + 2 * WIDE_M * D * 4 + WIDE_M * WIDE_M * (1 + 4)
+    v_ops = decide_ops(counts, D, B, 16, False)
+    v_bound = max(v_bytes / HBM_BYTES_PER_S, v_ops / FP32_OPS_PER_S) * 1e3
+    print(f"  screen_wide_decide: stride 1 {cuda_ms(lambda: kern(1)):.4f} ms, the plain wide "
+          f"kernel {rec['plain_kernel_ms']:.4f} ms; median {cuda_ms(mkern):.4f} ms (plain wide "
+          f"kernel {cuda_ms(lambda: median.median_dense(w, adj, w)):.4f}, plain sort "
+          f"{cuda_ms(lambda: ref.median_dense_decide(w, adj, w, 16), reps=21, inner=2):.4f}); "
+          f"views form W = {WIDE_M} (stride-0 receivers): {cuda_ms(vkern):.4f} ms, plain sort "
+          f"{cuda_ms(vplain, reps=21, inner=2):.4f} ms, bound {v_bound:.5f} ms; library: none")
+    print(f"wide decide: dense M = {WIDE_M}, views W = {WIDE_M}, gather and views K = {k}, "
+          f"strides 1, 4, 16, edge cases: trim exact, y the plain wide kernel's bit for bit")
+    return [rec]
+
+
+def wide_decide_trainers(dev) -> dict:
+    """(a) The wide decide form on the main path: `wide_trainer_phase`'s
+    dense M = 129 and sparse K = 64 trainers, BRIDGE-T and BRIDGE-M, with a
+    forensic trace (decide stride 16) for 3 ticks, bit for bit the untraced
+    runs; each traced tick one wide decide launch, each untraced one wide
+    launch; returns the runs' launches."""
+    from repro_torch.obs import TraceSpec
+
+    configs = {
+        "dense M=129": BridgeConfig(topology=erdos_renyi(WIDE_M, 0.5, B, seed=0), num_byzantine=B,
+                                    attack="random", t0=30),
+        "sparse K=64": BridgeConfig(topology=small_world(128, 30, SB, seed=0, max_degree=64),
+                                    num_byzantine=SB, attack="random", t0=30, sparse=True),
+    }
+    want: dict[str, int] = {}
+    for tag, base in configs.items():
+        m = base.topology.num_nodes
+        task = linear_task(m, partition="iid", num_train=20 * m, num_test=100, device=dev)
+        # drawn once: every run sees the same batches (batch_fn draws anew)
+        batches = [task.batch_fn(i) for i in range(WIDE_DECIDE_TICKS)]
+        for rule in ("trimmed_mean", "median"):
+            finals = []
+            for trace in (None, TraceSpec(decide_stride=16)):
+                tr = BridgeTrainer(dataclasses.replace(base, rule=rule, trace=trace),
+                                   task.grad_fn, device=dev)
+                before = read_launches()
+                st = tr.init(task.init_fn(0), seed=1)
+                for batch in batches:
+                    st, _ = tr.step(st, batch)
+                kernel = "screen_wide" if trace is None else "screen_wide_decide"
+                check_grew(f"wide {tag} {rule} trace={trace is not None}", before,
+                           {kernel: WIDE_DECIDE_TICKS})
+                want[kernel] = want.get(kernel, 0) + WIDE_DECIDE_TICKS
+                finals.append(st)
+            for k in finals[0].params:
+                if not bit_equal(finals[0].params[k], finals[1].params[k]):
+                    raise AssertionError(f"wide {tag} {rule}: the forensic trace moved {k}")
+            seen = int((finals[1].obs.edge_seen > 0).sum())
+            if seen == 0:
+                raise AssertionError(f"wide {tag} {rule}: the trace saw no edge")
+            print(f"wide decide trainer {tag} {rule} ({WIDE_DECIDE_TICKS} ticks, forensic trace, "
+                  f"stride 16): bit for bit untraced; the wide decide form once a tick; edges "
+                  f"seen {seen}")
+    return want
+
+
+def zoo_parity_runs(dev) -> None:
+    """(b) Each reduced dense arch on the card against the CPU (TF32 off):
+    `init_params` within `prng.normal`'s tolerance, and `ModelApi.grad_fn`
+    over two nodes on a token batch, losses within rtol 1e-5, gradients
+    rtol 1e-4 / atol 1e-6 (the CPU tests' bounds against the reference)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import api as model_api
+
+    for arch in ZOO_ARCHS:
+        cfg = get_config(arch).reduced()
+        api_ = model_api.build(cfg)
+        key = prng.PRNGKey(3)
+        host = api_.init_params(key, cfg, device="cpu")
+        card = api_.init_params(key, cfg, device=dev)
+        for k in host:
+            torch.testing.assert_close(card[k].cpu(), host[k], rtol=NORMAL_RTOL, atol=2.2e-5,
+                                       msg=f"{arch} init {k}: card vs CPU")
+        params = replicate(host, 2, perturb=0.01, key=key)
+        toks = torch.as_tensor(TokenPipeline(cfg.vocab_size, 32, 2, 2, seed=1).batch(0)["tokens"])
+        lc, gcpu = api_.grad_fn()(params, {"tokens": toks})
+        lg, gcard = api_.grad_fn()({k: v.to(dev) for k, v in params.items()},
+                                   {"tokens": toks.to(dev)})
+        torch.testing.assert_close(lg.cpu(), lc, rtol=MODEL_LOSS_RTOL, atol=0.0,
+                                   msg=f"{arch}: loss card vs CPU")
+        worst = 0.0
+        for k in gcpu:
+            torch.testing.assert_close(gcard[k].cpu(), gcpu[k], rtol=MODEL_GRAD_RTOL,
+                                       atol=MODEL_GRAD_ATOL, msg=f"{arch}: grad {k} card vs CPU")
+            diff = (gcard[k].cpu() - gcpu[k]).abs() - MODEL_GRAD_ATOL
+            worst = max(worst, float((diff / gcpu[k].abs().clamp(min=1e-30)).max()))
+        print(f"zoo parity {arch} (reduced, 2 nodes x 2 sequences of 32): losses "
+              f"{[round(float(x), 6) for x in lg]}, card vs CPU loss rel "
+              f"{float(((lg.cpu() - lc).abs() / lc.abs()).max()):.2e}, worst gradient rel beyond "
+              f"atol {worst:.2e}; init within the normal tolerance")
+
+
+def full_width_run(dev) -> dict:
+    """(d) qwen3-4b at its published widths (d_model 2560, 32 / 8 heads of
+    128, d_ff 9728, vocab 151936, qk-norm, rope 1e6), depth cut to 2 layers
+    (979,776,512 parameters a node), trained by the stream trainer (chunk
+    65536) at M = 4, b = 1, trimmed mean, sign_flip, sequence 128, batch 1
+    a node: one warm-up tick, then FULL_TICKS measured ticks, each's loss
+    finite, ms/tick on the host clock to a synchronize, and the peak
+    device memory of each tick (``max_memory_allocated`` after a reset)
+    less the bytes resident before it less the gradient's bytes, which
+    must stay below one flat [M, d] float32 matrix (stream_bench's
+    ``peak_below_flat_matrix``); returns the run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.graph import make_topology
+    from repro_torch.data.tokens import TokenPipeline, device_batch
+    from repro_torch.models import api as model_api
+    from repro_torch.stream import StreamBridgeTrainer
+
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=2)
+    api_ = model_api.build(cfg)
+    n = model_api.param_count(cfg)
+    if n != FULL_WIDTH_PARAMS:
+        raise AssertionError(f"full width: {n} parameters a node, want {FULL_WIDTH_PARAMS}")
+    m = 4
+    topo = make_topology("erdos_renyi:0.9", m, 1, seed=0)
+    bcfg = BridgeConfig(topology=topo, rule="trimmed_mean", num_byzantine=1, attack="sign_flip",
+                        lr=0.02, screen_chunk=STREAM_BENCH_CHUNK)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tr = StreamBridgeTrainer(bcfg, api_.grad_fn(), device=dev)
+    key = prng.PRNGKey(0)
+    state = tr.init(replicate(api_.init_params(key, cfg, device=dev), m, perturb=0.005, key=key))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    d, blocks = tr.spec.total_dim, tr.spec.num_blocks
+    flat_bytes = grad_bytes = m * d * 4
+    pipe = TokenPipeline(cfg.vocab_size, FULL_SEQ, 1, m, seed=0)
+    before = read_launches()
+    t0 = time.perf_counter()
+    state, met = tr.step(state, device_batch(pipe.batch(0), dev))
+    warm_loss = float(met["loss"])
+    warm_s = time.perf_counter() - t0
+    rows = []
+    for i in range(1, 1 + FULL_TICKS):
+        batch = device_batch(pipe.batch(i), dev)
+        gc.collect()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state, met = tr.step(state, batch)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev)
+        rows.append((loss, ms, peak, resident, peak - resident - grad_bytes))
+    want = {"screen_trimmed_mean_dense": blocks * (1 + FULL_TICKS)}
+    check_grew("full width", before, want)
+    losses = [r[0] for r in rows]
+    if not all(math.isfinite(x) for x in [warm_loss, *losses]):
+        raise AssertionError(f"full width: non-finite loss {warm_loss}, {losses}")
+    worst = max(r[4] for r in rows)
+    print(f"full width qwen3-4b, 2 layers ({n:,} parameters a node, d = {d}), M = {m}, b = 1, "
+          f"trimmed mean, sign_flip, seq {FULL_SEQ}, batch 1, stream chunk {STREAM_BENCH_CHUNK} "
+          f"({blocks} blocks): init {init_s:.1f} s, warm-up tick {warm_s * 1e3:.1f} ms (loss "
+          f"{warm_loss:.4f})")
+    for i, (loss, ms, peak, resident, excess) in enumerate(rows, 1):
+        print(f"  full width tick {i}: loss {loss:.6f}, {ms:.1f} ms/tick, max_memory_allocated "
+              f"{peak} B, resident before {resident} B, gradient {grad_bytes} B, peak less "
+              f"resident less gradient {excess} B, flat [M, d] matrix {flat_bytes} B")
+    print(f"full width: {statistics.median(r[1] for r in rows):.1f} ms/tick (median of "
+          f"{FULL_TICKS}); screen_trimmed_mean_dense {want['screen_trimmed_mean_dense']} "
+          f"launches ({blocks} a tick); peak_below_flat_matrix: {worst} < {flat_bytes}: "
+          f"{worst < flat_bytes}")
+    if not worst < flat_bytes:
+        raise AssertionError(f"full width: the tick's peak less resident less gradient {worst} "
+                             f"B is not below the flat matrix's {flat_bytes} B")
+    del state, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want
+
+
+def llm_small_runs(dev, tmp: str) -> dict:
+    """(c) ``train_llm --small`` at stream_bench's cell (M = 4, b = 1,
+    trimmed mean, sign_flip, sequence 64, batch 1): the flat trainer and
+    the stream at chunk 65536 give the same state bit for bit after 3
+    ticks, and ``--resume`` from the checkpoint written at tick 2 gives the
+    3-tick state bit for bit; returns the runs' launches."""
+    from repro_torch.examples import train_llm
+    from repro_torch.stream import BlockSpec
+
+    base = ["--small", "--seq", "64", "--batch", "1", "--attack", "sign_flip", "--device",
+            dev.type, "--ckpt", os.path.join(tmp, "llm_small")]
+    before = read_launches()
+    flat, loss_f = train_llm.main(base + ["--steps", "3", "--flat", "--ckpt-every", "100"])
+    stream, loss_s = train_llm.main(base + ["--steps", "3", "--ckpt-every", "100"])
+    for k in flat.params:
+        if not bit_equal(flat.params[k], stream.params[k]):
+            raise AssertionError(f"train_llm --small: flat != stream at {k}")
+    train_llm.main(base + ["--steps", "2", "--ckpt-every", "2"])
+    resumed, _ = train_llm.main(base + ["--steps", "3", "--ckpt-every", "100", "--resume"])
+    same = resumed.t == stream.t and bool((resumed.key == stream.key).all()) and all(
+        bit_equal(resumed.params[k], stream.params[k]) for k in stream.params)
+    if not same:
+        raise AssertionError("train_llm --small --resume: not the uninterrupted state")
+    blocks = BlockSpec.from_params(stream.params, STREAM_BENCH_CHUNK).num_blocks
+    want = {"screen_trimmed_mean_dense": 3 + blocks * (3 + 2 + 1)}
+    check_grew("train_llm --small", before, want)
+    if not (math.isfinite(loss_f) and math.isfinite(loss_s)):
+        raise AssertionError(f"train_llm --small: losses {loss_f}, {loss_s}")
+    print(f"train_llm --small (M = 4, b = 1, sign_flip, seq 64): flat and stream (chunk "
+          f"{STREAM_BENCH_CHUNK}, {blocks} blocks) bit for bit over 3 ticks (loss {loss_s:.4f}); "
+          f"--resume from tick 2 bit for bit the uninterrupted run")
+    return want
+
+
+def cli_runs(dev, tmp: str) -> None:
+    """(e) The entry points as a user calls them: ``train_llm`` at its
+    default ~126M config for 5 ticks; one tick each of ``--trace --trust``,
+    ``--sparse --codec int8`` and ``--net`` at ``--small``; ``launch.train
+    --arch <arch> --reduce`` for 5 steps for each dense arch; ``sweep --mode
+    net`` over 2 scenario jobs.  Each exits with a finite loss; the paths'
+    screening kernels launched."""
+    from repro_torch.examples import train_llm
+    from repro_torch.launch import train
+
+    ck = os.path.join(tmp, "llm_cli")
+    runs = [(["--steps", "5"], "screen_trimmed_mean_dense"),
+            (["--small", "--steps", "1", "--trace", "--trust"], "screen_trimmed_mean_dense_decide"),
+            (["--small", "--steps", "1", "--sparse", "--codec", "int8"],
+             "gather_screen_trimmed_mean"),
+            (["--small", "--steps", "1", "--net"], "views_screen_trimmed_mean")]
+    for extra, kernel in runs:
+        before = read_launches()
+        t0 = time.perf_counter()
+        _, loss = train_llm.main(extra + ["--device", dev.type, "--ckpt", ck])
+        grew = KERNELS[kernel].launches - before[kernel]
+        if not (math.isfinite(loss) and grew > 0):
+            raise AssertionError(f"train_llm {extra}: loss {loss}, {kernel} launched {grew}")
+        print(f"train_llm {' '.join(extra)}: loss {loss:.4f}, {kernel} {grew} launches, "
+              f"{time.perf_counter() - t0:.1f} s")
+    for arch in ZOO_ARCHS:
+        before = read_launches()
+        _, loss = train.main(["--arch", arch, "--reduce", "--steps", "5", "--log-every", "5",
+                              "--device", dev.type])
+        grew = KERNELS["screen_trimmed_mean_dense"].launches - before["screen_trimmed_mean_dense"]
+        if not (math.isfinite(loss) and grew == 5):
+            raise AssertionError(f"launch.train {arch}: loss {loss}, {grew} screens")
+        print(f"launch.train --arch {arch} --reduce: 5 steps, loss {loss:.4f}")
+    t0 = time.perf_counter()
+    done = sweep.main(["--mode", "net", "--out", os.path.join(tmp, "net_sweep"), "--rules",
+                       "trimmed_mean", "--attacks", "alie", "--scenarios", "ideal,lossy",
+                       "--net-steps", "2", "--jobs", "2", "--device", dev.type])
+    if [st.split()[0] for _, st in done] != ["ok", "ok"]:
+        raise AssertionError(f"sweep --mode net: {done}")
+    for tag, _ in done:
+        with open(os.path.join(tmp, "net_sweep", tag + ".json")) as f:
+            out = json.load(f)["stdout"]
+        loss = float(out.split("loss")[-1].split()[0])
+        if not math.isfinite(loss):
+            raise AssertionError(f"sweep --mode net {tag}: loss {loss}")
+    print(f"sweep --mode net: 2 jobs ok through python -m repro_torch.launch.train on the card "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def zoo_phase(dev):
+    """Phase 25 (the module docstring's list): the wide decide form's
+    kernel records, then the main-path runs, the exact ones held to their
+    launches; returns (records, the phase's launches)."""
+    from repro_torch.device import set_numerics
+
+    set_numerics()
+    t_phase = time.perf_counter()
+    records = wide_decide_records(dev)
+    zero_launches()
+    want: dict[str, int] = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for part in (wide_decide_trainers(dev), full_width_run(dev), llm_small_runs(dev, tmp)):
+            for k, n in part.items():
+                want[k] = want.get(k, 0) + n
+        zoo_parity_runs(dev)
+        cli_runs(dev, tmp)
+    launches = read_launches()
+    for k, n in want.items():
+        if launches[k] < n:
+            raise AssertionError(f"phase 25: {k} launched {launches[k]}, the exact runs alone "
+                                 f"{n}")
+    print(f"(phase 25 alone: {time.perf_counter() - t_phase:.1f} s)")
+    return records, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -5129,7 +5539,8 @@ def main() -> int:
     print(f"build: {secs:.2f} s nvcc, {len(build.sources())} sources in parallel "
           f"({build.library_path().name})")
     for line in build.ptxas_report().splitlines():
-        if "spill" in line or "registers" in line or "Compiling entry" in line:
+        if line.startswith("# ") or "spill" in line or "registers" in line or (
+                "Compiling entry" in line):
             print("ptxas:", line.strip())
 
     t_start = time.perf_counter()
@@ -5173,6 +5584,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_launches["stream_phase"] = stream_phase(dev)
     print(f"(stream_phase: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_records, phase_launches["zoo_phase"] = zoo_phase(dev)
+    records += phase_records
+    print(f"(zoo_phase: {time.perf_counter() - t0:.1f} s)")
     for rec in records:
         if rec["name"].endswith("[E]"):  # this phase's grid engines ran the experiment forms
             rec["launches"] += breakdown_engines.get(rec["name"][:-len("[E]")], 0)

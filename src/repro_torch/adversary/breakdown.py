@@ -100,7 +100,9 @@ class BreakdownEngine:
     ``steady_state_s``: each round runs twice and ``compile_s`` is the
     first run's wall time less the second's.  On the card that excess is
     the kernels' build and load at their first launch and the caching
-    allocator's warm-up, not a compilation of the step.
+    allocator's warm-up, not a compilation of the step (PyTorch runs
+    eagerly).  The field keeps the reference's name because the port's obs
+    CLIs and ``report`` read the reference's schema.
 
     Usage::
 

@@ -1,0 +1,18 @@
+"""qwen2-vl-2b [vlm] — dense backbone + M-RoPE; ViT/projector is a stub
+(input_specs provides patch embeddings).  [arXiv:2409.12191]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-vl-2b",
+    family="vlm",
+    num_layers=28,
+    d_model=1536,
+    num_heads=12,
+    num_kv_heads=2,
+    d_ff=8960,
+    vocab_size=151936,
+    head_dim=128,
+    mrope=True,
+    mrope_sections=(16, 24, 24),
+    rope_theta=1e6,
+)

@@ -1,8 +1,15 @@
-"""Weights across from the JAX package, as numpy arrays.
+"""Weights across from the JAX package, as numpy arrays, or through the
+reference's checkpoint files.
 
-The reference's checkpoint format (`repro.checkpoint.msgpack_ckpt`) needs
-``msgpack``, which the card's machine lacks; until the port reads it, a
-caller hands over the state as numpy arrays: each leaf of the reference's
+The port reads and writes the reference's checkpoint layout itself
+(`repro_torch.checkpoint`, no ``msgpack`` needed): `state_from_checkpoint`
+resumes a reference `BridgeState` on the plain path (identity codec, no
+network, adversary, trace, trust or metrics carry), whose leaves the two
+packages share; the other carries cross files only within the port (their
+layouts differ between the packages).  A nested parameter tree (the model
+zoo's) crosses as the port's flat dict (`flatten_tree`, `params_from_jax`)
+and back (`params_to_jax`).  Otherwise a caller hands over the state as
+numpy arrays: each leaf of the reference's
 ``state.params``, its ``state.key`` and, for a lossy codec, its
 ``state.comm`` carry, for a stateful adversary its ``state.adv``, for a
 traced run its ``state.obs`` (the forensic fields included), for a run
@@ -35,12 +42,71 @@ from repro_torch.obs.trace import TraceState
 from repro_torch.trust.reputation import TrustState
 
 
-def params_from_jax(tree: Mapping[str, np.ndarray], *,
+SEP = "/"  # joins a nested tree's path keys into the port's flat keys
+
+
+def flatten_tree(tree: Mapping) -> dict:
+    """A nested parameter tree (dicts of dicts, array leaves) as the port's
+    flat dict: each leaf under its path's keys joined by ``/``
+    (``{"blocks": {"attn": {"wq": a}}}`` -> ``{"blocks/attn/wq": a}``).
+    The zoo's keys hold letters, digits and ``_``, all above ``/``, so
+    sorting the flat keys gives the nested tree's leaf order."""
+    out = {}
+    for k, v in tree.items():
+        if SEP in k:
+            raise ValueError(f"key {k!r} holds the separator {SEP!r}")
+        if isinstance(v, Mapping):
+            out.update({f"{k}{SEP}{sub}": leaf for sub, leaf in flatten_tree(v).items()})
+        else:
+            out[k] = v
+    return out
+
+
+def unflatten_tree(flat: Mapping) -> dict:
+    """`flatten_tree`'s inverse: the nested tree of a flat dict."""
+    out: dict = {}
+    for k, v in flat.items():
+        *path, leaf = k.split(SEP)
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = v
+    return out
+
+
+def params_from_jax(tree: Mapping, *,
                     device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
-    """``{"w": [M, 784, 10], "b": [M, 10]}`` numpy arrays -> the port's
-    stacked parameter dict on ``device`` (values and dtypes unchanged)."""
+    """The reference's parameters as numpy arrays -> the port's stacked
+    parameter dict on ``device`` (values and dtypes unchanged): a flat
+    ``{"w": [M, 784, 10], "b": [M, 10]}`` as it is, a nested tree (the
+    model zoo's ``{"blocks": {"attn": {...}}, "embed": ...}``) through
+    `flatten_tree`."""
     dev = resolve_device(device)
-    return {k: torch.as_tensor(np.array(v, copy=True), device=dev) for k, v in tree.items()}
+    return {k: torch.as_tensor(np.array(v, copy=True), device=dev)
+            for k, v in flatten_tree(tree).items()}
+
+
+def params_to_jax(params: Mapping[str, torch.Tensor]) -> dict:
+    """The port's flat parameter dict as the reference's nested tree of
+    numpy arrays (`unflatten_tree`), ready for ``jnp.asarray``."""
+    return unflatten_tree({k: v.detach().cpu().numpy() for k, v in params.items()})
+
+
+def state_from_checkpoint(ckpt_dir: str, template: BridgeState,
+                          step: int | None = None) -> BridgeState:
+    """The reference's plain-path `BridgeState` checkpoint (``step``, default
+    the newest) as the port's state, read by `repro_torch.checkpoint` into
+    ``template`` (a port trainer's ``init`` state: its parameters' device
+    and dtypes).  The plain path only: a template with any carry raises,
+    since the reference's carries are laid out otherwise than the port's."""
+    from repro_torch import checkpoint
+
+    carries = [f for f in ("comm", "net", "adv", "obs", "trust", "mets")
+               if getattr(template, f) is not None]
+    if carries:
+        raise ValueError(f"a reference checkpoint crosses on the plain path only; the template "
+                         f"carries {carries}, which cross only within the port")
+    return checkpoint.restore(ckpt_dir, template, step)[0]
 
 
 def _key(key) -> np.ndarray:

@@ -287,7 +287,8 @@ def replicate(params: Params, num_nodes: int, *, perturb: float = 0.0,
         leaf = params[k]
         stacked = leaf[None].expand((num_nodes, *leaf.shape)).clone()
         if perturb > 0.0:
-            stacked = stacked + perturb * prng.normal(leaf_keys[i], stacked.shape, stacked.device)
+            # in place: a full-width leaf keeps two buffers, not four
+            stacked.add_(prng.normal(leaf_keys[i], stacked.shape, stacked.device).mul_(perturb))
         out[k] = stacked
     return out
 

@@ -13,7 +13,8 @@ builds a new library, an unchanged tree reuses the last one.
 No ``--use_fast_math``: the kernels rely on IEEE adds, division,
 multiplication and fused multiply-adds to equal their plain PyTorch
 versions bit for bit.  ``-Xptxas -v`` writes each kernel's registers and
-spills next to the library (`ptxas_report`).
+spills next to the library (`ptxas_report`), each source's compile
+headed by its seconds.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -107,6 +109,17 @@ SIGNATURES = {
     + (_I64, _PTR) + (_INT,) * 4 + (_PTR,),
     "views_screen_median_decide": (_PTR, _I64, _I64, _I64) + (_PTR,) * 4 + (_INT,) * 4
     + (_I64,) + (_INT,) * 4 + (_PTR,),
+    # the wide path's decide form (screen_wide.cuh, kDecide): the register
+    # decide entries' operands, without the tile entries' plan
+    "screen_wide_trimmed_mean_dense_decide": (_PTR,) * 5 + (_INT,) * 4 + (_I64, _PTR, _INT, _PTR),
+    "screen_wide_median_dense_decide": (_PTR,) * 5 + (_INT,) * 3 + (_I64, _INT, _PTR),
+    "gather_screen_wide_trimmed_mean_decide": (_PTR,) * 6 + (_INT,) * 5 + (_I64, _PTR, _INT,
+                                                                             _PTR),
+    "gather_screen_wide_median_decide": (_PTR,) * 6 + (_INT,) * 4 + (_I64, _INT, _PTR),
+    "views_screen_wide_trimmed_mean_decide": (_PTR, _I64, _I64, _I64) + (_PTR,) * 4
+    + (_INT,) * 5 + (_I64, _PTR, _INT, _PTR),
+    "views_screen_wide_median_decide": (_PTR, _I64, _I64, _I64) + (_PTR,) * 4 + (_INT,) * 4
+    + (_I64, _INT, _PTR),
 }
 
 
@@ -160,10 +173,24 @@ def build() -> float:
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(include), "-c", "-o", str(obj), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((cmd, obj, proc))
-    report, failed = [], []
-    for cmd, _, proc in jobs:
+    # one thread a compile reads its output and notes when it ended, so the
+    # report gives each source's seconds (the slowest sets the build's)
+    outputs: dict[int, tuple[str, float]] = {}
+
+    def drain(i: int, proc: subprocess.Popen) -> None:
         out, _ = proc.communicate()
-        report.append(out)
+        outputs[i] = (out, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=drain, args=(i, proc)) for i, (_, _, proc) in
+               enumerate(jobs)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    report, failed = [], []
+    for i, (cmd, _, proc) in enumerate(jobs):
+        out, secs = outputs[i]
+        report.append(f"# {Path(cmd[-1]).name}: {secs:.1f} s\n{out}")
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
     objs = [str(obj) for _, obj, _ in jobs]

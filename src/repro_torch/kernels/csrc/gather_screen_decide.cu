@@ -10,12 +10,16 @@
 // and table slot, the columns c (c % stride == 0) on which the slot's
 // value fell outside the kept window.  The decide form sorts one column a
 // lane (the plan's cols must be 1) and takes K <= 63: above, the wrappers
-// refuse (the wide path's decide form is not written).
+// launch the wide path's decide form (screen_wide.cuh, kDecide: a warp
+// sorts a column, then each listed slot is re-read against its columns'
+// kept windows) through gather_screen_wide_trimmed_mean_decide and
+// gather_screen_wide_median_decide.
 
 #include <stdint.h>
 
 #include "screen_sort.cuh"
 #include "screen_tile.cuh"
+#include "screen_wide.cuh"
 
 using screen::launch_tile;
 
@@ -49,4 +53,30 @@ extern "C" int gather_screen_median_decide(const float* w, const int32_t* idx,
                            chunk, segments, 1, static_cast<cudaStream_t>(stream),
                            screen::Experiments{experiments, s_mask, nullptr},
                            screen::Decide{counts, k, stride});
+}
+
+// The wide decide form (screen_wide.cuh) over the same operands but the
+// plan, for any K up to screen::kWideMaxRows rows to sort (K for the
+// trimmed mean, K + 1 for the median).
+extern "C" int gather_screen_wide_trimmed_mean_decide(const float* w, const int32_t* idx,
+                                                      const uint8_t* valid,
+                                                      const float* self_vals, float* out,
+                                                      int* counts, int m, int k, int d, int b,
+                                                      int experiments, long long s_mask,
+                                                      const int* b_e, int stride, void* stream) {
+  return screen::launch_wide<false, true>(
+      float_rows(w, m, d), screen::SlotList{idx, valid, m, k}, self_vals, out, m, d, k, b, false,
+      static_cast<cudaStream_t>(stream), screen::Experiments{experiments, s_mask, b_e},
+      screen::Decide{counts, k, stride});
+}
+
+extern "C" int gather_screen_wide_median_decide(const float* w, const int32_t* idx,
+                                                const uint8_t* valid, const float* self_vals,
+                                                float* out, int* counts, int m, int k, int d,
+                                                int experiments, long long s_mask, int stride,
+                                                void* stream) {
+  return screen::launch_wide<true, true>(
+      float_rows(w, m, d), screen::SlotList{idx, valid, m, k}, self_vals, out, m, d, k, 0, false,
+      static_cast<cudaStream_t>(stream), screen::Experiments{experiments, s_mask, nullptr},
+      screen::Decide{counts, k, stride});
 }

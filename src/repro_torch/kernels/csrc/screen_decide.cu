@@ -22,12 +22,17 @@
 // What bounds it on an H100.  The plain kernel's work plus a second read
 // of each listed row's column (from L2: the rows were just read), a ballot
 // and a popc a row and warp, and one shared and one global atomic a row
-// and block.  Above 128 rows to sort the wrappers refuse (the wide path's
-// decide form is not written).
+// and block.  Above 128 rows to sort the wrappers launch the wide path's
+// decide form (screen_wide.cuh, kDecide) through
+// screen_wide_trimmed_mean_dense_decide and screen_wide_median_dense_decide,
+// which take the same operands: the same sort and sum as the plain wide
+// kernel, then each listed row re-read (from L2) against its columns' kept
+// windows, a warp a row, one integer atomic a row and block.
 
 #include <stdint.h>
 
 #include "screen_dense.cuh"
+#include "screen_wide.cuh"
 
 // C entry points (bound with ctypes): screen.cu's register entries'
 // operands (no reciprocal form), then the counts [E, M, M] and the stride.
@@ -59,4 +64,28 @@ extern "C" int screen_median_dense_decide(const float* w, const uint8_t* adj,
   return screen::launch_median_dense<true>(
       float_rows(w, m, d), adj, self_vals, out, m, d, static_cast<cudaStream_t>(stream),
       screen::Experiments{experiments, s_mask, nullptr}, screen::Decide{counts, m, stride});
+}
+
+// The wide decide form over the same operands, for any M up to
+// screen::kWideMaxRows rows to sort (M for the trimmed mean, M + 1 for the
+// median).
+extern "C" int screen_wide_trimmed_mean_dense_decide(const float* w, const uint8_t* adj,
+                                                     const float* self_vals, float* out,
+                                                     int* counts, int m, int d, int b,
+                                                     int experiments, long long s_mask,
+                                                     const int* b_e, int stride, void* stream) {
+  return screen::launch_wide<false, true>(
+      float_rows(w, m, d), screen::DenseList{adj, m}, self_vals, out, m, d, m, b, false,
+      static_cast<cudaStream_t>(stream), screen::Experiments{experiments, s_mask, b_e},
+      screen::Decide{counts, m, stride});
+}
+
+extern "C" int screen_wide_median_dense_decide(const float* w, const uint8_t* adj,
+                                               const float* self_vals, float* out, int* counts,
+                                               int m, int d, int experiments, long long s_mask,
+                                               int stride, void* stream) {
+  return screen::launch_wide<true, true>(
+      float_rows(w, m, d), screen::DenseList{adj, m}, self_vals, out, m, d, m, 0, false,
+      static_cast<cudaStream_t>(stream), screen::Experiments{experiments, s_mask, nullptr},
+      screen::Decide{counts, m, stride});
 }

@@ -9,7 +9,11 @@
 // the TPU kernels src/repro/kernels/trimmed_mean.py::trimmed_mean_pallas,
 // median.py::median_pallas, gather_screen.py::gather_screen_pallas and
 // gather_dequant_screen_pallas, and dequant_screen.py::
-// dequant_trimmed_mean_pallas and dequant_median_pallas.
+// dequant_trimmed_mean_pallas and dequant_median_pallas.  Its decide form
+// (kDecide, the trust layer's and the forensic trace's decisions;
+// screen_decide.cu, gather_screen_decide.cu and views_screen_decide.cu
+// have the `*_wide_*_decide` entries) replaces no TPU kernel: the
+// reference decides in jnp (src/repro/core/screening.py:489, :525).
 //
 // What it computes is the register screens' arithmetic exactly: NaN -> +inf,
 // the listed rows in list order padded with +inf, each column sorted
@@ -65,7 +69,9 @@
 //
 // Shared memory: coords (P + 33) floats of columns (37-133 KB at the
 // launch's largest P), plus the list (4 bytes a row) and the codeword
-// source's pairs (8 bytes a row).
+// source's pairs (8 bytes a row); the decide form (below) adds the list's
+// slots (4 bytes a row) and the columns' kept windows (8 bytes a
+// coordinate).
 //
 // What bounds it on an H100.  Instructions: a bitonic sort of P rows is
 // log2(P) (log2(P) + 1) / 2 steps over all P values, each in-register step
@@ -114,10 +120,12 @@ __host__ __device__ __forceinline__ int wide_pitch(int padded) {
 }
 
 // Compacts the candidates i < n for which take(i) holds into s_list (in
-// ascending i, the value row(i) each) and returns their count to every
+// ascending i, the value row(i) each; with s_slot, i itself beside it:
+// the slot the decide form records under) and returns their count to every
 // thread; every thread of the block must call it.
 template <class Take, class Row>
-__device__ __forceinline__ int compact_list(int n, Take take, Row row, int* s_list, int* s_warp) {
+__device__ __forceinline__ int compact_list(int n, Take take, Row row, int* s_list, int* s_warp,
+                                            int* s_slot) {
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   int total = 0;
   for (int base = 0; base < n; base += kWideThreads) {
@@ -133,7 +141,11 @@ __device__ __forceinline__ int compact_list(int n, Take take, Row row, int* s_li
       before += w < warp ? c : 0;
       sum += c;
     }
-    if (on) s_list[total + before + __popc(votes & ((1u << lane) - 1u))] = row(i);
+    if (on) {
+      const int at = total + before + __popc(votes & ((1u << lane) - 1u));
+      s_list[at] = row(i);
+      if (s_slot != nullptr) s_slot[at] = i;
+    }
     total += sum;
     __syncthreads();  // s_warp is rewritten by the next round
   }
@@ -151,10 +163,10 @@ struct DenseList {
   __device__ __forceinline__ DenseList experiment(int e, long long s_mask) const {
     return DenseList{adj + e * s_mask, m};
   }
-  __device__ __forceinline__ int build(int j, int* s_list, int* s_warp) const {
+  __device__ __forceinline__ int build(int j, int* s_list, int* s_warp, int* s_slot) const {
     const uint8_t* row = adj + static_cast<size_t>(j) * m;
     return compact_list(
-        m, [&](int i) { return row[i] != 0; }, [](int i) { return i; }, s_list, s_warp);
+        m, [&](int i) { return row[i] != 0; }, [](int i) { return i; }, s_list, s_warp, s_slot);
   }
 };
 
@@ -165,21 +177,26 @@ struct SlotList {
   __device__ __forceinline__ SlotList experiment(int e, long long s_mask) const {
     return SlotList{idx, valid + e * s_mask, m, k};
   }
-  __device__ __forceinline__ int build(int j, int* s_list, int* s_warp) const {
+  __device__ __forceinline__ int build(int j, int* s_list, int* s_warp, int* s_slot) const {
     const size_t at = static_cast<size_t>(j) * k;
     return compact_list(
         k, [&](int i) { return valid[at + i] != 0; },
-        [&](int i) { return min(max(idx[at + i], 0), m - 1); }, s_list, s_warp);
+        [&](int i) { return min(max(idx[at + i], 0), m - 1); }, s_list, s_warp, s_slot);
   }
 };
 
 __host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
 // Dynamic shared memory of a wide block whose list holds up to `cap` rows
-// and whose columns pad to at most `padded` rows.
-__host__ __device__ __forceinline__ size_t wide_smem_bytes(int cap, int padded, bool pairs) {
+// and whose columns pad to at most `padded` rows; the decide form adds the
+// list's slots (4 bytes a row) and each column's kept window (8 bytes a
+// coordinate).
+__host__ __device__ __forceinline__ size_t wide_smem_bytes(int cap, int padded, bool pairs,
+                                                          bool decide) {
   return align16(sizeof(int) * (static_cast<size_t>(cap) + kWideWarps)) +
+         (decide ? align16(sizeof(int) * static_cast<size_t>(cap)) : 0) +
          (pairs ? align16(sizeof(float2) * static_cast<size_t>(cap)) : 0) +
+         (decide ? align16(sizeof(float2) * static_cast<size_t>(wide_coords(padded))) : 0) +
          sizeof(float) * static_cast<size_t>(wide_coords(padded)) * wide_pitch(padded);
 }
 
@@ -221,17 +238,38 @@ __host__ __device__ constexpr int wide_min_blocks(int regs) {
   return regs <= 8 ? 4 : regs <= 16 ? 3 : regs <= 32 ? 2 : 1;
 }
 
-template <bool kMedian, int kRmax, class Rows, class List>
+// kDecide: the decide form (the trust layer's and the trace's forensics),
+// a second instantiation of the same code, so the plain form carries none
+// of it (a runtime switch in one kernel measured 6-14% slower plain wide
+// screens, PERF.md) and the output is the plain kernel's bit for bit
+// (the same sort and sum).  Each column's kept window goes to shared
+// memory as its lane reduces it (screen_sort.cuh trim_window /
+// median_window: the same ranks), and after one barrier each warp decides
+// whole listed rows, one at a time: its lanes re-read the row's values at
+// the tile's columns (32 adjacent coordinates a load, from L2: the block
+// staged them), a ballot and a popc count the counted columns outside
+// their windows, and lane 0 adds the row's count into dec.counts under its
+// slot with one integer atomic (so the counts do not depend on block
+// order).  A column above kDecideRegs rows cannot keep an unsorted copy in
+// registers, so every row is re-read.
+template <bool kMedian, bool kDecide, int kRmax, class Rows, class List>
 __global__ void __launch_bounds__(kWideThreads, wide_min_blocks(kRmax))
 wide_screen_kernel(Rows rows, List list, const float* __restrict__ self_vals,
                    float* __restrict__ out, int nodes, int d, int cap, int coords, int b,
-                   bool recip, Experiments ex) {
+                   bool recip, Experiments ex, Decide dec) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* s_list = reinterpret_cast<int*>(smem);
   int* s_warp = s_list + cap;
   unsigned char* next = smem + align16(sizeof(int) * (static_cast<size_t>(cap) + kWideWarps));
+  int* s_slot = nullptr;
+  if constexpr (kDecide) {
+    s_slot = reinterpret_cast<int*>(next);
+    next += align16(sizeof(int) * static_cast<size_t>(cap));
+  }
   float2* s_pair = reinterpret_cast<float2*>(next);
   if (Rows::kStaged) next += align16(sizeof(float2) * static_cast<size_t>(cap));
+  float2* s_win = reinterpret_cast<float2*>(next);
+  if constexpr (kDecide) next += align16(sizeof(float2) * static_cast<size_t>(coords));
   float* s_col = reinterpret_cast<float*>(next);
 
   const int j = blockIdx.x % nodes;
@@ -239,7 +277,7 @@ wide_screen_kernel(Rows rows, List list, const float* __restrict__ self_vals,
   // experiment blockIdx.y (screen_sort.cuh, Experiments): its rows, self
   // values, outputs, b and row list
   const int e = blockIdx.y;
-  const int count = list.experiment(e, ex.s_mask).build(j, s_list, s_warp);
+  const int count = list.experiment(e, ex.s_mask).build(j, s_list, s_warp, s_slot);
   const auto src = rows.experiment(e).at(j);
   src.stage(s_list, count, s_pair, c0 / kScaleBlock);
   const int n = kMedian ? count + 1 : count;
@@ -291,38 +329,60 @@ wide_screen_kernel(Rows rows, List list, const float* __restrict__ self_vals,
     const float* col = s_col + c * pitch;
     if (kMedian) {
       const int lo = (n - 1) / 2, hi = n / 2;
-      out[at0 + c] =
-          __fmul_rn(0.5f, __fadd_rn(col[lo + (lo >> shift)], col[hi + (hi >> shift)]));
+      const float2 window = make_float2(col[lo + (lo >> shift)], col[hi + (hi >> shift)]);
+      out[at0 + c] = __fmul_rn(0.5f, __fadd_rn(window.x, window.y));
+      if constexpr (kDecide) s_win[c] = window;
     } else {
       const int b_eff = trim_width(count, ex.b_of(e, b));
       float total = 0.0f;
       for (int i = b_eff; i < count - b_eff; ++i) total = __fadd_rn(total, col[i + (i >> shift)]);
       out[at0 + c] = trimmed_mean_finish(total, self_vals[at0 + c], count, b_eff, recip);
+      if constexpr (kDecide) {
+        const int hi = max(count - b_eff - 1, b_eff);
+        s_win[c] = make_float2(col[b_eff + (b_eff >> shift)], col[hi + (hi >> shift)]);
+      }
+    }
+  }
+  if constexpr (kDecide) {
+    __syncthreads();  // every column's window
+    const size_t row0 = (static_cast<size_t>(e) * nodes + j) * dec.width;
+    for (int i = warp; i < count; i += kWideWarps) {
+      int trimmed = 0;
+      for (int cb = 0; cb < live; cb += 32) {
+        const int cc = cb + lane;
+        const bool counted = cc < live && (c0 + cc) % dec.stride == 0;
+        const bool cut =
+            counted && outside(src.load(s_pair, s_list[i], i, d, c0 + cc), s_win[cc]);
+        trimmed += __popc(__ballot_sync(0xffffffffu, cut));
+      }
+      if (lane == 0 && trimmed != 0) atomicAdd(dec.counts + row0 + s_slot[i], trimmed);
     }
   }
 }
 
-template <bool kMedian, int kRmax, class Rows, class List>
+template <bool kMedian, bool kDecide, int kRmax, class Rows, class List>
 cudaError_t launch_wide_kernel(const Rows& rows, const List& list, const float* self_vals,
                                float* out, int nodes, int d, int cap, int coords, int b,
                                bool recip, size_t bytes, unsigned blocks, cudaStream_t s,
-                               const Experiments& ex) {
-  auto kernel = wide_screen_kernel<kMedian, kRmax, Rows, List>;
+                               const Experiments& ex, const Decide& dec) {
+  auto kernel = wide_screen_kernel<kMedian, kDecide, kRmax, Rows, List>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   kernel<<<dim3(blocks, ex.count), kWideThreads, bytes, s>>>(rows, list, self_vals, out, nodes, d,
-                                                             cap, coords, b, recip, ex);
+                                                             cap, coords, b, recip, ex, dec);
   return cudaGetLastError();
 }
 
 // Launch over `nodes` nodes whose lists hold at most `cap` rows (the rows to
 // sort: cap, plus one for the median), ex.count experiments along
 // gridDim.y; cudaErrorInvalidValue above kWideMaxRows or kMaxExperiments.
-template <bool kMedian, class Rows, class List>
+// kDecide: the decide form, recording into dec (counts [E, nodes,
+// dec.width], zeroed by the caller).
+template <bool kMedian, bool kDecide = false, class Rows, class List>
 cudaError_t launch_wide(const Rows& rows, const List& list, const float* self_vals, float* out,
                         int nodes, int d, int cap, int b, bool recip, cudaStream_t s,
-                        const Experiments& ex = Experiments{}) {
+                        const Experiments& ex = Experiments{}, const Decide& dec = Decide{}) {
   const int most = cap + (kMedian ? 1 : 0);
   if (nodes < 1 || d < 1 || cap < 0 || most > kWideMaxRows || ex.count < 1 ||
       ex.count > kMaxExperiments)
@@ -331,21 +391,22 @@ cudaError_t launch_wide(const Rows& rows, const List& list, const float* self_va
   const int coords = wide_coords(padded);
   const long long tiles = (d + coords - 1) / coords;
   if (tiles * nodes > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t bytes = wide_smem_bytes(cap, padded, Rows::kStaged);
+  if (kDecide && (dec.counts == nullptr || dec.stride < 1)) return cudaErrorInvalidValue;
+  const size_t bytes = wide_smem_bytes(cap, padded, Rows::kStaged, kDecide);
   const unsigned blocks = static_cast<unsigned>(tiles * nodes);
   switch (wide_regs(padded)) {
     case 8:
-      return launch_wide_kernel<kMedian, 8>(rows, list, self_vals, out, nodes, d, cap, coords, b,
-                                            recip, bytes, blocks, s, ex);
+      return launch_wide_kernel<kMedian, kDecide, 8>(rows, list, self_vals, out, nodes, d, cap,
+                                                     coords, b, recip, bytes, blocks, s, ex, dec);
     case 16:
-      return launch_wide_kernel<kMedian, 16>(rows, list, self_vals, out, nodes, d, cap, coords, b,
-                                             recip, bytes, blocks, s, ex);
+      return launch_wide_kernel<kMedian, kDecide, 16>(rows, list, self_vals, out, nodes, d, cap,
+                                                      coords, b, recip, bytes, blocks, s, ex, dec);
     case 32:
-      return launch_wide_kernel<kMedian, 32>(rows, list, self_vals, out, nodes, d, cap, coords, b,
-                                             recip, bytes, blocks, s, ex);
+      return launch_wide_kernel<kMedian, kDecide, 32>(rows, list, self_vals, out, nodes, d, cap,
+                                                      coords, b, recip, bytes, blocks, s, ex, dec);
     default:
-      return launch_wide_kernel<kMedian, 64>(rows, list, self_vals, out, nodes, d, cap, coords, b,
-                                             recip, bytes, blocks, s, ex);
+      return launch_wide_kernel<kMedian, kDecide, 64>(rows, list, self_vals, out, nodes, d, cap,
+                                                      coords, b, recip, bytes, blocks, s, ex, dec);
   }
 }
 

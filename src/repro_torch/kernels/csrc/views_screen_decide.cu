@@ -9,12 +9,15 @@
 // zeroed by the caller) gets, per node and view slot, the columns c
 // (c % stride == 0) on which the view's value fell outside the kept
 // window.  One column a lane (the plan's cols must be 1), W <= 63: above,
-// the wrappers refuse (the wide path's decide form is not written).
+// the wrappers launch the wide path's decide form (screen_wide.cuh,
+// kDecide, over DenseList{mask, W}) through
+// views_screen_wide_trimmed_mean_decide and views_screen_wide_median_decide.
 
 #include <stdint.h>
 
 #include "screen_sort.cuh"
 #include "screen_tile.cuh"
+#include "screen_wide.cuh"
 
 // C entry points (bound with ctypes): views_screen.cu's tile operands, then
 // the counts [E, M, W] and the stride, then the plan (tile, chunk,
@@ -50,4 +53,30 @@ extern "C" int views_screen_median_decide(const float* v, long long s_exp, long 
                                    static_cast<cudaStream_t>(stream),
                                    screen::Experiments{experiments, s_mask, nullptr},
                                    screen::Decide{counts, w, stride});
+}
+
+// The wide decide form (screen_wide.cuh) over the same operands but the
+// plan, for any W up to screen::kWideMaxRows rows to sort (W for the
+// trimmed mean, W + 1 for the median).
+extern "C" int views_screen_wide_trimmed_mean_decide(const float* v, long long s_exp,
+                                                     long long s_recv, long long s_slot,
+                                                     const uint8_t* mask, const float* self_vals,
+                                                     float* out, int* counts, int m, int w, int d,
+                                                     int b, int experiments, long long s_mask,
+                                                     const int* b_e, int stride, void* stream) {
+  return screen::launch_wide<false, true>(
+      view_rows(v, s_exp, s_recv, s_slot), screen::DenseList{mask, w}, self_vals, out, m, d, w, b,
+      false, static_cast<cudaStream_t>(stream), screen::Experiments{experiments, s_mask, b_e},
+      screen::Decide{counts, w, stride});
+}
+
+extern "C" int views_screen_wide_median_decide(const float* v, long long s_exp, long long s_recv,
+                                               long long s_slot, const uint8_t* mask,
+                                               const float* self_vals, float* out, int* counts,
+                                               int m, int w, int d, int experiments,
+                                               long long s_mask, int stride, void* stream) {
+  return screen::launch_wide<true, true>(
+      view_rows(v, s_exp, s_recv, s_slot), screen::DenseList{mask, w}, self_vals, out, m, d, w, 0,
+      false, static_cast<cudaStream_t>(stream), screen::Experiments{experiments, s_mask, nullptr},
+      screen::Decide{counts, w, stride});
 }

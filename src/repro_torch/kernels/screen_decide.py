@@ -14,11 +14,13 @@ count into int32 with integer atomics; `ref.count_fraction` turns the
 counts into the reference's fractions.
 
 A CPU tensor goes to the plain version (`ref.trimmed_mean_dense_decide`
-and its siblings); a CUDA tensor launches the kernel or raises: above the
-register networks (more than `trimmed_mean.MAX_ROWS` rows to sort dense,
-`gather_screen.MAX_SLOTS` slots sparse) the decide form has no wide path
-and raises a `ValueError` (`WIDE`), never falling back to a plain sort.
-Each wrapper's ``launches`` counts its kernel's launches and nothing else.
+and its siblings); a CUDA tensor launches a kernel or raises: the register
+kernels up to `networks.MAX_ROWS` rows to sort dense and
+`gather_screen.MAX_SLOTS` slots sparse, the wide path's decide form
+(``csrc/screen_wide.cuh``, `screen_wide.launch_decide`) above, as the plain
+entries route to `screen_wide`; never a plain sort.  Each wrapper's
+``launches`` counts its register kernel's launches and nothing else;
+``screen_wide.launch_decide.launches`` the wide decide form's.
 
 Masks a cell (``[E, M, M]`` adjacency, ``[E, M, K]`` table or view masks:
 the trust layer's evictions) go through the kernels' experiment operands.
@@ -27,11 +29,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, gather_screen, networks, ref
+from repro_torch.kernels import build, gather_screen, networks, ref, screen_wide
 from repro_torch.kernels.views_screen import check_views_args
-
-WIDE = ("the screens' decide form runs on the register networks only ({}): the wide path's "
-        "decide form is ROADMAP Queue 2 'Open on the ported kernels' E")
 
 
 def _check_stride(stride: int) -> None:
@@ -48,20 +47,29 @@ def _cuda(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"no {name} kernel for device {x.device}")
 
 
-def _dense(name: str, w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor, b,
+def _wide(name: str) -> str:
+    """The wide decide entry of a register decide entry's ``name``."""
+    return name.replace("screen_", "screen_wide_", 1)
+
+
+def _dense(fn, name: str, w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor, b,
            stride: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``name`` (or its wide form above the register networks);
+    ``fn.launches`` counts the register launches."""
     _cuda(w, name)
     m, d = w.shape[-2:]
     rows = m + (b is None)
-    if rows > networks.MAX_ROWS:
-        raise ValueError(WIDE.format(f"at most {networks.MAX_ROWS} rows to sort, got {rows}"))
     out = torch.empty_like(w)
     counts = torch.zeros((*w.shape[:-1], m), dtype=torch.int32, device=w.device)
     exps = build.experiments(w, adj) if b is None else build.experiments(w, adj, b)
     args = (w.data_ptr(), adj.data_ptr(), self_vals.data_ptr(), out.data_ptr(),
-            counts.data_ptr(), m, d, *exps, int(stride))
-    err = getattr(build.load(), name)(*args, build.stream_of(w))
-    build.check_launch(err, name)
+            counts.data_ptr(), m, d, *exps, int(stride), build.stream_of(w))
+    if rows > networks.MAX_ROWS:
+        screen_wide.launch_decide(_wide(name), rows, *args)
+    else:
+        err = getattr(build.load(), name)(*args)
+        build.check_launch(err, name)
+        fn.launches += 1
     return out, _finish(counts, d, stride)
 
 
@@ -74,9 +82,8 @@ def trimmed_mean_dense_decide(w: torch.Tensor, adj: torch.Tensor, self_vals: tor
     _check_stride(stride)
     if w.device.type == "cpu":
         return ref.trimmed_mean_dense_decide(w, adj, self_vals, b, stride)
-    out = _dense("screen_trimmed_mean_dense_decide", w, adj, self_vals, b, stride)
-    trimmed_mean_dense_decide.launches += 1
-    return out
+    return _dense(trimmed_mean_dense_decide, "screen_trimmed_mean_dense_decide", w, adj,
+                  self_vals, b, stride)
 
 
 def median_dense_decide(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor,
@@ -87,9 +94,8 @@ def median_dense_decide(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Ten
     _check_stride(stride)
     if w.device.type == "cpu":
         return ref.median_dense_decide(w, adj, self_vals, stride)
-    out = _dense("screen_median_dense_decide", w, adj, self_vals, None, stride)
-    median_dense_decide.launches += 1
-    return out
+    return _dense(median_dense_decide, "screen_median_dense_decide", w, adj, self_vals, None,
+                  stride)
 
 
 def _plan(m: int, k: int, d: int) -> gather_screen.TilePlan:
@@ -98,12 +104,18 @@ def _plan(m: int, k: int, d: int) -> gather_screen.TilePlan:
     return gather_screen.tile_plan(m, k, d, 4, False)
 
 
-def _tiled(name: str, head: tuple, tail: tuple, m: int, k: int, d: int, stream: int) -> None:
+def _tiled(fn, name: str, head: tuple, tail: tuple, m: int, k: int, d: int, stream: int) -> None:
+    """Launch the tile entry ``name`` under its plan up to
+    `gather_screen.MAX_SLOTS` slots, its wide form above (no plan);
+    ``fn.launches`` counts the tile launches."""
     if k > gather_screen.MAX_SLOTS:
-        raise ValueError(WIDE.format(f"at most {gather_screen.MAX_SLOTS} slots, got {k}"))
+        rows = k + name.endswith("median_decide")
+        screen_wide.launch_decide(_wide(name), rows, *head, *tail, stream)
+        return
     plan = _plan(m, k, d)
     err = getattr(build.load(), name)(*head, *tail, plan.tile, plan.chunk, plan.segments, stream)
     build.check_launch(err, name)
+    fn.launches += 1
 
 
 def _experiment_tail(self_vals: torch.Tensor, mask: torch.Tensor, b, stride: int) -> tuple:
@@ -128,9 +140,8 @@ def gather_screen_trimmed_mean_decide(w: torch.Tensor, safe_idx: torch.Tensor,
     counts = torch.zeros((*w.shape[:-1], k), dtype=torch.int32, device=w.device)
     head = (w.data_ptr(), safe_idx.data_ptr(), valid.data_ptr(), self_vals.data_ptr(),
             out.data_ptr(), counts.data_ptr(), m, k, d)
-    _tiled("gather_screen_trimmed_mean_decide", head,
+    _tiled(gather_screen_trimmed_mean_decide, "gather_screen_trimmed_mean_decide", head,
            _experiment_tail(self_vals, valid, b, stride), m, k, d, build.stream_of(w))
-    gather_screen_trimmed_mean_decide.launches += 1
     return out, _finish(counts, d, stride)
 
 
@@ -149,13 +160,12 @@ def gather_screen_median_decide(w: torch.Tensor, safe_idx: torch.Tensor, valid: 
     counts = torch.zeros((*w.shape[:-1], k), dtype=torch.int32, device=w.device)
     head = (w.data_ptr(), safe_idx.data_ptr(), valid.data_ptr(), self_vals.data_ptr(),
             out.data_ptr(), counts.data_ptr(), m, k, d)
-    _tiled("gather_screen_median_decide", head,
+    _tiled(gather_screen_median_decide, "gather_screen_median_decide", head,
            _experiment_tail(self_vals, valid, None, stride), m, k, d, build.stream_of(w))
-    gather_screen_median_decide.launches += 1
     return out, _finish(counts, d, stride)
 
 
-def _views(name: str, views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor, b,
+def _views(fn, name: str, views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor, b,
            stride: int) -> tuple[torch.Tensor, torch.Tensor]:
     _cuda(views, name)
     m, w, d = views.shape[-3:]
@@ -164,7 +174,8 @@ def _views(name: str, views: torch.Tensor, mask: torch.Tensor, self_vals: torch.
     counts = torch.zeros((*self_vals.shape[:-1], w), dtype=torch.int32, device=views.device)
     head = (views.data_ptr(), s_exp, views.stride(-3), views.stride(-2), mask.data_ptr(),
             self_vals.data_ptr(), out.data_ptr(), counts.data_ptr(), m, w, d)
-    _tiled(name, head, _experiment_tail(self_vals, mask, b, stride), m, w, d, build.stream_of(views))
+    _tiled(fn, name, head, _experiment_tail(self_vals, mask, b, stride), m, w, d,
+           build.stream_of(views))
     return out, _finish(counts, d, stride)
 
 
@@ -178,9 +189,8 @@ def views_screen_trimmed_mean_decide(views: torch.Tensor, mask: torch.Tensor,
     _check_stride(stride)
     if views.device.type == "cpu":
         return ref.trimmed_mean_views_decide(views, mask, self_vals, b, stride)
-    out = _views("views_screen_trimmed_mean_decide", views, mask, self_vals, b, stride)
-    views_screen_trimmed_mean_decide.launches += 1
-    return out
+    return _views(views_screen_trimmed_mean_decide, "views_screen_trimmed_mean_decide", views,
+                  mask, self_vals, b, stride)
 
 
 def views_screen_median_decide(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
@@ -191,9 +201,8 @@ def views_screen_median_decide(views: torch.Tensor, mask: torch.Tensor, self_val
     _check_stride(stride)
     if views.device.type == "cpu":
         return ref.median_views_decide(views, mask, self_vals, stride)
-    out = _views("views_screen_median_decide", views, mask, self_vals, None, stride)
-    views_screen_median_decide.launches += 1
-    return out
+    return _views(views_screen_median_decide, "views_screen_median_decide", views, mask,
+                  self_vals, None, stride)
 
 
 for _fn in (trimmed_mean_dense_decide, median_dense_decide, gather_screen_trimmed_mean_decide,

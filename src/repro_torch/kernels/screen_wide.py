@@ -7,7 +7,10 @@ sorted by a warp in registers, the kept ranks summed left to right), so it
 stands in for rows 1-3 and 6-8 of the kernel table at those sizes.
 
 The screens' wrappers decide the route and call `launch`, which counts the
-launches of every wide entry point in one ``launch.launches``.
+launches of every wide entry point in one ``launch.launches``; the decide
+form's wrappers (`screen_decide`) call `launch_decide`, the wide path's
+``kDecide`` form (the same sort and sum, then each listed row decided
+against its columns' kept windows), counted in ``launch_decide.launches``.
 """
 from __future__ import annotations
 
@@ -18,16 +21,27 @@ from repro_torch.kernels import build, networks
 MAX_ROWS = networks.WARP * networks.WARP_REGS[-1]
 
 
-def launch(entry: str, rows: int, *args) -> None:
-    """Launch the wide entry point ``entry`` of the kernels' library with
-    ``args``, for up to ``rows`` rows to sort a node; raises above
-    `MAX_ROWS` or on a failed launch."""
+def _launch(entry: str, rows: int, args: tuple) -> None:
     if rows > MAX_ROWS:
         raise ValueError(f"{entry}: the wide screening kernel sorts at most {MAX_ROWS} rows, "
                          f"got {rows}")
     err = getattr(build.load(), entry)(*args)
     build.check_launch(err, entry)
+
+
+def launch(entry: str, rows: int, *args) -> None:
+    """Launch the wide entry point ``entry`` of the kernels' library with
+    ``args``, for up to ``rows`` rows to sort a node; raises above
+    `MAX_ROWS` or on a failed launch."""
+    _launch(entry, rows, args)
     launch.launches += 1
 
 
+def launch_decide(entry: str, rows: int, *args) -> None:
+    """`launch` for the wide decide entry points (``*_wide_*_decide``)."""
+    _launch(entry, rows, args)
+    launch_decide.launches += 1
+
+
 launch.launches = 0
+launch_decide.launches = 0

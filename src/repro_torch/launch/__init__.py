@@ -1,1 +1,3 @@
-"""Entry points of the port (`repro.launch`): the batched grid sweep."""
+"""Entry points of the port (`repro.launch`): the batched grid sweep, the
+training driver (`repro_torch.launch.train`) and the subprocess sweep
+(`sweep --mode net`)."""

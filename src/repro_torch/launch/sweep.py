@@ -45,12 +45,23 @@ under ``--out`` (default ``experiments/breakdown``):
         [--breakdown-scenario lossy] [--trace DIR] [--device cpu]
 
 ``--trace DIR`` writes the run's events to ``DIR/events.jsonl``.
+
+``--mode net`` is the reference's subprocess fan-out over the scenario
+matrix: one ``python -m repro_torch.launch.train --net`` job a (rule,
+attack, scenario) of `NET_SCENARIOS` (the reduced ``--net-arch``, 6 nodes,
+``--net-steps`` steps), ``--jobs`` at a time, a JSON record each under
+``--out`` (default ``experiments/net``; a record already there is not run
+again):
+
+    PYTHONPATH=src python -m repro_torch.launch.sweep --mode net --out /tmp/netsweep \
+        --rules trimmed_mean --attacks alie --scenarios ideal,lossy --net-steps 10
+
 ``--trust`` (with ``--trust-evict`` and ``--trust-warmup``) runs every cell
 with the trust layer (`repro_torch.trust.TrustSpec`), in grid and in
 breakdown mode; breakdown with ``--trust`` runs on the complete graph (the
 echo's quorums need gossip triangles), as the reference does.  The
-reference's other modes (``dryrun``, ``net``: the JAX package's lowering
-matrix and subprocess fan-out) raise.
+reference's ``--mode dryrun`` (the lowering matrix over TPU meshes) stays
+with the JAX package and raises.
 """
 from __future__ import annotations
 
@@ -58,7 +69,10 @@ import argparse
 import contextlib
 import json
 import os
+import subprocess
+import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -78,11 +92,78 @@ from repro_torch.sim import results as results_lib
 
 
 def _refuse_unported(args) -> None:
-    """The reference's modes that belong to the JAX package."""
-    if args.mode not in ("grid", "breakdown"):
-        raise ValueError(f"--mode {args.mode}: the port's sweep runs --mode grid and "
-                         f"--mode breakdown (the lowering matrix and the subprocess mode "
-                         f"belong to the JAX package)")
+    """The reference's mode that belongs to the JAX package."""
+    if args.mode == "dryrun":
+        raise ValueError("--mode dryrun: the lowering matrix over TPU meshes belongs to the "
+                         "JAX package (ROADMAP Queue 1, the sharded path and the lowering "
+                         "matrix); the port's sweep runs --mode grid, net and breakdown")
+
+
+# The network-condition axis of the scenario matrix (--mode net), each
+# scenario the `repro_torch.launch.train --net` flags of the reference's.
+NET_SCENARIOS = {
+    "ideal": ["--net"],
+    "lossy": ["--net", "--net-drop", "0.2"],
+    "laggy": ["--net", "--net-latency", "3"],
+    "lossy_laggy": ["--net", "--net-drop", "0.2", "--net-latency", "3"],
+    "bandwidth64": ["--net", "--net-cap", "64"],
+    "churn": ["--net", "--net-schedule", "churn", "--net-churn-prob", "0.3"],
+    "partition": ["--net", "--net-schedule", "partition"],
+}
+
+_SRC = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def run_net_job(rule, attack, scenario, out_dir, timeout, arch, steps,
+                device: str = "cuda") -> tuple[str, str]:
+    """One ``python -m repro_torch.launch.train --net`` subprocess of the
+    scenario matrix (the reference's job: the reduced ``arch``, 6 nodes, b
+    = 1, batch 2, sequence 32, ``steps`` steps), its record written to
+    ``out_dir/net_<rule>_<attack>_<scenario>.json``; a cached record is not
+    run again.  Returns ``(tag, status)``."""
+    tag = f"net_{rule}_{attack}_{scenario}"
+    path = os.path.join(out_dir, tag + ".json")
+    if os.path.exists(path):
+        return tag, "cached"
+    cmd = [sys.executable, "-m", "repro_torch.launch.train",
+           "--arch", arch, "--reduce", "--nodes", "6", "--byzantine", "1",
+           "--rule", rule, "--attack", attack, "--steps", str(steps),
+           "--batch", "2", "--seq", "32", "--log-every", str(steps),
+           "--device", device] + NET_SCENARIOS[scenario]
+    path_var = os.environ.get("PYTHONPATH")
+    env = {**os.environ, "PYTHONPATH": _SRC + (os.pathsep + path_var if path_var else "")}
+    t0 = time.time()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, env=env)
+        status = "ok" if proc.returncode == 0 else "failed"
+        with open(path, "w") as f:
+            json.dump({"rule": rule, "attack": attack, "scenario": scenario,
+                       "status": status, "stdout": proc.stdout[-3000:],
+                       "stderr": proc.stderr[-3000:] if status == "failed" else ""},
+                      f, indent=2)
+        return tag, f"{status.upper() if status != 'ok' else status} ({time.time()-t0:.0f}s)"
+    except subprocess.TimeoutExpired:
+        with open(path, "w") as f:
+            json.dump({"rule": rule, "attack": attack, "scenario": scenario,
+                       "status": "timeout"}, f, indent=2)
+        return tag, "TIMEOUT"
+
+
+def run_net_mode(args) -> list[tuple[str, str]]:
+    """The rule x attack x scenario matrix, one `run_net_job` each,
+    ``--jobs`` at a time; returns each job's ``(tag, status)``."""
+    jobs = [(r, a, s) for r in args.rules.split(",") for a in args.attacks.split(",")
+            for s in args.scenarios.split(",")]
+    print(f"{len(jobs)} net-scenario jobs -> {args.out}")
+    done = []
+    with ThreadPoolExecutor(max_workers=args.jobs) as ex:
+        futs = [ex.submit(run_net_job, r, a, s, args.out, args.timeout, args.net_arch,
+                          args.net_steps, args.device) for r, a, s in jobs]
+        for fut in futs:
+            tag, status = fut.result()
+            print(f"  {tag:60s} {status}", flush=True)
+            done.append((tag, status))
+    return done
 
 
 def _trust_spec(args):
@@ -275,10 +356,19 @@ def main(argv=None):
     ap.add_argument("--out", default=None,
                     help="default experiments/grid (grid mode), experiments/breakdown")
     ap.add_argument("--rules", default="trimmed_mean,median")
-    ap.add_argument("--attacks", default="random,alie")
-    ap.add_argument("--scenarios", default="sync",
+    # None: the defaults differ by mode (net sweeps every scenario)
+    ap.add_argument("--attacks", default=None,
+                    help="default random,alie (grid, breakdown) / random,alie,"
+                         "selective_victim (net)")
+    ap.add_argument("--scenarios", default=None,
                     help="comma-separated net scenarios (repro_torch.net.scenarios), or sync "
-                         "(the broadcast path)")
+                         "(the broadcast path; the grid's default); net mode: of "
+                         f"{','.join(NET_SCENARIOS)} (default all)")
+    # --mode net: the subprocess fan-out over repro_torch.launch.train
+    ap.add_argument("--jobs", type=int, default=4, help="net mode: subprocesses at a time")
+    ap.add_argument("--timeout", type=int, default=1500, help="net mode: seconds a job")
+    ap.add_argument("--net-arch", default="qwen3-4b", help="net mode: the reduced arch")
+    ap.add_argument("--net-steps", type=int, default=30, help="net mode: steps a job")
     ap.add_argument("--byz", default="1", help="comma-separated Byzantine counts")
     ap.add_argument("--seeds", default="0", help="comma-separated seeds")
     ap.add_argument("--codecs", default="identity",
@@ -336,8 +426,15 @@ def main(argv=None):
     args = ap.parse_args(argv)
     _refuse_unported(args)
     if args.out is None:
-        args.out = {"grid": "experiments/grid", "breakdown": "experiments/breakdown"}[args.mode]
+        args.out = {"grid": "experiments/grid", "breakdown": "experiments/breakdown",
+                    "net": "experiments/net"}[args.mode]
     os.makedirs(args.out, exist_ok=True)
+    if args.mode == "net":
+        args.scenarios = args.scenarios or ",".join(NET_SCENARIOS)
+        args.attacks = args.attacks or "random,alie,selective_victim"
+        return run_net_mode(args)
+    args.scenarios = "sync" if args.scenarios is None else args.scenarios
+    args.attacks = args.attacks or "random,alie"
     if args.mode == "breakdown":
         return run_breakdown_mode(args)
     return run_grid_mode(args)

@@ -1,6 +1,7 @@
 """Counter-based random numbers equal to ``jax.random``'s — the port's
 counterpart of the calls the reference makes: ``PRNGKey``, ``split``,
-``fold_in``, ``bits``, ``uniform``, ``normal`` and ``randint``.
+``fold_in``, ``bits``, ``uniform``, ``normal``, ``truncated_normal`` and
+``randint``.
 
 Both packages draw from the Threefry-2x32 block cipher (20 rounds,
 rotations (13, 15, 26, 6) and (17, 29, 16, 24), a key-schedule injection
@@ -61,7 +62,7 @@ _PARITY = 0x1BD11BDA
 def _threefry2x32(k1, k2, x0, x1, *, rotl, mask):
     """Threefry-2x32 of the counter words ``(x0, x1)`` under key
     ``(k1, k2)``.  ``rotl`` and ``mask`` adapt it to numpy uint32 arrays
-    (which wrap by themselves) and to int64 tensors (masked to 32 bits)."""
+    (which wrap by themselves); `_t_cipher` is its int64 tensor form."""
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x0 = mask(x0 + ks[0])
     x1 = mask(x1 + ks[1])
@@ -92,17 +93,23 @@ def PRNGKey(seed: int) -> np.ndarray:  # noqa: N802 (the reference's name)
     return np.array([0, int(seed) & _MASK], dtype=np.uint32)
 
 
-def _t_mask(v):
-    return v & _MASK
-
-
-def _t_rotl(v, r: int):
-    return ((v << r) & _MASK) | (v >> (32 - r))
-
-
 def _t_cipher(k1, k2, x0, x1):
-    """Threefry-2x32 in int64 tensor ops; keys and counters broadcast."""
-    return _threefry2x32(k1, k2, x0, x1, rotl=_t_rotl, mask=_t_mask)
+    """Threefry-2x32 in int64 tensor ops; keys and counters broadcast.  The
+    rounds run in place on two buffers and one scratch (the same integer
+    ops as `_threefry2x32`, bit for bit): a large draw keeps three
+    temporaries, not one a step."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x0, x1 = torch.broadcast_tensors((x0 + ks[0]) & _MASK, (x1 + ks[1]) & _MASK)
+    x0, x1 = x0.contiguous(), x1.contiguous()
+    tmp = torch.empty_like(x1)
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0.add_(x1).bitwise_and_(_MASK)
+            torch.bitwise_left_shift(x1, r, out=tmp).bitwise_and_(_MASK)
+            x1.bitwise_right_shift_(32 - r).bitwise_or_(tmp).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_MASK)
+        x1.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(_MASK)
+    return x0, x1
 
 
 def is_rows(key) -> bool:
@@ -216,25 +223,64 @@ def bits(key, shape, device: str | torch.device) -> torch.Tensor:
         idx = torch.arange(n, dtype=torch.int64, device=key.device)[None, :]
         b1, b2 = _t_cipher(k1, k2, idx >> 32, idx & _MASK)
         return (b1 ^ b2).reshape(shape)
-    n = int(np.prod(shape)) if shape else 1
+    n = _count(shape)
     k1, k2 = _key_words(key)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    if n <= RANGE:
+        return _cipher_range(k1, k2, 0, n, device).reshape(shape)
+    out = torch.empty(n, dtype=torch.int64, device=device)
+    for lo in range(0, n, RANGE):
+        hi = min(lo + RANGE, n)
+        out[lo:hi] = _cipher_range(k1, k2, lo, hi, device)
+    return out.reshape(shape)
+
+
+# Counters a host key's draw enciphers at once.  Threefry is counter-based:
+# the draw over counters [a, b) is that slice of the whole draw, so a large
+# draw runs range by range, its int64 temporaries a range's size (a full-width
+# embedding's 389M counters would otherwise take several 3 GB temporaries,
+# and its [4, ...] perturbation 12 GB each).
+RANGE = 1 << 24
+
+
+def _count(shape) -> int:
+    return int(np.prod(shape)) if shape else 1
+
+
+def _cipher_range(k1: int, k2: int, lo: int, hi: int, device) -> torch.Tensor:
+    """The 32-bit draws of counters ``[lo, hi)`` under the host key
+    ``(k1, k2)``, as int64."""
+    idx = torch.arange(lo, hi, dtype=torch.int64, device=device)
     b1, b2 = _t_cipher(k1, k2, idx >> 32, idx & _MASK)
-    return (b1 ^ b2).reshape(shape)
+    return b1 ^ b2
+
+
+def _unit(raw: torch.Tensor, lo: float, span: float) -> torch.Tensor:
+    """Raw 32-bit draws as uniforms in ``[lo, lo + span)``: the top 23 bits
+    as a float in ``[1, 2)`` minus 1, scaled."""
+    one = ((raw >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp(one * span + lo, min=lo)
 
 
 def uniform(key, shape, device: str | torch.device, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
     23 bits of each draw as a float in ``[1, 2)`` minus 1, scaled to
-    ``[minval, maxval)``."""
-    raw = bits(key, shape, device)
-    one = ((raw >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    ``[minval, maxval)``.  A host key's draw of more than `RANGE` values
+    runs range by range into the float32 result."""
     # the bounds as float32 values in Python scalars: a device tensor built
     # from a host scalar would wait for the card on every draw
     lo = float(np.float32(minval))
     span = float(np.float32(maxval) - np.float32(minval))
-    return torch.clamp(one * span + lo, min=lo)
+    shape = tuple(int(s) for s in shape)
+    n = _count(shape)
+    if is_rows(key) or is_host_rows(key) or n <= RANGE:
+        return _unit(bits(key, shape, device), lo, span)
+    k1, k2 = _key_words(key)
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    for a in range(0, n, RANGE):
+        b = min(a + RANGE, n)
+        out[a:b] = _unit(_cipher_range(k1, k2, a, b, device), lo, span)
+    return out.reshape(shape)
 
 
 def _mulmod32(a: torch.Tensor, m: int) -> torch.Tensor:
@@ -280,4 +326,23 @@ def normal(key, shape, device: str | torch.device) -> torch.Tensor:
     ``sqrt(2) * erfinv(u)`` with ``u`` uniform in ``(-1, 1)`` (see the
     module docstring for the tolerance)."""
     u = uniform(key, shape, device, _NORMAL_LO, 1.0)
-    return _SQRT2 * torch.erfinv(u)
+    return u.erfinv_().mul_(_SQRT2)  # in place: a full-width draw keeps one buffer
+
+
+def _erf_f32(x: np.float32) -> np.float32:
+    return np.float32(torch.erf(torch.tensor(x, dtype=torch.float32)).item())
+
+
+def truncated_normal(key, lower: float, upper: float, shape,
+                     device: str | torch.device) -> torch.Tensor:
+    """``jax.random.truncated_normal(key, lower, upper, shape, float32)``:
+    ``sqrt(2) * erfinv(u)`` with ``u`` uniform in ``[erf(lower / sqrt(2)),
+    erf(upper / sqrt(2)))``, clamped into the open interval ``(lower,
+    upper)``; within `normal`'s tolerance of the reference (``torch.erfinv``
+    and ``torch.erf`` in place of XLA's polynomials)."""
+    sqrt2 = np.float32(np.sqrt(2))
+    lo, hi = np.float32(lower), np.float32(upper)
+    u = uniform(key, shape, device, _erf_f32(lo / sqrt2), _erf_f32(hi / sqrt2))
+    out = u.erfinv_().mul_(float(sqrt2))
+    return out.clamp_(float(np.nextafter(lo, np.float32(np.inf))),
+                      float(np.nextafter(hi, np.float32(-np.inf))))

@@ -149,6 +149,11 @@ def build_stream_cell_step(grad_fn: Callable, spec: BlockSpec, adjacency: torch.
         rho = cell_step_size(cell.lam, cell.t0, cell.lr, state.t)
         rho_t = _per_cell(rho, dev)
         x_mats, g_mats = spec.leaf_mats(state.params, lead=1), spec.leaf_mats(grads, lead=1)
+        # each leaf's gradient is released once its blocks are applied, so a
+        # tick holds the gradients and the new parameters together one leaf
+        # at a time, not whole (the full-width model's peak)
+        del grads
+        gn_sq = 0
         hm = ~cell.byz_mask  # [E, M]
         hcnt = torch.sum(hm, dim=-1).to(torch.float32)
         weights = evicted = None
@@ -186,6 +191,10 @@ def build_stream_cell_step(grad_fn: Callable, spec: BlockSpec, adjacency: torch.
         mats_out, comm_out, vals_out, block_trims = [], [], [], []
         for li, plan in enumerate(spec.leaves):
             x2d, g2d = x_mats[li], g_mats[li]
+            g_mats[li] = None
+            if cell.metrics is not None:
+                g32 = g2d.to(torch.float32)
+                gn_sq = gn_sq + torch.sum(g32 * g32, dim=-1)
             y_buf = torch.empty_like(x2d)  # every column is written by one block
             comm_leaf = comm_in[li]
             if comm_leaf is not None:
@@ -256,8 +265,7 @@ def build_stream_cell_step(grad_fn: Callable, spec: BlockSpec, adjacency: torch.
         }
         if cell.metrics is not None:
             # summed leaf by leaf: the flat [M, d] gradient never forms
-            gn = torch.sqrt(sum(torch.sum(g.to(torch.float32) * g.to(torch.float32), dim=-1)
-                                for g in g_mats))
+            gn = torch.sqrt(gn_sq)
             metrics["grad_norm"] = torch.sum(torch.where(hm, gn, 0.0), dim=-1) / hcnt
         if channel is not None:
             metrics["delivered_frac"] = (torch.sum(arrived.to(torch.float32), dim=(-2, -1))

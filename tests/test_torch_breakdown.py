@@ -403,7 +403,7 @@ def test_sweep_breakdown_mode_writes_its_json_and_events(tmp_path):
                       "--grid-train", "300", "--grid-test", "50"])
     assert res["meta"]["trust"] and res["rules"]["rep_trimmed_mean"]["feasible_b"] == 1
     with pytest.raises(ValueError, match="JAX package"):
-        sweep.main(["--mode", "net", "--out", out, "--device", "cpu"])
+        sweep.main(["--mode", "dryrun", "--out", out, "--device", "cpu"])
 
 
 def test_partition_draw_matches_the_reference_copy():

@@ -288,3 +288,62 @@ def test_decision_registries_and_the_fraction_form():
 
         w = torch.zeros((4, 8))
         screen_decide.trimmed_mean_dense_decide(w, torch.ones((4, 4), dtype=torch.bool), w, 1, 0)
+
+
+WIDE_RULES = ("trimmed_mean", "median")
+
+
+@pytest.mark.parametrize("layout", ["dense", "gathered"])
+def test_decide_twins_above_the_register_networks_match_the_reference(layout):
+    """The shapes the card's wide decide form takes: dense M = 129 (above
+    the 128-row networks) and a table of K = 64 slots (above the tile
+    kernel's 63), T and M in one bank at b = 3, strides 1 and 4.  ``trim``
+    the reference's bit for bit; ``y`` the plain banked path's bit for bit
+    and the reference's exactly, but the trimmed mean above 64 rows, whose
+    kept ranks the twin sums with ``torch.sum`` and XLA with its own
+    order: within 4 ulps relative.  The gathered layout at stride 4 only
+    (the reference's 64-slot decide compiles for 15 s a stride)."""
+    m = 129 if layout == "dense" else 80
+    rng = np.random.default_rng(23)
+    w = payload(rng, (2, m, 16))
+    sv = rng.normal(size=(2, m, 16)).astype(np.float32)
+    if layout == "dense":
+        adj = jgraph.erdos_renyi(m, 0.9, 3, seed=3).adjacency
+        adj[1:3] = True  # 129 rows to sort at nodes 1 and 2
+        adj[0] = False
+    else:
+        adj = jgraph.erdos_renyi(m, 0.6, 3, seed=3).adjacency
+        adj[1] = False
+        adj[1, 2:66] = True  # a full table row: 64 slots, 65 rows for the median
+    rule_idx, b = (0, 1), (3, 3)
+    tw, tsv = torch.from_numpy(w), torch.from_numpy(sv)
+    for stride in (1, 4) if layout == "dense" else (4,):
+        if layout == "dense":
+            ja = jnp.asarray(adj)
+            jy, jt = jax.jit(jax.vmap(lambda w_, s_, r, b_: js.screen_all_decide_banked(
+                w_, ja, WIDE_RULES, r, b_, self_vals=s_, decide_stride=stride)))(
+                jnp.asarray(w), jnp.asarray(sv), jnp.asarray(rule_idx), jnp.asarray(b))
+            tadj = torch.from_numpy(adj)
+            y, trim = ts.screen_all_decide_banked(tw, tadj, WIDE_RULES, rule_idx, b,
+                                                  self_vals=tsv, decide_stride=stride)
+            plain = ts.screen_all_banked(tw, tadj, WIDE_RULES, rule_idx, b, self_vals=tsv)
+            assert int(adj.sum(axis=1).max()) == m
+        else:
+            jtab = JTable.from_adjacency(adj, k=64)
+            tab = NeighborTable.from_adjacency(adj, k=64, device="cpu")
+            jy, jt = jax.jit(jax.vmap(lambda w_, s_, r, b_: js.screen_views_decide_banked(
+                jtab.gather_rows(w_), jtab.valid_dev, s_, WIDE_RULES, r, b_,
+                decide_stride=stride)))(
+                jnp.asarray(w), jnp.asarray(sv), jnp.asarray(rule_idx), jnp.asarray(b))
+            y, trim = ts.screen_gathered_decide_banked(tw, tab, WIDE_RULES, rule_idx, b,
+                                                       self_vals=tsv, decide_stride=stride)
+            plain = ts.screen_gathered_banked(tw, tab, WIDE_RULES, rule_idx, b, self_vals=tsv)
+            assert trim.shape == (2, m, 64)
+        assert bits_equal(y, plain)
+        np.testing.assert_array_equal(trim.numpy(), np.asarray(jt))
+        assert float(trim.sum()) > 0.0
+        np.testing.assert_array_equal(y[1].numpy(), np.asarray(jy[1]))
+        if layout == "dense":
+            np.testing.assert_allclose(y[0].numpy(), np.asarray(jy[0]), rtol=4.8e-7, atol=0)
+        else:
+            np.testing.assert_array_equal(y[0].numpy(), np.asarray(jy[0]))

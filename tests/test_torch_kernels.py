@@ -1090,14 +1090,14 @@ def _decide_equal(got, want, plain_y, bound=None) -> None:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [5, 20, 50, 64, 100])
+@pytest.mark.parametrize("n", [5, 20, 50, 64, 100, 129, 300])
 def test_dense_decide_kernels_equal_their_plain_twins(cuda_device, n):
     """The dense screens' decide form at strides 1 and 4 (buckets with the
     register copy, up to 32 rows, and with the re-read above, the 128-row
-    bucket included): trim the plain twin's and y the plain kernel's, bit
-    for bit; y the twin's exactly, except the trimmed mean above 64 rows,
-    where the twin sums with ``torch.sum`` (`summation_bound`); the wide
-    shapes refuse."""
+    bucket included, and the wide path's decide form above 128 rows): trim
+    the plain twin's and y the plain kernel's, bit for bit; y the twin's
+    exactly, except the trimmed mean above 64 rows, where the twin sums
+    with ``torch.sum`` (`summation_bound`)."""
     w, adj = edge_inputs(n, 999, seed=n)
     tw, ta = torch.from_numpy(w).to(cuda_device), torch.from_numpy(adj).to(cuda_device)
     for s in (1, 4):
@@ -1108,18 +1108,14 @@ def test_dense_decide_kernels_equal_their_plain_twins(cuda_device, n):
                           summation_bound(tw, ta, b) if n > 64 else None)
         _decide_equal(screen_decide.median_dense_decide(tw, ta, tw, s),
                       ref.median_dense_decide(tw, ta, tw, s), median.median_dense(tw, ta, tw))
-    wide = torch.zeros((129, 8), device=cuda_device)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        screen_decide.trimmed_mean_dense_decide(
-            wide, torch.ones((129, 129), dtype=torch.bool, device=cuda_device), wide, 1)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [3, 16, 40, 63])
+@pytest.mark.parametrize("k", [3, 16, 40, 63, 64])
 def test_tile_decide_kernels_equal_their_plain_twins(cuda_device, k):
     """The gather and views screens' decide form on tables with padded
     slots and starved nodes, exact against the plain twins and the plain
-    kernels; above 63 slots the decide form refuses."""
+    kernels; above 63 slots through the wide path's decide form."""
     from repro_torch.core.neighbors import NeighborTable
 
     w, adj = sparse_inputs(k, 300, seed=k)
@@ -1140,8 +1136,3 @@ def test_tile_decide_kernels_equal_their_plain_twins(cuda_device, k):
         _decide_equal(screen_decide.views_screen_median_decide(views, valid, tw, s),
                       ref.median_views_decide(views, valid, tw, s),
                       views_screen.views_screen_median(views, valid, tw))
-    wide = torch.zeros((70, 70, 8), device=cuda_device)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        screen_decide.views_screen_median_decide(
-            wide, torch.ones((70, 70), dtype=torch.bool, device=cuda_device),
-            wide[:, 0].contiguous())
