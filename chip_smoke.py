@@ -319,14 +319,30 @@ failure of which raises:
    stream (chunk 65536) bit for bit over 3 ticks, ``--resume`` from tick 2
    bit for bit; (d) qwen3-4b at its published widths cut to 2 layers
    (979,776,512 parameters a node) through the stream at M = 4, sequence
-   128: 3 ticks after a warm-up, ms/tick, finite losses, the peak memory
+   128: 1 tick after a warm-up, ms/tick, finite losses, the peak memory
    of a tick less the bytes resident before it less the gradient below one
    flat [M, d] float32 matrix; (e) ``train_llm`` at its default ~126M
-   config (5 ticks), ``--trace --trust``, ``--sparse --codec int8`` and
+   config (2 ticks), ``--trace --trust``, ``--sparse --codec int8`` and
    ``--net`` at ``--small``, ``launch.train --arch <arch> --reduce`` for
-   each dense arch (5 steps) and ``sweep --mode net`` (2 jobs): finite
+   each dense arch (2 steps) and ``sweep --mode net`` (2 jobs): finite
    losses, their screening kernels launched.  The exact runs' launches
-   are held (a screen a block and tick, the wide forms a tick).
+   are held (a screen a block and tick, the wide forms a tick);
+26. the rest of the model zoo and serving — (a) each reduced config of
+   deepseek-v2-236b, deepseek-v3-671b (MTP), rwkv6-3b, zamba2-1.2b (and at
+   5 layers, a remainder block), whisper-medium and qwen2-vl-2b:
+   ``init_params``, ``train_loss`` with its gradients over two nodes and 4
+   ``decode_step`` logits on the card against the CPU (loss rtol 1e-5,
+   gradients rtol 1e-4 / atol 1e-6, the embedding's gradient and the
+   logits within 1e-5 of their largest); (b) ``serve.generate`` at full
+   width (batch 4, prompt 32, 32 greedy tokens) for qwen3-4b,
+   deepseek-v2-236b cut to 2 layers (one dense, one MoE), rwkv6-3b,
+   zamba2-1.2b, whisper-medium and qwen2-vl-2b: finite logits, the same
+   tokens twice, decode against the family's forward within 2e-4 over 8
+   tokens, ms a token beside the parameter bytes a step reads, peak
+   memory, a profiled step; (c) ``launch.train --reduce`` for
+   deepseek-v2-236b (trimmed mean), rwkv6-3b (median) and zamba2-1.2b, and
+   the reduced zamba2 through the stream trainer: finite losses, one screen
+   a step (a block and tick on the stream), held exactly.
 
 Every accuracy of phases 8-11 and 21 must land within 0.01 of the reference's
 own CPU run at the same settings (``REFERENCE_ACCURACY``, from
@@ -335,7 +351,7 @@ Krum's picks (``PICK_BOUND``), which is held to card-vs-CPU parity.
 
 Each configuration of a trainer phase trains on a task of its own, so all
 see batches 0..199 of one stream.  Before each main-path phase (5-12,
-16-25) every kernel's launch count is set to 0, and read
+16-26) every kernel's launch count is set to 0, and read
 after its runs: each kernel of the phase must have launched once per
 tick of the runs of its rule (codec), the others not at all; a kernel's
 ``launches`` in the JSON line is the sum over the phases.  Then each
@@ -5140,8 +5156,10 @@ def stream_phase(dev):
 ZOO_ARCHS = ("starcoder2-3b", "qwen3-4b", "mistral-nemo-12b", "gemma3-12b")
 MODEL_LOSS_RTOL, MODEL_GRAD_RTOL, MODEL_GRAD_ATOL = 1e-5, 1e-4, 1e-6  # card against CPU
 FULL_WIDTH_PARAMS = 979_776_512  # qwen3-4b cut to 2 layers, the reference's param_count
-FULL_TICKS = 3  # the full-width run's measured ticks, after one warm-up tick
+FULL_TICKS = 1  # the full-width run's measured ticks, after one warm-up tick
 FULL_SEQ = 128
+LLM_DEFAULT_STEPS = 2  # train_llm at its default ~126M config
+DENSE_CLI_STEPS = 2  # launch.train --reduce for each dense arch
 STREAM_BENCH_CHUNK = 1 << 16  # benchmarks/stream_bench.py's CHUNK, train_llm's --chunk
 WIDE_DECIDE_TICKS = 3
 
@@ -5453,16 +5471,16 @@ def llm_small_runs(dev, tmp: str) -> dict:
 
 def cli_runs(dev, tmp: str) -> None:
     """(e) The entry points as a user calls them: ``train_llm`` at its
-    default ~126M config for 5 ticks; one tick each of ``--trace --trust``,
+    default ~126M config for 2 ticks; one tick each of ``--trace --trust``,
     ``--sparse --codec int8`` and ``--net`` at ``--small``; ``launch.train
-    --arch <arch> --reduce`` for 5 steps for each dense arch; ``sweep --mode
+    --arch <arch> --reduce`` for 2 steps for each dense arch; ``sweep --mode
     net`` over 2 scenario jobs.  Each exits with a finite loss; the paths'
     screening kernels launched."""
     from repro_torch.examples import train_llm
     from repro_torch.launch import train
 
     ck = os.path.join(tmp, "llm_cli")
-    runs = [(["--steps", "5"], "screen_trimmed_mean_dense"),
+    runs = [(["--steps", str(LLM_DEFAULT_STEPS)], "screen_trimmed_mean_dense"),
             (["--small", "--steps", "1", "--trace", "--trust"], "screen_trimmed_mean_dense_decide"),
             (["--small", "--steps", "1", "--sparse", "--codec", "int8"],
              "gather_screen_trimmed_mean"),
@@ -5478,12 +5496,13 @@ def cli_runs(dev, tmp: str) -> None:
               f"{time.perf_counter() - t0:.1f} s")
     for arch in ZOO_ARCHS:
         before = read_launches()
-        _, loss = train.main(["--arch", arch, "--reduce", "--steps", "5", "--log-every", "5",
+        steps = str(DENSE_CLI_STEPS)
+        _, loss = train.main(["--arch", arch, "--reduce", "--steps", steps, "--log-every", steps,
                               "--device", dev.type])
         grew = KERNELS["screen_trimmed_mean_dense"].launches - before["screen_trimmed_mean_dense"]
-        if not (math.isfinite(loss) and grew == 5):
+        if not (math.isfinite(loss) and grew == DENSE_CLI_STEPS):
             raise AssertionError(f"launch.train {arch}: loss {loss}, {grew} screens")
-        print(f"launch.train --arch {arch} --reduce: 5 steps, loss {loss:.4f}")
+        print(f"launch.train --arch {arch} --reduce: {steps} steps, loss {loss:.4f}")
     t0 = time.perf_counter()
     done = sweep.main(["--mode", "net", "--out", os.path.join(tmp, "net_sweep"), "--rules",
                        "trimmed_mean", "--attacks", "alie", "--scenarios", "ideal,lossy",
@@ -5524,6 +5543,340 @@ def zoo_phase(dev):
                                  f"{n}")
     print(f"(phase 25 alone: {time.perf_counter() - t_phase:.1f} s)")
     return records, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 26: the rest of the model zoo and serving
+# ---------------------------------------------------------------------------
+
+REST_ARCHS = ("deepseek-v2-236b", "deepseek-v3-671b", "rwkv6-3b", "zamba2-1.2b",
+              "whisper-medium", "qwen2-vl-2b")
+# each serving config at its published widths; deepseek-v2 cut to 2 layers
+# (one dense, one MoE), the only cut: the reference's param_count of each
+SERVE_CELLS = (("qwen3-4b", None, 4_411_424_256), ("deepseek-v2-236b", 2, 5_358_679_040),
+               ("rwkv6-3b", None, 3_073_313_280), ("zamba2-1.2b", None, 1_170_473_856),
+               ("whisper-medium", None, 793_605_120), ("qwen2-vl-2b", None, 1_777_030_656))
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 32, 32  # examples/serve.py's defaults
+DECODE_CHECK_TOKENS = 8
+LOGIT_BOUND = 1e-5  # decode logits card against CPU, of the largest
+DECODE_BOUND = 2e-4  # decode against forward, the reference's (tests/test_models.py)
+EMBED_GRAD_BOUND = 1e-5  # the embedding's gradient, of its largest entry (a row sums its uses)
+REST_CLI_STEPS = 3
+
+
+def rest_configs(arch: str):
+    """The phase's reduced configs of ``arch`` (zamba2 also at 5 layers,
+    a remainder block)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).reduced()
+    if arch == "zamba2-1.2b":
+        return [cfg, get_config(arch).reduced(num_layers=5)]
+    return [cfg]
+
+
+def rest_batch(cfg, nodes: int, seed: int) -> dict:
+    """Tokens ``[nodes, 2, 33]`` and the family's embeddings, on the CPU."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (nodes, 2, 33)),
+                                     dtype=torch.int32)}
+    if cfg.family == "encdec":
+        out["audio_embeds"] = torch.as_tensor(rng.normal(size=(nodes, 2, 32, cfg.d_model)),
+                                              dtype=torch.float32)
+    if cfg.family == "vlm":
+        out["image_embeds"] = torch.as_tensor(rng.normal(size=(nodes, 2, 4, cfg.d_model)),
+                                              dtype=torch.float32)
+    return out
+
+
+def decode_logits(api_, params, cfg, toks, audio=None) -> torch.Tensor:
+    """``toks [B, n]`` stepped through ``decode_step`` from a fresh cache
+    (whisper's cross caches filled from ``audio``): logits ``[B, n, V]``."""
+    dev = toks.device
+    cache = api_.init_cache(cfg, toks.shape[0], toks.shape[1], device=dev)
+    if cfg.family == "encdec":
+        cache = api_.extra["prefill_cache"](params, cache, audio, cfg)
+    outs = []
+    for i in range(toks.shape[1]):
+        lg, cache = api_.decode_step(params, cache, toks[:, i:i + 1], cfg)
+        outs.append(lg[:, 0])
+    return torch.stack(outs, 1)
+
+
+def rest_parity_runs(dev) -> None:
+    """(a) Each reduced config of the MoE, RWKV, hybrid (and zamba2 with a
+    remainder), enc-dec and VLM families on the card against the CPU (TF32
+    off): ``init_params`` within the normal tolerance, ``ModelApi.grad_fn``
+    over two nodes (losses rtol 1e-5, gradients rtol 1e-4 / atol 1e-6, the
+    embedding's within 1e-5 of its largest entry), and 4 ``decode_step``
+    logits (whisper after ``prefill_cache``) within 1e-5 of the largest;
+    every config is checked before a failure raises."""
+    from repro_torch.models import api as model_api
+
+    failed = []
+    for arch in REST_ARCHS:
+        for cfg in rest_configs(arch):
+            api_ = model_api.build(cfg)
+            key = prng.PRNGKey(3)
+            host = api_.init_params(key, cfg, device="cpu")
+            card = api_.init_params(key, cfg, device=dev)
+            for k in host:
+                torch.testing.assert_close(card[k].cpu(), host[k], rtol=NORMAL_RTOL,
+                                           atol=2.2e-5, msg=f"{cfg.name} init {k}: card vs CPU")
+            del card
+            params = replicate(host, 2, perturb=0.01, key=key)
+            batch = rest_batch(cfg, 2, seed=1)
+            lc, gcpu = api_.grad_fn()(params, batch)
+            lg, gcard = api_.grad_fn()({k: v.to(dev) for k, v in params.items()},
+                                       {k: v.to(dev) for k, v in batch.items()})
+            torch.testing.assert_close(lg.cpu(), lc, rtol=MODEL_LOSS_RTOL, atol=0.0,
+                                       msg=f"{cfg.name}: loss card vs CPU")
+            worst = 0.0
+            for k in gcpu:
+                got, want = gcard[k].cpu(), gcpu[k]
+                if k == "embed":
+                    err = float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+                    if not err <= EMBED_GRAD_BOUND:
+                        failed.append(f"{cfg.name}: embed gradient {err:.2e} of its largest "
+                                      f"entry, card vs CPU")
+                    continue
+                if not torch.allclose(got, want, rtol=MODEL_GRAD_RTOL, atol=MODEL_GRAD_ATOL):
+                    failed.append(f"{cfg.name}: grad {k} card vs CPU, max abs diff "
+                                  f"{float((got - want).abs().max()):.2e}")
+                diff = (got - want).abs() - MODEL_GRAD_ATOL
+                worst = max(worst, float((diff / want.abs().clamp(min=1e-30)).max()))
+            one = {k: v[0].contiguous() for k, v in params.items()}
+            toks = batch["tokens"][0, :, :4]
+            audio = batch.get("audio_embeds")
+            audio = None if audio is None else audio[0]
+            dc = decode_logits(api_, one, cfg, toks, audio)
+            dg = decode_logits(api_, {k: v.to(dev) for k, v in one.items()}, cfg, toks.to(dev),
+                               None if audio is None else audio.to(dev))
+            derr = float((dg.cpu() - dc).abs().max() / dc.abs().max())
+            if not derr <= LOGIT_BOUND:
+                failed.append(f"{cfg.name}: 4 decode steps' logits card vs CPU {derr:.2e} of "
+                              f"the largest > {LOGIT_BOUND}")
+            print(f"zoo parity {cfg.name} {cfg.family} ({cfg.num_layers} layers, reduced, 2 nodes "
+                  f"x 2 sequences of 32): losses {[round(float(x), 6) for x in lg]}, card vs CPU "
+                  f"loss rel {float(((lg.cpu() - lc).abs() / lc.abs()).max()):.2e}, worst "
+                  f"gradient rel beyond atol {worst:.2e}; 4 decode steps' logits {derr:.2e} of "
+                  f"the largest; init within the normal tolerance")
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def serve_config(arch: str, layers):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def decode_bytes(params: dict, cfg) -> int:
+    """The parameter bytes one decode step reads: all but the rows it only
+    gathers (a separate head's embedding, ``dec_pos``) and those it never
+    touches (whisper's encoder and ``enc_pos``, v3's MTP head)."""
+    skip = ("enc_", "frontend_proj", "dec_pos", "mtp/")
+    total = 0
+    for k, v in params.items():
+        if k.startswith(skip) or (k == "embed" and cfg.family != "encdec"):
+            continue
+        total += v.numel() * v.element_size()
+    return total
+
+
+def forward_logits(params, cfg, toks, audio=None) -> torch.Tensor:
+    """The family's full-sequence forward over ``toks`` (whisper:
+    ``decode_train`` over the encoder's output of ``audio``; the VLM: the
+    dense backbone with text positions t = h = w)."""
+    from repro_torch.models import dense, encdec, hybrid, moe, ssm
+
+    if cfg.family == "encdec":
+        return encdec.decode_train(params, encdec.encode(params, audio, cfg), toks, cfg)
+    if cfg.family == "moe":
+        return moe.forward(params, toks, cfg)[0]
+    if cfg.family == "vlm":
+        n = toks.shape[1]
+        pos3 = torch.arange(n, dtype=torch.int32, device=toks.device)[None, None].expand(
+            3, toks.shape[0], n)
+        return dense.forward(params, toks, cfg, mrope_positions=pos3)
+    fwd = {"dense": dense.forward, "rwkv": ssm.forward, "hybrid": hybrid.forward}[cfg.family]
+    return fwd(params, toks, cfg)
+
+
+def profile_decode(params, api_, cfg, dev, steps: int = 4) -> tuple[float, float, float]:
+    """``steps`` decode steps from a fresh cache under `torch.profiler`,
+    after two unprofiled ones: (wall ms, device-busy ms, kernels) a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    cache = api_.init_cache(cfg, SERVE_BATCH, steps + 2, device=dev)
+    if cfg.family == "encdec":
+        audio = torch.zeros((SERVE_BATCH, SERVE_PROMPT, cfg.d_model), device=dev)
+        cache = api_.extra["prefill_cache"](params, cache, audio, cfg)
+    tok = torch.ones((SERVE_BATCH, 1), dtype=torch.int32, device=dev)
+    for _ in range(2):
+        _, cache = api_.decode_step(params, cache, tok, cfg)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            _, cache = api_.decode_step(params, cache, tok, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    work = [e for e in prof.events() if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.time_range.elapsed_us() for e in work) / 1e3
+    return wall_ms / steps, busy_ms / steps, len(work) / steps
+
+
+def serve_runs(dev) -> list:
+    """(b) ``serve.generate`` at full width (batch 4, prompt 32, 32 greedy
+    tokens), each config of `SERVE_CELLS` in turn: finite logits, the same
+    tokens on a second call, decode against the family's forward over 8
+    tokens within 2e-4 of the largest logit (MoE at capacity_factor 8),
+    ms a token at the median of the decode steps beside the parameter bytes
+    a step reads over 3.35 TB/s, ``max_memory_allocated`` beside the
+    parameter bytes, 4 more steps under `torch.profiler` (device busy,
+    kernels a step); each model freed before the next.  Returns the rows."""
+    from repro_torch.examples import serve
+    from repro_torch.models import api as model_api
+
+    rows = []
+    for arch, layers, want_n in SERVE_CELLS:
+        cfg = serve_config(arch, layers)
+        n = model_api.param_count(cfg)
+        if n != want_n:
+            raise AssertionError(f"serve {arch}: {n} parameters, want {want_n}")
+        api_ = model_api.build(cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = api_.init_params(prng.PRNGKey(0), cfg, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        pbytes = sum(v.numel() * v.element_size() for v in params.values())
+        gen = serve.generate(api_, params, cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                             tokens=SERVE_TOKENS)
+        again = serve.generate(api_, params, cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                               tokens=SERVE_TOKENS)
+        if not (gen.finite and again.finite):
+            raise AssertionError(f"serve {arch}: non-finite logits")
+        if not np.array_equal(gen.ids, again.ids):
+            raise AssertionError(f"serve {arch}: a second call decoded other tokens")
+        rng = np.random.default_rng(1)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SERVE_BATCH, DECODE_CHECK_TOKENS)),
+                               dtype=torch.int32).to(dev)
+        audio = None
+        if cfg.family == "encdec":
+            audio = torch.as_tensor(rng.normal(size=(SERVE_BATCH, SERVE_PROMPT, cfg.d_model)),
+                                    dtype=torch.float32).to(dev)
+        ccfg = dataclasses.replace(cfg, capacity_factor=8.0) if cfg.family == "moe" else cfg
+        with torch.no_grad():
+            dec = decode_logits(api_, params, ccfg, toks, audio)
+            full = forward_logits(params, ccfg, toks, audio)
+        rel = float((dec - full).abs().max() / full.abs().max())
+        if not rel <= DECODE_BOUND:
+            raise AssertionError(f"serve {arch}: decode against forward {rel:.2e} > "
+                                 f"{DECODE_BOUND}")
+        del dec, full
+        peak = torch.cuda.max_memory_allocated(dev)
+        with torch.no_grad():
+            prof_ms, busy_ms, kernels = profile_decode(params, api_, cfg, dev)
+        ms = statistics.median(gen.step_s) * 1e3
+        rbytes = decode_bytes(params, cfg)
+        bound_ms = rbytes / HBM_BYTES_PER_S * 1e3
+        rows.append(dict(arch=arch, layers=cfg.num_layers, params=n, ms_token=ms,
+                         bound_ms=bound_ms, peak=peak, param_bytes=pbytes, busy_ms=busy_ms))
+        print(f"serve {arch} ({cfg.num_layers} layers, {n:,} parameters, {pbytes} B): init "
+              f"{init_s:.1f} s, prefill {gen.prefill_s * 1e3:.1f} ms ({SERVE_PROMPT} steps"
+              f"{' (the encoder)' if cfg.family == 'encdec' else ''}), {ms:.3f} ms/token at the "
+              f"median of {SERVE_TOKENS} steps (mean {sum(gen.step_s) / SERVE_TOKENS * 1e3:.3f}; "
+              f"second call {statistics.median(again.step_s) * 1e3:.3f}), bound {bound_ms:.3f} "
+              f"ms ({rbytes} B a step at 3.35 TB/s), max_memory_allocated {peak} B; finite, "
+              f"the same tokens twice (row 0: {gen.ids[0][:8].tolist()}), decode vs forward "
+              f"over {DECODE_CHECK_TOKENS} tokens {rel:.2e}; profiled: {prof_ms:.3f} ms a step, "
+              f"device busy {busy_ms:.3f} ms ({100 * busy_ms / prof_ms:.1f}%), {kernels:.0f} "
+              f"kernels and copies a step")
+        del params, gen, again
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def rest_cli_runs(dev) -> dict:
+    """(c) BRIDGE on three new families, as a user calls it: ``launch.train
+    --arch deepseek-v2-236b --reduce --rule trimmed_mean`` and ``--arch
+    rwkv6-3b --rule median`` (one screen a step), ``--arch zamba2-1.2b``,
+    then the reduced zamba2 through the stream trainer (chunk 65536, one
+    screen a block and tick): finite losses; returns the runs' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.graph import make_topology
+    from repro_torch.data.tokens import TokenPipeline, device_batch
+    from repro_torch.launch import train
+    from repro_torch.models import api as model_api
+    from repro_torch.stream import StreamBridgeTrainer
+
+    want: dict[str, int] = {}
+    for arch, rule in (("deepseek-v2-236b", "trimmed_mean"), ("rwkv6-3b", "median"),
+                       ("zamba2-1.2b", "trimmed_mean")):
+        kernel = f"screen_{rule}_dense"
+        before = read_launches()
+        t0 = time.perf_counter()
+        state, loss = train.main(["--arch", arch, "--reduce", "--rule", rule, "--steps",
+                                  str(REST_CLI_STEPS), "--batch", "2", "--seq", "32",
+                                  "--log-every", str(REST_CLI_STEPS), "--device", dev.type])
+        check_grew(f"launch.train {arch}", before, {kernel: REST_CLI_STEPS})
+        want[kernel] = want.get(kernel, 0) + REST_CLI_STEPS
+        if not math.isfinite(loss):
+            raise AssertionError(f"launch.train {arch}: loss {loss}")
+        print(f"launch.train --arch {arch} --reduce --rule {rule}: {REST_CLI_STEPS} steps, loss "
+              f"{loss:.4f}, {kernel} {REST_CLI_STEPS} launches, {time.perf_counter() - t0:.1f} s")
+    cfg = get_config("zamba2-1.2b").reduced()
+    api_ = model_api.build(cfg)
+    m = 4
+    bcfg = BridgeConfig(topology=make_topology("erdos_renyi:0.9", m, 1, seed=0),
+                        rule="trimmed_mean", num_byzantine=1, attack="sign_flip", lr=0.02,
+                        screen_chunk=STREAM_BENCH_CHUNK)
+    tr = StreamBridgeTrainer(bcfg, api_.grad_fn(), device=dev)
+    key = prng.PRNGKey(0)
+    state = tr.init(replicate(api_.init_params(key, cfg, device=dev), m, perturb=0.005, key=key))
+    pipe = TokenPipeline(cfg.vocab_size, 32, 2, m, seed=0)
+    before = read_launches()
+    losses = []
+    for i in range(REST_CLI_STEPS):
+        state, met = tr.step(state, device_batch(pipe.batch(i), dev))
+        losses.append(float(met["loss"]))
+    blocks = tr.spec.num_blocks
+    check_grew("stream zamba2", before, {"screen_trimmed_mean_dense": blocks * REST_CLI_STEPS})
+    want["screen_trimmed_mean_dense"] += blocks * REST_CLI_STEPS
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"stream zamba2: losses {losses}")
+    print(f"stream zamba2-1.2b (reduced, M = {m}, b = 1, sign_flip, chunk {STREAM_BENCH_CHUNK}, "
+          f"{blocks} blocks): {REST_CLI_STEPS} ticks, losses {[round(x, 4) for x in losses]}")
+    return want
+
+
+def zoo_rest_phase(dev):
+    """Phase 26 (the module docstring's list); returns the phase's
+    launches."""
+    from repro_torch.device import set_numerics
+
+    set_numerics()
+    t_phase = time.perf_counter()
+    zero_launches()
+    rest_parity_runs(dev)
+    t0 = time.perf_counter()
+    serve_runs(dev)
+    print(f"(phase 26(b) serving: {time.perf_counter() - t0:.1f} s)")
+    want = rest_cli_runs(dev)
+    launches = read_launches()
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"phase 26: {k} launched {launches[k]}, the runs {n}")
+    print(f"(phase 26 alone: {time.perf_counter() - t_phase:.1f} s)")
+    return launches
 
 
 def main() -> int:
@@ -5588,6 +5941,9 @@ def main() -> int:
     phase_records, phase_launches["zoo_phase"] = zoo_phase(dev)
     records += phase_records
     print(f"(zoo_phase: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_launches["zoo_rest_phase"] = zoo_rest_phase(dev)
+    print(f"(zoo_rest_phase: {time.perf_counter() - t0:.1f} s)")
     for rec in records:
         if rec["name"].endswith("[E]"):  # this phase's grid engines ran the experiment forms
             rec["launches"] += breakdown_engines.get(rec["name"][:-len("[E]")], 0)

@@ -50,11 +50,16 @@ def flatten_tree(tree: Mapping) -> dict:
     flat dict: each leaf under its path's keys joined by ``/``
     (``{"blocks": {"attn": {"wq": a}}}`` -> ``{"blocks/attn/wq": a}``).
     The zoo's keys hold letters, digits and ``_``, all above ``/``, so
-    sorting the flat keys gives the nested tree's leaf order."""
+    sorting the flat keys gives the nested tree's leaf order.  A ``None``
+    value (a pytree with no leaves: the MoE family's ``dense_blocks``
+    without dense layers, the hybrid's ``mamba_rem`` without a remainder)
+    has no entry."""
     out = {}
     for k, v in tree.items():
         if SEP in k:
             raise ValueError(f"key {k!r} holds the separator {SEP!r}")
+        if v is None:
+            continue
         if isinstance(v, Mapping):
             out.update({f"{k}{SEP}{sub}": leaf for sub, leaf in flatten_tree(v).items()})
         else:
@@ -62,8 +67,10 @@ def flatten_tree(tree: Mapping) -> dict:
     return out
 
 
-def unflatten_tree(flat: Mapping) -> dict:
-    """`flatten_tree`'s inverse: the nested tree of a flat dict."""
+def unflatten_tree(flat: Mapping, none: tuple[str, ...] = ()) -> dict:
+    """`flatten_tree`'s inverse: the nested tree of a flat dict, with
+    ``None`` under each top-level key of ``none`` (the subtrees
+    `flatten_tree` dropped)."""
     out: dict = {}
     for k, v in flat.items():
         *path, leaf = k.split(SEP)
@@ -71,6 +78,10 @@ def unflatten_tree(flat: Mapping) -> dict:
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = v
+    for k in none:
+        if k in out:
+            raise ValueError(f"{k!r} holds leaves; it cannot be a None subtree")
+        out[k] = None
     return out
 
 
@@ -86,10 +97,17 @@ def params_from_jax(tree: Mapping, *,
             for k, v in flatten_tree(tree).items()}
 
 
-def params_to_jax(params: Mapping[str, torch.Tensor]) -> dict:
+def params_to_jax(params: Mapping[str, torch.Tensor], cfg=None) -> dict:
     """The port's flat parameter dict as the reference's nested tree of
-    numpy arrays (`unflatten_tree`), ready for ``jnp.asarray``."""
-    return unflatten_tree({k: v.detach().cpu().numpy() for k, v in params.items()})
+    numpy arrays (`unflatten_tree`), ready for ``jnp.asarray``; with the
+    model's config ``cfg``, the reference's ``None`` subtrees given back
+    (`repro_torch.models.api.none_subtrees`)."""
+    none = ()
+    if cfg is not None:
+        from repro_torch.models.api import none_subtrees
+
+        none = none_subtrees(cfg)
+    return unflatten_tree({k: v.detach().cpu().numpy() for k, v in params.items()}, none)
 
 
 def state_from_checkpoint(ckpt_dir: str, template: BridgeState,

@@ -3,7 +3,7 @@ transformer on the synthetic token pipeline — port of
 ``examples/train_llm.py``, on the card by default (``--device cpu`` runs
 the plain versions).
 
-It exercises the port's whole stack: the model zoo's dense family, the
+It exercises the port's whole stack: the model zoo (a qwen3-family config), the
 chunk-streaming trainer (`repro_torch.stream`, the default: screening runs
 per coordinate block on the screening kernels, never forming the flat
 ``[M, d]`` matrix), topology builders, wire codecs, the trace, trust,

@@ -6,10 +6,12 @@ on the card by default (``--device cpu`` runs the plain versions):
         --steps 100 --batch 4 --seq 128
 
 ``--reduce`` swaps in the reduced config; without it the full config of
-``--arch`` is used (the dense family: `repro_torch.models`; the other
-families are ROADMAP Queue 1 item 2).  Every node's loss and gradient come
-from `repro_torch.models.api.ModelApi.grad_fn`; the screens run the port's
-kernels on the card.  ``--ckpt DIR`` saves the full `BridgeState` every
+``--arch`` is used (`repro_torch.models`: the dense, MoE, RWKV and hybrid
+families train on the token pipeline; the enc-dec and VLM families need
+audio or image embeddings the pipeline does not make, and are refused
+before the first step, where the reference fails at it).  Every node's
+loss and gradient come from `repro_torch.models.api.ModelApi.grad_fn`; the
+screens run the port's kernels on the card.  ``--ckpt DIR`` saves the full `BridgeState` every
 ``--ckpt-every`` steps in the reference's checkpoint layout
 (`repro_torch.checkpoint`) and resumes from the newest one, bit for bit the
 uninterrupted run.
@@ -49,6 +51,10 @@ from repro_torch.core.byzantine import ATTACKS, WIRE_ATTACKS
 from repro_torch.data.tokens import TokenPipeline, device_batch
 from repro_torch.device import resolve_device, set_numerics, wait
 from repro_torch.models import api as model_api
+
+
+# the families whose train_loss reads inputs besides the tokens
+NEEDS = {"encdec": "audio_embeds", "vlm": "image_embeds"}
 
 
 def build_trainer(args, topo, grad_fn, device):
@@ -215,6 +221,10 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduce:
         cfg = cfg.reduced()
+    if cfg.family in NEEDS:
+        raise ValueError(f"--arch {args.arch}: the {cfg.family} family's train_loss needs "
+                         f"batch[{NEEDS[cfg.family]!r}], which the token pipeline does not "
+                         f"make (tokens only)")
     api = model_api.build(cfg)
     print(f"arch={cfg.name} family={cfg.family} params(single)="
           f"{model_api.param_count(cfg):,} device={dev}")

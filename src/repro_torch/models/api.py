@@ -5,10 +5,12 @@
     init_cache(cfg, batch, max_len, device=) -> decode cache
     decode_step(params, cache, tok, cfg)  -> (logits, new cache)
 
-`build(cfg)` returns a `ModelApi` dispatching on ``cfg.family``; the port
-has the dense family (`repro_torch.models.dense`).  The MoE, SSM, hybrid,
-enc-dec and VLM families are ROADMAP Queue 1 item 2: `build` raises for
-them.
+`build(cfg)` returns a `ModelApi` dispatching on ``cfg.family``: the
+dense decoders (`repro_torch.models.dense`), DeepSeek's MoE with MLA
+(`moe`), RWKV6 (`ssm`), the Mamba2 hybrid (`hybrid`), the Whisper
+encoder-decoder (`encdec`) and Qwen2-VL (`vlm`).  ``extra`` holds the
+reference's family-specific entries: ``prefill_cache`` and ``encode``
+(enc-dec), ``make_mrope_positions`` (VLM), ``moe_ffn`` (MoE).
 """
 from __future__ import annotations
 
@@ -18,10 +20,11 @@ from collections.abc import Callable
 
 import torch
 
-from repro_torch.models import dense
+from repro_torch.models import dense, encdec, hybrid, moe, ssm, vlm
 from repro_torch.models.config import ModelConfig
 
-_FAMILIES = {"dense": dense}
+_FAMILIES = {"dense": dense, "moe": moe, "rwkv": ssm, "hybrid": hybrid, "encdec": encdec,
+             "vlm": vlm}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +35,7 @@ class ModelApi:
     init_cache: Callable
     decode_step: Callable
     param_shapes: Callable
+    extra: dict = dataclasses.field(default_factory=dict)
 
     def grad_fn(self) -> Callable:
         """The trainers' contract (`repro_torch.core.bridge.BridgeTrainer`,
@@ -70,12 +74,26 @@ class ModelApi:
 def build(cfg: ModelConfig) -> ModelApi:
     mod = _FAMILIES.get(cfg.family)
     if mod is None:
-        raise ValueError(f"family {cfg.family!r} ({cfg.name}) is not ported: the port has "
-                         f"{sorted(_FAMILIES)}; the MoE, SSM, hybrid, enc-dec and VLM families "
-                         f"are ROADMAP Queue 1 item 2")
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name}): {sorted(_FAMILIES)}")
+    extra = {}
+    if cfg.family == "encdec":
+        extra.update(prefill_cache=encdec.prefill_cache, encode=encdec.encode)
+    if cfg.family == "vlm":
+        extra["make_mrope_positions"] = vlm.make_mrope_positions
+    if cfg.family == "moe":
+        extra["moe_ffn"] = moe.moe_ffn
     return ModelApi(cfg=cfg, init_params=mod.init_params, train_loss=mod.train_loss,
                     init_cache=mod.init_cache, decode_step=mod.decode_step,
-                    param_shapes=mod.param_shapes)
+                    param_shapes=mod.param_shapes, extra=extra)
+
+
+def none_subtrees(cfg: ModelConfig) -> tuple[str, ...]:
+    """The top-level keys where the reference's parameter tree holds
+    ``None`` (no leaves; the port's flat dict has no entry): MoE's
+    ``dense_blocks`` without dense layers, the hybrid's ``mamba_rem``
+    without a remainder."""
+    fn = getattr(_FAMILIES[cfg.family], "none_subtrees", None)
+    return fn(cfg) if fn is not None else ()
 
 
 def param_count(cfg: ModelConfig) -> int:

@@ -26,7 +26,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
-BLOCKS = "blocks/"
+BLOCKS = "blocks"
 
 
 def _pattern(cfg: ModelConfig) -> tuple[int, int]:
@@ -48,19 +48,15 @@ def _layer_theta(cfg: ModelConfig, is_global: bool) -> float:
     return cfg.rope_theta
 
 
-def _prefixed(prefix: str, d: dict) -> dict:
-    return {f"{prefix}/{k}": v for k, v in d.items()}
-
-
 def block_shapes(cfg: ModelConfig) -> dict:
     """One block's leaves (flat keys under ``blocks/``) and their shapes."""
     with_bias = cfg.norm == "layernorm"
-    return {**_prefixed("attn", L.attention_shapes(cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+    return {**L.prefixed("attn", L.attention_shapes(cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                                                    cfg.hd, qk_norm=cfg.qk_norm,
                                                    bias=cfg.attn_bias)),
-            **_prefixed("ln1", L.norm_shapes(cfg.d_model, with_bias=with_bias)),
-            **_prefixed("ln2", L.norm_shapes(cfg.d_model, with_bias=with_bias)),
-            **_prefixed("mlp", L.mlp_shapes(cfg.d_model, cfg.d_ff, act=cfg.act,
+            **L.prefixed("ln1", L.norm_shapes(cfg.d_model, with_bias=with_bias)),
+            **L.prefixed("ln2", L.norm_shapes(cfg.d_model, with_bias=with_bias)),
+            **L.prefixed("mlp", L.mlp_shapes(cfg.d_model, cfg.d_ff, act=cfg.act,
                                             bias=cfg.attn_bias))}
 
 
@@ -68,9 +64,9 @@ def param_shapes(cfg: ModelConfig) -> dict:
     """Every leaf of `init_params` and its shape, by flat key (nothing
     allocated): blocks ``[G, P, ...]``."""
     g, p = _pattern(cfg)
-    out = {BLOCKS + k: (g, p, *s) for k, s in block_shapes(cfg).items()}
+    out = {f"{BLOCKS}/{k}": (g, p, *s) for k, s in block_shapes(cfg).items()}
     out.update(embed=(cfg.vocab_size, cfg.d_model), head=(cfg.d_model, cfg.vocab_size))
-    out.update(_prefixed("ln_f", L.norm_shapes(cfg.d_model, with_bias=cfg.norm == "layernorm")))
+    out.update(L.prefixed("ln_f", L.norm_shapes(cfg.d_model, with_bias=cfg.norm == "layernorm")))
     return out
 
 
@@ -78,12 +74,12 @@ def init_block(key, cfg: ModelConfig, device) -> dict:
     dt = cfg.tdtype
     k1, k2 = prng.split(key)
     with_bias = cfg.norm == "layernorm"
-    return {**_prefixed("attn", L.init_attention(k1, cfg.d_model, cfg.num_heads,
+    return {**L.prefixed("attn", L.init_attention(k1, cfg.d_model, cfg.num_heads,
                                                  cfg.num_kv_heads, cfg.hd, dt, device,
                                                  qk_norm=cfg.qk_norm, bias=cfg.attn_bias)),
-            **_prefixed("ln1", L.init_norm(cfg.d_model, dt, device, with_bias=with_bias)),
-            **_prefixed("ln2", L.init_norm(cfg.d_model, dt, device, with_bias=with_bias)),
-            **_prefixed("mlp", L.init_mlp(k2, cfg.d_model, cfg.d_ff, dt, device, act=cfg.act,
+            **L.prefixed("ln1", L.init_norm(cfg.d_model, dt, device, with_bias=with_bias)),
+            **L.prefixed("ln2", L.init_norm(cfg.d_model, dt, device, with_bias=with_bias)),
+            **L.prefixed("mlp", L.init_mlp(k2, cfg.d_model, cfg.d_ff, dt, device, act=cfg.act,
                                           bias=cfg.attn_bias))}
 
 
@@ -96,30 +92,17 @@ def init_params(key, cfg: ModelConfig, *, device: str | torch.device = "cuda") -
     g, p = _pattern(cfg)
     keys = prng.split(key, cfg.num_layers + 3)
     shapes = param_shapes(cfg)
-    params = {k: torch.empty(s, dtype=cfg.tdtype, device=dev)
-              for k, s in shapes.items() if k.startswith(BLOCKS)}
+    params: dict = {}
     for i in range(cfg.num_layers):
-        for k, v in init_block(keys[i], cfg, dev).items():
-            params[BLOCKS + k][i // p, i % p] = v
+        L.put(params, BLOCKS, (g, p), (i // p, i % p), init_block(keys[i], cfg, dev))
     params["embed"] = L.dense_init(keys[-1], shapes["embed"], cfg.tdtype, dev, scale=0.02)
     params["head"] = L.dense_init(keys[-2], shapes["head"], cfg.tdtype, dev)
-    params.update(_prefixed("ln_f", L.init_norm(cfg.d_model, cfg.tdtype, dev,
+    params.update(L.prefixed("ln_f", L.init_norm(cfg.d_model, cfg.tdtype, dev,
                                                 with_bias=cfg.norm == "layernorm")))
     return params
 
 
-def _group(params: dict, g: int, p: int) -> dict:
-    """Block (g, p)'s leaves under their ``attn/..``, ``ln1/..`` keys."""
-    n = len(BLOCKS)
-    return {k[n:]: v[g, p] for k, v in params.items() if k.startswith(BLOCKS)}
-
-
-def _sub(block: dict, name: str) -> dict:
-    n = len(name) + 1
-    return {k[n:]: v for k, v in block.items() if k.startswith(name + "/")}
-
-
-def _embed_scale(cfg: ModelConfig) -> float:
+def embed_scale(cfg: ModelConfig) -> float:
     """``d_model ** 0.5`` rounded once to float32 (the reference's
     ``jnp.asarray(d ** 0.5, x.dtype)``)."""
     return float(np.float32(cfg.d_model ** 0.5))
@@ -143,11 +126,11 @@ def _attention(cfg, p, x, positions, *, is_global, mrope_positions=None):
 
 
 def block_apply(cfg, p, x, positions, *, is_global, mrope_positions=None):
-    h = L.apply_norm(_sub(p, "ln1"), x, cfg.norm)
-    x = x + _attention(cfg, _sub(p, "attn"), h, positions, is_global=is_global,
+    h = L.apply_norm(L.sub(p, "ln1"), x, cfg.norm)
+    x = x + _attention(cfg, L.sub(p, "attn"), h, positions, is_global=is_global,
                        mrope_positions=mrope_positions)
-    h = L.apply_norm(_sub(p, "ln2"), x, cfg.norm)
-    return x + L.mlp(_sub(p, "mlp"), h, cfg.act)
+    h = L.apply_norm(L.sub(p, "ln2"), x, cfg.norm)
+    return x + L.mlp(L.sub(p, "mlp"), h, cfg.act)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, input_embeds=None,
@@ -157,13 +140,13 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, input_embed
     the token embedding lookup (a VLM's prefix)."""
     x = params["embed"][tokens.long()] if input_embeds is None else input_embeds
     if cfg.norm == "rmsnorm":
-        x = x * _embed_scale(cfg)
+        x = x * embed_scale(cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     g_count, pat = _pattern(cfg)
 
     def body(x, g):
         for p in range(pat):
-            x = block_apply(cfg, _group(params, g, p), x, positions,
+            x = block_apply(cfg, L.at(params, BLOCKS, (g, p)), x, positions,
                             is_global=_is_global(cfg, p), mrope_positions=mrope_positions)
         return x
 
@@ -171,7 +154,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, input_embed
         x = checkpoint(body, x, g, use_reentrant=False) if cfg.remat else body(x, g)
     if last_only:
         x = x[:, -1:]
-    x = L.apply_norm(_sub(params, "ln_f"), x, cfg.norm)
+    x = L.apply_norm(L.sub(params, "ln_f"), x, cfg.norm)
     return x @ params["head"]
 
 
@@ -207,17 +190,17 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfi
     updated cache (new tensors; the given cache is not written)."""
     x = params["embed"][tokens.long()]
     if cfg.norm == "rmsnorm":
-        x = x * _embed_scale(cfg)
+        x = x * embed_scale(cfg)
     pos = int(cache["pos"])
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     g_count, pat = _pattern(cfg)
     nk, nv = cache["k"].clone(), cache["v"].clone()
     for g in range(g_count):
         for p in range(pat):
-            sub = _group(params, g, p)
+            sub = L.at(params, BLOCKS, (g, p))
             is_global = _is_global(cfg, p)
-            h = L.apply_norm(_sub(sub, "ln1"), x, cfg.norm)
-            attn = _sub(sub, "attn")
+            h = L.apply_norm(L.sub(sub, "ln1"), x, cfg.norm)
+            attn = L.sub(sub, "attn")
             q, k, v = L.qkv_project(attn, h, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
                                     qk_norm=cfg.qk_norm)
             q, k = _rope(cfg, q, k, positions, _layer_theta(cfg, is_global), mrope_positions)
@@ -226,8 +209,8 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ModelConfi
             window = None if is_global else cfg.sliding_window
             o = L.decode_attention(q, nk[g, p], nv[g, p], pos + 1, window=window)
             x = x + L.attn_output(attn, o)
-            h2 = L.apply_norm(_sub(sub, "ln2"), x, cfg.norm)
-            x = x + L.mlp(_sub(sub, "mlp"), h2, cfg.act)
-    x = L.apply_norm(_sub(params, "ln_f"), x, cfg.norm)
+            h2 = L.apply_norm(L.sub(sub, "ln2"), x, cfg.norm)
+            x = x + L.mlp(L.sub(sub, "mlp"), h2, cfg.act)
+    x = L.apply_norm(L.sub(params, "ln_f"), x, cfg.norm)
     logits = x @ params["head"]
     return logits, {"k": nk, "v": nv, "pos": cache["pos"] + 1}

@@ -31,6 +31,40 @@ import torch.nn.functional as F
 from repro_torch import prng
 
 # ---------------------------------------------------------------------------
+# flat parameter dicts
+# ---------------------------------------------------------------------------
+
+
+def prefixed(prefix: str, d: dict) -> dict:
+    """``d``'s entries under ``prefix/``."""
+    return {f"{prefix}/{k}": v for k, v in d.items()}
+
+
+def sub(params: dict, name: str) -> dict:
+    """The entries under ``name/``, under their keys below it."""
+    n = len(name) + 1
+    return {k[n:]: v for k, v in params.items() if k.startswith(name + "/")}
+
+
+def at(params: dict, name: str, idx) -> dict:
+    """The stacked entries under ``name/`` indexed at ``idx`` of their
+    leading axes (one layer of a stack): views, no copy."""
+    return {k: v[idx] for k, v in sub(params, name).items()}
+
+
+def put(params: dict, name: str, lead: tuple, idx, block: dict) -> None:
+    """Write one layer's leaves ``block`` into slot ``idx`` of the stacked
+    leaves under ``name/`` (each ``[*lead, ...]``, made on the first write
+    in the layer's dtype and device): the reference's stack of per-layer
+    trees without a stacked copy."""
+    for k, v in block.items():
+        key = f"{name}/{k}"
+        if key not in params:
+            params[key] = torch.empty((*lead, *v.shape), dtype=v.dtype, device=v.device)
+        params[key][idx] = v
+
+
+# ---------------------------------------------------------------------------
 # initializers / norms
 # ---------------------------------------------------------------------------
 

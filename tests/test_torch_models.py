@@ -142,11 +142,15 @@ def test_param_counts_and_leaf_order(arch):
         assert api.param_count(dataclasses.replace(full, num_layers=2)) == 979_776_512
 
 
-def test_build_refuses_the_unported_families():
-    for name, cfg in ARCHS.items():
-        if cfg.family != "dense":
-            with pytest.raises(ValueError, match="Queue 1 item 2"):
-                api.build(cfg)
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_build_accepts_every_arch(name):
+    """`build` succeeds for all ten archs, its entries the family module's,
+    and `param_count` is the reference's at full and reduced size."""
+    cfg = ARCHS[name]
+    built = api.build(cfg)
+    assert built.cfg == cfg and callable(built.decode_step) and callable(built.param_shapes)
+    assert api.param_count(cfg) == japi.param_count(JARCHS[name])
+    assert api.param_count(cfg.reduced()) == japi.param_count(jget(name).reduced())
 
 
 # ---------------------------------------------------------------------------
