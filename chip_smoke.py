@@ -322,7 +322,7 @@ failure of which raises:
    128: 1 tick after a warm-up, ms/tick, finite losses, the peak memory
    of a tick less the bytes resident before it less the gradient below one
    flat [M, d] float32 matrix; (e) ``train_llm`` at its default ~126M
-   config (2 ticks), ``--trace --trust``, ``--sparse --codec int8`` and
+   config (1 tick), ``--trace --trust``, ``--sparse --codec int8`` and
    ``--net`` at ``--small``, ``launch.train --arch <arch> --reduce`` for
    each dense arch (2 steps) and ``sweep --mode net`` (2 jobs): finite
    losses, their screening kernels launched.  The exact runs' launches
@@ -334,7 +334,7 @@ failure of which raises:
    ``decode_step`` logits on the card against the CPU (loss rtol 1e-5,
    gradients rtol 1e-4 / atol 1e-6, the embedding's gradient and the
    logits within 1e-5 of their largest); (b) ``serve.generate`` at full
-   width (batch 4, prompt 32, 32 greedy tokens) for qwen3-4b,
+   width (batch 4, prompt 32, 16 greedy tokens) for qwen3-4b,
    deepseek-v2-236b cut to 2 layers (one dense, one MoE), rwkv6-3b,
    zamba2-1.2b, whisper-medium and qwen2-vl-2b: finite logits, the same
    tokens twice, decode against the family's forward within 2e-4 over 8
@@ -342,7 +342,24 @@ failure of which raises:
    memory, a profiled step; (c) ``launch.train --reduce`` for
    deepseek-v2-236b (trimmed mean), rwkv6-3b (median) and zamba2-1.2b, and
    the reduced zamba2 through the stream trainer: finite losses, one screen
-   a step (a block and tick on the stream), held exactly.
+   a step (a block and tick on the stream), held exactly;
+27. the sharded path on ``torch.distributed`` in a world of one NCCL rank
+   (gloo beside it for a CPU mesh; one card takes one rank) — (a)
+   ``gossip_screen_params`` at the paper cell (M = 50 on
+   ``erdos_renyi(50, 0.5, 4)``, b = 4, d = 7850) on a (1, 1) card mesh
+   against the same call on a (1, 1) CPU mesh: the all_gather schedule,
+   trimmed mean, median and mean x random, sign_flip x float, int8, Krum,
+   Bulyan; rows 1-2 (the views form over the gathered rows at a receiver
+   stride of 0), the mean and the int8 decodes exact, the random attack's
+   rows within the normal's tolerance, Krum's picks equal; the
+   all_to_all schedule at M = 1 (one node a rank, its only shape on one
+   card: NCCL's all_to_all and the plumbing); launches held to a count
+   worked out from the cases; (b) ``make_train_step`` on qwen3-4b at its
+   published widths cut to 2 layers, M = 4 nodes on the rank, all_gather,
+   BRIDGE-T, b = 1, gossip first, sequence 128: a warm-up step and 2 timed
+   (ms a step, ``max_memory_allocated``), one under ``torch.profiler``
+   (busy share, kernels a step), finite losses, one views trimmed-mean
+   launch a leaf and step.
 
 Every accuracy of phases 8-11 and 21 must land within 0.01 of the reference's
 own CPU run at the same settings (``REFERENCE_ACCURACY``, from
@@ -351,7 +368,7 @@ Krum's picks (``PICK_BOUND``), which is held to card-vs-CPU parity.
 
 Each configuration of a trainer phase trains on a task of its own, so all
 see batches 0..199 of one stream.  Before each main-path phase (5-12,
-16-26) every kernel's launch count is set to 0, and read
+16-27) every kernel's launch count is set to 0, and read
 after its runs: each kernel of the phase must have launched once per
 tick of the runs of its rule (codec), the others not at all; a kernel's
 ``launches`` in the JSON line is the sum over the phases.  Then each
@@ -1189,11 +1206,21 @@ def dequant_kernel_phase(dev):
     moved = base[1:].view(SM, D)  # a contiguous view one byte past a 16-byte boundary
     moved.copy_(eq)
     exact_or_raise("dequant, misaligned codes", dequant.dequant(moved, escale), ref.dequant(eq, escale))
+    # the NaN-keeping form (the sharded gossip's decode): a NaN scale and
+    # an inf scale times a zero code stay NaN
+    nscale = escale.clone()
+    nscale[4, 0, 0] = float("nan")
+    kept = dequant.dequant(eq, nscale, keep_nan=True)
+    exact_or_raise("dequant keep_nan", kept, ref.dequant(eq, nscale, keep_nan=True))
+    exact_or_raise("dequant keep_nan, misaligned codes", dequant.dequant(moved, nscale, keep_nan=True),
+                   kept)
+    if not (bool(torch.isnan(kept[0, :3]).all()) and bool(torch.isnan(kept[4, :128]).all())):
+        raise AssertionError("dequant keep_nan: a NaN product did not stay NaN")
     print(f"dequant: plain and carry forms equal to their plain versions (exact at M = {SM}, "
           f"d = {D}, codec codewords and edge-case scales); the carry form also exact on codec "
           f"codewords at [{M * M}, {D}] and [70000, 130]; the plain form also exact at n in "
           f"(1, 3, 50, 512) x d in (1, 127, 128, 129, 3925, 7850) and on codes one byte past a "
-          f"16-byte boundary")
+          f"16-byte boundary; the NaN-keeping form exact, NaN kept")
 
     x_hat, resid = dequant.dequant_carry(q, scale, est, target)
     want = ref.dequant_carry(q, scale, est, target)
@@ -5158,7 +5185,7 @@ MODEL_LOSS_RTOL, MODEL_GRAD_RTOL, MODEL_GRAD_ATOL = 1e-5, 1e-4, 1e-6  # card aga
 FULL_WIDTH_PARAMS = 979_776_512  # qwen3-4b cut to 2 layers, the reference's param_count
 FULL_TICKS = 1  # the full-width run's measured ticks, after one warm-up tick
 FULL_SEQ = 128
-LLM_DEFAULT_STEPS = 2  # train_llm at its default ~126M config
+LLM_DEFAULT_STEPS = 1  # train_llm at its default ~126M config (cut from 2 for phase 27)
 DENSE_CLI_STEPS = 2  # launch.train --reduce for each dense arch
 STREAM_BENCH_CHUNK = 1 << 16  # benchmarks/stream_bench.py's CHUNK, train_llm's --chunk
 WIDE_DECIDE_TICKS = 3
@@ -5556,7 +5583,10 @@ REST_ARCHS = ("deepseek-v2-236b", "deepseek-v3-671b", "rwkv6-3b", "zamba2-1.2b",
 SERVE_CELLS = (("qwen3-4b", None, 4_411_424_256), ("deepseek-v2-236b", 2, 5_358_679_040),
                ("rwkv6-3b", None, 3_073_313_280), ("zamba2-1.2b", None, 1_170_473_856),
                ("whisper-medium", None, 793_605_120), ("qwen2-vl-2b", None, 1_777_030_656))
-SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 32, 32  # examples/serve.py's defaults
+# examples/serve.py's batch and prompt; its 32 greedy tokens cut to 16 so that
+# the script with phase 27 stays inside its time limit (ms a token is the
+# median decode step either way)
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 32, 16
 DECODE_CHECK_TOKENS = 8
 LOGIT_BOUND = 1e-5  # decode logits card against CPU, of the largest
 DECODE_BOUND = 2e-4  # decode against forward, the reference's (tests/test_models.py)
@@ -5731,7 +5761,7 @@ def profile_decode(params, api_, cfg, dev, steps: int = 4) -> tuple[float, float
 
 
 def serve_runs(dev) -> list:
-    """(b) ``serve.generate`` at full width (batch 4, prompt 32, 32 greedy
+    """(b) ``serve.generate`` at full width (batch 4, prompt 32, 16 greedy
     tokens), each config of `SERVE_CELLS` in turn: finite logits, the same
     tokens on a second call, decode against the family's forward over 8
     tokens within 2e-4 of the largest logit (MoE at capacity_factor 8),
@@ -5879,6 +5909,295 @@ def zoo_rest_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the sharded path on torch.distributed, a world of one NCCL rank
+# ---------------------------------------------------------------------------
+
+SHARD_ATTACKS = (("random", False), ("sign_flip", False), ("random", True), ("sign_flip", True))
+SHARD_LEAVES = 2  # the paper cell's linear model: w [M, 784, 10], b [M, 10]
+SHARD_WARM, SHARD_STEPS = 1, 2  # the full-width train step: warm-up, then timed
+SHARD_SEQ = 128
+# 27(b)'s screens held against the CPU: a leaf of at most SHARD_TAIL
+# columns a node whole, a wider one its first SHARD_HEAD and last
+# SHARD_TAIL columns (the top of the embedding's index range)
+SHARD_HEAD, SHARD_TAIL = 1 << 16, 1 << 20
+
+
+def sharded_want(cases, a2a_cases) -> dict:
+    """The launches phase 27(a) makes, worked out from its cases: a screen
+    a leaf (the views kernels on the all_gather schedule, Bulyan's last
+    stage the views trimmed mean; the dense kernels on the all_to_all), a
+    ``dequant`` a leaf of each int8 call; Krum and the means launch none."""
+    want: dict[str, int] = {}
+
+    def add(k, n):
+        want[k] = want.get(k, 0) + n
+
+    for rule, _, q in cases:
+        kernel = {"trimmed_mean": "views_screen_trimmed_mean", "median": "views_screen_median",
+                  "bulyan": "views_screen_trimmed_mean"}.get(rule)
+        if kernel:
+            add(kernel, SHARD_LEAVES)
+        if q:
+            add("dequant", SHARD_LEAVES)
+    for rule, q in a2a_cases:
+        if rule != "mean":
+            add(f"screen_{rule}_dense", SHARD_LEAVES)
+        if q:
+            add("dequant", SHARD_LEAVES)
+    return want
+
+
+def sharded_gossip_runs(dev) -> dict:
+    """(a) `gossip_screen_params` at the paper cell (M = 50 on
+    ``erdos_renyi(50, 0.5, 4)``, b = 4, the linear model's two leaves, d =
+    7850) on a (1, 1) mesh of the NCCL world, against the same call on a
+    (1, 1) CPU mesh of the same world (gloo, the plain versions): the
+    all_gather schedule, trimmed mean, median and mean under random and
+    sign_flip, float and int8, Krum, Bulyan under both attacks, and the
+    int8 mean and trimmed mean over a NaN payload (the decode keeps NaN,
+    as the reference's plain product does); rows 1-2,
+    the mean and the decodes exact (the random attack's rows within
+    `prng.normal`'s tolerance, card against CPU), Krum's picks equal and
+    its rows and Bulyan's within the dot-product bound.  Then the
+    all_to_all schedule at M = 1, its one legal shape on one card (one node
+    a rank): it holds the plumbing and NCCL's all_to_all, not the
+    schedule's arithmetic.  Returns the launches, held to `sharded_want`."""
+    from repro_torch.core.gossip import gossip_screen_params
+    from repro_torch.launch import mesh as mesh_lib
+
+    card = mesh_lib.make_mesh_compat((1, 1), ("data", "model"), device=dev)
+    host = mesh_lib.make_mesh_compat((1, 1), ("data", "model"), device="cpu")
+    topo = erdos_renyi(M, 0.5, B, seed=0)
+    rng = np.random.default_rng(27)
+    params = {"w": rng.normal(size=(M, 784, 10)).astype(np.float32),
+              "b": rng.normal(size=(M, 10)).astype(np.float32)}
+    specs = {"w": ("data", None, "model"), "b": ("data", "model")}
+    byz = np.zeros(M, bool)
+    byz[[3, 17, 29, 41]] = True
+    cases = [(r, a, q) for r in ("trimmed_mean", "median", "mean") for a, q in SHARD_ATTACKS]
+    cases += [("krum", "none", False), ("bulyan", "random", False),
+              ("bulyan", "sign_flip", False)]
+    a2a_cases = [(r, q) for r in ("trimmed_mean", "median", "mean") for q in (False, True)]
+    # a NaN payload in node 7's rows: its int8 scale is NaN and its rows
+    # decode to NaN, as the reference's product does (DGD's mean keeps it)
+    nan_params = {k: v.copy() for k, v in params.items()}
+    for v in nan_params.values():
+        v[7].flat[5] = np.nan
+    nan_cases = [("mean", "none", True), ("trimmed_mean", "none", True)]
+
+    def run(mesh, device, rule, attack, q, *, m=M, schedule="all_gather", src=params):
+        sub = {k: torch.as_tensor(v[:m]).to(device) for k, v in src.items()}
+        adj = torch.as_tensor(topo.adjacency[:m, :m] if m > 1 else np.zeros((1, 1), bool))
+        return gossip_screen_params(
+            sub, specs, mesh=mesh, node_axes=("data",), rule=rule, b=B if m > 1 else 0,
+            adjacency=adj.to(device), schedule=schedule, byz_mask=torch.as_tensor(byz[:m]).to(device),
+            attack=attack, key=prng.PRNGKey(27), t=5, quantize=q)
+
+    zero_launches()
+    got = {c: run(card, dev, *c) for c in cases}
+    got_a2a = {c: run(card, dev, c[0], "none", c[1], m=1, schedule="all_to_all") for c in a2a_cases}
+    got_nan = {c: run(card, dev, *c, src=nan_params) for c in nan_cases}
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for c in cases:
+        want = run(host, "cpu", *c)
+        rule, attack, q = c
+        for k in params:
+            g, w = got[c][k].cpu(), want[k]
+            tag = f"sharded gossip {rule} {attack} {'int8' if q else 'f32'} {k}"
+            if rule in ("krum", "bulyan"):
+                err = float((g - w).abs().max())
+                bound = 1e-5 * max(float(w.abs().max()), 1.0)
+                if rule == "krum" and not torch.equal(g, w):
+                    raise AssertionError(f"{tag}: Krum picked other rows on the card")
+                if err > bound:
+                    raise AssertionError(f"{tag}: {err:.3g} beyond {bound:.3g}")
+            elif attack == "random":
+                torch.testing.assert_close(g, w, rtol=NORMAL_RTOL, atol=10 * 2.2e-5, msg=tag)
+            else:
+                exact_or_raise(tag, g, w)
+    for c in a2a_cases:
+        want = run(host, "cpu", c[0], "none", c[1], m=1, schedule="all_to_all")
+        for k in params:
+            exact_or_raise(f"sharded all_to_all M = 1 {c[0]} {'int8' if c[1] else 'f32'} {k}",
+                           got_a2a[c][k].cpu(), want[k])
+    for c in nan_cases:
+        want = run(host, "cpu", *c, src=nan_params)
+        for k in params:
+            g = got_nan[c][k].cpu()
+            exact_or_raise(f"sharded gossip {c[0]} int8, a NaN payload, {k}", g, want[k])
+            if c[0] == "mean" and not bool(torch.isnan(g).any()):
+                raise AssertionError(f"sharded gossip mean int8 {k}: the NaN payload was not kept")
+    want = sharded_want(cases + nan_cases, a2a_cases)
+    for k, n in launches.items():
+        if n != want.get(k, 0):
+            raise AssertionError(f"phase 27(a): {k} launched {n}, worked out {want.get(k, 0)}")
+    print(f"sharded gossip (a world of one NCCL rank, mesh (1, 1)): M = {M}, b = {B}, d = {D}, "
+          f"all_gather: trimmed mean, median, mean x random, sign_flip x f32, int8; Krum; Bulyan "
+          f"x random, sign_flip: card == CPU (rows 1-2, the mean and the decodes exact; random "
+          f"within the normal's tolerance; Krum's picks equal, K / B within the dot-product "
+          f"bound); all_to_all at M = 1 (one node a rank, the schedule's only shape on one card: "
+          f"NCCL's all_to_all and the plumbing, not the schedule's arithmetic) exact; int8 mean "
+          f"and trimmed mean over a NaN payload exact (NaN kept, as the reference's decode); "
+          f"launches "
+          f"{({k: v for k, v in launches.items() if v})}, as worked out")
+    return launches
+
+
+def sharded_train_run(dev) -> dict:
+    """(b) `make_train_step` at full width: qwen3-4b at its published
+    widths cut to 2 layers (979,776,512 parameters a node), M = 4 nodes on
+    the one rank (mesh (1, 1)), the all_gather schedule, BRIDGE-T, b = 1,
+    gossip first, sequence 128, batch 1 a node: one warm-up step, then
+    SHARD_STEPS timed (host clock to a synchronize) with
+    ``max_memory_allocated`` after a reset, finite losses, then one step
+    under `torch.profiler` (device busy share, kernels a step).  One
+    ``views_screen_trimmed_mean`` launch a leaf and step, held to the count
+    worked out from the config's leaves; returns the run's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.graph import make_topology
+    from repro_torch.data.tokens import TokenPipeline, device_batch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import api as model_api
+
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=2)
+    api_ = model_api.build(cfg)
+    n = model_api.param_count(cfg)
+    if n != FULL_WIDTH_PARAMS:
+        raise AssertionError(f"sharded full width: {n} parameters a node, want {FULL_WIDTH_PARAMS}")
+    m = 4
+    shapes = {k: (m, *s) for k, s in api_.param_shapes(cfg).items()}
+    leaves = len(shapes)
+    steps = SHARD_WARM + SHARD_STEPS + 1  # the profiled step last
+    want = {"views_screen_trimmed_mean": leaves * steps}
+    mesh = mesh_lib.make_mesh_compat((1, 1), ("data", "model"), device=dev)
+    specs = sharding.param_specs(cfg, shapes, node_axes=("data",))
+    topo = make_topology("erdos_renyi:0.9", m, 1, seed=0)
+    step = make_train_step(cfg, mesh, ("data",), specs, torch.as_tensor(topo.adjacency).to(dev),
+                           rule="trimmed_mean", num_byzantine=1, gossip_schedule="all_gather")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    key = prng.PRNGKey(0)
+    params = replicate(api_.init_params(key, cfg, device=dev), m, perturb=0.005, key=key)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pbytes = sum(v.numel() * v.element_size() for v in params.values())
+    pipe = TokenPipeline(cfg.vocab_size, SHARD_SEQ, 1, m, seed=0)
+    zero_launches()
+    losses, rows = [], []
+    for t in range(SHARD_WARM + SHARD_STEPS):
+        batch = device_batch(pipe.batch(t), dev)
+        gc.collect()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t1 = time.perf_counter()
+        params, met = step(params, batch, t)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        rows.append(((time.perf_counter() - t1) * 1e3, torch.cuda.max_memory_allocated(dev),
+                     resident))
+    cuda = torch.autograd.DeviceType.CUDA
+    batch = device_batch(pipe.batch(steps - 1), dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        params, met = step(params, batch, steps - 1)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t1) * 1e3
+    work = [e for e in prof.events() if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.time_range.elapsed_us() for e in work) / 1e3
+    launches = read_launches()
+    for k, v in launches.items():
+        if v != want.get(k, 0):
+            raise AssertionError(f"phase 27(b): {k} launched {v}, worked out {want.get(k, 0)}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"sharded full width: non-finite loss {losses}")
+    cols = sharded_screens_exact(params, specs, mesh, topo.adjacency, m)
+    print(f"sharded train step, qwen3-4b at full width, 2 layers ({n:,} parameters a node, "
+          f"{pbytes} B for M = {m}), mesh (1, 1), all_gather, trimmed mean, b = 1, gossip first, "
+          f"seq {SHARD_SEQ}, batch 1 a node: init {init_s:.1f} s; losses "
+          f"{[round(x, 6) for x in losses]}")
+    for i, (ms, peak, resident) in enumerate(rows):
+        print(f"  sharded step {i} ({'warm-up' if i < SHARD_WARM else 'timed'}): {ms:.1f} ms, "
+              f"max_memory_allocated {peak} B ({peak / 1e9:.2f} GB), resident before {resident} B")
+    timed = [r[0] for r in rows[SHARD_WARM:]]
+    print(f"sharded full width: {statistics.median(timed):.1f} ms a step (median of "
+          f"{SHARD_STEPS}; {timed}), peak {max(r[1] for r in rows[SHARD_WARM:]) / 1e9:.2f} GB; "
+          f"profiled step {prof_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / prof_ms:.1f}%), {len(work)} kernels and copies a step; "
+          f"views_screen_trimmed_mean {launches['views_screen_trimmed_mean']} launches ({leaves} "
+          f"leaves x {steps} steps, as worked out); the step's screen of every leaf at these "
+          f"shapes (M = {m}, b = 1, receivers at stride 0) == the plain screen on the CPU on "
+          f"{cols} columns a node (leaves of at most {SHARD_TAIL} whole, wider ones their first "
+          f"{SHARD_HEAD} and last {SHARD_TAIL})")
+    del params, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_screens_exact(params: dict, specs: dict, mesh, adjacency, m: int) -> int:
+    """27(b)'s screens at the main path's own shapes: the step's gossip
+    (`coordwise_gossip_leaf`, all_gather, BRIDGE-T, b = 1) of each leaf of
+    the final parameters on the card, held exactly against the plain
+    screen (`screening.screen_views` over the same rows on the CPU) on
+    every column of a leaf of at most SHARD_TAIL columns a node and on the
+    first SHARD_HEAD and last SHARD_TAIL of a wider one.  Run after the
+    step's launches are read, so they do not count.  Returns the columns
+    a node held."""
+    from repro_torch.core import screening
+    from repro_torch.core.gossip import coordwise_gossip_leaf
+
+    adj_cpu = torch.as_tensor(adjacency)
+    adj_dev = adj_cpu.to(params[next(iter(params))].device)
+    held = 0
+    for k in sorted(params):
+        y = coordwise_gossip_leaf(params[k], specs[k], mesh=mesh, node_axes=("data",),
+                                  rule="trimmed_mean", b=1, adjacency=adj_dev,
+                                  schedule="all_gather").reshape(m, -1)
+        x = params[k].reshape(m, -1)
+        s = x.shape[1]
+        spans = [(0, s)] if s <= SHARD_TAIL else [(0, SHARD_HEAD), (s - SHARD_TAIL, s)]
+        for lo, hi in spans:
+            xs = x[:, lo:hi].cpu()
+            want = screening.screen_views(xs[None].expand(m, m, hi - lo), adj_cpu, xs,
+                                          rule="trimmed_mean", b=1)
+            exact_or_raise(f"sharded full width screen {k} [{lo}:{hi}]", y[:, lo:hi].cpu(), want)
+            held += hi - lo
+        del y
+    return held
+
+
+def sharded_phase(dev):
+    """Phase 27 (the module docstring's list) in a world of one NCCL rank
+    (gloo beside it for the CPU mesh), torn down after; returns the
+    phase's launches, the sum of its two runs'."""
+    from repro_torch.device import set_numerics
+    from repro_torch.launch import mesh as mesh_lib
+
+    set_numerics()
+    t_phase = time.perf_counter()
+    mesh_lib.init_world(dev.type)
+    try:
+        a = sharded_gossip_runs(dev)
+        t0 = time.perf_counter()
+        b = sharded_train_run(dev)
+        print(f"(phase 27(b) full width: {time.perf_counter() - t0:.1f} s)")
+    finally:
+        mesh_lib.close_world()
+    print(f"(phase 27 alone: {time.perf_counter() - t_phase:.1f} s)")
+    return {k: a[k] + b[k] for k in a}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -5944,6 +6263,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_launches["zoo_rest_phase"] = zoo_rest_phase(dev)
     print(f"(zoo_rest_phase: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_launches["sharded_phase"] = sharded_phase(dev)
+    print(f"(sharded_phase: {time.perf_counter() - t0:.1f} s)")
     for rec in records:
         if rec["name"].endswith("[E]"):  # this phase's grid engines ran the experiment forms
             rec["launches"] += breakdown_engines.get(rec["name"][:-len("[E]")], 0)

@@ -59,7 +59,7 @@ SIGNATURES = {
                                            _INT, _INT, _INT, _INT, _INT, _INT, _PTR),
     "gather_dequant_screen_median": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                                      _INT, _INT, _INT, _INT, _PTR),
-    "dequant": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR),
+    "dequant": (_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
     "dequant_carry": (_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR),
     "pairwise_sq_dists": (_PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR),
     # x, its batch and row strides, self_vals (or null) and its stride, out,

@@ -7,7 +7,9 @@
 // q [n, d] int8 codes and one affine pair (scale, zero) per SCALE_BLOCK = 128
 // coordinates, scale [n, S, 2] float32 with S = ceil(d / 128).
 //   * dequant: out = q * scale + zero, rounded once (__fmaf_rn), with NaN (an
-//     inf scale times a zero code) mapped to +inf, as dequant_pallas does.
+//     inf scale times a zero code) mapped to +inf, as dequant_pallas does;
+//     with keep_nan != 0 a NaN stays NaN: the plain product q * scale that
+//     src/repro/core/gossip.py decodes its int8 gossip with (zero 0).
 //   * dequant_carry: the decode the trainer runs, with the codec's
 //     error-feedback carry (src/repro/comm/exchange.py::decode_bank) in the
 //     same pass: x_hat = est + decoded and resid = target - decoded.  For a
@@ -82,25 +84,28 @@ __device__ __forceinline__ float2 pair_at(const float* __restrict__ scale, size_
   return make_float2(__ldg(p), __ldg(p + 1));
 }
 
+// KeepNan: a NaN product stays NaN; otherwise it becomes +inf.
+template <bool KeepNan>
 __device__ __forceinline__ float decode(int code, float2 sz) {
   const float v = __fmaf_rn(static_cast<float>(code), sz.x, sz.y);
-  return isnan(v) ? CUDART_INF_F : v;
+  return !KeepNan && isnan(v) ? CUDART_INF_F : v;
 }
 
 // Element e of the flat [n * d] codeword, alone.
+template <bool KeepNan>
 __device__ __forceinline__ void dequant_one(const int8_t* __restrict__ q,
                                             const float* __restrict__ scale,
                                             float* __restrict__ out, size_t e, int d, int nblk) {
   const size_t row = e / d;
   const int c = static_cast<int>(e - row * d);
-  out[e] = decode(q[e], pair_at(scale, row, c >> 7, nblk));
+  out[e] = decode<KeepNan>(q[e], pair_at(scale, row, c >> 7, nblk));
 }
 
 // Group g decodes codes head + 4 g .. head + 4 g + 3, thread t of the grid
 // groups t, t + threads, ...; block 0 also decodes the `head` codes before
 // the groups and the ones after the last.  Index: the flat index's type,
-// 32-bit when n * d fits.
-template <class Index>
+// 32-bit when n * d fits; KeepNan as in decode.
+template <class Index, bool KeepNan>
 __global__ void __launch_bounds__(kVecThreads)
 dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
                float* __restrict__ out, int d, int nblk, Index total, int head, Index groups,
@@ -116,7 +121,7 @@ dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
     float f[kGroup];
 #pragma unroll
     for (int k = 0; k < kGroup; ++k) {
-      f[k] = decode(static_cast<int>(word << (24 - 8 * k)) >> 24, sz);  // byte k, signed
+      f[k] = decode<KeepNan>(static_cast<int>(word << (24 - 8 * k)) >> 24, sz);  // byte k, signed
       if (k + 1 < kGroup) {
         if (++c == d) {
           c = 0;
@@ -136,12 +141,14 @@ dequant_kernel(const int8_t* __restrict__ q, const float* __restrict__ scale,
   }
   if (blockIdx.x == 0) {
     const Index after = head + groups * kGroup;
-    if (threadIdx.x < head) dequant_one(q, scale, out, threadIdx.x, d, nblk);
-    if (threadIdx.x < total - after) dequant_one(q, scale, out, after + threadIdx.x, d, nblk);
+    if (threadIdx.x < head) dequant_one<KeepNan>(q, scale, out, threadIdx.x, d, nblk);
+    if (threadIdx.x < total - after) {
+      dequant_one<KeepNan>(q, scale, out, after + threadIdx.x, d, nblk);
+    }
   }
 }
 
-template <class Index>
+template <class Index, bool KeepNan>
 int launch_dequant(const int8_t* q, const float* scale, float* out, int d, int nblk,
                    long long total, cudaStream_t s) {
   // the codes before q's first 4-byte boundary
@@ -158,7 +165,7 @@ int launch_dequant(const int8_t* q, const float* scale, float* out, int d, int n
   const long long most = static_cast<long long>(sms) * kBlocksPerSm;
   const long long needed = (groups + kVecThreads - 1) / kVecThreads;
   const long long blocks = needed < 1 ? 1 : needed < most ? needed : most;
-  dequant_kernel<Index><<<static_cast<unsigned>(blocks), kVecThreads, 0, s>>>(
+  dequant_kernel<Index, KeepNan><<<static_cast<unsigned>(blocks), kVecThreads, 0, s>>>(
       q, scale, out, d, nblk, static_cast<Index>(total), head, static_cast<Index>(groups),
       vec_store);
   return cudaGetLastError();
@@ -197,17 +204,25 @@ dequant_carry_kernel(const int8_t* __restrict__ q, const float* __restrict__ sca
   }
 }
 
+template <bool KeepNan>
+int dispatch_dequant(const int8_t* q, const float* scale, float* out, int d, int nblk,
+                     long long total, cudaStream_t s) {
+  return total < (1ll << 32)
+             ? launch_dequant<unsigned, KeepNan>(q, scale, out, d, nblk, total, s)
+             : launch_dequant<size_t, KeepNan>(q, scale, out, d, nblk, total, s);
+}
+
 }  // namespace
 
 // C entry points (bound with ctypes); each returns cudaGetLastError() after
 // its launch.  nblk is the number of scale pairs per row, ceil(d / 128).
 extern "C" int dequant(const int8_t* q, const float* scale, float* out, int n, int d, int nblk,
-                       void* stream) {
+                       int keep_nan, void* stream) {
   if (n < 1 || d < 1 || nblk != (d + kBlock - 1) / kBlock) return cudaErrorInvalidValue;
   const long long total = static_cast<long long>(n) * d;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return total < (1ll << 32) ? launch_dequant<unsigned>(q, scale, out, d, nblk, total, s)
-                             : launch_dequant<size_t>(q, scale, out, d, nblk, total, s);
+  return keep_nan ? dispatch_dequant<true>(q, scale, out, d, nblk, total, s)
+                  : dispatch_dequant<false>(q, scale, out, d, nblk, total, s);
 }
 
 extern "C" int dequant_carry(const int8_t* q, const float* scale, const float* est,

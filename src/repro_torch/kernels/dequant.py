@@ -4,7 +4,8 @@
 
 A codeword is ``q [n, d]`` int8 codes and ``scale [n, S, 2]`` float32,
 one ``(scale, zero)`` pair per `ref.SCALE_BLOCK` coordinates
-(`repro_torch.comm.codec`).  `dequant` decodes it (NaN -> +inf);
+(`repro_torch.comm.codec`).  `dequant` decodes it (NaN -> +inf, or
+kept NaN where the caller asks, as the sharded gossip's plain product);
 `dequant_carry` is the trainer's decode, which also advances the codec's
 error-feedback carry (see `ref.dequant_carry` for its rounding).  A CPU
 tensor goes to the plain version; a CUDA tensor launches the kernel or
@@ -46,18 +47,18 @@ def check_codeword_rows(q: torch.Tensor, scale: torch.Tensor, self_vals: torch.T
                          f"q {tuple(q.shape)} on {q.device}")
 
 
-def dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """``q * scale + zero`` per coordinate, rounded once; NaN -> +inf.
-    Returns ``[n, d]`` float32."""
+def dequant(q: torch.Tensor, scale: torch.Tensor, keep_nan: bool = False) -> torch.Tensor:
+    """``q * scale + zero`` per coordinate, rounded once; NaN -> +inf
+    unless ``keep_nan``.  Returns ``[n, d]`` float32."""
     check_codeword(q, scale)
     if q.device.type == "cpu":
-        return ref.dequant(q, scale)
+        return ref.dequant(q, scale, keep_nan)
     if q.device.type != "cuda":
         raise ValueError(f"no dequant kernel for device {q.device}")
     n, d = q.shape
     out = torch.empty((n, d), dtype=torch.float32, device=q.device)
     err = build.load().dequant(q.data_ptr(), scale.data_ptr(), out.data_ptr(), n, d,
-                               scale.shape[1], build.stream_of(q))
+                               scale.shape[1], int(bool(keep_nan)), build.stream_of(q))
     build.check_launch(err, "dequant")
     dequant.launches += 1
     return out

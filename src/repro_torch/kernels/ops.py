@@ -78,9 +78,9 @@ def views_median(views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tenso
         return views_screen_median(views, mask, self_vals)
 
 
-def dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def dequant(q: torch.Tensor, scale: torch.Tensor, keep_nan: bool = False) -> torch.Tensor:
     with torch.profiler.record_function("kernels.dequant"):
-        return _dequant.dequant(q, scale)
+        return _dequant.dequant(q, scale, keep_nan)
 
 
 def dequant_carry(q: torch.Tensor, scale: torch.Tensor, est: torch.Tensor,

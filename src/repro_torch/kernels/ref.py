@@ -353,12 +353,14 @@ def expand_scales(scale: torch.Tensor, d: int) -> tuple[torch.Tensor, torch.Tens
     return s, z
 
 
-def dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def dequant(q: torch.Tensor, scale: torch.Tensor, keep_nan: bool = False) -> torch.Tensor:
     """Decode int8 codes ``q [n, d]`` with one ``(scale, zero)`` pair per
     `SCALE_BLOCK` coordinates (``scale [n, S, 2]``): ``q * scale + zero``,
-    rounded once; NaN (an inf scale times a zero code) becomes +inf."""
+    rounded once; NaN (an inf scale times a zero code, or a NaN scale)
+    becomes +inf unless ``keep_nan``."""
     s, z = expand_scales(scale, q.shape[-1])
-    return sanitize(fma_f32(q.float(), s, z))
+    out = fma_f32(q.float(), s, z)
+    return out if keep_nan else sanitize(out)
 
 
 def dequant_carry(q: torch.Tensor, scale: torch.Tensor, est: torch.Tensor, target: torch.Tensor,

@@ -320,6 +320,24 @@ def test_dequant_kernels_equal_plain_on_card(cuda_device, n, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(4, 300), (50, 7850), (3, 129)])
+def test_dequant_keep_nan_on_card(cuda_device, n, d):
+    """The NaN-keeping form (the sharded gossip's decode): a NaN scale, and
+    an inf scale times a zero code, stay NaN; every other product is the
+    default form's, which maps those NaN to +inf."""
+    q, scale = codeword(max(n, 4), d, seed=n + d)
+    q, scale = q[:n], scale[:n].copy()
+    scale[n - 1, -1, 0] = np.nan
+    q, scale = (torch.from_numpy(x).to(cuda_device) for x in (q, scale))
+    kept = dequant.dequant(q, scale, keep_nan=True)
+    assert bool(nan_equal(kept, ref.dequant(q, scale, keep_nan=True)).all())
+    assert bool(torch.isnan(kept[0, :5]).all()) and bool(torch.isnan(kept[n - 1, -1]))
+    plain = dequant.dequant(q, scale)
+    nan = torch.isnan(kept)
+    assert bool((plain[nan] == torch.inf).all()) and bool(nan_equal(plain[~nan], kept[~nan]).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [1, 127, 128, 129, 3925, 7850])
 def test_dequant_odd_shapes_on_card(cuda_device, d):
     """The decode walks the flat [n * d] codes in groups of 4: exact at row
