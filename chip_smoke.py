@@ -334,7 +334,7 @@ failure of which raises:
    ``decode_step`` logits on the card against the CPU (loss rtol 1e-5,
    gradients rtol 1e-4 / atol 1e-6, the embedding's gradient and the
    logits within 1e-5 of their largest); (b) ``serve.generate`` at full
-   width (batch 4, prompt 32, 16 greedy tokens) for qwen3-4b,
+   width (batch 4, prompt 32, 8 greedy tokens) for qwen3-4b,
    deepseek-v2-236b cut to 2 layers (one dense, one MoE), rwkv6-3b,
    zamba2-1.2b, whisper-medium and qwen2-vl-2b: finite logits, the same
    tokens twice, decode against the family's forward within 2e-4 over 8
@@ -359,7 +359,28 @@ failure of which raises:
    BRIDGE-T, b = 1, gossip first, sequence 128: a warm-up step and 2 timed
    (ms a step, ``max_memory_allocated``), one under ``torch.profiler``
    (busy share, kernels a step), finite losses, one views trimmed-mean
-   launch a leaf and step.
+   launch a leaf and step;
+28. the contract gate on the card (`repro_torch.analysis`) — (a)
+   ``driver.run_all`` over the five canonical programs at the reference's
+   sizes and all five passes: every verdict of the 16 contracts PASS,
+   none SKIP, the verdict table printed; (b) the same programs (rule,
+   attack, codec) at the main path's widths: flat and metrics at dense
+   M = 50 (``erdos_renyi(50, 0.5, 4)``, b = 4, d = 7850), net on that graph
+   (drop 0.2, staleness 5), sparse on ``small_world(512, 6, 2)`` (b = 2,
+   d = 7850, its dense ``[M, M, d]`` budget 8,231,321,600 B), stream at
+   M = 8 with leaves of 2^25 and 2^24 columns at ``screen_chunk`` 65536
+   (its flat ``[M, d]`` budget 1,610,612,736 B): after a warm-up tick, the
+   keys a tick draws, its fence sites and the apply's bits, its largest
+   float tensor and peak over the resident bytes beside the budget, a
+   3-tick ``run_chunks`` keeping no earlier carry (weak references, the
+   allocated bytes) and an identical re-run building nothing; (a) and each
+   cell of (b) held to the launches worked out from their ticks
+   (`gate_want`); (c) four defects planted through local wrappers, each of
+   which the gate must FAIL: a key reused across two frames, the apply as
+   one ``torch.addcmul`` (no fence site), the apply rounded once (its
+   site named, its bits wrong), a ``run_chunks`` keeping every tick's
+   state; (c)'s launches are checked on their own and left out of the
+   phase's count.
 
 Every accuracy of phases 8-11 and 21 must land within 0.01 of the reference's
 own CPU run at the same settings (``REFERENCE_ACCURACY``, from
@@ -368,7 +389,7 @@ Krum's picks (``PICK_BOUND``), which is held to card-vs-CPU parity.
 
 Each configuration of a trainer phase trains on a task of its own, so all
 see batches 0..199 of one stream.  Before each main-path phase (5-12,
-16-27) every kernel's launch count is set to 0, and read
+16-28) every kernel's launch count is set to 0, and read
 after its runs: each kernel of the phase must have launched once per
 tick of the runs of its rule (codec), the others not at all; a kernel's
 ``launches`` in the JSON line is the sum over the phases.  Then each
@@ -5583,10 +5604,10 @@ REST_ARCHS = ("deepseek-v2-236b", "deepseek-v3-671b", "rwkv6-3b", "zamba2-1.2b",
 SERVE_CELLS = (("qwen3-4b", None, 4_411_424_256), ("deepseek-v2-236b", 2, 5_358_679_040),
                ("rwkv6-3b", None, 3_073_313_280), ("zamba2-1.2b", None, 1_170_473_856),
                ("whisper-medium", None, 793_605_120), ("qwen2-vl-2b", None, 1_777_030_656))
-# examples/serve.py's batch and prompt; its 32 greedy tokens cut to 16 so that
-# the script with phase 27 stays inside its time limit (ms a token is the
-# median decode step either way)
-SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 32, 16
+# examples/serve.py's batch and prompt; its 32 greedy tokens cut to 16 for
+# phase 27 and to 8 for phase 28, so that the script stays inside its time
+# limit (ms a token is the median decode step either way)
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 32, 8
 DECODE_CHECK_TOKENS = 8
 LOGIT_BOUND = 1e-5  # decode logits card against CPU, of the largest
 DECODE_BOUND = 2e-4  # decode against forward, the reference's (tests/test_models.py)
@@ -5761,7 +5782,7 @@ def profile_decode(params, api_, cfg, dev, steps: int = 4) -> tuple[float, float
 
 
 def serve_runs(dev) -> list:
-    """(b) ``serve.generate`` at full width (batch 4, prompt 32, 16 greedy
+    """(b) ``serve.generate`` at full width (batch 4, prompt 32, 8 greedy
     tokens), each config of `SERVE_CELLS` in turn: finite logits, the same
     tokens on a second call, decode against the family's forward over 8
     tokens within 2e-4 of the largest logit (MoE at capacity_factor 8),
@@ -6198,6 +6219,288 @@ def sharded_phase(dev):
     return {k: a[k] + b[k] for k in a}
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the contract gate on the card (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+# the main path's widths of the canonical programs (phase 28(b))
+GATE_STREAM_LEAVES = {"w1": 1 << 25, "w2": 1 << 24}
+GATE_STREAM_CHUNK = 1 << 16
+GATE_TICKS = 3
+# the ticks of phase 28(a)'s runs, each program's: its recorded tick (keys
+# and fences), the memory pass's tick where it declares a budget (sparse,
+# stream), the carry check's chunk and the retrace check's two runs (a
+# fresh flat program each); the set_cells check runs `build_grid`'s six
+# ticks twice
+GATE_GRID_TICKS = 2 * 6
+# phase 28(b)'s ticks a cell: a warm-up, the memory pass's, one recorded
+# chunk, its identical re-run
+GATE_WIDTH_TICKS = 2 + 2 * GATE_TICKS
+
+
+def gate_reference_ticks() -> dict:
+    from repro_torch.analysis import driver as gate_driver
+
+    return {"flat": 1 + gate_driver.CARRY_TICKS + 2 * gate_driver.RETRACE_STEPS,
+            "metrics": 1, "net": 1, "sparse": 2, "stream": 2}
+
+
+def gate_stream_blocks(leaves: dict, chunk: int) -> int:
+    return sum(-(-n // chunk) for n in leaves.values())
+
+
+def gate_want(ticks: dict, blocks: int, want: dict | None = None) -> dict:
+    """The launches of ``ticks`` (program -> ticks) of the gate programs,
+    the stream's at ``blocks`` blocks a tick, added to ``want``: each tick
+    screens by the median (dense, over the sparse table, over the net's
+    mailbox views) and, under the int8 codec (all but sparse), decodes
+    with the carry; the stream does both once a block."""
+    per_tick = {"flat": {"screen_median_dense": 1, "dequant_carry": 1},
+                "metrics": {"screen_median_dense": 1, "dequant_carry": 1},
+                "net": {"views_screen_median": 1, "dequant_carry": 1},
+                "sparse": {"gather_screen_median": 1},
+                "stream": {"screen_median_dense": blocks, "dequant_carry": blocks}}
+    want = dict(want or {})
+    for name, n in ticks.items():
+        for k, v in per_tick[name].items():
+            want[k] = want.get(k, 0) + n * v
+    return want
+
+
+def gate_width_programs(dev) -> dict:
+    """Phase 28(b)'s programs: the reference's rule, attack and codec at
+    the main path's widths."""
+    from repro_torch.analysis import programs as gate_programs
+
+    dense = erdos_renyi(M, 0.5, B)
+    return {
+        "flat": lambda: gate_programs.build_flat(dev, topology=dense, d=D, num_byzantine=B),
+        "metrics": lambda: gate_programs.build_metrics(dev, topology=dense, d=D,
+                                                       num_byzantine=B),
+        "net": lambda: gate_programs.build_net(dev, topology=dense, d=D, num_byzantine=B),
+        "sparse": lambda: gate_programs.build_sparse(dev, topology=small_world(SM, 6, 2), d=D,
+                                                     num_byzantine=2),
+        "stream": lambda: gate_programs.build_stream(dev, leaves=GATE_STREAM_LEAVES,
+                                                     screen_chunk=GATE_STREAM_CHUNK),
+    }
+
+
+def gate_or_raise(tag: str, results) -> None:
+    bad = [r for r in results if r.status != "PASS"]
+    if bad:
+        raise AssertionError(f"phase 28{tag}: " + "; ".join(
+            f"{r.status} {r.contract} [{r.program}]: {r.detail}" for r in bad))
+
+
+def gate_reference_sizes(dev) -> None:
+    """Phase 28(a): the gate at the reference's sizes, every verdict PASS,
+    its launches those of its ticks (the grid's two cells one launch a
+    tick each)."""
+    from repro_torch.analysis import collect, driver as gate_driver, summarize
+
+    before = read_launches()
+    results = gate_driver.run_all(device=dev)
+    # the stream program's blocks at `build_stream`'s default leaves and chunk
+    check_grew("phase 28(a)", before, gate_want(
+        gate_reference_ticks(), gate_stream_blocks({"w1": 512, "w2": 256}, 64),
+        {"screen_median_dense": GATE_GRID_TICKS, "screen_trimmed_mean_dense": GATE_GRID_TICKS}))
+    print(summarize(results))
+    gate_or_raise("(a)", results)
+    missing = {c.name for c in collect()} - {r.contract for r in results}
+    if missing:
+        raise AssertionError(f"phase 28(a): no verdict for {sorted(missing)}")
+
+
+def gate_width_cell(name: str, prog, contracts: dict) -> dict:
+    """Phase 28(b) on one program: a warm-up tick, then the passes; prints
+    the numbers, raises on a FAIL; returns the fence record."""
+    from repro_torch.analysis import driver as gate_driver, fence as gate_fence
+    from repro_torch.analysis import memory as gate_memory, prng as gate_prng
+    from repro_torch.analysis import retrace as gate_retrace
+    from repro_torch.device import wait
+
+    t0 = time.perf_counter()
+    secs = {}
+    before = read_launches()
+
+    def lap(what):
+        wait(prog.device)
+        secs[what] = round(time.perf_counter() - t0 - sum(secs.values()), 1)
+
+    prog.tick()  # warm-up: plans and the allocator
+    lap("warm-up")
+    mem = prog.memory_record
+    lap("memory")
+    results = []
+    budget = ""
+    for budget_id, (ceiling, label) in prog.budgets.items():
+        results.append(gate_memory.check_budget(contracts[budget_id], name, mem, ceiling, label))
+        budget = f" < {label} budget {ceiling} B"
+    # the keys, the fence sites and the carry over one chunk of GATE_TICKS
+    m0 = gate_retrace.cache_misses()
+    with (gate_prng.recording() as rec, gate_fence.recording() as fr,
+          gate_fence.probe_apply(fr)):
+        carry = gate_memory.carry_run(prog.trainer, prog.state, prog.batch_fn,
+                                      num_steps=GATE_TICKS)
+    fr.ticks = GATE_TICKS
+    results += [gate_driver.prng_result(contracts["prng"], name, rec),
+                gate_fence.check_fence_floor(contracts["fence"], name, fr),
+                gate_memory.check_carry(contracts["donation"], name, carry, GATE_TICKS)]
+    m1 = gate_retrace.cache_misses()
+    lap("prng, fence and carry")
+    prog.trainer.run_chunks(prog.state, prog.batch_fn, GATE_TICKS, chunk=GATE_TICKS)
+    m2 = gate_retrace.cache_misses()
+    lap("re-run")
+    first = {k: m1[k] - m0[k] for k in m1 if m1[k] != m0[k]}
+    again = {k: m2[k] - m1[k] for k in m2 if m2[k] != m1[k]}
+    print(f"gate width {name}: prng {rec.draws} draws under {len(rec.uses)} keys over "
+          f"{GATE_TICKS} ticks, {len(gate_prng.find_reuse(rec))} reused; fence sites a tick "
+          f"{fr.per_tick():g} (apply {fr.per_tick(gate_fence.APPLY_SITE):g}), apply "
+          f"{fr.apply_elements - fr.apply_mismatches}/{fr.apply_elements} elements "
+          f"y - fence(rho g) bit for bit; largest float tensor {mem.largest} B "
+          f"({mem.largest_what}), peak transient {mem.transient} B (requested peak {mem.peak} B, "
+          f"before {mem.before} B, after {mem.after} B; "
+          f"max_memory_allocated over the bytes before the tick {mem.allocated_over_before} "
+          f"B){budget}; carry: {carry.tracked - carry.alive}/{carry.tracked} first-tick tensors "
+          f"freed after {GATE_TICKS} ticks, requested bytes grew {carry.grew} B (a carry "
+          f"{carry.carry_bytes} B); builds first run {first or 0}, identical re-run "
+          f"{sum(again.values())} ({time.perf_counter() - t0:.1f} s: {secs})")
+    if again:
+        raise AssertionError(f"phase 28(b) {name}: the identical re-run built {again}")
+    gate_or_raise(f"(b) {name}", results)
+    check_grew(f"phase 28(b) {name}", before, gate_want(
+        {name: GATE_WIDTH_TICKS}, gate_stream_blocks(GATE_STREAM_LEAVES, GATE_STREAM_CHUNK)))
+    return fr
+
+
+def gate_widths(dev) -> None:
+    """Phase 28(b): the passes at the main path's widths."""
+    from repro_torch.analysis import collect, fence as gate_fence
+    from repro_torch.device import wait
+
+    by_name = {c.name: c for c in collect()}
+    contracts = {
+        "prng": by_name["bridge.prng.single_use"],
+        "fence": by_name["screening.fence.survives"],
+        "dense_mmd": by_name["bridge.sparse.no_dense_mmd"],
+        "flat_md": by_name["stream.peak_memory.flat_bound"],
+        "donation": by_name["bridge.chunk_carry.donated"],
+    }
+    records = {}
+    for name, make in gate_width_programs(dev).items():
+        c = dict(contracts, prng=by_name["stream.prng.per_block_keys"]) if name == "stream" \
+            else contracts
+        t0 = time.perf_counter()
+        prog = make()
+        wait(prog.device)
+        print(f"gate width {name}: built in {time.perf_counter() - t0:.1f} s")
+        records[name] = gate_width_cell(name, prog, c)
+        del prog
+        gc.collect()
+        torch.cuda.empty_cache()
+    res = gate_fence.check_metrics_fence_delta(by_name["screening.metrics.gradnorm_unfused"],
+                                               records["flat"], records["metrics"])
+    print(f"gate width metrics delta: {res.status} — {res.detail}")
+    gate_or_raise("(b) metrics delta", [res])
+
+
+def gate_planted_defects(dev) -> None:
+    """Phase 28(c): four defects put in through local wrappers; the gate
+    must FAIL each.  Every defect runs the flat program at the reference's
+    sizes: one recorded tick each, the carry check's chunk for the kept
+    states; the launches are checked here and left out of the phase's."""
+    from repro_torch.analysis import collect, driver as gate_driver, fence as gate_fence
+    from repro_torch.analysis import programs as gate_programs
+    from repro_torch.core import bridge as bridge_lib
+    from repro_torch.fence import fence
+
+    by_name = {c.name: c for c in collect()}
+    failed = {}
+    before = read_launches()
+
+    # a key reused across two frames: the tick's codec-like rounding drawn
+    # from the random attack's own key (uniform where the attack draws normal)
+    prog = gate_programs.build_flat(dev)
+    inner = prog.trainer.step
+
+    def reusing(state, batch):
+        sub = prng.split(state.key)[1]
+        prng.uniform(prng.fold_in(sub, state.t), prog.state.params["w"].shape, dev)
+        return inner(state, batch)
+
+    prog.trainer.step = reusing
+    failed["key reuse"] = gate_driver.prng_result(by_name["bridge.prng.single_use"], prog.name,
+                                                  prog.key_record)
+
+    # the apply as one fused op
+    def fused(y, rho, g):
+        return torch.addcmul(y, g, torch.tensor(rho, dtype=torch.float32, device=y.device),
+                             value=-1.0)
+
+    # the apply rounded once, as a kernel contracting y - rho * g into one
+    # fused multiply-add would: the exact product (float32 rho and g) and
+    # the difference in float64, then one rounding at the apply's named site
+    def once(y, rho, g):
+        rho32 = torch.as_tensor(rho, dtype=torch.float32, device=y.device)
+        return fence(y.double() - rho32.double() * g.double(), gate_fence.APPLY_SITE)
+
+    saved = bridge_lib.apply_update
+    for what, apply in (("addcmul apply", fused), ("one-rounding apply", once)):
+        bridge_lib.apply_update = apply
+        try:
+            prog = gate_programs.build_flat(dev)
+            rec = prog.fence_record
+            failed[what] = gate_fence.check_fence_floor(
+                by_name["screening.fence.survives"], "flat", rec)
+        finally:
+            bridge_lib.apply_update = saved
+        print(f"gate planted {what}: {rec.apply_mismatches} of {rec.apply_elements} apply "
+              f"elements differ from y - fence(rho g) on {dev}, apply site passed "
+              f"{rec.count(gate_fence.APPLY_SITE)} time(s)")
+    if not (failed["one-rounding apply"].status == "FAIL" and rec.apply_mismatches > 0
+            and rec.count(gate_fence.APPLY_SITE) > 0):
+        raise AssertionError("phase 28(c): the one-rounding apply did not fail the bit check")
+
+    # run_chunks keeping every tick's state
+    prog = gate_programs.build_flat(dev)
+    kept, inner_keep = [], prog.trainer.step
+
+    def keeping(state, batch):
+        new, metrics = inner_keep(state, batch)
+        kept.append(new)
+        return new, metrics
+
+    prog.trainer.step = keeping
+    failed["kept states"] = gate_driver.carry_result(by_name["bridge.chunk_carry.donated"], prog)
+    for what, res in failed.items():
+        print(f"gate planted {what}: {res.status} {res.contract} — {res.detail}")
+        if res.status != "FAIL":
+            raise AssertionError(f"phase 28(c): the gate passed a planted {what}")
+    check_grew("phase 28(c)", before, gate_want({"flat": 3 + gate_driver.CARRY_TICKS}, 0))
+
+
+def contract_phase(dev):
+    """Phase 28 (the module docstring's list); returns the phase's
+    launches."""
+    from repro_torch.device import set_numerics
+
+    set_numerics()
+    t_phase = time.perf_counter()
+    zero_launches()
+    gate_reference_sizes(dev)
+    print(f"(phase 28(a): {time.perf_counter() - t_phase:.1f} s)")
+    t0 = time.perf_counter()
+    gate_widths(dev)
+    print(f"(phase 28(b): {time.perf_counter() - t0:.1f} s)")
+    launches = read_launches()
+    t0 = time.perf_counter()
+    gate_planted_defects(dev)
+    print(f"(phase 28(c): {time.perf_counter() - t0:.1f} s)")
+    set_launches(launches)
+    print(f"(phase 28 alone: {time.perf_counter() - t_phase:.1f} s)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -6266,6 +6569,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_launches["sharded_phase"] = sharded_phase(dev)
     print(f"(sharded_phase: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_launches["contract_phase"] = contract_phase(dev)
+    print(f"(contract_phase: {time.perf_counter() - t0:.1f} s)")
     for rec in records:
         if rec["name"].endswith("[E]"):  # this phase's grid engines ran the experiment forms
             rec["launches"] += breakdown_engines.get(rec["name"][:-len("[E]")], 0)

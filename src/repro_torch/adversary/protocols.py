@@ -34,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import Contract
 from repro_torch.core import byzantine as byz_lib
 from repro_torch.kernels import ref
 
@@ -395,3 +396,18 @@ def apply_accuse_bank(bank, adv_idx, theta, digests, byz_mask, key, t):
     out, _ = _banked(fns, adv_idx, AdvCtx(), None, theta, digests, byz_mask, key,
                      lambda fn, c, st, th, dg, bm, k, _: (fn(th, dg, bm, k, t), st))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Contracts (`python -m repro_torch.analysis`)
+# ---------------------------------------------------------------------------
+
+CONTRACTS: tuple[Contract, ...] = (
+    Contract(
+        "adversary.tiers.partition", "lint",
+        "every name in the attack namespace belongs to exactly one of the "
+        "six registry tiers (broadcast / message / wire / adversary / "
+        "equivocator / slanderer)",
+        params=(("check", "adversary_tiers"),),
+    ),
+)

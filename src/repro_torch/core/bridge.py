@@ -100,6 +100,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.adversary import protocols as adv_lib
+from repro_torch.analysis.contracts import Contract
 from repro_torch.comm import codec as codec_lib
 from repro_torch.comm import exchange
 from repro_torch.core import byzantine, screening
@@ -451,9 +452,19 @@ def trust_stage(spec, state: BridgeState, metrics: dict, *, trim, screened, live
     return new
 
 
+def apply_update(y: torch.Tensor, rho, g: torch.Tensor) -> torch.Tensor:
+    """(Step 6) ``y - rho * g``, the product through `screening.fence`
+    first: rounded once to float32 before the subtract, never contracted
+    with it into one fused multiply-add (the reference's fence,
+    `repro.core.bridge`'s apply).  ``rho`` a float or ``[E, 1, 1]``."""
+    return y - screening.fence(rho * g, "bridge.apply")
+
+
 def grad_norm(g: torch.Tensor, honest: torch.Tensor) -> torch.Tensor:
     """The ``grad_norm`` metric: the honest nodes' mean per-node gradient
-    l2 norm, one a cell (``g [E, M, d]``, ``honest [E, M]``)."""
+    l2 norm, one a cell (``g [E, M, d]``, ``honest [E, M]``), over the
+    fenced gradient (the reference's)."""
+    g = screening.fence(g, "bridge.grad_norm")
     gn = torch.sqrt(torch.sum(g * g, dim=-1))
     return (torch.sum(torch.where(honest, gn, 0.0), dim=-1)
             / torch.sum(honest, dim=-1).to(torch.float32))
@@ -586,7 +597,7 @@ def build_cell_step(grad_fn: Callable, adjacency: torch.Tensor, rules: tuple[str
             losses, grads = grad_fn(state.params, batch)
             g, _ = stack_flatten(grads, lead=2)
             rho = cell_step_size(cell.lam, cell.t0, cell.lr, state.t)
-            w_new = y - _per_cell(rho, w.device) * g
+            w_new = apply_update(y, _per_cell(rho, w.device), g)
             metrics = cell_metrics(w_new, losses, ~cell.byz_mask, rho,
                                    exchange.wire_bits_bank(codec_bank, cell.codec_idx or None, d),
                                    n_edges, comm)
@@ -829,7 +840,7 @@ def build_cell_runtime_step(grad_fn: Callable, runtime, rules: tuple[str, ...],
             losses, grads = grad_fn(state.params, batch)
             g, _ = stack_flatten(grads, lead=2)
             rho = cell_step_size(cell.lam, cell.t0, cell.lr, state.t)
-            w_new = y - _per_cell(rho, w.device) * g
+            w_new = apply_update(y, _per_cell(rho, w.device), g)
             live = torch.sum(adj_t, dim=(-2, -1)).to(torch.float32).expand(e)
             metrics = cell_metrics(w_new, losses, ~cell.byz_mask, rho, bits, live, comm)
             if cell.metrics is not None:
@@ -1103,3 +1114,52 @@ class BridgeTrainer(CellTrainer):
                                 np.asarray(sub, np.uint32)[None], x[None],
                                 _cells(comm, lambda a: a[None]), self.byz_mask[None], t)
         return x_hat[0], _cells(new, lambda a: a[0])
+
+
+# ---------------------------------------------------------------------------
+# Contracts (`python -m repro_torch.analysis`)
+# ---------------------------------------------------------------------------
+
+CONTRACTS: tuple[Contract, ...] = (
+    Contract(
+        "bridge.prng.single_use", "prng",
+        "no PRNG key feeds two distinct random draws without an intervening "
+        "split/fold_in — per-edge wire-roundtrip and per-step subkey "
+        "independence, checked on the keys a recorded tick draws with (flat, "
+        "sparse, net, and metrics-on canonical programs)",
+        params=(("programs", ("flat", "sparse", "net", "metrics")),),
+    ),
+    Contract(
+        "bridge.salts.distinct", "lint",
+        "the stream salts (attack / channel / codec / wire / adversary / "
+        "trust) are pairwise distinct, so streams folded from one step "
+        "subkey never correlate",
+        params=(("check", "salts_distinct"),
+                ("salts", ("NET_SALT", "COMM_SALT", "WIRE_SALT", "ADV_SALT",
+                           "TRUST_SALT"))),
+    ),
+    Contract(
+        "bridge.sparse.no_dense_mmd", "memory",
+        "the sparse (neighbor-indexed) tick never creates a tensor as large "
+        "as the dense [M, M, d] float layout it replaces (every op's new "
+        "tensor seen by a dispatch mode; on the card also the allocator's "
+        "peak over the bytes the tick leaves resident)",
+        params=(("programs", ("sparse",)), ("budget", "dense_mmd")),
+    ),
+    Contract(
+        "bridge.run_chunks.single_trace", "retrace",
+        "a uniform-chunk run_chunks builds at most one entry in each of the "
+        "port's build caches (the kernel library, the sorting networks, the "
+        "tile and distance plans), and an identically-shaped re-run builds "
+        "none",
+        params=(("max_traces", 1),),
+    ),
+    Contract(
+        "bridge.chunk_carry.donated", "memory",
+        "run_chunks keeps no earlier tick's carry alive: the first tick's "
+        "state tensors are freed by the chunk's end (and on the card the "
+        "requested bytes grow by less than one carry over the chunk) — the "
+        "port's form of the donated scan carry",
+        params=(("check", "donation"),),
+    ),
+)

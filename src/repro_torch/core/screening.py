@@ -70,7 +70,11 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import Contract
 from repro_torch.core.neighbors import NeighborTable
+# the reference's `screening.fence`: a value rounded to float32 before its
+# consumer, at a named site (`repro_torch.analysis.fence` counts the sites)
+from repro_torch.fence import fence  # noqa: F401
 from repro_torch.kernels import autograd as grad_ops
 from repro_torch.kernels import ops, ref
 
@@ -324,6 +328,13 @@ def _streams(rule: str, d: int, chunk: int | None) -> bool:
 # coordinate, so block results are bit for bit the whole ones.
 STREAMABLE_RULES: frozenset = frozenset(
     {"trimmed_mean", "median", "mean", "rep_trimmed_mean", "rep_median"})
+
+# The complement, spelled out rather than computed (the reference's
+# `STREAM_REJECTED_RULES`): `repro_torch.analysis.lint` checks that the two
+# sets partition RULES exactly, so a new rule forces an explicit
+# streamability decision.
+STREAM_REJECTED_RULES: frozenset = frozenset(
+    {"krum", "bulyan", "geomedian", "clipped_mean"})
 
 # The rules the port streams per node and chunk past ``screen_chunk``: the
 # plain ones.  BRIDGE-T and BRIDGE-M run whole through the kernels, which
@@ -1095,3 +1106,40 @@ def screen_views_decide_banked(views: torch.Tensor, mask: torch.Tensor, self_val
         rule, v_r, mask if mask.ndim == 2 or cells is None else mask.index_select(0, cells),
         s_r, b_r, decide_stride, _rule_weights(weights, rule, cells)),
         views, self_vals, rules, rule_idx, b)
+
+
+# ---------------------------------------------------------------------------
+# Contracts (`python -m repro_torch.analysis`)
+# ---------------------------------------------------------------------------
+
+CONTRACTS: tuple[Contract, ...] = (
+    Contract(
+        "screening.fence.survives", "fence",
+        "every canonical program's tick passes at least min_fences `fence` "
+        "sites, the apply's among them, and the apply's result is y - "
+        "fence(rho * g) recomputed from its own operands, bit for bit (the "
+        "port runs eagerly: no trip-2 loop to find in an HLO, so the sites "
+        "are counted at run time and the rounding checked on the values)",
+        params=(("min_fences", 1),),
+    ),
+    Contract(
+        "screening.metrics.gradnorm_unfused", "fence",
+        "the metrics-on program's tick passes exactly one more fence site "
+        "than its metrics-off twin: the gradient norm reads a fenced "
+        "gradient, and turning metrics on loses no other site",
+        params=(("delta", 1),),
+    ),
+    Contract(
+        "screening.stream.partition", "lint",
+        "every rule in RULES sits in exactly one of STREAMABLE_RULES / "
+        "STREAM_REJECTED_RULES",
+        params=(("check", "stream_partition"),),
+    ),
+    Contract(
+        "screening.registries.complete", "lint",
+        "MIN_NEIGHBORS and RULES_WITH_DECISIONS cover exactly RULES; "
+        "WEIGHTED_RULES is a subset (the port has no traceable twin of "
+        "MIN_NEIGHBORS: its banked minimum maps it on the host)",
+        params=(("check", "registry_completeness"),),
+    ),
+)

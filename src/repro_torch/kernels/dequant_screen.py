@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.fence import fence
 from repro_torch.kernels import build, ref, screen_wide
 from repro_torch.kernels.dequant import check_codeword_rows
 from repro_torch.kernels.median import MAX_ROWS
@@ -79,7 +80,7 @@ def dequant_screen_median_dense(q: torch.Tensor, scale: torch.Tensor, adj: torch
                adj.data_ptr(), self_vals.data_ptr(), out.data_ptr(), m, d, scale.shape[1],
                build.stream_of(q)):
         dequant_screen_median_dense.launches += 1
-    return out
+    return fence(out, "kernels.median")
 
 
 dequant_screen_trimmed_mean_dense.launches = 0

@@ -31,6 +31,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.fence import fence
 from repro_torch.kernels import build, ref, screen_wide
 from repro_torch.kernels.dequant import check_codeword_rows
 
@@ -240,7 +241,7 @@ def gather_screen_median(w: torch.Tensor, safe_idx: torch.Tensor, valid: torch.T
         return ref.gather_median(w, safe_idx, valid, self_vals)
     out, tiled = _screen("gather_screen_median", (w,), safe_idx, valid, self_vals, None)
     gather_screen_median.launches += tiled
-    return out
+    return fence(out, "kernels.median")
 
 
 def check_gather_codeword(q: torch.Tensor, scale: torch.Tensor, safe_idx: torch.Tensor,
@@ -277,7 +278,7 @@ def gather_dequant_screen_median(q: torch.Tensor, scale: torch.Tensor, safe_idx:
     out, tiled = _screen("gather_dequant_screen_median", (q, scale), safe_idx, valid, self_vals,
                          None)
     gather_dequant_screen_median.launches += tiled
-    return out
+    return fence(out, "kernels.median")
 
 
 gather_screen_trimmed_mean.launches = 0

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.fence import fence
 from repro_torch.kernels import build, networks, ref, screen_wide
 
 # Rows the register kernel sorts per column: the M senders plus the node
@@ -37,11 +38,11 @@ def median_dense(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Tensor) ->
             *build.experiments(w, adj), build.stream_of(w))
     if m + 1 > MAX_ROWS:
         screen_wide.launch("screen_wide_median_dense", m + 1, *args)
-        return out
+        return fence(out, "kernels.median")
     err = build.load().screen_median_dense(*args)
     build.check_launch(err, "screen_median_dense")
     median_dense.launches += 1
-    return out
+    return fence(out, "kernels.median")
 
 
 median_dense.launches = 0

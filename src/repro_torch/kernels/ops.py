@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.contracts import Contract
 from repro_torch.kernels import dequant as _dequant
 from repro_torch.kernels import dequant_screen as _dequant_screen
 from repro_torch.kernels import gather_screen as _gather_screen
@@ -172,3 +173,19 @@ def views_median_decide(views: torch.Tensor, mask: torch.Tensor, self_vals: torc
                         stride: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     with torch.profiler.record_function("kernels.views_median_decide"):
         return _decide.views_screen_median_decide(views, mask, self_vals, stride)
+
+
+# ---------------------------------------------------------------------------
+# Contracts (`python -m repro_torch.analysis`)
+# ---------------------------------------------------------------------------
+
+CONTRACTS: tuple[Contract, ...] = (
+    Contract(
+        "kernels.dispatch.ref_twin", "lint",
+        "every public kernel entry reaches a kernel wrapper that routes to "
+        "BOTH a `ref.` twin (the CPU path) and the built library "
+        "(`build.load()` or `screen_wide.launch`) — the parity surface "
+        "that lets CPU CI stand in for the card",
+        params=(("check", "kernel_ref_twins"), ("module", "repro_torch.kernels.ops")),
+    ),
+)

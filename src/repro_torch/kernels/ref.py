@@ -46,6 +46,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.fence import fence
+
 # The reference's bound for the sequential sum / sorting network
 # (`repro.core.screening.sum_rows`, ``sort_rows``): above it, sums go through
 # a reduction tree whose order nothing else reproduces.
@@ -232,7 +234,7 @@ def median_views(rows: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor
     _, order, count = _median_order(rows, mask, self_vals)
     lo = _rank(order, torch.div(count - 1, 2, rounding_mode="floor"))
     hi = _rank(order, torch.div(count, 2, rounding_mode="floor"))
-    return 0.5 * (lo + hi)
+    return fence(0.5 * (lo + hi), "ref.median")
 
 
 def median_views_decide(rows: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor,
@@ -246,7 +248,8 @@ def median_views_decide(rows: torch.Tensor, mask: torch.Tensor, self_vals: torch
     lo = _rank(order, torch.div(count - 1, 2, rounding_mode="floor"))
     hi = _rank(order, torch.div(count, 2, rounding_mode="floor"))
     trimmed = mask.bool()[..., None] & ~kept_window(masked, lo, hi, stride)
-    return 0.5 * (lo + hi), count_fraction(trimmed.sum(dim=-1), -(-rows.shape[-1] // stride))
+    return (fence(0.5 * (lo + hi), "ref.median"),
+            count_fraction(trimmed.sum(dim=-1), -(-rows.shape[-1] // stride)))
 
 
 def _shared_rows(w: torch.Tensor) -> torch.Tensor:

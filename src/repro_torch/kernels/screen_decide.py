@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.fence import fence
 from repro_torch.kernels import build, gather_screen, networks, ref, screen_wide
 from repro_torch.kernels.views_screen import check_views_args
 
@@ -94,8 +95,9 @@ def median_dense_decide(w: torch.Tensor, adj: torch.Tensor, self_vals: torch.Ten
     _check_stride(stride)
     if w.device.type == "cpu":
         return ref.median_dense_decide(w, adj, self_vals, stride)
-    return _dense(median_dense_decide, "screen_median_dense_decide", w, adj, self_vals, None,
-                  stride)
+    y, trim = _dense(median_dense_decide, "screen_median_dense_decide", w, adj, self_vals, None,
+                     stride)
+    return fence(y, "kernels.median"), trim
 
 
 def _plan(m: int, k: int, d: int) -> gather_screen.TilePlan:
@@ -162,7 +164,7 @@ def gather_screen_median_decide(w: torch.Tensor, safe_idx: torch.Tensor, valid: 
             out.data_ptr(), counts.data_ptr(), m, k, d)
     _tiled(gather_screen_median_decide, "gather_screen_median_decide", head,
            _experiment_tail(self_vals, valid, None, stride), m, k, d, build.stream_of(w))
-    return out, _finish(counts, d, stride)
+    return fence(out, "kernels.median"), _finish(counts, d, stride)
 
 
 def _views(fn, name: str, views: torch.Tensor, mask: torch.Tensor, self_vals: torch.Tensor, b,
@@ -201,8 +203,9 @@ def views_screen_median_decide(views: torch.Tensor, mask: torch.Tensor, self_val
     _check_stride(stride)
     if views.device.type == "cpu":
         return ref.median_views_decide(views, mask, self_vals, stride)
-    return _views(views_screen_median_decide, "views_screen_median_decide", views, mask,
-                  self_vals, None, stride)
+    y, trim = _views(views_screen_median_decide, "views_screen_median_decide", views, mask,
+                     self_vals, None, stride)
+    return fence(y, "kernels.median"), trim
 
 
 for _fn in (trimmed_mean_dense_decide, median_dense_decide, gather_screen_trimmed_mean_decide,

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.fence import fence
 from repro_torch.kernels import build, gather_screen, ref
 
 
@@ -99,7 +100,7 @@ def views_screen_median(views: torch.Tensor, mask: torch.Tensor,
         return ref.median_views(views, mask, self_vals)
     out, tiled = _screen("views_screen_median", views, mask, self_vals, None)
     views_screen_median.launches += tiled
-    return out
+    return fence(out, "kernels.median")
 
 
 views_screen_trimmed_mean.launches = 0

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch import checkpoint, prng
+from repro_torch.analysis.contracts import Contract
 from repro_torch.configs import get_config
 from repro_torch.core import BridgeConfig, BridgeTrainer, erdos_renyi, replicate
 from repro_torch.core.byzantine import ATTACKS, WIRE_ATTACKS
@@ -379,3 +380,33 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+
+
+# ---------------------------------------------------------------------------
+# Contracts (`python -m repro_torch.analysis`)
+# ---------------------------------------------------------------------------
+
+CONTRACTS: tuple[Contract, ...] = (
+    Contract(
+        "launch.prng.seed_plumbing", "lint",
+        "no naked prng.PRNGKey under src/repro_torch outside seed plumbing: "
+        "every key descends from a plumbed seed argument, or the site "
+        "carries an explicit (file, function) waiver below",
+        params=(
+            ("check", "seed_plumbing"),
+            ("waivers", (
+                # documented default init key (the paper's common-ball init)
+                ("repro_torch/core/bridge.py", "replicate"),
+                # keyless leaf screening falls back to a fixed public key
+                ("repro_torch/core/gossip.py", "coordwise_gossip_leaf"),
+                # a reference state without a key crosses with its default
+                # key, PRNGKey(0)
+                ("repro_torch/convert.py", "_key"),
+                # the example's fixed init key, as in the reference script
+                ("repro_torch/examples/train_llm.py", "main"),
+                # the example's fixed init key, as in the reference script
+                ("repro_torch/examples/serve.py", "main"),
+            )),
+        ),
+    ),
+)

@@ -40,6 +40,12 @@ layout enciphered one counter run split in two halves; its bits differ.
   copies the ``E`` keys to the draw's device (pinned, without waiting)
   and draws as under ``[E, 2]`` row keys.
 
+Key use: `RECORDER` is None unless `repro_torch.analysis.prng` records a
+run; a draw then pays one ``is None`` test, and a recorder sees each
+outermost public draw (``bits``, ``uniform``, ``normal``, ``randint``,
+``truncated_normal``; the calls nested inside one are the same draw) with
+its key and frame.
+
 Equality with ``jax.random``: keys, splits, fold-ins, bits, uniforms and
 32-bit randints are bit for bit (``tests/test_torch_prng.py``).  ``normal`` is
 ``sqrt(2) * erfinv(u)`` over ``u`` uniform in ``(-1, 1)``, as in JAX, with
@@ -51,12 +57,31 @@ a relative 5.8e-6 (absolute 2.2e-5) everywhere, measured over 24M draws.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
+
+# The key-use recorder (`repro_torch.analysis.prng.KeyRecord`); None when
+# no check records.
+RECORDER = None
+
+
+def _draw(fn):
+    """A public draw: straight through unless a recorder is on, which then
+    sees the call (and runs it)."""
+
+    @functools.wraps(fn)
+    def draw(*args, **kwargs):
+        if RECORDER is None:
+            return fn(*args, **kwargs)
+        return RECORDER.draw(fn, args, kwargs)
+
+    return draw
 
 
 def _threefry2x32(k1, k2, x0, x1, *, rotl, mask):
@@ -206,6 +231,7 @@ def _key_words(key) -> tuple[int, int]:
     return int(k[0]), int(k[1])
 
 
+@_draw
 def bits(key, shape, device: str | torch.device) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (32-bit) on ``device``: an int64
     tensor holding the uint32 values, ``b1 ^ b2`` of each element's
@@ -261,6 +287,7 @@ def _unit(raw: torch.Tensor, lo: float, span: float) -> torch.Tensor:
     return torch.clamp(one * span + lo, min=lo)
 
 
+@_draw
 def uniform(key, shape, device: str | torch.device, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
@@ -290,6 +317,7 @@ def _mulmod32(a: torch.Tensor, m: int) -> torch.Tensor:
     return ((hi << 16) + (a & 0xFFFF) * m) & _MASK
 
 
+@_draw
 def randint(key, shape, minval: int, maxval: int, dtype: torch.dtype,
             device: str | torch.device) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval, int32)``: two 32-bit
@@ -321,6 +349,7 @@ _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = float(np.float32(np.sqrt(2.0)))
 
 
+@_draw
 def normal(key, shape, device: str | torch.device) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``:
     ``sqrt(2) * erfinv(u)`` with ``u`` uniform in ``(-1, 1)`` (see the
@@ -333,6 +362,7 @@ def _erf_f32(x: np.float32) -> np.float32:
     return np.float32(torch.erf(torch.tensor(x, dtype=torch.float32)).item())
 
 
+@_draw
 def truncated_normal(key, lower: float, upper: float, shape,
                      device: str | torch.device) -> torch.Tensor:
     """``jax.random.truncated_normal(key, lower, upper, shape, float32)``:

@@ -72,6 +72,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.adversary import protocols as adv_lib
+from repro_torch.analysis.contracts import Contract
 from repro_torch.comm import codec as codec_lib
 from repro_torch.comm import exchange
 from repro_torch.core import byzantine as byz_lib
@@ -618,3 +619,27 @@ class GridEngine:
             return obs_trace.sender_grid(m, neighbors=self.neighbors)
         return obs_trace.sender_grid(
             m, adjacency=None if self.net_mode else self.grid.topology.adjacency)
+
+
+# ---------------------------------------------------------------------------
+# Contracts (`python -m repro_torch.analysis`)
+# ---------------------------------------------------------------------------
+
+CONTRACTS: tuple[Contract, ...] = (
+    Contract(
+        "grid.set_cells.zero_retrace", "retrace",
+        "swapping a generation of cells at fixed structure (set_cells) and "
+        "re-running builds nothing: num_steps_built and the build caches "
+        "are unchanged (the adversary-search zero-retrace contract)",
+    ),
+    Contract(
+        "grid.specs.zero_leaf", "lint",
+        "the obs/trust/metric specs carried by CellParams are frozen, "
+        "hashable and hold no tensor or array — pure structure the engine "
+        "never rebuilds per generation",
+        params=(("check", "zero_leaf_specs"),
+                ("classes", ("repro_torch.obs.trace:TraceSpec",
+                             "repro_torch.obs.metrics:MetricSpec",
+                             "repro_torch.trust.reputation:TrustSpec"))),
+    ),
+)

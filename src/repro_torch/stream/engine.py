@@ -51,8 +51,10 @@ from collections.abc import Callable
 import torch
 
 from repro_torch import prng
+from repro_torch.analysis.contracts import Contract
 from repro_torch.comm import codec as codec_lib
 from repro_torch.comm import exchange
+from repro_torch.core import bridge as bridge_lib
 from repro_torch.core import byzantine, screening
 from repro_torch.core.bridge import (NET_SALT, BridgeState, CellParams, _need, _per_cell,
                                      apply_attack_bank, cell_step_size, decide_stride,
@@ -193,7 +195,7 @@ def build_stream_cell_step(grad_fn: Callable, spec: BlockSpec, adjacency: torch.
             x2d, g2d = x_mats[li], g_mats[li]
             g_mats[li] = None
             if cell.metrics is not None:
-                g32 = g2d.to(torch.float32)
+                g32 = screening.fence(g2d, "stream.grad_norm")
                 gn_sq = gn_sq + torch.sum(g32 * g32, dim=-1)
             y_buf = torch.empty_like(x2d)  # every column is written by one block
             comm_leaf = comm_in[li]
@@ -230,7 +232,7 @@ def build_stream_cell_step(grad_fn: Callable, spec: BlockSpec, adjacency: torch.
                         # a node short of its rule's minimum keeps its own value
                         y_b = torch.where(enough[..., None], y_b, wb)
                 with torch.profiler.record_function("stream.apply"):
-                    w_new = y_b - rho_t * _block(g2d, start, size)
+                    w_new = bridge_lib.apply_update(y_b, rho_t, _block(g2d, start, size))
                     y_buf[..., start:start + size] = w_new.to(y_buf.dtype)
                     mu = torch.sum(torch.where(hm[..., None], w_new, 0.0), dim=-2) / hcnt[:, None]
                     dev_sq = torch.where(hm[..., None], w_new - mu[:, None, :], 0.0)
@@ -241,6 +243,9 @@ def build_stream_cell_step(grad_fn: Callable, spec: BlockSpec, adjacency: torch.
             mats_out.append(y_buf)
             comm_out.append(comm_leaf)
             vals_out.append(vals_leaf)
+        # the last leaf's gradient goes too, before the residual norm squares
+        # a whole leaf's carry (the tick's peak)
+        del x2d, g2d
 
         new_comm = None if state.comm is None else tuple(comm_out)
         new_net = state.net
@@ -312,3 +317,27 @@ def build_stream_cell_step(grad_fn: Callable, spec: BlockSpec, adjacency: torch.
                            new_net, state.adv, new_obs, new_trust, mets), metrics
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Contracts (`python -m repro_torch.analysis`)
+# ---------------------------------------------------------------------------
+
+CONTRACTS: tuple[Contract, ...] = (
+    Contract(
+        "stream.peak_memory.flat_bound", "memory",
+        "the streaming tick's largest tensor is strictly smaller than the "
+        "flat [M, d] float matrix it exists to avoid (peak live state is "
+        "one gathered [M, K, c] block plus the model's own leaves); on the "
+        "card also the allocator's peak over the bytes the tick leaves "
+        "resident",
+        params=(("programs", ("stream",)), ("budget", "flat_md")),
+    ),
+    Contract(
+        "stream.prng.per_block_keys", "prng",
+        "every block draws from its own folded key (block i folds i into "
+        "the step subkey): no key feeds two distinct draws anywhere in a "
+        "recorded streaming tick",
+        params=(("programs", ("stream",)),),
+    ),
+)
